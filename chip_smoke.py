@@ -7,18 +7,27 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases (any failure exits nonzero):
   1. identity  — the card's name and power limit (nvidia-smi) and the
                  torch device name.
-  2. build     — nvcc builds every kernel of the main path from csrc/.
+  2. build     — nvcc builds every kernel from csrc/, one process per
+                 source, all started together.
   3. kernel    — each kernel against its plain PyTorch version on the
-                 card, bit-exact, at the listed shapes; kernel, plain and
-                 one-library-call times plus the memory-bound time.
+                 card, bit-exact, at the explorers' shapes and at edge
+                 shapes; kernel, plain and one-library-call times beside
+                 the bound.
   4. main      — LocalQueryRunner(device="cuda") answers TPC-H Q1, Q6 and
-                 the bounded-domain GROUP BY (Q-MXU) at sf1, cold and warm;
-                 kernel launch counts are read over this phase; Q-MXU
-                 rolled up over (shipmode, shipinstruct) must equal Q1.
-  5. parity    — the three queries at tpch.tiny on the card and on the
-                 CPU must be row-equal.
-  6. summary   — a `kernels` JSON line, the card line, then the result
-                 line {"ok": true, "device": {...}} last.
+                 the bounded-domain GROUP BY (Q-MXU) at sf1 cold, and the
+                 joins Q3 and Q18 at sf1 cold and warm; kernel launch
+                 counts are read per query (the rank and gather kernels
+                 must run for both joins and never for Q1/Q6/Q-MXU);
+                 Q-MXU rolled up over (shipmode, shipinstruct) must equal
+                 Q1, and Q18 must agree with the join-free group-by of
+                 lineitem.
+  5. explore   — both explorer entry points (trino_tpu_torch.explore),
+                 each output held against its plain version.
+  6. parity    — the queries at tpch.tiny, and Q3/Q18 at sf0.1, on the
+                 card and on the CPU must be row-equal.
+  7. summary   — the kernels timed on the largest arguments the main path
+                 gave them, a `kernels` JSON line, the card line, then the
+                 result line {"ok": true, "device": {...}} last.
 
 `--phases` picks a subset (comma-separated) for a quick check.
 """
@@ -72,7 +81,36 @@ where l_shipdate >= date '1994-01-01'
   and l_discount between 0.06 - 0.01 and 0.06 + 0.01
   and l_quantity < 24"""
 
-QUERIES = (("q1", Q1), ("q6", Q6), ("q_mxu", Q_MXU))
+Q3 = """select
+    l_orderkey,
+    sum(l_extendedprice * (1 - l_discount)) as revenue,
+    o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING'
+  and c_custkey = o_custkey
+  and l_orderkey = o_orderkey
+  and o_orderdate < date '1995-03-15'
+  and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10"""
+
+Q18 = """select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity)
+from customer, orders, lineitem
+where o_orderkey in (
+        select l_orderkey
+        from lineitem
+        group by l_orderkey
+        having sum(l_quantity) > 300)
+  and c_custkey = o_custkey
+  and o_orderkey = l_orderkey
+group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+order by o_totalprice desc, o_orderdate
+limit 100"""
+
+# Q18's answer by the join-free route: every order's total quantity
+Q18_CHECK = """select l_orderkey, sum(l_quantity) from lineitem
+group by 1 having sum(l_quantity) > 300"""
 
 
 def log(msg: str) -> None:
@@ -88,18 +126,10 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
-    import torch
+    """Mean ms of one call on the card (CUDA events after a warm-up)."""
+    from trino_tpu_torch.explore import device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return device_ms(fn, iters)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +267,257 @@ def timing_text(rec: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the rank and gather kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# name -> (source, the TPU kernel it replaces)
+NEW_KERNELS = {
+    "window_rank": ("trino_tpu_torch/csrc/window_rank.cu",
+                    "benchmarks/explore_kernel_costs.py:42"),
+    "take_flat": ("trino_tpu_torch/csrc/gather.cu",
+                  "benchmarks/explore_pallas_gather.py:59"),
+    "take_rows_sum": ("trino_tpu_torch/csrc/gather.cu",
+                      "benchmarks/explore_pallas_gather.py:88"),
+    "take_along_lanes": ("trino_tpu_torch/csrc/gather.cu",
+                         "benchmarks/explore_pallas_gather.py:117"),
+}
+DEAD_HASH, NO_MATCH_HASH = 0xFFFFFFFF, 0xFFFFFFFE
+
+
+def bound(bytes_moved: int, int_ops: int) -> tuple:
+    """(bound_ms, bound_by): bytes over the memory rate against 32-bit
+    operations over the INT32 rate, the larger of the two."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def held(name: str, got, want) -> int:
+    """Exact agreement of a kernel with its plain version; returns the
+    largest absolute difference (0)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def rank_bound(n_a: int, n_b: int, elem: int, searched: bool, w0: int = 0,
+               nwin: int = 1) -> tuple:
+    """Fixed mode: one compare and one add per (element, window position
+    in range), an int64 compare counting two ops. Searched mode: one
+    compare and one select per bisection step over the window heads and
+    inside the window. Bytes: a, the part of b the mode reads, out."""
+    per = 2 if elem == 4 else 3
+    if searched:
+        steps = (-(-n_b // 128)).bit_length() + 8
+        return bound(n_a * (elem + 4) + n_b * elem, n_a * steps * per)
+    m = max(0, min(n_b - w0 * 128, nwin * 128))
+    return bound(n_a * (elem + 4) + m * elem, n_a * m * per)
+
+
+def check_rank(name, a, b, searched, w0=0, nwin=1, edge=False, iters=0,
+               library=True) -> dict:
+    import torch
+    from trino_tpu_torch.ops import window_rank as W
+
+    got = W.rank(a, b, searched, w0, nwin, edge)
+    want = W.rank_reference(a, b, searched, w0, nwin, edge)
+    torch.cuda.synchronize()
+    rec = {"case": name, "n_a": a.numel(), "n_b": int(b.shape[0]),
+           "dtype": str(a.dtype), "mode": "searched" if searched else "fixed",
+           "nwin": nwin, "max_abs_err": held(f"window_rank {name}", got, want)}
+    if searched:
+        # the searched mode is the lower bound #{b < a}
+        lb = torch.searchsorted(b, a.reshape(-1)).to(torch.int32).reshape(a.shape)
+        if not torch.equal(got, lb):
+            raise AssertionError(f"window_rank {name}: not the lower bound")
+    if iters:
+        # `ms` is the kernel alone (the launcher's bare ctypes call);
+        # `wrapper_ms` adds the wrapper's checks and allocation
+        go, _ = W.launcher(a, b, searched, w0, nwin, edge)
+        rec["ms"] = time_ms(go, iters)
+        rec["wrapper_ms"] = time_ms(lambda: W.rank(a, b, searched, w0, nwin, edge), iters)
+        rec["plain_ms"] = time_ms(
+            lambda: W.rank_reference(a, b, searched, w0, nwin, edge), max(1, iters // 10))
+        rec["library_ms"] = (
+            time_ms(lambda: torch.searchsorted(b, a), iters)
+            if searched and library else None)
+        rec["bound_ms"], rec["bound_by"] = rank_bound(
+            a.numel(), int(b.shape[0]), a.element_size(), searched, w0, nwin)
+    return rec
+
+
+def check_take_flat(name, table, idx, iters=0) -> dict:
+    import torch
+    from trino_tpu_torch.ops import gather_kernels as GK
+
+    got = GK.take_flat(table, idx)
+    want = GK.take_flat_reference(table, idx)
+    torch.cuda.synchronize()
+    rec = {"case": name, "n_table": int(table.shape[0]), "n": idx.numel(),
+           "elem_bytes": table.element_size(), "idx_bytes": idx.element_size(),
+           "max_abs_err": held(f"take_flat {name}", got, want)}
+    if iters:
+        n = idx.numel()
+        in_range = bool(((idx >= 0) & (idx < table.shape[0])).all())
+        rec["ms"] = time_ms(GK.flat_launcher(table, idx)[0], iters)
+        rec["wrapper_ms"] = time_ms(lambda: GK.take_flat(table, idx), iters)
+        rec["plain_ms"] = time_ms(lambda: GK.take_flat_reference(table, idx), iters)
+        # torch.take computes the same function when no index clips
+        idx64 = idx.to(torch.int64)  # torch.take indexes with int64 only
+        rec["library_ms"] = (time_ms(lambda: torch.take(table, idx64), iters)
+                             if in_range else None)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            n * (idx.element_size() + table.element_size())
+            + int(table.shape[0]) * table.element_size(), 0)
+    return rec
+
+
+def check_take_rows_sum(name, table2d, ridx, iters=0) -> dict:
+    import torch
+    from trino_tpu_torch.ops import gather_kernels as GK
+
+    got = GK.take_rows_sum(table2d, ridx)
+    want = GK.take_rows_sum_reference(table2d, ridx)
+    torch.cuda.synchronize()
+    rows, width = int(table2d.shape[0]), int(table2d.shape[1])
+    rec = {"case": name, "rows": rows, "width": width, "n": ridx.numel(),
+           "max_abs_err": held(f"take_rows_sum {name}", got, want)}
+    if iters:
+        n = ridx.numel()
+        rec["ms"] = time_ms(GK.rows_sum_launcher(table2d, ridx)[0], iters)
+        rec["wrapper_ms"] = time_ms(lambda: GK.take_rows_sum(table2d, ridx), iters)
+        rec["plain_ms"] = time_ms(
+            lambda: GK.take_rows_sum_reference(table2d, ridx), iters)
+        rec["library_ms"] = None  # no single PyTorch call sums gathered rows
+        rec["bound_ms"], rec["bound_by"] = bound(
+            n * (ridx.element_size() + 4) + rows * width * 4, n * (width - 1))
+    return rec
+
+
+def check_take_along_lanes(name, src, sel, iters=0) -> dict:
+    import torch
+    from trino_tpu_torch.ops import gather_kernels as GK
+
+    got = GK.take_along_lanes(src, sel)
+    want = GK.take_along_lanes_reference(src, sel)
+    torch.cuda.synchronize()
+    rec = {"case": name, "rows": int(src.shape[0]), "width": int(src.shape[1]),
+           "max_abs_err": held(f"take_along_lanes {name}", got, want)}
+    if iters:
+        sel64 = sel.to(torch.int64)
+        rec["ms"] = time_ms(GK.along_launcher(src, sel)[0], iters)
+        rec["wrapper_ms"] = time_ms(lambda: GK.take_along_lanes(src, sel), iters)
+        rec["plain_ms"] = time_ms(
+            lambda: GK.take_along_lanes_reference(src, sel), iters)
+        rec["library_ms"] = time_ms(lambda: torch.gather(src, 1, sel64), iters)
+        rec["bound_ms"], rec["bound_by"] = bound(src.numel() * 4 * 3, 0)
+    return rec
+
+
+def phase_kernel_join(results: dict) -> None:
+    """The four kernels of this slice at the explorers' shapes and at
+    edge shapes: ragged lengths, empty inputs, clipped indices, the
+    join's sentinel hashes and int64 values beyond 2^32."""
+    import numpy as np
+    import torch
+    from trino_tpu_torch.explore import kernel_costs, pallas_gather
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    recs = {k: [] for k in NEW_KERNELS}
+    # -- window rank: the explorer's k0..k4, then edges --
+    at, b = kernel_costs.make_inputs(dev)
+    for tag, nwin, edge in kernel_costs.VARIANTS[2:]:  # v0, v1 == v2
+        recs["window_rank"].append(check_rank(
+            f"explorer {tag}", at, b, False, 0, nwin, edge, iters=20))
+    a_r = t(rng.integers(-(1 << 31), (1 << 31) - 1, 1001).astype(np.int32))
+    b_r = t(rng.integers(-(1 << 31), (1 << 31) - 1, 1000).astype(np.int32))
+    recs["window_rank"] += [
+        check_rank("ragged fixed w0=7", a_r, b_r, False, 7, 2),
+        check_rank("ragged fixed edge", a_r, b_r, False, 0, 3, True),
+        check_rank("empty a", a_r[:0], b_r, False, 0, 2),
+        check_rank("empty b fixed", a_r, b_r[:0], False, 0, 2),
+        check_rank("empty b searched", a_r, t(np.zeros(0, np.int32)), True),
+    ]
+    # the join's u32 hash domain in int64 carriers, sentinels included
+    hashes = np.sort(np.concatenate([
+        rng.integers(0, 0xFFFFFFFE, 100_003),
+        rng.integers(0, 1000, 5000),  # long runs of equal hashes
+        np.full(777, DEAD_HASH),
+    ])).astype(np.int64)
+    probes = np.concatenate([
+        rng.integers(0, 1 << 32, 50_001), hashes[::7],
+        np.full(33, NO_MATCH_HASH), np.full(3, DEAD_HASH),
+    ]).astype(np.int64)
+    hb, hp = t(hashes), t(probes)
+    recs["window_rank"] += [
+        check_rank("hashes lo", hp, hb, True),
+        check_rank("hashes hi (q+1)", hp + 1, hb, True),
+    ]
+    wide = np.sort(rng.integers(-(1 << 40), 1 << 40, 4097)).astype(np.int64)
+    recs["window_rank"].append(check_rank(
+        "int64 beyond 2^32", t(rng.integers(-(1 << 41), 1 << 41, 3000)), t(wide), True))
+    counts = rng.integers(0, 4, 300_000).astype(np.int32)
+    off = np.cumsum(counts).astype(np.int32)
+    j1 = np.arange(1, int(off[-1]) + 17, dtype=np.int32)
+    recs["window_rank"].append(check_rank("offsets int32 (j+1)", t(j1), t(off), True))
+    big_b = t(np.sort(rng.integers(0, 0xFFFFFFFE, 1_500_000)).astype(np.int64))
+    big_a = t(rng.integers(0, 1 << 32, 4_194_304).astype(np.int64))
+    recs["window_rank"].append(check_rank(
+        "probe batch 4,194,304 x 1.5M hashes", big_a, big_b, True, iters=20))
+    del big_a, big_b
+    # -- gathers: the explorer's shapes, then edges --
+    x = pallas_gather.make_inputs(dev)
+    table = x["table2d"].reshape(-1)
+    recs["take_flat"] += [
+        check_take_flat("explorer v1", table, x["idx2d"], iters=20),
+        check_take_flat("clipped int32", table[:1001],
+                        t(rng.integers(-50, 1100, 4999).astype(np.int32))),
+        check_take_flat("int64 beyond 2^32, int64 idx",
+                        t(rng.integers(-(1 << 50), 1 << 50, 1000)),
+                        t(rng.integers(-3, 1004, 5001))),
+        check_take_flat("empty idx", table, t(np.zeros(0, np.int32))),
+    ]
+    recs["take_rows_sum"] += [
+        check_take_rows_sum("explorer v2", x["table2d"], x["ridx2d"], iters=20),
+        check_take_rows_sum(
+            "wrapping sums, clipped rows",
+            t(rng.integers((1 << 31) - 100, (1 << 31) - 1, (33, 128)).astype(np.int32)),
+            t(rng.integers(-5, 40, 1001).astype(np.int32))),
+        check_take_rows_sum("width 100", t(rng.integers(
+            -(1 << 31), (1 << 31) - 1, (17, 100)).astype(np.int32)),
+            t(rng.integers(0, 17, 999))),
+        check_take_rows_sum("empty", x["table2d"], t(np.zeros(0, np.int32))),
+    ]
+    recs["take_along_lanes"] += [
+        check_take_along_lanes("explorer v3", x["src"], x["sel"], iters=20),
+        check_take_along_lanes(
+            "1001 rows, clipped selectors",
+            t(rng.integers(-(1 << 31), (1 << 31) - 1, (1001, 128)).astype(np.int32)),
+            t(rng.integers(-9, 140, (1001, 128)).astype(np.int32))),
+        check_take_along_lanes("empty", x["src"][:0], x["sel"][:0]),
+    ]
+    for name, rs in recs.items():
+        for rec in rs:
+            line = f"[kernel] {name} {rec['case']}: bit-exact"
+            if "ms" in rec:
+                line += (f" ms={rec['ms']} wrapper_ms={rec['wrapper_ms']} "
+                         f"plain_ms={rec['plain_ms']} "
+                         f"library_ms={rec['library_ms']} "
+                         f"bound_us={rec['bound_ms'] * 1e3} ({rec['bound_by']})")
+            log(line)
+    results["join_kernel_checks"] = recs
+
+
+# ---------------------------------------------------------------------------
 # phase 4/5: the engine
 # ---------------------------------------------------------------------------
 
@@ -277,63 +558,132 @@ def scaled(v: float, scale: int) -> int:
     return r
 
 
-def phase_main(results: dict) -> None:
-    import torch
-    from trino_tpu_torch.connectors.tpch import base_row_count
+def join_kernel_counts() -> dict:
+    from trino_tpu_torch.ops import gather_kernels as GK
     from trino_tpu_torch.ops import mxu_groupby as M
+    from trino_tpu_torch.ops import window_rank as W
+
+    return {"grouped_sum": M.grouped_sum.launches, "window_rank": W.rank.launches,
+            "take_flat": GK.take_flat.launches,
+            "take_rows_sum": GK.take_rows_sum.launches,
+            "take_along_lanes": GK.take_along_lanes.launches}
+
+
+def reset_kernel_counts() -> None:
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import mxu_groupby as M
+    from trino_tpu_torch.ops import window_rank as W
+
+    for fn in (M.grouped_sum, W.rank, GK.take_flat, GK.take_rows_sum,
+               GK.take_along_lanes):
+        fn.launches = 0
+        fn.shapes.clear()
+
+
+class Capture:
+    """Wraps a kernel module's launch function and keeps the arguments
+    of its largest launch (by rows) per argument shape."""
+
+    def __init__(self, module, attr: str, key):
+        self.module, self.attr, self.key = module, attr, key
+        self.inner = getattr(module, attr)
+        self.args: dict = {}
+
+    def __enter__(self):
+        def capturing(*args):
+            self.args.setdefault(self.key(*args), args)
+            return self.inner(*args)
+
+        setattr(self.module, self.attr, capturing)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.inner)
+
+    def largest(self):
+        return max(self.args.items(), key=lambda kv: kv[0])[1] if self.args else None
+
+
+def run_query(r, scan, name, run, sql, per_query) -> list:
+    import torch
+
+    before = join_kernel_counts()
+    scan.seconds = 0.0
+    t0 = time.perf_counter()
+    res = r.execute(sql)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = join_kernel_counts()
+    n = {k: after[k] - before[k] for k in after}
+    per_query[f"{name}_{run}"] = {"wall_s": wall, "scan_s": scan.seconds,
+                                  "launches": n, "rows": len(res.rows)}
+    log(f"[main] {name} {run}: {len(res.rows)} rows, wall_s={wall}, "
+        f"scan_s={scan.seconds} (host generation + copy to the card), "
+        f"rest_s={wall - scan.seconds}, launches={n}")
+    return res.rows
+
+
+def phase_main(results: dict) -> None:
+    from trino_tpu_torch.connectors.tpch import base_row_count
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import mxu_groupby as M
+    from trino_tpu_torch.ops import window_rank as W
 
     r = runner("sf1", "cuda")
     conn = r.catalogs.get("tpch")
     scan = conn.page_source = TimedPageSource(conn.page_source)
     batches = -(-base_row_count("lineitem", 1.0) // r.session.batch_rows)
     rows, per_query = {}, {}
-    # keep the first arguments the main path gives the kernel at each
-    # shape, to time the kernel on the query's own data afterwards
-    launch, captured = M._launch, {}
-
-    def capturing_launch(gid, values, live, capacity):
-        key = (int(gid.shape[0]), int(values.shape[0]), capacity)
-        captured.setdefault(key, (gid, values, live))
-        return launch(gid, values, live, capacity)
-
-    M._launch = capturing_launch
-    M.grouped_sum.launches = 0
-    M.grouped_sum.shapes.clear()
-    for name, sql in QUERIES:
-        for run in ("cold", "warm"):
-            before = M.grouped_sum.launches
-            scan.seconds = 0.0
-            t0 = time.perf_counter()
-            res = r.execute(sql)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n = M.grouped_sum.launches - before
-            per_query[f"{name}_{run}"] = {
-                "wall_s": wall, "scan_s": scan.seconds, "launches": n,
-                "rows": len(res.rows),
-            }
-            log(f"[main] {name} {run}: {len(res.rows)} rows, wall_s={wall}, "
-                f"scan_s={scan.seconds} (host generation + copy to the card), "
-                f"rest_s={wall - scan.seconds}, grouped_sum launches={n}")
-            if run == "warm" and res.rows != rows[name]:
-                raise AssertionError(f"{name}: warm rows differ from cold rows")
-            rows[name] = res.rows
-    launches = M.grouped_sum.launches
-    M._launch = launch
-    results["main_launches"] = {"grouped_sum": launches}
+    # keep the arguments the main path gives each kernel, to time the
+    # kernels on the queries' own data afterwards
+    gs = Capture(M, "_launch", lambda gid, v, live, cap: (int(gid.shape[0]), int(v.shape[0]), cap))
+    rk = Capture(W, "_launch", lambda a, b, searched, w0, nwin, edge: (
+        a.numel(), int(b.shape[0]), a.element_size()))
+    tf = Capture(GK, "_launch_flat", lambda table, idx: (
+        idx.numel(), int(table.shape[0]), table.element_size()))
+    reset_kernel_counts()
+    with gs, rk, tf:
+        # slice 1's queries run cold only (their warm runs were dropped to
+        # keep the script inside its time limit); the joins cold and warm
+        for name, sql, runs in (("q1", Q1, ("cold",)), ("q6", Q6, ("cold",)),
+                                ("q_mxu", Q_MXU, ("cold",)),
+                                ("q3", Q3, ("cold", "warm")),
+                                ("q18", Q18, ("cold", "warm"))):
+            for run in runs:
+                got = run_query(r, scan, name, run, sql, per_query)
+                if run == "warm" and got != rows[name]:
+                    raise AssertionError(f"{name}: warm rows differ from cold rows")
+                rows[name] = got
+    results["main_launches"] = join_kernel_counts()
     results["main_shapes"] = sorted(M.grouped_sum.shapes, reverse=True)
-    results["main_args"] = captured
+    results["main_args"] = {"grouped_sum": gs.args, "window_rank": rk.largest(),
+                            "take_flat": tf.largest()}
+    results["main_join_shapes"] = {"window_rank": sorted(W.rank.shapes, reverse=True),
+                                   "take_flat": sorted(GK.take_flat.shapes, reverse=True)}
     results["main"] = per_query
-    for name in ("q1", "q6", "q_mxu"):
+    cross = run_query(r, scan, "q18_check", "cold", Q18_CHECK, per_query)
+    for name in ("q1", "q6", "q_mxu", "q3", "q18"):
         for row in rows[name][:6]:
             log(f"[main] {name} row: {row}")
-    if per_query["q_mxu_cold"]["launches"] < batches:
-        raise AssertionError(
-            f"Q-MXU launched grouped_sum {per_query['q_mxu_cold']['launches']} "
-            f"times for {batches} scan batches"
-        )
-    if per_query["q1_cold"]["launches"] or per_query["q6_cold"]["launches"]:
-        raise AssertionError("Q1/Q6 are expected on the dense/global routes")
+    check_main(rows, per_query, cross, batches)
+    log(f"[main] launches over the main path: {results['main_launches']}")
+
+
+def check_main(rows, per_query, cross, batches) -> None:
+    import math
+
+    if per_query["q_mxu_cold"]["launches"]["grouped_sum"] < batches:
+        raise AssertionError("Q-MXU launched grouped_sum fewer times than scan batches")
+    for q in ("q1_cold", "q6_cold"):
+        if per_query[q]["launches"]["grouped_sum"]:
+            raise AssertionError("Q1/Q6 are expected on the dense/global routes")
+    for q, n in per_query.items():
+        joins = n["launches"]["window_rank"], n["launches"]["take_flat"]
+        if q.startswith(("q3_", "q18_")) and not q.startswith("q18_check"):
+            if min(joins) <= 0:
+                raise AssertionError(f"{q}: the join ran without its kernels {joins}")
+        elif q.startswith(("q1_", "q6_", "q_mxu_")) and max(joins) > 0:
+            raise AssertionError(f"{q}: join kernels launched on a join-free query")
     # Q-MXU rolled up over (shipmode, shipinstruct) is Q1's measures
     rollup = {}
     for rf, ls, _, _, qty, base, disc, cnt in rows["q_mxu"]:
@@ -342,26 +692,77 @@ def phase_main(results: dict) -> None:
         acc[1] += scaled(base, 2)
         acc[2] += scaled(disc, 4)
         acc[3] += cnt
-    q1 = {
-        (row[0], row[1]): [scaled(row[2], 2), scaled(row[3], 2),
-                           scaled(row[4], 4), row[9]]
-        for row in rows["q1"]
-    }
+    q1 = {(row[0], row[1]): [scaled(row[2], 2), scaled(row[3], 2),
+                             scaled(row[4], 4), row[9]] for row in rows["q1"]}
     if rollup != q1:
         raise AssertionError(f"Q-MXU roll-up {rollup} != Q1 {q1}")
     if len(rows["q_mxu"]) == 0 or len(rows["q6"]) != 1:
         raise AssertionError("unexpected result sizes")
-    log(f"[main] Q-MXU roll-up equals Q1 exactly over {len(q1)} groups; "
-        f"total grouped_sum launches={launches}, scan batches per query={batches}")
+    # Q3: ten rows, finite revenues in descending order
+    rev = [row[1] for row in rows["q3"]]
+    if len(rev) != 10 or not all(math.isfinite(v) and v > 0 for v in rev) \
+            or rev != sorted(rev, reverse=True):
+        raise AssertionError(f"Q3 rows out of shape: {rows['q3']}")
+    # Q18 against the join-free route: each row's sum(l_quantity) is its
+    # order's total, and the orders are exactly those over 300
+    totals = {row[0]: scaled(row[1], 2) for row in cross}
+    got = {row[2]: scaled(row[5], 2) for row in rows["q18"]}
+    if not got or any(totals.get(k) != v for k, v in got.items()):
+        raise AssertionError("Q18 sums differ from the join-free group-by")
+    if len(totals) <= 100 and set(got) != set(totals):
+        raise AssertionError("Q18 orders differ from the join-free group-by")
+    log(f"[main] Q-MXU roll-up equals Q1 over {len(q1)} groups; Q18's "
+        f"{len(got)} orders equal the join-free group-by's {len(totals)}")
+
+
+def phase_explore(results: dict) -> None:
+    """Both explorer entry points, with the launch counts they cause."""
+    from trino_tpu_torch.explore import kernel_costs, pallas_gather
+
+    reset_kernel_counts()
+    recs = {"pallas_gather": pallas_gather.run(), "kernel_costs": kernel_costs.run()}
+    counts = join_kernel_counts()
+    results["explore"] = recs
+    results["explore_launches"] = counts
+    bad = [r for rs in recs.values() for r in rs if not r["correct"]]
+    if bad:
+        raise AssertionError(f"explorer outputs differ from the plain versions: {bad}")
+    for k in ("window_rank", "take_flat", "take_rows_sum", "take_along_lanes"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the explorers never launched {k}")
+    log(f"[explore] launches: {counts}")
 
 
 def phase_parity(results: dict) -> None:
-    gpu, cpu = runner("tiny", "cuda"), runner("tiny", "cpu")
-    for name, sql in QUERIES:
-        a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
-        if a != b:
-            raise AssertionError(f"{name}: card and CPU rows differ at tiny")
-        log(f"[parity] {name}: {len(a)} rows, card == CPU")
+    for schema, queries in (
+        ("tiny", (("q1", Q1), ("q6", Q6), ("q_mxu", Q_MXU), ("q3", Q3), ("q18", Q18))),
+        ("sf0.1", (("q3", Q3), ("q18", Q18))),
+    ):
+        gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
+        for name, sql in queries:
+            a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
+            if a != b:
+                raise AssertionError(f"{name}: card and CPU rows differ at {schema}")
+            log(f"[parity] {name} {schema}: {len(a)} rows, card == CPU")
+
+
+def timed_main_args(results: dict) -> dict:
+    """The join kernels timed on the largest arguments the main path
+    gave them (window_rank in searched mode, as the probe uses it)."""
+    args = results.get("main_args", {})
+    out = {}
+    if args.get("window_rank"):
+        a, b = args["window_rank"][:2]
+        out["window_rank"] = check_rank("main path", a, b, True, iters=20)
+    if args.get("take_flat"):
+        out["take_flat"] = check_take_flat("main path", *args["take_flat"], iters=20)
+    for name, rec in out.items():
+        log(f"[kernel] {name} main-path arguments: n={rec.get('n_a', rec.get('n'))} "
+            f"ms={rec['ms']} wrapper_ms={rec['wrapper_ms']} plain_ms={rec['plain_ms']} "
+            f"library_ms={rec['library_ms']} "
+            f"bound_us={rec['bound_ms'] * 1e3} ({rec['bound_by']})")
+    results["main_arg_join_timings"] = out
+    return out
 
 
 def kernels_line(results: dict) -> dict:
@@ -370,10 +771,10 @@ def kernels_line(results: dict) -> dict:
     # time again on the main path's own arguments at each shape it gave
     # the kernel, beside inputs of that shape with ids spread evenly;
     # the line reports the query's own data at the largest shape
-    captured = results.pop("main_args", {})
+    captured = results.get("main_args", {}).get("grouped_sum", {})
     for i, (n, k, cap) in enumerate(results.get("main_shapes", [])):
         rec = check_grouped_sum(n=n, k=k, capacity=cap, seed=7 + i, iters=20,
-                                args=captured[(n, k, cap)])
+                                args=captured[(n, k, cap)][:3])
         even = check_grouped_sum(n=n, k=k, capacity=cap, seed=7 + i, iters=20)
         log(f"[kernel] grouped_sum main-path arguments n={n} k={k} "
             f"capacity={cap}: {timing_text(rec)}")
@@ -383,12 +784,13 @@ def kernels_line(results: dict) -> dict:
             {"main_path": rec, "even_ids": even})
         if i == 0:
             timed = rec
-    return {"kernels": [{
+    launches = results.get("main_launches", {})
+    line = [{
         "name": "grouped_sum",
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/grouped_sum.cu",
         "replaces": "trino_tpu/ops/mxu_groupby.py:77",
-        "launches": results.get("main_launches", {}).get("grouped_sum", 0),
+        "launches": launches.get("grouped_sum", 0),
         "max_abs_err": max(
             [c["max_abs_err"] for c in checks.values()]
             + [t["main_path"]["max_abs_err"]
@@ -400,12 +802,36 @@ def kernels_line(results: dict) -> dict:
         "library_ms": timed.get("library_ms"),
         "shape": {"n": timed.get("n"), "k": timed.get("k"),
                   "capacity": timed.get("capacity")},
-    }]}
+    }]
+    join_checks = results.get("join_kernel_checks", {})
+    on_path = timed_main_args(results)
+    explore_launches = results.get("explore_launches", {})
+    for name, (source, replaces) in NEW_KERNELS.items():
+        recs = join_checks.get(name, [])
+        if name in on_path:
+            # the join path: its own largest arguments and its launches
+            rec, n = on_path[name], launches.get(name, 0)
+            recs = recs + [rec]
+        else:
+            # the explorer entry point is this kernel's only path
+            rec = next((c for c in recs if "ms" in c), {})
+            n = explore_launches.get(name, 0)
+        line.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n,
+            "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
+            "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
+            "library_ms": rec.get("library_ms"),
+            "shape": {k: v for k, v in rec.items()
+                      if k in ("n_a", "n_b", "n", "n_table", "rows", "width", "dtype")},
+        })
+    return {"kernels": line}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="identity,build,kernel,main,parity",
+    ap.add_argument("--phases", default="identity,build,kernel,main,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -415,7 +841,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from trino_tpu_torch.ops import mxu_groupby as M
+    from trino_tpu_torch.ops import cuda_build
 
     results: dict = {}
     card = card_line()
@@ -424,19 +850,25 @@ def main() -> int:
     log(f"[identity] torch: {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    M.build()
-    log(f"[build] grouped_sum.cu built in {time.perf_counter() - t0:.2f} s")
-    for line in M.build.ptxas_log.strip().splitlines():
-        log(f"[build] {line}")
+    cuda_build.build_all()  # one nvcc per source, all started together
+    log(f"[build] {', '.join(f'{n}.cu' for n in cuda_build.SOURCES)} built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    for name, text in cuda_build.PTXAS_LOG.items():
+        for line in text.strip().splitlines():
+            log(f"[build] {name}: {line}")
     if "kernel" in phases:
         phase_kernel(results)
+        phase_kernel_join(results)
     if "main" in phases:
         phase_main(results)
+    if "explore" in phases:
+        phase_explore(results)
     if "parity" in phases:
         phase_parity(results)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     line = kernels_line(results)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
+        results.pop("main_args", None)
         json.dump({"card": card, **results, **line}, fh, indent=1, default=str)
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,6 +1,6 @@
-"""The slice end to end: trino_tpu_torch (device="cpu") against trino_tpu
+"""The slices end to end: trino_tpu_torch (device="cpu") against trino_tpu
 and the sqlite oracle on tpch.tiny, plus the data the two packages
-compute on. Decimals, integers and strings must be row-equal between the
+compute on and the aggregation and join operators on carried batches. Decimals, integers and strings must be row-equal between the
 packages; the oracle holds decimals as REAL, so against it values agree
 within assert_rows_match's tolerances (abs 1e-2, as tests/test_tpch.py)."""
 
@@ -9,7 +9,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from tests.oracle import assert_rows_match, oracle_rows
+from tests.oracle import assert_rows_match, sqlite_rows
+from tests.test_torch_tpch_a import indexed_oracle
 from tests.test_tpch import to_sqlite
 from tests.tpch_queries import QUERIES
 from trino_tpu import types as JT
@@ -36,7 +37,8 @@ from lineitem where l_shipdate <= date '1998-12-01' - interval '90' day
 group by l_returnflag, l_linestatus, l_shipmode, l_shipinstruct
 order by l_returnflag, l_linestatus, l_shipmode, l_shipinstruct"""
 
-SLICE = {"q1": QUERIES[1], "q6": QUERIES[6], "q_mxu": Q_MXU}
+SLICE = {"q1": QUERIES[1], "q3": QUERIES[3], "q6": QUERIES[6], "q18": QUERIES[18],
+         "q_mxu": Q_MXU}
 
 
 @pytest.fixture(scope="module")
@@ -48,8 +50,15 @@ def runners():
     return ref, port
 
 
+@pytest.fixture(scope="module")
+def oracle():
+    conn = indexed_oracle()
+    yield conn
+    conn.close()
+
+
 @pytest.mark.parametrize("name", sorted(SLICE))
-def test_slice_query_matches_reference_and_oracle(name, runners, monkeypatch):
+def test_slice_query_matches_reference_and_oracle(name, runners, oracle, monkeypatch):
     if name == "q_mxu":
         # both packages take the bounded-domain kernel band on the CPU
         monkeypatch.setenv("TRINO_TPU_FORCE_MXU", "1")
@@ -60,7 +69,7 @@ def test_slice_query_matches_reference_and_oracle(name, runners, monkeypatch):
     assert got.rows == want.rows
     assert got.column_names == want.column_names
     assert [str(t) for t in got.column_types] == [str(t) for t in want.column_types]
-    expected = oracle_rows(0.01, to_sqlite(sql))
+    expected = sqlite_rows(oracle, to_sqlite(sql))
     assert_rows_match(got.rows, expected, ordered="order by" in sql, abs_tol=1e-2)
 
 
@@ -214,10 +223,114 @@ def test_single_table_query_matches_reference(sql, runners):
     assert port.execute(sql).rows == ref.execute(sql).rows
 
 
-def test_joins_are_not_ported_yet(runners):
-    _, port = runners
-    with pytest.raises(NotImplementedError, match="JoinNode"):
-        port.execute("select n_name, r_name from nation, region where n_regionkey = r_regionkey")
+# every join kind through SQL: (plan join kinds it must use, query)
+JOIN_SHAPES = {
+    "left": ({"left"}, "select n_name, r_name from nation left join region"
+             " on n_regionkey = r_regionkey and r_name <> 'ASIA' order by n_name"),
+    "left_sparse": ({"left"}, "select c_name, o_orderstatus from customer left join orders"
+                    " on c_custkey = o_custkey and o_totalprice > 400000"
+                    " where c_custkey < 30 order by 1, 2"),
+    "full": ({"full"}, "select n_name, r_name from nation full join region"
+             " on n_regionkey = r_regionkey and r_regionkey < 2 order by n_name, r_name"),
+    "right": ({"left"}, "select r_name, n_name from region right join nation"
+              " on n_regionkey = r_regionkey and r_name like 'A%' order by n_name"),
+    "anti": ({"anti"}, "select c_custkey from customer where not exists"
+             " (select * from orders where o_custkey = c_custkey) and c_nationkey = 3"
+             " order by 1"),
+    "mark": ({"mark"}, "select n_name, n_regionkey in (select r_regionkey from region"
+             " where r_name like 'A%') from nation order by n_name"),
+    "mark_under_or": ({"mark"}, "select n_name from nation where n_regionkey in"
+                      " (select r_regionkey from region where r_name like 'A%')"
+                      " or n_nationkey = 1 order by n_name"),
+    "mark_exists": ({"mark_exists"}, "select n_name, exists (select * from region where"
+                    " r_regionkey = n_regionkey and r_name = 'ASIA') from nation order by 1"),
+    "self_join_residual": ({"inner"}, "select count(*) from orders o1 join orders o2"
+                           " on o1.o_custkey = o2.o_custkey and o1.o_orderkey < o2.o_orderkey"),
+    "cross_scalar": ({"cross"}, "select n_name, (select count(*) from region) from nation"
+                     " order by 1 limit 3"),
+}
+
+
+def _join_kinds(node, out):
+    from trino_tpu_torch.sql import plan as P
+
+    if isinstance(node, P.JoinNode):
+        out.add(node.kind)
+    for attr in ("child", "left", "right"):
+        c = getattr(node, attr, None)
+        if isinstance(c, P.PlanNode):
+            _join_kinds(c, out)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_SHAPES))
+def test_join_kinds_through_sql_match_reference(name, runners):
+    from trino_tpu_torch.sql.parser import parse
+
+    ref, port = runners
+    kinds, sql = JOIN_SHAPES[name]
+    assert kinds <= _join_kinds(port._analyze(parse(sql)), set())
+    assert port.execute(sql).rows == ref.execute(sql).rows
+
+
+@pytest.mark.parametrize("kind", ["inner", "left", "semi", "anti", "full"])
+def test_lookup_join_operator_on_carried_batches(kind):
+    # the reference builds the lookup source; its build batch and
+    # LookupSource carry into the port, whose LookupJoinOperator probes
+    # them with carried probe batches
+    from trino_tpu.exec.operators import HashBuildSink as JBuildSink
+    from trino_tpu.exec.operators import JoinBridge as JBridge
+    from trino_tpu.exec.operators import LookupJoinOperator as JLookupJoin
+    from trino_tpu_torch.carry import lookup_source_from_arrays
+    from trino_tpu_torch.exec.operators import JoinBridge, LookupJoinOperator
+
+    rng = np.random.default_rng(len(kind))
+    letters = [chr(65 + i) for i in range(8)]
+
+    def batch(n, dom):
+        return JRelBatch.from_pydict(
+            [("k", JT.BIGINT), ("s", JT.VARCHAR), ("v", JT.decimal(12, 2))],
+            {"k": [int(x) if x >= 0 else None for x in rng.integers(-1, dom, n)],
+             "s": [letters[i] for i in rng.integers(0, 8, n)],
+             "v": [x / 100 for x in rng.integers(-1000, 1000, n)]})
+
+    build, probes = batch(200, 60), [batch(300, 80), batch(100, 80)]
+    schema = [(c.type, c.dictionary) for c in build.columns]
+    jbridge = JBridge()
+    sink = JBuildSink(jbridge, [0], schema)
+    sink.add_input(build)
+    sink.finish()
+    want = []
+    jop = JLookupJoin(jbridge, [0], kind, schema)
+    for p in probes:
+        jop.add_input(p)
+        while (out := jop.get_output()) is not None:
+            want.extend(out.to_pylists())
+    jop.finish()
+    while (out := jop.get_output()) is not None:
+        want.extend(out.to_pylists())
+
+    bridge = JoinBridge()
+    jls = jbridge.lookup_source
+    bridge.lookup_source = lookup_source_from_arrays(
+        np.asarray(jls.sorted_hash), np.asarray(jls.perm),
+        [np.asarray(k) for k in jls.key_cols], [np.asarray(v) for v in jls.key_valids],
+        np.asarray(jls.build_live), "cpu")
+    bridge.build_batch = _carry(jbridge.build_batch)
+    bridge.key_dicts = [bridge.build_batch.columns[0].dictionary]
+    bridge.build_key_channels = [0]
+    tschema = [(c.type, c.dictionary) for c in bridge.build_batch.columns]
+    top = LookupJoinOperator(bridge, [0], kind, tschema)
+    got = []
+    for p in probes:
+        top.add_input(_carry(p))
+        while (out := top.get_output()) is not None:
+            got.extend(out.to_pylists())
+    top.finish()
+    while (out := top.get_output()) is not None:
+        got.extend(out.to_pylists())
+    assert got == want
+    assert len(got) > 0
 
 
 def test_session_properties_match_session_fields():
@@ -255,3 +368,79 @@ def test_optimizer_settings_keep_answers(overrides, runners, monkeypatch):
         runner.register_catalog("tpch", ttpch.create_tpch_connector())
     sql = QUERIES[6]
     assert runner.execute(sql).rows == ref.execute(sql).rows
+
+
+@pytest.mark.parametrize("name", ["q3", "q18"])
+def test_joins_run_through_the_rank_and_gather_wrappers(name, runners, monkeypatch):
+    # on the CPU the wrappers take their plain versions; the join path
+    # must reach them (on the card the same calls launch the kernels)
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import window_rank as W
+
+    calls = {"rank": 0, "take_flat": 0}
+    rank_plain, flat_plain = W.rank_reference, GK.take_flat_reference
+
+    def rank_spy(*args, **kwargs):
+        calls["rank"] += 1
+        return rank_plain(*args, **kwargs)
+
+    def flat_spy(*args, **kwargs):
+        calls["take_flat"] += 1
+        return flat_plain(*args, **kwargs)
+
+    monkeypatch.setattr(W, "rank_reference", rank_spy)
+    monkeypatch.setattr(GK, "take_flat_reference", flat_spy)
+    _, port = runners
+    port.execute(SLICE[name])
+    assert calls["rank"] > 0 and calls["take_flat"] > 0
+    calls.update(rank=0, take_flat=0)
+    port.execute(SLICE["q1"])
+    assert calls == {"rank": 0, "take_flat": 0}
+
+
+def test_dynamic_filter_domains_match_reference():
+    from trino_tpu.exec.operators import HashBuildSink as JBuildSink
+    from trino_tpu.exec.operators import JoinBridge as JBridge
+    from trino_tpu.exec.operators import dynamic_filter_constraints as jdfc
+    from trino_tpu_torch.exec.operators import (
+        DynamicFilterOperator,
+        HashBuildSink,
+        JoinBridge,
+        dynamic_filter_constraints,
+    )
+
+    rng = np.random.default_rng(9)
+    schema = [("k", JT.BIGINT), ("d", JT.DATE), ("s", JT.VARCHAR)]
+    few = {"k": [int(x) for x in rng.integers(100, 140, 50)],
+           "d": [int(x) for x in rng.integers(9000, 9100, 50)],
+           "s": ["x"] * 50}
+    many = {"k": [int(x) if x % 7 else None for x in rng.integers(0, 10_000, 500)],
+            "d": [int(x) for x in rng.integers(9000, 9003, 500)],
+            "s": ["y"] * 500}
+    for data in (few, many):
+        jb = JRelBatch.from_pydict(schema, data)
+        jschema = [(c.type, c.dictionary) for c in jb.columns]
+        jbridge = JBridge()
+        sink = JBuildSink(jbridge, [0, 1], jschema)
+        sink.add_input(jb)
+        sink.finish()
+        tb = _carry(jb)
+        bridge = JoinBridge()
+        tsink = HashBuildSink(bridge, [0, 1], [(c.type, c.dictionary) for c in tb.columns], "cpu")
+        tsink.add_input(tb)
+        tsink.finish()
+        types = [T.BIGINT, T.DATE]
+        want = jdfc(jbridge, [JT.BIGINT, JT.DATE], ["k", "d"])
+        got = dynamic_filter_constraints(bridge, types, ["k", "d"])
+        assert [(c.column, c.op, c.value) for c in got] == \
+            [(c.column, c.op, c.value) for c in want]
+        # the operator drops probe rows outside every key's [min, max]
+        probe = _carry(JRelBatch.from_pydict(schema[:2], {
+            "k": [99, 120, 139, None, 20_000], "d": [9050, 9050, 9001, 9001, 9001]}))
+        op = DynamicFilterOperator(bridge, [0, 1])
+        op.add_input(probe)
+        kept = op.get_output().to_pylists()
+        lo_k = min(v for v in data["k"] if v is not None)
+        hi_k = max(v for v in data["k"] if v is not None)
+        assert kept == [[k, d] for k, d in [(99, 9050), (120, 9050), (139, 9001), (20_000, 9001)]
+                        if lo_k <= k <= hi_k and min(data["d"]) <= d <= max(data["d"])]

@@ -88,3 +88,49 @@ def test_kernel_wrapper_refuses_other_devices():
     gid = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         grouped_sum(gid, gid.to(torch.int64).view(1, 4), gid.to(torch.bool), 8)
+
+
+@pytest.mark.parametrize("name", ["rank", "take_flat", "take_rows_sum", "take_along_lanes"])
+def test_join_kernel_wrappers_refuse_other_devices(name):
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import window_rank as W
+
+    i32 = torch.zeros((4, 128), dtype=torch.int32, device="meta")
+    calls = {
+        "rank": lambda: W.rank(i32.reshape(-1), i32.reshape(-1), True),
+        "take_flat": lambda: GK.take_flat(i32.reshape(-1), i32.reshape(-1)),
+        "take_rows_sum": lambda: GK.take_rows_sum(i32, i32[0]),
+        "take_along_lanes": lambda: GK.take_along_lanes(i32, i32),
+    }
+    with pytest.raises(ValueError, match="unsupported device"):
+        calls[name]()
+
+
+@pytest.mark.parametrize("module", ["pallas_gather", "kernel_costs"])
+def test_explorers_exit_nonzero_without_a_card(module):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the explorer would run")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-m", f"trino_tpu_torch.explore.{module}"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 2
+    assert "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_chip_smoke_alone_prints_no_result(tmp_path):
+    # without the package beside it (or without a card) the script fails
+    # and prints no result line
+    import shutil
+
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

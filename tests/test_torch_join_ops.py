@@ -1,0 +1,408 @@
+"""The join's ops and the rank and gather kernels' plain versions.
+
+trino_tpu_torch.ops.join against trino_tpu.ops.join on the same numpy
+inputs: lo, counts, the permutation and the expanded (probe, build, ok)
+triples are bit-equal. The windowed-rank and gather wrappers (on the
+CPU, their plain versions) are held against numpy transcriptions of the
+explorers' TPU kernels, and against copies of those Pallas bodies run in
+interpret mode. Tests marked `cuda` hold each kernel against its plain
+version on the card and skip without one."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from trino_tpu.ops import join as JJ
+from trino_tpu_torch.ops import gather_kernels as GK
+from trino_tpu_torch.ops import join as TJ
+from trino_tpu_torch.ops import window_rank as W
+
+
+def _both(*arrays):
+    return [jnp.asarray(a) for a in arrays], [torch.from_numpy(np.ascontiguousarray(a))
+                                              for a in arrays]
+
+
+def _join_case(name):
+    """(build keys, build valids, build live, probe keys, probe valids,
+    probe live) as numpy arrays."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    nb, npr = 300, 700
+    if name == "duplicates":
+        bk = [rng.integers(0, 40, nb)]
+        pk = [rng.integers(0, 50, npr)]
+    elif name == "nulls_and_dead":
+        bk = [rng.integers(0, 100, nb)]
+        pk = [rng.integers(0, 100, npr)]
+    elif name == "all_dead_build":
+        bk = [rng.integers(0, 10, 16)]
+        pk = [rng.integers(0, 10, npr)]
+        nb = 16
+    elif name == "all_dead_probe":
+        bk = [rng.integers(0, 10, nb)]
+        pk = [rng.integers(0, 10, 16)]
+        npr = 16
+    elif name == "unique_wide":
+        bk = [rng.integers(-(1 << 62), 1 << 62, nb)]
+        pk = [np.concatenate([bk[0][:200], rng.integers(0, 1 << 62, npr - 200)])]
+    elif name == "limb_pairs":
+        # long-decimal keys as their two int64 limbs
+        base = rng.integers(-(1 << 40), 1 << 40, (30, 2))
+        bk = [base[rng.integers(0, 30, nb), 0], base[rng.integers(0, 30, nb), 1]]
+        pi = rng.integers(0, 30, npr)
+        pk = [base[pi, 0], base[pi, 1]]
+    elif name == "multi_key":
+        bk = [rng.integers(0, 6, nb).astype(np.int32), rng.integers(0, 5, nb),
+              rng.integers(9000, 9004, nb).astype(np.int32)]
+        pk = [rng.integers(0, 6, npr).astype(np.int32), rng.integers(0, 5, npr),
+              rng.integers(9000, 9004, npr).astype(np.int32)]
+    else:
+        raise KeyError(name)
+    null_frac = 0.1 if name in ("nulls_and_dead", "multi_key") else 0.0
+    bv = [rng.random(nb) >= null_frac for _ in bk]
+    pv = [rng.random(npr) >= null_frac for _ in pk]
+    bl = rng.random(nb) >= (0.2 if name == "nulls_and_dead" else 0.0)
+    pl_ = rng.random(npr) >= (0.2 if name == "nulls_and_dead" else 0.0)
+    if name == "all_dead_build":
+        bl[:] = False
+    if name == "all_dead_probe":
+        pl_[:] = False
+    return bk, bv, bl, pk, pv, pl_
+
+
+JOIN_CASES = ["duplicates", "nulls_and_dead", "all_dead_build", "all_dead_probe",
+              "unique_wide", "limb_pairs", "multi_key"]
+
+
+@pytest.mark.parametrize("name", JOIN_CASES)
+def test_build_probe_expand_are_bit_equal(name):
+    bk, bv, bl, pk, pv, pl_ = _join_case(name)
+    jb, tb = _both(*bk, *bv, bl)
+    jp, tp = _both(*pk, *pv, pl_)
+    k = len(bk)
+    jls = JJ.build_lookup(jb[:k], jb[k:2 * k], jb[-1])
+    tls = TJ.build_lookup(tb[:k], tb[k:2 * k], tb[-1])
+    assert np.array_equal(np.asarray(jls.sorted_hash).astype(np.int64),
+                          tls.sorted_hash.numpy())
+    assert np.array_equal(np.asarray(jls.perm), tls.perm.numpy())
+    assert np.array_equal(np.asarray(jls.build_live), tls.build_live.numpy())
+    jlo, jc, jt = JJ.probe_counts(jls, jp[:k], jp[k:2 * k], jp[-1])
+    tlo, tc, tt = TJ.probe_counts(tls, tp[:k], tp[k:2 * k], tp[-1])
+    assert np.array_equal(np.asarray(jlo), tlo.numpy())
+    assert np.array_equal(np.asarray(jc), tc.numpy())
+    assert int(jt) == int(tt)
+    cap = 16
+    while cap < max(int(tt), 1):
+        cap *= 2
+    for verify in (True, False):
+        want = JJ.expand_matches(jls, jp[:k], jp[k:2 * k], jlo, jc, cap, verify=verify)
+        got = TJ.expand_matches(tls, tp[:k], tp[k:2 * k], tlo, tc, cap, verify=verify)
+        for w, g in zip(want, got):
+            assert np.array_equal(np.asarray(w), g.numpy())
+        pi, bi, ok = got
+        assert bool(torch.all(pi[1:] >= pi[:-1]))  # _segment_any relies on it
+    flags = TJ.probe_matched_flags(len(pl_), pi, ok)
+    assert np.array_equal(
+        np.asarray(JJ.probe_matched_flags(len(pl_), *[jnp.asarray(x.numpy()) for x in (pi, ok)])),
+        flags.numpy())
+    bflags = TJ.build_matched_flags(len(bl), bi, ok)
+    assert np.array_equal(
+        np.asarray(JJ.build_matched_flags(len(bl), *[jnp.asarray(x.numpy()) for x in (bi, ok)])),
+        bflags.numpy())
+
+
+def test_two_dimensional_limb_keys_verify_whole_pairs():
+    # a (n, 2) limb-pair key column straight into the ops (the operators
+    # split limbs; this holds the 2-D verify path): the verified pairs are
+    # exactly the pairs whose both limbs agree
+    rng = np.random.default_rng(5)
+    base = rng.integers(-(1 << 40), 1 << 40, (20, 2))
+    bkey, pkey = base[rng.integers(0, 20, 200)], base[rng.integers(0, 20, 500)]
+    pkey[::7, 1] += 1  # same high limb, different low limb: never equal
+    ones_b, ones_p = torch.ones(200, dtype=torch.bool), torch.ones(500, dtype=torch.bool)
+    tbk, tpk = torch.from_numpy(bkey), torch.from_numpy(pkey)
+    ls = TJ.build_lookup([tbk], [ones_b], ones_b)
+    lo, counts, total = TJ.probe_counts(ls, [tpk], [ones_p], ones_p)
+    cap = 1 << max(int(total) - 1, 1).bit_length()
+    pi, bi, ok = TJ.expand_matches(ls, [tpk], [ones_p], lo, counts, cap)
+    got = sorted(zip(pi[ok].tolist(), bi[ok].tolist()))
+    eq = (pkey[:, None, :] == bkey[None, :, :]).all(-1)
+    assert got == sorted(zip(*np.nonzero(eq)))
+
+
+@pytest.mark.parametrize("n_sorted,n_q", [(1000, 3000), (129, 5)])
+def test_sorted_run_bounds_with_sentinels_matches_reference(n_sorted, n_q):
+    rng = np.random.default_rng(n_sorted + n_q)
+    vals = rng.integers(0, 0xFFFFFFFE, n_sorted)
+    vals[: n_sorted // 10] = 0xFFFFFFFF  # dead build rows
+    vals[n_sorted // 10: n_sorted // 5] = 0xFFFFFFFD
+    s = np.sort(vals).astype(np.uint32)
+    q = np.concatenate([rng.choice(s, n_q), [0xFFFFFFFE, 0xFFFFFFFD, 0, 1]]).astype(np.uint32)
+    jlo, jhi = JJ.sorted_run_bounds(jnp.asarray(s), jnp.asarray(q))
+    tlo, thi = TJ.sorted_run_bounds(torch.from_numpy(s.astype(np.int64)),
+                                    torch.from_numpy(q.astype(np.int64)))
+    assert np.array_equal(np.asarray(jlo), tlo.numpy())
+    assert np.array_equal(np.asarray(jhi), thi.numpy())
+
+
+def test_sorted_run_bounds_of_empty_inputs():
+    lo, hi = TJ.sorted_run_bounds(torch.zeros(0, dtype=torch.int64),
+                                  torch.arange(5, dtype=torch.int64))
+    assert lo.tolist() == hi.tolist() == [0] * 5
+    lo, hi = TJ.sorted_run_bounds(torch.arange(5, dtype=torch.int64),
+                                  torch.zeros(0, dtype=torch.int64))
+    assert lo.numel() == hi.numel() == 0
+
+
+# ---------------------------------------------------------------------------
+# windowed rank: the explorer's k0..k4 and the searched mode
+# ---------------------------------------------------------------------------
+
+
+def _np_window_rank(at, b2, nwin, edge):
+    """numpy transcription of explore_kernel_costs.py's k0..k4 bodies."""
+    acc = np.zeros(at.shape, np.int64)
+    t = 0
+    for w in range(nwin):
+        acc += (b2[w][None, None, :] < at[:, :, None]).sum(-1)
+        if edge:
+            t += int(b2[w, 0]) + int(b2[w, 127])
+    return ((acc + t + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+
+
+@pytest.mark.parametrize("nwin,edge", [(2, False), (2, True), (8, False)],
+                         ids=["k0_k1_k2", "k3", "k4"])
+def test_fixed_rank_matches_the_explorer_bodies(nwin, edge):
+    rng = np.random.default_rng(0)
+    at = rng.integers(0, 1 << 30, (1024, 8)).astype(np.int32)
+    b2 = rng.integers(0, 1 << 30, (1024, 128)).astype(np.int32)
+    got = W.rank(torch.from_numpy(at), torch.from_numpy(b2.reshape(-1)), False, 0, nwin, edge)
+    assert np.array_equal(got.numpy(), _np_window_rank(at, b2, nwin, edge))
+
+
+def _pallas_rank(body, at, b2):
+    """A copy of the explorer's pallas_call wrapper, in interpret mode."""
+    grid = at.shape[0] // 128
+    with jax.enable_x64(False):
+        return np.asarray(pl.pallas_call(
+            body, grid=(grid,),
+            in_specs=[pl.BlockSpec((128, 8), lambda i: (i, 0), memory_space=pltpu.VMEM),
+                      pl.BlockSpec(b2.shape, lambda i: (0, 0), memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec((128, 8), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct(at.shape, jnp.int32),
+            scratch_shapes=[pltpu.SMEM((2,), jnp.int32)], interpret=True,
+        )(jnp.asarray(at), jnp.asarray(b2)))
+
+
+def _window_body(nwin, edge, smem_start=False):
+    """The k0/k2/k3/k4 body of explore_kernel_costs.py (k2 reads its
+    window start from SMEM, set to 0 at program 0)."""
+
+    def body(a_ref, b_ref, o_ref, cur):
+        if smem_start:
+            @pl.when(pl.program_id(0) == 0)
+            def _():
+                cur[0] = jnp.int32(0)
+        acc = jnp.zeros((128, 8), jnp.int32)
+        t = jnp.int32(0)
+        for w in range(nwin):
+            if edge:
+                t = t + b_ref[w, 0] + b_ref[w, 127]
+            b_win = b_ref[w: w + 1, :]
+            cols = []
+            for c in range(8):
+                a_col = a_ref[:, c: c + 1]
+                cols.append(acc[:, c: c + 1] + jnp.sum(
+                    (b_win < a_col).astype(jnp.int32), axis=1, keepdims=True,
+                    dtype=jnp.int32))
+            acc = jnp.concatenate(cols, axis=1)
+        o_ref[:, :] = acc + t
+
+    return body
+
+
+@pytest.mark.parametrize("nwin,edge,smem", [(2, False, False), (2, False, True),
+                                            (2, True, False), (8, False, False)],
+                         ids=["k0", "k2", "k3", "k4"])
+def test_fixed_rank_matches_pallas_bodies_in_interpret_mode(nwin, edge, smem):
+    rng = np.random.default_rng(1)
+    at = rng.integers(0, 1 << 30, (256, 8)).astype(np.int32)
+    b2 = rng.integers(0, 1 << 30, (1024, 128)).astype(np.int32)
+    want = _pallas_rank(_window_body(nwin, edge, smem), at, b2)
+    got = W.rank(torch.from_numpy(at), torch.from_numpy(b2.reshape(-1)), False, 0, nwin, edge)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_fixed_rank_counts_only_positions_inside_b():
+    rng = np.random.default_rng(2)
+    a = rng.integers(-1000, 1000, 77).astype(np.int64)
+    b = rng.integers(-1000, 1000, 1000).astype(np.int64)
+    got = W.rank(torch.from_numpy(a), torch.from_numpy(b), False, 7, 2)
+    tail = b[7 * 128:]  # windows 7 and 8 hold only 104 positions
+    want = 7 * 128 + (tail[None, :] < a[:, None]).sum(1)
+    assert np.array_equal(got.numpy(), want)
+    for searched in (False, True):
+        empty = W.rank(torch.from_numpy(a), torch.zeros(0, dtype=torch.int64), searched)
+        assert empty.tolist() == [0] * 77
+    assert W.rank(torch.from_numpy(a[:0]), torch.from_numpy(b), True).numel() == 0
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_searched_rank_is_the_lower_bound(dtype):
+    rng = np.random.default_rng(3)
+    hi = (1 << 31) - 2 if dtype == np.int32 else 1 << 40
+    b = np.sort(rng.integers(-hi, hi, 10_001)).astype(dtype)
+    b[100:400] = b[100]  # a run across window boundaries
+    a = np.concatenate([rng.integers(-hi, hi, 3000), b[::5], [b[0], b[-1]]]).astype(dtype)
+    got = W.rank(torch.from_numpy(a), torch.from_numpy(b), True)
+    assert np.array_equal(got.numpy(), np.searchsorted(b, a, "left"))
+
+
+def test_rank_wrapper_refuses_bad_arguments():
+    a = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        W.rank(a, a.to(torch.int32), True)
+    with pytest.raises(ValueError):
+        W.rank(a, a, True, nwin=2)
+    with pytest.raises(ValueError):
+        W.rank(a, a, False, 0, 2, edge=True)  # edge sums are int32 only
+    with pytest.raises(ValueError, match="unsupported device"):
+        W.rank(a.to("meta"), a.to("meta"), True)
+
+
+# ---------------------------------------------------------------------------
+# gathers: the explorer's v1, v2, v3
+# ---------------------------------------------------------------------------
+
+
+def _pallas_gather(body, tab, ix, block_in, block_out, out_shape, grid):
+    with jax.enable_x64(False):
+        return np.asarray(pl.pallas_call(
+            body, grid=(grid,),
+            in_specs=[pl.BlockSpec(tab.shape, lambda i: (0, 0), memory_space=pltpu.VMEM),
+                      pl.BlockSpec(block_in, lambda i: (i, 0), memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec(block_out, lambda i: (i, 0), memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct(out_shape, jnp.int32), interpret=True,
+        )(jnp.asarray(tab), jnp.asarray(ix)))
+
+
+def test_take_flat_matches_v1():
+    rng = np.random.default_rng(0)
+    table = rng.integers(0, 1 << 30, 1 << 12).astype(np.int32)
+    idx = rng.integers(0, 1 << 12, (4, 256)).astype(np.int32)
+    got = GK.take_flat(torch.from_numpy(table), torch.from_numpy(idx)).numpy()
+    assert np.array_equal(got, table[idx])  # the explorer's own check
+
+    def k1(tab_ref, idx_ref, out_ref):
+        out_ref[:] = jnp.take(tab_ref[:].reshape(-1), idx_ref[:].reshape(-1),
+                              axis=0).reshape(out_ref.shape)
+
+    want = _pallas_gather(k1, table.reshape(-1, 128), idx, (1, 256), (1, 256), idx.shape, 4)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("tdtype,idtype", [(np.int32, np.int32), (np.int64, np.int64),
+                                           (np.int64, np.int32), (np.float32, np.int64)])
+def test_take_flat_clips_like_the_reference(tdtype, idtype):
+    rng = np.random.default_rng(1)
+    table = rng.integers(-(1 << 30), 1 << 30, 1001).astype(tdtype)
+    idx = rng.integers(-20, 1030, 3001).astype(idtype)
+    got = GK.take_flat(torch.from_numpy(table), torch.from_numpy(idx))
+    assert np.array_equal(got.numpy(), table[np.clip(idx, 0, 1000)])
+    assert GK.take_flat(torch.from_numpy(table), torch.zeros(0, dtype=torch.int32)).numel() == 0
+
+
+def test_take_rows_sum_matches_v2_mod_2_32():
+    rng = np.random.default_rng(0)
+    table2d = rng.integers(0, 1 << 30, (64, 128)).astype(np.int32)
+    ridx = rng.integers(0, 64, (4, 512)).astype(np.int32)
+    got = GK.take_rows_sum(torch.from_numpy(table2d), torch.from_numpy(ridx)).numpy()
+    # the explorer's own check sums in int64; the kernel's int32 sum wraps
+    wide = table2d[ridx].sum(axis=-1)
+    assert np.array_equal(got, wide.astype(np.uint32).view(np.int32))
+
+    def k2(tab_ref, idx_ref, out_ref):
+        rows = jnp.take(tab_ref[:], idx_ref[0, :], axis=0)
+        out_ref[0, :] = jnp.sum(rows, axis=1)
+
+    want = _pallas_gather(k2, table2d, ridx, (1, 512), (1, 512), ridx.shape, 4)
+    assert np.array_equal(got, want)
+
+
+def test_take_rows_sum_clips_rows():
+    table2d = torch.arange(6 * 100, dtype=torch.int32).reshape(6, 100)
+    got = GK.take_rows_sum(table2d, torch.tensor([-3, 0, 5, 9], dtype=torch.int64))
+    sums = table2d.to(torch.int64).sum(1)
+    assert got.tolist() == [sums[0], sums[0], sums[5], sums[5]]
+
+
+def test_take_along_lanes_matches_v3():
+    rng = np.random.default_rng(0)
+    sel = rng.integers(0, 128, (128, 128)).astype(np.int32)
+    src = rng.integers(0, 1 << 30, (128, 128)).astype(np.int32)
+    got = GK.take_along_lanes(torch.from_numpy(src), torch.from_numpy(sel)).numpy()
+    assert np.array_equal(got, np.take_along_axis(src, sel, axis=1))
+
+    def k3(src_ref, sel_ref, out_ref):
+        out_ref[:] = jnp.take_along_axis(src_ref[:], sel_ref[:], axis=1)
+
+    with jax.enable_x64(False):
+        want = np.asarray(pl.pallas_call(
+            k3, grid=(2,),
+            in_specs=[pl.BlockSpec((64, 128), lambda i: (i, 0), memory_space=pltpu.VMEM),
+                      pl.BlockSpec((64, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec((64, 128), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct(src.shape, jnp.int32), interpret=True,
+        )(jnp.asarray(src), jnp.asarray(sel)))
+    assert np.array_equal(got, want)
+    clipped = GK.take_along_lanes(torch.from_numpy(src),
+                                  torch.from_numpy(np.full_like(sel, 200)))
+    assert np.array_equal(clipped.numpy(), np.repeat(src[:, 127:], 128, axis=1))
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with `pytest -m cuda` on one)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("searched,nwin,edge,dtype", [
+    (False, 2, False, torch.int32), (False, 2, True, torch.int32),
+    (False, 8, False, torch.int32), (True, 1, False, torch.int64),
+    (True, 1, False, torch.int32),
+])
+def test_rank_kernel_matches_plain_on_the_card(searched, nwin, edge, dtype, cuda_device):
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.integers(0, 1 << 30, 100_003)).to(dtype).to(cuda_device)
+    b = torch.from_numpy(rng.integers(0, 1 << 30, 70_001)).to(dtype).to(cuda_device)
+    if searched:
+        b, _ = torch.sort(b)
+    got = W.rank(a, b, searched, 0, nwin, edge)
+    assert torch.equal(got, W.rank_reference(a, b, searched, 0, nwin, edge))
+
+
+@pytest.mark.cuda
+def test_gather_kernels_match_plain_on_the_card(cuda_device):
+    rng = np.random.default_rng(5)
+    dev = cuda_device
+    table = torch.from_numpy(rng.integers(0, 1 << 40, 9999)).to(dev)
+    idx = torch.from_numpy(rng.integers(-9, 10_010, 50_001)).to(dev)
+    assert torch.equal(GK.take_flat(table, idx), GK.take_flat_reference(table, idx))
+    t2 = torch.from_numpy(rng.integers(0, 1 << 30, (99, 128)).astype(np.int32)).to(dev)
+    r = torch.from_numpy(rng.integers(-3, 103, 7777).astype(np.int32)).to(dev)
+    assert torch.equal(GK.take_rows_sum(t2, r), GK.take_rows_sum_reference(t2, r))
+    src = torch.from_numpy(rng.integers(0, 1 << 30, (1001, 128)).astype(np.int32)).to(dev)
+    sel = torch.from_numpy(rng.integers(-5, 133, (1001, 128)).astype(np.int32)).to(dev)
+    assert torch.equal(GK.take_along_lanes(src, sel), GK.take_along_lanes_reference(src, sel))

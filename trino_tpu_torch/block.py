@@ -40,6 +40,16 @@ def phys_zeros(t, capacity: int, device="cpu") -> torch.Tensor:
     return torch.zeros(capacity, dtype=t.dtype, device=device)
 
 
+def null_column(t, capacity: int, dictionary=None, device="cpu") -> "Column":
+    """All-NULL column of a flat type: outer-join padding."""
+    if t.is_nested:
+        raise NotImplementedError(
+            f"nested column {t}: ROADMAP queue 9 (nested ARRAY/MAP/ROW)"
+        )
+    invalid = torch.zeros(capacity, dtype=torch.bool, device=device)
+    return Column(t, phys_zeros(t, capacity, device), invalid, dictionary)
+
+
 def bucket_capacity(n: int) -> int:
     """Round row counts up to a power of two (>= MIN_CAPACITY)."""
     c = MIN_CAPACITY
@@ -244,6 +254,11 @@ class RelBatch:
         if self.live is None:
             return self.capacity
         return int(torch.sum(self.live))
+
+    def mask(self, keep: torch.Tensor) -> "RelBatch":
+        """Filter: AND `keep` into the live mask (no data movement)."""
+        live = keep if self.live is None else (self.live & keep)
+        return RelBatch(self.columns, live)
 
     def gather(self, positions: torch.Tensor, positions_live=None) -> "RelBatch":
         return RelBatch([c.gather(positions) for c in self.columns], positions_live)

@@ -1,8 +1,9 @@
-"""Build the port's batches from plain arrays.
+"""Build the port's batches and join lookup sources from plain arrays.
 
 Data plays the part weights play for a model: the two packages compute
 on the same input when both receive the same numpy arrays. A test turns
-a reference batch into numpy arrays and hands them here.
+a reference batch (or a reference join's LookupSource) into numpy arrays
+and hands them here.
 """
 
 from __future__ import annotations
@@ -52,3 +53,23 @@ def relbatch_from_arrays(columns: Sequence[ColumnArrays],
         np.array(live, dtype=bool, order="C")
     ).to(device)
     return RelBatch(cols, lv)
+
+
+def lookup_source_from_arrays(sorted_hash: np.ndarray, perm: np.ndarray,
+                              key_cols: Sequence[np.ndarray],
+                              key_valids: Sequence[np.ndarray],
+                              build_live: np.ndarray, device):
+    """The port's join LookupSource from plain arrays (the reference's
+    uint32 sorted hashes widen into the port's int64 carriers)."""
+    from trino_tpu_torch.ops.join import LookupSource
+
+    def dev(x, dtype=None):
+        return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(device)
+
+    return LookupSource(
+        dev(np.asarray(sorted_hash).astype(np.int64)),
+        dev(perm, np.int32),
+        [dev(k) for k in key_cols],
+        [dev(v, bool) for v in key_valids],
+        dev(build_live, bool),
+    )

@@ -97,7 +97,12 @@ class LocalQueryRunner:
         physical = planner.plan(output)
         ctx: dict = {}
         sink = CollectorSink()
-        Driver(Pipeline(physical.instantiate(ctx) + [sink])).run()
+        pipelines, chain = physical.instantiate(ctx)
+        # build pipelines first, in plan order: each fills the bridge
+        # that a later pipeline or the main chain probes
+        for ops in pipelines:
+            Driver(Pipeline(ops)).run()
+        Driver(Pipeline(chain + [sink])).run()
         rows = sink.rows()
         for flag, msg in ctx.get("deferred_checks", ()):
             if bool(flag):

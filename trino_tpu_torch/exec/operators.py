@@ -6,11 +6,14 @@ host Driver. Each add_input/get_output runs eager torch ops on the
 batch's device; filters only flip `live` mask bits and dead rows ride
 along until an explicit compact, as in the reference.
 
-Ported: TableScan, Values, FilterProject, Limit, Sort, TopN, single-step
-HashAggregation (global, dense, grouped-sum kernel and sort routes,
-with the N-way state merge), EnforceSingleRow and CollectorSink. Joins,
-windows, partial/final aggregation steps, spill and the holistic
-aggregates are queued in ROADMAP.md.
+Ported: TableScan (with runtime dynamic-filter constraints), Values,
+FilterProject, Limit, Sort, TopN, single-step HashAggregation (global,
+dense, grouped-sum kernel and sort routes, with the N-way state merge),
+EnforceSingleRow, the hash join (HashBuildSink + LookupJoinOperator for
+inner, left, full, semi, anti and mark joins), DynamicFilter, the cross
+join and CollectorSink. Windows, partial/final aggregation steps, spill
+(grace joins included) and the holistic aggregates are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import dataclasses
 import os
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
@@ -28,11 +32,15 @@ from trino_tpu_torch.block import (
     RelBatch,
     bucket_capacity,
     concat_batches,
+    null_column,
     phys_zeros,
 )
 from trino_tpu_torch.expr.compile import Bound
+from trino_tpu_torch.ops import gather_kernels as GK
 from trino_tpu_torch.ops import groupby as G
 from trino_tpu_torch.ops import int128 as I128
+from trino_tpu_torch.ops import join as J
+from trino_tpu_torch.ops.gather import take_clip
 from trino_tpu_torch.ops.sort import SortKey, sort_order
 
 
@@ -81,11 +89,28 @@ class TableScanOperator(Operator):
         self._columns = columns
         self._batch_rows = batch_rows
         self._device = device
+        # zero-arg callable -> ColumnConstraints found at run time (the
+        # dynamic-filter build domains), folded into every split's handle
+        # just before the first batch is pulled
+        self._runtime_constraints = None
         self._iters = None
         self._done = False
 
+    def set_runtime_constraints(self, fn) -> None:
+        self._runtime_constraints = fn
+
     def _gen(self):
-        for split in self._splits:
+        splits = self._splits
+        if self._runtime_constraints is not None:
+            cs = tuple(self._runtime_constraints())
+            if cs:
+                from trino_tpu_torch.connectors.pushdown import merge_handle_constraints
+
+                splits = [
+                    dataclasses.replace(s, table=merge_handle_constraints(s.table, cs))
+                    for s in splits
+                ]
+        for split in splits:
             yield from self._page_source.batches(
                 split, self._columns, self._batch_rows, device=self._device
             )
@@ -1005,6 +1030,545 @@ class EnforceSingleRowOperator(Operator):
 
     def is_finished(self) -> bool:
         return self._finishing and self._out is None
+
+
+# ---------------------------------------------------------------------------
+# Hash join
+# ---------------------------------------------------------------------------
+
+
+class JoinBridge:
+    """Build->probe handoff (PartitionedLookupSourceFactory). The engine
+    runs the build pipeline to completion before the probe pipeline."""
+
+    def __init__(self):
+        self.lookup_source: Optional[J.LookupSource] = None
+        self.build_batch: Optional[RelBatch] = None
+        # build-side key dictionaries, for probe-side code remapping
+        self.key_dicts: Optional[List[Optional[Dictionary]]] = None
+        # build-side key channels (pair verify, dynamic-filter domains)
+        self.build_key_channels: List[int] = []
+
+
+def _consolidate_build(parts: Sequence[RelBatch], key_channels: Sequence[int]):
+    """Consolidate the build batches and build the LookupSource."""
+    merged = concat_batches(list(parts))
+    keys, valids = [], []
+    for c in key_channels:
+        col = merged.columns[c]
+        v = col.valid_mask()
+        if col.data.dim() == 2:  # long-decimal limbs
+            keys.extend([col.data[:, 0], col.data[:, 1]])
+            valids.extend([v, v])
+        else:
+            keys.append(col.data)
+            valids.append(v)
+    return J.build_lookup(keys, valids, merged.live_mask()), merged
+
+
+def _compact_to(parts: Sequence[RelBatch], n_live: int, capacity: int) -> RelBatch:
+    """The live rows of `parts`, in order, front-packed into one batch
+    of `capacity` rows (the reference's host page round trip)."""
+    merged = concat_batches(list(parts))
+    dev = merged.device
+    idx = torch.nonzero(merged.live_mask()).reshape(-1)
+    pos = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    pos[:n_live] = idx
+    live = torch.arange(capacity, device=dev) < n_live
+    cols = []
+    for c in merged.columns:
+        g = c.gather(pos)
+        valid = None if g.valid is None else (g.valid & live)
+        data = torch.where(
+            live.reshape((-1,) + (1,) * (g.data.dim() - 1)), g.data,
+            torch.zeros((), dtype=g.data.dtype, device=dev))
+        cols.append(Column(c.type, data, valid, c.dictionary))
+    return RelBatch(cols, None if n_live == capacity else live)
+
+
+class HashBuildSink(Operator):
+    """Consumes the build side, consolidates it and builds the
+    LookupSource (HashBuilderOperator: one sort instead of row inserts).
+    Spilling to grace partitions is not ported (ROADMAP queue 10)."""
+
+    def __init__(self, bridge: JoinBridge, key_channels: Sequence[int],
+                 input_schema: Schema, device, force_spill: bool = False):
+        if force_spill:
+            raise NotImplementedError(
+                "grace (spilled) hash join: ROADMAP queue 10 (memory and spill)"
+            )
+        self._bridge = bridge
+        self._keys = list(key_channels)
+        self._schema = list(input_schema)
+        self._device = device
+        self._inputs: List[RelBatch] = []
+
+    def add_input(self, batch: RelBatch) -> None:
+        self._inputs.append(batch)
+
+    def finish(self) -> None:
+        if self._finishing:
+            return
+        self._finishing = True
+        parts = self._inputs or [empty_batch(self._schema, self._device)]
+        self._inputs = []
+        total_cap = sum(b.capacity for b in parts)
+        if total_cap >= _SHRINK_MIN_CAPACITY:
+            # sparse build side (e.g. a HAVING-filtered aggregate): compact
+            # so the lookup build and every probe run at the live size
+            n_live = int(sum(int(torch.sum(b.live_mask())) for b in parts))
+            target = max(bucket_capacity(n_live), 16)
+            if target * 4 <= total_cap:
+                parts = [_compact_to(parts, n_live, target)]
+        ls, merged = _consolidate_build(parts, self._keys)
+        self._bridge.lookup_source = ls
+        self._bridge.build_batch = merged
+        self._bridge.key_dicts = [merged.columns[c].dictionary for c in self._keys]
+        self._bridge.build_key_channels = list(self._keys)
+
+    def is_finished(self) -> bool:
+        return self._finishing
+
+
+def _pair_key_verify(ok, probe_cols, build_cols, pkc, bkc):
+    """AND exact key equality (and non-NULL keys) of the pair columns."""
+    for pc, bc in zip(pkc, bkc):
+        a, b = probe_cols[pc], build_cols[bc]
+        eqd = a.data == b.data
+        if eqd.dim() == 2:  # long-decimal limb pairs
+            eqd = eqd.all(dim=-1)
+        ok = ok & eqd
+        if a.valid is not None:
+            ok = ok & a.valid
+        if b.valid is not None:
+            ok = ok & b.valid
+    return ok
+
+
+def _expand_pairs(ls, probe: RelBatch, build: RelBatch, keys, valids, lo, counts,
+                  out_cap: int, pkc=None, bkc=None):
+    """Expansion + pair gather (JoinProbe + LookupJoinPageBuilder). When
+    the keys are pass-through columns (pkc/bkc), the hash-collision
+    verify runs on the gathered pair columns."""
+    on_pairs = pkc is not None
+    pi, bi, ok = J.expand_matches(ls, keys, valids, lo, counts, out_cap,
+                                  verify=not on_pairs)
+    pairs_probe = probe.gather(pi)
+    pairs_build = build.gather(bi)
+    if on_pairs:
+        ok = _pair_key_verify(ok, pairs_probe.columns, pairs_build.columns, pkc, bkc)
+    cols = list(pairs_probe.columns) + list(pairs_build.columns)
+    return pi, bi, ok, RelBatch(cols, ok)
+
+
+def _fanout_le_one(counts) -> torch.Tensor:
+    """Device flag: no probe row has more than one candidate match."""
+    return torch.all(counts <= 1)
+
+
+def _expand_pairs_fanout1(ls, probe: RelBatch, build: RelBatch, keys, valids, lo,
+                          counts, pkc=None, bkc=None):
+    """Fanout <= 1 expansion (the PK-side FK join): the pair batch is the
+    probe batch with the matched build row appended; probe columns pass
+    through untouched. Caller guarantees max(counts) <= 1."""
+    spos = torch.clamp(lo, 0, ls.perm.shape[0] - 1)
+    bi = GK.take_flat(ls.perm, spos)
+    ok = counts > 0
+    pairs_build = build.gather(bi)
+    if pkc is not None:
+        ok = _pair_key_verify(ok, probe.columns, pairs_build.columns, pkc, bkc)
+    else:
+        for pk, pv, bk, bv in zip(keys, valids, ls.key_cols, ls.key_valids):
+            eqd = pk == take_clip(bk, bi)
+            if eqd.dim() == 2:
+                eqd = eqd.all(dim=-1)
+            ok = ok & eqd & pv & take_clip(bv, bi)
+    live = probe.live_mask() & ok
+    pi = torch.arange(probe.capacity, dtype=torch.int32, device=live.device)
+    cols = list(probe.columns) + list(pairs_build.columns)
+    return pi, bi, live, RelBatch(cols, live)
+
+
+def _segment_any(counts, pi, ok, probe_capacity: int) -> torch.Tensor:
+    """Per-probe-row 'any verified pair' without a scatter: pi is
+    nondecreasing, so each probe row's pairs are the segment
+    [off - counts, off); reduce by cumsum + gather."""
+    e = ok.shape[0]
+    okc = torch.cumsum(ok.to(torch.int32), 0, dtype=torch.int32)
+    exc = okc - ok.to(torch.int32)
+    off = torch.cumsum(counts, 0, dtype=torch.int32)
+    start = off - counts
+    seg = take_clip(okc, torch.clamp(off - 1, 0, max(e - 1, 0))) - take_clip(
+        exc, torch.clamp(start, 0, max(e - 1, 0)))
+    return (counts > 0) & (seg > 0)
+
+
+def _left_unmatched(probe: RelBatch, build: RelBatch, matched) -> RelBatch:
+    """Unmatched probe rows with NULL build columns (LEFT outer arm)."""
+    nulls = [null_column(c.type, probe.capacity, c.dictionary, probe.device)
+             for c in build.columns]
+    return RelBatch(list(probe.columns) + nulls, probe.live_mask() & ~matched)
+
+
+def _right_unmatched(probe_schema, build: RelBatch, matched_b) -> RelBatch:
+    """Unmatched build rows with NULL probe columns (RIGHT/FULL outer
+    arm, LookupOuterOperator)."""
+    nulls = [null_column(t, build.capacity, d, build.device) for t, d in probe_schema]
+    return RelBatch(nulls + list(build.columns), build.live_mask() & ~matched_b)
+
+
+def make_residual_fn(residual: Bound):
+    """Plan-time bound residual evaluator over pair batches."""
+
+    def fn(pairs: RelBatch) -> torch.Tensor:
+        d, v = residual.fn([c.data for c in pairs.columns],
+                           [c.valid for c in pairs.columns])
+        return d if v is None else (d & v)
+
+    return fn
+
+
+class LookupJoinOperator(Operator):
+    """Probe side (LookupJoinOperator). join_type in {inner, left, full,
+    semi, anti, mark, mark_exists}. Output: [probe columns, build
+    columns] for inner/left/full, probe columns for semi/anti, probe
+    columns + a BOOLEAN match column for mark joins. `residual_fn` runs
+    on candidate pairs before the match flags (filtered semi/anti
+    joins)."""
+
+    def __init__(self, bridge: JoinBridge, key_channels: Sequence[int],
+                 join_type: str, probe_schema: Schema, residual_fn=None):
+        self._bridge = bridge
+        self._keys = list(key_channels)
+        self._type = join_type
+        self._probe_schema = list(probe_schema)
+        self._residual_fn = residual_fn
+        self._outputs: List[RelBatch] = []
+        self._remap_cache: dict = {}
+        # FULL outer: build-side matched bitmap across probe batches
+        self._build_matched = None
+        # depth-1 pipeline: batch i's match total is read only when
+        # batch i+1 arrives, so the host read overlaps the next batch's
+        # upstream device work and the expansion still gets its exact
+        # bucketed capacity
+        self._probe_pending: List[dict] = []
+
+    def needs_input(self) -> bool:
+        return not self._outputs and not self._finishing
+
+    def add_input(self, probe: RelBatch) -> None:
+        keys, valids = [], []
+        remapped = False
+        key_dicts = self._bridge.key_dicts
+        for i, c in enumerate(self._keys):
+            col = probe.columns[c]
+            v = col.valid_mask()
+            build_dict = key_dicts[i] if key_dicts else None
+            if (col.dictionary is not None and build_dict is not None
+                    and col.dictionary != build_dict):
+                # cross-dictionary string join: remap probe codes onto the
+                # build dictionary by value; absent values -> -1
+                ck = (col.dictionary.values, build_dict.values)
+                remap = self._remap_cache.get(ck)
+                if remap is None:
+                    remap = torch.tensor(
+                        [build_dict.code(x) for x in col.dictionary.values],
+                        dtype=torch.int32, device=col.device)
+                    self._remap_cache[ck] = remap
+                keys.append(take_clip(remap, col.data))
+                valids.append(v)
+                remapped = True
+            elif col.data.dim() == 2:  # long-decimal key: its two limbs
+                keys.extend([col.data[:, 0], col.data[:, 1]])
+                valids.extend([v, v])
+            else:
+                keys.append(col.data)
+                valids.append(v)
+        ls = self._bridge.lookup_source
+        lo, counts, total = J.probe_counts(ls, keys, valids, probe.live_mask())
+        self._probe_pending.append({
+            "probe": probe, "keys": keys, "valids": valids, "lo": lo,
+            "counts": counts, "total": total, "fan1": _fanout_le_one(counts),
+            "remapped": remapped,
+        })
+        while len(self._probe_pending) > 1:
+            self._expand_oldest()
+
+    def _expand_oldest(self) -> None:
+        rec = self._probe_pending.pop(0)
+        ls, build, probe = (self._bridge.lookup_source, self._bridge.build_batch,
+                            rec["probe"])
+        # pair-column verify only when every key is a pass-through column
+        pkc = bkc = None
+        if not rec["remapped"] and self._bridge.build_key_channels:
+            pkc = tuple(self._keys)
+            bkc = tuple(self._bridge.build_key_channels)
+        total = int(rec["total"])
+        dense = total * 4 >= probe.capacity
+        if dense and bool(rec["fan1"]):
+            # fanout <= 1 and most probe rows match: pairs = probe batch +
+            # one matched build row. Sparse joins keep the exact-capacity
+            # expansion, so small outputs stay small downstream.
+            pi, bi, ok, pairs = _expand_pairs_fanout1(
+                ls, probe, build, rec["keys"], rec["valids"], rec["lo"],
+                rec["counts"], pkc=pkc, bkc=bkc)
+            if self._residual_fn is not None:
+                ok = ok & self._residual_fn(pairs)
+                pairs = RelBatch(pairs.columns, ok)
+            matched = ok
+        else:
+            out_cap = bucket_capacity(max(total, 1))
+            pi, bi, ok, pairs = _expand_pairs(
+                ls, probe, build, rec["keys"], rec["valids"], rec["lo"],
+                rec["counts"], out_cap, pkc=pkc, bkc=bkc)
+            if self._residual_fn is not None:
+                ok = ok & self._residual_fn(pairs)
+                pairs = RelBatch(pairs.columns, ok)
+            matched = None
+        if self._type == "inner":
+            self._outputs.append(pairs)
+            return
+        if matched is None:
+            matched = _segment_any(rec["counts"], pi, ok, probe.capacity)
+        if self._type == "semi":
+            self._outputs.append(probe.mask(matched))
+        elif self._type == "anti":
+            self._outputs.append(probe.mask(~matched))
+        elif self._type in ("mark", "mark_exists"):
+            self._outputs.append(self._mark(probe, build, matched, rec["valids"]))
+        elif self._type == "left":
+            self._outputs.append(pairs)
+            self._outputs.append(_left_unmatched(probe, build, matched))
+        elif self._type == "full":
+            self._outputs.append(pairs)
+            self._outputs.append(_left_unmatched(probe, build, matched))
+            self._build_matched = J.build_matched_flags(
+                build.capacity, bi, ok, prior=self._build_matched)
+        else:
+            raise NotImplementedError(self._type)
+
+    def _mark(self, probe, build, matched, valids) -> RelBatch:
+        """Probe rows with an appended BOOLEAN match column. "mark" is
+        IN's three-valued result: no match is UNKNOWN when the probe key
+        is NULL against a nonempty build, or the build has NULL keys;
+        "mark_exists" is two-valued."""
+        valid = None
+        if self._type == "mark":
+            b_live = build.live_mask()
+            nonempty = torch.any(b_live)
+            has_null = torch.zeros((), dtype=torch.bool, device=b_live.device)
+            for ch in self._bridge.build_key_channels:
+                bc = build.columns[ch]
+                if bc.valid is not None:
+                    has_null = has_null | torch.any(b_live & ~bc.valid)
+            pv = None
+            for vv in valids:
+                pv = vv if pv is None else (pv & vv)
+            probe_null = ~pv if pv is not None else torch.zeros_like(matched)
+            valid = ~((~matched) & ((probe_null & nonempty) | has_null))
+        col = Column(T.BOOLEAN, matched, valid, None)
+        return RelBatch(list(probe.columns) + [col], probe.live_mask())
+
+    def finish(self) -> None:
+        if self._finishing:
+            return
+        self._finishing = True
+        while self._probe_pending:
+            self._expand_oldest()
+        if self._type == "full":
+            build = self._bridge.build_batch
+            mb = (self._build_matched if self._build_matched is not None
+                  else torch.zeros(build.capacity, dtype=torch.bool,
+                                   device=build.device))
+            self._outputs.append(_right_unmatched(self._probe_schema, build, mb))
+
+    def get_output(self) -> Optional[RelBatch]:
+        return self._outputs.pop(0) if self._outputs else None
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._outputs
+
+
+# ---------------------------------------------------------------------------
+# Dynamic filtering
+# ---------------------------------------------------------------------------
+
+
+def _df_domains(build: RelBatch, channels: Sequence[int]):
+    """Per key: (min, max, any) over the build side's live, valid rows."""
+    live = build.live_mask()
+    out = []
+    for c in channels:
+        col = build.columns[c]
+        w = live if col.valid is None else (live & col.valid)
+        dt = col.data.dtype
+        lo_n = torch.tensor(G.minmax_neutral(dt, "min"), dtype=dt, device=live.device)
+        hi_n = torch.tensor(G.minmax_neutral(dt, "max"), dtype=dt, device=live.device)
+        lo = torch.min(torch.where(w, col.data, lo_n))
+        hi = torch.max(torch.where(w, col.data, hi_n))
+        out.append((lo, hi, torch.any(w)))
+    return out
+
+
+def _df_filter(batch: RelBatch, keys, domains) -> RelBatch:
+    """Drop probe rows outside [lo, hi] on every key (NULL keys never
+    match an inner or semi join, so they drop too)."""
+    keep = batch.live_mask()
+    for (c_data, c_valid), (lo, hi, any_rows) in zip(keys, domains):
+        ok = (c_data >= lo) & (c_data <= hi) & any_rows
+        if c_valid is not None:
+            ok = ok & c_valid
+        keep = keep & ok
+    return batch.mask(keep)
+
+
+class DynamicFilterOperator(Operator):
+    """Probe-side pruning from build-side key domains (the local form of
+    dynamic filtering): the build pipeline has completed when the probe
+    pipeline starts, so the bridge's build batch supplies min/max
+    domains. Inner and semi probes only; dictionary-coded keys take part
+    only when both sides share the dictionary."""
+
+    def __init__(self, bridge: JoinBridge, key_channels: Sequence[int]):
+        self._bridge = bridge
+        self._keys = list(key_channels)
+        self._domains = None
+        self._active: Optional[List[Tuple[int, int]]] = None
+        self._out: Optional[RelBatch] = None
+
+    def _prepare(self, probe: RelBatch) -> None:
+        key_dicts = self._bridge.key_dicts or [None] * len(self._keys)
+        active = []
+        for i, c in enumerate(self._keys):
+            col = probe.columns[c]
+            if col.data.dim() == 2:
+                continue  # long-decimal keys: no scalar min/max domain
+            if key_dicts[i] == col.dictionary:  # both None, or equal
+                active.append((i, c))
+        self._active = active
+        if active:
+            domains = _df_domains(self._bridge.build_batch,
+                                  self._bridge.build_key_channels)
+            self._domains = [domains[i] for i, _ in active]
+
+    def needs_input(self) -> bool:
+        return self._out is None and not self._finishing
+
+    def add_input(self, batch: RelBatch) -> None:
+        if self._active is None:
+            self._prepare(batch)
+        if not self._active:
+            self._out = batch
+            return
+        keys = [(batch.columns[c].data, batch.columns[c].valid) for _, c in self._active]
+        self._out = _df_filter(batch, keys, self._domains)
+
+    def get_output(self) -> Optional[RelBatch]:
+        out, self._out = self._out, None
+        return out
+
+    def is_finished(self) -> bool:
+        return self._finishing and self._out is None
+
+
+_DF_MAX_IN_LIST = 64  # distinct build keys pushed as an IN-list
+
+
+def dynamic_filter_constraints(bridge: JoinBridge, key_types, key_names) -> tuple:
+    """Build-side key domains as ColumnConstraints for a probe that is a
+    bare scan: an IN-list when the build has few distinct values, else
+    the [min, max] range. () until the build completes."""
+    from trino_tpu_torch.connectors.pushdown import _pushable_type
+    from trino_tpu_torch.connectors.spi import ColumnConstraint
+
+    build = bridge.build_batch
+    if build is None:
+        return ()
+    live = build.live_mask().cpu().numpy()
+    out = []
+    for i, bc in enumerate(bridge.build_key_channels[:len(key_names)]):
+        t = key_types[i]
+        if t is None or not _pushable_type(t):
+            continue
+        col = build.columns[bc]
+        if col.data.dim() == 2 or col.dictionary is not None:
+            continue  # long-decimal limbs / dictionary codes: no raw domain
+        w = live if col.valid is None else (live & col.valid.cpu().numpy())
+        vals = col.data.cpu().numpy()[w]
+        if vals.size == 0:
+            continue  # empty build: the join itself yields nothing
+        uniq = np.unique(vals)
+        if uniq.size <= _DF_MAX_IN_LIST:
+            out.append(ColumnConstraint(key_names[i], "in",
+                                        tuple(v.item() for v in uniq)))
+        else:
+            out.append(ColumnConstraint(key_names[i], "ge", uniq[0].item()))
+            out.append(ColumnConstraint(key_names[i], "le", uniq[-1].item()))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Cross join (NestedLoopJoinOperator)
+# ---------------------------------------------------------------------------
+
+
+def _cross_row(probe: RelBatch, build: RelBatch, b: int) -> RelBatch:
+    """The probe batch with build row `b` appended to every row."""
+    n = probe.capacity
+    cols = []
+    for c in build.columns:
+        data = c.data[b].expand((n,) + tuple(c.data.shape[1:])).clone()
+        valid = None if c.valid is None else c.valid[b].expand(n).clone()
+        cols.append(Column(c.type, data, valid, c.dictionary))
+    return RelBatch(list(probe.columns) + cols, probe.live)
+
+
+class CrossJoinBuildSink(Operator):
+    """Collects the (small) build side of a cross join."""
+
+    def __init__(self, bridge: JoinBridge, input_schema: Schema, device):
+        self._bridge = bridge
+        self._schema = list(input_schema)
+        self._device = device
+        self._inputs: List[RelBatch] = []
+
+    def add_input(self, batch: RelBatch) -> None:
+        self._inputs.append(batch)
+
+    def finish(self) -> None:
+        if self._finishing:
+            return
+        self._finishing = True
+        parts = self._inputs or [empty_batch(self._schema, self._device)]
+        self._bridge.build_batch = concat_batches(parts).compact()
+        self._inputs = []
+
+    def is_finished(self) -> bool:
+        return self._finishing
+
+
+class CrossJoinOperator(Operator):
+    """Probe x build cartesian product; the build side is small
+    (scalar-subquery bridges hold one row)."""
+
+    def __init__(self, bridge: JoinBridge):
+        self._bridge = bridge
+        self._outputs: List[RelBatch] = []
+
+    def needs_input(self) -> bool:
+        return not self._outputs and not self._finishing
+
+    def add_input(self, probe: RelBatch) -> None:
+        build = self._bridge.build_batch
+        for b in range(build.row_count()):
+            self._outputs.append(_cross_row(probe, build, b))
+
+    def get_output(self) -> Optional[RelBatch]:
+        return self._outputs.pop(0) if self._outputs else None
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._outputs
+
 
 
 class CollectorSink(Operator):

@@ -15,7 +15,8 @@ and/or/not lowerings. Decimals are scaled int64 (precision <= 18) or
 Ported so far: column references, literals, numeric/decimal/date
 casts, CASE, IN, COALESCE, IS NULL, NOT, AND/OR, comparisons (numeric,
 decimal incl. Int128, string codes), arithmetic (integer, double,
-short and long decimal — add/sub/mul/div/mod with short divisors),
+short and long decimal — add/sub/mul/div/mod, decimal(>18) divisors
+included),
 negation, EXTRACT(YEAR/MONTH/DAY) and LIKE. Every other function
 raises NotImplementedError naming itself (ROADMAP queue 4).
 """
@@ -850,13 +851,9 @@ class ExprBinder:
                                a: Bound, b: Bound, sa: int, sb: int,
                                so: int) -> Bound:
         """Int128-carried decimal arithmetic. A result past 38 digits
-        yields NULL (the reference's overflow contract). Division and
-        modulo take int64 divisors; 128-bit divisors are not ported."""
+        yields NULL (the reference's overflow contract)."""
         at, bt = a.type, b.type
-        if op in ("div", "mod") and bt.is_long_decimal:
-            raise _not_ported(f"decimal {op} by a decimal(>18) divisor")
-        if op == "mod" and (bt.precision or 18) + (max(sa, sb) - sb) > 18:
-            raise _not_ported("decimal mod with a rescaled divisor past 18 digits")
+        long_divisor = bt.is_long_decimal
 
         def out128(h, lo, valid):
             ovf = I128.overflows_38(h, lo)
@@ -902,8 +899,27 @@ class ExprBinder:
                 aah, aal = I128.abs_(ah, al)
                 bad = bad | ~I128.lt(aah, aal, lim_h, lim_l)
                 nh, nl = I128.rescale_up(ah, al, rf)
-                safe = torch.where(bad, torch.ones_like(d64), d64)
-                h, lo = I128.div_round_i64(nh, nl, safe)
+                if long_divisor:
+                    # full 128/128 division: any nonzero divisor
+                    sdh = torch.where(bad, torch.zeros_like(bh), bh)
+                    sdl = torch.where(bad, torch.ones_like(bl), bl)
+                    h, lo = I128.div_round_128(nh, nl, sdh, sdl)
+                else:
+                    safe = torch.where(bad, torch.ones_like(d64), d64)
+                    h, lo = I128.div_round_i64(nh, nl, safe)
+            elif long_divisor or (bt.precision or 18) + (max(sa, sb) - sb) > 18:
+                # divisor rescaled to the common scale in 128-bit limbs,
+                # guarding the 128-bit wrap like the dividend rescale
+                cs = max(sa, sb)
+                if sa < cs:
+                    ah, al = I128.rescale_up(ah, al, cs - sa)
+                lim_h, lim_l = I128.from_python((2 ** 127 - 1) // 10 ** (cs - sb))
+                bah, bal = I128.abs_(bh, bl)
+                bad = bad | ~I128.lt(bah, bal, lim_h, lim_l)
+                sdh = torch.where(bad, torch.zeros_like(bh), bh)
+                sdl = torch.where(bad, torch.ones_like(bl), bl)
+                sdh, sdl = I128.rescale_up(sdh, sdl, cs - sb)
+                h, lo = I128.mod_128(ah, al, sdh, sdl)
             else:
                 cs = max(sa, sb)
                 if sa < cs:

@@ -192,6 +192,61 @@ def div_round_i64(h, lo, d):
     return torch.where(negv, nh, qh2), torch.where(negv, nl, ql2)
 
 
+def _u128_lt(ah, al, bh, bl):
+    """Unsigned 128-bit less-than over limb pairs."""
+    return _u64_lt(ah, bh) | ((ah == bh) & _u64_lt(al, bl))
+
+
+def divmod_u128_u128(uh, ul, dh, dl):
+    """Unsigned 128 / unsigned nonzero 128 -> (q_hi, q_lo, r_hi, r_lo):
+    restoring bit-serial long division, 128 steps over the whole batch
+    (the divisor-beyond-int64 path; divmod_u128_u64 stays the fast path
+    for short divisors)."""
+    zero = torch.zeros_like(uh)
+    qh, ql, rh, rl = zero, zero, zero, zero
+    for shift in range(127, -1, -1):
+        bit = (uh >> (shift - 64)) & 1 if shift >= 64 else (ul >> shift) & 1
+        rh = (rh << 1) | ((rl >> 63) & 1)
+        rl = (rl << 1) | bit
+        ge = ~_u128_lt(rh, rl, dh, dl)
+        sh, sl = sub(rh, rl, dh, dl)
+        rh = torch.where(ge, sh, rh)
+        rl = torch.where(ge, sl, rl)
+        qbit = ge.to(torch.int64)
+        if shift >= 64:
+            qh = qh | (qbit << (shift - 64))
+        else:
+            ql = ql | (qbit << shift)
+    return qh, ql, rh, rl
+
+
+def div_round_128(h, lo, dh, dl):
+    """Signed 128 / signed nonzero 128, HALF_UP rounding (divisors
+    beyond int64 included)."""
+    ah, al = abs_(h, lo)
+    bh_a, bl_a = abs_(dh, dl)
+    qh, ql, rh, rl = divmod_u128_u128(ah, al, bh_a, bl_a)
+    # round up when 2r >= d (r < d < 2^127, so 2r fits unsigned 128)
+    r2h = (rh << 1) | ((rl >> 63) & 1)
+    r2l = rl << 1
+    round_up = ~_u128_lt(r2h, r2l, bh_a, bl_a)
+    qh, ql = add(qh, ql, torch.zeros_like(qh), round_up.to(torch.int64))
+    negv = (sign(h, lo) * sign(dh, dl)) < 0
+    nh, nl = neg(qh, ql)
+    return torch.where(negv, nh, qh), torch.where(negv, nl, ql)
+
+
+def mod_128(h, lo, dh, dl):
+    """Signed 128 % signed nonzero 128; the result takes the dividend's
+    sign."""
+    ah, al = abs_(h, lo)
+    bh_a, bl_a = abs_(dh, dl)
+    _, _, rh, rl = divmod_u128_u128(ah, al, bh_a, bl_a)
+    nh, nl = neg(rh, rl)
+    negv = h < 0
+    return torch.where(negv, nh, rh), torch.where(negv, nl, rl)
+
+
 def rescale_down_round(h, lo, k: int):
     """(hi, lo) / 10^k with HALF_UP rounding, 0 <= k <= 38."""
     if k == 0:

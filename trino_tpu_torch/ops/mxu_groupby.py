@@ -23,14 +23,11 @@ it launches the kernel or raises. Each kernel launch adds one to
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import os
-import subprocess
-import threading
 from typing import List
 
 import torch
+
+from trino_tpu_torch.ops import cuda_build
 
 # routing limits kept from the reference, so the engine takes this band
 # for exactly the same queries
@@ -44,68 +41,13 @@ SMEM_BUDGET = 64 * 1024
 THREADS = 256
 BLOCKS_PER_SM = 3
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "grouped_sum.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libgrouped_sum.so")
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        "nvcc",
-    ):
-        if os.path.sep not in cand or os.path.exists(cand):
-            return cand
-    return "nvcc"
-
-
-def build() -> str:
-    """Compile csrc/grouped_sum.cu for sm_90a into _build/ (skipped
-    when the library is newer than its source). Returns the path."""
-    if (
-        os.path.exists(LIBRARY)
-        and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)
-    ):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, SOURCE,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, LIBRARY)
-    build.ptxas_log = proc.stderr
-    return LIBRARY
-
-
-build.ptxas_log = ""
-
 
 def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.grouped_sum_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
-            ]
-            _lib = lib
-    return _lib
+    return cuda_build.load("grouped_sum", {"grouped_sum_launch": [
+        cuda_build.PTR, cuda_build.PTR, cuda_build.PTR, cuda_build.I64,
+        cuda_build.I32, cuda_build.I32, cuda_build.PTR, cuda_build.I32,
+        cuda_build.I32, cuda_build.I32, cuda_build.PTR,
+    ]})
 
 
 def grouped_sum_reference(gid, values, live, capacity: int) -> List[torch.Tensor]:
@@ -127,11 +69,6 @@ def columns_per_block(n_cols: int, capacity: int) -> int:
     return max(1, min(n_cols, SMEM_BUDGET // (capacity * 8)))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _launch(gid, values, live, capacity: int) -> List[torch.Tensor]:
     lib = _load()
     n = int(gid.shape[0])
@@ -148,15 +85,14 @@ def _launch(gid, values, live, capacity: int) -> List[torch.Tensor]:
     if n == 0:
         return list(out.unbind(0))
     cpb = columns_per_block(k + 1, capacity)
-    sms = _sm_count(dev)
+    sms = cuda_build.sm_count(dev)
     grid_x = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.grouped_sum_launch(
         gid.data_ptr(), live_u8.data_ptr(), values.data_ptr(), n, k, capacity,
         out.data_ptr(), cpb, grid_x, THREADS, stream,
     )
-    if err != 0:
-        raise RuntimeError(f"grouped_sum kernel launch failed: cudaError_t {err}")
+    cuda_build.check(err, "grouped_sum")
     grouped_sum.launches += 1
     grouped_sum.shapes.add((n, k, capacity))
     return list(out.unbind(0))

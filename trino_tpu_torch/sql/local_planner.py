@@ -7,9 +7,15 @@ filter/project stages fold into one stage, and a blocking consumer
 (aggregation, sort, top-n) absorbs the stage below it, as in the
 reference.
 
+A factory is `ctx -> Operator`; `ctx` is the per-execution context that
+holds the join bridges, so two executions never share mutable state. A
+join's build side becomes a pipeline of its own, which the engine runs
+to completion before the pipelines that probe it.
+
 Ported node kinds: Output, Scan, Values, Filter, Project, Aggregate
-(single step), EnforceSingleRow, Sort, TopN, Limit. Joins come with the
-second slice; the other kinds are queued in ROADMAP.md.
+(single step), Join (hash joins of every kind, with dynamic filtering,
+and cross joins), EnforceSingleRow, Sort, TopN, Limit. The other kinds
+are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,17 +29,28 @@ from trino_tpu_torch.block import Dictionary, RelBatch
 from trino_tpu_torch.connectors.spi import CatalogManager
 from trino_tpu_torch.exec import (
     AggSpec,
+    CrossJoinBuildSink,
+    CrossJoinOperator,
+    DynamicFilterOperator,
     EnforceSingleRowOperator,
     FilterProjectOperator,
     HashAggregationOperator,
+    HashBuildSink,
+    JoinBridge,
     LimitOperator,
+    LookupJoinOperator,
     Operator,
     SortOperator,
     TableScanOperator,
     TopNOperator,
     ValuesOperator,
 )
-from trino_tpu_torch.exec.operators import compose_batch_fns, make_filter_project_fn
+from trino_tpu_torch.exec.operators import (
+    compose_batch_fns,
+    dynamic_filter_constraints,
+    make_filter_project_fn,
+    make_residual_fn,
+)
 from trino_tpu_torch.expr.compile import Bound, ExprBinder
 from trino_tpu_torch.expr.ir import Expr, InputRef
 from trino_tpu_torch.sql import plan as P
@@ -43,16 +60,19 @@ Factory = Callable[[dict], Operator]
 
 
 class PhysicalPlan:
-    """Executable form of one query: the operator-factory chain;
-    instantiate() stamps fresh operators. (Build pipelines arrive with
-    joins.)"""
+    """Executable form of one query: the build pipelines, in the order
+    they must run, and the main chain; instantiate() stamps fresh
+    operators for both."""
 
-    def __init__(self, chain: List[Factory], schema: Schema):
+    def __init__(self, pipelines: List[List[Factory]], chain: List[Factory],
+                 schema: Schema):
+        self.pipeline_factories = pipelines
         self.chain_factories = chain
         self.schema = schema
 
-    def instantiate(self, ctx: dict) -> List[Operator]:
-        return [f(ctx) for f in self.chain_factories]
+    def instantiate(self, ctx: dict) -> Tuple[List[List[Operator]], List[Operator]]:
+        pipelines = [[f(ctx) for f in fs] for fs in self.pipeline_factories]
+        return pipelines, [f(ctx) for f in self.chain_factories]
 
 
 class LocalPlanner:
@@ -62,10 +82,16 @@ class LocalPlanner:
         self.device = torch.device(device)
         self.batch_rows = batch_rows
         self.target_splits = target_splits
+        self.pipelines: List[List[Factory]] = []
+        self._next_key = 0
 
     def plan(self, root: P.PlanNode) -> PhysicalPlan:
         chain, schema = self._visit(root)
-        return PhysicalPlan(chain, schema)
+        return PhysicalPlan(self.pipelines, chain, schema)
+
+    def _key(self) -> int:
+        self._next_key += 1
+        return self._next_key
 
     # -- helpers --
     def _bind(self, e: Expr, schema: Schema) -> Bound:
@@ -226,3 +252,66 @@ class LocalPlanner:
         count, offset = node.count, node.offset
         chain.append(lambda ctx: LimitOperator(count, offset))
         return chain, schema
+
+    def _visit_JoinNode(self, node: P.JoinNode):
+        build_chain, build_schema = self._visit(node.right)
+        probe_chain, probe_schema = self._visit(node.left)
+        key = self._key()
+        device = self.device
+
+        def bridge_of(ctx) -> JoinBridge:
+            return ctx.setdefault(key, JoinBridge())
+
+        if node.kind == "cross":
+            build_chain.append(
+                lambda ctx: CrossJoinBuildSink(bridge_of(ctx), build_schema, device)
+            )
+            self.pipelines.append(build_chain)
+            probe_chain.append(lambda ctx: CrossJoinOperator(bridge_of(ctx)))
+            return probe_chain, probe_schema + build_schema
+        rkeys = list(node.right_keys)
+        force_spill = bool(getattr(node, "spill_build", False))
+        build_chain.append(
+            lambda ctx: HashBuildSink(bridge_of(ctx), rkeys, build_schema, device,
+                                      force_spill=force_spill)
+        )
+        self.pipelines.append(build_chain)
+        residual_fn = None
+        if node.residual is not None:
+            residual_fn = make_residual_fn(
+                self._bind(node.residual, probe_schema + build_schema)
+            )
+        lkeys = list(node.left_keys)
+        kind = node.kind
+        if kind in ("inner", "semi"):
+            # when the probe side is a bare scan, the build-side key
+            # domains also fold into the scan's split handles (read at the
+            # first probe batch, after the build pipeline has run); the
+            # DynamicFilterOperator below enforces them either way
+            if isinstance(node.left, P.ScanNode) and len(probe_chain) == 1:
+                scan = node.left
+                key_names = [scan.columns[c] for c in lkeys]
+                key_types = [scan.fields[c].type for c in lkeys]
+                scan_factory = probe_chain[0]
+
+                def df_scan_factory(ctx, _f=scan_factory):
+                    op = _f(ctx)
+                    op.set_runtime_constraints(
+                        lambda: dynamic_filter_constraints(
+                            bridge_of(ctx), key_types, key_names
+                        )
+                    )
+                    return op
+
+                probe_chain[0] = df_scan_factory
+            probe_chain.append(lambda ctx: DynamicFilterOperator(bridge_of(ctx), lkeys))
+        probe_chain.append(
+            lambda ctx: LookupJoinOperator(
+                bridge_of(ctx), lkeys, kind, probe_schema, residual_fn=residual_fn
+            )
+        )
+        if kind in ("semi", "anti"):
+            return probe_chain, probe_schema
+        if kind in ("mark", "mark_exists"):
+            return probe_chain, probe_schema + [(T.BOOLEAN, None)]
+        return probe_chain, probe_schema + build_schema
