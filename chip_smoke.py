@@ -16,18 +16,21 @@ Phases (any failure exits nonzero):
   4. main      — LocalQueryRunner(device="cuda") answers TPC-H Q1, Q6 and
                  the bounded-domain GROUP BY (Q-MXU) at sf1 cold, and the
                  joins Q3 and Q18 at sf1 cold and warm; kernel launch
-                 counts are read per query (the rank and gather kernels
-                 must run for both joins and never for Q1/Q6/Q-MXU);
-                 Q-MXU rolled up over (shipmode, shipinstruct) must equal
-                 Q1, and Q18 must agree with the join-free group-by of
-                 lineitem.
+                 counts are read per query (each join run launches the
+                 bounds kernel once per probe batch, the run-owner fill
+                 and the flat gather, and no searched rank; Q1/Q6/Q-MXU
+                 launch no join kernel); Q-MXU rolled up over (shipmode,
+                 shipinstruct) must equal Q1, and Q18 must agree with the
+                 join-free group-by of lineitem.
   5. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
   6. parity    — the queries at tpch.tiny, and Q3/Q18 at sf0.1, on the
                  card and on the CPU must be row-equal.
-  7. summary   — the kernels timed on the largest arguments the main path
-                 gave them, a `kernels` JSON line, the card line, then the
-                 result line {"ok": true, "device": {...}} last.
+  7. summary   — each kind of join-path call (the probe's bounds, the
+                 expansion's run owners, the flat gather) timed on the
+                 largest arguments the main path gave it, a `kernels` JSON
+                 line, the card line, then the result line
+                 {"ok": true, "device": {...}} last.
 
 `--phases` picks a subset (comma-separated) for a quick check.
 """
@@ -125,11 +128,27 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean ms of one call on the card (CUDA events after a warm-up)."""
+def time_ms(fn, iters: int, mode: str = "cold") -> float:
+    """Mean ms of one call on the card (CUDA events after a warm-up);
+    by default each call alone after the L2 was emptied, the time to hold
+    against a bound on device-memory bytes (explore.device_ms's modes)."""
     from trino_tpu_torch.explore import device_ms
 
-    return device_ms(fn, iters)
+    return device_ms(fn, iters, mode)
+
+
+def timings(rec: dict, iters: int, kernel, wrapper, plain, library,
+            plain_iters: int = 0) -> None:
+    """The timed keys of a kernel record: `ms` the bare launch cold,
+    `warm_ms` back to back with inputs warm in L2, `wrapper_ms` the
+    wrapper called from Python one call after another (its host cost),
+    `plain_ms` and `library_ms` (one PyTorch call, None where there is
+    none) cold."""
+    rec["ms"] = time_ms(kernel, iters)
+    rec["warm_ms"] = time_ms(kernel, iters, "warm")
+    rec["wrapper_ms"] = time_ms(wrapper, iters, "host")
+    rec["plain_ms"] = time_ms(plain, plain_iters or iters)
+    rec["library_ms"] = time_ms(library, iters) if library else None
 
 
 # ---------------------------------------------------------------------------
@@ -335,19 +354,81 @@ def check_rank(name, a, b, searched, w0=0, nwin=1, edge=False, iters=0,
         if not torch.equal(got, lb):
             raise AssertionError(f"window_rank {name}: not the lower bound")
     if iters:
-        # `ms` is the kernel alone (the launcher's bare ctypes call);
-        # `wrapper_ms` adds the wrapper's checks and allocation
-        go, _ = W.launcher(a, b, searched, w0, nwin, edge)
-        rec["ms"] = time_ms(go, iters)
-        rec["wrapper_ms"] = time_ms(lambda: W.rank(a, b, searched, w0, nwin, edge), iters)
-        rec["plain_ms"] = time_ms(
-            lambda: W.rank_reference(a, b, searched, w0, nwin, edge), max(1, iters // 10))
-        rec["library_ms"] = (
-            time_ms(lambda: torch.searchsorted(b, a), iters)
-            if searched and library else None)
+        timings(rec, iters, W.launcher(a, b, searched, w0, nwin, edge)[0],
+                lambda: W.rank(a, b, searched, w0, nwin, edge),
+                lambda: W.rank_reference(a, b, searched, w0, nwin, edge),
+                (lambda: torch.searchsorted(b, a)) if searched and library else None,
+                max(1, iters // 10))
         rec["bound_ms"], rec["bound_by"] = rank_bound(
             a.numel(), int(b.shape[0]), a.element_size(), searched, w0, nwin)
     return rec
+
+
+def check_bounds(name, q, b, iters=0) -> dict:
+    """The bounds kernel against its plain version (two lower bounds)
+    and against torch.searchsorted, left and right (q below the type's
+    maximum). With `iters`, times kernel, wrapper, plain version and the
+    two searchsorted calls."""
+    import torch
+    from trino_tpu_torch.ops import window_rank as W
+
+    lo, hi = W.bounds(q, b)
+    want_lo, want_hi = W.bounds_reference(q, b)
+    torch.cuda.synchronize()
+    rec = {"case": name, "n_a": q.numel(), "n_b": int(b.shape[0]),
+           "dtype": str(q.dtype), "mode": "bounds",
+           "max_abs_err": max(held(f"bounds {name} lo", lo, want_lo),
+                              held(f"bounds {name} hi", hi, want_hi))}
+    for got, right in ((lo, False), (hi, True)):
+        if not torch.equal(got, torch.searchsorted(b, q, right=right, out_int32=True)):
+            raise AssertionError(f"bounds {name}: not searchsorted(right={right})")
+    if iters:
+        def library():
+            torch.searchsorted(b, q, out_int32=True)
+            torch.searchsorted(b, q, right=True, out_int32=True)
+
+        timings(rec, iters, W.bounds_launcher(q, b)[0], lambda: W.bounds(q, b),
+                lambda: W.bounds_reference(q, b), library, max(1, iters // 10))
+        elem, n, n_b = q.element_size(), q.numel(), int(b.shape[0])
+        steps = (-(-n_b // 128)).bit_length() + 8 + 2  # heads, window, gallop
+        rec["bound_ms"], rec["bound_by"] = bound(
+            n * (elem + 8) + n_b * elem, n * steps * (2 if elem == 4 else 3))
+    return rec
+
+
+def check_run_owner(name, off, n_out, iters=0) -> dict:
+    """The run-owner kernel against its plain version and against
+    torch.searchsorted(off, arange(n_out), right=True). With `iters`,
+    times kernel, wrapper, plain version and that searchsorted call (on
+    an arange made beforehand)."""
+    import torch
+    from trino_tpu_torch.ops import window_rank as W
+
+    got = W.run_owner(off, n_out)
+    want = W.run_owner_reference(off, n_out)
+    torch.cuda.synchronize()
+    j = torch.arange(n_out, dtype=torch.int32, device=off.device)
+    rec = {"case": name, "n_a": n_out, "n_b": int(off.shape[0]),
+           "dtype": str(off.dtype), "mode": "run_owner",
+           "max_abs_err": held(f"run_owner {name}", got, want)}
+    if not torch.equal(got, torch.searchsorted(off, j, right=True, out_int32=True)):
+        raise AssertionError(f"run_owner {name}: not searchsorted(right=True)")
+    if iters:
+        timings(rec, iters, W.run_owner_launcher(off, n_out)[0],
+                lambda: W.run_owner(off, n_out), lambda: W.run_owner_reference(off, n_out),
+                lambda: torch.searchsorted(off, j, right=True, out_int32=True),
+                max(1, iters // 10))
+        # off read once, out written once; the fill computes nothing
+        rec["bound_ms"], rec["bound_by"] = bound(4 * (int(off.shape[0]) + n_out), 0)
+    return rec
+
+
+def run_owner_offsets(counts):
+    """Inclusive int32 cumulative sum of numpy counts, on the card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.cumsum(counts).astype(np.int32)).to("cuda")
 
 
 def check_take_flat(name, table, idx, iters=0) -> dict:
@@ -363,13 +444,11 @@ def check_take_flat(name, table, idx, iters=0) -> dict:
     if iters:
         n = idx.numel()
         in_range = bool(((idx >= 0) & (idx < table.shape[0])).all())
-        rec["ms"] = time_ms(GK.flat_launcher(table, idx)[0], iters)
-        rec["wrapper_ms"] = time_ms(lambda: GK.take_flat(table, idx), iters)
-        rec["plain_ms"] = time_ms(lambda: GK.take_flat_reference(table, idx), iters)
         # torch.take computes the same function when no index clips
         idx64 = idx.to(torch.int64)  # torch.take indexes with int64 only
-        rec["library_ms"] = (time_ms(lambda: torch.take(table, idx64), iters)
-                             if in_range else None)
+        timings(rec, iters, GK.flat_launcher(table, idx)[0], lambda: GK.take_flat(table, idx),
+                lambda: GK.take_flat_reference(table, idx),
+                (lambda: torch.take(table, idx64)) if in_range else None)
         rec["bound_ms"], rec["bound_by"] = bound(
             n * (idx.element_size() + table.element_size())
             + int(table.shape[0]) * table.element_size(), 0)
@@ -388,11 +467,10 @@ def check_take_rows_sum(name, table2d, ridx, iters=0) -> dict:
            "max_abs_err": held(f"take_rows_sum {name}", got, want)}
     if iters:
         n = ridx.numel()
-        rec["ms"] = time_ms(GK.rows_sum_launcher(table2d, ridx)[0], iters)
-        rec["wrapper_ms"] = time_ms(lambda: GK.take_rows_sum(table2d, ridx), iters)
-        rec["plain_ms"] = time_ms(
-            lambda: GK.take_rows_sum_reference(table2d, ridx), iters)
-        rec["library_ms"] = None  # no single PyTorch call sums gathered rows
+        # no single PyTorch call sums gathered rows
+        timings(rec, iters, GK.rows_sum_launcher(table2d, ridx)[0],
+                lambda: GK.take_rows_sum(table2d, ridx),
+                lambda: GK.take_rows_sum_reference(table2d, ridx), None)
         rec["bound_ms"], rec["bound_by"] = bound(
             n * (ridx.element_size() + 4) + rows * width * 4, n * (width - 1))
     return rec
@@ -409,11 +487,10 @@ def check_take_along_lanes(name, src, sel, iters=0) -> dict:
            "max_abs_err": held(f"take_along_lanes {name}", got, want)}
     if iters:
         sel64 = sel.to(torch.int64)
-        rec["ms"] = time_ms(GK.along_launcher(src, sel)[0], iters)
-        rec["wrapper_ms"] = time_ms(lambda: GK.take_along_lanes(src, sel), iters)
-        rec["plain_ms"] = time_ms(
-            lambda: GK.take_along_lanes_reference(src, sel), iters)
-        rec["library_ms"] = time_ms(lambda: torch.gather(src, 1, sel64), iters)
+        timings(rec, iters, GK.along_launcher(src, sel)[0],
+                lambda: GK.take_along_lanes(src, sel),
+                lambda: GK.take_along_lanes_reference(src, sel),
+                lambda: torch.gather(src, 1, sel64))
         rec["bound_ms"], rec["bound_by"] = bound(src.numel() * 4 * 3, 0)
     return rec
 
@@ -473,7 +550,65 @@ def phase_kernel_join(results: dict) -> None:
     big_a = t(rng.integers(0, 1 << 32, 4_194_304).astype(np.int64))
     recs["window_rank"].append(check_rank(
         "probe batch 4,194,304 x 1.5M hashes", big_a, big_b, True, iters=20))
+    # -- bounds: the probe's (lo, hi) in one launch --
+    recs["window_rank"].append(check_bounds(
+        "probe batch 4,194,304 x 1.5M hashes", big_a, big_b, iters=20))
     del big_a, big_b
+    long_runs = np.sort(np.concatenate([
+        rng.integers(0, (1 << 31) - 2, 20_000), np.full(300, 77), np.full(5000, 1 << 30)]))
+    for dt in (np.int32, np.int64):
+        lr = long_runs.astype(dt)
+        q_lr = np.concatenate([rng.integers(0, (1 << 31) - 2, 7001), lr[::3]]).astype(dt)
+        recs["window_rank"] += [
+            check_bounds(f"runs of 300 and 5000 across windows, {dt.__name__}",
+                         t(q_lr), t(lr)),
+            check_bounds(f"n_b 77 < 128, {dt.__name__}", t(q_lr[:999] % 60),
+                         t(np.sort(rng.integers(0, 50, 77)).astype(dt))),
+            check_bounds(f"n_b 1000, ragged, {dt.__name__}", t(q_lr),
+                         t(np.sort(rng.integers(0, 1 << 31, 1000)).astype(dt))),
+            check_bounds(f"empty b, {dt.__name__}", t(q_lr), t(np.zeros(0, dt))),
+            check_bounds(f"empty q, {dt.__name__}", t(q_lr[:0]), t(lr)),
+        ]
+    recs["window_rank"] += [
+        check_bounds("hashes with sentinels", hp, hb),
+        check_bounds("int64 beyond 2^32", t(rng.integers(-(1 << 41), 1 << 41, 3000)),
+                     t(wide)),
+    ]
+    # heads past the 200 KB shared-memory budget: every 2^k-th head staged
+    many = t(np.sort(rng.integers(0, 1 << 40, 5_000_000)))
+    recs["window_rank"].append(check_bounds(
+        "5M int64 (heads strided)", t(rng.integers(0, 1 << 40, 1_000_003)), many))
+    del many
+    # -- run_owner: the expansion's row of each output --
+    plateaus = rng.integers(0, 3, 300_000) * (rng.random(300_000) < 0.4)
+    one_run = np.zeros(64, np.int64)
+    one_run[17], one_run[40:43] = 10_000, 1
+    skew = np.zeros(1000, np.int64)
+    skew[500] = 3_000_000  # one build key matching three million rows
+    empty_stretch = np.zeros(1_000_000, np.int64)  # a million probe rows with
+    empty_stretch[::250_000] = 5                   # no match between matches
+    recs["window_rank"] += [
+        check_run_owner("zero-count plateaus", run_owner_offsets(plateaus),
+                        int(plateaus.sum())),
+        check_run_owner("n_out past the total", run_owner_offsets(counts),
+                        int(counts.sum()) + 333),
+        check_run_owner("n_out below the total", run_owner_offsets(counts),
+                        int(counts.sum()) // 3),
+        check_run_owner("one run of 10,000", run_owner_offsets(one_run), 16_384),
+        check_run_owner("one run of 3,000,000", run_owner_offsets(skew), 1 << 22,
+                        iters=20),
+        check_run_owner("empty runs between runs of 5", run_owner_offsets(empty_stretch),
+                        30, iters=20),
+        check_run_owner("one row", run_owner_offsets(np.array([3])), 7),
+        check_run_owner("no rows", run_owner_offsets(np.zeros(0, np.int64)), 100),
+        check_run_owner("no outputs", run_owner_offsets(counts), 0),
+    ]
+    # the expansion's sf1 shape: 4,194,304 probe rows with one match each
+    # and a few hash-collision pairs, into 8,388,608 outputs
+    sf1 = 1 + (rng.random(4_194_304) < 0.001)
+    recs["window_rank"].append(check_run_owner(
+        "expansion 8,388,608 outputs over 4,194,304 offsets",
+        run_owner_offsets(sf1), 1 << 23, iters=20))
     # -- gathers: the explorer's shapes, then edges --
     x = pallas_gather.make_inputs(dev)
     table = x["table2d"].reshape(-1)
@@ -497,20 +632,28 @@ def phase_kernel_join(results: dict) -> None:
             t(rng.integers(0, 17, 999))),
         check_take_rows_sum("empty", x["table2d"], t(np.zeros(0, np.int32))),
     ]
+    # width 128 from a buffer offset by one element: not 16-byte aligned
+    odd = torch.empty(1001 * 128 + 1, dtype=torch.int32, device=dev)[1:].view(1001, 128)
+    odd.copy_(t(rng.integers(-(1 << 31), (1 << 31) - 1, (1001, 128)).astype(np.int32)))
     recs["take_along_lanes"] += [
         check_take_along_lanes("explorer v3", x["src"], x["sel"], iters=20),
         check_take_along_lanes(
             "1001 rows, clipped selectors",
             t(rng.integers(-(1 << 31), (1 << 31) - 1, (1001, 128)).astype(np.int32)),
             t(rng.integers(-9, 140, (1001, 128)).astype(np.int32))),
+        check_take_along_lanes(
+            "width 100", t(rng.integers(0, 1 << 30, (999, 100)).astype(np.int32)),
+            t(rng.integers(-5, 105, (999, 100)).astype(np.int32))),
+        check_take_along_lanes(
+            "width 128, unaligned", odd, t(rng.integers(-5, 133, (1001, 128)).astype(np.int32))),
         check_take_along_lanes("empty", x["src"][:0], x["sel"][:0]),
     ]
     for name, rs in recs.items():
         for rec in rs:
             line = f"[kernel] {name} {rec['case']}: bit-exact"
-            if "ms" in rec:
-                line += (f" ms={rec['ms']} wrapper_ms={rec['wrapper_ms']} "
-                         f"plain_ms={rec['plain_ms']} "
+            if "bound_ms" in rec:
+                line += (f" ms={rec['ms']} warm_ms={rec['warm_ms']} "
+                         f"wrapper_ms={rec['wrapper_ms']} plain_ms={rec['plain_ms']} "
                          f"library_ms={rec['library_ms']} "
                          f"bound_us={rec['bound_ms'] * 1e3} ({rec['bound_by']})")
             log(line)
@@ -558,40 +701,46 @@ def scaled(v: float, scale: int) -> int:
     return r
 
 
-def join_kernel_counts() -> dict:
+def launch_counters() -> dict:
+    """{name: wrapper function carrying `launches` and `shapes`}; the
+    window_rank source has three entry points (searched or fixed rank,
+    bounds, run_owner)."""
     from trino_tpu_torch.ops import gather_kernels as GK
     from trino_tpu_torch.ops import mxu_groupby as M
     from trino_tpu_torch.ops import window_rank as W
 
-    return {"grouped_sum": M.grouped_sum.launches, "window_rank": W.rank.launches,
-            "take_flat": GK.take_flat.launches,
-            "take_rows_sum": GK.take_rows_sum.launches,
-            "take_along_lanes": GK.take_along_lanes.launches}
+    return {"grouped_sum": M.grouped_sum, "window_rank": W.rank, "bounds": W.bounds,
+            "run_owner": W.run_owner, "take_flat": GK.take_flat,
+            "take_rows_sum": GK.take_rows_sum, "take_along_lanes": GK.take_along_lanes}
+
+
+def join_kernel_counts() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def reset_kernel_counts() -> None:
-    from trino_tpu_torch.ops import gather_kernels as GK
-    from trino_tpu_torch.ops import mxu_groupby as M
-    from trino_tpu_torch.ops import window_rank as W
-
-    for fn in (M.grouped_sum, W.rank, GK.take_flat, GK.take_rows_sum,
-               GK.take_along_lanes):
+    for fn in launch_counters().values():
         fn.launches = 0
         fn.shapes.clear()
 
 
 class Capture:
-    """Wraps a kernel module's launch function and keeps the arguments
-    of its largest launch (by rows) per argument shape."""
+    """Wraps a module's function and keeps the arguments of its first
+    call per key (argument shapes); `calls` counts the calls whose key is
+    not None."""
 
     def __init__(self, module, attr: str, key):
         self.module, self.attr, self.key = module, attr, key
         self.inner = getattr(module, attr)
         self.args: dict = {}
+        self.calls = 0
 
     def __enter__(self):
         def capturing(*args):
-            self.args.setdefault(self.key(*args), args)
+            k = self.key(*args)
+            if k is not None:
+                self.calls += 1
+                self.args.setdefault(k, args)
             return self.inner(*args)
 
         setattr(self.module, self.attr, capturing)
@@ -600,14 +749,19 @@ class Capture:
     def __exit__(self, *exc):
         setattr(self.module, self.attr, self.inner)
 
-    def largest(self):
-        return max(self.args.items(), key=lambda kv: kv[0])[1] if self.args else None
+    def largest(self, order=lambda key: key):
+        """The arguments whose key is largest under `order`."""
+        return max(self.args.items(), key=lambda kv: order(kv[0]))[1] if self.args else None
 
 
-def run_query(r, scan, name, run, sql, per_query) -> list:
+def run_query(r, scan, name, run, sql, per_query, probes=None) -> list:
+    """Runs one query and records its wall, scan seconds, rows and the
+    kernel launches it caused; with `probes` (the Capture around
+    sorted_run_bounds), also its non-empty probe batches."""
     import torch
 
     before = join_kernel_counts()
+    batches_before = probes.calls if probes else 0
     scan.seconds = 0.0
     t0 = time.perf_counter()
     res = r.execute(sql)
@@ -615,17 +769,20 @@ def run_query(r, scan, name, run, sql, per_query) -> list:
     wall = time.perf_counter() - t0
     after = join_kernel_counts()
     n = {k: after[k] - before[k] for k in after}
+    batches = (probes.calls if probes else 0) - batches_before
     per_query[f"{name}_{run}"] = {"wall_s": wall, "scan_s": scan.seconds,
-                                  "launches": n, "rows": len(res.rows)}
+                                  "launches": n, "probe_batches": batches,
+                                  "rows": len(res.rows)}
     log(f"[main] {name} {run}: {len(res.rows)} rows, wall_s={wall}, "
         f"scan_s={scan.seconds} (host generation + copy to the card), "
-        f"rest_s={wall - scan.seconds}, launches={n}")
+        f"rest_s={wall - scan.seconds}, probe_batches={batches}, launches={n}")
     return res.rows
 
 
 def phase_main(results: dict) -> None:
     from trino_tpu_torch.connectors.tpch import base_row_count
     from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import join as TJ
     from trino_tpu_torch.ops import mxu_groupby as M
     from trino_tpu_torch.ops import window_rank as W
 
@@ -637,12 +794,15 @@ def phase_main(results: dict) -> None:
     # keep the arguments the main path gives each kernel, to time the
     # kernels on the queries' own data afterwards
     gs = Capture(M, "_launch", lambda gid, v, live, cap: (int(gid.shape[0]), int(v.shape[0]), cap))
-    rk = Capture(W, "_launch", lambda a, b, searched, w0, nwin, edge: (
-        a.numel(), int(b.shape[0]), a.element_size()))
+    bd = Capture(W, "_launch_bounds", lambda q, b: (q.numel(), int(b.shape[0]), q.element_size()))
+    ro = Capture(W, "_launch_run_owner", lambda off, n_out: (n_out, int(off.shape[0])))
     tf = Capture(GK, "_launch_flat", lambda table, idx: (
         idx.numel(), int(table.shape[0]), table.element_size()))
+    # the probe batches that reach a kernel (both sides non-empty)
+    probes = Capture(TJ, "sorted_run_bounds", lambda sorted_arr, q: (
+        (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None))
     reset_kernel_counts()
-    with gs, rk, tf:
+    with gs, bd, ro, tf, probes:
         # slice 1's queries run cold only (their warm runs were dropped to
         # keep the script inside its time limit); the joins cold and warm
         for name, sql, runs in (("q1", Q1, ("cold",)), ("q6", Q6, ("cold",)),
@@ -650,16 +810,20 @@ def phase_main(results: dict) -> None:
                                 ("q3", Q3, ("cold", "warm")),
                                 ("q18", Q18, ("cold", "warm"))):
             for run in runs:
-                got = run_query(r, scan, name, run, sql, per_query)
+                got = run_query(r, scan, name, run, sql, per_query, probes)
                 if run == "warm" and got != rows[name]:
                     raise AssertionError(f"{name}: warm rows differ from cold rows")
                 rows[name] = got
     results["main_launches"] = join_kernel_counts()
     results["main_shapes"] = sorted(M.grouped_sum.shapes, reverse=True)
-    results["main_args"] = {"grouped_sum": gs.args, "window_rank": rk.largest(),
-                            "take_flat": tf.largest()}
-    results["main_join_shapes"] = {"window_rank": sorted(W.rank.shapes, reverse=True),
-                                   "take_flat": sorted(GK.take_flat.shapes, reverse=True)}
+    # bounds twice: the call with the most queries, and the one into the
+    # largest build side (its search goes deepest)
+    results["main_args"] = {"grouped_sum": gs.args, "bounds": bd.largest(),
+                            "bounds_largest_build": bd.largest(lambda k: (k[1], k[0])),
+                            "run_owner": ro.largest(), "take_flat": tf.largest()}
+    results["main_join_shapes"] = {
+        name: sorted(launch_counters()[name].shapes, reverse=True)
+        for name in ("window_rank", "bounds", "run_owner", "take_flat")}
     results["main"] = per_query
     cross = run_query(r, scan, "q18_check", "cold", Q18_CHECK, per_query)
     for name in ("q1", "q6", "q_mxu", "q3", "q18"):
@@ -678,11 +842,19 @@ def check_main(rows, per_query, cross, batches) -> None:
         if per_query[q]["launches"]["grouped_sum"]:
             raise AssertionError("Q1/Q6 are expected on the dense/global routes")
     for q, n in per_query.items():
-        joins = n["launches"]["window_rank"], n["launches"]["take_flat"]
+        launched = n["launches"]
+        joins = [launched[k] for k in ("bounds", "run_owner", "take_flat")]
         if q.startswith(("q3_", "q18_")) and not q.startswith("q18_check"):
             if min(joins) <= 0:
-                raise AssertionError(f"{q}: the join ran without its kernels {joins}")
-        elif q.startswith(("q1_", "q6_", "q_mxu_")) and max(joins) > 0:
+                raise AssertionError(f"{q}: the join ran without its kernels {launched}")
+            # one bounds launch per probe batch, and no searched rank
+            if launched["bounds"] != n["probe_batches"] or launched["window_rank"]:
+                raise AssertionError(
+                    f"{q}: {launched['bounds']} bounds launches for "
+                    f"{n['probe_batches']} probe batches, "
+                    f"{launched['window_rank']} rank launches")
+        elif q.startswith(("q1_", "q6_", "q_mxu_")) and \
+                max(joins + [launched["window_rank"]]) > 0:
             raise AssertionError(f"{q}: join kernels launched on a join-free query")
     # Q-MXU rolled up over (shipmode, shipinstruct) is Q1's measures
     rollup = {}
@@ -747,22 +919,39 @@ def phase_parity(results: dict) -> None:
 
 
 def timed_main_args(results: dict) -> dict:
-    """The join kernels timed on the largest arguments the main path
-    gave them (window_rank in searched mode, as the probe uses it)."""
+    """Each kind of join-path call timed on the largest arguments the
+    main path gave it: the probe's bounds, the expansion's run owners and
+    the flat gather."""
     args = results.get("main_args", {})
     out = {}
-    if args.get("window_rank"):
-        a, b = args["window_rank"][:2]
-        out["window_rank"] = check_rank("main path", a, b, True, iters=20)
+    if args.get("bounds"):
+        out["bounds"] = check_bounds("main path, most queries", *args["bounds"], iters=20)
+    if args.get("bounds_largest_build"):
+        out["bounds_largest_build"] = check_bounds(
+            "main path, largest build", *args["bounds_largest_build"], iters=20)
+    if args.get("run_owner"):
+        out["run_owner"] = check_run_owner("main path", *args["run_owner"], iters=20)
     if args.get("take_flat"):
         out["take_flat"] = check_take_flat("main path", *args["take_flat"], iters=20)
     for name, rec in out.items():
         log(f"[kernel] {name} main-path arguments: n={rec.get('n_a', rec.get('n'))} "
-            f"ms={rec['ms']} wrapper_ms={rec['wrapper_ms']} plain_ms={rec['plain_ms']} "
+            f"n_b={rec.get('n_b', rec.get('n_table'))} "
+            f"ms={rec['ms']} warm_ms={rec['warm_ms']} wrapper_ms={rec['wrapper_ms']} "
+            f"plain_ms={rec['plain_ms']} "
             f"library_ms={rec['library_ms']} "
             f"bound_us={rec['bound_ms'] * 1e3} ({rec['bound_by']})")
     results["main_arg_join_timings"] = out
     return out
+
+
+def mode_record(rec: dict, launches: int) -> dict:
+    """The numbers of one timed record, as the `kernels` line shows them."""
+    return {"launches": launches, "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
+            "library_ms": rec.get("library_ms"), "wrapper_ms": rec.get("wrapper_ms"),
+            "warm_ms": rec.get("warm_ms"),
+            "shape": {k: v for k, v in rec.items()
+                      if k in ("n_a", "n_b", "n", "n_table", "rows", "width", "dtype")}}
 
 
 def kernels_line(results: dict) -> dict:
@@ -808,7 +997,28 @@ def kernels_line(results: dict) -> dict:
     explore_launches = results.get("explore_launches", {})
     for name, (source, replaces) in NEW_KERNELS.items():
         recs = join_checks.get(name, [])
-        if name in on_path:
+        modes = None
+        if name == "window_rank":
+            # one source, three entry points: the probe's bounds (the
+            # entry's own numbers), the expansion's run owners, and rank
+            # (searched: the probe shape of phase kernel; fixed: the
+            # explorer's k0, launched by phase explore)
+            timed = {m: next((c for c in recs if c.get("mode") == m and "ms" in c), {})
+                     for m in ("searched", "fixed")}
+            modes = {
+                "bounds": mode_record(on_path.get("bounds", {}), launches.get("bounds", 0)),
+                "bounds_largest_build": mode_record(on_path.get("bounds_largest_build", {}),
+                                                    launches.get("bounds", 0)),
+                "run_owner": mode_record(on_path.get("run_owner", {}),
+                                         launches.get("run_owner", 0)),
+                "searched": mode_record(timed["searched"], launches.get("window_rank", 0)),
+                "fixed": mode_record(timed["fixed"], explore_launches.get("window_rank", 0)),
+            }
+            recs = recs + [on_path[m] for m in ("bounds", "bounds_largest_build", "run_owner")
+                           if m in on_path]
+            rec = on_path.get("bounds", {})
+            n = sum(launches.get(m, 0) for m in ("window_rank", "bounds", "run_owner"))
+        elif name in on_path:
             # the join path: its own largest arguments and its launches
             rec, n = on_path[name], launches.get(name, 0)
             recs = recs + [rec]
@@ -816,16 +1026,12 @@ def kernels_line(results: dict) -> dict:
             # the explorer entry point is this kernel's only path
             rec = next((c for c in recs if "ms" in c), {})
             n = explore_launches.get(name, 0)
-        line.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n,
-            "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
-            "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
-            "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
-            "library_ms": rec.get("library_ms"),
-            "shape": {k: v for k, v in rec.items()
-                      if k in ("n_a", "n_b", "n", "n_table", "rows", "width", "dtype")},
-        })
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
+                 **mode_record(rec, n)}
+        if modes:
+            entry["modes"] = modes
+        line.append(entry)
     return {"kernels": line}
 
 

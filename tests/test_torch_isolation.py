@@ -14,7 +14,7 @@ PKG = os.path.join(REPO, "trino_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
     for root, dirs, files in os.walk(PKG):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
         out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
@@ -90,7 +90,8 @@ def test_kernel_wrapper_refuses_other_devices():
         grouped_sum(gid, gid.to(torch.int64).view(1, 4), gid.to(torch.bool), 8)
 
 
-@pytest.mark.parametrize("name", ["rank", "take_flat", "take_rows_sum", "take_along_lanes"])
+@pytest.mark.parametrize("name", ["rank", "take_flat", "take_rows_sum", "take_along_lanes",
+                                  "bounds", "run_owner"])
 def test_join_kernel_wrappers_refuse_other_devices(name):
     from trino_tpu_torch.ops import gather_kernels as GK
     from trino_tpu_torch.ops import window_rank as W
@@ -101,6 +102,8 @@ def test_join_kernel_wrappers_refuse_other_devices(name):
         "take_flat": lambda: GK.take_flat(i32.reshape(-1), i32.reshape(-1)),
         "take_rows_sum": lambda: GK.take_rows_sum(i32, i32[0]),
         "take_along_lanes": lambda: GK.take_along_lanes(i32, i32),
+        "bounds": lambda: W.bounds(i32.reshape(-1), i32.reshape(-1)),
+        "run_owner": lambda: W.run_owner(i32.reshape(-1), 8),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[name]()
@@ -119,6 +122,25 @@ def test_explorers_exit_nonzero_without_a_card(module):
     assert proc.returncode == 2
     assert "no CUDA device" in proc.stderr
     assert proc.stdout == ""
+
+
+def test_kernel_ab_exits_nonzero_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the comparison would run")
+    proc = subprocess.run(
+        [sys.executable, "kernel_ab.py", REPO, REPO], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 2
+    assert "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_device_timing_refuses_an_unknown_mode():
+    from trino_tpu_torch.explore import device_ms
+
+    with pytest.raises(ValueError, match="mode"):
+        device_ms(lambda: None, 1, "hot")
 
 
 def test_chip_smoke_alone_prints_no_result(tmp_path):

@@ -159,6 +159,101 @@ def test_sorted_run_bounds_of_empty_inputs():
     assert lo.numel() == hi.numel() == 0
 
 
+def _bounds_case(name, dtype):
+    """(sorted b, queries) as numpy arrays of `dtype`, values in the u32
+    domain the reference's sorted_run_bounds takes."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    top = 0xFFFFFFFD if dtype == np.int64 else (1 << 31) - 2
+    if name == "long_runs":  # runs of 300 and 1000 across window boundaries
+        b = np.concatenate([rng.integers(0, top, 2000), np.full(300, 77),
+                            np.full(1000, top // 2)])
+    elif name == "sentinels":  # dead builds, queries that must find nothing
+        b = np.concatenate([rng.integers(0, top, 900), np.full(150, 0xFFFFFFFF)])
+    elif name == "n_b_lt_128":
+        b = rng.integers(0, 50, 77)
+    elif name == "n_b_ragged":
+        b = rng.integers(0, top, 1000)
+    elif name == "empty_b":
+        b = np.zeros(0, np.int64)
+    else:
+        raise KeyError(name)
+    b = np.sort(b)
+    q = np.concatenate([rng.integers(0, top, 500), rng.choice(b, 300) if len(b) else [],
+                        [0, top]])
+    if name == "sentinels":
+        q = np.concatenate([q, np.full(40, 0xFFFFFFFE)])
+    return b.astype(dtype), q.astype(dtype)
+
+
+@pytest.mark.parametrize("name,dtype", [
+    (name, dtype)
+    for dtype in (np.int32, np.int64)
+    for name in ("long_runs", "sentinels", "n_b_lt_128", "n_b_ragged", "empty_b")
+    if not (name == "sentinels" and dtype == np.int32)  # sentinels exceed int32
+], ids=lambda v: v if isinstance(v, str) else np.dtype(v).name)
+def test_bounds_plain_matches_sorted_run_bounds(name, dtype):
+    b, q = _bounds_case(name, dtype)
+    jlo, jhi = JJ.sorted_run_bounds(jnp.asarray(b.astype(np.uint32)),
+                                    jnp.asarray(q.astype(np.uint32)))
+    lo, hi = W.bounds(torch.from_numpy(q), torch.from_numpy(b))
+    assert lo.dtype == hi.dtype == torch.int32
+    assert np.array_equal(np.asarray(jlo), lo.numpy())
+    assert np.array_equal(np.asarray(jhi), hi.numpy())
+    assert np.array_equal(hi.numpy(), np.searchsorted(b, q, "right"))
+
+
+def _run_owner_case(name):
+    """(int32 counts, n_out)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "plateaus":  # zero-count rows between short runs
+        counts = rng.integers(0, 3, 3000) * (rng.random(3000) < 0.4)
+        return counts.astype(np.int32), int(counts.sum())
+    if name == "n_out_past_total":
+        counts = rng.integers(0, 4, 500)
+        return counts.astype(np.int32), int(counts.sum()) + 333
+    if name == "one_run_10000":
+        counts = np.zeros(64, np.int64)
+        counts[17] = 10_000
+        counts[40:43] = 1
+        return counts.astype(np.int32), 16_384
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["plateaus", "n_out_past_total", "one_run_10000"])
+def test_run_owner_plain_matches_expand_matches(name):
+    counts, n_out = _run_owner_case(name)
+    n = len(counts)
+    off = torch.cumsum(torch.from_numpy(counts), 0, dtype=torch.int32)
+    got = W.run_owner(off, n_out)
+    assert got.dtype == torch.int32 and got.shape == (n_out,)
+    j = torch.arange(n_out, dtype=torch.int32)
+    assert torch.equal(got, torch.searchsorted(off, j, right=True).to(torch.int32))
+    # the reference's expansion clips its row index to the probe rows
+    ls = JJ.LookupSource(jnp.zeros(16, jnp.uint32), jnp.arange(16, dtype=jnp.int32),
+                         [], [], jnp.ones(16, bool))
+    pi, _, _ = JJ.expand_matches(ls, [], [], jnp.zeros(n, jnp.int32),
+                                 jnp.asarray(counts), n_out, verify=False)
+    assert np.array_equal(np.asarray(pi), np.clip(got.numpy(), 0, n - 1))
+
+
+def test_run_owner_of_no_rows_and_no_outputs():
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert W.run_owner(empty, 5).tolist() == [0] * 5
+    assert W.run_owner(torch.tensor([0, 2, 2], dtype=torch.int32), 0).numel() == 0
+
+
+def test_bounds_and_run_owner_refuse_bad_arguments():
+    a = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        W.bounds(a, a.to(torch.int32))
+    with pytest.raises(ValueError):
+        W.bounds(a, a.view(2, 2))
+    with pytest.raises(ValueError):
+        W.run_owner(a, 4)  # offsets are int32
+    with pytest.raises(ValueError):
+        W.run_owner(a.to(torch.int32), -1)
+
+
 # ---------------------------------------------------------------------------
 # windowed rank: the explorer's k0..k4 and the searched mode
 # ---------------------------------------------------------------------------
@@ -365,6 +460,15 @@ def test_take_along_lanes_matches_v3():
     assert np.array_equal(clipped.numpy(), np.repeat(src[:, 127:], 128, axis=1))
 
 
+@pytest.mark.parametrize("width", [128, 100])
+def test_take_along_lanes_widths_match_numpy(width):
+    rng = np.random.default_rng(width)
+    src = rng.integers(-(1 << 31), (1 << 31) - 1, (300, width)).astype(np.int32)
+    sel = rng.integers(-5, width + 5, (300, width)).astype(np.int32)
+    got = GK.take_along_lanes(torch.from_numpy(src), torch.from_numpy(sel)).numpy()
+    assert np.array_equal(got, np.take_along_axis(src, np.clip(sel, 0, width - 1), axis=1))
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -405,4 +509,34 @@ def test_gather_kernels_match_plain_on_the_card(cuda_device):
     assert torch.equal(GK.take_rows_sum(t2, r), GK.take_rows_sum_reference(t2, r))
     src = torch.from_numpy(rng.integers(0, 1 << 30, (1001, 128)).astype(np.int32)).to(dev)
     sel = torch.from_numpy(rng.integers(-5, 133, (1001, 128)).astype(np.int32)).to(dev)
+    assert torch.equal(GK.take_along_lanes(src, sel), GK.take_along_lanes_reference(src, sel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_bounds_kernel_matches_plain_on_the_card(dtype, cuda_device):
+    for name in ("long_runs", "sentinels", "n_b_lt_128", "n_b_ragged", "empty_b"):
+        if name == "sentinels" and dtype == torch.int32:
+            continue  # sentinels exceed int32
+        b, q = _bounds_case(name, np.int64 if dtype == torch.int64 else np.int32)
+        tb, tq = torch.from_numpy(b).to(cuda_device), torch.from_numpy(q).to(cuda_device)
+        got, want = W.bounds(tq, tb), W.bounds_reference(tq, tb)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+
+
+@pytest.mark.cuda
+def test_run_owner_kernel_matches_plain_on_the_card(cuda_device):
+    for name in ("plateaus", "n_out_past_total", "one_run_10000"):
+        counts, n_out = _run_owner_case(name)
+        off = torch.cumsum(torch.from_numpy(counts), 0, dtype=torch.int32).to(cuda_device)
+        assert torch.equal(W.run_owner(off, n_out), W.run_owner_reference(off, n_out)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 100])
+def test_take_along_lanes_kernel_matches_plain_on_the_card(width, cuda_device):
+    rng = np.random.default_rng(width)
+    src = torch.from_numpy(rng.integers(0, 1 << 30, (1001, width)).astype(np.int32))
+    sel = torch.from_numpy(rng.integers(-5, width + 5, (1001, width)).astype(np.int32))
+    src, sel = src.to(cuda_device), sel.to(cuda_device)
     assert torch.equal(GK.take_along_lanes(src, sel), GK.take_along_lanes_reference(src, sel))

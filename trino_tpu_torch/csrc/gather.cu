@@ -22,12 +22,18 @@
 // one index and one 128-lane row per output: one warp per output row reads
 // the row with coalesced loads and reduces it with shuffles; counted once
 // per distinct row its bytes are tiny and it is bound by its adds (127 per
-// output). take_along_lanes reads src and sel once and writes out once: a
-// block stages a tile of src rows in shared memory, then every thread
-// picks its lane from the staged row, so the random part of the access
-// never leaves the SM. The TPU versions held the whole table in VMEM;
-// Hopper's shared memory is too small for that, so the flat and row
-// gathers go through L2 instead.
+// output). The TPU versions held the whole table in VMEM; Hopper's shared
+// memory is too small for that, so the flat and row gathers go through L2.
+//
+// take_along_lanes reads src and sel once and writes out once. At width 128
+// (the TPU kernel's lane count) a row is 512 bytes, one 16-byte vector per
+// lane of a warp: each warp takes whole rows in a grid-stride loop, every
+// lane loads its vector of src and of sel into registers, and each output
+// takes lane s >> 2, component s & 3 of the row by shuffles, so the random
+// part of the access never leaves the warp's registers (no shared memory,
+// no barrier, and the row loop keeps loads in flight). Other widths, and
+// pointers not 16-byte aligned, take a direct path: coalesced sel reads and
+// out writes, src read through L1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,26 +74,53 @@ __global__ void take_rows_sum_kernel(const int32_t* __restrict__ table,
   }
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int clip_lane(int s, int width) {
+  return s < 0 ? 0 : (s >= width ? width - 1 : s);
+}
+
+// element s of the warp's 128-lane row, each lane holding four in v
+__device__ __forceinline__ uint32_t lane_pick(const uint4& v, int s) {
+  const int from = s >> 2;
+  const uint32_t x = __shfl_sync(FULL, v.x, from);
+  const uint32_t y = __shfl_sync(FULL, v.y, from);
+  const uint32_t z = __shfl_sync(FULL, v.z, from);
+  const uint32_t w = __shfl_sync(FULL, v.w, from);
+  const int c = s & 3;
+  return c == 0 ? x : (c == 1 ? y : (c == 2 ? z : w));
+}
+
+__global__ void take_along_lanes128_kernel(const uint4* __restrict__ src,
+                                           const int4* __restrict__ sel,
+                                           long long rows,
+                                           uint4* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long r = warp; r < rows; r += n_warps) {
+    const long long at = r * 32 + lane;
+    const uint4 v = __ldg(&src[at]);
+    const int4 s = __ldg(&sel[at]);
+    uint4 o;
+    o.x = lane_pick(v, clip_lane(s.x, 128));
+    o.y = lane_pick(v, clip_lane(s.y, 128));
+    o.z = lane_pick(v, clip_lane(s.z, 128));
+    o.w = lane_pick(v, clip_lane(s.w, 128));
+    out[at] = o;
+  }
+}
+
 __global__ void take_along_lanes_kernel(const uint32_t* __restrict__ src,
                                         const int32_t* __restrict__ sel,
                                         long long rows, int width,
-                                        int rows_per_tile,
                                         uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t tile[];
-  const long long n_tiles = (rows + rows_per_tile - 1) / rows_per_tile;
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long r0 = t * rows_per_tile;
-    const long long nr_ll = rows - r0 < rows_per_tile ? rows - r0 : rows_per_tile;
-    const int cells = (int)nr_ll * width;
-    const long long off = r0 * width;
-    for (int j = threadIdx.x; j < cells; j += blockDim.x) tile[j] = src[off + j];
-    __syncthreads();
-    for (int j = threadIdx.x; j < cells; j += blockDim.x) {
-      int s = __ldg(&sel[off + j]);
-      s = s < 0 ? 0 : (s >= width ? width - 1 : s);
-      out[off + j] = tile[(j / width) * width + s];
-    }
-    __syncthreads();
+  const long long n = rows * width;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const long long row_start = i - i % width;
+    out[i] = __ldg(&src[row_start + clip_lane(__ldg(&sel[i]), width)]);
   }
 }
 
@@ -140,19 +173,24 @@ extern "C" int take_rows_sum_launch(const void* table, long long n_rows,
   return (int)cudaGetLastError();
 }
 
+// max_blocks caps the grid; the kernel is picked here from the width and
+// the pointers' alignment. Returns a cudaError_t.
 extern "C" int take_along_lanes_launch(const void* src, const void* sel,
-                                       long long rows, int width,
-                                       int rows_per_tile, void* out, int grid,
-                                       int threads, void* stream) {
-  const size_t smem = (size_t)rows_per_tile * width * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        take_along_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  take_along_lanes_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)src, (const int32_t*)sel, rows, width, rows_per_tile,
-      (uint32_t*)out);
+                                       long long rows, int width, void* out,
+                                       int max_blocks, int threads,
+                                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool aligned =
+      (((uintptr_t)src | (uintptr_t)sel | (uintptr_t)out) & 15) == 0;
+  const bool vector = width == 128 && aligned;
+  const long long work = vector ? rows * 32 : rows * (long long)width;
+  long long grid = (work + threads - 1) / threads;
+  grid = grid > max_blocks ? max_blocks : (grid < 1 ? 1 : grid);
+  if (vector)
+    take_along_lanes128_kernel<<<(int)grid, threads, 0, s>>>(
+        (const uint4*)src, (const int4*)sel, rows, (uint4*)out);
+  else
+    take_along_lanes_kernel<<<(int)grid, threads, 0, s>>>(
+        (const uint32_t*)src, (const int32_t*)sel, rows, width, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,11 @@ what bounds each and what its design does about that.
 - `take_rows_sum(table2d, ridx)` <- v2 (k2): out[i] = sum over the lanes
   of row clip(ridx[i]) of an int32 table, wrapping mod 2^32.
 - `take_along_lanes(src, sel)` <- v3 (k3): out[r, l] = src[r, clip(sel[r, l])]
-  for a 2-D table of 4-byte elements and int32 selectors.
+  for a 2-D table of 4-byte elements and int32 selectors. Bound by bytes
+  (src and sel read once, out written once). At width 128 a warp holds a
+  row in registers, 16 bytes a lane, and picks each output by shuffles;
+  other widths read src through L1 with coalesced sel reads and out
+  writes.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises. Each launch adds one to
@@ -29,13 +33,12 @@ from trino_tpu_torch.ops.window_rank import wrap_i32
 
 THREADS = 256
 BLOCKS_PER_SM = 16
-ROWS_PER_TILE = 64  # take_along_lanes: src rows staged per block
 
 _P, _I, _L = cuda_build.PTR, cuda_build.I32, cuda_build.I64
 _FUNCTIONS = {
     "take_flat_launch": [_P, _L, _I, _P, _I, _L, _P, _I, _I, _P],
     "take_rows_sum_launch": [_P, _L, _I, _P, _I, _L, _P, _I, _I, _P],
-    "take_along_lanes_launch": [_P, _P, _L, _I, _I, _P, _I, _I, _P],
+    "take_along_lanes_launch": [_P, _P, _L, _I, _P, _I, _I, _P],
 }
 _INDEX_TYPES = (torch.int32, torch.int64)
 
@@ -199,14 +202,14 @@ def take_along_lanes(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 
 
 def along_launcher(src: torch.Tensor, sel: torch.Tensor):
-    """(go, out): `go()` launches the take-along-lanes kernel into `out`."""
+    """(go, out): `go()` launches the take-along-lanes kernel into `out`
+    (the kernel picks its width-128 vector path or the direct one)."""
     dev = src.device
     rows, width = int(src.shape[0]), int(src.shape[1])
     src, sel = src.contiguous(), sel.contiguous()
     out = torch.empty_like(src)
-    tile = max(1, min(ROWS_PER_TILE, (48 * 1024) // (4 * max(width, 1))))
-    args = (src.data_ptr(), sel.data_ptr(), rows, width, tile, out.data_ptr(),
-            _grid(-(-rows // tile) * THREADS, dev), THREADS, _stream(dev))
+    args = (src.data_ptr(), sel.data_ptr(), rows, width, out.data_ptr(),
+            BLOCKS_PER_SM * cuda_build.sm_count(dev), THREADS, _stream(dev))
     lib = _lib()
 
     def go(_keep=(src, sel, out)):

@@ -8,12 +8,17 @@ JoinProbe family, re-designed around sorting):
   the lookup structure; duplicate keys are adjacent runs.
 - Probe: `sorted_run_bounds` places every probe hash among the sorted
   build hashes. The reference does it with two packed sorts, the cheap
-  primitive on a TPU; here it is two lower bounds, lo = #{sorted < q} and
-  hi = #{sorted < q + 1}, from the windowed-rank kernel
-  (ops/window_rank.py, searched mode) on the card.
+  primitive on a TPU; here it is the pair of lower bounds
+  lo = #{sorted < q} and hi = #{sorted < q + 1} from one launch of the
+  bounds kernel (ops/window_rank.bounds: window heads searched in shared
+  memory, the window in L2, hi galloped from lo). What paces it is the
+  scattered reads of the sorted hashes inside each window (six a probe
+  row against 1.5 M hashes), not the bytes it must move.
 - Fan-out: count the matches, pick a bucketed output capacity on the
   host, then expand (probe_row, build_row) pairs; 32-bit hash collisions
-  are culled by an exact key-equality verify on the pairs. The index
+  are culled by an exact key-equality verify on the pairs. Which probe
+  row produced output j is a run-owner fill (ops/window_rank.run_owner:
+  each row writes its own run, no search; bound by bytes), and the index
   gathers of the expansion run through the flat gather kernel
   (ops/gather_kernels.take_flat) on the card.
 
@@ -52,10 +57,7 @@ def sorted_run_bounds(sorted_arr: torch.Tensor, q: torch.Tensor):
     if sorted_arr.shape[0] == 0 or n == 0:
         z = torch.zeros(n, dtype=torch.int32, device=q.device)
         return z, z
-    q = q.to(sorted_arr.dtype)
-    lo = W.rank(q, sorted_arr, True)
-    hi = W.rank(q + 1, sorted_arr, True)
-    return lo, hi
+    return W.bounds(q.to(sorted_arr.dtype), sorted_arr)
 
 
 def _key_hash(keys, valids, usable, sentinel: int) -> torch.Tensor:
@@ -128,9 +130,8 @@ def expand_matches(ls: LookupSource, probe_keys, probe_valids, lo: torch.Tensor,
     off = torch.cumsum(counts, 0, dtype=torch.int32)  # inclusive
     total = off[-1] if counts.shape[0] else torch.zeros((), dtype=torch.int32, device=dev)
     j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
-    # which probe row produced output j: #offs <= j, the run end of
-    # sorted_run_bounds(off, j)
-    pi = W.rank(j + 1, off, True)
+    # which probe row produced output j: row i owns [off[i-1], off[i])
+    pi = W.run_owner(off, out_capacity)
     pi_c = torch.clamp(pi, 0, max(counts.shape[0] - 1, 0))
     # lo and start ride one packed int64 gather
     packed = (lo.to(torch.int64) << 31) | (off - counts).to(torch.int64)
