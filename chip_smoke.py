@@ -157,12 +157,23 @@ def timings(rec: dict, iters: int, kernel, wrapper, plain, library,
 
 
 def grouped_sum_inputs(n, k, capacity, seed, dead_frac=0.0, extreme=False,
-                       out_of_range=0):
+                       out_of_range=0, ids="even"):
+    """ids: "even" (drawn evenly over the slots), "one_slot" (every row
+    in slot 0), "sorted" (the even ids sorted, so long runs of one slot)
+    or "q_mxu" (explore.q_mxu_like_ids)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     gid = rng.integers(0, capacity, n, dtype=np.int32)
+    if ids == "one_slot":
+        gid[:] = 0
+    elif ids == "sorted":
+        gid.sort()
+    elif ids == "q_mxu":
+        from trino_tpu_torch.explore import q_mxu_like_ids
+
+        gid = q_mxu_like_ids(rng, n)
     if out_of_range:
         # live rows with ids outside [0, capacity) must add nothing
         pos = rng.choice(n, size=out_of_range, replace=False)
@@ -234,12 +245,22 @@ def check_grouped_sum(n, k, capacity, seed, iters=0, args=None, **kw):
             ).index_add_(0, g64, src)
 
         rec["library_ms"] = time_ms(library, iters)
+        # what one streaming read of the values costs: a PyTorch sum over
+        # each value column (the bytes the kernel must read, nothing else)
+        rec["stream_ms"] = time_ms(lambda: vals.sum(dim=1), iters)
         rec["bound_ms"], rec["bound_by"] = grouped_sum_bound_ms(
             n, n_used, k, capacity)
         # contention: rows per slot, and how many of a warp's 32 rows
         # share one slot, on average over warps
         hits = torch.bincount(gid[used].to(torch.int64), minlength=capacity)
         rec["slots_hit"] = int((hits > 0).sum())
+        # slots one tile of the kernel touches: how much its sort gathers
+        tiles = -(-n // M.TILE_ROWS)
+        tile_of = torch.arange(n, device=gid.device) // M.TILE_ROWS
+        pairs = torch.unique((tile_of * capacity + gid.to(torch.int64))[used])
+        per_tile = torch.bincount(pairs // capacity, minlength=tiles)
+        rec["tile_slots_mean"] = float(per_tile.float().mean())
+        rec["tile_slots_max"] = int(per_tile.max())
         rec["top_slot_share"] = float(hits.max()) / max(n_used, 1)
         w = n // 32 * 32
         g = torch.where(used[:w], gid[:w].to(torch.int64), -1).view(-1, 32)
@@ -257,11 +278,21 @@ def phase_kernel(results: dict) -> None:
     shapes = [
         ("q_mxu_sf1", dict(n=4_194_304, k=13, capacity=480, seed=1, iters=20)),
         ("dead_rows", dict(n=1001, k=2, capacity=17, seed=2, dead_frac=0.3)),
-        ("column_split", dict(n=1 << 20, k=13, capacity=2048, seed=3, iters=5)),
+        ("column_split", dict(n=1 << 20, k=13, capacity=2048, seed=3, iters=20)),
         ("one_column", dict(n=1 << 20, k=1, capacity=480, seed=4)),
         ("wraparound", dict(n=1 << 16, k=3, capacity=64, seed=5, extreme=True)),
         ("out_of_range_ids", dict(n=5000, k=2, capacity=100, seed=6,
                                   out_of_range=500)),
+        # the shapes a per-tile sort finds hard: one hot slot, long runs,
+        # ragged tiles, and ids shaped like the query's
+        ("one_slot", dict(n=1 << 20, k=13, capacity=480, seed=8, ids="one_slot",
+                          iters=20)),
+        ("sorted_runs", dict(n=4_194_304, k=13, capacity=480, seed=9, ids="sorted",
+                             iters=20)),
+        ("tile_plus_one", dict(n=4097, k=13, capacity=480, seed=10, dead_frac=0.1)),
+        ("three_rows", dict(n=3, k=13, capacity=480, seed=11)),
+        ("q_mxu_like_ids", dict(n=4_194_304, k=13, capacity=480, seed=12, ids="q_mxu",
+                                iters=20)),
     ]
     recs = {}
     for name, kw in shapes:
@@ -278,9 +309,11 @@ def phase_kernel(results: dict) -> None:
 
 def timing_text(rec: dict) -> str:
     return (f"ms={rec['ms']} plain_ms={rec['plain_ms']} "
-            f"library_ms={rec['library_ms']} "
+            f"library_ms={rec['library_ms']} stream_ms={rec['stream_ms']} "
             f"bound_us={rec['bound_ms'] * 1e3} ({rec['bound_by']}) "
             f"live_rows={rec['live_rows']} slots_hit={rec['slots_hit']} "
+            f"tile_slots_mean={rec['tile_slots_mean']} "
+            f"tile_slots_max={rec['tile_slots_max']} "
             f"top_slot_share={rec['top_slot_share']} "
             f"warp_max_same_slot={rec['warp_max_same_slot']}")
 
@@ -463,16 +496,20 @@ def check_take_rows_sum(name, table2d, ridx, iters=0) -> dict:
     want = GK.take_rows_sum_reference(table2d, ridx)
     torch.cuda.synchronize()
     rows, width = int(table2d.shape[0]), int(table2d.shape[1])
-    rec = {"case": name, "rows": rows, "width": width, "n": ridx.numel(),
+    n = ridx.numel()
+    rec = {"case": name, "rows": rows, "width": width, "n": n,
+           "path": GK.rows_sum_path(rows, n),
            "max_abs_err": held(f"take_rows_sum {name}", got, want)}
     if iters:
-        n = ridx.numel()
         # no single PyTorch call sums gathered rows
         timings(rec, iters, GK.rows_sum_launcher(table2d, ridx)[0],
                 lambda: GK.take_rows_sum(table2d, ridx),
                 lambda: GK.take_rows_sum_reference(table2d, ridx), None)
+        # the least work: each index read and each output written once,
+        # and each row an output needs summed once (at most n of them)
+        needed = min(rows, n)
         rec["bound_ms"], rec["bound_by"] = bound(
-            n * (ridx.element_size() + 4) + rows * width * 4, n * (width - 1))
+            n * (ridx.element_size() + 4) + needed * width * 4, needed * (width - 1))
     return rec
 
 
@@ -631,6 +668,17 @@ def phase_kernel_join(results: dict) -> None:
             -(1 << 31), (1 << 31) - 1, (17, 100)).astype(np.int32)),
             t(rng.integers(0, 17, 999))),
         check_take_rows_sum("empty", x["table2d"], t(np.zeros(0, np.int32))),
+        # more rows than indices: the per-output path
+        check_take_rows_sum(
+            "1,000,000 rows, 1,000 indices",
+            t(rng.integers(-(1 << 31), (1 << 31) - 1, (1_000_000, 128)).astype(np.int32)),
+            t(rng.integers(-10, 1_000_010, 1000).astype(np.int32)), iters=20),
+        check_take_rows_sum("width 100, more rows than indices", t(rng.integers(
+            -(1 << 31), (1 << 31) - 1, (5000, 100)).astype(np.int32)),
+            t(rng.integers(-3, 5003, 999))),
+        check_take_rows_sum(
+            "one row", t(rng.integers(-(1 << 31), (1 << 31) - 1, (1, 128)).astype(np.int32)),
+            t(rng.integers(-3, 4, 5000))),
     ]
     # width 128 from a buffer offset by one element: not 16-byte aligned
     odd = torch.empty(1001 * 128 + 1, dtype=torch.int32, device=dev)[1:].view(1001, 128)
@@ -651,6 +699,8 @@ def phase_kernel_join(results: dict) -> None:
     for name, rs in recs.items():
         for rec in rs:
             line = f"[kernel] {name} {rec['case']}: bit-exact"
+            if "path" in rec:
+                line += f" path={rec['path']}"
             if "bound_ms" in rec:
                 line += (f" ms={rec['ms']} warm_ms={rec['warm_ms']} "
                          f"wrapper_ms={rec['wrapper_ms']} plain_ms={rec['plain_ms']} "
@@ -1062,6 +1112,12 @@ def main() -> int:
     for name, text in cuda_build.PTXAS_LOG.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
+    from trino_tpu_torch.explore import atomic_opcodes
+
+    results["sass_atomics"] = {n: atomic_opcodes(cuda_build.library_path(n))
+                               for n in cuda_build.SOURCES}
+    for name, ops in results["sass_atomics"].items():
+        log(f"[build] {name} SASS atomics: {ops}")
     if "kernel" in phases:
         phase_kernel(results)
         phase_kernel_join(results)

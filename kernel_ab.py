@@ -1,5 +1,5 @@
-"""Before/after times of the redesigned join kernels on one NVIDIA card:
-two checkouts of the port, the same inputs, one timing method.
+"""Before/after times of the redesigned kernels on one NVIDIA card: two
+checkouts of the port, the same inputs, one timing method.
 
     python3 kernel_ab.py OLD_ROOT NEW_ROOT
 
@@ -16,11 +16,23 @@ seed:
 - the expansion's run owners, 8,388,608 outputs over 4,194,304 offsets,
   and one run of 3,000,000 outputs among 1,000 rows: `run_owner` where
   the root has it, else searched `rank` of arange(1, n_out + 1); against
-  torch.searchsorted(right=True).
+  torch.searchsorted(right=True);
+- grouped_sum (the wrapper, which launches the kernel once) at Q-MXU's
+  batch, 4,194,304 rows, k = 13, capacity 480, with ids spread evenly and
+  with ids shaped like the query's (112 slots hit,
+  `explore.q_mxu_like_ids`), and at 1,048,576 rows, k = 13, capacity
+  2048, ids spread evenly (the column split); against one index_add_
+  over the (n, k) values and the live count;
+- take_rows_sum at the explorer's shape, 1,048,576 int32 indices into a
+  (1024, 128) int32 table; against its plain version (no single PyTorch
+  call computes it).
 
-Every output is held against the library call's before it is timed.
-Whichever root runs, the times come from this checkout's
-`trino_tpu_torch/explore/__init__.py` (`device_ms`, cold and warm).
+Every output is held against the yardstick's before it is timed. Each
+run also records the atomic SASS opcodes of its root's built
+grouped_sum library (`explore.atomic_opcodes`, cuobjdump).
+Whichever root runs, the times and the Q-MXU-like ids come from this
+checkout's `trino_tpu_torch/explore/__init__.py` (`device_ms`, cold and
+warm).
 Prints one JSON line per run, the card's name and power limit, and a
 JSON summary last; writes them to chiprun_out/kernel_ab.json. Exits
 nonzero without a CUDA card, when a run fails or when an output differs.
@@ -39,14 +51,15 @@ ITERS = 20
 ORDER = ("old", "new", "new", "old")
 
 
-def device_ms():
-    """This checkout's timing function, loaded from its file so that the
-    root under test provides the kernels and nothing else."""
+def explore_helpers():
+    """This checkout's explore module (timing, Q-MXU-like ids), loaded
+    from its file so that the root under test provides the kernels and
+    nothing else."""
     path = os.path.join(HERE, "trino_tpu_torch", "explore", "__init__.py")
     spec = importlib.util.spec_from_file_location("kernel_ab_timing", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.device_ms
+    return mod
 
 
 def run_one(root: str) -> int:
@@ -54,9 +67,11 @@ def run_one(root: str) -> int:
     import numpy as np
     import torch
     from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import mxu_groupby as M
     from trino_tpu_torch.ops import window_rank as W
 
-    timed = device_ms()
+    helpers = explore_helpers()
+    timed = helpers.device_ms
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
 
@@ -66,16 +81,18 @@ def run_one(root: str) -> int:
     new = hasattr(W, "bounds")
     cases = {}
 
-    def case(name, kernel, outs, library):
+    def case(name, kernel, outs, library, yardstick="library"):
+        """Times `kernel` (which fills `outs`) and `library`, after holding
+        the outputs equal; the yardstick's keys carry its kind."""
         kernel()
         want = library()
         torch.cuda.synchronize()
         for got, w in zip(outs, want if isinstance(want, tuple) else (want,)):
             if not torch.equal(got, w):
-                raise AssertionError(f"{name}: the kernel differs from the library call")
+                raise AssertionError(f"{name}: the kernel differs from the {yardstick}")
         cases[name] = {"ms": timed(kernel, ITERS, "cold"), "warm_ms": timed(kernel, ITERS, "warm"),
-                       "library_ms": timed(library, ITERS, "cold"),
-                       "library_warm_ms": timed(library, ITERS, "warm")}
+                       f"{yardstick}_ms": timed(library, ITERS, "cold"),
+                       f"{yardstick}_warm_ms": timed(library, ITERS, "warm")}
 
     src = t(rng.integers(-(1 << 31), (1 << 31) - 1, (8192, 128)).astype(np.int32))
     sel = t(rng.integers(0, 128, (8192, 128)).astype(np.int32))
@@ -110,7 +127,45 @@ def run_one(root: str) -> int:
                    else W.launcher(j + 1, off, True))
         case(name, go, [out],
              lambda off=off, j=j: torch.searchsorted(off, j, right=True, out_int32=True))
-    print(json.dumps({"root": root, "design": "new" if new else "old", "cases": cases}))
+
+    for name, n, k, cap, ids in (
+            ("grouped_sum, Q-MXU batch, ids spread evenly", 4_194_304, 13, 480, "even"),
+            ("grouped_sum, Q-MXU batch, ids shaped like the query's", 4_194_304, 13, 480,
+             "q_mxu"),
+            ("grouped_sum, column split, capacity 2048", 1 << 20, 13, 2048, "even")):
+        gid = (helpers.q_mxu_like_ids(rng, n) if ids == "q_mxu"
+               else rng.integers(0, cap, n).astype(np.int32))
+        g, live = t(gid), t(rng.random(n) < 0.98)
+        vals = t(rng.integers(-(10 ** 12), 10 ** 12, (k, n)))
+        got = [None]
+
+        def kernel(g=g, vals=vals, live=live, cap=cap):
+            got[0] = M.grouped_sum(g, vals, live, cap)
+
+        idx = torch.where(live, g.to(torch.int64), cap)
+        src = torch.cat([vals, torch.ones((1, n), dtype=torch.int64, device=dev)]).T
+
+        def library(idx=idx, src=src, cap=cap):
+            return torch.zeros((cap + 1, src.shape[1]), dtype=torch.int64,
+                               device=dev).index_add_(0, idx, src)
+
+        kernel()
+        want = library()[:cap].T
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got[0], want.unbind(0))):
+            raise AssertionError(f"{name}: the kernel differs from index_add_")
+        case(name, kernel, [], library)
+
+    table2d = t(rng.integers(0, 1 << 30, (1024, 128)).astype(np.int32))
+    ridx = t(rng.integers(0, 1024, 1 << 20).astype(np.int32))
+    go, out = GK.rows_sum_launcher(table2d, ridx)
+    case("take_rows_sum, 1,048,576 indices into (1024, 128)", go, [out],
+         lambda: GK.take_rows_sum_reference(table2d, ridx), "plain")
+    lib = os.path.join(root, "trino_tpu_torch", "_build", "libgrouped_sum.so")
+    design = {"bounds": new, "grouped_sum_tile_rows": getattr(M, "TILE_ROWS", None),
+              "rows_sum_paths": hasattr(GK, "rows_sum_path"),
+              "grouped_sum_sass_atomics": helpers.atomic_opcodes(lib)}
+    print(json.dumps({"root": root, "design": design, "cases": cases}))
     return 0
 
 
@@ -147,7 +202,7 @@ def main() -> int:
         for name, times in rec["cases"].items():
             row = summary.setdefault(name, {})
             for key, ms in times.items():
-                tag = key if key.startswith("library") else f"{rec['as']}_{key}"
+                tag = key if key.startswith(("library", "plain")) else f"{rec['as']}_{key}"
                 row.setdefault(tag, []).append(ms)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "kernel_ab.json"), "w") as fh:

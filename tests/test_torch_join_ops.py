@@ -436,6 +436,47 @@ def test_take_rows_sum_clips_rows():
     assert got.tolist() == [sums[0], sums[0], sums[5], sums[5]]
 
 
+def _k2(tab_ref, idx_ref, out_ref):
+    rows = jnp.take(tab_ref[:], idx_ref[0, :], axis=0)
+    out_ref[0, :] = jnp.sum(rows, axis=1)
+
+
+@pytest.mark.parametrize("case", ["more_rows_than_indices", "single_row_table",
+                                  "int64_indices_clip_both_ends"])
+def test_take_rows_sum_shapes_match_v2(case):
+    # the card kernel picks its path by shape (a row's sum once per row,
+    # or once per output); every shape keeps v2's function. v2 itself
+    # takes in-range rows, so it gets the indices clipped.
+    rng = np.random.default_rng(len(case))
+    big = (1 << 31) - 1
+    if case == "more_rows_than_indices":
+        table2d = rng.integers(-big - 1, big, (3000, 128)).astype(np.int32)
+        ridx = rng.integers(0, 3000, (1, 512)).astype(np.int32)
+    elif case == "single_row_table":
+        table2d = rng.integers(-big - 1, big, (1, 128)).astype(np.int32)
+        ridx = rng.integers(-2, 3, (2, 512)).astype(np.int32)
+    else:
+        table2d = rng.integers(-big - 1, big, (64, 128)).astype(np.int32)
+        ridx = rng.integers(-(1 << 40), 1 << 40, (2, 512))
+        ridx[0, :6] = [-(1 << 62), -1, 0, 63, 64, 1 << 62]
+    got = GK.take_rows_sum(torch.from_numpy(table2d), torch.from_numpy(ridx)).numpy()
+    assert got.shape == ridx.shape and got.dtype == np.int32
+    clipped = np.clip(ridx, 0, table2d.shape[0] - 1).astype(np.int32)
+    wide = table2d.astype(np.int64)[clipped].sum(axis=-1)
+    assert np.array_equal(got, wide.astype(np.uint32).view(np.int32))
+    want = _pallas_gather(_k2, table2d, clipped, (1, 512), (1, 512), ridx.shape,
+                          ridx.shape[0])
+    assert np.array_equal(got, want)
+
+
+def test_rows_sum_path_reads_fewer_bytes():
+    # sum every row once while the table has no more rows than indices
+    assert GK.rows_sum_path(1024, 1 << 20) == "row_sums"
+    assert GK.rows_sum_path(1, 1) == "row_sums"
+    assert GK.rows_sum_path(1_000_000, 1000) == "per_output"
+    assert GK.rows_sum_path(5, 0) == "per_output"
+
+
 def test_take_along_lanes_matches_v3():
     rng = np.random.default_rng(0)
     sel = rng.integers(0, 128, (128, 128)).astype(np.int32)
@@ -510,6 +551,16 @@ def test_gather_kernels_match_plain_on_the_card(cuda_device):
     src = torch.from_numpy(rng.integers(0, 1 << 30, (1001, 128)).astype(np.int32)).to(dev)
     sel = torch.from_numpy(rng.integers(-5, 133, (1001, 128)).astype(np.int32)).to(dev)
     assert torch.equal(GK.take_along_lanes(src, sel), GK.take_along_lanes_reference(src, sel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1024, 1 << 20), (20_000, 777), (1, 5000)])
+def test_take_rows_sum_paths_match_plain_on_the_card(rows, n, cuda_device):
+    rng = np.random.default_rng(rows)
+    t2 = torch.from_numpy(rng.integers(-(1 << 31), (1 << 31) - 1, (rows, 128)).astype(
+        np.int32)).to(cuda_device)
+    r = torch.from_numpy(rng.integers(-3, rows + 3, n)).to(cuda_device)
+    assert torch.equal(GK.take_rows_sum(t2, r), GK.take_rows_sum_reference(t2, r))
 
 
 @pytest.mark.cuda

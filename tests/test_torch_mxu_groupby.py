@@ -14,10 +14,18 @@ from trino_tpu_torch.ops import groupby as TG
 from trino_tpu_torch.ops import mxu_groupby as TM
 
 
-def _inputs(n, c, n_vals, seed, live_frac=1.0, extreme=False):
+def _inputs(n, c, n_vals, seed, live_frac=1.0, extreme=False, ids="even", dead_tail=0):
+    """ids: "even" over the c slots, "one_slot" (every row in slot 0) or
+    "sorted" (long runs of one slot); the last `dead_tail` rows dead."""
     rng = np.random.default_rng(seed)
     gid = rng.integers(0, c, n, dtype=np.int32)
+    if ids == "one_slot":
+        gid[:] = 0
+    elif ids == "sorted":
+        gid.sort()
     live = rng.random(n) < live_frac
+    if dead_tail:
+        live[n - dead_tail:] = False
     if extreme:
         big = np.int64(2 ** 63 - 1)
         vals = [
@@ -33,13 +41,19 @@ def _inputs(n, c, n_vals, seed, live_frac=1.0, extreme=False):
     return gid, vals, live
 
 
-# the reference's own kernel cases (tests/test_ops.py TestMxuGroupby)
-# plus int64-extreme values whose sums wrap mod 2^64
+# the reference's own kernel cases (tests/test_ops.py TestMxuGroupby),
+# int64-extreme values whose sums wrap mod 2^64, and the shapes the card
+# kernel's per-tile sort finds hard: one hot slot, long runs of one slot,
+# a ragged length with a dead tail, and 13 value columns at capacity 2048
 CASES = {
     "exact_int64_sums": dict(n=3000, c=300, n_vals=2, seed=1),
     "masked_rows_and_row_padding": dict(n=1001, c=17, n_vals=1, seed=2, live_frac=0.7),
     "many_values_multi_sublane_tile": dict(n=2048, c=100, n_vals=9, seed=3),
     "int64_extreme_wraparound": dict(n=1500, c=40, n_vals=3, seed=4, extreme=True),
+    "all_rows_one_slot": dict(n=3000, c=300, n_vals=2, seed=5, ids="one_slot"),
+    "sorted_long_runs": dict(n=5000, c=40, n_vals=3, seed=6, ids="sorted", extreme=True),
+    "ragged_length_dead_tail": dict(n=1301, c=50, n_vals=2, seed=7, dead_tail=213),
+    "thirteen_columns_capacity_2048": dict(n=4100, c=2048, n_vals=13, seed=8),
 }
 
 
@@ -47,7 +61,8 @@ CASES = {
 def test_plain_grouped_sum_matches_reference_kernel(case):
     kw = CASES[case]
     gid, vals, live = _inputs(kw["n"], kw["c"], kw["n_vals"], kw["seed"],
-                              kw.get("live_frac", 1.0), kw.get("extreme", False))
+                              kw.get("live_frac", 1.0), kw.get("extreme", False),
+                              kw.get("ids", "even"), kw.get("dead_tail", 0))
     c = kw["c"]
     want_kernel = grouped_sum_mxu(
         jnp.asarray(gid), tuple(jnp.asarray(v) for v in vals),
@@ -182,6 +197,21 @@ def test_kernel_matches_plain_on_the_card(shape, cuda_device):
     want = TM.grouped_sum_reference(g, v, lv, cap)
     torch.cuda.synchronize()
     assert TM.grouped_sum.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ids", [(1 << 20, "one_slot"), (4_194_304, "sorted"),
+                                   (4097, "even"), (3, "even")])
+def test_kernel_matches_plain_at_hard_shapes_on_the_card(n, ids, cuda_device):
+    # one hot slot, long runs, one row past a tile, a tile of three rows
+    gid, vals, live = _inputs(n, 480, 13, seed=n % 89, live_frac=0.9, ids=ids)
+    dev = cuda_device
+    g, v, lv = (torch.from_numpy(x).to(dev) for x in (gid, np.stack(vals), live))
+    got = TM.grouped_sum(g, v, lv, 480)
+    want = TM.grouped_sum_reference(g, v, lv, 480)
+    torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

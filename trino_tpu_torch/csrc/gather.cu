@@ -18,12 +18,31 @@
 // What bounds them: bytes. take_flat reads each index and each gathered
 // element once and writes each output once (the table is read at random,
 // so a table that fits the 50 MB L2 is read from device memory about
-// once); it is a grid-stride loop of read-only loads. take_rows_sum reads
-// one index and one 128-lane row per output: one warp per output row reads
-// the row with coalesced loads and reduces it with shuffles; counted once
-// per distinct row its bytes are tiny and it is bound by its adds (127 per
-// output). The TPU versions held the whole table in VMEM; Hopper's shared
-// memory is too small for that, so the flat and row gathers go through L2.
+// once); it is a grid-stride loop of read-only loads. The TPU versions
+// held the whole table in VMEM; Hopper's shared memory is too small for
+// that, so the flat and row gathers go through L2.
+//
+// take_rows_sum: a row's sum does not depend on which output asks for it,
+// and int32 addition mod 2^32 is associative, so the least work reads
+// each needed row once: bytes n x (index + 4) + min(rows, n) x width x 4.
+// The launcher picks one of two paths by shape:
+//   - rows <= n ("row sums"): every row is summed once, one warp a row
+//     with coalesced (16-byte where aligned) loads and a shuffle
+//     reduction, into a scratch array of rows int32 sums; then a second
+//     kernel gathers those sums by clipped index. Two launches, because
+//     every output may need any row's sum and blocks of one grid cannot
+//     wait on each other; the sums (4 bytes a row) stay in L2 for the
+//     gather. The gather is a programmatic dependent launch (Hopper): its
+//     blocks start while the row sums run, load their indices, and wait
+//     (griddepcontrol.wait) only before reading the sums, so the second
+//     launch's start and its index reads overlap the first kernel.
+//   - rows > n ("per output"): summing every row would read rows the
+//     function never needs, so each output reads its own row: one warp an
+//     output, the row from L2 with coalesced loads, reduced by shuffles.
+// The first design took the per-output path at every shape: at the
+// explorer's shape (1 M outputs over 1,024 rows of 128) it read 512 MB
+// from L2 where the function needs 8.9 MB. There the two launches and the
+// 8 MB of indices and outputs now pace it.
 //
 // take_along_lanes reads src and sel once and writes out once. At width 128
 // (the TPU kernel's lane count) a row is 512 bytes, one 16-byte vector per
@@ -72,6 +91,79 @@ __global__ void take_rows_sum_kernel(const int32_t* __restrict__ table,
       s += __shfl_down_sync(0xffffffffu, s, off);
     if (lane == 0) out[i] = (int32_t)s;
   }
+}
+
+// sum of each row, one warp a row; 16-byte loads where the rows allow
+__global__ void row_sums_kernel(const int32_t* __restrict__ table, long long n_rows,
+                                int width, bool vec4, int32_t* __restrict__ sums) {
+  // let the dependent gather start now; it waits for this grid's sums
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long r = warp; r < n_rows; r += n_warps) {
+    const int32_t* row = table + r * width;
+    unsigned int s = 0u;
+    if (vec4) {
+      const uint4* row4 = reinterpret_cast<const uint4*>(row);
+      for (int l = lane; l < width / 4; l += 32) {
+        const uint4 q = __ldg(&row4[l]);
+        s += q.x + q.y + q.z + q.w;
+      }
+    } else {
+      for (int l = lane; l < width; l += 32) s += (unsigned int)__ldg(&row[l]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) sums[r] = (int32_t)s;
+  }
+}
+
+// out[i] = sums[clip(ridx[i])], launched as a programmatic dependent of
+// row_sums_kernel: each thread loads its first GATHER_AHEAD indices, which
+// do not depend on the sums, then waits for the row sums to be complete
+// and visible (griddepcontrol.wait) before it reads them.
+constexpr int GATHER_AHEAD = 4;
+
+template <typename I>
+__global__ void gather_sums_kernel(const int32_t* __restrict__ sums, long long n_rows,
+                                   const I* __restrict__ ridx, long long n,
+                                   int32_t* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long r[GATHER_AHEAD];
+#pragma unroll
+  for (int j = 0; j < GATHER_AHEAD; ++j) {
+    const long long i = i0 + j * stride;
+    r[j] = i < n ? (long long)__ldg(&ridx[i]) : 0;
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < GATHER_AHEAD; ++j) {
+    const long long i = i0 + j * stride;
+    if (i < n) out[i] = sums[r[j] < 0 ? 0 : (r[j] >= n_rows ? n_rows - 1 : r[j])];
+  }
+  for (long long i = i0 + GATHER_AHEAD * stride; i < n; i += stride) {
+    const long long j = (long long)__ldg(&ridx[i]);
+    out[i] = sums[j < 0 ? 0 : (j >= n_rows ? n_rows - 1 : j)];
+  }
+}
+
+template <typename I>
+cudaError_t launch_gather_sums(const int32_t* sums, long long n_rows, const void* ridx,
+                               long long n, int32_t* out, int threads, cudaStream_t s) {
+  long long grid = (n + (long long)threads * GATHER_AHEAD - 1) / ((long long)threads * GATHER_AHEAD);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(grid < 1 ? 1 : grid));
+  cfg.blockDim = dim3(threads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gather_sums_kernel<I>, sums, n_rows, (const I*)ridx, n, out);
 }
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -155,21 +247,37 @@ extern "C" int take_flat_launch(const void* table, long long n_table,
   return (int)cudaErrorInvalidValue;
 }
 
+// sums == nullptr: one warp per output (grid blocks); else the row sums
+// into `sums` (n_rows int32, grid_rows blocks), then the gather of them,
+// launched as a programmatic dependent of the row sums. Returns a
+// cudaError_t.
 extern "C" int take_rows_sum_launch(const void* table, long long n_rows,
                                     int width, const void* ridx, int idx_bytes,
-                                    long long n, void* out, int grid,
-                                    int threads, void* stream) {
+                                    long long n, void* out, void* sums,
+                                    int grid_rows, int grid, int threads,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (idx_bytes != 4 && idx_bytes != 8) return (int)cudaErrorInvalidValue;
+  if (sums) {
+    const bool vec4 = width % 4 == 0 && ((uintptr_t)table & 15) == 0;
+    row_sums_kernel<<<grid_rows, threads, 0, s>>>((const int32_t*)table, n_rows,
+                                                  width, vec4, (int32_t*)sums);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)(idx_bytes == 4
+                     ? launch_gather_sums<int32_t>((const int32_t*)sums, n_rows, ridx, n,
+                                                   (int32_t*)out, threads, s)
+                     : launch_gather_sums<long long>((const int32_t*)sums, n_rows, ridx,
+                                                     n, (int32_t*)out, threads, s));
+  }
   if (idx_bytes == 4)
     take_rows_sum_kernel<int32_t><<<grid, threads, 0, s>>>(
         (const int32_t*)table, n_rows, width, (const int32_t*)ridx, n,
         (int32_t*)out);
-  else if (idx_bytes == 8)
+  else
     take_rows_sum_kernel<long long><<<grid, threads, 0, s>>>(
         (const int32_t*)table, n_rows, width, (const long long*)ridx, n,
         (int32_t*)out);
-  else
-    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -59,3 +59,37 @@ def device_ms(fn, iters: int = 20, mode: str = "warm") -> float:
         marks[1].record()
     torch.cuda.synchronize()
     return sum(marks[i].elapsed_time(marks[i + 1]) for i in range(0, len(marks), 2)) / iters
+
+
+def q_mxu_like_ids(rng, n: int):
+    """int32 group ids shaped like the bounded-domain GROUP BY of TPC-H
+    lineitem by (returnflag, linestatus, shipmode, shipinstruct): slot
+    ((rf * 3 + ls) * 8 + mode) * 5 + instruct of 480, over the four
+    (returnflag, linestatus) pairs at lineitem's shares, seven ship modes
+    and four instructions, so 112 slots are hit. `rng` is a numpy
+    Generator."""
+    import numpy as np
+
+    pairs = np.array([0 * 3 + 0, 1 * 3 + 0, 1 * 3 + 1, 2 * 3 + 0])  # AF NF NO RF
+    pair = pairs[rng.choice(4, n, p=[0.25, 0.0065, 0.4935, 0.25])]
+    mode = rng.integers(0, 7, n)
+    instruct = rng.integers(0, 4, n)
+    return ((pair * 8 + mode) * 5 + instruct).astype(np.int32)
+
+
+def atomic_opcodes(library: str) -> dict:
+    """{SASS opcode: count} of the atomic instructions in a built kernel
+    library, from `cuobjdump -sass`: ATOMS.* on shared memory, ATOM,
+    ATOMG, RED and REDG on device memory. It tells a native add (ATOMS.ADD)
+    from a compare-and-swap loop (ATOMS.CAS, ATOMS.CAST.SPIN)."""
+    import os
+    import re
+    import subprocess
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict = {}
+    for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", text):
+        counts[op] = counts.get(op, 0) + 1
+    return counts

@@ -10,7 +10,14 @@ what bounds each and what its design does about that.
   its index gathers through it on the card (ops/join.py and the
   fanout-1 expansion in exec/operators.py).
 - `take_rows_sum(table2d, ridx)` <- v2 (k2): out[i] = sum over the lanes
-  of row clip(ridx[i]) of an int32 table, wrapping mod 2^32.
+  of row clip(ridx[i]) of an int32 table, wrapping mod 2^32. Bound by
+  bytes: each index read and each output written once, and each row the
+  outputs need read once. `rows_sum_path` picks by shape: with no more
+  rows than indices every row is summed once into a scratch array and
+  the sums gathered (two launches, "row_sums"); with more rows than
+  indices each output sums its own row ("per_output"), so no row is read
+  that no output needs. The first design read one row per output at
+  every shape, 512 MB from L2 at the explorer's shape.
 - `take_along_lanes(src, sel)` <- v3 (k3): out[r, l] = src[r, clip(sel[r, l])]
   for a 2-D table of 4-byte elements and int32 selectors. Bound by bytes
   (src and sel read once, out written once). At width 128 a warp holds a
@@ -37,7 +44,7 @@ BLOCKS_PER_SM = 16
 _P, _I, _L = cuda_build.PTR, cuda_build.I32, cuda_build.I64
 _FUNCTIONS = {
     "take_flat_launch": [_P, _L, _I, _P, _I, _L, _P, _I, _I, _P],
-    "take_rows_sum_launch": [_P, _L, _I, _P, _I, _L, _P, _I, _I, _P],
+    "take_rows_sum_launch": [_P, _L, _I, _P, _I, _L, _P, _P, _I, _I, _I, _P],
     "take_along_lanes_launch": [_P, _P, _L, _I, _P, _I, _I, _P],
 }
 _INDEX_TYPES = (torch.int32, torch.int64)
@@ -148,30 +155,44 @@ def take_rows_sum(table2d: torch.Tensor, ridx: torch.Tensor) -> torch.Tensor:
     if out.numel():
         go()
         take_rows_sum.launches += 1
-        take_rows_sum.shapes.add(tuple(table2d.shape) + (out.numel(),))
+        take_rows_sum.shapes.add(tuple(table2d.shape) + (
+            out.numel(), rows_sum_path(int(table2d.shape[0]), out.numel())))
     return out
 
 
+def rows_sum_path(rows: int, n: int) -> str:
+    """"row_sums" (sum every row once, then gather the sums) when the
+    table has no more rows than there are indices, else "per_output"
+    (each output sums its own row): the path that reads fewer bytes."""
+    return "row_sums" if rows <= n else "per_output"
+
+
 def rows_sum_launcher(table2d: torch.Tensor, ridx: torch.Tensor):
-    """(go, out): `go()` launches the row-gather-sum kernel into `out`."""
+    """(go, out): `go()` launches the row-gather-sum kernels of the path
+    `rows_sum_path` picks into `out`."""
     dev = table2d.device
     table2d, flat = table2d.contiguous(), ridx.reshape(-1).contiguous()
-    n = flat.shape[0]
+    rows, n = int(table2d.shape[0]), flat.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    # one warp per output row
-    args = (table2d.data_ptr(), int(table2d.shape[0]), int(table2d.shape[1]),
-            flat.data_ptr(), flat.element_size(), n, out.data_ptr(),
-            _grid(n * 32, dev), THREADS, _stream(dev))
+    if rows_sum_path(rows, n) == "row_sums":
+        sums = torch.empty(rows, dtype=torch.int32, device=dev)
+        # the gather sizes its own grid (four indices a thread)
+        sums_ptr, grid_rows, grid = sums.data_ptr(), _grid(rows * 32, dev), 0
+    else:  # one warp per output row
+        sums, sums_ptr, grid_rows, grid = None, None, 0, _grid(n * 32, dev)
+    args = (table2d.data_ptr(), rows, int(table2d.shape[1]), flat.data_ptr(),
+            flat.element_size(), n, out.data_ptr(), sums_ptr, grid_rows, grid,
+            THREADS, _stream(dev))
     lib = _lib()
 
-    def go(_keep=(table2d, flat, out)):
+    def go(_keep=(table2d, flat, out, sums)):
         cuda_build.check(lib.take_rows_sum_launch(*args), "take_rows_sum")
 
     return go, out.reshape(ridx.shape)
 
 
 take_rows_sum.launches = 0
-take_rows_sum.shapes = set()  # distinct (rows, width, indices)
+take_rows_sum.shapes = set()  # distinct (rows, width, indices, path)
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,14 @@ Counterpart of trino_tpu/ops/mxu_groupby.py. The TPU kernel there
 (`grouped_sum_mxu`, Pallas body `_make_kernel`) contracts 8-bit limbs of
 the values against a one-hot of the group ids on the matrix unit. On
 Hopper the hand-written CUDA kernel in ../csrc/grouped_sum.cu replaces
-it: a per-block shared-memory accumulator per (column, slot), filled
-with 64-bit shared atomics and flushed to device memory with one global
-atomic per nonzero slot. It is bound by the bytes it must read
-(gid 4 B + live 1 B + 8 B per value column, per row); see the source's
-header for what its design does about that and what holds it back.
+it. It is bound by the bytes it must read (gid 4 B and live 1 B a row,
+8 B a value column for each used row). Each block keeps a shared-memory
+accumulator per (column, slot) and sorts each tile of `TILE_ROWS` rows
+by slot (a counting sort: one 32-bit shared atomic per used row gives
+its rank), so each slot's run in the tile is added once per column
+rather than each (row, column) with a 64-bit shared atomic, the first
+design, whose count of atomics held it at three times its bound. The
+source's header says how the runs are reduced.
 
 Contract (identical to the reference): per-group int64 sums of each
 value column, with the live-row count appended last; gid in
@@ -35,18 +38,18 @@ ROW_TILE = 256
 MAX_CAPACITY = 2048
 MAX_ROWS = ROW_TILE << 15
 
-# shared accumulator budget per block: small enough for several blocks
-# per SM; wider shapes split their columns over gridDim.y
+# shared accumulator budget per block: with the sorted tile beside it,
+# two blocks fit an SM; wider shapes split their columns over gridDim.y
 SMEM_BUDGET = 64 * 1024
-THREADS = 256
-BLOCKS_PER_SM = 3
+# rows a block sorts at a time (the kernel's TILE: 512 threads x 8 rows)
+TILE_ROWS = 4096
 
 
 def _load():
     return cuda_build.load("grouped_sum", {"grouped_sum_launch": [
         cuda_build.PTR, cuda_build.PTR, cuda_build.PTR, cuda_build.I64,
         cuda_build.I32, cuda_build.I32, cuda_build.PTR, cuda_build.I32,
-        cuda_build.I32, cuda_build.I32, cuda_build.PTR,
+        cuda_build.I32, cuda_build.PTR,
     ]})
 
 
@@ -84,13 +87,11 @@ def _launch(gid, values, live, capacity: int) -> List[torch.Tensor]:
     out = torch.zeros((k + 1, capacity), dtype=torch.int64, device=dev)
     if n == 0:
         return list(out.unbind(0))
-    cpb = columns_per_block(k + 1, capacity)
-    sms = cuda_build.sm_count(dev)
-    grid_x = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.grouped_sum_launch(
         gid.data_ptr(), live_u8.data_ptr(), values.data_ptr(), n, k, capacity,
-        out.data_ptr(), cpb, grid_x, THREADS, stream,
+        out.data_ptr(), columns_per_block(k + 1, capacity), cuda_build.sm_count(dev),
+        stream,
     )
     cuda_build.check(err, "grouped_sum")
     grouped_sum.launches += 1
