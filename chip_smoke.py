@@ -13,19 +13,28 @@ Phases (any failure exits nonzero):
                  card, bit-exact, at the explorers' shapes and at edge
                  shapes; kernel, plain and one-library-call times beside
                  the bound.
-  4. main      — LocalQueryRunner(device="cuda") answers TPC-H Q1, Q6 and
-                 the bounded-domain GROUP BY (Q-MXU) at sf1 cold, and the
-                 joins Q3 and Q18 at sf1 cold and warm; kernel launch
-                 counts are read per query (each join run launches the
-                 bounds kernel once per probe batch, the run-owner fill
-                 and the flat gather, and no searched rank; Q1/Q6/Q-MXU
-                 launch no join kernel); Q-MXU rolled up over (shipmode,
-                 shipinstruct) must equal Q1, and Q18 must agree with the
-                 join-free group-by of lineitem.
+  4. main      — LocalQueryRunner(device="cuda") answers, at sf1 and
+                 cold, TPC-H Q1, Q6, the bounded-domain GROUP BY (Q-MXU),
+                 the joins Q3, Q18, Q16 (count distinct) and Q22
+                 (substring, anti join), the window query Q-WIN and the
+                 join-project Q-MXJ (mxu_join_enabled) with its mxu-off
+                 twin; kernel launch counts are read per query (each join
+                 run launches the bounds kernel once per probe batch and
+                 no searched rank, Q3/Q18 also the run-owner fill and the
+                 flat gather; Q1/Q6/Q-MXU launch no join kernel; Q-MXJ
+                 launches grouped_sum at least once per lineitem batch and
+                 expands no pair); Q-MXU rolled up over (shipmode,
+                 shipinstruct) must equal Q1, Q18 must agree with the
+                 join-free group-by of lineitem, Q-WIN's count, running
+                 sum and row numbers must equal count(distinct o_custkey),
+                 sum(o_totalprice) and count(*) of orders exactly, and
+                 Q-MXJ's rows must equal its twin's.
   5. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
-  6. parity    — the queries at tpch.tiny, and Q3/Q18 at sf0.1, on the
-                 card and on the CPU must be row-equal.
+  6. parity    — the queries, and the window and set-operation queries
+                 of tests/test_window.py, at tpch.tiny, and the joins and
+                 Q16, Q22, Q-WIN and Q-MXJ at sf0.1, on the card and on the
+                 CPU must be row-equal.
   7. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, a `kernels` JSON
@@ -114,6 +123,98 @@ limit 100"""
 # Q18's answer by the join-free route: every order's total quantity
 Q18_CHECK = """select l_orderkey, sum(l_quantity) from lineitem
 group by 1 having sum(l_quantity) > 300"""
+
+Q16 = """select p_brand, p_type, p_size, count(distinct ps_suppkey) as supplier_cnt
+from partsupp, part
+where p_partkey = ps_partkey
+  and p_brand <> 'Brand#45'
+  and p_type not like 'MEDIUM POLISHED%'
+  and p_size in (49, 14, 23, 45, 19, 3, 36, 9)
+  and ps_suppkey not in (
+        select s_suppkey from supplier
+        where s_comment like '%Customer%Complaints%')
+group by p_brand, p_type, p_size
+order by supplier_cnt desc, p_brand, p_type, p_size"""
+
+Q22 = """select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal
+from (
+    select substring(c_phone, 1, 2) as cntrycode, c_acctbal
+    from customer
+    where substring(c_phone, 1, 2) in ('13', '31', '23', '29', '30', '18', '17')
+      and c_acctbal > (
+            select avg(c_acctbal)
+            from customer
+            where c_acctbal > 0.00
+              and substring(c_phone, 1, 2) in ('13', '31', '23', '29', '30', '18', '17'))
+      and not exists (select * from orders where o_custkey = c_custkey)
+) as custsale
+group by cntrycode
+order by cntrycode"""
+
+# one window spec over every order: the last row of each customer's
+# partition holds its order count and its total
+Q_WIN = """select count(*), sum(run), sum(rn) from (
+  select row_number() over (partition by o_custkey order by o_orderkey) as rn,
+         sum(o_totalprice) over (partition by o_custkey order by o_orderkey
+             rows between unbounded preceding and current row) as run,
+         lead(o_orderkey) over (partition by o_custkey order by o_orderkey) as nxt
+  from orders) t
+where nxt is null"""
+Q_WIN_CUSTOMERS = "select count(distinct o_custkey) from orders"
+Q_WIN_TOTALS = "select sum(o_totalprice), count(*) from orders"
+
+# a star join of lineitem with a small filtered dimension (about 800
+# parts at sf1): the join-project route under mxu_join_enabled
+Q_MXJ = """select p_brand, count(*), count(l_suppkey), sum(l_linenumber)
+from lineitem join part on l_partkey = p_partkey
+where p_size = 15 and p_type like '%BRASS'
+group by p_brand order by p_brand"""
+
+# copies of tests/test_window.py's WINDOW_QUERIES and SET_QUERIES (the
+# tests import JAX; a test holds these copies equal to them)
+WINDOW_QUERIES = [
+    "select n_regionkey, n_name, row_number() over (partition by n_regionkey order by n_name) rn"
+    " from nation order by n_regionkey, n_name",
+    "select n_regionkey, n_name,"
+    " rank() over (partition by n_regionkey order by substr(n_name,1,1)) r,"
+    " dense_rank() over (partition by n_regionkey order by substr(n_name,1,1)) dr"
+    " from nation order by n_regionkey, n_name",
+    "select n_regionkey, n_name, ntile(3) over (partition by n_regionkey order by n_name) b"
+    " from nation order by n_regionkey, n_name",
+    "select s_nationkey, s_name, sum(s_acctbal) over (partition by s_nationkey) tot,"
+    " count(*) over (partition by s_nationkey) c"
+    " from supplier order by s_nationkey, s_name",
+    "select o_orderkey, avg(o_totalprice) over (partition by o_orderpriority) a"
+    " from orders where o_orderkey < 100 order by o_orderkey",
+    "select s_nationkey, s_name, s_acctbal, sum(s_acctbal) over"
+    " (partition by s_nationkey order by s_name rows between unbounded preceding and current row) run"
+    " from supplier order by s_nationkey, s_name",
+    "select s_name, min(s_acctbal) over"
+    " (order by s_suppkey rows between unbounded preceding and current row) m"
+    " from supplier order by s_suppkey",
+    "select o_custkey, o_orderkey, sum(o_orderkey) over"
+    " (partition by o_custkey order by o_orderdate) s"
+    " from orders where o_custkey < 30 order by o_custkey, o_orderkey",
+    "select o_custkey, o_orderkey, lag(o_orderkey) over (partition by o_custkey order by o_orderkey) prev,"
+    " lead(o_orderkey, 2) over (partition by o_custkey order by o_orderkey) nxt2"
+    " from orders where o_custkey < 20 order by o_custkey, o_orderkey",
+    "select n_name, first_value(n_name) over (partition by n_regionkey order by n_name) f,"
+    " last_value(n_name) over (partition by n_regionkey) l"
+    " from nation order by n_name",
+    "select n_regionkey, count(*) c, rank() over (order by count(*) desc) r"
+    " from nation group by n_regionkey order by r, n_regionkey",
+]
+SET_QUERIES = [
+    "select c_custkey from customer where c_custkey < 100 intersect"
+    " select o_custkey from orders order by 1",
+    "select c_custkey from customer where c_custkey < 100 except"
+    " select o_custkey from orders order by c_custkey limit 5",
+    "select n_regionkey from nation intersect select r_regionkey from region order by 1 desc",
+    "select o_orderstatus from orders except select 'O' order by 1",
+    "select c_mktsegment from customer intersect select 'BUILDING'",
+    "select n_name from nation where n_regionkey = 0 union"
+    " select n_name from nation where n_regionkey = 1 order by 1 limit 4",
+]
 
 
 def log(msg: str) -> None:
@@ -715,11 +816,12 @@ def phase_kernel_join(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def runner(schema: str, device: str):
+def runner(schema: str, device: str, **session):
     from trino_tpu_torch.connectors.tpch import create_tpch_connector
     from trino_tpu_torch.engine import LocalQueryRunner, Session
 
-    r = LocalQueryRunner(Session(catalog="tpch", schema=schema), device=device)
+    r = LocalQueryRunner(Session(catalog="tpch", schema=schema, **session),
+                         device=device)
     r.register_catalog("tpch", create_tpch_connector())
     return r
 
@@ -809,9 +911,13 @@ def run_query(r, scan, name, run, sql, per_query, probes=None) -> list:
     kernel launches it caused; with `probes` (the Capture around
     sorted_run_bounds), also its non-empty probe batches."""
     import torch
+    from trino_tpu_torch.ops import mxu_groupby as M
+    from trino_tpu_torch.sql import local_planner as LP
 
     before = join_kernel_counts()
     batches_before = probes.calls if probes else 0
+    shapes_before = set(M.grouped_sum.shapes)
+    selected_before = LP.mxu_join_selected
     scan.seconds = 0.0
     t0 = time.perf_counter()
     res = r.execute(sql)
@@ -820,12 +926,15 @@ def run_query(r, scan, name, run, sql, per_query, probes=None) -> list:
     after = join_kernel_counts()
     n = {k: after[k] - before[k] for k in after}
     batches = (probes.calls if probes else 0) - batches_before
-    per_query[f"{name}_{run}"] = {"wall_s": wall, "scan_s": scan.seconds,
-                                  "launches": n, "probe_batches": batches,
-                                  "rows": len(res.rows)}
+    per_query[f"{name}_{run}"] = {
+        "wall_s": wall, "scan_s": scan.seconds, "launches": n, "probe_batches": batches,
+        "rows": len(res.rows),
+        "grouped_sum_shapes": sorted(set(M.grouped_sum.shapes) - shapes_before),
+        "mxu_join_selected": LP.mxu_join_selected - selected_before}
     log(f"[main] {name} {run}: {len(res.rows)} rows, wall_s={wall}, "
         f"scan_s={scan.seconds} (host generation + copy to the card), "
-        f"rest_s={wall - scan.seconds}, probe_batches={batches}, launches={n}")
+        f"rest_s={wall - scan.seconds}, probe_batches={batches}, launches={n}, "
+        f"mxu_join_selected={per_query[f'{name}_{run}']['mxu_join_selected']}")
     return res.rows
 
 
@@ -853,17 +962,17 @@ def phase_main(results: dict) -> None:
         (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None))
     reset_kernel_counts()
     with gs, bd, ro, tf, probes:
-        # slice 1's queries run cold only (their warm runs were dropped to
-        # keep the script inside its time limit); the joins cold and warm
-        for name, sql, runs in (("q1", Q1, ("cold",)), ("q6", Q6, ("cold",)),
-                                ("q_mxu", Q_MXU, ("cold",)),
-                                ("q3", Q3, ("cold", "warm")),
-                                ("q18", Q18, ("cold", "warm"))):
-            for run in runs:
-                got = run_query(r, scan, name, run, sql, per_query, probes)
-                if run == "warm" and got != rows[name]:
-                    raise AssertionError(f"{name}: warm rows differ from cold rows")
-                rows[name] = got
+        # every query runs cold once (the warm runs were dropped to keep
+        # the script inside half its time limit); Q-MXJ runs with the
+        # join-project route on, then its twin with the route off
+        for name, sql, mxu in (("q1", Q1, False), ("q6", Q6, False),
+                               ("q_mxu", Q_MXU, False), ("q3", Q3, False),
+                               ("q18", Q18, False), ("q16", Q16, False),
+                               ("q22", Q22, False), ("q_win", Q_WIN, False),
+                               ("q_mxj", Q_MXJ, True), ("q_mxj_off", Q_MXJ, False)):
+            r.session.mxu_join_enabled = mxu
+            rows[name] = run_query(r, scan, name, "cold", sql, per_query, probes)
+        r.session.mxu_join_enabled = False
     results["main_launches"] = join_kernel_counts()
     results["main_shapes"] = sorted(M.grouped_sum.shapes, reverse=True)
     # bounds twice: the call with the most queries, and the one into the
@@ -876,11 +985,17 @@ def phase_main(results: dict) -> None:
         for name in ("window_rank", "bounds", "run_owner", "take_flat")}
     results["main"] = per_query
     cross = run_query(r, scan, "q18_check", "cold", Q18_CHECK, per_query)
-    for name in ("q1", "q6", "q_mxu", "q3", "q18"):
+    win_check = [run_query(r, scan, "q_win_customers", "cold", Q_WIN_CUSTOMERS, per_query),
+                 run_query(r, scan, "q_win_totals", "cold", Q_WIN_TOTALS, per_query)]
+    for name in ("q1", "q6", "q_mxu", "q3", "q18", "q16", "q22", "q_win", "q_mxj"):
         for row in rows[name][:6]:
             log(f"[main] {name} row: {row}")
     check_main(rows, per_query, cross, batches)
+    check_breadth_queries(rows, per_query, win_check, batches)
     log(f"[main] launches over the main path: {results['main_launches']}")
+
+
+JOIN_QUERIES = ("q3_", "q18_cold", "q16_", "q22_", "q_mxj_")
 
 
 def check_main(rows, per_query, cross, batches) -> None:
@@ -894,8 +1009,8 @@ def check_main(rows, per_query, cross, batches) -> None:
     for q, n in per_query.items():
         launched = n["launches"]
         joins = [launched[k] for k in ("bounds", "run_owner", "take_flat")]
-        if q.startswith(("q3_", "q18_")) and not q.startswith("q18_check"):
-            if min(joins) <= 0:
+        if q.startswith(JOIN_QUERIES):
+            if q.startswith(("q3_", "q18_")) and min(joins) <= 0:
                 raise AssertionError(f"{q}: the join ran without its kernels {launched}")
             # one bounds launch per probe batch, and no searched rank
             if launched["bounds"] != n["probe_batches"] or launched["window_rank"]:
@@ -903,7 +1018,7 @@ def check_main(rows, per_query, cross, batches) -> None:
                     f"{q}: {launched['bounds']} bounds launches for "
                     f"{n['probe_batches']} probe batches, "
                     f"{launched['window_rank']} rank launches")
-        elif q.startswith(("q1_", "q6_", "q_mxu_")) and \
+        elif q.startswith(("q1_", "q6_", "q_mxu_", "q_win")) and \
                 max(joins + [launched["window_rank"]]) > 0:
             raise AssertionError(f"{q}: join kernels launched on a join-free query")
     # Q-MXU rolled up over (shipmode, shipinstruct) is Q1's measures
@@ -937,6 +1052,47 @@ def check_main(rows, per_query, cross, batches) -> None:
         f"{len(got)} orders equal the join-free group-by's {len(totals)}")
 
 
+def check_breadth_queries(rows, per_query, win_check, batches) -> None:
+    """Q16, Q22, Q-WIN and Q-MXJ at sf1: shapes, identities and the
+    join-project route's launches."""
+    import math
+
+    q16 = rows["q16"]
+    cnts = [row[3] for row in q16]
+    if not q16 or not all(isinstance(c, int) and c > 0 for c in cnts) \
+            or cnts != sorted(cnts, reverse=True):
+        raise AssertionError(f"Q16 rows out of shape: {q16[:5]}")
+    q22 = rows["q22"]
+    codes = [row[0] for row in q22]
+    if not q22 or codes != sorted(codes) or not set(codes) <= {
+            "13", "31", "23", "29", "30", "18", "17"} \
+            or not all(row[1] > 0 and math.isfinite(row[2]) for row in q22):
+        raise AssertionError(f"Q22 rows out of shape: {q22}")
+    # Q-WIN: the last row of each customer's partition (no next order)
+    # holds the running total and the order count of that customer
+    (customers,), (total, count) = win_check[0][0], win_check[1][0]
+    want = [customers, total, count]
+    if rows["q_win"] != [want]:
+        raise AssertionError(f"Q-WIN {rows['q_win']} != [count distinct customers, "
+                             f"sum(o_totalprice), count(*)] {want}")
+    on, off = per_query["q_mxj_cold"], per_query["q_mxj_off_cold"]
+    if on["mxu_join_selected"] != 1 or off["mxu_join_selected"] != 0:
+        raise AssertionError(f"Q-MXJ route selected {on['mxu_join_selected']} times "
+                             f"on, {off['mxu_join_selected']} off")
+    if rows["q_mxj"] != rows["q_mxj_off"] or not rows["q_mxj"]:
+        raise AssertionError("Q-MXJ rows differ from its mxu-off twin")
+    launched = on["launches"]
+    if launched["grouped_sum"] < batches:
+        raise AssertionError(f"Q-MXJ launched grouped_sum {launched['grouped_sum']} "
+                             f"times for {batches} lineitem batches")
+    if launched["run_owner"] or launched["take_flat"]:
+        raise AssertionError(f"Q-MXJ expanded join pairs: {launched}")
+    log(f"[main] Q-WIN equals count(distinct o_custkey), sum(o_totalprice) and "
+        f"count(*) of orders: {want}; Q-MXJ equals its mxu-off twin over "
+        f"{len(rows['q_mxj'])} brands with {launched['grouped_sum']} grouped_sum "
+        f"launches and no pair expansion")
+
+
 def phase_explore(results: dict) -> None:
     """Both explorer entry points, with the launch counts they cause."""
     from trino_tpu_torch.explore import kernel_costs, pallas_gather
@@ -956,12 +1112,19 @@ def phase_explore(results: dict) -> None:
 
 
 def phase_parity(results: dict) -> None:
+    # Q-MXJ twice: with the join-project route on, and off
+    breadth = (("q16", Q16, False), ("q22", Q22, False), ("q_win", Q_WIN, False),
+              ("q_mxj", Q_MXJ, True), ("q_mxj_off", Q_MXJ, False))
+    tests = tuple((f"window{i}", q, False) for i, q in enumerate(WINDOW_QUERIES)) + tuple(
+        (f"set{i}", q, False) for i, q in enumerate(SET_QUERIES))
     for schema, queries in (
-        ("tiny", (("q1", Q1), ("q6", Q6), ("q_mxu", Q_MXU), ("q3", Q3), ("q18", Q18))),
-        ("sf0.1", (("q3", Q3), ("q18", Q18))),
+        ("tiny", (("q1", Q1, False), ("q6", Q6, False), ("q_mxu", Q_MXU, False),
+                  ("q3", Q3, False), ("q18", Q18, False)) + breadth + tests),
+        ("sf0.1", (("q3", Q3, False), ("q18", Q18, False)) + breadth),
     ):
         gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
-        for name, sql in queries:
+        for name, sql, mxu in queries:
+            gpu.session.mxu_join_enabled = cpu.session.mxu_join_enabled = mxu
             a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
             if a != b:
                 raise AssertionError(f"{name}: card and CPU rows differ at {schema}")
@@ -1001,7 +1164,8 @@ def mode_record(rec: dict, launches: int) -> dict:
             "library_ms": rec.get("library_ms"), "wrapper_ms": rec.get("wrapper_ms"),
             "warm_ms": rec.get("warm_ms"),
             "shape": {k: v for k, v in rec.items()
-                      if k in ("n_a", "n_b", "n", "n_table", "rows", "width", "dtype")}}
+                      if k in ("n_a", "n_b", "n", "n_table", "rows", "width", "dtype",
+                               "k", "capacity", "live_rows")}}
 
 
 def kernels_line(results: dict) -> dict:
@@ -1011,6 +1175,7 @@ def kernels_line(results: dict) -> dict:
     # the kernel, beside inputs of that shape with ids spread evenly;
     # the line reports the query's own data at the largest shape
     captured = results.get("main_args", {}).get("grouped_sum", {})
+    by_shape = {}
     for i, (n, k, cap) in enumerate(results.get("main_shapes", [])):
         rec = check_grouped_sum(n=n, k=k, capacity=cap, seed=7 + i, iters=20,
                                 args=captured[(n, k, cap)][:3])
@@ -1021,7 +1186,16 @@ def kernels_line(results: dict) -> dict:
             f"{timing_text(even)}")
         results.setdefault("main_arg_timings", []).append(
             {"main_path": rec, "even_ids": even})
-        if i == 0:
+        by_shape[(n, k, cap)] = rec
+    # per query that launched it: its launches, and the timing at the
+    # largest arguments it gave the kernel (Q-MXU's is the entry's own)
+    modes = {}
+    for q in ("q_mxu", "q_mxj"):
+        run = results.get("main", {}).get(f"{q}_cold", {})
+        shapes = [tuple(x) for x in run.get("grouped_sum_shapes", [])]
+        rec = by_shape.get(max(shapes), {}) if shapes else {}
+        modes[q] = mode_record(rec, run.get("launches", {}).get("grouped_sum", 0))
+        if q == "q_mxu" and rec:
             timed = rec
     launches = results.get("main_launches", {})
     line = [{
@@ -1041,6 +1215,7 @@ def kernels_line(results: dict) -> dict:
         "library_ms": timed.get("library_ms"),
         "shape": {"n": timed.get("n"), "k": timed.get("k"),
                   "capacity": timed.get("capacity")},
+        "modes": modes,
     }]
     join_checks = results.get("join_kernel_checks", {})
     on_path = timed_main_args(results)

@@ -1,9 +1,9 @@
-"""TPC-H joins at tpch.tiny (Q11-Q21 without Q6 and Q16): trino_tpu_torch
+"""TPC-H at tpch.tiny (Q11-Q22 without Q16 and Q18): trino_tpu_torch
 (device="cpu") row-equal to trino_tpu and, within assert_rows_match's
 tolerances, to the sqlite oracle. Q1, Q3, Q6 and Q18 are in
-test_torch_engine.py; Q16 (count(distinct)) and Q22 (substr) wait for
-ROADMAP queues 9 and 4. The queries are split over files because the
-tier-1 run spreads test files over workers."""
+test_torch_engine.py and Q16 in test_torch_tpch_a.py. The queries are
+split over files because the tier-1 run spreads test files over
+workers."""
 
 import pytest
 
@@ -34,7 +34,8 @@ def runners():
     return ref, port
 
 
-@pytest.mark.parametrize("qid", [11, 12, 13, 14, 15, 17, 19, 20, 21], ids=lambda q: f"q{q}")
+@pytest.mark.parametrize("qid", [11, 12, 13, 14, 15, 17, 19, 20, 21, 22],
+                         ids=lambda q: f"q{q}")
 def test_tpch_join_query_matches_reference_and_oracle(qid, runners, oracle):
     ref, port = runners
     sql = QUERIES[qid]

@@ -84,6 +84,13 @@ for _name, _type, _default, _desc, _allowed in [
     ("join_reordering_strategy", str, "automatic",
      "cost-based join reordering: automatic | none",
      ("automatic", "none")),
+    ("mxu_join_enabled", bool, False,
+     "plan a grouped aggregate over a high-fanout inner equi-join as the "
+     "join-project route (ops/mxu_join.py: per-key grouped sums, no pair "
+     "expansion) when profitable", None),
+    ("mxu_join_min_work", float, 16.0,
+     "estimated fanout x build-NDV product at or above which the "
+     "join-project route is selected over the expanding join", None),
 ]:
     SYSTEM_PROPERTIES.register(_name, _type, _default, _desc, _allowed)
 

@@ -51,6 +51,10 @@ class Session:
     enable_optimizer: bool = True
     join_reordering_strategy: str = "automatic"
     enable_pushdown: bool = True
+    # the join-project route (ops/mxu_join.py) for a grouped aggregate
+    # over a high-fanout inner equi-join, and its work threshold
+    mxu_join_enabled: bool = False
+    mxu_join_min_work: float = 16.0
 
 
 @dataclasses.dataclass
@@ -93,6 +97,8 @@ class LocalQueryRunner:
             self.catalogs, self.device,
             batch_rows=self.session.batch_rows,
             target_splits=self.session.target_splits,
+            mxu_join=self.session.mxu_join_enabled,
+            mxu_join_min_work=self.session.mxu_join_min_work,
         )
         physical = planner.plan(output)
         ctx: dict = {}

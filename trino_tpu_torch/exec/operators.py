@@ -7,13 +7,14 @@ batch's device; filters only flip `live` mask bits and dead rows ride
 along until an explicit compact, as in the reference.
 
 Ported: TableScan (with runtime dynamic-filter constraints), Values,
-FilterProject, Limit, Sort, TopN, single-step HashAggregation (global,
-dense, grouped-sum kernel and sort routes, with the N-way state merge),
-EnforceSingleRow, the hash join (HashBuildSink + LookupJoinOperator for
-inner, left, full, semi, anti and mark joins), DynamicFilter, the cross
-join and CollectorSink. Windows, partial/final aggregation steps, spill
-(grace joins included) and the holistic aggregates are queued in
-ROADMAP.md.
+FilterProject, Limit, Sort, TopN, Window, single-step HashAggregation
+(global, dense, grouped-sum kernel and sort routes, with the N-way state
+merge), EnforceSingleRow, the hash join (HashBuildSink +
+LookupJoinOperator for inner, left, full, semi, anti and mark joins),
+the join-project MxuJoinAggOperator, DynamicFilter, the cross join,
+BufferSink/BufferSource (UNION ALL) and CollectorSink. Partial/final
+aggregation steps, spill (grace joins included), the holistic
+aggregates, UNNEST and MATCH_RECOGNIZE are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -342,6 +343,189 @@ class TopNOperator(Operator):
             self._reservoir if self._reservoir is not None
             else empty_batch(self._schema, self._device)
         )
+
+    def get_output(self) -> Optional[RelBatch]:
+        out, self._out = self._out, None
+        return out
+
+    def is_finished(self) -> bool:
+        return self._finishing and self._out is None
+
+
+# ---------------------------------------------------------------------------
+# Window functions
+# ---------------------------------------------------------------------------
+
+
+def _window_compute(batch: RelBatch, partition_channels: Sequence[int],
+                    order_keys: Sequence[SortKey], functions: tuple, frame: str):
+    """Every window column over the batch sorted by (partition, order):
+    the WindowOperator's inner loop as segmented scans (ops/window.py).
+    Returns (sorted columns, sorted live mask, [(data, valid)] per
+    function)."""
+    from trino_tpu_torch.ops import window as W
+
+    live = batch.live_mask()
+    n = batch.capacity
+    part_cols = [batch.columns[c] for c in partition_channels]
+    order_cols = [batch.columns[k.channel] for k in order_keys]
+    key_cols = part_cols + order_cols
+    if key_cols:
+        order = sort_order(
+            [c.data for c in key_cols], [c.valid for c in key_cols],
+            [False] * len(part_cols) + [k.descending for k in order_keys],
+            [False] * len(part_cols) + [k.nulls_first for k in order_keys],
+            live,
+        )
+    else:
+        order = torch.argsort((~live).to(torch.int8), stable=True)
+    s_live = take_clip(live, order)
+    s_cols = [c.gather(order) for c in batch.columns]
+
+    def sorted_keys(cols):
+        return ([take_clip(c.data, order) for c in cols],
+                [None if c.valid is None else take_clip(c.valid, order) for c in cols])
+
+    # partition boundaries; the dead tail is a segment of its own
+    pd, pv = sorted_keys(part_cols)
+    part_start = W.segment_starts(pd + [s_live], pv + [None], n)
+    peer_start = part_start
+    if order_cols:
+        od, ov = sorted_keys(order_cols)
+        peer_start = part_start | W.segment_starts(od, ov, n)
+
+    out_cols = []
+    for kind, arg_ch, out_dt, offset, arg_sf, out_float, out_sf, out_lanes in functions:
+        if kind == "row_number":
+            out_cols.append((W.row_number(part_start).to(out_dt), None))
+        elif kind in ("rank", "dense_rank", "percent_rank", "cume_dist"):
+            fn = getattr(W, kind)
+            out_cols.append((fn(part_start, peer_start).to(out_dt), None))
+        elif kind == "ntile":
+            out_cols.append((W.ntile(offset, part_start).to(out_dt), None))
+        elif kind in ("lead", "lag"):
+            col = s_cols[arg_ch]
+            off = offset if kind == "lag" else -offset
+            data, valid = W.shift_in_partition(col.data, col.valid, part_start, off)
+            out_cols.append((data, valid & s_live))
+        elif kind == "first_value":
+            col = s_cols[arg_ch]
+            out_cols.append(W.first_value(col.data, col.valid, part_start))
+        elif kind == "last_value":
+            col = s_cols[arg_ch]
+            out_cols.append(W.last_value(col.data, col.valid, part_start, peer_start,
+                                         frame))
+        elif kind == "nth_value":
+            col = s_cols[arg_ch]
+            data, valid = W.nth_value(col.data, col.valid, part_start, peer_start,
+                                      frame, offset)
+            out_cols.append((data, valid & s_live if valid is not None else None))
+        elif kind in ("count", "count_star"):
+            vals = valid = None
+            if arg_ch is not None:
+                vals, valid = s_cols[arg_ch].data, s_cols[arg_ch].valid
+            v, _ = W.windowed_agg("count", vals, valid, s_live, part_start, peer_start,
+                                  frame, 0)
+            out_cols.append((v.to(out_dt), None))
+        elif kind in ("sum", "avg", "min", "max"):
+            col = s_cols[arg_ch]
+            if col.data.dim() == 2:
+                raise NotImplementedError("window aggregates over decimal(>18) arguments")
+            if kind in ("min", "max"):
+                vals = col.data
+                neutral = G.minmax_neutral(vals.dtype, kind)
+            else:
+                vals = col.data.to(G._acc_dtype(col.data.dtype))
+                neutral = 0
+            v, cnt = W.windowed_agg(kind, vals, col.valid, s_live, part_start,
+                                    peer_start, frame, neutral)
+            has = cnt > 0
+            if kind == "avg":
+                q = v.to(torch.float64) / torch.clamp(cnt, min=1) / arg_sf
+                if out_sf is not None:
+                    # decimal avg: back into the output's scaled-int64
+                    # domain, rounding half away from zero (as _agg_output)
+                    q = q * out_sf
+                    q = torch.sign(q) * torch.floor(torch.abs(q) + 0.5)
+                out_cols.append((q.to(out_dt), has))
+            elif kind == "sum" and out_float:
+                out_cols.append(((v / arg_sf).to(out_dt), has))
+            else:
+                safe = torch.where(has, v, torch.zeros_like(v))
+                if out_lanes == 2:
+                    # sum(short decimal) -> decimal(38, s): widen the int64
+                    # accumulator into limb pairs
+                    h, lo = I128.from_i64(safe.to(torch.int64))
+                    out_cols.append((torch.stack([h, lo], dim=-1), has))
+                else:
+                    out_cols.append((safe.to(out_dt), has))
+        else:
+            raise NotImplementedError(f"window function {kind}")
+    return s_cols, s_live, out_cols
+
+
+def window_fn_tuples(specs, schema: Schema) -> tuple:
+    """Per-function static layout for _window_compute: (kind, arg
+    channel, output dtype, offset, argument scale divisor, float output,
+    decimal output scale factor, output lanes). Decimal arguments stay
+    scaled int64; only an output that leaves the scaled domain (avg to
+    DOUBLE, float sums) divides by the argument's scale."""
+    fns = []
+    for s in specs:
+        arg_sf = 1
+        out_float = s.out_type.is_floating
+        out_sf = T.decimal_scale_factor(s.out_type) if s.out_type.is_decimal else None
+        if s.arg_channel is not None:
+            arg_t = schema[s.arg_channel][0]
+            if arg_t.is_decimal and (s.kind == "avg" or out_float):
+                arg_sf = T.decimal_scale_factor(arg_t)
+        fns.append((s.kind, s.arg_channel, s.out_type.dtype, s.offset, arg_sf,
+                    out_float, out_sf, s.out_type.lanes))
+    return tuple(fns)
+
+
+# window functions whose result is a value of their argument column, so
+# the argument's dictionary rides along
+WINDOW_VALUE_KINDS = ("lead", "lag", "first_value", "last_value", "nth_value",
+                      "min", "max")
+
+
+class WindowOperator(Operator):
+    """Blocking window evaluation (WindowOperator.java): consume all
+    input, sort once by (partition, order), emit the child's columns and
+    the window results in sorted order."""
+
+    def __init__(self, partition_channels: Sequence[int], order_keys: Sequence[SortKey],
+                 functions: Sequence, frame: str, input_schema: Schema, device):
+        self._partition = tuple(partition_channels)
+        self._order = tuple(order_keys)
+        self._specs = list(functions)
+        self._frame = frame
+        self._schema = list(input_schema)
+        self._device = device
+        self._inputs: List[RelBatch] = []
+        self._out: Optional[RelBatch] = None
+        self._fns = window_fn_tuples(self._specs, self._schema)
+
+    def add_input(self, batch: RelBatch) -> None:
+        self._inputs.append(batch)
+
+    def finish(self) -> None:
+        if self._finishing:
+            return
+        self._finishing = True
+        parts = self._inputs or [empty_batch(self._schema, self._device)]
+        self._inputs = []
+        s_cols, s_live, out_cols = _window_compute(
+            concat_batches(parts), self._partition, self._order, self._fns,
+            self._frame)
+        cols = list(s_cols)
+        for spec, (data, valid) in zip(self._specs, out_cols):
+            d = None
+            if spec.arg_channel is not None and spec.kind in WINDOW_VALUE_KINDS:
+                d = s_cols[spec.arg_channel].dictionary
+            cols.append(Column(spec.out_type, data, valid, d))
+        self._out = RelBatch(cols, s_live)
 
     def get_output(self) -> Optional[RelBatch]:
         out, self._out = self._out, None
@@ -1130,6 +1314,95 @@ class HashBuildSink(Operator):
         return self._finishing
 
 
+class MxuJoinAggOperator(Operator):
+    """Join-project-aggregate (ops/mxu_join.py): consumes the probe
+    batches of an inner single-key equi-join whose aggregate arguments
+    are all probe-side and whose group columns are all build-side, and
+    sums each batch per build key id (the grouped_sum kernel) instead of
+    expanding pairs.
+
+    Emits one partial batch at finish: per build row, the summed probe
+    contributions of its key, which the planner feeds into an ordinary
+    HashAggregationOperator for the final grouping. The build side
+    arrives through the JoinBridge; the engine runs its pipeline first."""
+
+    def __init__(self, bridge: JoinBridge, key_channel: int, aggs,
+                 group_channels: Sequence[int]):
+        self._bridge = bridge
+        self._key = key_channel
+        self._kinds = tuple(a.kind for a in aggs)
+        self._args = tuple(a.arg_channel for a in aggs)
+        self._groups = list(group_channels)
+        self._analysis = None
+        self._acc: Optional[List[torch.Tensor]] = None
+        self._outputs: List[RelBatch] = []
+
+    def _analyze(self):
+        from trino_tpu_torch.ops import mxu_join as MJ
+
+        ls = self._bridge.lookup_source
+        build = self._bridge.build_batch
+        col = build.columns[self._bridge.build_key_channels[0]]
+        kid, kid_by_pos, distinct, n_distinct, hash_pure = MJ.build_key_analysis(
+            col.data, col.valid_mask(), build.live_mask(), ls.sorted_hash, ls.perm)
+        # one host read at the build barrier: whether the build's hash runs
+        # are key-pure decides the probe lookup for the whole query
+        self._analysis = (kid, kid_by_pos, distinct, n_distinct, bool(hash_pure))
+
+    def add_input(self, probe: RelBatch) -> None:
+        from trino_tpu_torch.ops import mxu_join as MJ
+
+        if self._analysis is None:
+            self._analyze()
+        _kid, kid_by_pos, distinct, n_distinct, hash_pure = self._analysis
+        kcol = probe.columns[self._key]
+        kv = kcol.valid_mask()
+        arg_data, arg_valid = [], []
+        for ch in self._args:
+            if ch is None:  # count_star placeholder, never read
+                arg_data.append(kcol.data)
+                arg_valid.append(kv)
+            else:
+                c = probe.columns[ch]
+                arg_data.append(c.data)
+                arg_valid.append(c.valid_mask())
+        capacity = self._bridge.build_batch.capacity
+        sums = MJ.probe_page_sums(
+            self._bridge.lookup_source, kid_by_pos, distinct, n_distinct,
+            kcol.data, kv, probe.live_mask(), arg_data, arg_valid, self._kinds,
+            capacity, MJ.uses_kernel(capacity, probe.capacity), hash_pure)
+        self._acc = (list(sums) if self._acc is None
+                     else [a + s for a, s in zip(self._acc, sums)])
+
+    def finish(self) -> None:
+        from trino_tpu_torch.ops import mxu_join as MJ
+
+        if self._finishing:
+            return
+        self._finishing = True
+        if self._analysis is None:
+            self._analyze()
+        build = self._bridge.build_batch
+        if self._acc is None:
+            # no probe batch arrived: zero sums, nothing matches
+            n_cols = sum(2 if k == "sum" else (1 if k == "count" else 0)
+                         for k in self._kinds)
+            z = torch.zeros(build.capacity, dtype=torch.int64, device=build.device)
+            self._acc = [z] * (n_cols + 1)
+        live, outs = MJ.finalize_partials(self._analysis[0], build.live_mask(),
+                                          self._acc, self._kinds)
+        cols = [build.columns[ch] for ch in self._groups]
+        for data, valid in outs:
+            cols.append(Column(T.BIGINT, data, valid, None))
+        self._outputs.append(RelBatch(cols, live))
+
+    def get_output(self) -> Optional[RelBatch]:
+        return self._outputs.pop(0) if self._outputs else None
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._outputs
+
+
 def _pair_key_verify(ok, probe_cols, build_cols, pkc, bkc):
     """AND exact key equality (and non-NULL keys) of the pair columns."""
     for pc, bc in zip(pkc, bkc):
@@ -1569,6 +1842,47 @@ class CrossJoinOperator(Operator):
     def is_finished(self) -> bool:
         return self._finishing and not self._outputs
 
+
+class BufferSink(Operator):
+    """Collects batches for a later pipeline (the LocalExchange handoff,
+    single-buffer form): each input of a UNION ALL ends in one."""
+
+    def __init__(self):
+        self.batches: List[RelBatch] = []
+
+    def add_input(self, batch: RelBatch) -> None:
+        self.batches.append(batch)
+
+    def is_finished(self) -> bool:
+        return self._finishing
+
+
+class BufferSource(Operator):
+    """Replays the batches of one or more BufferSinks, in order. The
+    engine runs the producing pipelines first."""
+
+    def __init__(self, sinks: Sequence[BufferSink]):
+        self._sinks = list(sinks)
+        self._batches: Optional[List[RelBatch]] = None
+        self._i = 0
+
+    def needs_input(self) -> bool:
+        return False
+
+    def _all(self) -> List[RelBatch]:
+        if self._batches is None:
+            self._batches = [b for s in self._sinks for b in s.batches]
+        return self._batches
+
+    def get_output(self) -> Optional[RelBatch]:
+        batches = self._all()
+        if self._i < len(batches):
+            self._i += 1
+            return batches[self._i - 1]
+        return None
+
+    def is_finished(self) -> bool:
+        return self._i >= len(self._all())
 
 
 class CollectorSink(Operator):

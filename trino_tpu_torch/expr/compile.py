@@ -17,8 +17,14 @@ casts, CASE, IN, COALESCE, IS NULL, NOT, AND/OR, comparisons (numeric,
 decimal incl. Int128, string codes), arithmetic (integer, double,
 short and long decimal — add/sub/mul/div/mod, decimal(>18) divisors
 included),
-negation, EXTRACT(YEAR/MONTH/DAY) and LIKE. Every other function
-raises NotImplementedError naming itself (ROADMAP queue 4).
+negation, EXTRACT(YEAR/MONTH/DAY), LIKE, abs, round, nullif,
+greatest/least, and the dictionary string functions substr/substring,
+upper, lower, length, trim/ltrim/rtrim, reverse, replace, starts_with
+and concat (each a host transform of the dictionary plus a code remap
+on the device). Every other function (date arithmetic, math beyond
+abs/round, regexp, json, url, time zones, lambdas, arrays and maps,
+hashing, sketches, casts to and from varchar) raises
+NotImplementedError naming itself (ROADMAP §1 item 4).
 """
 
 from __future__ import annotations
@@ -144,7 +150,7 @@ def _lookup(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 def _not_ported(name: str):
     return NotImplementedError(
-        f"{name}: not ported to trino_tpu_torch yet (ROADMAP queue 4)"
+        f"{name}: not ported to trino_tpu_torch yet (ROADMAP §1 item 4)"
     )
 
 
@@ -503,7 +509,219 @@ class ExprBinder:
             return Bound(T.BIGINT, exfn)
         if name == "like":
             return self._bind_like(e, args)
+        if name in ("substr", "substring"):
+            return self._bind_dict_transform(
+                args[0], e,
+                lambda s: self._py_substr(s, e.args[1], e.args[2] if len(e.args) > 2 else None),
+            )
+        if name in ("upper", "lower"):
+            return self._bind_dict_transform(
+                args[0], e, str.upper if name == "upper" else str.lower)
+        if name in ("trim", "ltrim", "rtrim", "reverse"):
+            pyf = {"trim": str.strip, "ltrim": str.lstrip,
+                   "rtrim": str.rstrip, "reverse": lambda s: s[::-1]}[name]
+            return self._bind_dict_transform(args[0], e, pyf)
+        if name == "replace":
+            frm = e.args[1]
+            to = e.args[2] if len(e.args) > 2 else Literal("", T.VARCHAR)
+            if not (isinstance(frm, Literal) and isinstance(to, Literal)):
+                raise _not_ported("replace() with a non-constant search or replacement")
+            return self._bind_dict_transform(
+                args[0], e, lambda s: s.replace(frm.value, to.value))
+        if name == "length":
+            return self._bind_dict_table(args[0], T.BIGINT, len, torch.int64)
+        if name == "starts_with":
+            prefix = e.args[1]
+            if not isinstance(prefix, Literal):
+                raise _not_ported("starts_with() with a non-constant prefix")
+            return self._bind_dict_table(
+                args[0], T.BOOLEAN, lambda v: v.startswith(prefix.value), torch.bool)
+        if name == "concat":
+            return self._bind_concat(e, args)
+        if name == "nullif":
+            return self._bind_nullif(e, args)
+        if name in ("greatest", "least"):
+            return self._bind_greatest_least(name, e, args)
+        if name == "abs":
+            (a,) = args
+            if a.type.is_long_decimal:
+                def abs128(cols, valids):
+                    d, v = a.fn(cols, valids)
+                    return _join2(*I128.abs_(*_split2(d))), v
+                return Bound(e.type, abs128)
+
+            def absfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                return torch.abs(d), v
+            return Bound(e.type, absfn)
+        if name == "round":
+            return self._bind_round(e, args)
         raise _not_ported(f"function {name}")
+
+    # ---- string functions on dictionary columns ----
+    @staticmethod
+    def _py_substr(s: str, start_lit: Expr, len_lit: Optional[Expr]) -> str:
+        """Trino substr: 1-based; a negative start counts from the end; a
+        start of 0 yields the empty string (StringFunctions.substr)."""
+        start = int(start_lit.value)
+        n = int(len_lit.value) if len_lit is not None else None
+        if start == 0:
+            return ""
+        begin = start - 1 if start > 0 else max(len(s) + start, 0)
+        if start < 0 and len(s) + start < 0:
+            return ""
+        end = len(s) if n is None else begin + max(n, 0)
+        return s[begin:end]
+
+    def _null_of(self, ref: Bound, out_type: T.DataType) -> Bound:
+        """An all-NULL result of `out_type` (a string function over an
+        input with no dictionary values, e.g. a NULL literal)."""
+        if isinstance(ref.dictionary, RuntimeDictionary):
+            raise _not_ported("string functions over an execution-time dictionary")
+
+        def fn(cols, valids, rfn=ref.fn):
+            d, _ = rfn(cols, valids)
+            return _phys_const(d, out_type), _const(d, False, torch.bool)
+        return Bound(out_type, fn, Dictionary([]) if out_type.is_string else None)
+
+    def _bind_dict_transform(self, a: Bound, e: Call, pyfn) -> Bound:
+        """String function on a dictionary column: transform the |dict|
+        values on the host, remap the codes on the device
+        (DictionaryAwarePageProjection analogue). The new dictionary is
+        sorted, so several values may map to one code."""
+        if a.dictionary is None or len(a.dictionary) == 0:  # NULL-only input
+            return self._null_of(a, e.type)
+        transformed = [pyfn(v) for v in a.dictionary.values]
+        new_dict = Dictionary(transformed)
+        remap = _table([new_dict.code(t) for t in transformed], torch.int32)
+
+        def fn(cols, valids):
+            d, v = a.fn(cols, valids)
+            return _lookup(remap, d), v
+        return Bound(e.type, fn, new_dict)
+
+    def _bind_dict_table(self, a: Bound, out_type: T.DataType, pyfn, dtype) -> Bound:
+        """A non-string function of a string: one table entry per
+        dictionary value, looked up by code."""
+        if a.dictionary is None or len(a.dictionary) == 0:
+            return self._null_of(a, out_type)
+        table = _table([pyfn(v) for v in a.dictionary.values], dtype)
+
+        def fn(cols, valids):
+            d, v = a.fn(cols, valids)
+            return _lookup(table, d), v
+        return Bound(out_type, fn)
+
+    def _bind_concat(self, e: Call, args) -> Bound:
+        """String concatenation on dictionary columns. A constant operand
+        folds into a dictionary transform; two dictionary operands build
+        the pairwise dictionary (bounded) with codes ca * |B| + cb."""
+        if len(args) > 2:
+            # left-fold longer chains into pairwise concats
+            acc = args[0]
+            for i in range(1, len(args)):
+                pair = Call("concat", (e.args[0], e.args[i]), T.VARCHAR)
+                acc = self._bind_concat(pair, [acc, args[i]])
+            return acc
+        a, b = args
+        if b.is_const:
+            suffix = b.const_value or ""
+            return self._bind_dict_transform(a, e, lambda s: s + suffix)
+        if a.is_const:
+            prefix = a.const_value or ""
+            return self._bind_dict_transform(b, e, lambda s: prefix + s)
+        if a.dictionary is None or b.dictionary is None:
+            return self._null_of(a, T.VARCHAR)
+        da, db = a.dictionary, b.dictionary
+        if len(da) * len(db) > 1 << 18:
+            raise NotImplementedError("concat of two high-cardinality string columns")
+        pairs = [x + y for x in da.values for y in db.values]
+        new_dict = Dictionary(pairs)
+        remap = _table([new_dict.code(p) for p in pairs], torch.int32)
+        nb = len(db)
+
+        def fn(cols, valids):
+            dca, va = a.fn(cols, valids)
+            dcb, vb = b.fn(cols, valids)
+            ca = torch.clamp(dca.to(torch.int64), 0, len(da) - 1)
+            cb = torch.clamp(dcb.to(torch.int64), 0, nb - 1)
+            return _lookup(remap, ca * nb + cb), merge_valid(va, vb)
+        return Bound(T.VARCHAR, fn, new_dict)
+
+    def _bind_nullif(self, e: Call, args) -> Bound:
+        """nullif(a, b): a, NULL where a = b. Equality goes through the
+        comparison binder, so dictionaries unify and decimals rescale;
+        the result keeps a's representation."""
+        a, b = args
+        eqb = self._bind_comparison("eq", [a, b])
+
+        def fn(cols, valids):
+            da, va = a.fn(cols, valids)
+            de, ve = eqb.fn(cols, valids)
+            eq = de if ve is None else (de & ve)
+            v = va if va is not None else _const(da, True, torch.bool)
+            return da, v & ~eq
+        return Bound(e.type, fn, a.dictionary)
+
+    def _bind_greatest_least(self, name: str, e: Call, args) -> Bound:
+        """greatest/least; any NULL argument makes the result NULL.
+        Strings compare as codes of one unified (sorted) dictionary."""
+        pick = torch.maximum if name == "greatest" else torch.minimum
+        out_dict = None
+        if e.type.is_string:
+            merged = None
+            for a in args:
+                if a.dictionary is not None:
+                    merged = (a.dictionary if merged is None
+                              else Dictionary.unify(merged, a.dictionary)[0])
+            if merged is None:
+                return self._null_of(args[0], e.type)
+            args = [self._remap_to(a, merged) for a in args]
+            out_dict = merged
+        elif e.type.is_long_decimal:
+            raise _not_ported(f"{name} over decimal(>18)")
+        out_t = e.type
+
+        def fn(cols, valids):
+            data, valid = args[0].fn(cols, valids)
+            data = data.to(out_t.dtype)
+            for a in args[1:]:
+                d, v = a.fn(cols, valids)
+                data = pick(data, d.to(out_t.dtype))
+                valid = merge_valid(valid, v)
+            return data, valid
+        return Bound(out_t, fn, out_dict)
+
+    def _bind_round(self, e: Call, args) -> Bound:
+        """round(x[, d]): half away from zero; a decimal keeps its scale."""
+        a = args[0]
+        if len(args) > 1:
+            if not args[1].is_const:
+                raise _not_ported("round() with a non-constant scale")
+            ndig = int(args[1].const_value)
+        else:
+            ndig = 0
+        if a.type.is_long_decimal:
+            raise _not_ported("round over decimal(>18)")
+        if a.type.is_decimal:
+            s = a.type.scale or 0
+            if ndig >= s:
+                return Bound(e.type, a.fn)
+            m = 10 ** (s - ndig)
+
+            def rdfn(cols, valids, afn=a.fn):
+                d, v = afn(cols, valids)
+                return F.div_round_half_away(d, _const(d, m, d.dtype)) * m, v
+            return Bound(e.type, rdfn)
+        sf = 10.0 ** ndig
+
+        def rfn(cols, valids, afn=a.fn):
+            d, v = afn(cols, valids)
+            out = F.round_half_away(d.to(torch.float64) * sf) / sf
+            if e.type.is_integerlike:
+                out = out.to(e.type.dtype)
+            return out, v
+        return Bound(e.type, rfn)
 
     def _bind_like(self, e: Call, args) -> Bound:
         a = args[0]

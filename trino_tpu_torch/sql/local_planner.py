@@ -13,13 +13,17 @@ join's build side becomes a pipeline of its own, which the engine runs
 to completion before the pipelines that probe it.
 
 Ported node kinds: Output, Scan, Values, Filter, Project, Aggregate
-(single step), Join (hash joins of every kind, with dynamic filtering,
-and cross joins), EnforceSingleRow, Sort, TopN, Limit. The other kinds
+(single step, DISTINCT aggregates in the single-distinct shape, and the
+join-project route over an inner equi-join when the session enables it),
+Join (hash joins of every kind, with dynamic filtering, and cross
+joins), Window, UnionAll, EnforceSingleRow, Sort, TopN, Limit. Unnest,
+MatchRecognize, remote sources and the partial/final aggregation steps
 are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -29,6 +33,8 @@ from trino_tpu_torch.block import Dictionary, RelBatch
 from trino_tpu_torch.connectors.spi import CatalogManager
 from trino_tpu_torch.exec import (
     AggSpec,
+    BufferSink,
+    BufferSource,
     CrossJoinBuildSink,
     CrossJoinOperator,
     DynamicFilterOperator,
@@ -39,13 +45,16 @@ from trino_tpu_torch.exec import (
     JoinBridge,
     LimitOperator,
     LookupJoinOperator,
+    MxuJoinAggOperator,
     Operator,
     SortOperator,
     TableScanOperator,
     TopNOperator,
     ValuesOperator,
+    WindowOperator,
 )
 from trino_tpu_torch.exec.operators import (
+    WINDOW_VALUE_KINDS,
     compose_batch_fns,
     dynamic_filter_constraints,
     make_filter_project_fn,
@@ -57,6 +66,10 @@ from trino_tpu_torch.sql import plan as P
 
 Schema = List[Tuple[T.DataType, Optional[Dictionary]]]
 Factory = Callable[[dict], Operator]
+
+# plans that took the join-project route (ops/mxu_join.py); tests and
+# chip_smoke.py read it
+mxu_join_selected = 0
 
 
 class PhysicalPlan:
@@ -77,13 +90,17 @@ class PhysicalPlan:
 
 class LocalPlanner:
     def __init__(self, catalogs: CatalogManager, device,
-                 batch_rows: int = 1 << 20, target_splits: int = 1):
+                 batch_rows: int = 1 << 20, target_splits: int = 1,
+                 mxu_join: bool = False, mxu_join_min_work: float = 16.0):
         self.catalogs = catalogs
         self.device = torch.device(device)
         self.batch_rows = batch_rows
         self.target_splits = target_splits
+        self.mxu_join = mxu_join
+        self.mxu_join_min_work = float(mxu_join_min_work)
         self.pipelines: List[List[Factory]] = []
         self._next_key = 0
+        self._stats_calc = None
 
     def plan(self, root: P.PlanNode) -> PhysicalPlan:
         chain, schema = self._visit(root)
@@ -105,7 +122,8 @@ class LocalPlanner:
         if m is None:
             raise NotImplementedError(
                 f"no physical plan for {type(node).__name__} in trino_tpu_torch "
-                "yet (ROADMAP queues 8-9)"
+                "yet (ROADMAP §1: UNNEST, MATCH_RECOGNIZE and the distributed "
+                "plane's remote sources are still to port)"
             )
         return m(node)
 
@@ -191,9 +209,12 @@ class LocalPlanner:
             raise NotImplementedError(
                 f"{node.step} aggregation step: ROADMAP queue 11 (distributed plane)"
             )
+        mxu = self._try_mxu_join_agg(node)
+        if mxu is not None:
+            return mxu
         chain, schema = self._visit(node.child)
         if any(a.distinct for a in node.aggs):
-            raise NotImplementedError("DISTINCT aggregates: ROADMAP queue 9")
+            return self._distinct_agg(node, chain, schema)
         specs = [
             AggSpec(a.kind, a.arg_channel, a.out_type,
                     arg2_channel=a.arg2_channel, percentile=a.percentile,
@@ -221,6 +242,201 @@ class LocalPlanner:
             (a.out_type, _out_dict(a)) for a in node.aggs
         ]
         return chain, out_schema
+
+    def _try_mxu_join_agg(self, node: P.AggregateNode):
+        """Join-project selection (ops/mxu_join.py): a single-step grouped
+        aggregate directly over an inner single-integer-key equi-join,
+        every group column build-side, every aggregate argument
+        probe-side (or COUNT(*)), kinds sum/count. There the pair sum
+        factors through the key and the join never expands. Returns
+        (chain, schema) when selected, None for the ordinary plan."""
+        global mxu_join_selected
+        if not self.mxu_join:
+            return None
+        # the column pruner leaves identity Projects (bare channel
+        # references) between the aggregate and the join: look through
+        # them, composing the channel map
+        join = node.child
+        cmap: Optional[List[int]] = None
+        while isinstance(join, P.ProjectNode) and all(
+            isinstance(e, InputRef) for e in join.exprs
+        ):
+            m = [e.index for e in join.exprs]
+            cmap = m if cmap is None else [m[c] for c in cmap]
+            join = join.child
+        if not isinstance(join, P.JoinNode):
+            return None
+
+        def tr(ch: int) -> int:
+            return cmap[ch] if cmap is not None else ch
+
+        if (
+            join.kind != "inner"
+            or join.residual is not None
+            or len(join.left_keys) != 1
+            or len(join.right_keys) != 1
+            or getattr(join, "spill_build", False)
+        ):
+            return None
+        if not node.group_channels or not node.aggs:
+            return None
+        probe_width = len(join.left.fields)
+        if any(tr(ch) < probe_width for ch in node.group_channels):
+            return None
+        for side, ch in ((join.left, join.left_keys[0]),
+                         (join.right, join.right_keys[0])):
+            t = side.fields[ch].type
+            if t.is_nested or t.lanes != 1 or not t.is_integerlike:
+                return None
+        for a in node.aggs:
+            if a.kind not in ("sum", "count", "count_star") or a.distinct:
+                return None
+            if (
+                a.arg2_channel is not None or a.arg3_channel is not None
+                or a.post is not None or a.out_type != T.BIGINT
+            ):
+                return None
+            if a.kind == "count_star":
+                if a.arg_channel is not None:
+                    return None
+                continue
+            if a.arg_channel is None or tr(a.arg_channel) >= probe_width:
+                return None
+            at = join.left.fields[tr(a.arg_channel)].type
+            if at.is_nested or at.lanes != 1 or not at.is_integerlike:
+                return None
+        # work gate: expected pairs per probe row (fanout) x build key NDV
+        # must reach the threshold; below it the expansion is cheap and the
+        # ordinary join keeps its dynamic filter
+        if self._stats_calc is None:
+            from trino_tpu_torch.sql.stats import StatsCalculator
+
+            self._stats_calc = StatsCalculator(self.catalogs)
+        bs = self._stats_calc.stats(join.right)
+        rows = float(bs.row_count or 0.0)
+        ndv = float(bs.col(join.right_keys[0]).ndv or rows)
+        fanout = rows / max(ndv, 1.0)
+        if fanout * ndv < self.mxu_join_min_work:
+            return None
+
+        build_chain, build_schema = self._visit(join.right)
+        probe_chain, probe_schema = self._visit(join.left)
+        key = self._key()
+        device = self.device
+
+        def bridge_of(ctx) -> JoinBridge:
+            return ctx.setdefault(key, JoinBridge())
+
+        rkeys = [join.right_keys[0]]
+        build_chain.append(
+            lambda ctx: HashBuildSink(bridge_of(ctx), rkeys, build_schema, device)
+        )
+        self.pipelines.append(build_chain)
+        lkey = join.left_keys[0]
+        aggs = [
+            dataclasses.replace(a, arg_channel=tr(a.arg_channel))
+            if a.arg_channel is not None else a
+            for a in node.aggs
+        ]
+        groups_b = [tr(ch) - probe_width for ch in node.group_channels]
+        probe_chain.append(
+            lambda ctx: MxuJoinAggOperator(bridge_of(ctx), lkey, aggs, groups_b)
+        )
+        # the final grouping over the per-build-row partials: SUM of each
+        # partial column (NULL partials drop out, so a SUM over only NULLs
+        # stays NULL, and COUNT partials, always valid, add up exactly)
+        g = len(groups_b)
+        partial_schema: Schema = [build_schema[ch] for ch in groups_b] + [
+            (a.out_type, None) for a in aggs
+        ]
+        specs = [AggSpec("sum", g + i, a.out_type) for i, a in enumerate(aggs)]
+        probe_chain.append(
+            lambda ctx: HashAggregationOperator(
+                list(range(g)), specs, partial_schema, device,
+                deferred_checks=ctx.setdefault("deferred_checks", []),
+            )
+        )
+        mxu_join_selected += 1
+        return probe_chain, list(partial_schema)
+
+    def _distinct_agg(self, node: P.AggregateNode, chain, schema: Schema):
+        """DISTINCT aggregates by dedup-then-aggregate (the MarkDistinct
+        analogue, restricted to the single-distinct shape)."""
+        if len(node.aggs) != 1:
+            raise NotImplementedError("DISTINCT aggregates must be the only aggregate")
+        a = node.aggs[0]
+        if a.arg_channel is None:
+            raise NotImplementedError("count(distinct *) is meaningless")
+        dedup_channels = list(node.group_channels) + [a.arg_channel]
+        device = self.device
+        chain.append(
+            lambda ctx: HashAggregationOperator(
+                dedup_channels, [], schema, device,
+                deferred_checks=ctx.setdefault("deferred_checks", []),
+            )
+        )
+        dedup_schema: Schema = [schema[c] for c in dedup_channels]
+        k = len(node.group_channels)
+        specs = [AggSpec(a.kind, k, a.out_type)]
+        groups = list(range(k))
+        chain.append(
+            lambda ctx: HashAggregationOperator(
+                groups, specs, dedup_schema, device,
+                deferred_checks=ctx.setdefault("deferred_checks", []),
+            )
+        )
+        return chain, dedup_schema[:k] + [(a.out_type, None)]
+
+    def _visit_WindowNode(self, node: P.WindowNode):
+        chain, schema = self._visit(node.child)
+        partition = list(node.partition_channels)
+        order = list(node.order_keys)
+        fns = list(node.functions)
+        frame = node.frame
+        device = self.device
+        chain.append(
+            lambda ctx: WindowOperator(partition, order, fns, frame, schema, device)
+        )
+        out_schema: Schema = list(schema)
+        for f in fns:
+            d = None
+            if f.arg_channel is not None and f.kind in WINDOW_VALUE_KINDS:
+                d = schema[f.arg_channel][1]
+            out_schema.append((f.out_type, d))
+        return chain, out_schema
+
+    def _visit_UnionAllNode(self, node: P.UnionAllNode):
+        """Each input runs as a pipeline of its own into a BufferSink;
+        the main chain replays them all. String columns must share one
+        dictionary across the inputs (an all-NULL input, with no or an
+        empty dictionary, goes with any)."""
+        sink_keys = []
+        schemas = []
+        for child in node.inputs:
+            chain, schema = self._visit(child)
+            schemas.append(schema)
+            key = self._key()
+            sink_keys.append(key)
+            chain.append(lambda ctx, key=key: ctx.setdefault(key, BufferSink()))
+            self.pipelines.append(chain)
+
+        def _dict_rank(d):
+            return 0 if d is None or len(d) == 0 else 1
+
+        out_schema = list(schemas[0])
+        for s in schemas[1:]:
+            for i, ((t0, d0), (t1, d1)) in enumerate(zip(out_schema, s)):
+                if not t0.is_string:
+                    continue
+                if _dict_rank(d0) == 0:
+                    out_schema[i] = (t0, d1)
+                elif _dict_rank(d1) == 0 or d0 == d1:
+                    continue
+                else:
+                    raise NotImplementedError(
+                        "UNION of string columns with differing dictionaries"
+                    )
+        return [lambda ctx: BufferSource([ctx[k] for k in sink_keys])], out_schema
 
     def _visit_EnforceSingleRowNode(self, node: P.EnforceSingleRowNode):
         chain, schema = self._visit(node.child)
