@@ -28,18 +28,34 @@ Phases (any failure exits nonzero):
                  join-free group-by of lineitem, Q-WIN's count, running
                  sum and row numbers must equal count(distinct o_custkey),
                  sum(o_totalprice) and count(*) of orders exactly, and
-                 Q-MXJ's rows must equal its twin's.
+                 Q-MXJ's rows must equal its twin's. Then the holistic
+                 and sketch aggregates over orders (approx_distinct with
+                 min_by/max_by equal to count(distinct) and carrying the
+                 extreme prices, the pctl_merge medians within their
+                 bucket of the exact ones, the HLL estimate within 3
+                 standard errors); TPC-DS at sf1 (the fact tables' counts
+                 equal row_count, the nine templates other than q72, each
+                 launching bounds once per probe batch) and q72 at
+                 Q72_SCHEMA with its peak device memory and widest join;
+                 and bench.py's wide-string GROUP BY (2^21 rows, memory
+                 connector) equal to numpy's own group-by.
   5. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
   6. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
-                 Q16, Q22, Q-WIN and Q-MXJ at sf0.1, on the card and on the
-                 CPU must be row-equal.
+                 Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
+                 queries at sf0.1, on the card and on the CPU must be
+                 row-equal; so must the ten TPC-DS templates at tiny, the
+                 nine other than q72 at sf0.1, a listagg over nation and
+                 the wide-string GROUP BY at 2^16 rows (also equal to
+                 numpy's).
   7. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
-                 largest arguments the main path gave it, a `kernels` JSON
-                 line, the card line, then the result line
-                 {"ok": true, "device": {...}} last.
+                 largest arguments the main path gave it, and on the
+                 TPC-DS templates' and q72's own largest; grouped_sum on
+                 each main-path shape (Q-MXU, Q-MXJ, the wide-string
+                 batch); a `kernels` JSON line, the card line, then the
+                 result line {"ok": true, "device": {...}} last.
 
 `--phases` picks a subset (comma-separated) for a quick check.
 """
@@ -215,6 +231,200 @@ SET_QUERIES = [
     "select n_name from nation where n_regionkey = 0 union"
     " select n_name from nation where n_regionkey = 1 order by 1 limit 4",
 ]
+
+# copies of tests/test_tpcds.py's QUERIES (TPC-DS templates) and the set
+# that must select rows at tiny scale (a test holds them equal)
+TPCDS_QUERIES = {
+    "q3": """
+    select dt.d_year, item.i_brand_id brand_id, item.i_brand brand,
+           sum(ss_ext_sales_price) sum_agg
+    from date_dim dt, store_sales, item
+    where dt.d_date_sk = store_sales.ss_sold_date_sk
+      and store_sales.ss_item_sk = item.i_item_sk
+      and item.i_manufact_id = 436
+      and dt.d_moy = 12
+    group by dt.d_year, item.i_brand, item.i_brand_id
+    order by dt.d_year, sum_agg desc, brand_id
+    limit 100
+    """,
+    "q7": """
+    select i_item_id,
+           avg(ss_quantity) agg1, avg(ss_list_price) agg2,
+           avg(ss_coupon_amt) agg3, avg(ss_sales_price) agg4
+    from store_sales, customer_demographics, date_dim, item, promotion
+    where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
+      and ss_cdemo_sk = cd_demo_sk and ss_promo_sk = p_promo_sk
+      and cd_gender = 'M' and cd_marital_status = 'S'
+      and cd_education_status = 'College'
+      and (p_channel_email = 'N' or p_channel_event = 'N')
+      and d_year = 2000
+    group by i_item_id
+    order by i_item_id
+    limit 100
+    """,
+    "q42": """
+    select dt.d_year, item.i_category_id, item.i_category,
+           sum(ss_ext_sales_price)
+    from date_dim dt, store_sales, item
+    where dt.d_date_sk = store_sales.ss_sold_date_sk
+      and store_sales.ss_item_sk = item.i_item_sk
+      and item.i_manager_id = 1
+      and dt.d_moy = 11 and dt.d_year = 2000
+    group by dt.d_year, item.i_category_id, item.i_category
+    order by sum(ss_ext_sales_price) desc, dt.d_year,
+             item.i_category_id, item.i_category
+    limit 100
+    """,
+    "q43": """
+    select s_store_name, s_store_id,
+      sum(case when (d_day_name = 'Sunday') then ss_sales_price else null end) sun_sales,
+      sum(case when (d_day_name = 'Monday') then ss_sales_price else null end) mon_sales,
+      sum(case when (d_day_name = 'Tuesday') then ss_sales_price else null end) tue_sales,
+      sum(case when (d_day_name = 'Wednesday') then ss_sales_price else null end) wed_sales,
+      sum(case when (d_day_name = 'Thursday') then ss_sales_price else null end) thu_sales,
+      sum(case when (d_day_name = 'Friday') then ss_sales_price else null end) fri_sales,
+      sum(case when (d_day_name = 'Saturday') then ss_sales_price else null end) sat_sales
+    from date_dim, store_sales, store
+    where d_date_sk = ss_sold_date_sk and s_store_sk = ss_store_sk
+      and s_gmt_offset = -5 and d_year = 2000
+    group by s_store_name, s_store_id
+    order by s_store_name, s_store_id, sun_sales, mon_sales, tue_sales,
+             wed_sales, thu_sales, fri_sales, sat_sales
+    limit 100
+    """,
+    "q52": """
+    select dt.d_year, item.i_brand_id brand_id, item.i_brand brand,
+           sum(ss_ext_sales_price) ext_price
+    from date_dim dt, store_sales, item
+    where dt.d_date_sk = store_sales.ss_sold_date_sk
+      and store_sales.ss_item_sk = item.i_item_sk
+      and item.i_manager_id = 1
+      and dt.d_moy = 11 and dt.d_year = 2000
+    group by dt.d_year, item.i_brand, item.i_brand_id
+    order by dt.d_year, ext_price desc, brand_id
+    limit 100
+    """,
+    "q55": """
+    select i_brand_id brand_id, i_brand brand,
+           sum(ss_ext_sales_price) ext_price
+    from date_dim, store_sales, item
+    where d_date_sk = ss_sold_date_sk and ss_item_sk = i_item_sk
+      and i_manager_id = 28 and d_moy = 11 and d_year = 1999
+    group by i_brand, i_brand_id
+    order by ext_price desc, brand_id
+    limit 100
+    """,
+    "q65": """
+    select s_store_name, i_item_desc, sc.revenue, i_current_price
+    from store, item,
+         (select ss_store_sk, avg(revenue) as ave
+          from (select ss_store_sk, ss_item_sk, sum(ss_sales_price) as revenue
+                from store_sales, date_dim
+                where ss_sold_date_sk = d_date_sk
+                  and d_month_seq between 1176 and 1176 + 11
+                group by ss_store_sk, ss_item_sk) sa
+          group by ss_store_sk) sb,
+         (select ss_store_sk, ss_item_sk, sum(ss_sales_price) as revenue
+          from store_sales, date_dim
+          where ss_sold_date_sk = d_date_sk
+            and d_month_seq between 1176 and 1176 + 11
+          group by ss_store_sk, ss_item_sk) sc
+    where sb.ss_store_sk = sc.ss_store_sk
+      and sc.revenue <= 0.1 * sb.ave
+      and s_store_sk = sc.ss_store_sk
+      and i_item_sk = sc.ss_item_sk
+    order by s_store_name, i_item_desc, sc.revenue
+    limit 100
+    """,
+    "q72": """
+    select i_item_desc, w_warehouse_name, d1.d_week_seq,
+      sum(case when p_promo_sk is null then 1 else 0 end) no_promo,
+      sum(case when p_promo_sk is not null then 1 else 0 end) promo,
+      count(*) total_cnt
+    from catalog_sales
+    join inventory on (cs_item_sk = inv_item_sk)
+    join warehouse on (w_warehouse_sk = inv_warehouse_sk)
+    join item on (i_item_sk = cs_item_sk)
+    join customer_demographics on (cs_bill_cdemo_sk = cd_demo_sk)
+    join household_demographics on (cs_bill_hdemo_sk = hd_demo_sk)
+    join date_dim d1 on (cs_sold_date_sk = d1.d_date_sk)
+    join date_dim d2 on (inv_date_sk = d2.d_date_sk)
+    join date_dim d3 on (cs_ship_date_sk = d3.d_date_sk)
+    left outer join promotion on (cs_promo_sk = p_promo_sk)
+    left outer join catalog_returns on (cr_item_sk = cs_item_sk
+                                        and cr_order_number = cs_order_number)
+    where d1.d_week_seq = d2.d_week_seq
+      and inv_quantity_on_hand < cs_quantity
+      and d3.d_date > d1.d_date + 5
+      and hd_buy_potential = '>10000'
+      and d1.d_year = 1999
+      and cd_marital_status = 'D'
+    group by i_item_desc, w_warehouse_name, d1.d_week_seq
+    order by total_cnt desc, i_item_desc, w_warehouse_name, d1.d_week_seq
+    limit 100
+    """,
+    "q82": """
+    select i_item_id, i_item_desc, i_current_price
+    from item, inventory, date_dim, store_sales
+    where i_current_price between 30 and 30 + 30
+      and inv_item_sk = i_item_sk
+      and d_date_sk = inv_date_sk
+      and d_date between date '2002-05-30' and date '2002-07-29'
+      and i_manufact_id in (437, 129, 727, 663)
+      and inv_quantity_on_hand between 100 and 500
+      and ss_item_sk = i_item_sk
+    group by i_item_id, i_item_desc, i_current_price
+    order by i_item_id
+    limit 100
+    """,
+    "q96": """
+    select count(*)
+    from store_sales, household_demographics, time_dim, store
+    where ss_sold_time_sk = time_dim.t_time_sk
+      and ss_hdemo_sk = household_demographics.hd_demo_sk
+      and ss_store_sk = s_store_sk
+      and time_dim.t_hour = 20
+      and time_dim.t_minute >= 30
+      and household_demographics.hd_dep_count = 7
+      and store.s_store_name = 'ese'
+    """,
+}
+TPCDS_NONEMPTY = {"q3", "q42", "q43", "q52", "q55", "q7", "q72", "q82"}
+
+# q72 on the card: the reference's plan keeps q72's whole WHERE clause
+# above its two left joins, so the bottom join catalog_sales x inventory
+# on item expands sum over items of cs(item) * inv(item) pairs (3.7 M at
+# tiny, 18.7 M at sf0.05, 74.9 M at sf0.1, 1.87 G at sf1) and each of
+# the five inner joins above carries every pair. The largest scale that
+# completes on one 80 GB card is taken; the port keeps the plan.
+Q72_SCHEMA = "sf0.05"
+
+# the holistic and sketch aggregates over orders: min_by/max_by with
+# approx_distinct take the holistic path (exact); a grouped
+# approx_percentile alone the mergeable pctl_merge plan; a lone
+# approx_distinct the HLL plan
+Q_HOLISTIC = """select approx_distinct(o_custkey), min_by(o_orderkey, o_totalprice),
+       max_by(o_orderkey, o_totalprice) from orders"""
+Q_HOLISTIC_EXTREMES = "select min(o_totalprice), max(o_totalprice) from orders"
+Q_PCTL = """select o_orderpriority, approx_percentile(o_totalprice, 0.5) from orders
+group by o_orderpriority order by o_orderpriority"""
+# the same percentile on the holistic path (exact, nearest rank): the
+# pctl_merge plan's buckets are 2^-9 wide
+Q_PCTL_EXACT = """select o_orderpriority, approx_percentile(o_totalprice, 0.5),
+       min_by(o_orderkey, o_orderkey) from orders
+group by o_orderpriority order by o_orderpriority"""
+Q_HLL = "select approx_distinct(o_custkey) from orders"
+Q_LISTAGG = """select r_name, listagg(n_name, ',') from nation join region
+on n_regionkey = r_regionkey group by r_name order by r_name"""
+
+# BASELINE config 5 (bench.py WIDESTR): a 64-character dictionary string
+# of 512 values with zipf(1.3) skew and a bigint, over the memory
+# connector
+WIDESTR = """select s, count(*) as cnt, sum(v) as total from widestr
+group by s order by cnt desc, s limit 10"""
+WIDESTR_ROWS = 1 << 21
+WIDESTR_GROUPS = 512
+WIDESTR_WIDTH = 64
 
 
 def log(msg: str) -> None:
@@ -457,16 +667,23 @@ def held(name: str, got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def search_bytes(n: int, n_b: int, elem: int, steps: int) -> int:
+    """Bytes of b that n searches of `steps` levels must read: one 32-byte
+    sector a step, and no more than all of b."""
+    return min(n_b * elem, n * steps * 32)
+
+
 def rank_bound(n_a: int, n_b: int, elem: int, searched: bool, w0: int = 0,
                nwin: int = 1) -> tuple:
     """Fixed mode: one compare and one add per (element, window position
     in range), an int64 compare counting two ops. Searched mode: one
     compare and one select per bisection step over the window heads and
-    inside the window. Bytes: a, the part of b the mode reads, out."""
+    inside the window. Bytes: a, the part of b the mode must read, out."""
     per = 2 if elem == 4 else 3
     if searched:
         steps = (-(-n_b // 128)).bit_length() + 8
-        return bound(n_a * (elem + 4) + n_b * elem, n_a * steps * per)
+        return bound(n_a * (elem + 4) + search_bytes(n_a, n_b, elem, steps),
+                     n_a * steps * per)
     m = max(0, min(n_b - w0 * 128, nwin * 128))
     return bound(n_a * (elem + 4) + m * elem, n_a * m * per)
 
@@ -526,7 +743,8 @@ def check_bounds(name, q, b, iters=0) -> dict:
         elem, n, n_b = q.element_size(), q.numel(), int(b.shape[0])
         steps = (-(-n_b // 128)).bit_length() + 8 + 2  # heads, window, gallop
         rec["bound_ms"], rec["bound_by"] = bound(
-            n * (elem + 8) + n_b * elem, n * steps * (2 if elem == 4 else 3))
+            n * (elem + 8) + search_bytes(n, n_b, elem, steps),
+            n * steps * (2 if elem == 4 else 3))
     return rec
 
 
@@ -816,14 +1034,93 @@ def phase_kernel_join(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def runner(schema: str, device: str, **session):
+def runner(schema: str, device: str, catalog: str = "tpch", **session):
+    """A runner over the tpch or tpcds generator at `schema`."""
+    from trino_tpu_torch.connectors.tpcds import create_tpcds_connector
     from trino_tpu_torch.connectors.tpch import create_tpch_connector
     from trino_tpu_torch.engine import LocalQueryRunner, Session
 
-    r = LocalQueryRunner(Session(catalog="tpch", schema=schema, **session),
+    r = LocalQueryRunner(Session(catalog=catalog, schema=schema, **session),
                          device=device)
-    r.register_catalog("tpch", create_tpch_connector())
+    r.register_catalog(catalog, create_tpch_connector() if catalog == "tpch"
+                       else create_tpcds_connector())
     return r
+
+
+def tpcds_sql(name: str, r) -> str:
+    """A TPC-DS template with tests/test_tpcds.py's parameter
+    substitution, the values read through `r` at its own scale (ties
+    broken by value, so the choice is deterministic)."""
+    sql = TPCDS_QUERIES[name]
+
+    def top(column):
+        return r.execute(f"select {column} from item group by {column}"
+                         f" order by count(*) desc, {column} limit 1").rows[0][0]
+
+    if name == "q96":
+        store = r.execute("select s_store_name from store order by s_store_sk"
+                          " limit 1").rows[0][0]
+        sql = sql.replace("'ese'", f"'{store}'")
+    if name in ("q42", "q52"):
+        sql = sql.replace("i_manager_id = 1", f"i_manager_id = {top('i_manager_id')}")
+    if name == "q3":
+        sql = sql.replace("i_manufact_id = 436", f"i_manufact_id = {top('i_manufact_id')}")
+    if name == "q82":
+        ids = [str(row[0]) for row in r.execute(
+            "select distinct i_manufact_id from item where i_current_price"
+            " between 30 and 60 order by 1 limit 4").rows]
+        sql = sql.replace("437, 129, 727, 663", ", ".join(ids) or "437")
+    return sql
+
+
+def widestr_arrays(rows: int) -> tuple:
+    """bench.py's config 5 arrays: WIDESTR_GROUPS strings of
+    WIDESTR_WIDTH characters, zipf(1.3) codes and v uniform in
+    [0, 10^6), from default_rng(7)."""
+    import hashlib
+
+    import numpy as np
+
+    vals = [hashlib.sha256(f"widestr-{i}".encode()).hexdigest()[:WIDESTR_WIDTH]
+            .ljust(WIDESTR_WIDTH, "x") for i in range(WIDESTR_GROUPS)]
+    rng = np.random.default_rng(7)
+    codes = rng.zipf(1.3, rows).astype(np.int64) % WIDESTR_GROUPS
+    v = rng.integers(0, 1_000_000, rows, dtype=np.int64)
+    return vals, codes, v
+
+
+def widestr_runner(rows: int, device: str):
+    """widestr_arrays(rows) loaded into the port's memory connector as
+    bench.widestr. Returns the runner and the numpy arrays."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.block import Dictionary
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+
+    vals, codes, v = widestr_arrays(rows)
+    mem = create_memory_connector()
+    mem.load_table("bench", "widestr",
+                   [ColumnMetadata("s", T.VARCHAR), ColumnMetadata("v", T.BIGINT)],
+                   [codes, v], None, [Dictionary(vals), None])
+    r = LocalQueryRunner(Session(catalog="memory", schema="bench", batch_rows=1 << 22),
+                         device=device)
+    r.register_catalog("memory", mem)
+    return r, (vals, codes, v)
+
+
+def widestr_numpy(vals, codes, v, limit: int = 10) -> list:
+    """The wide-string query's answer by np.bincount over the same
+    arrays: count and sum(v) per string, by count desc then string."""
+    import numpy as np
+
+    d = sorted(vals)
+    cnt = np.bincount(codes, minlength=len(vals))
+    tot = np.bincount(codes, weights=v, minlength=len(vals)).astype(np.int64)
+    if int(v.sum()) >= 2 ** 53:  # the float sums are exact below 2^53
+        raise ValueError("widestr: sum(v) too large for a float bincount")
+    order = sorted((c for c in range(len(vals)) if cnt[c]), key=lambda c: (-cnt[c], d[c]))
+    return [[d[c], int(cnt[c]), int(tot[c])] for c in order[:limit]]
 
 
 class TimedPageSource:
@@ -877,14 +1174,18 @@ def reset_kernel_counts() -> None:
 
 
 class Capture:
-    """Wraps a module's function and keeps the arguments of its first
-    call per key (argument shapes); `calls` counts the calls whose key is
-    not None."""
+    """Wraps a module's function. `calls` counts the calls whose key
+    (argument shapes) is not None and `keys` holds every such key. The
+    arguments of a key's first call stay in `args` only while that key is
+    the largest under one of the orders `keep` (every key's when `keep`
+    is None, none when it is empty), so that a capture holds little of
+    the card's memory."""
 
-    def __init__(self, module, attr: str, key):
-        self.module, self.attr, self.key = module, attr, key
+    def __init__(self, module, attr: str, key, keep=(lambda k: k,)):
+        self.module, self.attr, self.key, self.keep = module, attr, key, keep
         self.inner = getattr(module, attr)
         self.args: dict = {}
+        self.keys: set = set()
         self.calls = 0
 
     def __enter__(self):
@@ -892,7 +1193,14 @@ class Capture:
             k = self.key(*args)
             if k is not None:
                 self.calls += 1
-                self.args.setdefault(k, args)
+                self.keys.add(k)
+                if self.keep is None:
+                    self.args.setdefault(k, args)
+                else:
+                    best = {max(self.keys, key=order) for order in self.keep}
+                    if k in best:
+                        self.args.setdefault(k, args)
+                    self.args = {b: self.args[b] for b in best if b in self.args}
             return self.inner(*args)
 
         setattr(self.module, self.attr, capturing)
@@ -952,14 +1260,18 @@ def phase_main(results: dict) -> None:
     rows, per_query = {}, {}
     # keep the arguments the main path gives each kernel, to time the
     # kernels on the queries' own data afterwards
-    gs = Capture(M, "_launch", lambda gid, v, live, cap: (int(gid.shape[0]), int(v.shape[0]), cap))
-    bd = Capture(W, "_launch_bounds", lambda q, b: (q.numel(), int(b.shape[0]), q.element_size()))
+    gs = Capture(M, "_launch", lambda gid, v, live, cap: (int(gid.shape[0]), int(v.shape[0]), cap),
+                 keep=None)
+    bd = Capture(W, "_launch_bounds", lambda q, b: (q.numel(), int(b.shape[0]), q.element_size()),
+                 keep=(lambda k: k, lambda k: (k[1], k[0])))
     ro = Capture(W, "_launch_run_owner", lambda off, n_out: (n_out, int(off.shape[0])))
     tf = Capture(GK, "_launch_flat", lambda table, idx: (
         idx.numel(), int(table.shape[0]), table.element_size()))
     # the probe batches that reach a kernel (both sides non-empty)
     probes = Capture(TJ, "sorted_run_bounds", lambda sorted_arr, q: (
-        (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None))
+        (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None),
+        keep=())
+    results["main_args"] = {}
     reset_kernel_counts()
     with gs, bd, ro, tf, probes:
         # every query runs cold once (the warm runs were dropped to keep
@@ -973,13 +1285,17 @@ def phase_main(results: dict) -> None:
             r.session.mxu_join_enabled = mxu
             rows[name] = run_query(r, scan, name, "cold", sql, per_query, probes)
         r.session.mxu_join_enabled = False
+        main_holistic(r, scan, per_query)
+        main_tpcds(results, per_query, probes)
+        main_widestr(results, per_query)
     results["main_launches"] = join_kernel_counts()
     results["main_shapes"] = sorted(M.grouped_sum.shapes, reverse=True)
     # bounds twice: the call with the most queries, and the one into the
     # largest build side (its search goes deepest)
-    results["main_args"] = {"grouped_sum": gs.args, "bounds": bd.largest(),
-                            "bounds_largest_build": bd.largest(lambda k: (k[1], k[0])),
-                            "run_owner": ro.largest(), "take_flat": tf.largest()}
+    results["main_args"].update({
+        "grouped_sum": gs.args, "bounds": bd.largest(),
+        "bounds_largest_build": bd.largest(lambda k: (k[1], k[0])),
+        "run_owner": ro.largest(), "take_flat": tf.largest()})
     results["main_join_shapes"] = {
         name: sorted(launch_counters()[name].shapes, reverse=True)
         for name in ("window_rank", "bounds", "run_owner", "take_flat")}
@@ -993,6 +1309,180 @@ def phase_main(results: dict) -> None:
     check_main(rows, per_query, cross, batches)
     check_breadth_queries(rows, per_query, win_check, batches)
     log(f"[main] launches over the main path: {results['main_launches']}")
+
+
+def join_captures():
+    """Captures of the join kernels' arguments (bounds, run_owner,
+    take_flat), keyed by size, to time each on its largest call. A
+    run_owner key ends with the expansion's pairs (its last offset)."""
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import window_rank as W
+
+    return (Capture(W, "_launch_bounds", lambda q, b: (q.numel(), int(b.shape[0]),
+                                                       q.element_size())),
+            Capture(W, "_launch_run_owner", lambda off, n_out: (
+                n_out, int(off.shape[0]), int(off[-1]) if off.numel() else 0)),
+            Capture(GK, "_launch_flat", lambda table, idx: (
+                idx.numel(), int(table.shape[0]), table.element_size())))
+
+
+def held_bytes(caps) -> int:
+    """Device bytes of the tensors the captures keep."""
+    import torch
+
+    sizes = {t.data_ptr(): t.numel() * t.element_size()
+             for c in caps for args in c.args.values() for t in args
+             if isinstance(t, torch.Tensor) and t.is_cuda}
+    return sum(sizes.values())
+
+
+def main_holistic(r, scan, per_query) -> None:
+    """The holistic and sketch aggregates over orders at the runner's
+    scale, each held to an identity: approx_distinct on the holistic
+    path equals count(distinct), the min_by/max_by keys carry the
+    extreme prices, the pctl_merge medians lie within their 2^-9 wide
+    bucket of the exact nearest-rank medians, and the lone HLL estimate
+    within 3 standard errors (3 x 1.04 / sqrt(2048)) of the count."""
+    (distinct, kmin, kmax), = run_query(r, scan, "hol", "cold", Q_HOLISTIC, per_query)
+    (lo, hi), = run_query(r, scan, "hol_extremes", "cold", Q_HOLISTIC_EXTREMES, per_query)
+    (exact_distinct,), = run_query(r, scan, "hol_distinct", "cold", Q_WIN_CUSTOMERS,
+                                   per_query)
+    prices = dict(run_query(
+        r, scan, "hol_prices", "cold",
+        f"select o_orderkey, o_totalprice from orders where o_orderkey in ({kmin}, {kmax})",
+        per_query))
+    if distinct != exact_distinct or prices.get(kmin) != lo or prices.get(kmax) != hi:
+        raise AssertionError(
+            f"holistic: approx_distinct {distinct} vs count(distinct) {exact_distinct}, "
+            f"min_by {kmin} -> {prices.get(kmin)} vs min {lo}, "
+            f"max_by {kmax} -> {prices.get(kmax)} vs max {hi}")
+    pctl = run_query(r, scan, "pctl", "cold", Q_PCTL, per_query)
+    exact = run_query(r, scan, "pctl_exact", "cold", Q_PCTL_EXACT, per_query)
+    if [row[0] for row in pctl] != [row[0] for row in exact] or len(pctl) != 5:
+        raise AssertionError(f"pctl_merge groups differ: {pctl} vs {exact}")
+    for (prio, est), (_, med, _) in zip(pctl, exact):
+        if abs(est - med) > 2.0 ** -9 * abs(med) + 0.01:
+            raise AssertionError(f"pctl_merge {prio}: {est} outside the bucket of {med}")
+    (hll,), = run_query(r, scan, "hll", "cold", Q_HLL, per_query)
+    if abs(hll - exact_distinct) > 3 * 1.04 / 2048 ** 0.5 * exact_distinct:
+        raise AssertionError(f"HLL estimate {hll} vs {exact_distinct}")
+    log(f"[main] holistic: approx_distinct {distinct} == count(distinct o_custkey); "
+        f"min_by/max_by keys {kmin}/{kmax} carry o_totalprice {lo}/{hi}; pctl_merge "
+        f"medians {[row[1] for row in pctl]} vs exact {[row[1] for row in exact]}; "
+        f"lone approx_distinct (HLL) {hll}")
+
+
+def q72_pairs(schema: str) -> int:
+    """Pairs of q72's bottom join catalog_sales x inventory on item at
+    `schema`, from the generator's own columns."""
+    import numpy as np
+    from trino_tpu_torch.connectors.tpcds import _schema_sf, generate_column, row_count
+
+    sf = _schema_sf(schema)
+    cs, _ = generate_column("catalog_sales", "cs_item_sk", sf, 0,
+                            row_count("catalog_sales", sf))
+    inv, _ = generate_column("inventory", "inv_item_sk", sf, 0, row_count("inventory", sf))
+    m = int(max(cs.max(), inv.max())) + 1
+    return int(np.dot(np.bincount(cs, minlength=m), np.bincount(inv, minlength=m)))
+
+
+def main_tpcds(results, per_query, probes) -> None:
+    """TPC-DS at sf1 (the fact tables' counts, the nine templates other
+    than q72) and q72 at Q72_SCHEMA, each cold once."""
+    import torch
+    from trino_tpu_torch.connectors.tpcds import _schema_sf, row_count
+
+    ds = runner("sf1", "cuda", catalog="tpcds")
+    conn = ds.catalogs.get("tpcds")
+    scan = conn.page_source = TimedPageSource(conn.page_source)
+    sf = _schema_sf(ds.session.schema)
+    for table in ("store_sales", "catalog_sales", "inventory"):
+        got = run_query(ds, scan, f"ds_count_{table}", "cold",
+                        f"select count(*) from {table}", per_query)
+        if got != [[row_count(table, sf)]]:
+            raise AssertionError(f"count(*) of {table}: {got} != {row_count(table, sf)}")
+    rows = {}
+    caps = join_captures()
+    with caps[0], caps[1], caps[2]:
+        for name in sorted(TPCDS_QUERIES):
+            if name != "q72":
+                rows[name] = run_query(ds, scan, f"ds_{name}", "cold", tpcds_sql(name, ds),
+                                       per_query, probes)
+    results["main_args"]["tpcds"] = [c.largest() for c in caps]
+
+    r72 = runner(Q72_SCHEMA, "cuda", catalog="tpcds")
+    conn = r72.catalogs.get("tpcds")
+    scan72 = conn.page_source = TimedPageSource(conn.page_source)
+    sql72 = tpcds_sql("q72", r72)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the peak resets to what is allocated now (the earlier queries'
+    # kept kernel arguments), so q72's own peak is the rise above that
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    caps = join_captures()
+    with caps[0], caps[1], caps[2]:
+        rows["q72"] = run_query(r72, scan72, "ds_q72", "cold", sql72, per_query, probes)
+    peak = torch.cuda.max_memory_allocated()
+    widest = max((k[2] for k in caps[1].keys), default=0)
+    results["main_args"]["q72"] = [c.largest() for c in caps]
+    kept = held_bytes(caps)
+    results["q72"] = {"schema": Q72_SCHEMA, "peak_bytes": peak - base, "base_bytes": base,
+                      "kept_arg_bytes": kept, "widest_expansion": widest,
+                      "bottom_join_pairs": q72_pairs(Q72_SCHEMA), "rows": len(rows["q72"])}
+    log(f"[main] q72 at {Q72_SCHEMA}: {len(rows['q72'])} rows, "
+        f"torch.cuda.max_memory_allocated()={peak} over {base} allocated before it: "
+        f"q72's peak {peak - base} bytes, of which at most {kept} are its largest kernel "
+        f"arguments kept for timing; widest expansion {widest} pairs, "
+        f"bottom join catalog_sales x inventory {results['q72']['bottom_join_pairs']} pairs")
+    torch.cuda.empty_cache()
+    check_tpcds(rows, per_query)
+
+
+def check_tpcds(rows, per_query) -> None:
+    """Shapes at sf1 and q72's scale: the templates that select rows at
+    tiny select rows here too; q72's counts add up; every template is a
+    join and launches bounds once per probe batch and no searched rank."""
+    import math
+
+    for name, got in rows.items():
+        if name in TPCDS_NONEMPTY and not got:
+            raise AssertionError(f"TPC-DS {name} selected no rows")
+        for row in got:
+            if any(isinstance(x, float) and not math.isfinite(x) for x in row):
+                raise AssertionError(f"TPC-DS {name}: a non-finite value in {row}")
+        run = per_query[f"ds_{name}_cold"]
+        launched = run["launches"]
+        if launched["bounds"] != run["probe_batches"] or launched["window_rank"] \
+                or launched["bounds"] <= 0:
+            raise AssertionError(f"TPC-DS {name}: {launched['bounds']} bounds launches for "
+                                 f"{run['probe_batches']} probe batches, "
+                                 f"{launched['window_rank']} rank launches")
+    counts = [row[5] for row in rows["q72"]]
+    if any(row[3] + row[4] != row[5] for row in rows["q72"]) \
+            or counts != sorted(counts, reverse=True):
+        raise AssertionError(f"q72 rows out of shape: {rows['q72'][:5]}")
+    log(f"[main] TPC-DS: {', '.join(f'{n} {len(r)} rows' for n, r in sorted(rows.items()))}")
+
+
+def main_widestr(results, per_query) -> None:
+    """BASELINE config 5 at its size (2^21 rows), equal to numpy's own
+    group-by of the same arrays; records the aggregation route."""
+    r, (vals, codes, v) = widestr_runner(WIDESTR_ROWS, "cuda")
+    conn = r.catalogs.get("memory")
+    scan = conn.page_source = TimedPageSource(conn.page_source)
+    got = run_query(r, scan, "widestr", "cold", WIDESTR, per_query)
+    want = widestr_numpy(vals, codes, v)
+    if got != want:
+        raise AssertionError(f"wide-string GROUP BY {got[:3]} != numpy {want[:3]}")
+    run = per_query["widestr_cold"]
+    route = "grouped_sum" if run["launches"]["grouped_sum"] else "not grouped_sum"
+    results["widestr"] = {"rows": WIDESTR_ROWS, "route": route,
+                          "grouped_sum_launches": run["launches"]["grouped_sum"],
+                          "grouped_sum_shapes": run["grouped_sum_shapes"]}
+    log(f"[main] wide-string GROUP BY over {WIDESTR_ROWS} rows equals numpy's; route "
+        f"{route}, grouped_sum launches {run['launches']['grouped_sum']} at "
+        f"{run['grouped_sum_shapes']}")
 
 
 JOIN_QUERIES = ("q3_", "q18_cold", "q16_", "q22_", "q_mxj_")
@@ -1114,12 +1604,16 @@ def phase_explore(results: dict) -> None:
 def phase_parity(results: dict) -> None:
     # Q-MXJ twice: with the join-project route on, and off
     breadth = (("q16", Q16, False), ("q22", Q22, False), ("q_win", Q_WIN, False),
-              ("q_mxj", Q_MXJ, True), ("q_mxj_off", Q_MXJ, False))
+               ("q_mxj", Q_MXJ, True), ("q_mxj_off", Q_MXJ, False),
+               ("hol", Q_HOLISTIC, False), ("hol_extremes", Q_HOLISTIC_EXTREMES, False),
+               ("pctl", Q_PCTL, False), ("pctl_exact", Q_PCTL_EXACT, False),
+               ("hll", Q_HLL, False))
     tests = tuple((f"window{i}", q, False) for i, q in enumerate(WINDOW_QUERIES)) + tuple(
         (f"set{i}", q, False) for i, q in enumerate(SET_QUERIES))
     for schema, queries in (
         ("tiny", (("q1", Q1, False), ("q6", Q6, False), ("q_mxu", Q_MXU, False),
-                  ("q3", Q3, False), ("q18", Q18, False)) + breadth + tests),
+                  ("q3", Q3, False), ("q18", Q18, False), ("listagg", Q_LISTAGG, False))
+         + breadth + tests),
         ("sf0.1", (("q3", Q3, False), ("q18", Q18, False)) + breadth),
     ):
         gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
@@ -1129,6 +1623,24 @@ def phase_parity(results: dict) -> None:
             if a != b:
                 raise AssertionError(f"{name}: card and CPU rows differ at {schema}")
             log(f"[parity] {name} {schema}: {len(a)} rows, card == CPU")
+    # TPC-DS: the ten templates at tiny, the nine other than q72 at sf0.1
+    for schema, names in (("tiny", sorted(TPCDS_QUERIES)),
+                          ("sf0.1", [n for n in sorted(TPCDS_QUERIES) if n != "q72"])):
+        gpu, cpu = runner(schema, "cuda", "tpcds"), runner(schema, "cpu", "tpcds")
+        for name in names:
+            sql = tpcds_sql(name, cpu)
+            a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
+            if a != b:
+                raise AssertionError(f"TPC-DS {name}: card and CPU rows differ at {schema}")
+            if schema == "tiny" and name in TPCDS_NONEMPTY and not a:
+                raise AssertionError(f"TPC-DS {name} selected no rows at tiny")
+            log(f"[parity] TPC-DS {name} {schema}: {len(a)} rows, card == CPU")
+    # the wide-string GROUP BY at 2^16 rows, also against numpy
+    (gpu, arrays), (cpu, _) = widestr_runner(1 << 16, "cuda"), widestr_runner(1 << 16, "cpu")
+    a, b = gpu.execute(WIDESTR).rows, cpu.execute(WIDESTR).rows
+    if a != b or a != widestr_numpy(*arrays):
+        raise AssertionError("wide-string GROUP BY: card, CPU and numpy differ at 2^16 rows")
+    log(f"[parity] wide-string GROUP BY 2^16 rows: {len(a)} rows, card == CPU == numpy")
 
 
 def timed_main_args(results: dict) -> dict:
@@ -1146,6 +1658,15 @@ def timed_main_args(results: dict) -> dict:
         out["run_owner"] = check_run_owner("main path", *args["run_owner"], iters=20)
     if args.get("take_flat"):
         out["take_flat"] = check_take_flat("main path", *args["take_flat"], iters=20)
+    # the TPC-DS templates' and q72's own largest arguments
+    for fam in ("tpcds", "q72"):
+        b, o, f = args.get(fam) or (None, None, None)
+        if b:
+            out[f"bounds_{fam}"] = check_bounds(f"{fam}, largest", *b, iters=20)
+        if o:
+            out[f"run_owner_{fam}"] = check_run_owner(f"{fam}, largest", *o, iters=20)
+        if f:
+            out[f"take_flat_{fam}"] = check_take_flat(f"{fam}, largest", *f, iters=20)
     for name, rec in out.items():
         log(f"[kernel] {name} main-path arguments: n={rec.get('n_a', rec.get('n'))} "
             f"n_b={rec.get('n_b', rec.get('n_table'))} "
@@ -1166,6 +1687,21 @@ def mode_record(rec: dict, launches: int) -> dict:
             "shape": {k: v for k, v in rec.items()
                       if k in ("n_a", "n_b", "n", "n_table", "rows", "width", "dtype",
                                "k", "capacity", "live_rows")}}
+
+
+def family_modes(results: dict, on_path: dict, kernels) -> dict:
+    """Per kernel, a record on the TPC-DS templates' and on q72's own
+    largest arguments, with the launches of those queries."""
+    main = results.get("main", {})
+    out = {}
+    for fam, pick in (("tpcds", lambda q: q.startswith("ds_q") and q != "ds_q72_cold"),
+                      ("q72", lambda q: q == "ds_q72_cold")):
+        for k in kernels:
+            rec = on_path.get(f"{k}_{fam}")
+            if rec:
+                n = sum(run["launches"].get(k, 0) for q, run in main.items() if pick(q))
+                out[f"{k}_{fam}"] = mode_record(rec, n)
+    return out
 
 
 def kernels_line(results: dict) -> dict:
@@ -1190,7 +1726,7 @@ def kernels_line(results: dict) -> dict:
     # per query that launched it: its launches, and the timing at the
     # largest arguments it gave the kernel (Q-MXU's is the entry's own)
     modes = {}
-    for q in ("q_mxu", "q_mxj"):
+    for q in ("q_mxu", "q_mxj", "widestr"):
         run = results.get("main", {}).get(f"{q}_cold", {})
         shapes = [tuple(x) for x in run.get("grouped_sum_shapes", [])]
         rec = by_shape.get(max(shapes), {}) if shapes else {}
@@ -1231,6 +1767,7 @@ def kernels_line(results: dict) -> dict:
             timed = {m: next((c for c in recs if c.get("mode") == m and "ms" in c), {})
                      for m in ("searched", "fixed")}
             modes = {
+                **family_modes(results, on_path, ("bounds", "run_owner")),
                 "bounds": mode_record(on_path.get("bounds", {}), launches.get("bounds", 0)),
                 "bounds_largest_build": mode_record(on_path.get("bounds_largest_build", {}),
                                                     launches.get("bounds", 0)),
@@ -1239,14 +1776,15 @@ def kernels_line(results: dict) -> dict:
                 "searched": mode_record(timed["searched"], launches.get("window_rank", 0)),
                 "fixed": mode_record(timed["fixed"], explore_launches.get("window_rank", 0)),
             }
-            recs = recs + [on_path[m] for m in ("bounds", "bounds_largest_build", "run_owner")
-                           if m in on_path]
+            recs = recs + [on_path[m] for m in on_path
+                           if m.startswith(("bounds", "run_owner"))]
             rec = on_path.get("bounds", {})
             n = sum(launches.get(m, 0) for m in ("window_rank", "bounds", "run_owner"))
         elif name in on_path:
             # the join path: its own largest arguments and its launches
             rec, n = on_path[name], launches.get(name, 0)
-            recs = recs + [rec]
+            recs = recs + [rec] + [on_path[m] for m in on_path if m.startswith(f"{name}_")]
+            modes = family_modes(results, on_path, (name,))
         else:
             # the explorer entry point is this kernel's only path
             rec = next((c for c in recs if "ms" in c), {})
@@ -1267,6 +1805,7 @@ def main() -> int:
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1307,6 +1846,7 @@ def main() -> int:
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         results.pop("main_args", None)
         json.dump({"card": card, **results, **line}, fh, indent=1, default=str)
+    log(f"[summary] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

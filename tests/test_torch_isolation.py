@@ -82,6 +82,38 @@ def test_runner_defaults_to_the_card():
     assert LocalQueryRunner(Session(), device="cpu").device.type == "cpu"
 
 
+def _catalog(name):
+    import numpy as np
+
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata
+    from trino_tpu_torch.connectors.tpcds import create_tpcds_connector
+
+    if name == "tpcds":
+        return "tiny", "store_sales", create_tpcds_connector()
+    conn = create_memory_connector()
+    conn.load_table("default", "t", [ColumnMetadata("x", T.BIGINT)],
+                    [np.arange(5, dtype=np.int64)])
+    return "default", "t", conn
+
+
+@pytest.mark.parametrize("catalog", ["memory", "tpcds"])
+def test_memory_and_tpcds_runners_default_to_the_card(catalog):
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+
+    schema, table, conn = _catalog(catalog)
+    session = Session(catalog=catalog, schema=schema)
+    if torch.cuda.is_available():
+        assert LocalQueryRunner(session).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LocalQueryRunner(session)
+    r = LocalQueryRunner(session, device="cpu")
+    r.register_catalog(catalog, conn)
+    assert r.execute(f"select count(*) from {table}").rows[0][0] > 0
+
+
 def test_kernel_wrapper_refuses_other_devices():
     from trino_tpu_torch.ops.mxu_groupby import grouped_sum
 

@@ -14,8 +14,8 @@ Every tensor of a batch lives on one device; the connector places the
 scan batches and operators allocate beside their inputs.
 
 Not ported yet (each raises NotImplementedError naming its queue item
-in ROADMAP.md): the nested ARRAY/MAP/ROW columns, RuntimeDictionary
-(listagg output) and TIMESTAMP WITH TIME ZONE formatting.
+in ROADMAP.md): the nested ARRAY/MAP/ROW columns and TIMESTAMP WITH
+TIME ZONE formatting.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def null_column(t, capacity: int, dictionary=None, device="cpu") -> "Column":
     """All-NULL column of a flat type: outer-join padding."""
     if t.is_nested:
         raise NotImplementedError(
-            f"nested column {t}: ROADMAP queue 9 (nested ARRAY/MAP/ROW)"
+            f"nested column {t}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
         )
     invalid = torch.zeros(capacity, dtype=torch.bool, device=device)
     return Column(t, phys_zeros(t, capacity, device), invalid, dictionary)
@@ -82,6 +82,10 @@ class Dictionary:
         """Code for value; -1 if absent."""
         return self._index.get(value, -1)
 
+    def encode(self, values: Sequence[str]) -> np.ndarray:
+        """int32 codes of values that are all in the dictionary."""
+        return np.asarray([self._index[v] for v in values], dtype=np.int32)
+
     def code_lower_bound(self, value: str) -> int:
         """Smallest code whose value >= `value`."""
         return bisect.bisect_left(self.values, value)
@@ -96,12 +100,14 @@ class Dictionary:
 
 
 class RuntimeDictionary(Dictionary):
-    """Execution-time dictionary (listagg output) — not ported yet."""
+    """Plan-time placeholder for a string column whose dictionary is made
+    at execution time (listagg builds new strings). Column references
+    pass the batch's own dictionary through
+    (operators.make_filter_project_fn); a plan-time string operation on
+    it cannot know the values and raises at bind time."""
 
     def __init__(self):
-        raise NotImplementedError(
-            "RuntimeDictionary: ROADMAP queue 9 (holistic aggregates)"
-        )
+        super().__init__([])
 
 
 @dataclasses.dataclass
@@ -164,7 +170,7 @@ class Column:
                     device="cpu") -> "Column":
         if type_.is_nested:
             raise NotImplementedError(
-                f"nested column {type_}: ROADMAP queue 9 (nested ARRAY/MAP/ROW)"
+                f"nested column {type_}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
             )
         has_null = any(v is None for v in values)
         if type_.is_string:
@@ -322,7 +328,7 @@ def decode_values(type_: T.DataType, data, valid, dict_values) -> list:
             out.append(float(x))
         elif type_.kind == T.TypeKind.TIMESTAMP_TZ:
             raise NotImplementedError(
-                "TIMESTAMP WITH TIME ZONE formatting: ROADMAP queue 9 (ops/tz.py)"
+                "TIMESTAMP WITH TIME ZONE formatting: ROADMAP §1 item 6 (ops/tz.py)"
             )
         else:
             out.append(int(x))
@@ -362,7 +368,7 @@ def _concat_valid(parts):
 def _concat_columns(parts: list) -> Column:
     if parts[0].type.is_nested:
         raise NotImplementedError(
-            f"nested column {parts[0].type}: ROADMAP queue 9 (nested ARRAY/MAP/ROW)"
+            f"nested column {parts[0].type}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
         )
     parts = unify_column_dicts(parts)
     data = torch.cat([p.data for p in parts])
@@ -386,7 +392,7 @@ def _nested_not_ported(name: str):
     class _Nested(Column):
         def __init__(self, *args, **kwargs):
             raise NotImplementedError(
-                f"{name}: ROADMAP queue 9 (nested ARRAY/MAP/ROW)"
+                f"{name}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
             )
 
     _Nested.__name__ = _Nested.__qualname__ = name

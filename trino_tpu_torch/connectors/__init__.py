@@ -1,8 +1,9 @@
 """Connector layer: the plugin SPI plus built-in connectors.
 
 Analogue of trino-spi's connector surface (spi/connector/ ~100
-interfaces, spi/Plugin.java:35 — SURVEY.md §2.12). The port carries the tpch connector;
-memory and blackhole are queued (ROADMAP queue 5).
+interfaces, spi/Plugin.java:35 — SURVEY.md §2.12). The port carries the tpch
+and tpcds generators and the memory connector's read side; the memory
+write side, file and blackhole connectors are queued (ROADMAP §1 items 8-9).
 """
 
 from trino_tpu_torch.connectors.spi import (  # noqa: F401

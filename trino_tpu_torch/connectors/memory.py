@@ -1,0 +1,415 @@
+"""In-memory connector, the read side.
+
+Counterpart of trino_tpu/connectors/memory.py (plugin/trino-memory's
+MemoryPagesStore analogue): tables live as dense host-side numpy column
+arrays; string columns keep one table-wide dictionary, so scans bind
+pipeline-wide. `MemoryConnector.load_table` bulk-loads a table, and the
+page source copies row ranges (or the rows of one hash bucket) to the
+runner's device, keeping the batches per table version.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+item): nested ARRAY/MAP/ROW columns (§1 item 4), and the write side —
+the page sink, transactions and `replace_rows` (§1 item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from trino_tpu_torch import types as T
+from trino_tpu_torch.block import Column, Dictionary, RelBatch, bucket_capacity, phys_zeros
+from trino_tpu_torch.connectors.spi import (
+    ColumnMetadata,
+    Connector,
+    ConnectorMetadata,
+    ConnectorPageSource,
+    ConnectorSplitManager,
+    Split,
+    TableHandle,
+    TableMetadata,
+    TableStatistics,
+)
+
+_NESTED = "nested ARRAY/MAP/ROW columns: ROADMAP §1 item 4"
+_WRITE_SIDE = "the memory connector's write side: ROADMAP §1 item 8"
+
+
+def _flat_only(t: T.DataType, name: str) -> None:
+    if t.is_nested or t.kind == T.TypeKind.ARRAY:
+        raise NotImplementedError(f"column {name!r} of type {t}: {_NESTED}")
+
+
+@dataclasses.dataclass
+class _StoredColumn:
+    type: T.DataType
+    data: np.ndarray  # host array, dense (no padding)
+    valid: Optional[np.ndarray]
+    dictionary: Optional[Dictionary]
+
+
+@dataclasses.dataclass
+class _StoredTable:
+    schema: str
+    name: str
+    columns: List[ColumnMetadata]
+    data: Dict[str, _StoredColumn] = dataclasses.field(default_factory=dict)
+    row_count: int = 0
+    version: int = 0  # bumped on writes; invalidates the caches
+    # device batches already built, per (version, columns, chunking,
+    # split, constraints, device)
+    device_cache: Dict[tuple, list] = dataclasses.field(default_factory=dict)
+    # declared bucketing: ordered key column names; splits are then 1:1
+    # with engine-hash buckets (spi.ConnectorMetadata.table_partitioning)
+    bucketed_by: Optional[Tuple[str, ...]] = None
+    # (version, n_buckets) -> int32 bucket id per row
+    bucket_cache: Dict[tuple, np.ndarray] = dataclasses.field(default_factory=dict)
+
+
+class _Store:
+    """The MemoryPagesStore analogue; table creation takes its lock."""
+
+    def __init__(self):
+        self.tables: Dict[Tuple[str, str], _StoredTable] = {}
+        self.lock = threading.Lock()
+
+
+class MemoryMetadata(ConnectorMetadata):
+    def __init__(self, store: _Store):
+        self.store = store
+        # (schema, table) -> (stored-table obj, version, TableStatistics)
+        self._stats_cache: Dict[Tuple[str, str], tuple] = {}
+
+    def list_schemas(self) -> List[str]:
+        return sorted({s for s, _ in self.store.tables} | {"default"})
+
+    def list_tables(self, schema: str) -> List[str]:
+        return sorted(n for s, n in self.store.tables if s == schema)
+
+    def get_table_handle(self, schema: str, table: str) -> Optional[TableHandle]:
+        if (schema, table) not in self.store.tables:
+            return None
+        return TableHandle("memory", schema, table)
+
+    def get_table_metadata(self, handle: TableHandle) -> TableMetadata:
+        t = self.store.tables[(handle.schema, handle.table)]
+        return TableMetadata(handle.schema, handle.table, tuple(t.columns))
+
+    def column_dictionary(self, handle: TableHandle, column: str) -> Optional[Dictionary]:
+        t = self.store.tables[(handle.schema, handle.table)]
+        sc = t.data.get(column)
+        return sc.dictionary if sc is not None else None
+
+    def table_partitioning(self, handle: TableHandle):
+        t = self.store.tables[(handle.schema, handle.table)]
+        return t.bucketed_by
+
+    def get_table_statistics(self, handle: TableHandle) -> TableStatistics:
+        """Row count plus sampled per-column (ndv, null_fraction, min,
+        max), as the reference estimates them: stride-sample up to 256 K
+        non-NULL values, Duj1 NDV from the sample's singletons, exact
+        min/max. Cached per table version."""
+        t = self.store.tables[(handle.schema, handle.table)]
+        key = (handle.schema, handle.table)
+        cached = self._stats_cache.get(key)
+        if cached is not None and cached[0] is t and cached[1] == t.version:
+            return cached[2]
+        cols: Dict[str, tuple] = {}
+        n = t.row_count
+        for name, sc in t.data.items():
+            if n == 0:
+                continue
+            arr = sc.data[:n]
+            nf = 0.0
+            if sc.valid is not None:
+                nf = float(1.0 - np.count_nonzero(sc.valid[:n]) / n)
+                # NULL slots hold placeholder payloads: keep them out of
+                # ndv/min/max
+                arr = arr[sc.valid[:n]]
+                if len(arr) == 0:
+                    cols[name] = (0.0, nf, None, None)
+                    continue
+            pop = len(arr)
+            sample = arr[:: max(1, pop // 262144)]
+            s = len(sample)
+            vals, counts = np.unique(sample, return_counts=True)
+            d = float(len(vals))
+            f1 = float(np.count_nonzero(counts == 1))
+            # Duj1: ndv = d / (1 - ((pop-s)/pop) * (f1/s))
+            denom = 1.0 - ((pop - s) / pop) * (f1 / max(s, 1))
+            ndv = min(d / max(denom, 1e-9), float(pop))
+            lo = hi = None
+            if not sc.type.is_string and arr.dtype.kind in "iuf":
+                lo, hi = float(arr.min()), float(arr.max())
+            cols[name] = (ndv, nf, lo, hi)
+        ts = TableStatistics(row_count=float(n), columns=cols)
+        self._stats_cache[key] = (t, t.version, ts)
+        return ts
+
+    def apply_filter(self, handle: TableHandle, constraints):
+        """Accept constraints on flat numeric/temporal columns; the page
+        source masks the stored arrays before building device batches."""
+        from trino_tpu_torch.connectors.pushdown import (
+            merge_handle_constraints,
+            split_supported,
+        )
+
+        t = self.store.tables[(handle.schema, handle.table)]
+        types = {c.name: c.type for c in t.columns}
+        accepted, residual = split_supported(constraints, types.get)
+        if not accepted:
+            return None
+        return merge_handle_constraints(handle, accepted), tuple(residual)
+
+    def apply_projection(self, handle: TableHandle, columns) -> TableHandle:
+        # the page source already builds only the requested columns
+        return handle
+
+    def create_table(self, schema: str, table: str,
+                     columns: Sequence[ColumnMetadata]) -> TableHandle:
+        with self.store.lock:
+            if (schema, table) in self.store.tables:
+                raise ValueError(f"table '{schema}.{table}' already exists")
+            st = _StoredTable(schema, table, list(columns))
+            for c in columns:
+                _flat_only(c.type, c.name)
+                shape = (0, 2) if c.type.lanes == 2 else (0,)
+                st.data[c.name] = _StoredColumn(
+                    c.type,
+                    np.zeros(shape, dtype=c.type.np_dtype),
+                    None,
+                    Dictionary([]) if c.type.is_string else None,
+                )
+            self.store.tables[(schema, table)] = st
+        return TableHandle("memory", schema, table)
+
+
+class MemorySplitManager(ConnectorSplitManager):
+    def __init__(self, store: _Store):
+        self.store = store
+
+    def get_splits(self, handle: TableHandle, target_split_count: int) -> List[Split]:
+        t = self.store.tables[(handle.schema, handle.table)]
+        n = t.row_count
+        if t.bucketed_by and target_split_count > 1:
+            # bucketed table: exactly the requested count, split i = the
+            # rows whose engine key-hash lands in partition i of k
+            return [
+                Split(handle, i, None, ("bucket", i, target_split_count))
+                for i in range(target_split_count)
+            ]
+        k = max(1, min(target_split_count, max(n, 1)))
+        per = -(-max(n, 1) // k)
+        return [
+            Split(handle, s, (a, min(a + per, n)))
+            for s, a in enumerate(range(0, max(n, 1), per))
+        ]
+
+
+class MemoryPageSource(ConnectorPageSource):
+    def __init__(self, store: _Store):
+        self.store = store
+
+    def batches(self, split: Split, columns: Sequence[str], batch_rows: int,
+                device="cpu") -> Iterator[RelBatch]:
+        """The split's rows in chunks of `batch_rows`, as batches on
+        `device`; a second scan of the same table version, columns,
+        split and device yields the batches built by the first."""
+        t = self.store.tables[(split.table.schema, split.table.table)]
+        cs = getattr(split.table, "constraints", ())
+        dev = str(torch.device(device))
+        if split.payload is not None and split.payload[0] == "bucket":
+            _, bi, nb = split.payload
+            idx = np.nonzero(self._bucket_ids(t, nb) == bi)[0]
+            lo = hi = None
+            cache_key = (t.version, tuple(columns), batch_rows, "bucket", bi,
+                         nb, cs, dev)
+        else:
+            lo, hi = split.row_range
+            idx = None
+            cache_key = (t.version, tuple(columns), batch_rows, lo, hi, cs, dev)
+        cached = t.device_cache.get(cache_key)
+        if cached is not None:
+            yield from cached
+            return
+        if cs and t.row_count:
+            # pushed-down predicate: mask the stored arrays, then gather
+            # the surviving rows (the path bucket splits take)
+            from trino_tpu_torch.connectors.pushdown import constraint_mask
+
+            n = t.row_count
+            mask = constraint_mask(
+                cs,
+                lambda name: (
+                    np.asarray(t.data[name].data[:n]),
+                    None if t.data[name].valid is None
+                    else t.data[name].valid[:n],
+                ),
+            )
+            if idx is None:
+                idx = np.nonzero(mask[lo:hi])[0] + lo
+                lo = hi = None
+            else:
+                idx = idx[mask[idx]]
+        out = []
+        for batch in self._materialize(t, columns, batch_rows, lo, hi, idx, device):
+            out.append(batch)
+            yield batch
+        for k in [k for k in t.device_cache if k[0] != t.version]:
+            t.device_cache.pop(k, None)
+        t.device_cache[cache_key] = out
+
+    def _bucket_ids(self, t: _StoredTable, nb: int) -> np.ndarray:
+        """Row -> bucket id by the engine's exchange hash (the host
+        replica `ops/hashing.hash32_np`; dictionary strings hash their
+        values through `dictionary_lut`). Cached per (version, count)."""
+        key = (t.version, nb)
+        got = t.bucket_cache.get(key)
+        if got is not None:
+            return got
+        from trino_tpu_torch.ops.hashing import (
+            dictionary_lut,
+            hash32_np,
+            partition_of_np,
+        )
+
+        n = t.row_count
+        lanes, valids = [], []
+        for name in t.bucketed_by:
+            sc = t.data[name]
+            lut = dictionary_lut(sc.dictionary)
+            if lut is not None:
+                codes = np.clip(np.asarray(sc.data[:n]), 0, len(lut) - 1)
+                lanes.append(lut[codes.astype(np.int64)])
+            else:
+                lanes.append(np.asarray(sc.data[:n]).astype(np.int64))
+            valids.append(None if sc.valid is None else sc.valid[:n])
+        bids = partition_of_np(hash32_np(lanes, valids), nb)
+        for k in [k for k in t.bucket_cache if k[0] != t.version]:
+            t.bucket_cache.pop(k, None)
+        t.bucket_cache[key] = bids
+        return bids
+
+    def _materialize(self, t: _StoredTable, columns: Sequence[str], batch_rows: int,
+                     lo, hi, idx: Optional[np.ndarray], device) -> Iterator[RelBatch]:
+        """Chunk a contiguous [lo, hi) row range (slices) or an explicit
+        row-index array (bucket splits, pushed-down filters: gathers)."""
+        if idx is None:
+            total = hi - lo
+            sels = (slice(a, min(a + batch_rows, hi))
+                    for a in range(lo, hi, batch_rows))
+        else:
+            total = len(idx)
+            sels = (idx[a: a + batch_rows] for a in range(0, total, batch_rows))
+        for sel in sels:
+            n = (sel.stop - sel.start) if isinstance(sel, slice) else len(sel)
+            cap = bucket_capacity(n)
+            cols = []
+            for name in columns:
+                sc = t.data[name]
+                _flat_only(sc.type, name)
+                valid = None if sc.valid is None else sc.valid[sel]
+                cols.append(Column.from_numpy(
+                    sc.type, sc.data[sel], valid, sc.dictionary, capacity=cap,
+                    device=device,
+                ))
+            live = None
+            if n != cap:
+                lv = np.zeros(cap, dtype=bool)
+                lv[:n] = True
+                live = torch.from_numpy(lv).to(device)
+            yield RelBatch(cols, live)
+        if total == 0:  # empty split: one empty batch so schemas propagate
+            cols = []
+            for name in columns:
+                sc = t.data[name]
+                _flat_only(sc.type, name)
+                cols.append(Column(sc.type, phys_zeros(sc.type, 16, device),
+                                   None, sc.dictionary))
+            yield RelBatch(cols, torch.zeros(16, dtype=torch.bool, device=device))
+
+
+class MemoryConnector(Connector):
+    def __init__(self):
+        store = _Store()
+        super().__init__(
+            "memory",
+            MemoryMetadata(store),
+            MemorySplitManager(store),
+            MemoryPageSource(store),
+        )
+        self.store = store
+
+    def begin_transaction(self, read_only: bool = False):
+        raise NotImplementedError(_WRITE_SIDE)
+
+    def replace_rows(self, handle: TableHandle, batches) -> None:
+        raise NotImplementedError(_WRITE_SIDE)
+
+    def page_sink(self, handle: TableHandle, transaction=None):
+        raise NotImplementedError(_WRITE_SIDE)
+
+    def load_table(
+        self,
+        schema: str,
+        table: str,
+        columns: Sequence[ColumnMetadata],
+        arrays: Sequence[np.ndarray],
+        valids: Sequence[Optional[np.ndarray]] = None,
+        dictionaries: Sequence[Optional[Dictionary]] = None,
+        bucketed_by: Optional[Sequence[str]] = None,
+    ) -> None:
+        """Bulk-load dense host columns. A string column comes either as
+        int32 codes with its dictionary or as python strings, encoded
+        here (a None takes code 0: NULLs come from `valids`, as for
+        every column). `bucketed_by` declares
+        engine-hash bucketing on integer-family or string key columns:
+        splits then become hash buckets."""
+        self.metadata.create_table(schema, table, columns)
+        t = self.store.tables[(schema, table)]
+        if bucketed_by:
+            by_name = {cm.name: cm for cm in columns}
+            for c in bucketed_by:
+                cm = by_name.get(c)
+                if cm is None:
+                    raise ValueError(f"bucketed_by column {c!r} not in table")
+                ok = cm.type.is_string or (
+                    cm.type.lanes == 1
+                    and np.issubdtype(cm.type.np_dtype, np.integer)
+                )
+                if not ok:
+                    # float keys need the 3-lane f64 split and long
+                    # decimals the 4-lane limb split: no host replica
+                    raise ValueError(
+                        f"bucketed_by column {c!r}: only integer-family "
+                        f"and string types can declare bucketing"
+                    )
+            t.bucketed_by = tuple(bucketed_by)
+        n = len(arrays[0]) if arrays else 0
+        for i, (cm, arr) in enumerate(zip(columns, arrays)):
+            d = dictionaries[i] if dictionaries else None
+            if cm.type.is_string and d is None:
+                vals = list(arr)
+                d = Dictionary([v for v in vals if v is not None])
+                arr = np.asarray(
+                    [d.code(v) if v is not None else 0 for v in vals],
+                    dtype=np.int32,
+                )
+            t.data[cm.name] = _StoredColumn(
+                cm.type,
+                np.asarray(arr, dtype=cm.type.np_dtype),
+                valids[i] if valids else None,
+                d if d is not None else (
+                    Dictionary([]) if cm.type.is_string else None
+                ),
+            )
+        t.row_count = n
+        t.version += 1
+
+
+def create_memory_connector() -> MemoryConnector:
+    return MemoryConnector()

@@ -9,7 +9,7 @@ Device selection: `LocalQueryRunner(session, device=None)` runs on the
 CUDA card and raises when there is none; the CPU is used only when the
 caller passes device="cpu". There is no fallback between the two.
 
-Not ported yet (ROADMAP queue 13 and earlier items): DDL/DML,
+Not ported yet (ROADMAP §1 items 8 and 13): DDL/DML,
 transactions, prepared statements, EXPLAIN, SHOW, the plan cache, and
 the resident, adaptive, recovery, serving, compile-cache, tracing and
 metrics tiers.

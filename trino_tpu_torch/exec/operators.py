@@ -9,12 +9,14 @@ along until an explicit compact, as in the reference.
 Ported: TableScan (with runtime dynamic-filter constraints), Values,
 FilterProject, Limit, Sort, TopN, Window, single-step HashAggregation
 (global, dense, grouped-sum kernel and sort routes, with the N-way state
-merge), EnforceSingleRow, the hash join (HashBuildSink +
-LookupJoinOperator for inner, left, full, semi, anti and mark joins),
-the join-project MxuJoinAggOperator, DynamicFilter, the cross join,
-BufferSink/BufferSource (UNION ALL) and CollectorSink. Partial/final
-aggregation steps, spill (grace joins included), the holistic
-aggregates, UNNEST and MATCH_RECOGNIZE are queued in ROADMAP.md.
+merge, and the holistic path for min_by/max_by, approx_distinct,
+approx_percentile, pctl_merge and listagg), EnforceSingleRow, the hash
+join (HashBuildSink + LookupJoinOperator for inner, left, full, semi,
+anti and mark joins), the join-project MxuJoinAggOperator,
+DynamicFilter, the cross join, BufferSink/BufferSource (UNION ALL) and
+CollectorSink. Partial/final aggregation steps, spill (grace joins
+included), the collect aggregates, UNNEST and MATCH_RECOGNIZE are
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from trino_tpu_torch.block import (
     Column,
     Dictionary,
     RelBatch,
+    RuntimeDictionary,
     bucket_capacity,
     concat_batches,
     null_column,
@@ -170,10 +173,23 @@ def make_filter_project_fn(filter_bound: Optional[Bound],
             d, v = filter_bound.fn(cols, valids)
             keep = d if v is None else (d & v)  # NULL predicate = drop
             live = keep if live is None else (live & keep)
+        if not projections and live is None:
+            # a batch without columns (count(*) over a projection of
+            # nothing) keeps its row count in its mask
+            live = batch.live_mask()
         out_cols = []
         for b in projections:
             data, valid = b.fn(cols, valids)
-            out_cols.append(Column(b.type, data, valid, b.dictionary))
+            d = b.dictionary
+            if (
+                (d is None or isinstance(d, RuntimeDictionary))
+                and b.type.is_string
+                and b.input_ref is not None
+            ):
+                # a column reference keeps the batch's own dictionary
+                # (listagg output gets its values at execution time)
+                d = batch.columns[b.input_ref].dictionary
+            out_cols.append(Column(b.type, data, valid, d))
         return RelBatch(out_cols, live)
 
     return fn
@@ -567,7 +583,11 @@ _COLLECT_KINDS = (
 )
 
 # aggregates needing raw rows rather than mergeable accumulators (the
-# analyzer reads this set); not ported yet
+# analyzer reads this set): the operator buffers its input and reduces
+# once at finish. pctl_merge is the merge half of the mergeable
+# approx_percentile (sql/optimizer.RewriteApproxPercentile); it reads
+# quantile-bucket summaries, never raw rows. The collect kinds return
+# ARRAY/MAP values and are not ported yet.
 HOLISTIC_KINDS = (
     "min_by", "max_by", "approx_percentile", "listagg", "approx_distinct",
     "pctl_merge",
@@ -928,10 +948,20 @@ class HashAggregationOperator(Operator):
         self._global = not self._group_channels
         self._cap = initial_capacity
         for a in self._aggs:
-            if a.kind in HOLISTIC_KINDS or a.distinct:
+            if a.kind in _COLLECT_KINDS:
                 raise NotImplementedError(
-                    f"{a.kind}(): ROADMAP queue 9 (holistic aggregates)"
+                    f"{a.kind}(): collect aggregates return ARRAY/MAP values, "
+                    f"ROADMAP §1 item 4 (nested types)"
                 )
+            if a.distinct:
+                raise NotImplementedError(
+                    f"{a.kind}(DISTINCT): the planner deduplicates first "
+                    f"(sql/local_planner._distinct_agg)"
+                )
+        # holistic aggregates need the raw rows: batches collect and
+        # reduce once at finish
+        self._holistic = any(a.kind in HOLISTIC_KINDS for a in self._aggs)
+        self._collected: List[RelBatch] = []
         self._acc = None
         self._pending: List[tuple] = []
         self._gstate = None
@@ -1014,6 +1044,11 @@ class HashAggregationOperator(Operator):
         return "sort"
 
     def add_input(self, batch: RelBatch) -> None:
+        if self._holistic:
+            if self._pre is not None:
+                batch = self._pre(batch)
+            self._collected.append(batch)
+            return
         if self._global:
             if self._pre is not None:
                 batch = self._pre(batch)
@@ -1114,6 +1149,9 @@ class HashAggregationOperator(Operator):
         if self._finishing:
             return
         self._finishing = True
+        if self._holistic:
+            self._out = self._finish_holistic()
+            return
         self._merge_pending()
         if self._deferred_ovf:
             flag = torch.any(torch.stack(self._deferred_ovf))
@@ -1165,6 +1203,122 @@ class HashAggregationOperator(Operator):
                 and self._mxu_dims is None:
             out = _shrink_prefix(out, int(torch.sum(used)))
         self._out = out
+
+    def _finish_holistic(self) -> RelBatch:
+        """One pass over all collected rows: the regular aggregates
+        through sort_group_reduce, the order statistics through the
+        sorted-segment reducers. All sort by the same key chain, so
+        their group slots align."""
+        dev = self._device
+        mega = concat_batches(self._collected) if self._collected else None
+        self._collected = []
+        if mega is None:
+            # no rows: one dead row keeps every shape non-empty so the
+            # global path can slice its single slot
+            mega = RelBatch(
+                [Column(t, phys_zeros(t, 1, dev),
+                        torch.zeros(1, dtype=torch.bool, device=dev), d)
+                 for t, d in self._schema],
+                torch.zeros(1, dtype=torch.bool, device=dev),
+            )
+        keys = [mega.columns[c].data for c in self._group_channels]
+        valids = [mega.columns[c].valid_mask() for c in self._group_channels]
+        live = mega.live_mask()
+        regular = [(i, a) for i, a in enumerate(self._aggs)
+                   if a.kind not in HOLISTIC_KINDS]
+        _, values, vvalids, reds = _batch_values(mega, [a for _, a in regular])
+        cap = self._cap
+        while True:
+            gk, gv, used, vals, cnts, ngroups, ovf = G.sort_group_reduce(
+                tuple(keys), tuple(valids), live, tuple(values), tuple(vvalids),
+                reds, cap,
+            )
+            if not self._group_channels or not bool(ovf):
+                break
+            cap = max(cap * 2, bucket_capacity(int(ngroups)))
+        self._cap = cap
+
+        agg_cols = {}
+        si = 0
+        for i, a in regular:
+            arg_t, arg_d = self._arg_meta[i]
+            state, si = _slots_to_state(a, arg_t, vals, cnts, si)
+            agg_cols[i] = _agg_output(a, state, arg_t, arg_d)
+        # one key sort shared by every min_by/max_by (the percentile and
+        # distinct reducers pre-order by value and sort on their own)
+        shared_order = (
+            G.key_order(tuple(keys), tuple(valids), live, cap)
+            if any(a.kind in ("min_by", "max_by") for a in self._aggs) else None
+        )
+        for i, a in enumerate(self._aggs):
+            if a.kind not in HOLISTIC_KINDS:
+                continue
+            xcol = mega.columns[a.arg_channel]
+            if a.kind == "listagg":
+                agg_cols[i] = self._listagg_column(a, keys, valids, live, xcol, cap)
+                continue
+            if a.kind == "approx_distinct":
+                cnt = G.grouped_count_distinct(
+                    tuple(keys), tuple(valids), live, xcol.data, xcol.valid, cap)
+                agg_cols[i] = Column(T.BIGINT, cnt, None, None)
+                continue
+            if a.kind in ("min_by", "max_by"):
+                bycol = mega.columns[a.arg2_channel]
+                data, valid = G.grouped_argbest(
+                    tuple(keys), tuple(valids), live, bycol.data, bycol.valid,
+                    xcol.data, xcol.valid, a.kind, cap, order=shared_order,
+                )
+            elif a.kind == "pctl_merge":
+                data, valid = G.grouped_weighted_percentile(
+                    tuple(keys), tuple(valids), live, xcol.data, xcol.valid,
+                    mega.columns[a.arg2_channel].data,
+                    mega.columns[a.arg3_channel].data, a.percentile, cap,
+                )
+            else:  # approx_percentile
+                data, valid = G.grouped_percentile(
+                    tuple(keys), tuple(valids), live, xcol.data, xcol.valid,
+                    a.percentile, cap,
+                )
+            agg_cols[i] = Column(a.out_type, data.to(a.out_type.dtype), valid,
+                                 xcol.dictionary)
+
+        out_cols = [Column(self._schema[ch][0], kk, vv, self._schema[ch][1])
+                    for ch, kk, vv in zip(self._group_channels, gk, gv)]
+        out_cols += [agg_cols[i] for i in range(len(self._aggs))]
+        if self._global:
+            # a global aggregation yields one row even over no input
+            # (counts 0, the rest NULL): slot 0 carries it
+            return RelBatch(
+                [Column(c.type, c.data[:1], None if c.valid is None else c.valid[:1],
+                        c.dictionary) for c in out_cols],
+                torch.ones(1, dtype=torch.bool, device=dev),
+            )
+        return RelBatch(out_cols, used)
+
+    def _listagg_column(self, a: AggSpec, keys, valids, live, xcol: Column,
+                        cap: int) -> Column:
+        """listagg: the device groups and value-orders the rows, the host
+        joins each group's dictionary values into a new string (element
+        order = the values' lexical order). The result's dictionary is
+        made here, at execution time."""
+        gid, w, codes, n_groups, _ = G.grouped_rows_sorted(
+            tuple(keys), tuple(valids), live, xcol.data, xcol.valid, cap)
+        gid_h, w_h, codes_h = (t.cpu().numpy() for t in (gid, w, codes))
+        dict_values = xcol.dictionary.values if xcol.dictionary else ()
+        parts: List[List[str]] = [[] for _ in range(int(n_groups))]
+        for g, ok, c in zip(gid_h, w_h, codes_h):
+            if ok and 0 <= g < len(parts) and 0 <= c < len(dict_values):
+                parts[g].append(dict_values[int(c)])
+        strings = [(a.separator or "").join(p) for p in parts]
+        out_dict = Dictionary(strings)
+        data = np.zeros(cap, dtype=np.int32)
+        valid = np.zeros(cap, dtype=bool)
+        for g, text in enumerate(strings):
+            if parts[g]:
+                data[g] = out_dict.code(text)
+                valid[g] = True
+        return Column(T.VARCHAR, torch.from_numpy(data).to(self._device),
+                      torch.from_numpy(valid).to(self._device), out_dict)
 
     def get_output(self) -> Optional[RelBatch]:
         out, self._out = self._out, None
@@ -1273,13 +1427,13 @@ def _compact_to(parts: Sequence[RelBatch], n_live: int, capacity: int) -> RelBat
 class HashBuildSink(Operator):
     """Consumes the build side, consolidates it and builds the
     LookupSource (HashBuilderOperator: one sort instead of row inserts).
-    Spilling to grace partitions is not ported (ROADMAP queue 10)."""
+    Spilling to grace partitions is not ported (ROADMAP §1 item 10)."""
 
     def __init__(self, bridge: JoinBridge, key_channels: Sequence[int],
                  input_schema: Schema, device, force_spill: bool = False):
         if force_spill:
             raise NotImplementedError(
-                "grace (spilled) hash join: ROADMAP queue 10 (memory and spill)"
+                "grace (spilled) hash join: ROADMAP §1 item 10 (memory and spill)"
             )
         self._bridge = bridge
         self._keys = list(key_channels)

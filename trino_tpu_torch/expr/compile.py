@@ -21,10 +21,12 @@ negation, EXTRACT(YEAR/MONTH/DAY), LIKE, abs, round, nullif,
 greatest/least, and the dictionary string functions substr/substring,
 upper, lower, length, trim/ltrim/rtrim, reverse, replace, starts_with
 and concat (each a host transform of the dictionary plus a code remap
-on the device). Every other function (date arithmetic, math beyond
-abs/round, regexp, json, url, time zones, lambdas, arrays and maps,
-hashing, sketches, casts to and from varchar) raises
-NotImplementedError naming itself (ROADMAP §1 item 4).
+on the device), and the sketch primitives of the optimizer's approx
+rewrites (hll_bucket, hll_rho, hll_weight, hll_weight_rho,
+hll_estimate, pctl_bucket). Every other function (date arithmetic,
+math beyond abs/round, regexp, json, url, time zones, lambdas, arrays
+and maps, hashing, casts to and from varchar) raises
+NotImplementedError naming itself (ROADMAP §1 item 3).
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from trino_tpu_torch.block import Dictionary, RuntimeDictionary
 from trino_tpu_torch.expr import functions as F
 from trino_tpu_torch.expr.ir import Call, Case, Cast, Expr, InList, InputRef, Literal
 from trino_tpu_torch.ops import int128 as I128
+from trino_tpu_torch.ops.floatbits import f32_bits_ordered
+from trino_tpu_torch.ops.hashing import dictionary_code_hashes, hash64
 
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 EvalFn = Callable[[List[torch.Tensor], List[Optional[torch.Tensor]]], Value]
@@ -150,7 +154,7 @@ def _lookup(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 def _not_ported(name: str):
     return NotImplementedError(
-        f"{name}: not ported to trino_tpu_torch yet (ROADMAP §1 item 4)"
+        f"{name}: not ported to trino_tpu_torch yet (ROADMAP §1 item 3)"
     )
 
 
@@ -556,7 +560,89 @@ class ExprBinder:
             return Bound(e.type, absfn)
         if name == "round":
             return self._bind_round(e, args)
+        if name in ("hll_bucket", "hll_rho", "hll_weight", "hll_weight_rho",
+                    "hll_estimate", "pctl_bucket"):
+            return self._bind_sketch(name, e, args)
         raise _not_ported(f"function {name}")
+
+    # ---- sketch primitives of the approx_distinct/percentile rewrites ----
+    def _bind_sketch(self, name: str, e: Call, args) -> Bound:
+        """The expressions sql/optimizer's RewriteApproxDistinct and
+        RewriteApproxPercentile emit, bit-equal to the reference:
+        hll_bucket/hll_rho/hll_weight split a value's 62-bit hash into
+        an HLL register (low 11 bits), its leading-zero rank rho in the
+        next 51 bits, and 2^-rho; hll_weight_rho weighs a merged register
+        and hll_estimate finalizes; pctl_bucket is the quantile-sketch
+        bucket of a value."""
+        if name in ("hll_bucket", "hll_rho", "hll_weight"):
+            (a,) = args
+            # strings hash their dictionary VALUE, so batches with other
+            # dictionaries agree
+            vh = None
+            if a.dictionary is not None and len(a.dictionary) > 0:
+                vh = torch.from_numpy(
+                    dictionary_code_hashes(a.dictionary.values).astype(np.int64)
+                )
+
+            def hllfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                basis = d if vh is None else _lookup(vh, d)
+                h = hash64([basis], [v])
+                if name == "hll_bucket":
+                    return h & 2047, v
+                w51 = (h >> 11).to(torch.float64)
+                rho = torch.where(
+                    w51 > 0,
+                    51 - torch.floor(torch.log2(torch.clamp(w51, min=1.0))).to(torch.int64),
+                    _const(h, 52, torch.int64),
+                )
+                if name == "hll_rho":
+                    return rho, v
+                return torch.exp2(-rho.to(torch.float64)), v
+            return Bound(e.type, hllfn)
+        if name == "pctl_bucket":
+            (a,) = args
+
+            def pbfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                enc = f32_bits_ordered(d.to(torch.float64).to(torch.float32))
+                return enc >> 14, v
+            return Bound(T.BIGINT, pbfn)
+        if name == "hll_weight_rho":
+            # (merged max-rho, bucket) -> register weight 2^-rho; the
+            # NULL-bucket group (all-NULL inputs) weighs 0
+            r, b = args
+
+            def hwfn(cols, valids):
+                rd, rv = r.fn(cols, valids)
+                _, bv = b.fn(cols, valids)
+                ok = merge_valid(rv, bv)
+                w = torch.exp2(-rd.to(torch.float64))
+                if ok is not None:
+                    w = torch.where(ok, w, _const(w, 0.0, torch.float64))
+                return w, None
+            return Bound(T.DOUBLE, hwfn)
+        # hll_estimate: raw = alpha_m * m^2 / (sum_w + zero registers),
+        # linear counting in the small range
+        m = 2048.0
+        alpha = 0.7213 / (1.0 + 1.079 / m)
+        sw, cnt = args
+
+        def hefn(cols, valids):
+            s, sv = sw.fn(cols, valids)
+            c, cv = cnt.fn(cols, valids)
+            zeros = m - c.to(torch.float64)
+            raw = alpha * m * m / (s.to(torch.float64) + zeros)
+            small = (raw <= 2.5 * m) & (zeros > 0)
+            est = torch.where(
+                small, m * torch.log(m / torch.clamp(zeros, min=1.0)), raw
+            )
+            out = torch.round(est).to(torch.int64)
+            ok = merge_valid(sv, cv)  # NULL states estimate 0
+            if ok is not None:
+                out = torch.where(ok, out, _const(out, 0, torch.int64))
+            return out, None
+        return Bound(e.type, hefn)
 
     # ---- string functions on dictionary columns ----
     @staticmethod

@@ -72,3 +72,8 @@ def f64_lanes(x: torch.Tensor):
     lane3 = torch.where(pos_inf, hi, torch.where(neg_inf, z, lane3))
     lane4 = torch.where(pos_inf, hi, torch.where(neg_inf, z, lane4))
     return lane1, lane2, lane3, lane4
+
+
+def f32_bits_ordered(x32: torch.Tensor) -> torch.Tensor:
+    """float32 -> order-preserving unsigned 32-bit key (int64 carrier)."""
+    return _f32_lane(x32)

@@ -17,6 +17,11 @@ per-group value and `counts[i]` its non-null contribution count.
   segment reductions. Groups come out in the reference's order, dense
   from slot 0, with the same hash-collision detector.
 
+The order statistics of the holistic aggregates (key_order,
+grouped_argbest, grouped_percentile, grouped_weighted_percentile,
+grouped_count_distinct, grouped_rows_order/_sorted) sort by the same
+keys, so their slots align with sort_group_reduce's.
+
 Integer outputs are bit-equal to the reference; float sums may differ
 in the last bits (another summation order).
 """
@@ -446,3 +451,266 @@ def sort_group_reduce(
             i += l
         group_keys, group_valids = gk2, gv2
     return group_keys, group_valids, used, results, counts, n_groups, overflowed
+
+
+# ---------------------------------------------------------------------------
+# Order-statistic (holistic) grouped aggregates: min_by/max_by,
+# approx_percentile and its pctl_merge half, approx_distinct, and the
+# group-contiguous row order listagg reads. Each sorts by the grouping
+# keys exactly as sort_group_reduce orders its groups, so per-slot
+# outputs align with its group slots.
+# ---------------------------------------------------------------------------
+
+
+def _key_order(keys, valids, mask, order=None, seed: int = 0):
+    """Stable permutation grouping equal key tuples (NULL == NULL), live
+    rows first, groups in sort_group_reduce's order: (class, key) for a
+    single key, the 62-bit tuple hash for several. An incoming `order`
+    is the least-significant pre-ordering (the within-group value
+    order of the order statistics)."""
+    keys, valids = split_limb_keys(keys, valids)
+    n = mask.shape[0]
+    dev = mask.device
+    if order is None:
+        order = torch.arange(n, dtype=torch.int64, device=dev)
+    if len(keys) == 1:
+        k, v = keys[0], valids[0]
+        kb = _order_value(k, False) if k.dtype.is_floating_point else k
+        if kb.dtype == torch.bool:
+            kb = kb.to(torch.int8)
+        kb = torch.where(v & mask, kb, torch.zeros((), dtype=kb.dtype, device=dev))
+        cls = torch.where(mask, torch.where(v, 0, 1), 2).to(torch.int8)
+        order = take_clip(order, stable_argsort(take_clip(kb, order)))
+        return take_clip(order, stable_argsort(take_clip(cls, order)))
+    hm = _group_hash(keys, valids, mask, seed)
+    return take_clip(order, stable_argsort(take_clip(hm, order)))
+
+
+def key_order(keys, valids, mask, out_capacity: int = 0):
+    """The grouping sort permutation, for callers that compute several
+    order statistics over the same keys and capacity (the capacity
+    seeds the group hash, so it must match the reducers')."""
+    return _key_order(keys, valids, mask, seed=_order_seed(out_capacity))
+
+
+def _segment_bounds(sk, sv, sm, n: int, out_capacity: int):
+    """Segment geometry over key-sorted rows: boundary flags, then per
+    slot (starts, safe_starts, ends, used), n_groups and overflowed."""
+    dev = sm.device
+    same = None
+    for k, v in zip(sk, sv):
+        eq = (_eq_vals(k, _roll1(k)) & v & _roll1(v)) | (~v & ~_roll1(v))
+        same = eq if same is None else (same & eq)
+    if same is None:  # no keys: one segment
+        same = torch.ones(n, dtype=torch.bool, device=dev)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    first_row = pos == 0
+    prev_live = _roll1(sm) & ~first_row
+    boundary = sm & (first_row | ~same | ~prev_live)
+    n_groups = torch.sum(boundary.to(torch.int32))
+    overflowed = n_groups > out_capacity
+    sidx = torch.where(boundary, pos, n)
+    starts = torch.sort(sidx).values[:out_capacity]
+    starts = _pad(starts, out_capacity, n)
+    used = starts < n
+    safe_starts = torch.clamp(starts, 0, max(n - 1, 0))
+    next_starts = torch.cat([starts[1:], torch.full((1,), n, dtype=torch.int64, device=dev)])
+    ends = torch.clamp(torch.where(used, next_starts, 1) - 1, 0, max(n - 1, 0))
+    return boundary, starts, safe_starts, ends, used, n_groups, overflowed
+
+
+def _seg_id(boundary):
+    """Per sorted row, its segment ordinal (-1 before the first)."""
+    return torch.cumsum(boundary.to(torch.int64), 0) - 1
+
+
+def _seg_slot(boundary, out_capacity: int):
+    """Per sorted row, its slot, or out_capacity (dropped) outside."""
+    g = _seg_id(boundary)
+    return torch.where((g >= 0) & (g < out_capacity), g, out_capacity)
+
+
+def _seg_reduce(red: str, contrib, boundary, out_capacity: int):
+    """Per-segment min/max, the reducer's identity in empty slots."""
+    return _segment_extreme(_seg_slot(boundary, out_capacity), contrib, out_capacity, red)
+
+
+def _seg_first_pos(flag, boundary, n: int, out_capacity: int):
+    """Per segment, the first sorted row where `flag` holds; n where
+    none does."""
+    idx = torch.where(flag, _seg_slot(boundary, out_capacity), out_capacity)
+    pos = torch.arange(n, dtype=torch.int64, device=flag.device)
+    first = torch.full((out_capacity + 1,), n, dtype=torch.int64, device=flag.device)
+    return first.scatter_reduce(0, idx, pos, "amin", include_self=True)[:out_capacity]
+
+
+def _value_pre_order(x, x_valid):
+    """Rows by x ascending (floats by their order value), NULL x last."""
+    n = x.shape[0]
+    xv = torch.ones(n, dtype=torch.bool, device=x.device) if x_valid is None else x_valid
+    pre = stable_argsort(_order_value(x, False))
+    return take_clip(pre, stable_argsort(take_clip(~xv, pre))), xv
+
+
+def _sorted_segments(keys, valids, mask, out_capacity: int, order=None, pre=None):
+    """Group-sort the rows (optionally after a pre-ordering) and return
+    (order, sorted live mask, segment geometry)."""
+    n = mask.shape[0]
+    keys, valids = split_limb_keys(keys, valids)
+    if order is None:
+        order = _key_order(keys, valids, mask, order=pre, seed=_order_seed(out_capacity))
+    sm = take_clip(mask, order)
+    sk = [take_clip(k, order) for k in keys]
+    sv = [take_clip(v, order) for v in valids]
+    return order, sm, _segment_bounds(sk, sv, sm, n, out_capacity)
+
+
+def grouped_argbest(keys, valids, mask, by, by_valid, x, x_valid, kind: str,
+                    out_capacity: int, order=None):
+    """min_by/max_by: x at the row with the smallest/largest non-NULL
+    `by` per group; ties keep the first row in sort order. Int128 (n, 2)
+    `by` compares lexicographically (signed high limb, unsigned low);
+    (n, 2) `x` gathers row-wise. Returns (x_data, x_valid) aligned with
+    sort_group_reduce's group slots."""
+    n = mask.shape[0]
+    dev = mask.device
+    order, sm, (boundary, _, _, _, used, _, _) = _sorted_segments(
+        keys, valids, mask, out_capacity, order=order)
+    w = sm if by_valid is None else (sm & take_clip(by_valid, order))
+    s_x = take_clip(x, order)
+    s_xv = (torch.ones(n, dtype=torch.bool, device=dev) if x_valid is None
+            else take_clip(x_valid, order))
+    g = _seg_id(boundary)
+    red = "min" if kind == "min_by" else "max"
+    if by.dim() == 2:
+        s_bh = take_clip(by[:, 0], order)
+        s_bl = take_clip(by[:, 1], order)
+        neutral = torch.tensor(_I64_MAX if kind == "min_by" else _I64_MIN,
+                               dtype=torch.int64, device=dev)
+        best_h = _seg_reduce(red, torch.where(w, s_bh, neutral), boundary, out_capacity)
+        at_h = w & (s_bh == take_clip(best_h, g))
+        lo_u = s_bl ^ _I64_MIN
+        best_l = _seg_reduce(red, torch.where(at_h, lo_u, neutral), boundary, out_capacity)
+        is_best = at_h & (lo_u == take_clip(best_l, g))
+    else:
+        s_by = take_clip(by, order)
+        neutral = torch.tensor(minmax_neutral(s_by.dtype, red), dtype=s_by.dtype, device=dev)
+        nb = torch.where(w, s_by, neutral)
+        best = _seg_reduce(red, nb, boundary, out_capacity)
+        is_best = w & (nb == take_clip(best, g))
+    pos = _seg_first_pos(is_best, boundary, n, out_capacity)
+    out_x = take_clip(s_x, pos)
+    out_valid = (pos < n) & take_clip(s_xv, pos) & used
+    used_b = used[:, None] if out_x.dim() == 2 else used
+    return torch.where(used_b, out_x, torch.zeros((), dtype=out_x.dtype, device=dev)), out_valid
+
+
+def _segment_rank_of(fraction: float, total):
+    """Nearest rank floor(fraction * (total - 1) + 0.5), clipped into
+    [0, total - 1]."""
+    r = torch.floor(fraction * (total - 1).to(torch.float64) + 0.5).to(torch.int64)
+    return torch.minimum(torch.clamp(r, min=0), torch.clamp(total - 1, min=0))
+
+
+def grouped_weighted_percentile(keys, valids, mask, mn, mn_valid, cnt, mx,
+                                fraction: float, out_capacity: int):
+    """Percentile over per-bucket summaries (count, min, max), the merge
+    half of the mergeable approx_percentile: weights are element counts
+    and the estimate interpolates between the chosen bucket's min and
+    max. Returns (data, valid) aligned with sort_group_reduce's slots."""
+    n = mask.shape[0]
+    dev = mask.device
+    pre, mv = _value_pre_order(mn, mn_valid)
+    order, sm, (boundary, _, safe_starts, ends, used, _, _) = _sorted_segments(
+        keys, valids, mask, out_capacity, pre=pre)
+    w = sm & take_clip(mv, order)
+    s_mn = take_clip(mn, order)
+    s_mx = take_clip(mx, order)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    s_c = torch.where(w, take_clip(cnt, order).to(torch.int64), zero)
+    cum = torch.cumsum(s_c, 0)
+    cum_ex = cum - s_c
+    total = take_clip(cum, ends) - take_clip(cum_ex, safe_starts)
+    rank = _segment_rank_of(fraction, total)
+    g = _seg_id(boundary)
+    cum_in = cum - take_clip(take_clip(cum_ex, safe_starts), g)
+    hit = w & (cum_in > take_clip(rank, g))
+    pos = _seg_first_pos(hit, boundary, n, out_capacity)
+    safe_pos = torch.clamp(pos, 0, max(n - 1, 0))
+    c_at = torch.clamp(take_clip(s_c, safe_pos), min=1)
+    p_in = rank - (take_clip(cum_in, safe_pos) - c_at)
+    lo_v = take_clip(s_mn, safe_pos).to(torch.float64)
+    hi_v = take_clip(s_mx, safe_pos).to(torch.float64)
+    frac_in = torch.where(
+        c_at > 1,
+        p_in.to(torch.float64) / (c_at - 1).to(torch.float64),
+        torch.zeros((), dtype=torch.float64, device=dev),
+    )
+    est = lo_v + (hi_v - lo_v) * frac_in
+    if mn.dtype.is_floating_point:
+        out = est.to(mn.dtype)
+    else:
+        out = (torch.sign(est) * torch.floor(torch.abs(est) + 0.5)).to(mn.dtype)
+    valid = used & (total > 0) & (pos < n)
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=dev)), valid
+
+
+def grouped_percentile(keys, valids, mask, x, x_valid, fraction: float,
+                       out_capacity: int):
+    """approx_percentile(x, fraction) per group, exact by nearest rank
+    over the sorted segment; NULL x rows are excluded. Returns (data,
+    valid) aligned with sort_group_reduce's group slots."""
+    n = mask.shape[0]
+    dev = mask.device
+    pre, xv = _value_pre_order(x, x_valid)
+    order, sm, (_, _, safe_starts, ends, used, _, _) = _sorted_segments(
+        keys, valids, mask, out_capacity, pre=pre)
+    w = (sm & take_clip(xv, order)).to(torch.int64)
+    s_x = take_clip(x, order)
+    cnt_c = torch.cumsum(w, 0)
+    cnt = take_clip(cnt_c, ends) - take_clip(cnt_c - w, safe_starts)
+    # the valid rows lead each segment (NULL x sorted to its tail)
+    idx = torch.clamp(safe_starts + _segment_rank_of(fraction, cnt), 0, max(n - 1, 0))
+    out = take_clip(s_x, idx)
+    valid = used & (cnt > 0)
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=dev)), valid
+
+
+def grouped_count_distinct(keys, valids, mask, x, x_valid, out_capacity: int):
+    """Distinct non-NULL x per group (approx_distinct's holistic path,
+    exact). Rows pre-order by (valid first, x ascending), so a distinct
+    value is a valid row at a group boundary or where x changes."""
+    n = mask.shape[0]
+    dev = mask.device
+    xb = _order_value(x, False) if x.dtype.is_floating_point else x
+    pre, xv = _value_pre_order(xb, x_valid)
+    order, sm, (boundary, _, safe_starts, ends, used, _, _) = _sorted_segments(
+        keys, valids, mask, out_capacity, pre=pre)
+    sx = take_clip(xb, order)
+    sxv = take_clip(xv, order) & sm
+    first = torch.arange(n, device=dev) == 0
+    flag = (sxv & (boundary | first | ~_eq_vals(sx, _roll1(sx)))).to(torch.int64)
+    c = torch.cumsum(flag, 0)
+    cnt = take_clip(c, ends) - take_clip(c - flag, safe_starts)
+    return torch.where(used, cnt, torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def grouped_rows_order(keys, valids, mask, x, x_valid, out_capacity: int):
+    """Rows grouped and value-ordered, for host-side assembly: returns
+    (dense group id per sorted row, sorted live mask, order, n_groups,
+    overflowed); the dense ids index sort_group_reduce's slots."""
+    pre, _ = _value_pre_order(x, x_valid)
+    order, sm, (boundary, _, _, _, _, n_groups, overflowed) = _sorted_segments(
+        keys, valids, mask, out_capacity, pre=pre)
+    return _seg_id(boundary), sm, order, n_groups, overflowed
+
+
+def grouped_rows_sorted(keys, valids, mask, x, x_valid, out_capacity: int):
+    """grouped_rows_order with x gathered into that order: (dense group
+    id, weight = live and non-NULL x, sorted x, n_groups, overflowed)."""
+    gid, sm, order, n_groups, overflowed = grouped_rows_order(
+        keys, valids, mask, x, x_valid, out_capacity)
+    n = mask.shape[0]
+    xv = torch.ones(n, dtype=torch.bool, device=mask.device) if x_valid is None else x_valid
+    w = sm & take_clip(xv, order)
+    return gid, w, take_clip(x, order), n_groups, overflowed

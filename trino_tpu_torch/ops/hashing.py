@@ -14,6 +14,7 @@ the low 32 bits of each product exact.
 
 from __future__ import annotations
 
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -134,3 +135,27 @@ def hash32_np(columns, valids=None, seed: int = 0):
                  + (h >> 2)).astype(np.uint32)
             )
     return _fmix32_np(h)
+
+
+def partition_of_np(h, num_partitions: int):
+    """Host-side map of a 32-bit hash (numpy uint32) to a partition id,
+    as the reference's `partition_of` does on the device."""
+    if num_partitions & (num_partitions - 1) == 0:
+        return (h & np.uint32(num_partitions - 1)).astype(np.int32)
+    return (h % np.uint32(num_partitions)).astype(np.int32)
+
+
+def dictionary_code_hashes(values) -> np.ndarray:
+    """Per-code value hash of a dictionary (crc32 of the string), so two
+    columns with different dictionaries hash equal strings equally."""
+    return np.asarray(
+        [zlib.crc32(v.encode("utf-8")) for v in values], dtype=np.uint32
+    )
+
+
+def dictionary_lut(dictionary) -> Optional[np.ndarray]:
+    """Code -> value hash table of a non-empty dictionary; None for an
+    absent or empty one (an all-NULL column hashes its codes)."""
+    if dictionary is None or len(dictionary) == 0:
+        return None
+    return dictionary_code_hashes(dictionary.values)

@@ -29,7 +29,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.block import Dictionary, RelBatch
+from trino_tpu_torch.block import Dictionary, RelBatch, RuntimeDictionary
 from trino_tpu_torch.connectors.spi import CatalogManager
 from trino_tpu_torch.exec import (
     AggSpec,
@@ -207,7 +207,7 @@ class LocalPlanner:
     def _visit_AggregateNode(self, node: P.AggregateNode):
         if node.step != "single":
             raise NotImplementedError(
-                f"{node.step} aggregation step: ROADMAP queue 11 (distributed plane)"
+                f"{node.step} aggregation step: ROADMAP §1 item 11 (distributed plane)"
             )
         mxu = self._try_mxu_join_agg(node)
         if mxu is not None:
@@ -234,8 +234,13 @@ class LocalPlanner:
         )
 
         def _out_dict(a):
-            if a.kind in ("min", "max", "any") and a.arg_channel is not None:
+            # results taken from the argument column keep its dictionary;
+            # listagg's strings get theirs at execution time
+            if (a.kind in ("min", "max", "any", "min_by", "max_by", "approx_percentile")
+                    and a.arg_channel is not None):
                 return schema[a.arg_channel][1]
+            if a.kind == "listagg":
+                return RuntimeDictionary()
             return None
 
         out_schema: Schema = [schema[c] for c in node.group_channels] + [
