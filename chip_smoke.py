@@ -11,8 +11,9 @@ Phases (any failure exits nonzero):
                  source, all started together.
   3. kernel    — each kernel against its plain PyTorch version on the
                  card, bit-exact, at the explorers' shapes and at edge
-                 shapes; kernel, plain and one-library-call times beside
-                 the bound.
+                 shapes (take_flat at its layout's edges: ragged chunks,
+                 offset views, int32 and int64 indices); kernel, plain
+                 and one-library-call times beside the bound.
   4. main      — LocalQueryRunner(device="cuda") answers, at sf1 and
                  cold, TPC-H Q1, Q6, the bounded-domain GROUP BY (Q-MXU),
                  the joins Q3, Q18, Q16 (count distinct) and Q22
@@ -38,7 +39,9 @@ Phases (any failure exits nonzero):
                  launching bounds once per probe batch) and q72 at
                  Q72_SCHEMA with its peak device memory and widest join;
                  and bench.py's wide-string GROUP BY (2^21 rows, memory
-                 connector) equal to numpy's own group-by.
+                 connector) equal to numpy's own group-by. Every take_flat
+                 launch of the phase is timed on the card (LaunchTimer),
+                 summed per family: TPC-H, TPC-DS, q72.
   5. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
   6. parity    — the queries, and the window and set-operation queries
@@ -54,8 +57,11 @@ Phases (any failure exits nonzero):
                  largest arguments the main path gave it, and on the
                  TPC-DS templates' and q72's own largest; grouped_sum on
                  each main-path shape (Q-MXU, Q-MXJ, the wide-string
-                 batch); a `kernels` JSON line, the card line, then the
-                 result line {"ok": true, "device": {...}} last.
+                 batch); a `kernels` JSON line (take_flat's entry with
+                 its summed main-path time per family, and each of its
+                 records with the table sectors its indices touch, which
+                 its bound counts), the card line, then the result line
+                 {"ok": true, "device": {...}} last.
 
 `--phases` picks a subset (comma-separated) for a quick check.
 """
@@ -673,6 +679,25 @@ def search_bytes(n: int, n_b: int, elem: int, steps: int) -> int:
     return min(n_b * elem, n * steps * 32)
 
 
+def flat_sectors(table, idx) -> int:
+    """Distinct 32-byte sectors of `table` that take_flat reads for `idx`
+    (clipped), counted on the tensors' device; the table is taken to start
+    on a sector boundary, as the allocator places it."""
+    import torch
+
+    if idx.numel() == 0:
+        return 0
+    j = torch.clamp(idx.reshape(-1).to(torch.int64), 0, int(table.shape[0]) - 1)
+    return int(torch.unique(j // (32 // table.element_size())).numel())
+
+
+def flat_bytes(n: int, idx_bytes: int, n_table: int, elem: int, sectors: int) -> int:
+    """Bytes a flat gather must move: each index read and each output
+    written once, and the table sectors the indices touch, no more than
+    the whole table."""
+    return n * (idx_bytes + elem) + min(n_table * elem, 32 * sectors)
+
+
 def rank_bound(n_a: int, n_b: int, elem: int, searched: bool, w0: int = 0,
                nwin: int = 1) -> tuple:
     """Fixed mode: one compare and one add per (element, window position
@@ -784,6 +809,10 @@ def run_owner_offsets(counts):
 
 
 def check_take_flat(name, table, idx, iters=0) -> dict:
+    """take_flat against its plain version; records the table sectors the
+    indices touch. With `iters`, times kernel, wrapper, plain version and
+    torch.take (where no index clips) against the bound on the bytes the
+    gather must move (`flat_bytes`)."""
     import torch
     from trino_tpu_torch.ops import gather_kernels as GK
 
@@ -792,19 +821,51 @@ def check_take_flat(name, table, idx, iters=0) -> dict:
     torch.cuda.synchronize()
     rec = {"case": name, "n_table": int(table.shape[0]), "n": idx.numel(),
            "elem_bytes": table.element_size(), "idx_bytes": idx.element_size(),
+           "sectors": flat_sectors(table, idx),
            "max_abs_err": held(f"take_flat {name}", got, want)}
     if iters:
-        n = idx.numel()
         in_range = bool(((idx >= 0) & (idx < table.shape[0])).all())
         # torch.take computes the same function when no index clips
         idx64 = idx.to(torch.int64)  # torch.take indexes with int64 only
         timings(rec, iters, GK.flat_launcher(table, idx)[0], lambda: GK.take_flat(table, idx),
                 lambda: GK.take_flat_reference(table, idx),
                 (lambda: torch.take(table, idx64)) if in_range else None)
-        rec["bound_ms"], rec["bound_by"] = bound(
-            n * (idx.element_size() + table.element_size())
-            + int(table.shape[0]) * table.element_size(), 0)
+        rec["bound_ms"], rec["bound_by"] = bound(flat_bytes(
+            rec["n"], rec["idx_bytes"], rec["n_table"], rec["elem_bytes"], rec["sectors"]), 0)
     return rec
+
+
+def take_flat_edges(t, rng) -> list:
+    """take_flat at the edges of its layout (a warp takes 32 x flat_ilp
+    consecutive outputs, a block 256 threads) on each side of `flat_ilp`'s
+    choice: 1 to 5 indices, lengths one off a warp's chunk and a block's,
+    lengths one off the shortest call that gathers FLAT_ILP outputs a
+    thread, index views one to three elements in, a table view one element
+    in, int32 and int64 indices, a non-contiguous index tensor; every
+    index set has clipped ones."""
+    import numpy as np
+    from trino_tpu_torch.ops import cuda_build
+    from trino_tpu_torch.ops import gather_kernels as GK
+
+    full = GK.FLAT_THREADS * GK.FLAT_ILP * cuda_build.sm_count(t(np.zeros(1)).device)
+    lengths = (1, 2, 3, 4, 5, 127, 128, 129, 1023, 1024, 1025,
+               full - 1, full, full + 1, full + 127, full + 129)
+    recs = []
+    tab8 = t(rng.integers(-(1 << 62), 1 << 62, 1001))
+    tables = (("int32", t(rng.integers(-(1 << 31), (1 << 31) - 1, 1001).astype(np.int32))),
+              ("int64", tab8), ("int64 table[1:]", tab8[1:]))
+    ix32 = t(rng.integers(-3, 1004, full + 136).astype(np.int32))
+    for tname, table in tables:
+        for iname, ix in (("int32", ix32), ("int64", ix32.long())):
+            for off in (0, 1, 3):
+                for n in lengths:
+                    recs.append(check_take_flat(f"{tname}, {iname} idx[{off}:{off + n}]",
+                                                table, ix[off:off + n]))
+        recs.append(check_take_flat(f"{tname}, non-contiguous idx", table,
+                                    ix32[:1040].view(40, 26).T))
+    for rec in recs:
+        rec["edge"] = True
+    return recs
 
 
 def check_take_rows_sum(name, table2d, ridx, iters=0) -> dict:
@@ -977,6 +1038,10 @@ def phase_kernel_join(results: dict) -> None:
                         t(rng.integers(-3, 1004, 5001))),
         check_take_flat("empty idx", table, t(np.zeros(0, np.int32))),
     ]
+    edges = take_flat_edges(t, rng)
+    recs["take_flat"] += edges
+    log(f"[kernel] take_flat edges: {len(edges)} cases bit-exact, on both sides of "
+        f"flat_ilp's choice")
     recs["take_rows_sum"] += [
         check_take_rows_sum("explorer v2", x["table2d"], x["ridx2d"], iters=20),
         check_take_rows_sum(
@@ -1017,9 +1082,13 @@ def phase_kernel_join(results: dict) -> None:
     ]
     for name, rs in recs.items():
         for rec in rs:
+            if rec.get("edge"):
+                continue
             line = f"[kernel] {name} {rec['case']}: bit-exact"
             if "path" in rec:
                 line += f" path={rec['path']}"
+            if "sectors" in rec:
+                line += f" sectors={rec['sectors']}"
             if "bound_ms" in rec:
                 line += (f" ms={rec['ms']} warm_ms={rec['warm_ms']} "
                          f"wrapper_ms={rec['wrapper_ms']} plain_ms={rec['plain_ms']} "
@@ -1214,6 +1283,72 @@ class Capture:
         return max(self.args.items(), key=lambda kv: order(kv[0]))[1] if self.args else None
 
 
+class LaunchTimer:
+    """Wraps a module's launcher, a function that returns (go, out) where
+    `go()` launches one kernel and nothing else, while the main path runs:
+    CUDA events around every `go()`, read once, in `totals`. Each pair
+    sits behind a spin kernel queued first, so that the card waits on the
+    spin, not on the host, until the host has queued the launch and the
+    end event, and the pair times the kernel alone; the launcher's own
+    work (allocation, which may wait on the card) stays outside. A launch
+    whose host window (spin to end event, host clock) outlasted the
+    shortest spin the card measured is counted as `late`: its pair may
+    hold host time. The spins add about 0.5 ms of device time a launch to
+    the walls. `family` names the part of the main path that is running."""
+
+    SPIN_CYCLES = 1_000_000  # ~0.5 ms at 1.98 GHz
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr = module, attr
+        self.inner = None
+        self.family = None
+        self.marks: list = []  # (family, spin event, start, end, host seconds)
+
+    def __enter__(self):
+        import torch
+
+        self.inner = getattr(self.module, self.attr)
+
+        def timed(*args):
+            go, out = self.inner(*args)
+            family = self.family
+
+            def timed_go():
+                spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                t0 = time.perf_counter()
+                spin.record()
+                torch.cuda._sleep(self.SPIN_CYCLES)
+                start.record()
+                go()
+                end.record()
+                self.marks.append((family, spin, start, end, time.perf_counter() - t0))
+
+            return timed_go, out
+
+        setattr(self.module, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.inner)
+
+    def totals(self) -> dict:
+        """{family: {"launches", "ms" (summed kernel time), "late",
+        "host_ms_max", "spin_ms"}}."""
+        import torch
+
+        torch.cuda.synchronize()
+        spin_ms = min((s.elapsed_time(b) for _, s, b, _, _ in self.marks), default=0.0)
+        out: dict = {}
+        for family, _, start, end, host in self.marks:
+            tot = out.setdefault(family, {"launches": 0, "ms": 0.0, "late": 0,
+                                          "host_ms_max": 0.0, "spin_ms": spin_ms})
+            tot["launches"] += 1
+            tot["ms"] += start.elapsed_time(end)
+            tot["late"] += host * 1e3 >= spin_ms
+            tot["host_ms_max"] = max(tot["host_ms_max"], host * 1e3)
+        return out
+
+
 def run_query(r, scan, name, run, sql, per_query, probes=None) -> list:
     """Runs one query and records its wall, scan seconds, rows and the
     kernel launches it caused; with `probes` (the Capture around
@@ -1247,6 +1382,7 @@ def run_query(r, scan, name, run, sql, per_query, probes=None) -> list:
 
 
 def phase_main(results: dict) -> None:
+    import torch
     from trino_tpu_torch.connectors.tpch import base_row_count
     from trino_tpu_torch.ops import gather_kernels as GK
     from trino_tpu_torch.ops import join as TJ
@@ -1271,9 +1407,19 @@ def phase_main(results: dict) -> None:
     probes = Capture(TJ, "sorted_run_bounds", lambda sorted_arr, q: (
         (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None),
         keep=())
+    # every take_flat launch timed on the card, summed per family; each of
+    # its kernels launched once first (CUDA loads a kernel at its first
+    # launch), short and long calls, so no timed launch waits on that
+    flat_timer = LaunchTimer(GK, "flat_launcher")
+    flat_timer.family = "tpch"
+    for table_type in (torch.int32, torch.int64):
+        for idx_type in (torch.int32, torch.int64):
+            for n in (1, 1 << 18):
+                GK.take_flat(torch.zeros(8, dtype=table_type, device="cuda"),
+                             torch.zeros(n, dtype=idx_type, device="cuda"))
     results["main_args"] = {}
     reset_kernel_counts()
-    with gs, bd, ro, tf, probes:
+    with gs, bd, ro, tf, probes, flat_timer:
         # every query runs cold once (the warm runs were dropped to keep
         # the script inside half its time limit); Q-MXJ runs with the
         # join-project route on, then its twin with the route off
@@ -1286,9 +1432,15 @@ def phase_main(results: dict) -> None:
             rows[name] = run_query(r, scan, name, "cold", sql, per_query, probes)
         r.session.mxu_join_enabled = False
         main_holistic(r, scan, per_query)
-        main_tpcds(results, per_query, probes)
+        main_tpcds(results, per_query, probes, flat_timer)
+        flat_timer.family = "widestr"
         main_widestr(results, per_query)
     results["main_launches"] = join_kernel_counts()
+    flat = results["take_flat_main_path"] = flat_timer.totals()
+    if sum(f["launches"] for f in flat.values()) != results["main_launches"]["take_flat"]:
+        raise AssertionError(f"take_flat: the timer saw {flat}, the wrapper counted "
+                             f"{results['main_launches']['take_flat']} launches")
+    log(f"[main] take_flat launches and summed kernel ms per family: {flat}")
     results["main_shapes"] = sorted(M.grouped_sum.shapes, reverse=True)
     # bounds twice: the call with the most queries, and the one into the
     # largest build side (its search goes deepest)
@@ -1386,12 +1538,14 @@ def q72_pairs(schema: str) -> int:
     return int(np.dot(np.bincount(cs, minlength=m), np.bincount(inv, minlength=m)))
 
 
-def main_tpcds(results, per_query, probes) -> None:
+def main_tpcds(results, per_query, probes, flat_timer) -> None:
     """TPC-DS at sf1 (the fact tables' counts, the nine templates other
-    than q72) and q72 at Q72_SCHEMA, each cold once."""
+    than q72) and q72 at Q72_SCHEMA, each cold once; `flat_timer`'s
+    family follows them."""
     import torch
     from trino_tpu_torch.connectors.tpcds import _schema_sf, row_count
 
+    flat_timer.family = "tpcds"
     ds = runner("sf1", "cuda", catalog="tpcds")
     conn = ds.catalogs.get("tpcds")
     scan = conn.page_source = TimedPageSource(conn.page_source)
@@ -1421,6 +1575,7 @@ def main_tpcds(results, per_query, probes) -> None:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     caps = join_captures()
+    flat_timer.family = "q72"
     with caps[0], caps[1], caps[2]:
         rows["q72"] = run_query(r72, scan72, "ds_q72", "cold", sql72, per_query, probes)
     peak = torch.cuda.max_memory_allocated()
@@ -1668,8 +1823,9 @@ def timed_main_args(results: dict) -> dict:
         if f:
             out[f"take_flat_{fam}"] = check_take_flat(f"{fam}, largest", *f, iters=20)
     for name, rec in out.items():
+        flat = f"sectors={rec['sectors']} " if name.startswith("take_flat") else ""
         log(f"[kernel] {name} main-path arguments: n={rec.get('n_a', rec.get('n'))} "
-            f"n_b={rec.get('n_b', rec.get('n_table'))} "
+            f"n_b={rec.get('n_b', rec.get('n_table'))} {flat}"
             f"ms={rec['ms']} warm_ms={rec['warm_ms']} wrapper_ms={rec['wrapper_ms']} "
             f"plain_ms={rec['plain_ms']} "
             f"library_ms={rec['library_ms']} "
@@ -1686,7 +1842,7 @@ def mode_record(rec: dict, launches: int) -> dict:
             "warm_ms": rec.get("warm_ms"),
             "shape": {k: v for k, v in rec.items()
                       if k in ("n_a", "n_b", "n", "n_table", "rows", "width", "dtype",
-                               "k", "capacity", "live_rows")}}
+                               "k", "capacity", "live_rows", "sectors")}}
 
 
 def family_modes(results: dict, on_path: dict, kernels) -> dict:
@@ -1794,6 +1950,8 @@ def kernels_line(results: dict) -> dict:
                  **mode_record(rec, n)}
         if modes:
             entry["modes"] = modes
+        if name == "take_flat" and "take_flat_main_path" in results:
+            entry["main_path"] = results["take_flat_main_path"]
         line.append(entry)
     return {"kernels": line}
 

@@ -25,7 +25,20 @@ seed:
   over the (n, k) values and the live count;
 - take_rows_sum at the explorer's shape, 1,048,576 int32 indices into a
   (1024, 128) int32 table; against its plain version (no single PyTorch
-  call computes it).
+  call computes it);
+- take_flat at the main path's shapes, against torch.take: q72's
+  expansion gather, 33,554,432 int32 indices into a 33,554,432-entry
+  int32 permutation, the first 18,720,000 (q72's widest join) in runs of
+  consecutive positions (lengths 1 to 512, starts uniform) and the rest
+  clamped to the tail; the TPC-DS packed lo|start gather, 262,144
+  nondecreasing int32 indices into 1,048,576 int64; TPC-H's, 8,388,608
+  indices into 4,194,304 int64, each row's output position (rows of one
+  or, one in a thousand, two pairs) and the rest clamped to the last row;
+  the explorer's, 1,048,576 random int32 indices into a 131,072-entry
+  int32 table (`explore.pallas_gather`); and 1,024 of the TPC-DS
+  indices, whose time is the launch and two dependent memory latencies
+  and next to no bytes. Each record adds the table sectors the indices
+  touch and the bound (chip_smoke.flat_sectors, flat_bytes).
 
 Every output is held against the yardstick's before it is timed. Each
 run also records the atomic SASS opcodes of its root's built
@@ -62,6 +75,48 @@ def explore_helpers():
     return mod
 
 
+def smoke_helpers():
+    """This checkout's chip_smoke.py (the take_flat bound), loaded from its
+    file. Load it after the root's package: it puts this checkout first on
+    sys.path."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def flat_cases(rng, t, dev):
+    """(name, table, idx) of the take_flat cases, on the card."""
+    import numpy as np
+    from trino_tpu_torch.explore import pallas_gather
+
+    n, pairs = 1 << 25, 18_720_000
+    runs = rng.integers(1, 513, pairs // 128)
+    ends = np.cumsum(runs)
+    runs = runs[:np.searchsorted(ends, pairs) + 1]
+    runs[-1] -= int(runs.sum()) - pairs
+    first = np.repeat(np.cumsum(runs) - runs, runs)  # each pair's run start in the output
+    idx = np.full(n, n - 1, np.int64)
+    idx[:pairs] = np.repeat(rng.integers(0, n - 512, runs.shape[0]), runs) + (
+        np.arange(pairs) - first)
+    yield ("take_flat, q72 expansion: 33,554,432 int32 idx into an int32 permutation",
+           t(rng.permutation(n).astype(np.int32)), t(idx.astype(np.int32)))
+    packed = t(rng.integers(0, 1 << 62, 1 << 20))
+    sorted_idx = t(np.sort(rng.integers(0, 1 << 20, 1 << 18)).astype(np.int32))
+    yield ("take_flat, TPC-DS packed: 262,144 nondecreasing int32 idx into 1,048,576 int64",
+           packed, sorted_idx)
+    yield ("take_flat, floor: 1,024 of the TPC-DS idx", packed, sorted_idx[::256].clone())
+    rows = 1 << 22
+    off = np.cumsum(1 + (rng.random(rows) < 0.001))
+    owner = np.searchsorted(off, np.arange(1 << 23), side="right")
+    yield ("take_flat, TPC-H: 8,388,608 idx into 4,194,304 int64",
+           t(rng.integers(0, 1 << 62, rows)), t(np.minimum(owner, rows - 1).astype(np.int32)))
+    x = pallas_gather.make_inputs(dev)
+    yield ("take_flat, explorer: 1,048,576 int32 idx into 131,072 int32",
+           x["table2d"].reshape(-1), x["idx2d"])
+
+
 def run_one(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
@@ -71,6 +126,7 @@ def run_one(root: str) -> int:
     from trino_tpu_torch.ops import window_rank as W
 
     helpers = explore_helpers()
+    smoke = smoke_helpers()
     timed = helpers.device_ms
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -161,6 +217,15 @@ def run_one(root: str) -> int:
     go, out = GK.rows_sum_launcher(table2d, ridx)
     case("take_rows_sum, 1,048,576 indices into (1024, 128)", go, [out],
          lambda: GK.take_rows_sum_reference(table2d, ridx), "plain")
+    for name, table, idx in flat_cases(rng, t, dev):
+        go, out = GK.flat_launcher(table, idx)
+        case(name, go, [out], lambda table=table, idx64=idx.long(): torch.take(table, idx64))
+        sectors = smoke.flat_sectors(table, idx)
+        cases[name]["sectors"] = sectors
+        cases[name]["bound_ms"] = smoke.bound(smoke.flat_bytes(
+            idx.numel(), idx.element_size(), int(table.shape[0]), table.element_size(),
+            sectors), 0)[0]
+        del table, idx, out
     lib = os.path.join(root, "trino_tpu_torch", "_build", "libgrouped_sum.so")
     design = {"bounds": new, "grouped_sum_tile_rows": getattr(M, "TILE_ROWS", None),
               "rows_sum_paths": hasattr(GK, "rows_sum_path"),
@@ -202,7 +267,8 @@ def main() -> int:
         for name, times in rec["cases"].items():
             row = summary.setdefault(name, {})
             for key, ms in times.items():
-                tag = key if key.startswith(("library", "plain")) else f"{rec['as']}_{key}"
+                tag = (key if key.startswith(("library", "plain", "bound", "sectors"))
+                       else f"{rec['as']}_{key}")
                 row.setdefault(tag, []).append(ms)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "kernel_ab.json"), "w") as fh:

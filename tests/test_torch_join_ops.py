@@ -412,6 +412,44 @@ def test_take_flat_clips_like_the_reference(tdtype, idtype):
     assert GK.take_flat(torch.from_numpy(table), torch.zeros(0, dtype=torch.int32)).numel() == 0
 
 
+def _flat_edge(case, dev="cpu"):
+    """(table, idx) on `dev` at an edge of take_flat's layout (a warp takes
+    chunks of 128 outputs): `case` is (table kind, index dtype, offset of
+    the index view, its length)."""
+    tkind, idtype, off, n = case
+    rng = np.random.default_rng(7)
+    table = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, 1001)).to(dev)
+    if tkind == "int32":
+        table = table.to(torch.int32)
+    elif tkind == "view":
+        table = table[1:]
+    idx = torch.from_numpy(rng.integers(-3, 1004, 300)).to(idtype).to(dev)
+    return table, idx[off:off + n]
+
+
+FLAT_EDGES = [(tkind, idtype, off, n)
+              for tkind, idtype in (("int32", torch.int32), ("int64", torch.int64),
+                                    ("view", torch.int32))
+              for off in (0, 1) for n in (0, 1, 4, 5, 127, 129)]
+
+
+@pytest.mark.parametrize("case", FLAT_EDGES, ids=str)
+def test_take_flat_edges_match_numpy(case):
+    table, idx = _flat_edge(case)
+    want = table.numpy()[np.clip(idx.numpy(), 0, table.shape[0] - 1)]
+    got = GK.take_flat(table, idx)
+    assert got.dtype == table.dtype and np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,sms,ilp", [
+    (0, 132, 1), (1024, 132, 1), (262_143, 256, 1),
+    (135_167, 132, 1), (135_168, 132, 4),       # a block's chunk (1,024) for every SM
+    (262_144, 132, 4), (1 << 25, 132, 4), (1024, 1, 4),
+])
+def test_flat_ilp_gathers_four_a_thread_once_every_sm_has_a_block(n, sms, ilp):
+    assert GK.flat_ilp(n, sms) == ilp
+
+
 def test_take_rows_sum_matches_v2_mod_2_32():
     rng = np.random.default_rng(0)
     table2d = rng.integers(0, 1 << 30, (64, 128)).astype(np.int32)
@@ -551,6 +589,26 @@ def test_gather_kernels_match_plain_on_the_card(cuda_device):
     src = torch.from_numpy(rng.integers(0, 1 << 30, (1001, 128)).astype(np.int32)).to(dev)
     sel = torch.from_numpy(rng.integers(-5, 133, (1001, 128)).astype(np.int32)).to(dev)
     assert torch.equal(GK.take_along_lanes(src, sel), GK.take_along_lanes_reference(src, sel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLAT_EDGES, ids=str)
+def test_take_flat_edges_match_plain_on_the_card(case, cuda_device):
+    table, idx = _flat_edge(case, cuda_device)
+    assert torch.equal(GK.take_flat(table, idx), GK.take_flat_reference(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [-1, 0, 1, 129])
+def test_take_flat_four_a_thread_matches_plain_on_the_card(extra, cuda_device):
+    from trino_tpu_torch.ops import cuda_build
+
+    full = GK.FLAT_THREADS * GK.FLAT_ILP * cuda_build.sm_count(cuda_device)
+    rng = np.random.default_rng(extra + 2)
+    table = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, 5000)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-3, 5003, full + extra)).to(cuda_device)
+    assert GK.flat_ilp(idx.numel(), cuda_build.sm_count(cuda_device)) == (4 if extra >= 0 else 1)
+    assert torch.equal(GK.take_flat(table, idx), GK.take_flat_reference(table, idx))
 
 
 @pytest.mark.cuda

@@ -152,3 +152,30 @@ def test_chip_smoke_search_bound_counts_what_a_search_reads(n, n_b, steps, want)
     import chip_smoke
 
     assert chip_smoke.search_bytes(n, n_b, 8, steps) == want
+
+
+@pytest.mark.parametrize("case,sectors", [
+    ("distinct", 128),    # 128 indices, 8 apart: one int32 sector each
+    ("clipped", 1),       # every index past the table: its last element
+    ("expansion", 5),     # runs [0, 4), [2, 6), [100, 108), then the tail
+])
+def test_chip_smoke_flat_bound_counts_the_sectors_a_gather_reads(case, sectors):
+    import chip_smoke
+    import torch
+
+    if case == "distinct":
+        table = torch.zeros(8192, dtype=torch.int32)
+        idx = torch.arange(0, 1024, 8, dtype=torch.int32)
+    elif case == "clipped":
+        table = torch.zeros(1000, dtype=torch.int64)
+        idx = torch.full((300,), 5000, dtype=torch.int64)
+    else:  # int64: four elements a sector; sectors 0, 1, 25, 26 and 249
+        table = torch.zeros(1000, dtype=torch.int64)
+        idx = torch.cat([torch.arange(0, 4), torch.arange(2, 6), torch.arange(100, 108),
+                         torch.full((16,), 1 << 20)]).to(torch.int32)
+    got = chip_smoke.flat_sectors(table, idx)
+    assert got == sectors
+    n, ib, n_table, elem = idx.numel(), idx.element_size(), table.shape[0], table.element_size()
+    assert chip_smoke.flat_bytes(n, ib, n_table, elem, got) == n * (ib + elem) + 32 * sectors
+    # never more than the whole table
+    assert chip_smoke.flat_bytes(n, ib, 3, elem, got) == n * (ib + elem) + 3 * elem

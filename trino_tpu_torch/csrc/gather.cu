@@ -3,7 +3,8 @@
 // Replaces the three TPU kernels of benchmarks/explore_pallas_gather.py
 // (in-kernel gather formulations for the bucket-hash probe):
 //
-//   take_flat          <- v1 (k1) "pallas_take_flat":
+//   take_flat          <- v1 (k1, benchmarks/explore_pallas_gather.py:59)
+//                         "pallas_take_flat":
 //                         out[i] = table[clip(idx[i], 0, n_table - 1)]
 //                         for 4- and 8-byte elements, int32 or int64 idx.
 //                         The join's index gathers (the build permutation
@@ -15,12 +16,47 @@
 //   take_along_lanes   <- v3 (k3) "pallas_take_along_lanes":
 //                         out[r, l] = src[r, clip(sel[r, l], 0, width - 1)].
 //
-// What bounds them: bytes. take_flat reads each index and each gathered
-// element once and writes each output once (the table is read at random,
-// so a table that fits the 50 MB L2 is read from device memory about
-// once); it is a grid-stride loop of read-only loads. The TPU versions
-// held the whole table in VMEM; Hopper's shared memory is too small for
-// that, so the flat and row gathers go through L2.
+// What bounds them: bytes. The TPU versions held the whole table in VMEM;
+// Hopper's shared memory is too small for that, so the flat and row
+// gathers go through L2.
+//
+// take_flat reads each index once, writes each output once, and reads
+// the table sectors (32 bytes) the clipped indices touch: the join's
+// gathers touch runs of consecutive positions, or one tail element for
+// every output past the pairs' total, so that can be far less than the
+// table. The least time is those bytes over the memory rate. What holds a
+// gather below it is latency: a table load cannot start before its index
+// has arrived, so one element per thread per loop turn leaves each thread
+// a single gather in flight. The design:
+//   - a warp takes chunks of 32 x FLAT_ILP (4) consecutive outputs, and
+//     lane l the outputs l, l + 32, ... of its chunk: each thread loads
+//     its four indices, clips them and issues its four table loads before
+//     any store, while every load, gather and store instruction of a warp
+//     covers 32 consecutive positions, so the join's sorted indices and
+//     runs fall into as few cache lines as they can;
+//   - a call too short to give every SM a block's chunk (1,024 outputs)
+//     takes one output a thread instead (the wrapper's flat_ilp), so that
+//     it still spreads over as many SMs as it has blocks: with four, a
+//     1,024-index call ran on one SM, whose L1 took every scattered
+//     gather alone;
+//   - indices are read and outputs written as streaming traffic (ld.cs,
+//     st.cs: evict first in L1 and L2), so that when the table outgrows
+//     the 50 MB L2 (q72's 134 MB permutation) the table's sectors are what
+//     stays there;
+//   - the grid is as many blocks as the card holds at once (the occupancy
+//     API), or fewer when the call has fewer chunks than that, with a
+//     grid-stride loop: 262,144 indices still spread over every SM.
+// Every access is one element wide, so any alignment of the table, the
+// indices or the output works, and a ragged last chunk is masked per
+// element.
+// Tried on one card and slower: four consecutive outputs a thread with
+// 16-byte index loads and output stores and a scalar head for a view off
+// the 16-byte boundary (a warp's gather then spans four times the cache
+// lines of sorted indices), 8 or 16 outputs a thread (fewer threads
+// resident), and L1::no_allocate table loads. At 262,144 indices or
+// fewer, and for random indices into a table that L2 holds, a call is
+// paced by its launch and two dependent memory latencies, as the first
+// design (one element a thread, 16 x 132 blocks of 256) was.
 //
 // take_rows_sum: a row's sum does not depend on which output asks for it,
 // and int32 addition mod 2^32 is associative, so the least work reads
@@ -59,16 +95,35 @@
 
 namespace {
 
-template <typename T, typename I>
-__global__ void take_flat_kernel(const T* __restrict__ table, long long n_table,
-                                 const I* __restrict__ idx, long long n,
-                                 T* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    long long j = (long long)__ldg(&idx[i]);
-    j = j < 0 ? 0 : (j >= n_table ? n_table - 1 : j);
-    out[i] = __ldg(&table[j]);
+constexpr int FLAT_ILP = 4;  // outputs a thread gathers at once, 32 apart
+constexpr int FLAT_THREADS = 256;
+
+__device__ __forceinline__ long long clip_index(long long j, long long last) {
+  return j < 0 ? 0 : (j > last ? last : j);
+}
+
+template <typename T, typename I, int ILP>
+__global__ void __launch_bounds__(FLAT_THREADS)
+take_flat_kernel(const T* __restrict__ table, long long n_table,
+                 const I* __restrict__ idx, long long n, T* __restrict__ out) {
+  constexpr long long CHUNK = 32 * ILP;
+  const long long last = n_table - 1;
+  const long long warp = ((long long)blockIdx.x * FLAT_THREADS + threadIdx.x) >> 5;
+  const long long step = ((long long)gridDim.x * FLAT_THREADS >> 5) * CHUNK;
+  for (long long i0 = warp * CHUNK + (threadIdx.x & 31); i0 < n; i0 += step) {
+    long long j[ILP];
+#pragma unroll
+    for (int k = 0; k < ILP; ++k) {
+      const long long i = i0 + 32 * k;
+      j[k] = i < n ? (long long)__ldcs(&idx[i]) : 0;
+    }
+    T v[ILP];
+#pragma unroll
+    for (int k = 0; k < ILP; ++k)
+      if (i0 + 32 * k < n) v[k] = __ldg(&table[clip_index(j[k], last)]);
+#pragma unroll
+    for (int k = 0; k < ILP; ++k)
+      if (i0 + 32 * k < n) __stcs(&out[i0 + 32 * k], v[k]);
   }
 }
 
@@ -216,34 +271,58 @@ __global__ void take_along_lanes_kernel(const uint32_t* __restrict__ src,
   }
 }
 
+// The grid: as many blocks as the card holds at once (`sms` SMs), or one
+// chunk a warp when the call has fewer chunks than that.
+template <typename T, typename I, int ILP>
+int launch_flat(const void* table, long long n_table, const void* idx, long long n,
+                void* out, int sms, cudaStream_t s) {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, take_flat_kernel<T, I, ILP>, FLAT_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long per_block = (long long)FLAT_THREADS * ILP;
+  long long grid = (n + per_block - 1) / per_block;
+  const long long resident = (long long)(per_sm < 1 ? 1 : per_sm) * sms;
+  grid = grid < resident ? grid : resident;
+  grid = grid < 1 ? 1 : grid;
+  take_flat_kernel<T, I, ILP><<<(int)grid, FLAT_THREADS, 0, s>>>(
+      (const T*)table, n_table, (const I*)idx, n, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename I>
+int flat_for_ilp(const void* table, long long n_table, const void* idx, long long n,
+                 int ilp, void* out, int sms, cudaStream_t s) {
+  if (ilp == 1) return launch_flat<T, I, 1>(table, n_table, idx, n, out, sms, s);
+  if (ilp == FLAT_ILP) return launch_flat<T, I, FLAT_ILP>(table, n_table, idx, n, out, sms, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int flat_for_index(const void* table, long long n_table, const void* idx,
-                   int idx_bytes, long long n, void* out, int grid,
-                   int threads, cudaStream_t s) {
+                   int idx_bytes, long long n, int ilp, void* out, int sms,
+                   cudaStream_t s) {
   if (idx_bytes == 4)
-    take_flat_kernel<T, int32_t><<<grid, threads, 0, s>>>(
-        (const T*)table, n_table, (const int32_t*)idx, n, (T*)out);
-  else if (idx_bytes == 8)
-    take_flat_kernel<T, long long><<<grid, threads, 0, s>>>(
-        (const T*)table, n_table, (const long long*)idx, n, (T*)out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return flat_for_ilp<T, int32_t>(table, n_table, idx, n, ilp, out, sms, s);
+  if (idx_bytes == 8)
+    return flat_for_ilp<T, long long>(table, n_table, idx, n, ilp, out, sms, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// `ilp`: outputs a thread gathers at once, 1 or FLAT_ILP (the wrapper's
+// flat_ilp); `sms` is the card's SM count. Returns a cudaError_t.
 extern "C" int take_flat_launch(const void* table, long long n_table,
                                 int elem_bytes, const void* idx, int idx_bytes,
-                                long long n, void* out, int grid, int threads,
+                                long long n, int ilp, void* out, int sms,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 4)
-    return flat_for_index<uint32_t>(table, n_table, idx, idx_bytes, n, out,
-                                    grid, threads, s);
+    return flat_for_index<uint32_t>(table, n_table, idx, idx_bytes, n, ilp, out, sms, s);
   if (elem_bytes == 8)
-    return flat_for_index<unsigned long long>(table, n_table, idx, idx_bytes,
-                                              n, out, grid, threads, s);
+    return flat_for_index<unsigned long long>(table, n_table, idx, idx_bytes, n, ilp,
+                                              out, sms, s);
   return (int)cudaErrorInvalidValue;
 }
 

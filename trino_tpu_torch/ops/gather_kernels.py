@@ -8,7 +8,12 @@ what bounds each and what its design does about that.
 - `take_flat(table, idx)` <- v1 (k1): out = table[clip(idx, 0, len-1)]
   for 4- and 8-byte elements and int32/int64 indices. The join path runs
   its index gathers through it on the card (ops/join.py and the
-  fanout-1 expansion in exec/operators.py).
+  fanout-1 expansion in exec/operators.py). Bound by bytes: indices and
+  outputs once, and the table sectors the indices touch. Each thread
+  issues `flat_ilp` gathers (four, or one for a call too short to fill
+  the SMs) 32 outputs apart before it stores, so that a warp's every
+  instruction covers 32 consecutive positions, with indices and outputs
+  streamed past L2 and the grid from the occupancy API.
 - `take_rows_sum(table2d, ridx)` <- v2 (k2): out[i] = sum over the lanes
   of row clip(ridx[i]) of an int32 table, wrapping mod 2^32. Bound by
   bytes: each index read and each output written once, and each row the
@@ -43,7 +48,7 @@ BLOCKS_PER_SM = 16
 
 _P, _I, _L = cuda_build.PTR, cuda_build.I32, cuda_build.I64
 _FUNCTIONS = {
-    "take_flat_launch": [_P, _L, _I, _P, _I, _L, _P, _I, _I, _P],
+    "take_flat_launch": [_P, _L, _I, _P, _I, _L, _I, _P, _I, _P],
     "take_rows_sum_launch": [_P, _L, _I, _P, _I, _L, _P, _P, _I, _I, _I, _P],
     "take_along_lanes_launch": [_P, _P, _L, _I, _P, _I, _I, _P],
 }
@@ -97,16 +102,30 @@ def take_flat(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _launch_flat(table, idx)
 
 
+# a block of take_flat's kernel, and the outputs a thread gathers at once
+# on a call long enough (FLAT_THREADS, FLAT_ILP in ../csrc/gather.cu)
+FLAT_THREADS = 256
+FLAT_ILP = 4
+
+
+def flat_ilp(n: int, sms: int) -> int:
+    """Outputs each thread of take_flat's kernel gathers at once: FLAT_ILP
+    when the call gives every one of the `sms` SMs a block's chunk
+    (FLAT_THREADS x FLAT_ILP outputs), else 1, so that a short call
+    spreads over as many SMs as it has blocks."""
+    return FLAT_ILP if n >= FLAT_THREADS * FLAT_ILP * sms else 1
+
+
 def flat_launcher(table: torch.Tensor, idx: torch.Tensor):
     """(go, out) for CUDA tensors: `go()` launches the kernel into `out`
     and nothing else (the kernel timed apart from the wrapper)."""
     dev = table.device
     table, flat = table.contiguous(), idx.reshape(-1).contiguous()
-    n = flat.shape[0]
+    n, sms = flat.shape[0], cuda_build.sm_count(dev)
     out = torch.empty(n, dtype=table.dtype, device=dev)
     args = (table.data_ptr(), int(table.shape[0]), table.element_size(),
-            flat.data_ptr(), flat.element_size(), n, out.data_ptr(),
-            _grid(n, dev), THREADS, _stream(dev))
+            flat.data_ptr(), flat.element_size(), n, flat_ilp(n, sms), out.data_ptr(),
+            sms, _stream(dev))
     lib = _lib()
 
     def go(_keep=(table, flat, out)):
@@ -121,12 +140,14 @@ def _launch_flat(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         go()
         take_flat.launches += 1
         take_flat.shapes.add((int(table.shape[0]), out.numel(), table.element_size(),
-                              idx.element_size()))
+                              idx.element_size(),
+                              flat_ilp(out.numel(), cuda_build.sm_count(table.device))))
     return out
 
 
 take_flat.launches = 0
-take_flat.shapes = set()  # distinct (table length, indices, elem bytes, idx bytes)
+# distinct (table length, indices, elem bytes, idx bytes, flat_ilp)
+take_flat.shapes = set()
 
 
 # ---------------------------------------------------------------------------
