@@ -39,9 +39,22 @@ Phases (any failure exits nonzero):
                  launching bounds once per probe batch) and q72 at
                  Q72_SCHEMA with its peak device memory and widest join;
                  and bench.py's wide-string GROUP BY (2^21 rows, memory
-                 connector) equal to numpy's own group-by. Every take_flat
-                 launch of the phase is timed on the card (LaunchTimer),
-                 summed per family: TPC-H, TPC-DS, q72.
+                 connector) equal to numpy's own group-by. The scalar
+                 functions at sf1 over orders and customer (FN_QUERIES):
+                 date_trunc/quarter grouped by month equal to extract's
+                 grouping, three date round trips over every order,
+                 regexp_like equal to LIKE, the regexp_count/strpos/
+                 split_part sums equal to numpy over the generated
+                 columns, a customer-orders join filtered by regexp_like
+                 and grouped by bitwise_and equal to its substr and % 16
+                 twin (bounds once per probe batch, take_flat; the build's
+                 keys are unique, so no run-owner fill), md5/xxhash64/lpad
+                 equal to hashlib and pyfns, ln/sqrt/geometric_mean
+                 within 1e-9 of numpy, entropy and checksum equal to the
+                 CPU's; the kernels each launched are listed. Every
+                 take_flat launch of the phase is timed on the card
+                 (LaunchTimer), summed per family: TPC-H, functions,
+                 TPC-DS, q72.
   5. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
   6. parity    — the queries, and the window and set-operation queries
@@ -51,7 +64,9 @@ Phases (any failure exits nonzero):
                  row-equal; so must the ten TPC-DS templates at tiny, the
                  nine other than q72 at sf0.1, a listagg over nation and
                  the wide-string GROUP BY at 2^16 rows (also equal to
-                 numpy's).
+                 numpy's). So must every case of tests/test_functions.py's
+                 five lists at tiny and the functions queries at sf0.1
+                 (doubles within 1e-12 relative, `rows_close`).
   7. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
@@ -431,6 +446,52 @@ group by s order by cnt desc, s limit 10"""
 WIDESTR_ROWS = 1 << 21
 WIDESTR_GROUPS = 512
 WIDESTR_WIDTH = 64
+
+# The scalar functions (phase main at sf1 over orders and customer; phase
+# parity at sf0.1). Each is held to an exact identity against functions
+# the port had before, or to numpy, hashlib or the port's own pyfns over
+# the generated columns on the host.
+FN_MONTHS = """select date_trunc('month', o_orderdate), quarter(o_orderdate), count(*),
+       sum(o_totalprice) from orders group by 1, 2 order by 1"""
+FN_MONTHS_CHECK = """select extract(year from o_orderdate), extract(month from o_orderdate),
+       count(*), sum(o_totalprice) from orders group by 1, 2 order by 1, 2"""
+FN_ROUND_TRIPS = """select
+    sum(case when date_diff('day', o_orderdate, date_add('day', 45, o_orderdate)) = 45
+        then 1 else 0 end),
+    sum(case when date_add('month', -1, date_add('month', 1,
+        date_trunc('month', o_orderdate))) = date_trunc('month', o_orderdate)
+        then 1 else 0 end),
+    sum(case when day_of_week(o_orderdate) between 1 and 7 then 1 else 0 end),
+    count(*)
+from orders"""
+FN_REGEXP = "select count(*) from orders where regexp_like(o_comment, 'special.*requests')"
+FN_REGEXP_LIKE = "select count(*) from orders where o_comment like '%special%requests%'"
+FN_STRINGS = """select sum(regexp_count(o_comment, 'e')), sum(strpos(o_comment, 'the')),
+       sum(cast(split_part(o_clerk, '#', 2) as decimal(12, 0))) from orders"""
+FN_JOIN = """select c_mktsegment, bitwise_and(c_custkey, 15), count(*), sum(o_totalprice)
+from customer join orders on c_custkey = o_custkey
+where regexp_like(c_phone, '^1[0-9]-')
+group by 1, 2 order by 1, 2"""
+# TPC-H phones are 'CC-...' with a two-digit country code, so the
+# pattern and the substr test select the same customers
+FN_JOIN_TWIN = """select c_mktsegment, c_custkey % 16, count(*), sum(o_totalprice)
+from customer join orders on c_custkey = o_custkey
+where substr(c_phone, 1, 1) = '1' and substr(c_phone, 3, 1) = '-'
+group by 1, 2 order by 1, 2"""
+FN_HASH = """select c_custkey, c_name, md5(to_utf8(c_name)), xxhash64(to_utf8(c_name)),
+       lpad(cast(c_custkey as varchar), 12, '0') from customer"""
+FN_MATH = """select sum(ln(o_totalprice)), sum(sqrt(o_totalprice)),
+       geometric_mean(o_totalprice) from orders"""
+FN_AGG = """select entropy(o_custkey % 100), checksum(o_comment), checksum(o_totalprice),
+       checksum(o_orderdate) from orders"""
+FN_QUERIES = (("fn_months", FN_MONTHS), ("fn_months_check", FN_MONTHS_CHECK),
+              ("fn_round_trips", FN_ROUND_TRIPS), ("fn_regexp", FN_REGEXP),
+              ("fn_regexp_like", FN_REGEXP_LIKE), ("fn_strings", FN_STRINGS),
+              ("fn_join", FN_JOIN), ("fn_join_twin", FN_JOIN_TWIN), ("fn_hash", FN_HASH),
+              ("fn_math", FN_MATH), ("fn_agg", FN_AGG))
+# int -> varchar enumerates [0, 4096) and is NULL outside it (the
+# reference's static-dictionary cast, which the port keeps)
+SMALL_INT_CAST = 4096
 
 
 def log(msg: str) -> None:
@@ -1431,6 +1492,9 @@ def phase_main(results: dict) -> None:
             r.session.mxu_join_enabled = mxu
             rows[name] = run_query(r, scan, name, "cold", sql, per_query, probes)
         r.session.mxu_join_enabled = False
+        flat_timer.family = "functions"
+        main_functions(results, r, scan, per_query, probes)
+        flat_timer.family = "tpch"
         main_holistic(r, scan, per_query)
         main_tpcds(results, per_query, probes, flat_timer)
         flat_timer.family = "widestr"
@@ -1461,6 +1525,138 @@ def phase_main(results: dict) -> None:
     check_main(rows, per_query, cross, batches)
     check_breadth_queries(rows, per_query, win_check, batches)
     log(f"[main] launches over the main path: {results['main_launches']}")
+
+
+def rows_close(a: list, b: list) -> bool:
+    """Rows equal, doubles within 1e-12 relative (NaN equal to NaN): the
+    card's libm and the CPU's may differ in the last ulps of a
+    transcendental, and sums in another order in the last bits."""
+    import math
+
+    def same(x, y):
+        if isinstance(x, float) and isinstance(y, float):
+            return (math.isnan(x) and math.isnan(y)) or x == y or \
+                abs(x - y) <= 1e-12 * max(abs(x), abs(y))
+        return x == y
+
+    return len(a) == len(b) and all(
+        len(ra) == len(rb) and all(same(x, y) for x, y in zip(ra, rb))
+        for ra, rb in zip(a, b))
+
+
+def function_corpus() -> list:
+    """The SQL of tests/test_functions.py's five case lists. The file is
+    loaded by its path: the repo's tests/ is a namespace package, which
+    a regular package named `tests` elsewhere on the path would shadow."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "function_corpus", os.path.join(HERE, "tests", "test_functions.py"))
+    corpus = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(corpus)
+    return [sql for lst in ("CASES", "MATH_CASES", "STRING_CASES", "DATE_CASES",
+                            "REGISTRY_CASES") for sql, _ in getattr(corpus, lst)]
+
+
+def orders_columns(sf: float, *cols) -> list:
+    """Columns of orders from the generator, as the scan makes them."""
+    from trino_tpu_torch.connectors.tpch import base_row_count, generate_column
+
+    n = base_row_count("orders", sf)
+    return [generate_column("orders", c, sf, 0, n) for c in cols]
+
+
+def per_value_sum(column, fn) -> int:
+    """Sum of fn over a dictionary column's rows: fn once per value,
+    weighted by the count of its code (numpy's bincount)."""
+    import numpy as np
+
+    codes, dictionary = column
+    counts = np.bincount(codes.astype(np.int64), minlength=len(dictionary))
+    return int(np.dot(counts, np.asarray([fn(v) for v in dictionary.values],
+                                         dtype=np.int64)))
+
+
+def main_functions(results, r, scan, per_query, probes) -> None:
+    """The scalar functions at sf1 (orders, customer), each held exactly:
+    date_trunc/quarter against extract, date round trips over every
+    order, regexp_like against LIKE, regexp_count/strpos/split_part
+    against numpy over the generated columns, a regexp and bitwise join
+    against its substr and % 16 twin (bounds once per probe batch),
+    md5/xxhash64/lpad against hashlib and pyfns, ln/sqrt/geometric_mean
+    within 1e-9 of numpy, and entropy and checksum against the CPU."""
+    import datetime
+    import hashlib
+    import re
+
+    import numpy as np
+    from trino_tpu_torch.connectors.tpch import _schema_sf, base_row_count
+    from trino_tpu_torch.expr import pyfns
+
+    sf = _schema_sf(r.session.schema)
+    rows = {name: run_query(r, scan, name, "cold", sql, per_query, probes)
+            for name, sql in FN_QUERIES}
+    # date_trunc and quarter against extract(year/month)
+
+    def year_month(days):
+        d = datetime.date(1970, 1, 1) + datetime.timedelta(days=days)
+        return d.year, d.month
+
+    months = [[*year_month(m), c, total] for m, _, c, total in rows["fn_months"]]
+    quarters_ok = all(q == (year_month(m)[1] - 1) // 3 + 1
+                      for m, q, _, _ in rows["fn_months"])
+    if months != rows["fn_months_check"] or not quarters_ok or len(months) < 12:
+        raise AssertionError(f"date_trunc/quarter by month {rows['fn_months'][:3]} != "
+                             f"extract {rows['fn_months_check'][:3]}")
+    n_orders = base_row_count("orders", sf)
+    if rows["fn_round_trips"] != [[n_orders] * 4]:
+        raise AssertionError(f"date round trips {rows['fn_round_trips']} over {n_orders} orders")
+    if rows["fn_regexp"] != rows["fn_regexp_like"] or rows["fn_regexp"][0][0] <= 0:
+        raise AssertionError(f"regexp_like {rows['fn_regexp']} != LIKE {rows['fn_regexp_like']}")
+    comment, clerk = orders_columns(sf, "o_comment", "o_clerk")
+    rx = re.compile("e")
+    want = [per_value_sum(comment, lambda v: len(rx.findall(v))),
+            per_value_sum(comment, lambda v: v.find("the") + 1),
+            per_value_sum(clerk, lambda v: int(v.split("#")[1]))]
+    got = [int(x) for x in rows["fn_strings"][0]]
+    if got != want:
+        raise AssertionError(f"regexp_count/strpos/split_part sums {got} != numpy {want}")
+    if rows["fn_join"] != rows["fn_join_twin"] or not rows["fn_join"]:
+        raise AssertionError("the regexp/bitwise join differs from its substr twin")
+    # customer is the build side and c_custkey unique, so no probe row
+    # has two matches and the expansion needs no run-owner fill
+    run = per_query["fn_join_cold"]
+    if run["launches"]["bounds"] != run["probe_batches"] or run["launches"]["bounds"] <= 0 \
+            or run["launches"]["take_flat"] <= 0 or run["launches"]["window_rank"]:
+        raise AssertionError(f"fn_join launches {run['launches']} for "
+                             f"{run['probe_batches']} probe batches")
+    for key, name, md5, xx, pad in rows["fn_hash"]:
+        b = name.encode()
+        if md5 != hashlib.md5(b).hexdigest() or xx != format(pyfns.xxhash64(b), "016x") \
+                or pad != (str(key).zfill(12) if key < SMALL_INT_CAST else None):
+            raise AssertionError(f"hash row {key} {name}: {md5} {xx} {pad}")
+    if len(rows["fn_hash"]) != base_row_count("customer", sf):
+        raise AssertionError(f"fn_hash returned {len(rows['fn_hash'])} customers")
+    (price_cents, _), = orders_columns(sf, "o_totalprice")
+    price = price_cents.astype(np.float64) / 100
+    want = [np.log(price).sum(), np.sqrt(price).sum(), np.exp(np.log(price).mean())]
+    for g, w in zip(rows["fn_math"][0], want):
+        if abs(g - w) > 1e-9 * abs(w):
+            raise AssertionError(f"ln/sqrt/geometric_mean {rows['fn_math'][0]} != numpy {want}")
+    cpu = runner(r.session.schema, "cpu")
+    cpu_agg = cpu.execute(FN_AGG).rows
+    if not rows_close(rows["fn_agg"], cpu_agg):
+        raise AssertionError(f"entropy/checksum card {rows['fn_agg']} != CPU {cpu_agg}")
+    results["functions"] = {name: per_query[f"{name}_cold"] for name, _ in FN_QUERIES}
+    for name, _ in FN_QUERIES:
+        run = per_query[f"{name}_cold"]
+        launched = {k: v for k, v in run["launches"].items() if v}
+        log(f"[main] {name}: kernels launched {launched or 'none'}")
+    log(f"[main] functions: {len(months)} months equal extract's; {n_orders} orders hold "
+        f"the date round trips; regexp_like == LIKE ({rows['fn_regexp'][0][0]}); sums "
+        f"{got} equal numpy's; the join equals its twin over {len(rows['fn_join'])} groups; "
+        f"{len(rows['fn_hash'])} hashes equal hashlib/pyfns; ln/sqrt/geometric_mean within 1e-9 of numpy; "
+        f"entropy/checksum equal the CPU's {cpu_agg}")
 
 
 def join_captures():
@@ -1778,6 +1974,17 @@ def phase_parity(results: dict) -> None:
             if a != b:
                 raise AssertionError(f"{name}: card and CPU rows differ at {schema}")
             log(f"[parity] {name} {schema}: {len(a)} rows, card == CPU")
+    # the scalar function corpus of tests/test_functions.py at tiny, and
+    # the functions queries at sf0.1; doubles within rows_close's 1e-12
+    for schema, queries in (("tiny", list(enumerate(function_corpus()))),
+                            ("sf0.1", FN_QUERIES)):
+        gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
+        for name, sql in queries:
+            a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
+            if not rows_close(a, b):
+                raise AssertionError(f"functions {name}: card {a[:3]} and CPU {b[:3]} "
+                                     f"differ at {schema}")
+        log(f"[parity] functions {schema}: {len(queries)} queries, card == CPU")
     # TPC-DS: the ten templates at tiny, the nine other than q72 at sf0.1
     for schema, names in (("tiny", sorted(TPCDS_QUERIES)),
                           ("sf0.1", [n for n in sorted(TPCDS_QUERIES) if n != "q72"])):

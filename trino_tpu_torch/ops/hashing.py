@@ -159,3 +159,18 @@ def dictionary_lut(dictionary) -> Optional[np.ndarray]:
     if dictionary is None or len(dictionary) == 0:
         return None
     return dictionary_code_hashes(dictionary.values)
+
+
+def canonical_hash_input(data: torch.Tensor, code_hashes: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """A column as the lane its SQL value hashes by: integer-like ->
+    int64, floating -> float64, dictionary codes -> the per-value hash
+    (`code_hashes` on the codes' device). Code hashes come back as int32
+    carriers of their 32-bit pattern, so `hash32` reads one lane from
+    them, as the reference reads its uint32 values."""
+    if code_hashes is not None:
+        idx = torch.clamp(data.to(torch.int64), 0, code_hashes.shape[0] - 1)
+        return code_hashes[idx].to(torch.int32)
+    if data.dtype.is_floating_point:
+        return data.to(torch.float64)
+    return data.to(torch.int64)
