@@ -55,9 +55,25 @@ Phases (any failure exits nonzero):
                  take_flat launch of the phase is timed on the card
                  (LaunchTimer), summed per family: TPC-H, functions,
                  TPC-DS, q72.
-  5. explore   — both explorer entry points (trino_tpu_torch.explore),
+  5. nested    — the nested types at sf1, each query cold once with its
+                 scan_s, rest_s and launches: the word count (split,
+                 UNNEST, GROUP BY) whose counts sum to
+                 sum(cardinality(split)); array_agg per customer then
+                 UNNEST WITH ORDINALITY, equal to count(*), sum(o_orderkey)
+                 and the most orders of a customer; filter/transform/
+                 any_match over split against the word count and LIKE;
+                 histogram and map_agg whose counts sum to count(*); the
+                 arrays of a join's build side filtered, equal to the
+                 join-free twin (bounds launched); and UNNEST ... GROUP BY
+                 over a 2^20-row memory table equal to numpy. UNNEST
+                 launches run_owner and take_flat; this phase's counts are
+                 kept apart from phase main's (`nested_launches`). Then
+                 the card against the CPU on every nested SQL case at tiny
+                 (NEST_MEMORY_SQL) and the nested queries at tiny and
+                 sf0.1.
+  6. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
-  6. parity    — the queries, and the window and set-operation queries
+  7. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -67,12 +83,12 @@ Phases (any failure exits nonzero):
                  numpy's). So must every case of tests/test_functions.py's
                  five lists at tiny and the functions queries at sf0.1
                  (doubles within 1e-12 relative, `rows_close`).
-  7. summary   — each kind of join-path call (the probe's bounds, the
+  8. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
-                 TPC-DS templates' and q72's own largest; grouped_sum on
-                 each main-path shape (Q-MXU, Q-MXJ, the wide-string
-                 batch); a `kernels` JSON line (take_flat's entry with
+                 TPC-DS templates', q72's and phase nested's own
+                 largest; grouped_sum on each main-path shape (Q-MXU,
+                 Q-MXJ, the wide-string batch); a `kernels` JSON line (take_flat's entry with
                  its summed main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -492,6 +508,228 @@ FN_QUERIES = (("fn_months", FN_MONTHS), ("fn_months_check", FN_MONTHS_CHECK),
 # int -> varchar enumerates [0, 4096) and is NULL outside it (the
 # reference's static-dictionary cast, which the port keeps)
 SMALL_INT_CAST = 4096
+
+# The nested types (phase nested: at sf1, then card against CPU at tiny
+# and sf0.1):
+# split and UNNEST, array_agg with UNNEST WITH ORDINALITY, the lambda
+# functions, histogram and map_agg, arrays carried through a join, and
+# UNNEST over a memory table's array(bigint) column. Each is held to an
+# identity against queries without arrays, or to numpy.
+NEST_WORDS = """select w, count(*) c from (select split(o_comment, ' ') ws from orders) o
+cross join unnest(o.ws) as t(w) group by w order by c desc, w"""
+NEST_WORDS_TOTAL = "select sum(cardinality(split(o_comment, ' '))) from orders"
+NEST_AGG_UNNEST = """select count(*), sum(k), max(i) from (select o_custkey,
+array_agg(o_orderkey) a from orders group by o_custkey) x
+cross join unnest(x.a) with ordinality as t(k, i)"""
+NEST_AGG_CHECK = """select count(*), sum(o_orderkey), max(n) from orders,
+(select max(c) n from (select count(*) c from orders group by o_custkey))"""
+NEST_LAMBDA = """select sum(cardinality(filter(split(o_comment, ' '), x -> length(x) > 5))),
+sum(cardinality(transform(split(o_comment, ' '), x -> length(x)))),
+sum(case when any_match(split(o_comment, ' '), x -> x = 'special') then 1 else 0 end)
+from orders"""
+NEST_LAMBDA_LIKE = """select count(*) from orders
+where ' ' || o_comment || ' ' like '% special %'"""
+NEST_MAPS = """select o_orderpriority, histogram(o_orderstatus),
+map_agg(o_orderstatus, o_orderkey), count(*) from orders
+group by o_orderpriority order by 1"""
+# customer's arrays ride the join's build side, so the expansion gathers
+# them out of row order and repeats them (a customer has many orders)
+# before filter reads them; the twin filters before the join
+NEST_JOIN = """select o.o_orderkey, o.o_custkey, filter(s.a, x -> length(x) > 4)
+from orders o join (select c_custkey k, split(c_comment, ' ') a from customer) s
+on o.o_custkey = s.k where o.o_orderkey < {cut} order by 1"""
+NEST_JOIN_TWIN = """select o.o_orderkey, o.o_custkey, s.f from orders o join
+(select c_custkey k, filter(split(c_comment, ' '), x -> length(x) > 4) f from customer) s
+on o.o_custkey = s.k where o.o_orderkey < {cut} order by 1"""
+NEST_JOIN_CUT = {"tiny": 40, "sf0.1": 6000, "sf1": 60000}
+NEST_MEMORY = """select tag, count(*) from tagged cross join unnest(tags) as u(tag)
+group by tag order by tag"""
+NEST_MEMORY_ROWS = 1 << 20
+NEST_MEMORY_TAGS = 1000  # tag values in [0, 1000), 0 to 8 of them a row
+
+
+
+# The nested SQL cases over the memory tables of the reference's tests
+# (tests/test_torch_nested.py holds the port to trino_tpu on them; phase
+# nested holds the card to the CPU).
+def nest_type(mod, name: str):
+    """A type of `mod` (either package's types module) from its name."""
+    s = name.strip()
+    if s.startswith("array("):
+        return mod.array_of(nest_type(mod, s[6:-1]))
+    if s.startswith("map("):
+        k, v = s[4:-1].split(",", 1)
+        return mod.map_of(nest_type(mod, k), nest_type(mod, v))
+    if s.startswith("row("):
+        fields = [f.strip().split(" ", 1) for f in s[4:-1].split(",")]
+        return mod.row_of(*[(n, nest_type(mod, t)) for n, t in fields])
+    return getattr(mod, s.upper())
+
+
+def nest_tables() -> dict:
+    """{schema: {table: [(column, type name, values)]}} of the reference
+    tests' tables (values: numpy arrays or python lists)."""
+    import random
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)  # tests/test_sketches_r4.py's
+    sk_g = rng.integers(0, 3, 5000).astype(np.int64)
+    sk_v = rng.integers(0, 1000, 5000).astype(np.int64)
+    rnd = random.Random(7)  # tests/test_function_breadth_r5.py's qd table
+    qd = [(i % 3, rnd.gauss(100, 25)) for i in range(600)]
+    return {
+        # tests/test_array_columns.py's runner fixture
+        "tags": {"orders_tags": [
+            ("id", "bigint", np.array([1, 2, 3, 4], np.int64)),
+            ("name", "varchar", ["ann", "bob", "cid", "dee"]),
+            ("tags", "array(varchar)", [["red", "blue"], ["green"], [], ["red", "green", "blue"]]),
+            ("scores", "array(bigint)", [[10, 20], [30], [], [1, 2, 3]])],
+            # test_unnest_empty_table, test_unnest_nested_arrays
+            "empty": [("id", "bigint", np.zeros(0, np.int64)), ("arr", "array(bigint)", [])],
+            "nested": [("id", "bigint", np.array([1, 2], np.int64)),
+                       ("nest", "array(array(bigint))", [[[1, 2], [3]], [[4]]])]},
+        # tests/test_nested_types.py's runner fixture and its inline tables
+        "nest": {"t": [
+            ("id", "bigint", np.array([1, 2, 3], np.int64)),
+            ("m", "map(varchar, bigint)", [{"a": 10, "b": 20}, {"a": 30}, None]),
+            ("r", "row(x bigint, y varchar)", [(7, "p"), (8, "q"), None])],
+            "arr": [("a", "array(bigint)", [[10, 20, 30], [40], None, []])],
+            "nn": [("aa", "array(array(bigint))", [[[1, 2], [3]], [[4, 5, 6]]]),
+                   ("ma", "map(varchar, array(bigint))", [{"p": [7, 8]}, {"q": [9]}])],
+            "fa2": [("x", "bigint", np.array([1, 2], np.int64)),
+                    ("t", "array(bigint)", [[10], [20, 21]])],
+            "fb2": [("y", "bigint", np.array([2, 3], np.int64))]},
+        # tests/test_aggregates_r4.py's fixture (k's NULL from its valids)
+        "agg": {"t": [
+            ("g", "bigint", np.array([1, 1, 1, 2, 2, 3], np.int64)),
+            ("k", "varchar", ["a", "b", "a", "c", "c", None]),
+            ("v", "bigint", np.array([10, 20, 30, 40, 50, 60], np.int64))]},
+        # tests/test_sketches_r4.py's fixture
+        "sk": {"t": [("g", "bigint", sk_g), ("v", "bigint", sk_v)]},
+        # tests/test_function_breadth_r5.py's CREATE TABLE + INSERT tables
+        "r5": {"qd": [("g", "bigint", np.array([g for g, _ in qd], np.int64)),
+                      ("x", "double", np.array([x for _, x in qd]))],
+               "sm": [("txt", "varchar", ["a=1,b=2", "k=v", ""])]},
+    }
+
+
+def nest_load(conn, mod, column_metadata, schema: str) -> None:
+    """nest_tables()[schema] into a memory connector of either package
+    (`mod` its types module, `column_metadata` its ColumnMetadata)."""
+    import numpy as np
+
+    for name, cols in nest_tables()[schema].items():
+        valids = [np.array([v is not None for v in vals], bool)
+                  if t == "varchar" and any(v is None for v in vals) else None
+                  for _, t, vals in cols]
+        conn.load_table(schema, name,
+                        [column_metadata(c, nest_type(mod, t)) for c, t, _ in cols],
+                        [list(v) if isinstance(v, list) else v.copy() for _, _, v in cols],
+                        valids=valids)
+
+
+def nest_runner(schema: str, device: str):
+    """The port's runner over nest_tables()[schema]."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+
+    conn = create_memory_connector()
+    nest_load(conn, T, ColumnMetadata, schema)
+    r = LocalQueryRunner(Session(catalog="memory", schema=schema), device=device)
+    r.register_catalog("memory", conn)
+    return r
+
+
+NEST_MEMORY_SQL = [
+    # tests/test_array_columns.py: test_cardinality_on_column,
+    # test_unnest_array_column, test_unnest_empty_arrays_produce_no_rows,
+    # test_unnest_with_ordinality, test_unnest_multi_array_zip,
+    # test_unnest_aggregation, test_unnest_filter_on_source,
+    # test_constant_unnest_still_works, test_select_array_column_directly,
+    # test_unnest_empty_table, test_unnest_nested_arrays
+    ("tags", "select id, cardinality(tags) from orders_tags order by id"),
+    ("tags", "select id, t from orders_tags, UNNEST(tags) as u(t) order by id, t"),
+    ("tags", "select count(*) from orders_tags, UNNEST(scores) as u(s) where id = 3"),
+    ("tags", "select id, s, o from orders_tags, UNNEST(scores) WITH ORDINALITY as u(s, o)"
+             " where id = 4 order by o"),
+    ("tags", "select id, t, s from orders_tags, UNNEST(tags, scores) as u(t, s)"
+             " where id = 1 order by s"),
+    ("tags", "select t, count(*) c from orders_tags, UNNEST(tags) as u(t) group by t"
+             " order by t"),
+    ("tags", "select name, s from orders_tags, UNNEST(scores) as u(s) where id >= 2"
+             " and s > 1 order by s"),
+    ("tags", "select * from UNNEST(ARRAY[7, 8]) as u(v) order by v"),
+    ("tags", "select id, scores from orders_tags order by id"),
+    ("tags", "select id, x from empty, UNNEST(arr) as u(x)"),
+    ("tags", "select id, x from nested, UNNEST(nest) as u(x) order by id"),
+    # the lambda and array functions over the same table
+    ("tags", "select id, filter(tags, x -> x <> 'red'), transform(scores, x -> x * 2),"
+             " any_match(scores, x -> x > 15), all_match(scores, x -> x > 15),"
+             " none_match(tags, x -> x = 'green') from orders_tags order by id"),
+    ("tags", "select id, array_sort(tags), array_distinct(tags), array_position(scores, 30),"
+             " array_remove(tags, 'red'), contains(tags, 'red'), array_min(scores),"
+             " array_max(scores) from orders_tags order by id"),
+    ("tags", "select id, slice(scores, 1, 1), element_at(scores, -1), scores[1],"
+             " trim_array(scores, 1), repeat(name, 2) from orders_tags order by id"),
+    ("tags", "select name, filter(tags, x -> x <> 'blue') from orders_tags order by name desc"),
+    # tests/test_nested_types.py: test_map_cardinality_and_subscript,
+    # test_map_subscript_in_where, test_row_field_access,
+    # test_map_keys_values, test_row_constructor,
+    # test_array_subscript_column, test_nested_subscript_of_nested
+    ("nest", "select id, cardinality(m), m['a'], element_at(m, 'b') from t"),
+    ("nest", "select id from t where m['a'] = 30"),
+    ("nest", "select id, r.x, r.y from t"),
+    ("nest", "select map_keys(m), map_values(m) from t"),
+    ("nest", "select row(id, 5) from t"),
+    ("nest", "select a[1], a[3], element_at(a, -1) from arr"),
+    ("nest", "select aa[1], aa[2] from nn"),
+    ("nest", "select ma['p'], ma['q'] from nn"),
+    ("nest", "select id, transform_values(m, (k, v) -> v + 1), map_filter(m, (k, v) -> v > 15),"
+             " transform_keys(m, (k, v) -> upper(k)) from t order by id"),
+    # tests/test_aggregates_r4.py: TestCollectAggregates
+    ("agg", "select g, array_agg(v) from t group by g order by g"),
+    ("agg", "select array_agg(k) from t where g = 3"),
+    ("agg", "select array_agg(v) from t where g > 99"),
+    ("agg", "select g, map_agg(k, v) from t group by g order by g"),
+    ("agg", "select g, multimap_agg(k, v) from t group by g order by g"),
+    ("agg", "select histogram(k) from t"),
+    ("agg", "select map_union(m) from (select map_agg(k, v) m from t group by g)"),
+    ("agg", "select numeric_histogram(2, v) from t"),
+    ("agg", "select approx_most_frequent(1, k, 10) from t"),
+    ("agg", "select g, bitwise_or_agg(v), bitwise_and_agg(v), bitwise_xor_agg(v) from t"
+            " group by g order by g"),
+    # tests/test_sketches_r4.py: TestHyperLogLog, TestTDigest,
+    # TestRegexpArrays, TestMiscBreadth (the array cases)
+    ("sk", "select g, cardinality(approx_set(v)) from t group by g order by g"),
+    ("sk", "select cardinality(merge(s)) from (select approx_set(v) s from t group by g)"),
+    ("sk", "select cardinality(empty_approx_set())"),
+    ("sk", "select approx_set(v) from t"),
+    ("sk", "select value_at_quantile(tdigest_agg(v), 0.5) from t"),
+    ("sk", "select value_at_quantile(tdigest_agg(v), 0.99) from t"),
+    ("sk", "select value_at_quantile(merge(d), 0.5) from (select tdigest_agg(v) d from t"
+           " group by g)"),
+    ("sk", "select quantile_at_value(tdigest_agg(v), 500.0) from t"),
+    ("sk", "select regexp_split('a1b22c', '[0-9]+')"),
+    ("sk", "select regexp_extract_all('a1b22c333', '[0-9]+')"),
+    ("sk", "select regexp_extract_all('a1b2', '([a-z])[0-9]', 1)"),
+    ("sk", "select cardinality(regexp_extract_all('xyz', '[0-9]'))"),
+    ("sk", "select contains_sequence(array[1,2,3,4], array[2,3]),"
+           " contains_sequence(array[1,2,3,4], array[2,4])"),
+    ("sk", "select array_sort(shuffle(array[3,1,2]))"),
+    ("sk", "select reverse(array[1,2,3]), concat(array[1,2], array[3])"),
+    # tests/test_function_breadth_r5.py: TestQdigest, TestSplitToMap
+    ("r5", "select g, value_at_quantile(qdigest_agg(x), 0.5) from qd group by g order by g"),
+    ("r5", "select g, values_at_quantiles(qdigest_agg(x), array[0.1, 0.5, 0.9]) from qd"
+           " group by g order by g"),
+    ("r5", "select value_at_quantile(qdigest_agg(g), 0.99) from qd"),
+    ("r5", "select quantile_at_value(qdigest_agg(x), 100.0) from qd"),
+    ("r5", "select split_to_map(txt, ',', '=') from sm"),
+    ("r5", "select element_at(split_to_map(txt, ',', '='), 'a'),"
+           " cardinality(split_to_map(txt, ',', '=')) from sm order by 2"),
+]
 
 
 def log(msg: str) -> None:
@@ -1253,6 +1491,46 @@ def widestr_numpy(vals, codes, v, limit: int = 10) -> list:
     return [[d[c], int(cnt[c]), int(tot[c])] for c in order[:limit]]
 
 
+def tagged_arrays(rows: int):
+    """NEST_MEMORY's table from default_rng(11): per row 0 to 8 tags in
+    [0, NEST_MEMORY_TAGS), as (python lists, flat numpy tags)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    lens = rng.integers(0, 9, rows)
+    flat = rng.integers(0, NEST_MEMORY_TAGS, int(lens.sum()), dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [flat[offs[i]:offs[i + 1]].tolist() for i in range(rows)], flat
+
+
+def tagged_runner(rows: int, device: str, lists=None):
+    """tagged_arrays(rows) in the port's memory connector as
+    nest.tagged (id bigint, tags array(bigint)). Returns the runner and
+    the flat tags."""
+    import numpy as np
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+
+    lists, flat = lists or tagged_arrays(rows)
+    mem = create_memory_connector()
+    mem.load_table("nest", "tagged", [ColumnMetadata("id", T.BIGINT),
+                                      ColumnMetadata("tags", T.array_of(T.BIGINT))],
+                   [np.arange(rows, dtype=np.int64), lists])
+    r = LocalQueryRunner(Session(catalog="memory", schema="nest"), device=device)
+    r.register_catalog("memory", mem)
+    return r, flat
+
+
+def tagged_numpy(flat) -> list:
+    """NEST_MEMORY's answer by np.bincount."""
+    import numpy as np
+
+    cnt = np.bincount(flat, minlength=NEST_MEMORY_TAGS)
+    return [[t, int(c)] for t, c in enumerate(cnt) if c]
+
+
 class TimedPageSource:
     """Wraps a connector's page source and adds up the host seconds
     spent producing batches (data generation + copy to the card)."""
@@ -1527,6 +1805,150 @@ def phase_main(results: dict) -> None:
     log(f"[main] launches over the main path: {results['main_launches']}")
 
 
+class RouteLog:
+    """Records the route of every HashAggregationOperator that finishes
+    (dense, grouped_sum, sort, global) while it is entered."""
+
+    def __enter__(self):
+        from trino_tpu_torch.exec import operators as O
+
+        self.routes: list = []
+        self.inner = O.HashAggregationOperator.finish
+
+        def finish(op):
+            if not op._finishing:
+                self.routes.append(op.route)
+            return self.inner(op)
+
+        O.HashAggregationOperator.finish = finish
+        return self
+
+    def __exit__(self, *exc):
+        from trino_tpu_torch.exec import operators as O
+
+        O.HashAggregationOperator.finish = self.inner
+
+
+NEST_SF1 = (("nest_words", NEST_WORDS), ("nest_words_total", NEST_WORDS_TOTAL),
+            ("nest_agg_unnest", NEST_AGG_UNNEST), ("nest_agg_check", NEST_AGG_CHECK),
+            ("nest_lambda", NEST_LAMBDA), ("nest_lambda_like", NEST_LAMBDA_LIKE),
+            ("nest_maps", NEST_MAPS))
+
+
+def nest_queries(schema: str) -> tuple:
+    """The nested queries at a scale, NEST_JOIN and its twin at its cut."""
+    cut = NEST_JOIN_CUT[schema]
+    return NEST_SF1 + (("nest_join", NEST_JOIN.format(cut=cut)),
+                       ("nest_join_twin", NEST_JOIN_TWIN.format(cut=cut)))
+
+
+def check_nested(rows: dict, per_query: dict, memory_flat) -> None:
+    """The nested queries' identities (NEST_* above)."""
+    words = rows["nest_words"]
+    total = rows["nest_words_total"][0][0]
+    if sum(c for _, c in words) != total:
+        raise AssertionError(f"nest_words: counts sum to {sum(c for _, c in words)}, "
+                             f"not sum(cardinality(split)) = {total}")
+    if rows["nest_agg_unnest"] != rows["nest_agg_check"]:
+        raise AssertionError(f"nest_agg_unnest {rows['nest_agg_unnest']} != count(*), "
+                             f"sum(o_orderkey), max orders a customer "
+                             f"{rows['nest_agg_check']}")
+    long_words, n_parts, special = rows["nest_lambda"][0]
+    want = sum(c for w, c in words if len(w) > 5)
+    if (long_words, n_parts, special) != (want, total, rows["nest_lambda_like"][0][0]):
+        raise AssertionError(f"nest_lambda {rows['nest_lambda']}: want {want} long "
+                             f"words, {total} parts, {rows['nest_lambda_like']} 'special'")
+    for prio, hist, agg, n in rows["nest_maps"]:
+        if sum(hist.values()) != n or set(agg) != set(hist):
+            raise AssertionError(f"nest_maps {prio}: histogram {hist} against count {n}, "
+                                 f"map_agg keys {sorted(agg)}")
+    if rows["nest_join"] != rows["nest_join_twin"] or not rows["nest_join"]:
+        raise AssertionError("nest_join: the join's filtered arrays differ from its twin's")
+    if per_query["nest_join_cold"]["launches"]["bounds"] <= 0:
+        raise AssertionError("nest_join launched no bounds")
+    if rows["nest_memory"] != tagged_numpy(memory_flat):
+        raise AssertionError("nest_memory: UNNEST ... GROUP BY tag differs from numpy")
+    for q in ("nest_words", "nest_agg_unnest", "nest_memory"):
+        n = per_query[f"{q}_cold"]["launches"]
+        if n["run_owner"] <= 0 or n["take_flat"] <= 0:
+            raise AssertionError(f"{q}: UNNEST launched run_owner {n['run_owner']}, "
+                                 f"take_flat {n['take_flat']} times")
+
+
+def phase_nested(results: dict) -> None:
+    """The nested queries at sf1 (memory table: NEST_MEMORY_ROWS rows),
+    each cold once, held to their identities; the kernels UNNEST and the
+    join launch, counted over this phase alone and timed on their largest
+    arguments here; then the card against the CPU on every nested SQL
+    case at tiny and the nested queries at tiny and sf0.1."""
+    import torch
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import window_rank as W
+
+    r = runner("sf1", "cuda")
+    conn = r.catalogs.get("tpch")
+    scan = conn.page_source = TimedPageSource(conn.page_source)
+    lists, flat = tagged_arrays(NEST_MEMORY_ROWS)
+    mem, _ = tagged_runner(NEST_MEMORY_ROWS, "cuda", (lists, flat))
+    mem_conn = mem.catalogs.get("memory")
+    mem_scan = mem_conn.page_source = TimedPageSource(mem_conn.page_source)
+    rows, per_query = {}, {}
+    ro = Capture(W, "_launch_run_owner", lambda off, n_out: (n_out, int(off.shape[0])))
+    tf = Capture(GK, "_launch_flat", lambda table, idx: (
+        idx.numel(), int(table.shape[0]), table.element_size()))
+    reset_kernel_counts()
+    with ro, tf, RouteLog() as routes:
+        for name, sql in nest_queries("sf1"):
+            before = len(routes.routes)
+            rows[name] = run_query(r, scan, name, "cold", sql, per_query)
+            per_query[f"{name}_cold"]["group_by_routes"] = routes.routes[before:]
+        before = len(routes.routes)
+        rows["nest_memory"] = run_query(mem, mem_scan, "nest_memory", "cold", NEST_MEMORY,
+                                        per_query)
+        per_query["nest_memory_cold"]["group_by_routes"] = routes.routes[before:]
+    results["nested_launches"] = join_kernel_counts()
+    results["nested"] = per_query
+    results.setdefault("main_args", {}).update(
+        {"run_owner_nested": ro.largest(), "take_flat_nested": tf.largest()})
+    width = max(len(a) for _, _, a in rows["nest_join_twin"]) if rows["nest_join_twin"] else 0
+    parts = r.execute("select max(cardinality(split(o_comment, ' '))),"
+                      " count(*) from orders").rows[0]
+    total = rows["nest_words_total"][0][0]
+    log(f"[nested] split's W at sf1 = {parts[0]} (flat store {parts[1]} x {parts[0]} int32); "
+        f"word count routes {per_query['nest_words_cold']['group_by_routes']}, "
+        f"{len(rows['nest_words'])} words, {total} in all, top {rows['nest_words'][:3]}; "
+        f"longest filtered array in nest_join {width}")
+    results["nested_split_width"], results["nested_words"] = parts[0], total
+    check_nested(rows, per_query, flat)
+    for k in ("run_owner", "take_flat", "bounds"):
+        if results["nested_launches"][k] <= 0:
+            raise AssertionError(f"phase nested never launched {k}")
+    log(f"[nested] identities hold; launches over the phase: {results['nested_launches']}")
+    del rows, mem, lists
+    torch.cuda.empty_cache()
+    # the card against the CPU: every nested SQL case at tiny, the
+    # nested queries at tiny and sf0.1, NEST_MEMORY at 2^16 rows
+    for schema in nest_tables():
+        gpu, cpu = nest_runner(schema, "cuda"), nest_runner(schema, "cpu")
+        for sch, sql in NEST_MEMORY_SQL:
+            if sch == schema and not rows_close(gpu.execute(sql).rows, cpu.execute(sql).rows):
+                raise AssertionError(f"nested {schema}: card and CPU differ on {sql}")
+    log(f"[parity] nested SQL cases: {len(NEST_MEMORY_SQL)} queries, card == CPU")
+    for schema in ("tiny", "sf0.1"):
+        gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
+        for name, sql in nest_queries(schema):
+            a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
+            if a != b:
+                raise AssertionError(f"{name}: card and CPU rows differ at {schema}")
+            log(f"[parity] {name} {schema}: {len(a)} rows, card == CPU")
+    small = tagged_arrays(1 << 16)
+    a = tagged_runner(1 << 16, "cuda", small)[0].execute(NEST_MEMORY).rows
+    b = tagged_runner(1 << 16, "cpu", small)[0].execute(NEST_MEMORY).rows
+    if a != b or a != tagged_numpy(small[1]):
+        raise AssertionError("nest_memory: card, CPU and numpy differ at 2^16 rows")
+    log(f"[parity] nest_memory 2^16 rows: {len(a)} tags, card == CPU == numpy")
+
+
 def rows_close(a: list, b: list) -> bool:
     """Rows equal, doubles within 1e-12 relative (NaN equal to NaN): the
     card's libm and the CPU's may differ in the last ulps of a
@@ -1537,6 +1959,10 @@ def rows_close(a: list, b: list) -> bool:
         if isinstance(x, float) and isinstance(y, float):
             return (math.isnan(x) and math.isnan(y)) or x == y or \
                 abs(x - y) <= 1e-12 * max(abs(x), abs(y))
+        if isinstance(x, (list, tuple)) and isinstance(y, (list, tuple)):
+            return len(x) == len(y) and all(same(p, q) for p, q in zip(x, y))
+        if isinstance(x, dict) and isinstance(y, dict):
+            return list(x) == list(y) and all(same(x[k], y[k]) for k in x)
         return x == y
 
     return len(a) == len(b) and all(
@@ -2020,6 +2446,13 @@ def timed_main_args(results: dict) -> dict:
         out["run_owner"] = check_run_owner("main path", *args["run_owner"], iters=20)
     if args.get("take_flat"):
         out["take_flat"] = check_take_flat("main path", *args["take_flat"], iters=20)
+    # UNNEST's and the array functions' largest (phase nested)
+    if args.get("run_owner_nested"):
+        out["run_owner_nested"] = check_run_owner("nested, largest", *args["run_owner_nested"],
+                                                  iters=20)
+    if args.get("take_flat_nested"):
+        out["take_flat_nested"] = check_take_flat("nested, largest", *args["take_flat_nested"],
+                                                  iters=20)
     # the TPC-DS templates' and q72's own largest arguments
     for fam in ("tpcds", "q72"):
         b, o, f = args.get(fam) or (None, None, None)
@@ -2054,9 +2487,14 @@ def mode_record(rec: dict, launches: int) -> dict:
 
 def family_modes(results: dict, on_path: dict, kernels) -> dict:
     """Per kernel, a record on the TPC-DS templates' and on q72's own
-    largest arguments, with the launches of those queries."""
+    largest arguments, with the launches of those queries, and one on
+    phase nested's largest with that phase's launches."""
     main = results.get("main", {})
     out = {}
+    nested = results.get("nested_launches", {})
+    for k in kernels:
+        if nested:
+            out[f"{k}_nested"] = mode_record(on_path.get(f"{k}_nested", {}), nested.get(k, 0))
     for fam, pick in (("tpcds", lambda q: q.startswith("ds_q") and q != "ds_q72_cold"),
                       ("q72", lambda q: q == "ds_q72_cold")):
         for k in kernels:
@@ -2116,6 +2554,8 @@ def kernels_line(results: dict) -> dict:
                   "capacity": timed.get("capacity")},
         "modes": modes,
     }]
+    if "nested_launches" in results:
+        line[0]["nested_launches"] = results["nested_launches"].get("grouped_sum", 0)
     join_checks = results.get("join_kernel_checks", {})
     on_path = timed_main_args(results)
     explore_launches = results.get("explore_launches", {})
@@ -2155,6 +2595,12 @@ def kernels_line(results: dict) -> dict:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
                  **mode_record(rec, n)}
+        if "nested_launches" in results:
+            # phase nested counts apart from the main path
+            nested = results["nested_launches"]
+            entry["nested_launches"] = (
+                sum(nested.get(m, 0) for m in ("window_rank", "bounds", "run_owner"))
+                if name == "window_rank" else nested.get(name, 0))
         if modes:
             entry["modes"] = modes
         if name == "take_flat" and "take_flat_main_path" in results:
@@ -2165,7 +2611,7 @@ def kernels_line(results: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="identity,build,kernel,main,explore,parity",
+    ap.add_argument("--phases", default="identity,build,kernel,main,nested,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2202,6 +2648,8 @@ def main() -> int:
         phase_kernel_join(results)
     if "main" in phases:
         phase_main(results)
+    if "nested" in phases:
+        phase_nested(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

@@ -12,9 +12,10 @@
   port is held against trino_tpu's answer. Tables the reference tests
   make with CREATE TABLE and INSERT are loaded with `load_table` in both
   packages (the port has no write side yet).
-- The cases that call a nested-type function (ROADMAP §1 item 4) or a
-  TIMESTAMP WITH TIME ZONE one (item 6) are listed apart: the reference
-  answers them and the port raises NotImplementedError naming the item.
+- The cases that call a TIMESTAMP WITH TIME ZONE function (ROADMAP §1
+  item 6) are listed apart: the reference answers them and the port
+  raises NotImplementedError naming the item. The nested-type cases
+  (item 4, ported) are held to the reference's answer.
 
 Integers, strings, booleans and decimals must be equal; doubles within
 tests/oracle.py::assert_rows_match's default tolerance (rel 1e-9, abs
@@ -302,10 +303,6 @@ ROUTED = [
     ("r5", "select format_datetime(timestamp '2024-02-01 13:05:00', 'DDD h a')", 6),
     ("r5", "select format_datetime(timestamp '2024-07-04 15:30:45 America/New_York',"
            " 'yyyy-MM-dd HH:mm')", 6),
-    ("breadth", "select split_to_map(d, ',', '=') from jdoc", 4),
-    ("breadth", "select split(d, ',') from jdoc", 4),
-    ("breadth", "select regexp_extract_all(d, '[0-9]') from jdoc", 4),
-    ("breadth", "select transform(split(d, ','), x -> length(x)) from jdoc", 4),
 ]
 
 
@@ -316,6 +313,22 @@ def test_routed_functions_name_their_item(schema, sql, item, memory, tpch):
     assert ref.execute(sql).rows
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
         port.execute(sql)
+
+
+# tests/test_function_breadth_r5.py's TestSplitToMap and the array
+# functions over test_function_breadth.py's jdoc table (nested values:
+# ROADMAP §1 item 4, now ported)
+NESTED = [
+    ("breadth", "select split_to_map(d, ',', '=') from jdoc"),
+    ("breadth", "select split(d, ',') from jdoc"),
+    ("breadth", "select regexp_extract_all(d, '[0-9]') from jdoc"),
+    ("breadth", "select transform(split(d, ','), x -> length(x)) from jdoc"),
+]
+
+
+@pytest.mark.parametrize("schema,sql", NESTED, ids=[f"{s}-{i}" for i, (s, _) in enumerate(NESTED)])
+def test_nested_functions_match_reference(schema, sql, memory, tpch):
+    assert _same(memory.get(schema, tpch), sql)
 
 
 def test_nondeterministic_functions(memory):

@@ -8,8 +8,9 @@ the same numpy inputs made from a seed.
   NULL masks are bit-equal (the shifts' and bit_count's 64-bit patterns
   included); each double family states its tolerance.
 - (e) Routing: every `_not_ported` call in trino_tpu_torch/expr/ names
-  ROADMAP §1 item 4 or item 6, and every function the port routes so
-  raises naming its item while the reference binds it.
+  ROADMAP §1 item 6 (the nested types of item 4 are ported), and every
+  function the port routes so raises naming its item while the
+  reference binds it.
 """
 
 import datetime
@@ -298,19 +299,21 @@ def test_every_not_ported_site_names_item_4_or_6():
                   if not m.group(0).startswith("_not_ported(name")]
     assert calls, "no _not_ported call found"
     for where, call in calls:
-        assert re.search(r",\s*[46]\)$", call), (where, call)
+        assert re.search(r",\s*6\)$", call), (where, call)
 
 
 def test_routed_functions_raise_naming_their_item():
-    """Each function the port routes raises at bind time naming item 4
-    (nested types) or 6 (TIMESTAMP WITH TIME ZONE), before it reads its
-    arguments."""
-    for names, item in ((TC._NESTED_FNS, 4), (TC._TSTZ_FNS, 6)):
-        for name in names:
-            b = TBinder([T.BIGINT], [None])
-            with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-                b.bind(tir.Call(name, (tir.InputRef(0, T.BIGINT),), T.BIGINT))
-    assert set(TC._NESTED_FNS) >= set(JBinder._LAMBDA_FNS) | set(JBinder._ARRAY_FNS)
+    """Each function the port routes raises at bind time naming item 6
+    (TIMESTAMP WITH TIME ZONE), before it reads its arguments. The
+    nested-type functions (item 4) are ported: the port binds the
+    reference's lambda and array function sets, and routes none."""
+    for name in TC._TSTZ_FNS:
+        b = TBinder([T.BIGINT], [None])
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
+            b.bind(tir.Call(name, (tir.InputRef(0, T.BIGINT),), T.BIGINT))
+    assert not hasattr(TC, "_NESTED_FNS")
+    assert TBinder._LAMBDA_FNS == JBinder._LAMBDA_FNS
+    assert TBinder._ARRAY_FNS == JBinder._ARRAY_FNS
 
 
 def test_lookup_tables_cross_to_a_device_once():

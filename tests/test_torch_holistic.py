@@ -396,7 +396,8 @@ LISTAGG_DOWNSTREAM = [
 # tests/test_aggregates_r4.py's table and tests/test_approx_aggs.py's,
 # through the memory connector. (entropy, checksum and geometric_mean
 # there need ln and checksum_hash, which come with the expression
-# breadth of ROADMAP §1 item 3; the collect kinds with §1 item 4.)
+# breadth of ROADMAP §1 item 3; the collect kinds are in
+# tests/test_torch_nested.py.)
 MEMORY_CASES = [
     ("select regr_count(v, g), regr_avgx(v, g), regr_avgy(v, g), regr_sxx(v, g),"
      " regr_sxy(v, g), regr_syy(v, g), regr_r2(v, g) from t", True),
@@ -513,6 +514,10 @@ def test_lone_approx_distinct_is_the_references_hll_estimate(tpch_runners):
 
 
 def test_collect_aggregates_raise_naming_their_roadmap_item(tpch_runners):
-    _, port = tpch_runners
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port.execute("SELECT n_regionkey, array_agg(n_name) FROM nation GROUP BY n_regionkey")
+    # the collect aggregates (ROADMAP §1 item 4) are ported: the port's
+    # array_agg equals the reference's, element order included
+    ref, port = tpch_runners
+    sql = "SELECT n_regionkey, array_agg(n_name) FROM nation GROUP BY n_regionkey ORDER BY 1"
+    rows = port.execute(sql).rows
+    assert rows == ref.execute(sql).rows
+    assert len(rows) == 5 and sum(len(names) for _, names in rows) == 25

@@ -136,11 +136,23 @@ def test_pushed_down_filter_scans_equal_the_reference(connectors):
 
 
 def test_write_side_and_nested_columns_raise():
+    """The write side raises naming ROADMAP §1 item 8; nested columns
+    (item 4) load and scan: an array column's flat store, sliced by
+    splits and gathered by bucket ids, gives back the loaded values."""
     conn = tmemory.create_memory_connector()
     with pytest.raises(NotImplementedError, match="item 8"):
         conn.page_sink(None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        conn.load_table("default", "a", [ColumnMetadata("a", T.array_of(T.BIGINT))], [[[1]]])
+    rows = [[1], [], None, [2, None, 3], [4, 5]] * 7
+    conn.load_table("default", "a", [ColumnMetadata("k", T.BIGINT),
+                                     ColumnMetadata("a", T.array_of(T.BIGINT))],
+                    [np.arange(len(rows), dtype=np.int64), rows], bucketed_by=("k",))
+    handle = conn.metadata.get_table_handle("default", "a")
+    for n in (1, 3):
+        got = {}
+        for split in conn.split_manager.get_splits(handle, n):
+            for b in conn.page_source.batches(split, ["k", "a"], 4):
+                got.update(dict(b.to_pylists()))
+        assert got == dict(enumerate(rows))
 
 
 def test_bucketing_refuses_float_keys():

@@ -5,6 +5,10 @@ Counterpart of trino_tpu/block.py (the Page/Block analogue):
 - A ``Column`` is one fixed-capacity tensor plus an optional validity
   mask (NULLs) and an optional host-side string dictionary (VARCHAR
   values live on the device as int32 codes).
+- ``ArrayColumn``, ``MapColumn`` and ``RowColumn`` are the nested
+  columns: per-row lengths (or a presence byte) in ``data``, plus
+  per-row ``starts`` into shared flattened children (ARRAY, MAP) or
+  parallel child columns (ROW). A gather moves only the per-row views.
 - A ``RelBatch`` is N columns sharing a capacity plus a ``live`` row
   mask. Capacities stay bucketed powers of two and filters only flip
   mask bits, as in the reference, so the two packages see the same
@@ -13,9 +17,8 @@ Counterpart of trino_tpu/block.py (the Page/Block analogue):
 Every tensor of a batch lives on one device; the connector places the
 scan batches and operators allocate beside their inputs.
 
-Not ported yet (each raises NotImplementedError naming its queue item
-in ROADMAP.md): the nested ARRAY/MAP/ROW columns and TIMESTAMP WITH
-TIME ZONE formatting.
+Not ported yet (raises NotImplementedError naming its queue item in
+ROADMAP.md): TIMESTAMP WITH TIME ZONE formatting.
 """
 
 from __future__ import annotations
@@ -41,12 +44,23 @@ def phys_zeros(t, capacity: int, device="cpu") -> torch.Tensor:
 
 
 def null_column(t, capacity: int, dictionary=None, device="cpu") -> "Column":
-    """All-NULL column of a flat type: outer-join padding."""
-    if t.is_nested:
-        raise NotImplementedError(
-            f"nested column {t}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
-        )
+    """All-NULL column of any type: outer-join padding. Nested types get
+    structurally valid empty layouts."""
     invalid = torch.zeros(capacity, dtype=torch.bool, device=device)
+
+    def zeros(dtype):
+        return torch.zeros(capacity, dtype=dtype, device=device)
+    if t.is_array:
+        return ArrayColumn(t, zeros(torch.int32), invalid, None, zeros(torch.int32),
+                           null_column(t.element, MIN_CAPACITY, device=device))
+    if t.is_map:
+        return MapColumn(t, zeros(torch.int32), invalid, None, zeros(torch.int32),
+                         null_column(t.key, MIN_CAPACITY, device=device),
+                         null_column(t.element, MIN_CAPACITY, device=device))
+    if t.is_row:
+        return RowColumn(t, zeros(torch.int8), invalid, None,
+                         [null_column(ft, capacity, device=device)
+                          for _, ft in t.row_fields])
     return Column(t, phys_zeros(t, capacity, device), invalid, dictionary)
 
 
@@ -132,8 +146,13 @@ class Column:
             return torch.ones(self.capacity, dtype=torch.bool, device=self.device)
         return self.valid
 
-    def gather(self, positions: torch.Tensor, positions_valid=None) -> "Column":
-        """Vectorized position copy (clipped positions)."""
+    def with_data(self, data, valid="__same__") -> "Column":
+        """The same column (nested layout included) over new per-row data."""
+        return dataclasses.replace(
+            self, data=data, valid=self.valid if isinstance(valid, str) else valid)
+
+    def _gather_rows(self, positions, positions_valid):
+        """(pos, gathered data, gathered valid) of a clipped row gather."""
         pos = torch.clamp(positions.to(torch.int64), 0, self.capacity - 1)
         data = self.data.index_select(0, pos)
         valid = None
@@ -141,6 +160,11 @@ class Column:
             valid = self.valid.index_select(0, pos)
         if positions_valid is not None:
             valid = positions_valid if valid is None else (valid & positions_valid)
+        return pos, data, valid
+
+    def gather(self, positions: torch.Tensor, positions_valid=None) -> "Column":
+        """Vectorized position copy (clipped positions)."""
+        _, data, valid = self._gather_rows(positions, positions_valid)
         return Column(self.type, data, valid, self.dictionary)
 
     # -- host conversion --
@@ -168,10 +192,13 @@ class Column:
     @staticmethod
     def from_pylist(type_: T.DataType, values: Sequence[Any], capacity=None,
                     device="cpu") -> "Column":
-        if type_.is_nested:
-            raise NotImplementedError(
-                f"nested column {type_}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
-            )
+        if type_.is_array:
+            return ArrayColumn.from_pylists(type_.element, values, capacity, device=device)
+        if type_.is_map:
+            return MapColumn.from_pydicts(type_.key, type_.element, values, capacity,
+                                          device=device)
+        if type_.is_row:
+            return RowColumn.from_pytuples(type_, values, capacity, device=device)
         has_null = any(v is None for v in values)
         if type_.is_string:
             dictionary = Dictionary([v for v in values if v is not None])
@@ -226,6 +253,178 @@ class Column:
             data, valid = data[:count], valid[:count]
         dict_values = self.dictionary.values if self.dictionary else None
         return decode_values(self.type, data, valid, dict_values)
+
+
+def _host_valid(c: Column, n: int) -> np.ndarray:
+    return c.valid.cpu().numpy() if c.valid is not None else np.ones(n, bool)
+
+
+def _views(c: Column, live, count):
+    """(starts, lengths, valid) of the rows `to_pylist` returns, and the
+    flat positions of their elements, row after row: only those elements
+    are decoded (a filtered or gathered column's flat child can be far
+    larger than what its live rows read)."""
+    lengths = c.data.cpu().numpy().astype(np.int64)
+    starts = c.starts.cpu().numpy().astype(np.int64)
+    valid = _host_valid(c, len(lengths))
+    if live is not None:
+        keep = np.asarray(live)
+        lengths, starts, valid = lengths[keep], starts[keep], valid[keep]
+    if count is not None:
+        lengths, starts, valid = lengths[:count], starts[:count], valid[:count]
+    lengths = np.where(valid, lengths, 0)
+    first, pos = element_positions(starts, lengths)
+    return first, lengths, valid, torch.from_numpy(pos)
+
+
+def element_positions(starts: np.ndarray, lengths: np.ndarray):
+    """Host form of the rows' elements laid out row after row: (each
+    row's first slot, the flat position of every slot)."""
+    first = np.cumsum(lengths) - lengths
+    return first, np.repeat(starts - first, lengths) + np.arange(int(lengths.sum()))
+
+
+def _flat_extents(values, cap: int):
+    """(lengths, starts, valid or None, flattened items) of a list of
+    python sequences or dicts (None = NULL), laid out row after row."""
+    lengths = np.zeros(cap, dtype=np.int32)
+    starts = np.zeros(cap, dtype=np.int32)
+    valid = np.zeros(cap, dtype=bool) if any(v is None for v in values) else None
+    items: list = []
+    for i, v in enumerate(values):
+        starts[i] = len(items)
+        if v is None:
+            continue
+        if valid is not None:
+            valid[i] = True
+        lengths[i] = len(v)
+        items.extend(v.items() if isinstance(v, dict) else v)
+    return lengths, starts, valid, items
+
+
+@dataclasses.dataclass
+class ArrayColumn(Column):
+    """ARRAY column: per-row views into one flattened element column
+    (ArrayBlock's offsets + values). `data` holds per-row LENGTHS, so
+    code that needs only cardinality reads an ordinary int32 tensor;
+    `starts` + `flat` carry the elements. A gather moves only the views:
+    the flat child is shared, so after a join, sort or TopN the rows'
+    slices of `flat` are no longer in row order, and may repeat."""
+
+    starts: Optional[torch.Tensor] = None  # int32 (capacity,)
+    flat: Optional[Column] = None  # flattened elements
+
+    def gather(self, positions: torch.Tensor, positions_valid=None) -> "ArrayColumn":
+        pos, lengths, valid = self._gather_rows(positions, positions_valid)
+        return ArrayColumn(self.type, lengths, valid, self.dictionary,
+                           self.starts.index_select(0, pos), self.flat)
+
+    @staticmethod
+    def from_pylists(element_type: T.DataType, values, capacity=None,
+                     dictionary: Optional[Dictionary] = None,
+                     device="cpu") -> "ArrayColumn":
+        """values: python lists (None = NULL array). `dictionary`: a
+        table-stable element dictionary for string elements."""
+        cap = capacity if capacity is not None else bucket_capacity(len(values))
+        lengths, starts, valid, flat_vals = _flat_extents(values, cap)
+        if dictionary is not None and element_type.is_string:
+            codes = np.asarray([dictionary.code(v) if v is not None else 0
+                                for v in flat_vals], dtype=np.int32)
+            fvalid = (np.asarray([v is not None for v in flat_vals], dtype=bool)
+                      if any(v is None for v in flat_vals) else None)
+            flat = Column.from_numpy(element_type, codes, fvalid, dictionary, device=device)
+        else:
+            flat = Column.from_pylist(element_type, flat_vals, device=device)
+        return ArrayColumn(
+            T.array_of(element_type), torch.from_numpy(lengths).to(device),
+            None if valid is None else torch.from_numpy(valid).to(device), None,
+            torch.from_numpy(starts).to(device), flat)
+
+    def to_pylist(self, count: Optional[int] = None, live: Optional[np.ndarray] = None):
+        first, lengths, valid, pos = _views(self, live, count)
+        vals = self.flat.gather(pos.to(self.flat.device)).to_pylist(count=len(pos))
+        return [vals[s:s + n] if ok else None for s, n, ok in zip(first, lengths, valid)]
+
+
+@dataclasses.dataclass
+class MapColumn(Column):
+    """MAP column: per-row entry views into two flattened child columns
+    (MapBlock's keys + values). `data` holds per-row entry COUNTS;
+    `starts` + `flat_keys`/`flat_values` carry the entries. A gather
+    moves only the views; the flat children are shared."""
+
+    starts: Optional[torch.Tensor] = None  # int32 (capacity,)
+    flat_keys: Optional[Column] = None
+    flat_values: Optional[Column] = None
+
+    def gather(self, positions: torch.Tensor, positions_valid=None) -> "MapColumn":
+        pos, lengths, valid = self._gather_rows(positions, positions_valid)
+        return MapColumn(self.type, lengths, valid, self.dictionary,
+                         self.starts.index_select(0, pos), self.flat_keys,
+                         self.flat_values)
+
+    @staticmethod
+    def from_pydicts(key_type: T.DataType, value_type: T.DataType, values,
+                     capacity=None, device="cpu") -> "MapColumn":
+        """values: python dicts (None = NULL map)."""
+        cap = capacity if capacity is not None else bucket_capacity(len(values))
+        lengths, starts, valid, entries = _flat_extents(values, cap)
+        return MapColumn(
+            T.map_of(key_type, value_type), torch.from_numpy(lengths).to(device),
+            None if valid is None else torch.from_numpy(valid).to(device), None,
+            torch.from_numpy(starts).to(device),
+            Column.from_pylist(key_type, [k for k, _ in entries], device=device),
+            Column.from_pylist(value_type, [x for _, x in entries], device=device))
+
+    def to_pylist(self, count: Optional[int] = None, live: Optional[np.ndarray] = None):
+        first, lengths, valid, pos = _views(self, live, count)
+        idx = pos.to(self.flat_keys.device)
+        ks = self.flat_keys.gather(idx).to_pylist(count=len(pos))
+        vs = self.flat_values.gather(idx).to_pylist(count=len(pos))
+        return [dict(zip(ks[s:s + n], vs[s:s + n])) if ok else None
+                for s, n, ok in zip(first, lengths, valid)]
+
+
+@dataclasses.dataclass
+class RowColumn(Column):
+    """ROW column: parallel child columns, one per field (RowBlock).
+    `data` is a per-row presence byte; NULL rows ride `valid`."""
+
+    children: Optional[list] = None  # list[Column], same capacity
+
+    def gather(self, positions: torch.Tensor, positions_valid=None) -> "RowColumn":
+        _, data, valid = self._gather_rows(positions, positions_valid)
+        return RowColumn(self.type, data, valid, self.dictionary,
+                         [c.gather(positions, positions_valid) for c in self.children])
+
+    @staticmethod
+    def from_pytuples(row_type: T.DataType, values, capacity=None,
+                      device="cpu") -> "RowColumn":
+        """values: python tuples or lists (None = NULL row)."""
+        n = len(values)
+        cap = capacity if capacity is not None else bucket_capacity(n)
+        presence = np.zeros(cap, dtype=np.int8)
+        presence[:n] = 1
+        valid = None
+        if any(v is None for v in values):
+            valid = np.zeros(cap, dtype=bool)
+            valid[:n] = [v is not None for v in values]
+        kids = [Column.from_pylist(ft, [None if v is None else v[fi] for v in values],
+                                   capacity=cap, device=device)
+                for fi, (_, ft) in enumerate(row_type.row_fields)]
+        return RowColumn(row_type, torch.from_numpy(presence).to(device),
+                         None if valid is None else torch.from_numpy(valid).to(device),
+                         None, kids)
+
+    def to_pylist(self, count: Optional[int] = None, live: Optional[np.ndarray] = None):
+        valid = _host_valid(self, self.capacity)
+        if live is not None:
+            valid = valid[np.asarray(live)]
+        if count is not None:
+            valid = valid[:count]
+        kid_vals = [c.to_pylist(count, live) for c in self.children]
+        return [tuple(kv[i] for kv in kid_vals) if ok else None
+                for i, ok in enumerate(valid)]
 
 
 @dataclasses.dataclass
@@ -366,10 +565,35 @@ def _concat_valid(parts):
 
 
 def _concat_columns(parts: list) -> Column:
-    if parts[0].type.is_nested:
-        raise NotImplementedError(
-            f"nested column {parts[0].type}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
-        )
+    """Concatenate the fragments of one schema slot, keeping nested
+    layouts: array/map flats concatenate, with each part's starts
+    rebased by the capacities of the flats before it; row children
+    concatenate field by field."""
+    first = parts[0]
+    if isinstance(first, (ArrayColumn, MapColumn)):
+        data = torch.cat([p.data for p in parts])
+        starts, off = [], 0
+        keys, vals = [], []
+        for p in parts:
+            starts.append(p.starts + off)
+            if isinstance(p, ArrayColumn):
+                off += p.flat.capacity
+                keys.append(p.flat)
+            else:
+                off += p.flat_keys.capacity
+                keys.append(p.flat_keys)
+                vals.append(p.flat_values)
+        starts = torch.cat(starts).to(torch.int32)
+        if isinstance(first, ArrayColumn):
+            return ArrayColumn(first.type, data, _concat_valid(parts), None, starts,
+                               _concat_columns(keys))
+        return MapColumn(first.type, data, _concat_valid(parts), None, starts,
+                         _concat_columns(keys), _concat_columns(vals))
+    if isinstance(first, RowColumn):
+        kids = [_concat_columns([p.children[i] for p in parts])
+                for i in range(len(first.children))]
+        return RowColumn(first.type, torch.cat([p.data for p in parts]),
+                         _concat_valid(parts), None, kids)
     parts = unify_column_dicts(parts)
     data = torch.cat([p.data for p in parts])
     return Column(parts[0].type, data, _concat_valid(parts), parts[0].dictionary)
@@ -387,18 +611,3 @@ def concat_batches(batches: Sequence[RelBatch]) -> RelBatch:
     live = torch.cat([b.live_mask() for b in batches])
     return RelBatch(cols, live)
 
-
-def _nested_not_ported(name: str):
-    class _Nested(Column):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name}: ROADMAP §1 item 4 (nested ARRAY/MAP/ROW)"
-            )
-
-    _Nested.__name__ = _Nested.__qualname__ = name
-    return _Nested
-
-
-ArrayColumn = _nested_not_ported("ArrayColumn")
-MapColumn = _nested_not_ported("MapColumn")
-RowColumn = _nested_not_ported("RowColumn")

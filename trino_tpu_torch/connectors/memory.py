@@ -3,13 +3,17 @@
 Counterpart of trino_tpu/connectors/memory.py (plugin/trino-memory's
 MemoryPagesStore analogue): tables live as dense host-side numpy column
 arrays; string columns keep one table-wide dictionary, so scans bind
-pipeline-wide. `MemoryConnector.load_table` bulk-loads a table, and the
-page source copies row ranges (or the rows of one hash bucket) to the
-runner's device, keeping the batches per table version.
+pipeline-wide. An ARRAY column of flat elements keeps a flat store
+(per-row lengths and offsets into one element array, string elements
+coded by one table-wide dictionary); MAP and ROW columns, and arrays of
+nested elements, keep python objects, as in the reference.
+`MemoryConnector.load_table` bulk-loads a table, and the page source
+copies row ranges (or the rows of one hash bucket) to the runner's
+device, keeping the batches per table version.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): nested ARRAY/MAP/ROW columns (§1 item 4), and the write side —
-the page sink, transactions and `replace_rows` (§1 item 8).
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+the write side — the page sink, transactions and `replace_rows` (§1
+item 8).
 """
 
 from __future__ import annotations
@@ -22,7 +26,15 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.block import Column, Dictionary, RelBatch, bucket_capacity, phys_zeros
+from trino_tpu_torch.block import (
+    ArrayColumn,
+    Column,
+    Dictionary,
+    RelBatch,
+    bucket_capacity,
+    element_positions,
+    phys_zeros,
+)
 from trino_tpu_torch.connectors.spi import (
     ColumnMetadata,
     Connector,
@@ -35,21 +47,86 @@ from trino_tpu_torch.connectors.spi import (
     TableStatistics,
 )
 
-_NESTED = "nested ARRAY/MAP/ROW columns: ROADMAP §1 item 4"
 _WRITE_SIDE = "the memory connector's write side: ROADMAP §1 item 8"
-
-
-def _flat_only(t: T.DataType, name: str) -> None:
-    if t.is_nested or t.kind == T.TypeKind.ARRAY:
-        raise NotImplementedError(f"column {name!r} of type {t}: {_NESTED}")
 
 
 @dataclasses.dataclass
 class _StoredColumn:
     type: T.DataType
-    data: np.ndarray  # host array, dense (no padding)
+    # host array, dense (no padding); a _FlatArrays for an ARRAY of flat
+    # elements; a list of python objects for the other nested columns
+    data: object
     valid: Optional[np.ndarray]
-    dictionary: Optional[Dictionary]
+    dictionary: Optional[Dictionary]  # string elements' for an ARRAY
+
+
+@dataclasses.dataclass
+class _FlatArrays:
+    """An ARRAY column's flat store: row i's elements are
+    values[offsets[i]:offsets[i + 1]]."""
+
+    offsets: np.ndarray  # int64 (n + 1,)
+    values: np.ndarray  # element physical values (string codes)
+    value_valid: Optional[np.ndarray]  # element NULLs
+
+    @staticmethod
+    def of_lists(element: T.DataType, rows, dictionary: Optional[Dictionary]):
+        lens = np.fromiter((0 if r is None else len(r) for r in rows), np.int64, len(rows))
+        offsets = np.zeros(len(rows) + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        items = [x for r in rows if r is not None for x in r]
+        has_null = any(x is None for x in items)
+        if element.is_string:
+            vals = np.asarray([dictionary.code(x) if x is not None else 0 for x in items],
+                              dtype=np.int32)
+        else:
+            vals = Column.from_pylist(element, items, capacity=len(items)).data.numpy()
+        valid = np.asarray([x is not None for x in items], bool) if has_null else None
+        return _FlatArrays(offsets, vals, valid)
+
+    def column(self, t: T.DataType, rows, valid: Optional[np.ndarray], cap: int,
+               dictionary: Optional[Dictionary], device) -> ArrayColumn:
+        """The ArrayColumn of the stored rows `rows` (a slice or an index
+        array), front-packed into `cap` rows."""
+        if isinstance(rows, slice):
+            lo, hi = self.offsets[rows.start], self.offsets[rows.stop]
+            begins = self.offsets[rows]
+            lens = self.offsets[rows.start + 1:rows.stop + 1] - begins
+            starts = begins - lo
+            take = slice(lo, hi)
+        else:
+            begins = self.offsets[rows]
+            lens = self.offsets[rows + 1] - begins
+            starts, take = element_positions(begins, lens)
+        n = len(lens)
+        lengths = np.zeros(cap, dtype=np.int32)
+        lengths[:n] = lens
+        st = np.zeros(cap, dtype=np.int32)
+        st[:n] = starts
+        flat = Column.from_numpy(
+            t.element, self.values[take],
+            None if self.value_valid is None else self.value_valid[take], dictionary,
+            device=device)
+        v = None
+        if valid is not None:
+            v = np.zeros(cap, dtype=bool)
+            v[:n] = valid[rows]
+            v = torch.from_numpy(v).to(device)
+        return ArrayColumn(t, torch.from_numpy(lengths).to(device), v, None,
+                           torch.from_numpy(st).to(device), flat)
+
+
+def _nested_column(sc: _StoredColumn, rows, n: int, cap: int, device) -> Column:
+    """A nested column's batch view of the stored rows `rows`."""
+    if isinstance(sc.data, _FlatArrays):
+        return sc.data.column(sc.type, rows, sc.valid, cap, sc.dictionary, device)
+    vals = (list(sc.data[rows]) if isinstance(rows, slice)
+            else [sc.data[j] for j in rows])
+    if sc.type.is_array:
+        return ArrayColumn.from_pylists(sc.type.element, vals + [None] * (cap - n),
+                                        capacity=cap, dictionary=sc.dictionary,
+                                        device=device)
+    return Column.from_pylist(sc.type, vals, capacity=cap, device=device)
 
 
 @dataclasses.dataclass
@@ -121,7 +198,7 @@ class MemoryMetadata(ConnectorMetadata):
         cols: Dict[str, tuple] = {}
         n = t.row_count
         for name, sc in t.data.items():
-            if n == 0:
+            if n == 0 or sc.type.is_nested:
                 continue
             arr = sc.data[:n]
             nf = 0.0
@@ -176,7 +253,9 @@ class MemoryMetadata(ConnectorMetadata):
                 raise ValueError(f"table '{schema}.{table}' already exists")
             st = _StoredTable(schema, table, list(columns))
             for c in columns:
-                _flat_only(c.type, c.name)
+                if c.type.is_nested:
+                    st.data[c.name] = _StoredColumn(c.type, [], None, None)
+                    continue
                 shape = (0, 2) if c.type.lanes == 2 else (0,)
                 st.data[c.name] = _StoredColumn(
                     c.type,
@@ -311,7 +390,9 @@ class MemoryPageSource(ConnectorPageSource):
             cols = []
             for name in columns:
                 sc = t.data[name]
-                _flat_only(sc.type, name)
+                if sc.type.is_nested:
+                    cols.append(_nested_column(sc, sel, n, cap, device))
+                    continue
                 valid = None if sc.valid is None else sc.valid[sel]
                 cols.append(Column.from_numpy(
                     sc.type, sc.data[sel], valid, sc.dictionary, capacity=cap,
@@ -327,7 +408,10 @@ class MemoryPageSource(ConnectorPageSource):
             cols = []
             for name in columns:
                 sc = t.data[name]
-                _flat_only(sc.type, name)
+                if sc.type.is_nested:
+                    cols.append(Column.from_pylist(sc.type, [None] * 16, capacity=16,
+                                                   device=device))
+                    continue
                 cols.append(Column(sc.type, phys_zeros(sc.type, 16, device),
                                    None, sc.dictionary))
             yield RelBatch(cols, torch.zeros(16, dtype=torch.bool, device=device))
@@ -366,7 +450,8 @@ class MemoryConnector(Connector):
         """Bulk-load dense host columns. A string column comes either as
         int32 codes with its dictionary or as python strings, encoded
         here (a None takes code 0: NULLs come from `valids`, as for
-        every column). `bucketed_by` declares
+        every column). A nested column comes as python values (lists,
+        dicts, tuples; None is NULL). `bucketed_by` declares
         engine-hash bucketing on integer-family or string key columns:
         splits then become hash buckets."""
         self.metadata.create_table(schema, table, columns)
@@ -378,7 +463,7 @@ class MemoryConnector(Connector):
                 if cm is None:
                     raise ValueError(f"bucketed_by column {c!r} not in table")
                 ok = cm.type.is_string or (
-                    cm.type.lanes == 1
+                    not cm.type.is_nested and cm.type.lanes == 1
                     and np.issubdtype(cm.type.np_dtype, np.integer)
                 )
                 if not ok:
@@ -391,6 +476,9 @@ class MemoryConnector(Connector):
             t.bucketed_by = tuple(bucketed_by)
         n = len(arrays[0]) if arrays else 0
         for i, (cm, arr) in enumerate(zip(columns, arrays)):
+            if cm.type.is_nested:
+                t.data[cm.name] = self._nested_store(cm.type, list(arr))
+                continue
             d = dictionaries[i] if dictionaries else None
             if cm.type.is_string and d is None:
                 vals = list(arr)
@@ -409,6 +497,20 @@ class MemoryConnector(Connector):
             )
         t.row_count = n
         t.version += 1
+
+    @staticmethod
+    def _nested_store(t: T.DataType, rows: list) -> _StoredColumn:
+        """An ARRAY of flat elements gets its flat store (string elements
+        one table-wide dictionary); MAP, ROW and arrays of nested
+        elements keep the python values."""
+        d = None
+        if t.is_array and t.element.is_string:
+            d = Dictionary([v for r in rows if r is not None for v in r if v is not None])
+        if not t.is_array or t.element.is_nested:
+            return _StoredColumn(t, rows, None, d)
+        valid = (np.asarray([r is not None for r in rows], bool)
+                 if any(r is None for r in rows) else None)
+        return _StoredColumn(t, _FlatArrays.of_lists(t.element, rows, d), valid, d)
 
 
 def create_memory_connector() -> MemoryConnector:

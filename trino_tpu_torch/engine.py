@@ -91,6 +91,7 @@ class LocalQueryRunner:
         if not isinstance(stmt, ast.Query):
             raise NotImplementedError(
                 f"{type(stmt).__name__}: trino_tpu_torch runs SELECT only so far"
+                " (the statement surface: ROADMAP §1 item 8)"
             )
         output = self._analyze(stmt)
         planner = LocalPlanner(

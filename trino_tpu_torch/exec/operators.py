@@ -14,9 +14,11 @@ approx_percentile, pctl_merge and listagg), EnforceSingleRow, the hash
 join (HashBuildSink + LookupJoinOperator for inner, left, full, semi,
 anti and mark joins), the join-project MxuJoinAggOperator,
 DynamicFilter, the cross join, BufferSink/BufferSource (UNION ALL) and
-CollectorSink. Partial/final aggregation steps, spill (grace joins
-included), the collect aggregates, UNNEST and MATCH_RECOGNIZE are
-queued in ROADMAP.md.
+CollectorSink; nested ARRAY/MAP/ROW columns ride every one of them
+whole, and the collect aggregates (array_agg, map_agg, histogram, the
+sketch builders, ...) run on the holistic path (UNNEST is
+exec/unnest.py). Partial/final aggregation steps, spill (grace joins
+included) and MATCH_RECOGNIZE are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from trino_tpu_torch.block import (
     null_column,
     phys_zeros,
 )
+from trino_tpu_torch.expr import pyfns
 from trino_tpu_torch.expr.compile import Bound
 from trino_tpu_torch.ops import gather_kernels as GK
 from trino_tpu_torch.ops import groupby as G
@@ -73,7 +76,8 @@ Schema = Sequence[Tuple[T.DataType, Optional[Dictionary]]]
 
 
 def empty_batch(schema: Schema, device, capacity: int = 16) -> RelBatch:
-    cols = [Column(t, phys_zeros(t, capacity, device), None, d) for t, d in schema]
+    cols = [null_column(t, capacity, d, device) if t.is_nested
+            else Column(t, phys_zeros(t, capacity, device), None, d) for t, d in schema]
     return RelBatch(cols, torch.zeros(capacity, dtype=torch.bool, device=device))
 
 
@@ -159,6 +163,13 @@ class ValuesOperator(Operator):
 # ---------------------------------------------------------------------------
 
 
+def batch_inputs(batch: RelBatch) -> list:
+    """An expression's per-column inputs: the data tensor of a flat
+    column, the whole Column of a nested one (its starts, flat children
+    or fields would be lost in a bare tensor)."""
+    return [c if c.type.is_nested else c.data for c in batch.columns]
+
+
 def make_filter_project_fn(filter_bound: Optional[Bound],
                            projections: Sequence[Bound]):
     """The fused per-batch filter+project function, bound once and
@@ -166,7 +177,7 @@ def make_filter_project_fn(filter_bound: Optional[Bound],
     projections = list(projections)
 
     def fn(batch: RelBatch) -> RelBatch:
-        cols = [c.data for c in batch.columns]
+        cols = batch_inputs(batch)
         valids = [c.valid for c in batch.columns]
         live = batch.live
         if filter_bound is not None:
@@ -180,6 +191,14 @@ def make_filter_project_fn(filter_bound: Optional[Bound],
         out_cols = []
         for b in projections:
             data, valid = b.fn(cols, valids)
+            if isinstance(data, Column):
+                # a whole-Column result (nested, or a string field with
+                # its batch dictionary): merge the validity into it
+                if valid is not None:
+                    data = data.with_data(
+                        data.data, valid if data.valid is None else (data.valid & valid))
+                out_cols.append(data)
+                continue
             d = b.dictionary
             if (
                 (d is None or isinstance(d, RuntimeDictionary))
@@ -586,12 +605,83 @@ _COLLECT_KINDS = (
 # analyzer reads this set): the operator buffers its input and reduces
 # once at finish. pctl_merge is the merge half of the mergeable
 # approx_percentile (sql/optimizer.RewriteApproxPercentile); it reads
-# quantile-bucket summaries, never raw rows. The collect kinds return
-# ARRAY/MAP values and are not ported yet.
+# quantile-bucket summaries, never raw rows. The collect kinds build each
+# group's container on the host from the device's group-contiguous row
+# order (HashAggregationOperator._collect_column).
 HOLISTIC_KINDS = (
     "min_by", "max_by", "approx_percentile", "listagg", "approx_distinct",
     "pctl_merge",
 ) + _COLLECT_KINDS
+
+
+def _bht_histogram(vals, b: int):
+    """Ben-Haim/Tom-Tov streaming histogram, batch form: merge the two
+    closest centroids until at most b remain (NumericHistogram).
+    {centroid: weight}, or None for no input."""
+    if not vals or b <= 0:
+        return None
+    pts: List[List[float]] = []
+    for v in sorted(float(x) for x in vals):
+        if pts and pts[-1][0] == v:
+            pts[-1][1] += 1.0
+        else:
+            pts.append([v, 1.0])
+    while len(pts) > b:
+        bi, bgap = 0, float("inf")
+        for i in range(len(pts) - 1):
+            gap = pts[i + 1][0] - pts[i][0]
+            if gap < bgap:
+                bi, bgap = i, gap
+        (v1, c1), (v2, c2) = pts[bi], pts[bi + 1]
+        pts[bi] = [(v1 * c1 + v2 * c2) / (c1 + c2), c1 + c2]
+        del pts[bi + 1]
+    return {v: c for v, c in pts}
+
+
+def _counts(vals) -> dict:
+    h: dict = {}
+    for v in vals:
+        if v is not None:
+            h[v] = h.get(v, 0) + 1
+    return h
+
+
+def _collect_value(a: AggSpec, vals: list):
+    """One group's container (None for an empty one) from its values in
+    group order (pairs for map_agg and multimap_agg)."""
+    kind = a.kind
+    nn = [v for v in vals if v is not None]
+    if kind == "array_agg":
+        return vals or None  # NULL elements are kept
+    if kind == "map_agg":
+        return {k: v for k, v in vals if k is not None} or None
+    if kind == "multimap_agg":
+        mm: dict = {}
+        for k, v in vals:
+            if k is not None:
+                mm.setdefault(k, []).append(v)
+        return mm or None
+    if kind == "histogram":
+        return _counts(vals) or None
+    if kind == "approx_most_frequent":
+        top = sorted(_counts(vals).items(), key=lambda kv: (-kv[1], str(kv[0])))
+        return dict(top[:int(a.param or 3)]) or None
+    if kind == "numeric_histogram":
+        return _bht_histogram(nn, int(a.param or 10))
+    if kind == "map_union":
+        merged: dict = {}
+        for m in vals:
+            if m:
+                merged.update(m)
+        return merged or None
+    if not nn:
+        return None
+    if kind == "approx_set":
+        return pyfns.hll_from_values(nn)
+    if kind == "tdigest_agg":
+        return pyfns.tdigest_from_values(nn)
+    return pyfns.sketch_merge(nn)  # sketch_merge
+
 
 _BATCH_REDUCER = {"sum": "sum", "avg": "sum", "count": "count",
                   "count_star": "count", "min": "min", "max": "max",
@@ -948,11 +1038,6 @@ class HashAggregationOperator(Operator):
         self._global = not self._group_channels
         self._cap = initial_capacity
         for a in self._aggs:
-            if a.kind in _COLLECT_KINDS:
-                raise NotImplementedError(
-                    f"{a.kind}(): collect aggregates return ARRAY/MAP values, "
-                    f"ROADMAP §1 item 4 (nested types)"
-                )
             if a.distinct:
                 raise NotImplementedError(
                     f"{a.kind}(DISTINCT): the planner deduplicates first "
@@ -1216,9 +1301,7 @@ class HashAggregationOperator(Operator):
             # no rows: one dead row keeps every shape non-empty so the
             # global path can slice its single slot
             mega = RelBatch(
-                [Column(t, phys_zeros(t, 1, dev),
-                        torch.zeros(1, dtype=torch.bool, device=dev), d)
-                 for t, d in self._schema],
+                [null_column(t, 1, d, dev) for t, d in self._schema],
                 torch.zeros(1, dtype=torch.bool, device=dev),
             )
         keys = [mega.columns[c].data for c in self._group_channels]
@@ -1257,6 +1340,9 @@ class HashAggregationOperator(Operator):
             if a.kind == "listagg":
                 agg_cols[i] = self._listagg_column(a, keys, valids, live, xcol, cap)
                 continue
+            if a.kind in _COLLECT_KINDS:
+                agg_cols[i] = self._collect_column(a, keys, valids, live, mega, cap)
+                continue
             if a.kind == "approx_distinct":
                 cnt = G.grouped_count_distinct(
                     tuple(keys), tuple(valids), live, xcol.data, xcol.valid, cap)
@@ -1287,13 +1373,96 @@ class HashAggregationOperator(Operator):
         out_cols += [agg_cols[i] for i in range(len(self._aggs))]
         if self._global:
             # a global aggregation yields one row even over no input
-            # (counts 0, the rest NULL): slot 0 carries it
+            # (counts 0, the rest NULL): slot 0 carries it; a nested
+            # result slices through its gather, which keeps its layout
+            first = torch.zeros(1, dtype=torch.int64, device=dev)
             return RelBatch(
-                [Column(c.type, c.data[:1], None if c.valid is None else c.valid[:1],
-                        c.dictionary) for c in out_cols],
+                [c.gather(first) if c.type.is_nested
+                 else Column(c.type, c.data[:1], None if c.valid is None else c.valid[:1],
+                             c.dictionary) for c in out_cols],
                 torch.ones(1, dtype=torch.bool, device=dev),
             )
         return RelBatch(out_cols, used)
+
+    def _collect_column(self, a: AggSpec, keys, valids, live, mega: RelBatch,
+                        cap: int) -> Column:
+        """The collect aggregates (array_agg, map_agg, multimap_agg,
+        histogram, numeric_histogram, approx_most_frequent, map_union,
+        the bitwise_*_agg, approx_set, tdigest_agg, sketch_merge): the
+        device puts the rows in group-contiguous, value-ordered order
+        (ops/groupby.grouped_rows_order) and the host builds each group's
+        container from it, as ArrayAggregationFunction and
+        MapAggregationFunction build theirs on the heap. `a.post` fuses a
+        sketch reader, so the digest never leaves the host."""
+        xcol = mega.columns[a.arg_channel]
+        gid, sm, order, n_groups, overflowed = G.grouped_rows_order(
+            tuple(keys), tuple(valids), live, xcol.data, xcol.valid, cap)
+        if bool(overflowed):
+            # the finish loop settles the capacity before this runs
+            raise RuntimeError("collect aggregate group overflow")
+        gid_h, sm_h, ord_h = (t.cpu().numpy() for t in (gid, sm, order))
+        n_h = int(n_groups)
+
+        def pyvals(ch):
+            lst = mega.columns[ch].to_pylist()
+            return [lst[i] for i in ord_h]
+
+        xs = pyvals(a.arg_channel)
+        ys = pyvals(a.arg2_channel) if a.arg2_channel is not None else None
+        groups: List[list] = [[] for _ in range(n_h)]
+        for j, (g, ok) in enumerate(zip(gid_h, sm_h)):
+            if ok and 0 <= g < n_h:
+                groups[g].append((xs[j], ys[j]) if ys is not None else xs[j])
+        dev = self._device
+        kind = a.kind
+        if kind in ("bitwise_and_agg", "bitwise_or_agg", "bitwise_xor_agg"):
+            op = {"bitwise_and_agg": lambda s_, v: s_ & v,
+                  "bitwise_or_agg": lambda s_, v: s_ | v,
+                  "bitwise_xor_agg": lambda s_, v: s_ ^ v}[kind]
+            data = np.zeros(cap, dtype=np.int64)
+            valid = np.zeros(cap, dtype=bool)
+            for g, vals in enumerate(groups):
+                vals = [v for v in vals if v is not None]
+                if not vals:
+                    continue
+                acc = vals[0]
+                for v in vals[1:]:
+                    acc = op(acc, v)
+                acc &= (1 << 64) - 1  # wrap to signed 64-bit
+                data[g] = acc - (1 << 64) if acc >= (1 << 63) else acc
+                valid[g] = True
+            return Column(T.BIGINT, torch.from_numpy(data).to(dev),
+                          torch.from_numpy(valid).to(dev), None)
+        out_vals: List[object] = [None] * cap
+        for g, vals in enumerate(groups):
+            out_vals[g] = _collect_value(a, vals)
+        if not a.post:
+            return Column.from_pylist(a.out_type, out_vals, capacity=cap, device=dev)
+        if a.post == "vaq":
+            # values_at_quantiles: one array(double) per group
+            arrs: List[object] = [None] * cap
+            for g in range(n_h):
+                if out_vals[g] is not None:
+                    arrs[g] = [pyfns.tdigest_value_at_quantile(out_vals[g], float(q))
+                               for q in (a.param or ())]
+            return Column.from_pylist(a.out_type, arrs, capacity=cap, device=dev)
+        data = np.zeros(cap, dtype=np.int64 if a.post == "card" else np.float64)
+        valid = np.zeros(cap, dtype=bool)
+        for g in range(n_h):
+            d = out_vals[g]
+            if d is None:
+                continue
+            if a.post == "card":
+                r = pyfns.hll_cardinality(d)
+            elif a.post == "vq":
+                r = pyfns.tdigest_value_at_quantile(d, float(a.param))
+            else:
+                r = pyfns.tdigest_quantile_at_value(d, float(a.param))
+            if r is not None:
+                data[g] = r
+                valid[g] = True
+        return Column(a.out_type, torch.from_numpy(data).to(dev),
+                      torch.from_numpy(valid).to(dev), None)
 
     def _listagg_column(self, a: AggSpec, keys, valids, live, xcol: Column,
                         cap: int) -> Column:
@@ -1353,11 +1522,7 @@ class EnforceSingleRowOperator(Operator):
             self._inputs = []
             return
         dev = self._device
-        cols = [
-            Column(t, phys_zeros(t, 16, dev),
-                   torch.zeros(16, dtype=torch.bool, device=dev), d)
-            for t, d in self._schema
-        ]
+        cols = [null_column(t, 16, d, dev) for t, d in self._schema]
         live = torch.zeros(16, dtype=torch.bool, device=dev)
         live[0] = True
         self._out = RelBatch(cols, live)
@@ -1417,6 +1582,9 @@ def _compact_to(parts: Sequence[RelBatch], n_live: int, capacity: int) -> RelBat
     for c in merged.columns:
         g = c.gather(pos)
         valid = None if g.valid is None else (g.valid & live)
+        if c.type.is_nested:
+            cols.append(g.with_data(g.data, valid))
+            continue
         data = torch.where(
             live.reshape((-1,) + (1,) * (g.data.dim() - 1)), g.data,
             torch.zeros((), dtype=g.data.dtype, device=dev))
@@ -1648,8 +1816,7 @@ def make_residual_fn(residual: Bound):
     """Plan-time bound residual evaluator over pair batches."""
 
     def fn(pairs: RelBatch) -> torch.Tensor:
-        d, v = residual.fn([c.data for c in pairs.columns],
-                           [c.valid for c in pairs.columns])
+        d, v = residual.fn(batch_inputs(pairs), [c.valid for c in pairs.columns])
         return d if v is None else (d & v)
 
     return fn
@@ -1944,6 +2111,9 @@ def _cross_row(probe: RelBatch, build: RelBatch, b: int) -> RelBatch:
     n = probe.capacity
     cols = []
     for c in build.columns:
+        if c.type.is_nested:
+            cols.append(c.gather(torch.full((n,), b, dtype=torch.int64, device=c.device)))
+            continue
         data = c.data[b].expand((n,) + tuple(c.data.shape[1:])).clone()
         valid = None if c.valid is None else c.valid[b].expand(n).clone()
         cols.append(Column(c.type, data, valid, c.dictionary))

@@ -15,11 +15,17 @@ Value model: every expression evaluates to ``(data, valid)`` where
 and/or/not lowerings. Decimals are scaled int64 (precision <= 18) or
 (n, 2) Int128 limb pairs (precision 19..38) through ops/int128.
 
+Nested values (ARRAY, MAP, ROW) travel as whole Columns in the data
+slot: the lambda functions, the array and map functions, split and
+split_to_map, the navigation operators and the sketch readers bind as
+in the reference, with one repair — filter, map_filter, array_remove,
+array_sort, array_distinct and the per-row reductions read each row's
+elements in row order through its lengths, so they stay right after a
+join or sort has gathered the rows (ROADMAP §3).
+
 Every scalar function of the reference's binder is bound here except
-the nested-type ones (lambdas, arrays, maps, rows, split, the qdigest
-readers, hll_cardinality: ROADMAP §1 item 4) and the TIMESTAMP WITH
-TIME ZONE ones (ROADMAP §1 item 6), which raise NotImplementedError
-naming their item (`_not_ported`).
+the TIMESTAMP WITH TIME ZONE ones (ROADMAP §1 item 6), which raise
+NotImplementedError naming their item (`_not_ported`).
 """
 
 from __future__ import annotations
@@ -44,11 +50,23 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.block import Dictionary, RuntimeDictionary
+from trino_tpu_torch.block import (
+    ArrayColumn,
+    Column,
+    Dictionary,
+    MapColumn,
+    RowColumn,
+    RuntimeDictionary,
+)
 from trino_tpu_torch.expr import functions as F
 from trino_tpu_torch.expr import pyfns
-from trino_tpu_torch.expr.ir import Call, Case, Cast, Expr, InList, InputRef, Literal
+from trino_tpu_torch.expr.ir import (
+    Call, Case, Cast, Expr, InList, InputRef, LambdaVar, Literal,
+)
 from trino_tpu_torch.ops import int128 as I128
+from trino_tpu_torch.ops import join as J
+from trino_tpu_torch.ops.gather import take_clip
+from trino_tpu_torch.ops.sort import _order_value
 from trino_tpu_torch.ops.floatbits import f32_bits_ordered
 from trino_tpu_torch.ops.hashing import (
     canonical_hash_input, dictionary_code_hashes, dictionary_lut, hash64,
@@ -87,23 +105,8 @@ _MICROS_PER_UNIT = {
     "millisecond": 1000,
 }
 
-# functions of nested types (ROADMAP §1 item 4) and of TIMESTAMP WITH
-# TIME ZONE (item 6), which the reference binds and the port not yet
-_NESTED_FNS = (
-    # the lambda functions
-    "transform", "filter", "any_match", "all_match", "none_match",
-    "transform_values", "transform_keys", "map_filter",
-    # the array and map functions
-    "slice", "trim_array", "repeat", "array_sort", "array_distinct",
-    "array_position", "array_remove", "array_contains",
-    "array_min_col", "array_max_col", "map_contains_key", "split",
-    "regexp_split", "regexp_extract_all", "array_length", "map_subscript",
-    "array_subscript", "map_keys", "map_values", "row_field", "row_pack",
-    "split_to_map",
-    # the sketch readers, whose argument is a serialized sketch
-    "values_at_quantiles", "value_at_quantile", "quantile_at_value",
-    "hll_cardinality",
-)
+# functions of TIMESTAMP WITH TIME ZONE (ROADMAP §1 item 6), which the
+# reference binds and the port not yet
 _TSTZ_FNS = (
     "at_timezone_id", "ts_to_tstz", "tstz_to_ts", "parse_tstz",
     "tstz_shift", "tstz_timezone_hour", "tstz_timezone_minute",
@@ -148,17 +151,24 @@ def merge_valid(*valids: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _ref(cols) -> torch.Tensor:
-    return cols[0] if cols else torch.zeros(1)
+    """A tensor with the batch's row count (a nested input's lengths)."""
+    if not cols:
+        return torch.zeros(1)
+    return cols[0].data if isinstance(cols[0], Column) else cols[0]
 
 
-def _const(shape_src: torch.Tensor, value, dtype) -> torch.Tensor:
+def _const(shape_src, value, dtype) -> torch.Tensor:
+    if isinstance(shape_src, Column):
+        shape_src = shape_src.data
     return torch.full(
         (shape_src.shape[0],), value, dtype=dtype, device=shape_src.device
     )
 
 
-def _phys_const(shape_src: torch.Tensor, t: T.DataType, value128=(0, 0)):
+def _phys_const(shape_src, t: T.DataType, value128=(0, 0)):
     """Constant tensor in t's physical shape."""
+    if isinstance(shape_src, Column):
+        shape_src = shape_src.data
     n = shape_src.shape[0]
     if t.lanes == 2:
         return torch.tensor(
@@ -233,9 +243,38 @@ def _lookup(table: _Table, codes: torch.Tensor) -> torch.Tensor:
     return table.on(codes.device)[idx]
 
 
+def _nested_valid(c: Column, v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The validity of a nested value: its Column's own AND the pair's."""
+    return merge_valid(c.valid, v)
+
+
+def _dict_code_const(probe: Bound, dictionary, elem_type):
+    """A constant search value in the elements' physical form: its code
+    in the element dictionary (an absent string matches nothing), a
+    decimal scaled. Only constants are searched for."""
+    if not probe.is_const or probe.const_value is None:
+        raise NotImplementedError("array/map search functions take a constant search value")
+    if dictionary is not None:
+        code = dictionary.code(probe.const_value)
+        return code if code >= 0 else -2
+    if elem_type.is_decimal:
+        if elem_type.is_long_decimal:
+            raise _unsupported("array/map search over decimal(>18) elements")
+        return scale_decimal_value(probe.const_value, elem_type)
+    return probe.const_value
+
+
+def minmax_like(dtype: torch.dtype, is_min: bool):
+    """The identity of a min (max) over `dtype`."""
+    if dtype.is_floating_point:
+        return math.inf if is_min else -math.inf
+    info = torch.iinfo(dtype)
+    return info.max if is_min else info.min
+
+
 def _not_ported(name: str, item: int):
-    """What the port does not bind yet: nested types (ROADMAP §1 item 4)
-    and TIMESTAMP WITH TIME ZONE (item 6)."""
+    """What the port does not bind yet: TIMESTAMP WITH TIME ZONE
+    (ROADMAP §1 item 6)."""
     return NotImplementedError(
         f"{name}: not ported to trino_tpu_torch yet (ROADMAP §1 item {item})"
     )
@@ -595,8 +634,6 @@ class ExprBinder:
             return self._bind_in(e)
         if isinstance(e, Call):
             return self._bind_call(e)
-        if type(e).__name__ == "LambdaExpr":
-            raise _not_ported("lambda expressions", 4)
         raise NotImplementedError(f"cannot bind {e!r}")
 
     # ---- leaves ----
@@ -616,8 +653,10 @@ class ExprBinder:
                 ref = _ref(cols)
                 return _phys_const(ref, t), _const(ref, False, torch.bool)
             return Bound(t, fn)
+        if t.is_array and isinstance(e.value, tuple):
+            return self._bind_array_literal(e)
         if t.is_nested:
-            raise _not_ported(f"{t} literal", 4)
+            raise _unsupported(f"{t} literal")
         if t.is_string:
             d = Dictionary([e.value])
 
@@ -637,6 +676,25 @@ class ExprBinder:
         def vfn(cols, valids, v=v):
             return _const(_ref(cols), v, t.dtype), None
         return Bound(t, vfn, const_value=e.value, is_const=True)
+
+    def _bind_array_literal(self, e: Literal) -> Bound:
+        """A constant ARRAY[...]: one flat slice per row (the values
+        tiled), so every consumer sees the canonical layout."""
+        t = e.type
+        k = len(e.value)
+        reps = max(k, 1)
+        proto = Column.from_pylist(t.element, list(e.value) or [None], capacity=reps)
+
+        def afn(cols, valids):
+            ref = _ref(cols)
+            n, dev = ref.shape[0], ref.device
+            data = proto.data.to(dev)
+            flat = Column(t.element, data.repeat((n,) + (1,) * (data.dim() - 1)),
+                          None if proto.valid is None else proto.valid.to(dev).repeat(n),
+                          proto.dictionary)
+            idx = torch.arange(n, dtype=torch.int32, device=dev)
+            return ArrayColumn(t, torch.full_like(idx, k), None, None, idx * reps, flat), None
+        return Bound(t, afn, proto.dictionary, const_value=e.value, is_const=True)
 
     # ---- cast ----
     def _bind_cast(self, e: Cast) -> Bound:
@@ -741,7 +799,7 @@ class ExprBinder:
                 return d.to(dst.dtype), v
             return Bound(dst, fifn)
         if src.is_nested or dst.is_nested:
-            raise _not_ported(f"cast {src} -> {dst}", 4)
+            raise _unsupported(f"cast {src} -> {dst}")
         if dst.is_string:
             bound = self._bind_cast_to_varchar(a, src, dst)
             if bound is not None:
@@ -970,8 +1028,13 @@ class ExprBinder:
     # ---- calls ----
     def _bind_call(self, e: Call) -> Bound:
         name = e.name
-        if name in _NESTED_FNS:
-            raise _not_ported(f"function {name}", 4)
+        if name in self._LAMBDA_FNS:
+            return self._bind_lambda_fn(e)
+        if name in self._ARRAY_FNS:
+            args = [self.bind(a) for a in e.args]
+            if name in ("split", "regexp_split", "regexp_extract_all"):
+                return self._bind_split(e, args)
+            return self._bind_array_fn(e, args)
         if name in _TSTZ_FNS:
             raise _not_ported(f"function {name}", 6)
         if name in ("and", "or"):
@@ -1069,8 +1132,9 @@ class ExprBinder:
         if name in ("hll_bucket", "hll_rho", "hll_weight", "hll_weight_rho",
                     "hll_estimate", "pctl_bucket"):
             return self._bind_sketch(name, e, args)
-        for family in (self._bind_math, self._bind_bitwise, self._bind_date,
-                       self._bind_string_breadth, self._bind_registry_scalar):
+        for family in (self._bind_nested, self._bind_math, self._bind_bitwise,
+                       self._bind_date, self._bind_string_breadth,
+                       self._bind_registry_scalar):
             bound = family(name, e, args)
             if bound is not None:
                 return bound
@@ -1706,8 +1770,6 @@ class ExprBinder:
         """json_extract_scalar, json_array_length and json_size over the
         JSON text of each dictionary value (JsonFunctions' lenient
         semantics: NULL on any miss)."""
-        if e.type.is_nested:
-            raise _not_ported(f"{name} returning {e.type}", 4)
         if name == "json_array_length":
             def jal(s):
                 v = _json_loads(s)
@@ -1734,8 +1796,6 @@ class ExprBinder:
     def _bind_json_breadth(self, name: str, e: Call, args) -> Bound:
         """json_extract (JSON text out), json_format/json_parse,
         is_json_scalar, json_array_contains and json_array_get."""
-        if e.type.is_nested:
-            raise _not_ported(f"{name} returning {e.type}", 4)
         if name == "is_json_scalar":
             def ijs(s):
                 v = _json_loads(s)
@@ -2515,3 +2575,460 @@ class ExprBinder:
 
         return Bound(out_type, fn)
 
+
+    # ---- nested values: ARRAY / MAP / ROW ----
+    # A nested input arrives as its whole Column in `cols`
+    # (operators.batch_inputs) and a nested result is a whole Column in
+    # the data slot of the (data, valid) pair. An ARRAY Bound's dictionary
+    # is its elements' where bind time knows it (split's, an input's),
+    # so UNNEST's element column keeps it. The compactions (filter,
+    # map_filter, array_remove, array_distinct) and the per-row
+    # reductions read each row's elements in row order through the
+    # lengths (ops/join.expand_runs), never through a search over
+    # `starts`: after a join, sort or TopN has gathered the rows, their
+    # slices of the shared flat child are out of order and may repeat.
+
+    _LAMBDA_FNS = (
+        "transform", "filter", "any_match", "all_match", "none_match",
+        "transform_values", "transform_keys", "map_filter",
+    )
+    _ARRAY_FNS = (
+        "slice", "trim_array", "repeat", "array_sort", "array_distinct",
+        "array_position", "array_remove", "array_contains",
+        "array_min_col", "array_max_col", "map_contains_key", "split",
+        "regexp_split", "regexp_extract_all",
+    )
+
+    @staticmethod
+    def _lambda_body_ir(body):
+        """The lambda body with its LambdaVar leaves turned into
+        InputRefs, so it binds as an ordinary expression over the flat
+        element column(s)."""
+        def sub(x):
+            if isinstance(x, LambdaVar):
+                return InputRef(x.index, x.type)
+            if isinstance(x, Call):
+                return Call(x.name, tuple(sub(a) for a in x.args), x.type)
+            if isinstance(x, Cast):
+                return Cast(sub(x.arg), x.type)
+            if isinstance(x, Case):
+                return Case(tuple(sub(c) for c in x.conds), tuple(sub(r) for r in x.results),
+                            None if x.default is None else sub(x.default), x.type)
+            if isinstance(x, InList):
+                return InList(sub(x.value), x.options)
+            return x  # Literal / InputRef
+        return sub(body)
+
+    @staticmethod
+    def _seg_counts(flags, starts, lengths):
+        """Per row, the true flags inside [start, start + len) of the
+        flat column (a cumulative-sum difference: right for any layout)."""
+        f = flags.to(torch.int32)
+        ce = torch.cumsum(f, 0, dtype=torch.int32)
+        exc = ce - f
+        n = flags.shape[0]
+        ends = torch.clamp(starts + lengths - 1, 0, max(n - 1, 0))
+        s = torch.clamp(starts, 0, max(n - 1, 0))
+        cnt = take_clip(ce, ends) - take_clip(exc, s)
+        return torch.where(lengths > 0, cnt, torch.zeros_like(cnt))
+
+    @staticmethod
+    def _flat_rowids(starts, lengths):
+        """Every row's elements in row order: (owner row, index within
+        the row, flat position, slot live) per slot of a bucketed
+        capacity. The owner comes from the lengths (a run-owner fill), so
+        the layout of `starts` does not matter."""
+        owner, elem, ok, _ = J.expand_runs(lengths.to(torch.int32))
+        return owner, elem, take_clip(starts, owner) + elem, ok
+
+    def _compact(self, c, keep, out_t):
+        """Each row's elements whose flat `keep` flag is set, in their
+        order, rows laid out one after another: an ArrayColumn, or a
+        MapColumn whose keys and values move together."""
+        lengths = c.data.to(torch.int32)
+        _, _, fpos, ok = self._flat_rowids(c.starts, lengths)
+        k = take_clip(keep, fpos) & ok
+        excl = torch.cumsum(lengths, 0, dtype=torch.int32) - lengths
+        cnt = self._seg_counts(k, excl, lengths)
+        src = take_clip(fpos, torch.argsort((~k).to(torch.int8), stable=True))
+        new_starts = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+        if isinstance(c, MapColumn):
+            return MapColumn(out_t, cnt, c.valid, None, new_starts,
+                             c.flat_keys.gather(src), c.flat_values.gather(src))
+        return ArrayColumn(out_t, cnt, c.valid, None, new_starts, c.flat.gather(src))
+
+    def _bind_lambda_fn(self, e: Call) -> Bound:
+        name = e.name
+        coll_b = self.bind(e.args[0])
+        body_ir = self._lambda_body_ir(e.args[1].body)
+        out_t = e.type
+
+        def body_over(flat_cols):
+            """Bind and evaluate the body over the flat element Columns
+            (their dictionaries are the batch's)."""
+            b = ExprBinder([c.type for c in flat_cols],
+                           [c.dictionary for c in flat_cols]).bind(body_ir)
+            d, v = b.fn([c if c.type.is_nested else c.data for c in flat_cols],
+                        [c.valid for c in flat_cols])
+            if isinstance(d, Column):
+                return d
+            return Column(b.type, d, v, b.dictionary)
+
+        def fn(cols, valids):
+            c, cv = coll_b.fn(cols, valids)
+            if name in ("transform", "filter", "any_match", "all_match", "none_match"):
+                flat = [c.flat]
+            else:
+                flat = [c.flat_keys, c.flat_values]
+            out = body_over(flat)
+            lengths, starts = c.data, c.starts
+            if name == "transform":
+                return ArrayColumn(out_t, lengths, c.valid, None, starts, out), cv
+            if name == "transform_values":
+                return MapColumn(out_t, lengths, c.valid, None, starts, c.flat_keys, out), cv
+            if name == "transform_keys":
+                return MapColumn(out_t, lengths, c.valid, None, starts, out, c.flat_values), cv
+            keep = out.data if out.valid is None else (out.data & out.valid)
+            if name in ("filter", "map_filter"):
+                return self._compact(c, keep, out_t), cv
+            cnt = self._seg_counts(keep, starts, lengths)
+            valid = _nested_valid(c, cv)
+            if name == "any_match":
+                return cnt > 0, valid
+            if name == "none_match":
+                return cnt == 0, valid
+            return cnt == lengths, valid  # all_match
+
+        dictionary = coll_b.dictionary if name == "filter" else None
+        return Bound(out_t, fn, dictionary)
+
+    def _bind_array_fn(self, e: Call, args) -> Bound:
+        name = e.name
+        out_t = e.type
+        a = args[0]
+
+        def fn(cols, valids):
+            c, cv = a.fn(cols, valids)
+            if name == "repeat":
+                # repeat(x, n): the row's scalar value n times
+                n_rep = int(args[1].const_value)
+                rows = c.shape[0]
+                flat = Column(out_t.element, torch.repeat_interleave(c, n_rep, 0),
+                              None if cv is None else torch.repeat_interleave(cv, n_rep),
+                              a.dictionary)
+                idx = torch.arange(rows, dtype=torch.int32, device=c.device)
+                return ArrayColumn(out_t, torch.full_like(idx, n_rep), None, None,
+                                   idx * n_rep, flat), None
+            lengths, starts = c.data, c.starts
+            if name == "slice":
+                sd, sv = args[1].fn(cols, valids)
+                ld, lv = args[2].fn(cols, valids)
+                sd = sd.to(torch.int32)
+                ld = torch.clamp(ld.to(torch.int32), min=0)
+                off = torch.where(sd > 0, sd - 1, lengths + sd)
+                off = torch.minimum(torch.clamp(off, min=0), lengths)
+                new_len = torch.minimum(ld, lengths - off)
+                return (ArrayColumn(out_t, new_len, c.valid, None, starts + off, c.flat),
+                        merge_valid(cv, sv, lv))
+            if name == "trim_array":
+                nd, nv = args[1].fn(cols, valids)
+                new_len = torch.minimum(
+                    torch.clamp(lengths - nd.to(torch.int32), min=0), lengths)
+                return (ArrayColumn(out_t, new_len, c.valid, None, starts, c.flat),
+                        merge_valid(cv, nv))
+            flat = c.flat_keys if name == "map_contains_key" else c.flat
+            if name in ("map_contains_key", "array_contains", "array_position",
+                        "array_remove"):
+                pd = _dict_code_const(args[1], flat.dictionary, flat.type)
+                match = flat.data == pd
+                if flat.valid is not None:
+                    match = match & flat.valid
+            if name in ("map_contains_key", "array_contains"):
+                return self._seg_counts(match, starts, lengths) > 0, _nested_valid(c, cv)
+            if name == "array_remove":
+                return self._compact(c, ~match, out_t), cv  # NULL elements stay
+            owner, elem, fpos, ok = self._flat_rowids(starts, lengths)
+            cap = lengths.shape[0]
+            if name in ("array_min_col", "array_max_col"):
+                is_min = name == "array_min_col"
+                vals = take_clip(flat.data, fpos)
+                wide = vals.to(torch.int8) if vals.dtype == torch.bool else vals
+                big = minmax_like(wide.dtype, is_min)
+                w = flat.valid_mask()
+                contrib = torch.where(ok & take_clip(w, fpos), wide,
+                                      torch.full_like(wide, big))
+                out = torch.full((cap,), big, dtype=wide.dtype, device=wide.device)
+                out = out.scatter_reduce(0, owner.to(torch.int64), contrib,
+                                         "amin" if is_min else "amax")
+                has = self._seg_counts(w, starts, lengths) > 0
+                return out.to(vals.dtype), merge_valid(has, _nested_valid(c, cv))
+            if name == "array_position":
+                none = 1 << 30
+                score = torch.where(ok & take_clip(match, fpos), elem,
+                                    torch.full_like(elem, none))
+                first = torch.full((cap,), none, dtype=torch.int32, device=elem.device)
+                first = first.scatter_reduce(0, owner.to(torch.int64), score, "amin")
+                out = torch.where(first < none, first.to(torch.int64) + 1,
+                                  torch.zeros_like(first, dtype=torch.int64))
+                return out, _nested_valid(c, cv)
+            # array_sort / array_distinct: a stable sort of each row's
+            # elements by value (NULLs by their payload and ties in
+            # element order, as the reference sorts them)
+            vals = take_clip(flat.data, fpos)
+            ov = _order_value(vals if vals.dim() == 1 else vals[:, 0], False)
+            row = torch.where(ok, owner, torch.full_like(owner, cap))
+            perm = torch.argsort(ov, stable=True)
+            perm = take_clip(perm, torch.argsort(take_clip(row, perm), stable=True))
+            excl = torch.cumsum(lengths.to(torch.int32), 0, dtype=torch.int32) - lengths
+            sorted_c = ArrayColumn(out_t, lengths, c.valid, None, excl.to(torch.int32),
+                                   flat.gather(take_clip(fpos, perm)))
+            if name == "array_sort":
+                return sorted_c, cv
+            # array_distinct: the first of each run of equal values (the
+            # sorted order; Trino keeps the first occurrence's order)
+            sval, srow = take_clip(ov, perm), take_clip(row, perm)
+            first = torch.ones_like(sval, dtype=torch.bool)
+            first[1:] = (sval[1:] != sval[:-1]) | (srow[1:] != srow[:-1])
+            return self._compact(sorted_c, first, out_t), cv
+
+        # an array result keeps its elements' dictionary
+        return Bound(out_t, fn, a.dictionary if out_t.is_array else None)
+
+    def _bind_split(self, e: Call, args) -> Bound:
+        """split(string, delimiter) and the regexp splitters: a
+        per-dictionary-value function to a list of strings. Each row owns
+        a W-wide slot of the flat column (W = the most parts of any
+        dictionary value) and its true length; the parts' dictionary is
+        made here, once, and is the Bound's."""
+        a, delim = args[0], args[1]
+        if not delim.is_const:
+            raise NotImplementedError(f"{e.name}() pattern must be a constant")
+        sep = str(delim.const_value)
+        values = a.dictionary.values if a.dictionary else ()
+        if e.name == "regexp_split":
+            rx = _re.compile(sep)
+            parts_per_code = [rx.split(v) for v in values]
+        elif e.name == "regexp_extract_all":
+            rx = _re.compile(sep)
+            group = int(_literal(e, 2, "group").value) if len(e.args) > 2 else 0
+            parts_per_code = [[m.group(group) or "" for m in rx.finditer(v)] for v in values]
+        else:
+            parts_per_code = [v.split(sep) if sep else [v] for v in values]
+        width = max(max((len(p) for p in parts_per_code), default=1), 1)
+        out_dict = Dictionary(sorted({p for parts in parts_per_code for p in parts}) or [""])
+        table = np.zeros((max(len(values), 1), width), dtype=np.int32)
+        lens = np.zeros(max(len(values), 1), dtype=np.int32)
+        for c, parts in enumerate(parts_per_code):
+            lens[c] = len(parts)
+            table[c, :len(parts)] = [out_dict.code(p) for p in parts]
+        table_t, lens_t = _table(table, torch.int32), _table(lens, torch.int32)
+        out_t = e.type
+
+        def fn(cols, valids):
+            d, v = a.fn(cols, valids)
+            rows = d.shape[0]
+            flat = Column(T.VARCHAR, _lookup(table_t, d).reshape(-1), None, out_dict)
+            starts = torch.arange(rows, dtype=torch.int32, device=d.device) * width
+            return ArrayColumn(out_t, _lookup(lens_t, d), v, None, starts, flat), v
+        return Bound(out_t, fn, out_dict)
+
+    def _bind_nested_op(self, name: str, e: Call, args) -> Bound:
+        """MAP/ROW/ARRAY navigation (MapSubscript, RowFieldReference and
+        the block accessors): subscripts and row fields return plain
+        (data, valid) pairs for flat values, whole Columns for string and
+        nested ones (their dictionary, starts and children are batch
+        data); map_keys, map_values and row_pack return Columns."""
+        out_t = e.type
+        if name == "row_pack":
+            def packfn(cols, valids):
+                built = []
+                for b in args:
+                    d, v = b.fn(cols, valids)
+                    built.append(d if isinstance(d, Column) else Column(b.type, d, v, b.dictionary))
+                ref = built[0].data
+                presence = torch.ones(ref.shape[0], dtype=torch.int8, device=ref.device)
+                return RowColumn(out_t, presence, None, None, built), None
+            return Bound(out_t, packfn)
+        a = args[0]
+        as_column = out_t.is_string or out_t.is_nested
+        if name == "row_field":
+            fi = int(args[1].const_value)
+
+            def rffn(cols, valids):
+                d, v = a.fn(cols, valids)
+                child = d.children[fi]
+                valid = merge_valid(child.valid, d.valid if v is None else v)
+                if as_column:
+                    return child.with_data(child.data, valid), None
+                return child.data, valid
+            return Bound(out_t, rffn)
+        if name in ("map_keys", "map_values"):
+            def mkfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                flat = d.flat_keys if name == "map_keys" else d.flat_values
+                return ArrayColumn(out_t, d.data, d.valid if v is None else v, None,
+                                   d.starts, flat), None
+            return Bound(out_t, mkfn)
+        k = args[1]
+        if name == "array_subscript":
+            def asfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                kd, kv = k.fn(cols, valids)
+                lengths = d.data.to(torch.int64)
+                idx = kd.to(torch.int64)
+                # 1-based; a negative index counts from the end (element_at)
+                eff = torch.where(idx > 0, idx - 1, lengths + idx)
+                ok = (eff >= 0) & (eff < lengths)
+                pos = d.starts.to(torch.int64) + torch.where(ok, eff, torch.zeros_like(eff))
+                # gather through the child column: nested elements and
+                # dictionaries stay whole
+                out = d.flat.gather(pos, merge_valid(ok, d.valid, v, kv))
+                return (out, None) if as_column else (out.data, out.valid)
+            return Bound(out_t, asfn)
+
+        def msfn(cols, valids):
+            d, v = a.fn(cols, valids)
+            lengths = d.data.to(torch.int32)
+            fk, fv = d.flat_keys, d.flat_values
+            kd, kv = k.fn(cols, valids)
+            kdict = k.dictionary
+            if isinstance(kd, Column):
+                kdict = kd.dictionary if kd.dictionary is not None else kdict
+                kv = kd.valid if kv is None else kv
+                kd = kd.data
+            if fk.dictionary is not None and k.is_const:
+                target = torch.full_like(lengths, fk.dictionary.code(k.const_value))
+            elif fk.dictionary is not None and kdict is not None:
+                remap = torch.tensor([fk.dictionary.code(x) for x in kdict.values] or [-1],
+                                     dtype=torch.int32, device=kd.device)
+                target = take_clip(remap, kd)
+            elif fk.dictionary is not None:
+                # codes of two different dictionaries must not be compared
+                raise NotImplementedError(
+                    "map subscript with a computed string key (no plan-time"
+                    " dictionary) is not supported; use a constant key or a"
+                    " string column")
+            else:
+                target = kd.to(fk.data.dtype)
+            # the first matching entry of each row, one entry position a
+            # step; the value is gathered through the child column
+            found = torch.zeros_like(lengths, dtype=torch.bool)
+            pos = torch.zeros_like(lengths, dtype=torch.int64)
+            kvalid = fk.valid_mask()
+            steps = int(lengths.max()) if lengths.numel() else 0
+            for i in range(steps):
+                slot = torch.clamp(d.starts.to(torch.int64) + i, 0, max(fk.capacity - 1, 0))
+                hit = ((i < lengths) & kvalid[slot] & (fk.data[slot] == target) & ~found)
+                found = found | hit
+                pos = torch.where(hit, slot, pos)
+            out = fv.gather(pos, merge_valid(found, d.valid, v, kv))
+            return (out, None) if as_column else (out.data, out.valid)
+        return Bound(out_t, msfn)
+
+    def _bind_nested(self, name: str, e: Call, args) -> Optional[Bound]:
+        """cardinality, the navigation operators, split_to_map and the
+        sketch readers (their argument is a serialized sketch)."""
+        if name == "array_length":
+            # ArrayColumn/MapColumn.data IS the per-row length
+            a = args[0]
+
+            def alfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                if isinstance(d, Column):
+                    d, v = d.data, _nested_valid(d, v)
+                return d.to(torch.int64), v
+            return Bound(T.BIGINT, alfn)
+        if name in ("map_subscript", "array_subscript", "map_keys", "map_values",
+                    "row_field", "row_pack"):
+            return self._bind_nested_op(name, e, args)
+        if name == "hll_cardinality":
+            return self._bind_dict_table_nullable(args[0], T.BIGINT, pyfns.hll_cardinality,
+                                                  torch.int64)
+        if name in ("value_at_quantile", "quantile_at_value"):
+            q = _literal(e, 1, "quantile")
+            if q.value is None:
+                return self._null_of(args[0], T.DOUBLE)
+            qv = float(q.value)
+            pyf = (pyfns.tdigest_value_at_quantile if name == "value_at_quantile"
+                   else pyfns.tdigest_quantile_at_value)
+            return self._bind_dict_table_nullable(
+                args[0], T.DOUBLE, lambda s: pyf(s, qv), torch.float64)
+        if name == "values_at_quantiles":
+            return self._bind_values_at_quantiles(e, args[0])
+        if name == "split_to_map":
+            return self._bind_split_to_map(e, args)
+        return None
+
+    def _bind_values_at_quantiles(self, e: Call, a: Bound) -> Bound:
+        """One array(double) per row, from a per-dictionary-value table."""
+        fracs = [float(x) for x in (_literal(e, 1, "fractions").value or ())]
+        values = a.dictionary.values if a.dictionary else ()
+        width = max(len(fracs), 1)
+        table = np.zeros((max(len(values), 1), width), dtype=np.float64)
+        okm = np.zeros((max(len(values), 1), width), dtype=bool)
+        for c, dv in enumerate(values):
+            for j, q in enumerate(fracs):
+                rv = pyfns.tdigest_value_at_quantile(dv, q)
+                if rv is not None:
+                    table[c, j] = rv
+                    okm[c, j] = True
+        table_t, ok_t = _table(table, torch.float64), _table(okm, torch.bool)
+        out_t = e.type
+
+        def vqfn(cols, valids):
+            d, v = a.fn(cols, valids)
+            rows = d.shape[0]
+            flat = Column(T.DOUBLE, _lookup(table_t, d).reshape(-1),
+                          _lookup(ok_t, d).reshape(-1), None)
+            idx = torch.arange(rows, dtype=torch.int32, device=d.device)
+            return ArrayColumn(out_t, torch.full_like(idx, len(fracs)), v, None,
+                               idx * width, flat), v
+        return Bound(out_t, vqfn)
+
+    def _bind_split_to_map(self, e: Call, args) -> Bound:
+        """split_to_map(text, entry delimiter, key delimiter): a
+        per-dictionary-value table of W-wide key and value rows. A value
+        with a repeated key is NULL (the reference raises when it reaches
+        such a row; raising at bind time would fail rows the query never
+        reads)."""
+        a = args[0]
+        for i in (1, 2):
+            if not args[i].is_const:
+                raise NotImplementedError("split_to_map() delimiters must be constants")
+        ed, kd = str(args[1].const_value), str(args[2].const_value)
+        values = a.dictionary.values if a.dictionary else ()
+        per_code = []
+        for v in values:
+            pairs = [entry.partition(kd)[::2] for entry in (v.split(ed) if v else ())
+                     if entry]
+            per_code.append(None if len({k for k, _ in pairs}) != len(pairs) else pairs)
+        width = max((len(p) for p in per_code if p is not None), default=1)
+        key_dict = Dictionary(sorted({k for ps in per_code if ps for k, _ in ps}) or [""])
+        val_dict = Dictionary(sorted({x for ps in per_code if ps for _, x in ps}) or [""])
+        rows_n = max(len(values), 1)
+        kt = np.zeros((rows_n, width), dtype=np.int32)
+        vt = np.zeros((rows_n, width), dtype=np.int32)
+        lens = np.zeros(rows_n, dtype=np.int32)
+        okc = np.ones(rows_n, dtype=bool)
+        for c, ps in enumerate(per_code):
+            if ps is None:
+                okc[c] = False
+                continue
+            lens[c] = len(ps)
+            for j, (k, x) in enumerate(ps):
+                kt[c, j], vt[c, j] = key_dict.code(k), val_dict.code(x)
+        kt_t, vt_t = _table(kt, torch.int32), _table(vt, torch.int32)
+        lens_t, ok_t = _table(lens, torch.int32), _table(okc, torch.bool)
+        out_t = e.type
+
+        def smfn(cols, valids):
+            d, v = a.fn(cols, valids)
+            rows = d.shape[0]
+            row_ok = _lookup(ok_t, d)
+            vv = row_ok if v is None else (v & row_ok)
+            starts = torch.arange(rows, dtype=torch.int32, device=d.device) * width
+            return MapColumn(
+                out_t, _lookup(lens_t, d), vv, None, starts,
+                Column(T.VARCHAR, _lookup(kt_t, d).reshape(-1), None, key_dict),
+                Column(T.VARCHAR, _lookup(vt_t, d).reshape(-1), None, val_dict)), vv
+        return Bound(out_t, smfn)

@@ -20,7 +20,9 @@ JoinProbe family, re-designed around sorting):
   row produced output j is a run-owner fill (ops/window_rank.run_owner:
   each row writes its own run, no search; bound by bytes), and the index
   gathers of the expansion run through the flat gather kernel
-  (ops/gather_kernels.take_flat) on the card.
+  (ops/gather_kernels.take_flat) on the card. `expand_runs` is the same
+  fill over any per-row counts: UNNEST and the array functions lay out
+  each row's elements with it.
 
 The u32 hash domain rides in int64 tensors holding [0, 2^32): torch has
 no uint32 shifts or compares on the CPU. Real hashes clamp to
@@ -38,6 +40,7 @@ from typing import List, Sequence
 
 import torch
 
+from trino_tpu_torch.block import bucket_capacity
 from trino_tpu_torch.ops import gather_kernels as GK
 from trino_tpu_torch.ops import window_rank as W
 from trino_tpu_torch.ops.gather import take_clip
@@ -152,6 +155,25 @@ def expand_matches(ls: LookupSource, probe_keys, probe_valids, lo: torch.Tensor,
                 eqd = eqd.all(dim=-1)
             ok = ok & eqd & av & bvv
     return pi_c, bi, ok
+
+
+def expand_runs(counts: torch.Tensor):
+    """Row i repeated counts[i] times, row after row, in a bucketed
+    capacity: (owner row, index within the row's run, slot live mask,
+    total) per output slot; slots past the total belong to the last row
+    and are dead. counts: 1-D int32, nonnegative. Only the total crosses
+    to the host."""
+    dev = counts.device
+    off = torch.cumsum(counts, 0, dtype=torch.int32)  # inclusive
+    total = int(off[-1]) if counts.shape[0] else 0
+    cap = bucket_capacity(max(total, 1))
+    j = torch.arange(cap, dtype=torch.int32, device=dev)
+    if not counts.shape[0]:
+        zero = torch.zeros(cap, dtype=torch.int32, device=dev)
+        return zero, zero, j < 0, 0
+    owner = torch.clamp(W.run_owner(off, cap), 0, counts.shape[0] - 1)
+    elem = j - GK.take_flat(off - counts, owner)
+    return owner, elem, j < total, total
 
 
 def probe_matched_flags(probe_capacity: int, pi, pair_live) -> torch.Tensor:

@@ -16,7 +16,7 @@ Ported node kinds: Output, Scan, Values, Filter, Project, Aggregate
 (single step, DISTINCT aggregates in the single-distinct shape, and the
 join-project route over an inner equi-join when the session enables it),
 Join (hash joins of every kind, with dynamic filtering, and cross
-joins), Window, UnionAll, EnforceSingleRow, Sort, TopN, Limit. Unnest,
+joins), Window, UnionAll, EnforceSingleRow, Sort, TopN, Limit, Unnest.
 MatchRecognize, remote sources and the partial/final aggregation steps
 are queued in ROADMAP.md.
 """
@@ -31,6 +31,7 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.block import Dictionary, RelBatch, RuntimeDictionary
 from trino_tpu_torch.connectors.spi import CatalogManager
+from trino_tpu_torch.exec.unnest import UnnestOperator
 from trino_tpu_torch.exec import (
     AggSpec,
     BufferSink,
@@ -122,8 +123,8 @@ class LocalPlanner:
         if m is None:
             raise NotImplementedError(
                 f"no physical plan for {type(node).__name__} in trino_tpu_torch "
-                "yet (ROADMAP §1: UNNEST, MATCH_RECOGNIZE and the distributed "
-                "plane's remote sources are still to port)"
+                "yet (ROADMAP §1: MATCH_RECOGNIZE and the distributed plane's "
+                "remote sources are still to port)"
             )
         return m(node)
 
@@ -442,6 +443,18 @@ class LocalPlanner:
                         "UNION of string columns with differing dictionaries"
                     )
         return [lambda ctx: BufferSource([ctx[k] for k in sink_keys])], out_schema
+
+    def _visit_UnnestNode(self, node: P.UnnestNode):
+        chain, schema = self._visit(node.child)
+        channels = list(node.array_channels)
+        ordinality = node.ordinality
+        chain.append(lambda ctx: UnnestOperator(channels, ordinality, schema))
+        # an ARRAY column's plan-time dictionary is its elements'
+        out_schema: Schema = list(schema)
+        out_schema += [(schema[ch][0].element, schema[ch][1]) for ch in channels]
+        if ordinality:
+            out_schema.append((T.BIGINT, None))
+        return chain, out_schema
 
     def _visit_EnforceSingleRowNode(self, node: P.EnforceSingleRowNode):
         chain, schema = self._visit(node.child)
