@@ -71,9 +71,29 @@ Phases (any failure exits nonzero):
                  the card against the CPU on every nested SQL case at tiny
                  (NEST_MEMORY_SQL) and the nested queries at tiny and
                  sf0.1.
-  6. explore   — both explorer entry points (trino_tpu_torch.explore),
+  6. zones     — TIMESTAMP WITH TIME ZONE and MATCH_RECOGNIZE at sf1,
+                 each query cold once with its scan_s, rest_s and
+                 launches, after the count of the machine's TZif zones
+                 (zone ids follow the host's zone files): the orders'
+                 dates as New York midnights grouped by timezone_hour,
+                 equal to Python zoneinfo's counts (TZ_DST); the same
+                 instants shown in two zones grouped by value, as many
+                 groups as count(distinct o_orderdate) (TZ_MIXED); their
+                 date_trunc('day') in each row's own zone (TZ_TRUNC) and
+                 their join to a memory table of the days as UTC instants,
+                 1,500,000 rows with bounds once per probe batch (TZ_JOIN);
+                 the V-shape over each customer's orders (MR_ORDERS, its
+                 rest_s split into device work and the host automaton),
+                 PATTERN (a) counting every order and numbering up to the
+                 most orders of a customer (MR_ALL), and SKIP TO NEXT ROW
+                 with up{2,4} (MR_NEXT). MR_ORDERS, MR_NEXT and TZ_TRUNC
+                 also on the CPU at sf1, rows equal; then
+                 ops.tz.offset_millis_rowwise on one 1,048,576-row batch
+                 over every zone id, CUDA events and the card's peak
+                 memory around it, equal to the CPU's.
+  7. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
-  7. parity    — the queries, and the window and set-operation queries
+  8. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -82,14 +102,20 @@ Phases (any failure exits nonzero):
                  the wide-string GROUP BY at 2^16 rows (also equal to
                  numpy's). So must every case of tests/test_functions.py's
                  five lists at tiny and the functions queries at sf0.1
-                 (doubles within 1e-12 relative, `rows_close`).
-  8. summary   — each kind of join-path call (the probe's bounds, the
+                 (doubles within 1e-12 relative, `rows_close`); so must
+                 every case of tests/test_timestamptz.py (TSTZ_SQL; now()
+                 by its zone) and tests/test_match_recognize.py (MR_SQL,
+                 with the NULL-key cases MR_NULL_SQL) at tiny, and phase
+                 zones' queries at tiny and sf0.1.
+  9. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
-                 TPC-DS templates', q72's and phase nested's own
-                 largest; grouped_sum on each main-path shape (Q-MXU,
-                 Q-MXJ, the wide-string batch); a `kernels` JSON line (take_flat's entry with
-                 its summed main-path time per family, and each of its
+                 TPC-H's, the TPC-DS templates', q72's and phase nested's
+                 own largest; grouped_sum on each main-path shape (Q-MXU,
+                 Q-MXJ, the wide-string batch); a `kernels` JSON line (each
+                 entry with its launches in phases nested and zones beside
+                 the main path's; take_flat's entry with its summed
+                 main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
                  {"ok": true, "device": {...}} last.
@@ -730,6 +756,426 @@ NEST_MEMORY_SQL = [
     ("r5", "select element_at(split_to_map(txt, ',', '='), 'a'),"
            " cardinality(split_to_map(txt, ',', '=')) from sm order by 2"),
 ]
+
+
+# ---- phase zones: TIMESTAMP WITH TIME ZONE and MATCH_RECOGNIZE ------------
+
+TZ_NY = "America/New_York"  # tests/test_timestamptz.py's NY
+# each order's date as midnight in New York, and the same instants shown
+# in two zones by o_orderkey % 2 (a UNION ALL: CASE and COALESCE over
+# TIMESTAMP WITH TIME ZONE type as bigint in both packages, ROADMAP §3)
+TZ_MIDNIGHT = f"with_timezone(cast(o_orderdate as timestamp), '{TZ_NY}')"
+TZ_MIXED_SRC = (f"(select {TZ_MIDNIGHT} at time zone 'Asia/Tokyo' t from orders"
+                f" where o_orderkey % 2 = 0 union all"
+                f" select {TZ_MIDNIGHT} t from orders where o_orderkey % 2 = 1)")
+TZ_DST = f"""select extract(timezone_hour from ts) h, count(*) from
+(select {TZ_MIDNIGHT} ts from orders) group by 1 order by 1"""
+TZ_MIXED = f"""select count(*), sum(c) from
+(select t, count(*) c from {TZ_MIXED_SRC} m group by t)"""
+TZ_MIXED_CHECK = "select count(distinct o_orderdate) from orders"
+TZ_TRUNC = f"""select date_trunc('day', t) d, count(*) from {TZ_MIXED_SRC} m
+group by 1 order by 1"""
+TZ_JOIN = f"""select count(*) from {TZ_MIXED_SRC} o join memory.zones.days d on o.t = d.d"""
+TZ_ROWWISE_ROWS = 1 << 20  # one orders batch
+
+MR_ORDERS = """select * from orders MATCH_RECOGNIZE (
+  PARTITION BY o_custkey ORDER BY o_orderdate, o_orderkey
+  MEASURES first(down.o_orderdate) as start_date, last(down.o_totalprice) as bottom,
+           last(up.o_orderkey) as end_key, match_number() as mno, classifier() as cl
+  ONE ROW PER MATCH AFTER MATCH SKIP PAST LAST ROW
+  PATTERN (down+ up+)
+  DEFINE down AS o_totalprice < PREV(o_totalprice),
+         up AS o_totalprice > PREV(o_totalprice)
+) order by o_custkey, mno"""
+MR_ALL = """select count(*), max(mno) from orders MATCH_RECOGNIZE (
+  PARTITION BY o_custkey ORDER BY o_orderdate, o_orderkey
+  MEASURES match_number() as mno
+  ONE ROW PER MATCH
+  PATTERN (a) DEFINE a AS true)"""
+MR_ALL_CHECK = """select sum(c), max(c) from
+(select o_custkey, count(*) c from orders group by o_custkey)"""
+MR_NEXT = """select * from orders MATCH_RECOGNIZE (
+  PARTITION BY o_custkey ORDER BY o_orderdate, o_orderkey
+  MEASURES first(up.o_orderkey) as k0, last(up.o_orderkey) as k1, match_number() as mno
+  ONE ROW PER MATCH AFTER MATCH SKIP TO NEXT ROW
+  PATTERN (up{2,4})
+  DEFINE up AS o_totalprice > PREV(o_totalprice)
+) order by o_custkey, mno"""
+ZONE_QUERIES = (("tz_dst", TZ_DST), ("tz_mixed", TZ_MIXED), ("tz_mixed_check", TZ_MIXED_CHECK),
+                ("tz_trunc", TZ_TRUNC), ("tz_join", TZ_JOIN), ("mr_orders", MR_ORDERS),
+                ("mr_all", MR_ALL), ("mr_all_check", MR_ALL_CHECK), ("mr_next", MR_NEXT))
+
+TSTZ_TABLES = {
+    # tests/test_timestamptz.py: TestEngineIntegration.rt (schema t)
+    "t": {"ev": (("ts", "v"), [(f"2024-03-10 01:59:00 {TZ_NY}", 1),
+                               (f"2024-03-10 03:00:00 {TZ_NY}", 2),
+                               (f"2024-03-10 03:00:00 {TZ_NY}", 3), (None, 4)])},
+    # TestMixedZoneKeys.rz, and test_join_matches_across_zones's mu
+    "z": {"mz": (("ts", "v"), [("2024-03-10 01:59:00 America/New_York", 1),
+                               ("2024-03-10 06:59:00 UTC", 2),
+                               ("2024-03-10 07:59:00 UTC", 5)]),
+          "mu": (("ts", "w"), [("2024-03-10 06:59:00 UTC", 77)])},
+}
+TSTZ_SESSION_ZONE = {"t": TZ_NY, "z": "UTC"}
+
+TSTZ_SQL = [
+    # tests/test_timestamptz.py: TestLiteralsAndCasts
+    ("t", f"select timestamp '2024-07-04 12:30:15.250 {TZ_NY}'"),
+    ("t", "select cast(timestamp '2024-07-04 16:30:00 UTC' as timestamp)"),
+    ("t", "select cast(timestamp '2024-07-04 12:30:00 -04:00' as timestamp)"),
+    ("t", "select cast('2024-01-15 12:00:00' as timestamp with time zone)"),
+    ("t", "select cast(cast(timestamp '2024-03-10 03:00:00' as timestamp "
+          "with time zone) as timestamp) "),
+    ("t", "select cast(timestamp '2024-01-15 23:30:00 -05:00' as date)"),
+    # TestAtTimeZone
+    ("t", "select timestamp '2024-07-04 12:00:00 UTC' at time zone 'Asia/Tokyo'"),
+    ("t", "select at_timezone(timestamp '2024-07-04 12:00:00 UTC', '+05:30')"),
+    ("t", "select with_timezone(timestamp '2024-07-04 12:00:00', 'Asia/Tokyo')"),
+    # TestExtract
+    ("t", "select extract(year from ts), extract(month from ts), "
+          "extract(day from ts), extract(hour from ts), "
+          "extract(minute from ts) from (select timestamp "
+          "'2024-12-31 23:45:00 -05:00' as ts)"),
+    ("t", "select extract(timezone_hour from ts), "
+          "extract(timezone_minute from ts) from (select timestamp "
+          "'2024-06-01 00:00:00 +05:30' as ts)"),
+    ("t", "select extract(timezone_hour from ts) from (select "
+          f"timestamp '2024-01-15 12:00:00 {TZ_NY}' as ts)"),
+    # TestArithmetic
+    ("t", f"select timestamp '2024-03-09 12:00:00 {TZ_NY}' + interval '1' day"),
+    ("t", f"select timestamp '2024-11-03 01:30:00 {TZ_NY}' - interval '2' hour"),
+    ("t", "select timestamp '2024-01-01 00:00:00 UTC' < "
+          "timestamp '2024-01-01 00:00:01 UTC'"),
+    # TestEngineIntegration (table ev)
+    ("t", "select ts, count(*) from ev group by ts order by ts"),
+    ("t", f"select count(*) from ev where ts >= timestamp '2024-03-10 03:00:00 {TZ_NY}'"),
+    ("t", "select min(ts), max(ts) from ev"),
+    ("t", "select current_timezone()"),
+    # TestCoercionAndFunctions
+    ("t", "select timestamp '2024-07-04 08:00:00' = timestamp '2024-07-04 12:00:00 UTC'"),
+    ("t", "select timestamp '2024-07-04 07:59:00' < timestamp '2024-07-04 12:00:00 UTC'"),
+    ("t", "select timestamp '2024-07-04 12:00:00 UTC' "
+          "at time zone 'Asia/Tokyo' + interval '1' hour"),
+    ("t", "select date_trunc('day', timestamp '2024-07-04 01:30:00 Asia/Tokyo')"),
+    ("t", f"select date_add('hour', 3, timestamp '2024-03-10 00:30:00 {TZ_NY}')"),
+    ("t", f"select date_add('day', 1, timestamp '2024-03-09 12:00:00 {TZ_NY}')"),
+    ("t", f"select date_diff('hour', timestamp '2024-03-10 00:00:00 {TZ_NY}', "
+          f"timestamp '2024-03-11 00:00:00 {TZ_NY}')"),
+    ("t", "select year(ts), month(ts), hour(ts) from (select "
+          "timestamp '2024-12-31 23:00:00 -05:00' as ts)"),
+    # TestMixedZoneKeys (tables mz, mu)
+    ("z", "select ts, sum(v) from mz group by ts order by 2"),
+    ("z", "select count(distinct ts) from mz"),
+    ("z", "select distinct ts from mz order by ts"),  # ordered here to compare rows
+    ("z", "select mz.v, mu.w from mz join mu on mz.ts = mu.ts order by 1"),
+    ("z", "select v from mz where ts in (select ts from mu) order by 1"),
+    ("z", "select v, count(*) over (partition by ts) c, "
+          "sum(v) over (partition by ts) s from mz order by v"),
+    ("z", "select v, row_number() over (partition by ts order by v) r from mz order by v"),
+]
+# test_now_is_tstz: now() reads the clock, so only its zone is compared
+TSTZ_NOW = "select now()"
+
+MR_STOCK = [  # tests/test_match_recognize.py's runner fixture
+    ("a", 1, 90), ("a", 2, 80), ("a", 3, 70), ("a", 4, 85), ("a", 5, 95), ("a", 6, 60),
+    ("a", 7, 50), ("a", 8, 80), ("b", 1, 20), ("b", 2, 10), ("b", 3, 30), ("b", 4, 40)]
+# NULL keys: a NULL symbol (code 0, the same data as 'a') and a NULL day
+# (data 0) in the stock rows
+MR_STOCK_NULLS = MR_STOCK + [(None, 1, 5), (None, 2, 3), ("b", None, 25)]
+# edge inputs: one row, no row
+MR_EDGE_TABLES = (("stock_one", [("a", 5, 95)]), ("stock_none", []))
+
+MR_V = """
+select * from stock MATCH_RECOGNIZE (
+  PARTITION BY symbol
+  ORDER BY day
+  MEASURES
+    first(down.day) as start_day,
+    last(down.price) as bottom_price,
+    last(up.day) as end_day,
+    match_number() as mno
+  ONE ROW PER MATCH
+  AFTER MATCH SKIP PAST LAST ROW
+  PATTERN (down+ up+)
+  DEFINE
+    down AS price < PREV(price),
+    up AS price > PREV(price)
+)
+order by symbol, start_day
+"""
+
+MR_SQL = [
+    # tests/test_match_recognize.py: test_v_shape
+    MR_V,
+    # test_skip_to_next_row
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES first(down.day) as d, match_number() as m
+      ONE ROW PER MATCH
+      AFTER MATCH SKIP TO NEXT ROW
+      PATTERN (down down)
+      DEFINE down AS price < PREV(price)
+    ) where symbol = 'a' order by d""",
+    # test_alternation_and_classifier
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES classifier() as which, first(up.day) as ud,
+               first(down.day) as dd
+      ONE ROW PER MATCH
+      PATTERN (up | down)
+      DEFINE up AS price > PREV(price),
+             down AS price < PREV(price)
+    ) where symbol = 'b' order by coalesce(ud, dd)""",
+    # test_optional_and_repetition
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES first(down.day) as s, last(down.day) as e
+      ONE ROW PER MATCH
+      PATTERN (down{2})
+      DEFINE down AS price < PREV(price)
+    ) order by symbol, s""",
+    # test_undefined_variable_matches_all
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES first(down.day) as s, last(b.day) as nxt
+      ONE ROW PER MATCH
+      PATTERN (down b)
+      DEFINE down AS price < PREV(price)
+    ) where symbol = 'b' order by s""",
+    # test_partition_boundary_isolates_prev
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES first(down.day) as s
+      ONE ROW PER MATCH
+      PATTERN (down)
+      DEFINE down AS price < PREV(price)
+    ) order by symbol, s""",
+    # test_next_navigation
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES first(peak.day) as d, first(peak.price) as p
+      ONE ROW PER MATCH
+      PATTERN (peak)
+      DEFINE peak AS price > PREV(price) AND price > NEXT(price)
+    ) order by symbol, d""",
+    # test_measures_without_partition
+    """select * from stock MATCH_RECOGNIZE (
+      ORDER BY symbol, day
+      MEASURES match_number() as m, first(r.price) as p
+      ONE ROW PER MATCH
+      PATTERN (r{3})
+      DEFINE r AS price >= 0
+    )""",
+    # beyond the corpus: descending order, a whole-match measure, an
+    # optional and a star, the empty match's row, alternation in a group
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day desc
+      MEASURES first(day) as d0, last(day) as d1, last(price) as p, classifier() as c,
+               match_number() as m
+      ONE ROW PER MATCH
+      PATTERN (up? down*)
+      DEFINE up AS price > NEXT(price), down AS price < PREV(price)
+    ) order by symbol, m""",
+    """select * from stock MATCH_RECOGNIZE (
+      ORDER BY price
+      MEASURES first(x.symbol) as s, last(y.day) as d, classifier() as c
+      ONE ROW PER MATCH
+      PATTERN ((x | y)+ x)
+      DEFINE x AS symbol = 'a', y AS price > PREV(price, 2)
+    )""",
+    """select * from stock MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY price desc, day
+      MEASURES match_number() as m, last(x.day) as d, classifier() as c
+      ONE ROW PER MATCH
+      PATTERN (x y*)
+      DEFINE x AS price > NEXT(price), y AS price < PREV(price, 1)
+    ) order by symbol, m""",
+    # one input row, and none
+    """select * from stock_one MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES match_number() as m, first(x.day) as d, classifier() as c
+      ONE ROW PER MATCH PATTERN (x) DEFINE x AS price > 0)""",
+    """select * from stock_none MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES match_number() as m, first(x.day) as d
+      ONE ROW PER MATCH PATTERN (x) DEFINE x AS price > 0)""",
+    """select count(*) from stock_none MATCH_RECOGNIZE (
+      ORDER BY day MEASURES match_number() as m
+      ONE ROW PER MATCH PATTERN (x) DEFINE x AS price > 0)""",
+]
+MR_NULL_SQL = [
+    # a NULL order key sorts by its data (0): first in its partition
+    """select * from stock_nulls MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES first(day) as d0, last(day) as d1, first(price) as p0, match_number() as m
+      ONE ROW PER MATCH
+      PATTERN (s+)
+      DEFINE s AS price > coalesce(PREV(price), 0)
+    ) where symbol = 'b' order by m""",
+    # a NULL partition key is its own partition (the reference merges it
+    # into 'a', whose code its data holds; ROADMAP §3)
+    """select * from stock_nulls MATCH_RECOGNIZE (
+      PARTITION BY symbol ORDER BY day
+      MEASURES first(day) as d, first(price) as p, match_number() as m
+      ONE ROW PER MATCH
+      PATTERN (down)
+      DEFINE down AS price < PREV(price)
+    ) order by symbol, d""",
+]
+
+
+def tstz_load(conn, mod, column_metadata, tz, schema: str) -> None:
+    """TSTZ_TABLES[schema] into a memory connector of either package
+    (`mod` its types module, `tz` its ops.tz): the packed values that
+    the literals parse to, NULL from valids."""
+    import numpy as np
+
+    for name, ((tcol, vcol), rows) in TSTZ_TABLES[schema].items():
+        packed = np.array([tz.parse_tstz(t) if t is not None else 0 for t, _ in rows], np.int64)
+        valid = np.array([t is not None for t, _ in rows], bool)
+        conn.load_table(schema, name, [column_metadata(tcol, mod.TIMESTAMP_TZ),
+                                       column_metadata(vcol, mod.BIGINT)],
+                        [packed, np.array([v for _, v in rows], np.int64)],
+                        valids=[None if valid.all() else valid, None])
+
+
+def tstz_runner(schema: str, device: str):
+    """The port's runner over TSTZ_TABLES[schema], in its session zone."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+    from trino_tpu_torch.ops import tz
+
+    conn = create_memory_connector()
+    tstz_load(conn, T, ColumnMetadata, tz, schema)
+    r = LocalQueryRunner(Session(catalog="memory", schema=schema,
+                                 timezone=TSTZ_SESSION_ZONE[schema]), device=device)
+    r.register_catalog("memory", conn)
+    return r
+
+
+def mr_load(conn, mod, column_metadata) -> None:
+    """MR_STOCK as `stock`, MR_STOCK_NULLS as `stock_nulls` and
+    MR_EDGE_TABLES (schema default) into a memory connector of either
+    package."""
+    import numpy as np
+
+    cols = [column_metadata("symbol", mod.VARCHAR), column_metadata("day", mod.INTEGER),
+            column_metadata("price", mod.INTEGER)]
+    for name, rows in (("stock", MR_STOCK), ("stock_nulls", MR_STOCK_NULLS)) + MR_EDGE_TABLES:
+        valids = [np.array([r[i] is not None for r in rows], bool) for i in range(3)]
+        conn.load_table("default", name, cols, [
+            [r[0] for r in rows],
+            np.array([r[1] or 0 for r in rows], np.int32),
+            np.array([r[2] for r in rows], np.int32)],
+            valids=[None if v.all() else v for v in valids])
+
+
+def mr_runner(device: str):
+    """The port's runner over the stock tables."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+
+    conn = create_memory_connector()
+    mr_load(conn, T, ColumnMetadata)
+    r = LocalQueryRunner(Session(catalog="memory", schema="default"), device=device)
+    r.register_catalog("memory", conn)
+    return r
+
+
+def zone_days(dates):
+    """Each distinct day of `dates` (epoch days) once, as the instant of
+    its midnight in New York packed with the UTC zone (id 0): what
+    TZ_MIDNIGHT makes of it, held in another zone. Python's zoneinfo
+    resolves the offsets."""
+    import datetime as dt
+    from zoneinfo import ZoneInfo
+
+    import numpy as np
+
+    ny = ZoneInfo(TZ_NY)
+    out = []
+    for d in np.unique(dates).tolist():
+        wall = dt.datetime(1970, 1, 1) + dt.timedelta(days=d)
+        ms = int(wall.replace(tzinfo=ny).timestamp()) * 1000
+        out.append(ms << 12)  # ops/tz.py's MILLIS_SHIFT, zone 0
+    return np.asarray(out, np.int64)
+
+
+def zone_hour_counts(dates) -> list:
+    """TZ_DST's answer from zoneinfo: [utc offset hour of New York's
+    midnight, orders] over the generated o_orderdate column."""
+    import datetime as dt
+    from zoneinfo import ZoneInfo
+
+    import numpy as np
+
+    ny = ZoneInfo(TZ_NY)
+    days, counts = np.unique(dates, return_counts=True)
+    by_hour: dict = {}
+    for d, c in zip(days.tolist(), counts.tolist()):
+        wall = dt.datetime(1970, 1, 1) + dt.timedelta(days=d)
+        h = int(wall.replace(tzinfo=ny).utcoffset().total_seconds()) // 3600
+        by_hour[h] = by_hour.get(h, 0) + c
+    return [[h, by_hour[h]] for h in sorted(by_hour)]
+
+
+def orders_dates(schema: str):
+    """The generated o_orderdate column (epoch days) at `schema`."""
+    from trino_tpu_torch.connectors.tpch import _schema_sf
+
+    return orders_columns(_schema_sf(schema), "o_orderdate")[0][0]
+
+
+def zones_load_days(conn, mod, column_metadata, schema: str) -> None:
+    """zone_days of the orders at `schema` as table zones.days (column d
+    TIMESTAMP WITH TIME ZONE) of either package's memory connector."""
+    conn.load_table("zones", "days", [column_metadata("d", mod.TIMESTAMP_TZ)],
+                    [zone_days(orders_dates(schema))])
+
+
+def zones_runner(schema: str, device: str):
+    """The port's runner over tpch at `schema` with zones.days in the
+    memory catalog."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata
+
+    r = runner(schema, device)
+    conn = create_memory_connector()
+    zones_load_days(conn, T, ColumnMetadata, schema)
+    r.register_catalog("memory", conn)
+    return r
+
+
+def check_zones(rows: dict, dates, n_orders: int) -> None:
+    """The zone queries' identities: DST counts equal zoneinfo's, the
+    mixed-zone groups equal count(distinct o_orderdate), every order
+    lands in one day of date_trunc and of the join."""
+    import numpy as np
+
+    n_days = len(np.unique(dates))
+    if rows["tz_dst"] != zone_hour_counts(dates):
+        raise AssertionError(f"tz_dst {rows['tz_dst']} != zoneinfo's "
+                             f"{zone_hour_counts(dates)}")
+    if rows["tz_mixed"] != [[n_days, n_orders]] or rows["tz_mixed_check"] != [[n_days]]:
+        raise AssertionError(f"tz_mixed {rows['tz_mixed']}, check {rows['tz_mixed_check']}: "
+                             f"want {n_days} groups of {n_orders} orders")
+    if sum(c for _, c in rows["tz_trunc"]) != n_orders:
+        raise AssertionError("tz_trunc: the day counts do not sum to the orders")
+    if rows["tz_join"] != [[n_orders]]:
+        raise AssertionError(f"tz_join counts {rows['tz_join']}, not {n_orders}")
+
+
+def check_patterns(rows: dict) -> None:
+    """MR_ALL: one match a row, numbered up to the most orders of one
+    customer."""
+    if rows["mr_all"] != rows["mr_all_check"]:
+        raise AssertionError(f"mr_all {rows['mr_all']} != count(*), most orders of a "
+                             f"customer {rows['mr_all_check']}")
 
 
 def log(msg: str) -> None:
@@ -1720,6 +2166,12 @@ def run_query(r, scan, name, run, sql, per_query, probes=None) -> list:
     return res.rows
 
 
+TPCH_MAIN = (("q1", Q1, False), ("q6", Q6, False), ("q_mxu", Q_MXU, False), ("q3", Q3, False),
+             ("q18", Q18, False), ("q16", Q16, False), ("q22", Q22, False),
+             ("q_win", Q_WIN, False), ("q_mxj", Q_MXJ, True), ("q_mxj_off", Q_MXJ, False))
+TPCH_RUNS = {f"{name}_cold" for name, _, _ in TPCH_MAIN}
+
+
 def phase_main(results: dict) -> None:
     import torch
     from trino_tpu_torch.connectors.tpch import base_row_count
@@ -1762,14 +2214,12 @@ def phase_main(results: dict) -> None:
         # every query runs cold once (the warm runs were dropped to keep
         # the script inside half its time limit); Q-MXJ runs with the
         # join-project route on, then its twin with the route off
-        for name, sql, mxu in (("q1", Q1, False), ("q6", Q6, False),
-                               ("q_mxu", Q_MXU, False), ("q3", Q3, False),
-                               ("q18", Q18, False), ("q16", Q16, False),
-                               ("q22", Q22, False), ("q_win", Q_WIN, False),
-                               ("q_mxj", Q_MXJ, True), ("q_mxj_off", Q_MXJ, False)):
+        for name, sql, mxu in TPCH_MAIN:
             r.session.mxu_join_enabled = mxu
             rows[name] = run_query(r, scan, name, "cold", sql, per_query, probes)
         r.session.mxu_join_enabled = False
+        # the largest flat gather of the TPC-H queries alone
+        results["main_args"]["tpch"] = (None, None, tf.largest())
         flat_timer.family = "functions"
         main_functions(results, r, scan, per_query, probes)
         flat_timer.family = "tpch"
@@ -1806,27 +2256,34 @@ def phase_main(results: dict) -> None:
 
 
 class RouteLog:
-    """Records the route of every HashAggregationOperator that finishes
-    (dense, grouped_sum, sort, global) while it is entered."""
+    """Records `attr` of every operator of class `cls` that finishes while
+    it is entered: by default each HashAggregationOperator's route
+    (dense, grouped_sum, sort, global); MatchRecognizeOperator's `stats`
+    in phase zones."""
+
+    def __init__(self, cls=None, attr: str = "route"):
+        self.cls, self.attr = cls, attr
 
     def __enter__(self):
-        from trino_tpu_torch.exec import operators as O
+        if self.cls is None:
+            from trino_tpu_torch.exec import operators as O
 
+            self.cls = O.HashAggregationOperator
         self.routes: list = []
-        self.inner = O.HashAggregationOperator.finish
+        self.inner = self.cls.finish
 
         def finish(op):
-            if not op._finishing:
-                self.routes.append(op.route)
-            return self.inner(op)
+            first = not op._finishing
+            out = self.inner(op)
+            if first:
+                self.routes.append(getattr(op, self.attr))
+            return out
 
-        O.HashAggregationOperator.finish = finish
+        self.cls.finish = finish
         return self
 
     def __exit__(self, *exc):
-        from trino_tpu_torch.exec import operators as O
-
-        O.HashAggregationOperator.finish = self.inner
+        self.cls.finish = self.inner
 
 
 NEST_SF1 = (("nest_words", NEST_WORDS), ("nest_words_total", NEST_WORDS_TOTAL),
@@ -1947,6 +2404,147 @@ def phase_nested(results: dict) -> None:
     if a != b or a != tagged_numpy(small[1]):
         raise AssertionError("nest_memory: card, CPU and numpy differ at 2^16 rows")
     log(f"[parity] nest_memory 2^16 rows: {len(a)} tags, card == CPU == numpy")
+
+
+def zone_rowwise(results: dict) -> None:
+    """offset_millis_rowwise on one orders batch of random instants
+    (1900-2037) and zone ids over the whole registry: CUDA events around
+    one cold call and 20 warm calls, the card's peak memory above what
+    was allocated before the call, and the answer against the CPU's."""
+    import torch
+    from trino_tpu_torch.ops import tz as TZ
+
+    n = TZ_ROWWISE_ROWS
+    n_ids = TZ._NAMED_BASE + len(TZ._named_zones())
+    g = torch.Generator().manual_seed(0)
+    lo, hi = -2_208_988_800_000, 2_145_916_800_000  # 1900-01-01 .. 2038-01-01
+    inst = lo + (torch.rand(n, generator=g, dtype=torch.float64) * (hi - lo)).to(torch.int64)
+    zids = torch.randint(0, n_ids, (n,), generator=g, dtype=torch.int32)
+    d_inst, d_zids = inst.cuda(), zids.cuda()
+    TZ.offset_millis_rowwise(d_inst[:1], d_zids[:1])  # the flat table, placed once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = TZ.offset_millis_rowwise(d_inst, d_zids)
+    end.record()
+    torch.cuda.synchronize()
+    cold_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - base
+    start.record()
+    for _ in range(20):
+        TZ.offset_millis_rowwise(d_inst, d_zids)
+    end.record()
+    torch.cuda.synchronize()
+    warm_ms = start.elapsed_time(end) / 20
+    if not torch.equal(out.cpu(), TZ.offset_millis_rowwise(inst, zids)):
+        raise AssertionError("offset_millis_rowwise: the card and the CPU differ")
+    flat_t = TZ._zone_flat()[0]
+    width = int(TZ._zone_flat()[3].max())
+    # the reference's formulation gathers a transitions row and an
+    # offsets row per input row, then compares the first with the instant
+    matrix = n * (width * 8 + (width + 1) * 8 + width)
+    rec = {"n": n, "zone_ids": n_ids, "transitions": int(flat_t.shape[0]),
+           "longest_zone": width, "cold_ms": cold_ms, "warm_ms": warm_ms,
+           "peak_bytes": peak, "peak_bytes_per_row": peak / n,
+           "matrix_rows_bytes": matrix, "output_bytes": n * 8}
+    results["zones_rowwise"] = rec
+    log(f"[zones] offset_millis_rowwise n={n} over {n_ids} ids ({rec['transitions']} "
+        f"transitions, longest zone {width}): cold_ms={cold_ms} warm_ms={warm_ms} "
+        f"peak above the inputs {peak} bytes ({peak / n} a row; the reference's per-row "
+        f"matrix rows would take {matrix} bytes); card == CPU")
+
+
+def phase_zones(results: dict) -> None:
+    """TIMESTAMP WITH TIME ZONE and MATCH_RECOGNIZE at sf1, each query
+    cold once with its scan_s, rest_s and launches, held to their
+    identities; MR_ORDERS, MR_NEXT and TZ_TRUNC also against the CPU at
+    sf1; then offset_millis_rowwise alone on one batch."""
+    import zoneinfo
+
+    import torch
+    from trino_tpu_torch.connectors.tpch import base_row_count
+    from trino_tpu_torch.exec import match_recognize as MR
+    from trino_tpu_torch.ops import join as TJ
+
+    t_phase = time.perf_counter()
+    n_zones = len(zoneinfo.available_timezones())
+    results["zones_tzdata"] = {"named_zones": n_zones, "tzpath": list(zoneinfo.TZPATH)}
+    log(f"[zones] zoneinfo.available_timezones() holds {n_zones} zones "
+        f"(TZPATH {list(zoneinfo.TZPATH)})")
+    if n_zones == 0:
+        raise AssertionError("no TZif database on this machine: the named zones cannot run")
+    r = zones_runner("sf1", "cuda")
+    conn = r.catalogs.get("tpch")
+    scan = conn.page_source = TimedPageSource(conn.page_source)
+    rows, per_query = {}, {}
+    probes = Capture(TJ, "sorted_run_bounds", lambda sorted_arr, q: (
+        (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None),
+        keep=())
+    reset_kernel_counts()
+    with probes, RouteLog(MR.MatchRecognizeOperator, "stats") as patterns:
+        for name, sql in ZONE_QUERIES:
+            before = len(patterns.routes)
+            rows[name] = run_query(r, scan, name, "cold", sql, per_query, probes)
+            for st in patterns.routes[before:]:
+                per_query[f"{name}_cold"]["match_recognize"] = st
+                log(f"[zones] {name}: {st['rows']} rows in, {st['matches']} matches; "
+                    f"device_s={st['device_s']} (consolidate, sort, DEFINEs, masks to the "
+                    f"host) automaton_s={st['automaton_s']} output_s={st['output_s']}")
+    results["zones_launches"] = join_kernel_counts()
+    results["zones"] = per_query
+    n_orders = base_row_count("orders", 1.0)
+    log(f"[zones] tz_dst {rows['tz_dst']}; tz_mixed {rows['tz_mixed']}; tz_trunc "
+        f"{len(rows['tz_trunc'])} days; tz_join {rows['tz_join']}; mr_all {rows['mr_all']}; "
+        f"mr_orders {len(rows['mr_orders'])} matches, first {rows['mr_orders'][:2]}")
+    check_zones(rows, orders_dates("sf1"), n_orders)
+    check_patterns(rows)
+    join = per_query["tz_join_cold"]
+    if not 0 < join["launches"]["bounds"] == join["probe_batches"]:
+        raise AssertionError(f"tz_join: bounds launched {join['launches']['bounds']} times "
+                             f"over {join['probe_batches']} probe batches")
+    log(f"[zones] identities hold; launches over the phase: {results['zones_launches']}")
+    del r
+    torch.cuda.empty_cache()
+    cpu = zones_runner("sf1", "cpu")
+    for name in ("tz_trunc", "mr_orders", "mr_next"):
+        t0 = time.perf_counter()
+        got = cpu.execute(dict(ZONE_QUERIES)[name]).rows
+        if got != rows[name]:
+            raise AssertionError(f"{name}: card and CPU rows differ at sf1")
+        log(f"[zones] {name} sf1: {len(got)} rows, card == CPU (CPU run "
+            f"{time.perf_counter() - t0} s)")
+    zone_rowwise(results)
+    log(f"[zones] phase took {time.perf_counter() - t_phase} s")
+
+
+def parity_zones() -> None:
+    """The card against the CPU: every timestamptz and MATCH_RECOGNIZE
+    case at tiny (TSTZ_SQL, MR_SQL, MR_NULL_SQL) and phase zones'
+    queries at tiny and sf0.1."""
+    for schema in TSTZ_TABLES:
+        gpu, cpu = tstz_runner(schema, "cuda"), tstz_runner(schema, "cpu")
+        for sch, sql in TSTZ_SQL:
+            if sch == schema and gpu.execute(sql).rows != cpu.execute(sql).rows:
+                raise AssertionError(f"timestamptz {schema}: card and CPU differ on {sql}")
+        if schema == "t":
+            now = [x.execute(TSTZ_NOW).rows[0][0] for x in (gpu, cpu)]
+            if not all(v.endswith(TSTZ_SESSION_ZONE["t"]) for v in now):
+                raise AssertionError(f"now() is not in the session zone: {now}")
+    log(f"[parity] timestamptz cases: {len(TSTZ_SQL)} queries and now(), card == CPU")
+    gpu, cpu = mr_runner("cuda"), mr_runner("cpu")
+    for sql in MR_SQL + MR_NULL_SQL:
+        if gpu.execute(sql).rows != cpu.execute(sql).rows:
+            raise AssertionError(f"MATCH_RECOGNIZE: card and CPU differ on {sql}")
+    log(f"[parity] MATCH_RECOGNIZE cases: {len(MR_SQL) + len(MR_NULL_SQL)} queries, card == CPU")
+    for schema in ("tiny", "sf0.1"):
+        gpu, cpu = zones_runner(schema, "cuda"), zones_runner(schema, "cpu")
+        for name, sql in ZONE_QUERIES:
+            a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
+            if a != b:
+                raise AssertionError(f"{name}: card and CPU rows differ at {schema}")
+            log(f"[parity] {name} {schema}: {len(a)} rows, card == CPU")
 
 
 def rows_close(a: list, b: list) -> bool:
@@ -2429,6 +3027,7 @@ def phase_parity(results: dict) -> None:
     if a != b or a != widestr_numpy(*arrays):
         raise AssertionError("wide-string GROUP BY: card, CPU and numpy differ at 2^16 rows")
     log(f"[parity] wide-string GROUP BY 2^16 rows: {len(a)} rows, card == CPU == numpy")
+    parity_zones()
 
 
 def timed_main_args(results: dict) -> dict:
@@ -2453,8 +3052,8 @@ def timed_main_args(results: dict) -> dict:
     if args.get("take_flat_nested"):
         out["take_flat_nested"] = check_take_flat("nested, largest", *args["take_flat_nested"],
                                                   iters=20)
-    # the TPC-DS templates' and q72's own largest arguments
-    for fam in ("tpcds", "q72"):
+    # TPC-H's, the TPC-DS templates' and q72's own largest arguments
+    for fam in ("tpch", "tpcds", "q72"):
         b, o, f = args.get(fam) or (None, None, None)
         if b:
             out[f"bounds_{fam}"] = check_bounds(f"{fam}, largest", *b, iters=20)
@@ -2495,7 +3094,8 @@ def family_modes(results: dict, on_path: dict, kernels) -> dict:
     for k in kernels:
         if nested:
             out[f"{k}_nested"] = mode_record(on_path.get(f"{k}_nested", {}), nested.get(k, 0))
-    for fam, pick in (("tpcds", lambda q: q.startswith("ds_q") and q != "ds_q72_cold"),
+    for fam, pick in (("tpch", lambda q: q in TPCH_RUNS),
+                      ("tpcds", lambda q: q.startswith("ds_q") and q != "ds_q72_cold"),
                       ("q72", lambda q: q == "ds_q72_cold")):
         for k in kernels:
             rec = on_path.get(f"{k}_{fam}")
@@ -2554,8 +3154,9 @@ def kernels_line(results: dict) -> dict:
                   "capacity": timed.get("capacity")},
         "modes": modes,
     }]
-    if "nested_launches" in results:
-        line[0]["nested_launches"] = results["nested_launches"].get("grouped_sum", 0)
+    for phase in ("nested", "zones"):
+        if f"{phase}_launches" in results:
+            line[0][f"{phase}_launches"] = results[f"{phase}_launches"].get("grouped_sum", 0)
     join_checks = results.get("join_kernel_checks", {})
     on_path = timed_main_args(results)
     explore_launches = results.get("explore_launches", {})
@@ -2595,12 +3196,13 @@ def kernels_line(results: dict) -> dict:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
                  **mode_record(rec, n)}
-        if "nested_launches" in results:
-            # phase nested counts apart from the main path
-            nested = results["nested_launches"]
-            entry["nested_launches"] = (
-                sum(nested.get(m, 0) for m in ("window_rank", "bounds", "run_owner"))
-                if name == "window_rank" else nested.get(name, 0))
+        for phase in ("nested", "zones"):
+            # phases nested and zones count apart from the main path
+            if f"{phase}_launches" in results:
+                got = results[f"{phase}_launches"]
+                entry[f"{phase}_launches"] = (
+                    sum(got.get(m, 0) for m in ("window_rank", "bounds", "run_owner"))
+                    if name == "window_rank" else got.get(name, 0))
         if modes:
             entry["modes"] = modes
         if name == "take_flat" and "take_flat_main_path" in results:
@@ -2611,7 +3213,7 @@ def kernels_line(results: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="identity,build,kernel,main,nested,explore,parity",
+    ap.add_argument("--phases", default="identity,build,kernel,main,nested,zones,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2650,6 +3252,8 @@ def main() -> int:
         phase_main(results)
     if "nested" in phases:
         phase_nested(results)
+    if "zones" in phases:
+        phase_zones(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

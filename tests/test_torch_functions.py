@@ -13,9 +13,8 @@
   make with CREATE TABLE and INSERT are loaded with `load_table` in both
   packages (the port has no write side yet).
 - The cases that call a TIMESTAMP WITH TIME ZONE function (ROADMAP §1
-  item 6) are listed apart: the reference answers them and the port
-  raises NotImplementedError naming the item. The nested-type cases
-  (item 4, ported) are held to the reference's answer.
+  item 6, ported) and the nested-type cases (item 4, ported) are listed
+  apart and held to the reference's answer.
 
 Integers, strings, booleans and decimals must be equal; doubles within
 tests/oracle.py::assert_rows_match's default tolerance (rel 1e-9, abs
@@ -288,8 +287,8 @@ def test_breadth_corpora_match_reference(schema, sql, memory, tpch):
     _same(memory[schema] if schema in memory else tpch, sql)
 
 
-# ---- cases routed to later items: the reference answers, the port names
-# the item that will take them ------------------------------------------
+# ---- cases once routed to ROADMAP §1 item 6 (TIMESTAMP WITH TIME ZONE,
+# ported): the port answers as the reference does ------------------------
 
 ROUTED = [
     # tests/test_functions_r4.py: test_timezone_offsets_are_utc,
@@ -309,10 +308,15 @@ ROUTED = [
 @pytest.mark.parametrize("schema,sql,item", ROUTED,
                          ids=[f"{s}-{i}" for i, (s, _, _) in enumerate(ROUTED)])
 def test_routed_functions_name_their_item(schema, sql, item, memory, tpch):
-    ref, port = memory.get(schema, tpch)
-    assert ref.execute(sql).rows
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-        port.execute(sql)
+    runners = memory.get(schema, tpch)
+    if "now()" not in sql:
+        assert _same(runners, sql)
+        return
+    # now() reads the clock: the same zone, within a minute of each other
+    want, got = (r.execute(sql).rows[0][0] for r in runners)
+    assert got.endswith(" UTC") and want.endswith(" UTC")
+    gap = datetime.datetime.fromisoformat(got[:23]) - datetime.datetime.fromisoformat(want[:23])
+    assert abs(gap) < datetime.timedelta(minutes=1)
 
 
 # tests/test_function_breadth_r5.py's TestSplitToMap and the array

@@ -7,10 +7,9 @@ the same numpy inputs made from a seed.
   math, probability and bitwise functions. Integers, booleans and the
   NULL masks are bit-equal (the shifts' and bit_count's 64-bit patterns
   included); each double family states its tolerance.
-- (e) Routing: every `_not_ported` call in trino_tpu_torch/expr/ names
-  ROADMAP §1 item 6 (the nested types of item 4 are ported), and every
-  function the port routes so raises naming its item while the
-  reference binds it.
+- (e) Routing: no `_not_ported` call is left in trino_tpu_torch/expr/
+  (items 4 and 6 are ported), and every TIMESTAMP WITH TIME ZONE
+  function binds bit-equal to the reference's on seeded packed values.
 """
 
 import datetime
@@ -292,25 +291,86 @@ EXPR_DIR = pathlib.Path(TC.__file__).parent
 
 
 def test_every_not_ported_site_names_item_4_or_6():
+    """Items 4 (nested types) and 6 (TIMESTAMP WITH TIME ZONE) are
+    ported: no `_not_ported` site is left in trino_tpu_torch/expr/."""
     calls = []
     for path in sorted(EXPR_DIR.glob("*.py")):
-        src = path.read_text()
-        calls += [(path.name, m.group(0)) for m in re.finditer(r"_not_ported\([^()]*(\([^()]*\)[^()]*)*\)", src)
-                  if not m.group(0).startswith("_not_ported(name")]
-    assert calls, "no _not_ported call found"
-    for where, call in calls:
-        assert re.search(r",\s*6\)$", call), (where, call)
+        calls += [(path.name, m.group(0)) for m in re.finditer(r"_not_ported\(", path.read_text())]
+    assert calls == []
+    assert not hasattr(TC, "_not_ported")
+
+
+def _tstz_inputs(n: int):
+    """Seeded packed values over every zone of the registry, timestamps
+    (micros), millisecond shifts and a validity, 1900-2100."""
+    from trino_tpu_torch.ops import tz as TZ
+
+    rng = np.random.default_rng(13)
+    ids = np.array(list(range(0, 1682)) + list(range(TZ._NAMED_BASE, TZ._NAMED_BASE
+                                                      + len(TZ._named_zones()))))
+    ms = rng.integers(-2_208_988_800_000, 4_102_444_800_000, n)
+    return {"tstz": (ms << 12) | rng.choice(ids, n),
+            "timestamp": rng.integers(-2_208_988_800_000, 4_102_444_800_000, n) * 1000
+            + rng.integers(0, 1000, n),
+            "bigint": rng.integers(-10 ** 10, 10 ** 10, n)}, rng.random(n) < 0.9
 
 
 def test_routed_functions_raise_naming_their_item():
-    """Each function the port routes raises at bind time naming item 6
-    (TIMESTAMP WITH TIME ZONE), before it reads its arguments. The
-    nested-type functions (item 4) are ported: the port binds the
-    reference's lambda and array function sets, and routes none."""
-    for name in TC._TSTZ_FNS:
-        b = TBinder([T.BIGINT], [None])
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-            b.bind(tir.Call(name, (tir.InputRef(0, T.BIGINT),), T.BIGINT))
+    """Item 6 is ported: every function the port routed there binds as
+    the reference's, bit-equal (data and NULL mask) on seeded packed
+    values over every zone id, and none raises. The nested-type
+    functions (item 4) are ported: the port binds the reference's lambda
+    and array function sets, and routes none."""
+    from trino_tpu.block import Dictionary as JDictionary
+    from trino_tpu_torch.block import Dictionary as TDictionary
+    from trino_tpu_torch.ops import tz as TZ
+
+    n = 4096
+    data, valid = _tstz_inputs(n)
+    ny, tokyo = TZ.zone_id("America/New_York"), TZ.zone_id("Asia/Tokyo")
+    cases = [
+        ("at_timezone_id", ["tstz"], [tokyo], "TIMESTAMP_TZ"),
+        ("tstz_shift", ["tstz", "bigint"], [], "TIMESTAMP_TZ"),
+        ("tstz_to_instant_ts", ["tstz"], [], "TIMESTAMP"),
+        ("tstz_rewall", ["timestamp", "tstz"], [], "TIMESTAMP_TZ"),
+        ("ts_to_tstz", ["timestamp"], [ny], "TIMESTAMP_TZ"),
+        ("tstz_to_ts", ["tstz"], [], "TIMESTAMP"),
+        ("tstz_timezone_hour", ["tstz"], [], "BIGINT"),
+        ("tstz_timezone_minute", ["tstz"], [], "BIGINT"),
+        ("timezone_hour", ["timestamp"], [], "BIGINT"),
+        ("timezone_minute", ["timestamp"], [], "BIGINT"),
+    ]
+    kinds = {"tstz": "TIMESTAMP_TZ", "timestamp": "TIMESTAMP", "bigint": "BIGINT"}
+    assert {c[0] for c in cases} >= set(TC._TSTZ_FNS) - {"parse_tstz"}
+    for name, argcols, consts, out_type in cases:
+        got, want = [], []
+        for pkg_t, ir_mod, binder, conv, out in ((T, tir, TBinder, _t, got),
+                                                 (JT, jir, JBinder, jnp.asarray, want)):
+            types = [getattr(pkg_t, kinds[c]) for c in argcols]
+            args = [ir_mod.InputRef(k, t) for k, t in enumerate(types)]
+            args += [ir_mod.Literal(v, pkg_t.INTEGER) for v in consts]
+            b = binder(types, [None] * len(types)).bind(
+                ir_mod.Call(name, tuple(args), getattr(pkg_t, out_type)))
+            d, v = b.fn([conv(data[c]) for c in argcols], [conv(valid)] * len(argcols))
+            out.extend([np.asarray(d), None if v is None else np.asarray(v)])
+        np.testing.assert_array_equal(got[0], want[0], err_msg=name)
+        np.testing.assert_array_equal(got[1], want[1], err_msg=name)
+    # parse_tstz maps the dictionary's strings on the host at bind time
+    texts = ["2024-03-10 02:30:00", "2024-11-03 01:30:00 America/New_York", "1969-12-31",
+             "2024-07-04T12:00:00+05:30", "nonsense", "1900-01-01 00:00:00 Europe/London"]
+    codes = np.random.default_rng(14).integers(0, len(texts), 64).astype(np.int32)
+    got, want = [], []
+    for pkg_t, ir_mod, binder, dct, conv, out in (
+            (T, tir, TBinder, TDictionary, _t, got),
+            (JT, jir, JBinder, JDictionary, jnp.asarray, want)):
+        b = binder([pkg_t.VARCHAR], [dct(texts)]).bind(ir_mod.Call(
+            "parse_tstz", (ir_mod.InputRef(0, pkg_t.VARCHAR), ir_mod.Literal(ny, pkg_t.INTEGER)),
+            pkg_t.TIMESTAMP_TZ))
+        d, v = b.fn([conv(codes)], [None])
+        out.extend([np.asarray(d), np.asarray(v)])
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert not got[1].all()
     assert not hasattr(TC, "_NESTED_FNS")
     assert TBinder._LAMBDA_FNS == JBinder._LAMBDA_FNS
     assert TBinder._ARRAY_FNS == JBinder._ARRAY_FNS

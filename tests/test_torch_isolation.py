@@ -53,6 +53,30 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["trino_tpu_torch.ops.tz",
+                                    "trino_tpu_torch.exec.match_recognize"])
+def test_zone_and_pattern_modules_import_alone(module):
+    # each imported first and alone in a fresh process: neither pulls in
+    # jax nor anything of trino_tpu, and the zone module builds no table
+    # until a device function runs
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'trino_tpu'))\n"
+        "assert not bad, bad\n"
+        "tz = sys.modules.get('trino_tpu_torch.ops.tz')\n"
+        "assert tz is None or tz._zone_flat.cache_info().currsize == 0\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize(
     "path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO)
 )

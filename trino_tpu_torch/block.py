@@ -16,9 +16,6 @@ Counterpart of trino_tpu/block.py (the Page/Block analogue):
 
 Every tensor of a batch lives on one device; the connector places the
 scan batches and operators allocate beside their inputs.
-
-Not ported yet (raises NotImplementedError naming its queue item in
-ROADMAP.md): TIMESTAMP WITH TIME ZONE formatting.
 """
 
 from __future__ import annotations
@@ -31,6 +28,7 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
+from trino_tpu_torch.ops.tz import format_tstz
 
 MIN_CAPACITY = 16
 
@@ -526,9 +524,7 @@ def decode_values(type_: T.DataType, data, valid, dict_values) -> list:
         elif type_.is_floating:
             out.append(float(x))
         elif type_.kind == T.TypeKind.TIMESTAMP_TZ:
-            raise NotImplementedError(
-                "TIMESTAMP WITH TIME ZONE formatting: ROADMAP §1 item 6 (ops/tz.py)"
-            )
+            out.append(format_tstz(int(x)))
         else:
             out.append(int(x))
     return out

@@ -17,8 +17,9 @@ DynamicFilter, the cross join, BufferSink/BufferSource (UNION ALL) and
 CollectorSink; nested ARRAY/MAP/ROW columns ride every one of them
 whole, and the collect aggregates (array_agg, map_agg, histogram, the
 sketch builders, ...) run on the holistic path (UNNEST is
-exec/unnest.py). Partial/final aggregation steps, spill (grace joins
-included) and MATCH_RECOGNIZE are queued in ROADMAP.md.
+exec/unnest.py, MATCH_RECOGNIZE exec/match_recognize.py). Partial/final
+aggregation steps and spill (grace joins included) are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations

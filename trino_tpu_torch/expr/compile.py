@@ -23,9 +23,10 @@ array_sort, array_distinct and the per-row reductions read each row's
 elements in row order through its lengths, so they stay right after a
 join or sort has gathered the rows (ROADMAP §3).
 
-Every scalar function of the reference's binder is bound here except
-the TIMESTAMP WITH TIME ZONE ones (ROADMAP §1 item 6), which raise
-NotImplementedError naming their item (`_not_ported`).
+Every scalar function of the reference's binder is bound here.
+TIMESTAMP WITH TIME ZONE values are packed int64 (instant millis << 12 |
+zone id, ops/tz.py): comparisons compare instants only, and the
+functions over them read the zone's offset on the device.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from trino_tpu_torch.expr.ir import (
 )
 from trino_tpu_torch.ops import int128 as I128
 from trino_tpu_torch.ops import join as J
+from trino_tpu_torch.ops import tz as TZ
 from trino_tpu_torch.ops.gather import take_clip
 from trino_tpu_torch.ops.sort import _order_value
 from trino_tpu_torch.ops.floatbits import f32_bits_ordered
@@ -105,12 +107,11 @@ _MICROS_PER_UNIT = {
     "millisecond": 1000,
 }
 
-# functions of TIMESTAMP WITH TIME ZONE (ROADMAP §1 item 6), which the
-# reference binds and the port not yet
+# the TIMESTAMP WITH TIME ZONE expressions the analyzer emits
 _TSTZ_FNS = (
     "at_timezone_id", "ts_to_tstz", "tstz_to_ts", "parse_tstz",
     "tstz_shift", "tstz_timezone_hour", "tstz_timezone_minute",
-    "tstz_to_instant_ts", "tstz_rewall", "timezone_hour", "timezone_minute",
+    "tstz_to_instant_ts", "tstz_rewall",
 )
 
 
@@ -272,14 +273,6 @@ def minmax_like(dtype: torch.dtype, is_min: bool):
     return info.max if is_min else info.min
 
 
-def _not_ported(name: str, item: int):
-    """What the port does not bind yet: TIMESTAMP WITH TIME ZONE
-    (ROADMAP §1 item 6)."""
-    return NotImplementedError(
-        f"{name}: not ported to trino_tpu_torch yet (ROADMAP §1 item {item})"
-    )
-
-
 def _unsupported(name: str):
     """What neither package binds: trino_tpu raises on the same input."""
     return NotImplementedError(f"{name}: not supported (trino_tpu raises here too)")
@@ -295,7 +288,7 @@ def _format_cast_text(v, src_type: T.DataType):
         s = src_type.scale or 0
         return f"{v:.{s}f}" if s else str(int(v))
     if src_type.kind == T.TypeKind.TIMESTAMP_TZ:
-        raise _not_ported("cast of TIMESTAMP WITH TIME ZONE to varchar", 6)
+        return TZ.format_tstz(int(v))
     return str(v)
 
 
@@ -696,6 +689,90 @@ class ExprBinder:
             return ArrayColumn(t, torch.full_like(idx, k), None, None, idx * reps, flat), None
         return Bound(t, afn, proto.dictionary, const_value=e.value, is_const=True)
 
+    def _bind_tstz(self, name: str, e: Call, args) -> Bound:
+        """TIMESTAMP WITH TIME ZONE over the packed int64 (instant millis
+        << 12 | zone id, ops/tz.py). A constant zone reads its own
+        transitions; a zone per row reads the flat table of every
+        zone's. Shifts are arithmetic and divisions floored: instants
+        before 1970 are negative."""
+        shift, mask = TZ.MILLIS_SHIFT, TZ.ZONE_MASK
+
+        def const_int(b: Bound, what: str) -> int:
+            if not b.is_const or b.const_value is None:
+                raise NotImplementedError(f"{name}() {what} must be constant")
+            return int(b.const_value)
+
+        def wall_millis(micros: torch.Tensor) -> torch.Tensor:
+            return torch.div(micros.to(torch.int64), 1000, rounding_mode="floor")
+
+        if name == "at_timezone_id":
+            a, z = args
+            zid = const_int(z, "zone")
+
+            def atfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                return (d & ~mask) | zid, v
+            return Bound(e.type, atfn)
+        if name == "tstz_shift":
+            a, ms = args
+
+            def shfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                mdata, mv = ms.fn(cols, valids)
+                return d + (mdata.to(torch.int64) << shift), merge_valid(v, mv)
+            return Bound(e.type, shfn)
+        if name == "tstz_to_instant_ts":
+            (a,) = args
+
+            def instfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                return (d >> shift) * 1000, v
+            return Bound(e.type, instfn)
+        if name == "tstz_rewall":
+            wall, orig = args
+
+            def rwfn(cols, valids):
+                w, wv = wall.fn(cols, valids)
+                o, ov = orig.fn(cols, valids)
+                zids = (o & mask).to(torch.int32)
+                inst = TZ.wall_to_instant_rowwise(wall_millis(w), zids)
+                return (inst << shift) | zids.to(torch.int64), merge_valid(wv, ov)
+            return Bound(e.type, rwfn)
+        if name == "ts_to_tstz":
+            a, z = args
+            zid = const_int(z, "zone")
+
+            def ttfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                inst = TZ.wall_to_instant_millis(wall_millis(d), zid)
+                return (inst << shift) | zid, v
+            return Bound(e.type, ttfn)
+        if name == "tstz_to_ts":
+            (a,) = args
+
+            def ftfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                ms = d >> shift
+                off = TZ.offset_millis_rowwise(ms, (d & mask).to(torch.int32))
+                return (ms + off) * 1000, v
+            return Bound(e.type, ftfn)
+        if name == "parse_tstz":
+            a, z = args
+            zone = TZ.zone_name(const_int(z, "zone"))
+            return self._bind_dict_table_nullable(
+                a, e.type, lambda s: TZ.parse_tstz(s, zone), torch.int64)
+        # tstz_timezone_hour / _minute: the signed offset's components
+        (a,) = args
+        hour = name == "tstz_timezone_hour"
+
+        def tzfn(cols, valids):
+            d, v = a.fn(cols, valids)
+            off = TZ.offset_millis_rowwise(d >> shift, (d & mask).to(torch.int32))
+            mag = torch.abs(off)
+            part = mag // 3_600_000 if hour else (mag % 3_600_000) // 60_000
+            return torch.sign(off) * part, v
+        return Bound(T.BIGINT, tzfn)
+
     # ---- cast ----
     def _bind_cast(self, e: Cast) -> Bound:
         a = self.bind(e.arg)
@@ -1035,8 +1112,6 @@ class ExprBinder:
             if name in ("split", "regexp_split", "regexp_extract_all"):
                 return self._bind_split(e, args)
             return self._bind_array_fn(e, args)
-        if name in _TSTZ_FNS:
-            raise _not_ported(f"function {name}", 6)
         if name in ("and", "or"):
             return self._bind_logical(e)
         args = [self.bind(a) for a in e.args]
@@ -1062,6 +1137,8 @@ class ExprBinder:
             return self._bind_comparison(name, args)
         if name in ("add", "sub", "mul", "div", "mod"):
             return self._bind_arith(name, e.type, args)
+        if name in _TSTZ_FNS:
+            return self._bind_tstz(name, e, args)
         if name == "negate":
             (a,) = args
             if a.type.is_long_decimal:
@@ -1465,6 +1542,14 @@ class ExprBinder:
                 # floor: -1 ns is microsecond -1
                 return torch.div(d.to(torch.int64), 1000, rounding_mode="floor"), v
             return Bound(T.TIMESTAMP, funfn)
+        if name in ("timezone_hour", "timezone_minute"):
+            # a TIMESTAMP (no zone) is a UTC wall clock: offset 0
+            a = args[0]
+
+            def tzfn(cols, valids):
+                d, v = a.fn(cols, valids)
+                return torch.zeros(d.shape[:1], dtype=torch.int64, device=d.device), v
+            return Bound(T.BIGINT, tzfn)
         if name == "from_unixtime":
             a = args[0]
 
@@ -2268,8 +2353,15 @@ class ExprBinder:
         a, b = args
         if a.type.is_string or b.type.is_string:
             return self._bind_string_comparison(op, a, b)
-        if a.type.kind == T.TypeKind.TIMESTAMP_TZ:
-            raise _not_ported("TIMESTAMP WITH TIME ZONE comparison", 6)
+        if a.type.kind == T.TypeKind.TIMESTAMP_TZ and a.type == b.type:
+            # compare instants only: one instant named in two zones is
+            # equal (the zone bits must not break the tie)
+            def strip(x: Bound) -> Bound:
+                def sfn(cols, valids, xfn=x.fn):
+                    d, v = xfn(cols, valids)
+                    return d >> TZ.MILLIS_SHIFT, v
+                return Bound(T.BIGINT, sfn)
+            a, b = strip(a), strip(b)
         if (a.type.is_long_decimal or b.type.is_long_decimal) and not (
             a.type.is_floating or b.type.is_floating
         ):

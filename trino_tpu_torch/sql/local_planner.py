@@ -16,8 +16,8 @@ Ported node kinds: Output, Scan, Values, Filter, Project, Aggregate
 (single step, DISTINCT aggregates in the single-distinct shape, and the
 join-project route over an inner equi-join when the session enables it),
 Join (hash joins of every kind, with dynamic filtering, and cross
-joins), Window, UnionAll, EnforceSingleRow, Sort, TopN, Limit, Unnest.
-MatchRecognize, remote sources and the partial/final aggregation steps
+joins), Window, UnionAll, EnforceSingleRow, Sort, TopN, Limit, Unnest,
+MatchRecognize. Remote sources and the partial/final aggregation steps
 are queued in ROADMAP.md.
 """
 
@@ -31,6 +31,7 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.block import Dictionary, RelBatch, RuntimeDictionary
 from trino_tpu_torch.connectors.spi import CatalogManager
+from trino_tpu_torch.exec.match_recognize import MatchRecognizeOperator, classifier_dictionary
 from trino_tpu_torch.exec.unnest import UnnestOperator
 from trino_tpu_torch.exec import (
     AggSpec,
@@ -123,8 +124,8 @@ class LocalPlanner:
         if m is None:
             raise NotImplementedError(
                 f"no physical plan for {type(node).__name__} in trino_tpu_torch "
-                "yet (ROADMAP §1: MATCH_RECOGNIZE and the distributed plane's "
-                "remote sources are still to port)"
+                "yet (ROADMAP §1 item 11: the distributed plane's remote sources "
+                "are still to port)"
             )
         return m(node)
 
@@ -454,6 +455,26 @@ class LocalPlanner:
         out_schema += [(schema[ch][0].element, schema[ch][1]) for ch in channels]
         if ordinality:
             out_schema.append((T.BIGINT, None))
+        return chain, out_schema
+
+    def _visit_MatchRecognizeNode(self, node: P.MatchRecognizeNode):
+        chain, schema = self._visit(node.child)
+        # the DEFINEs bind over the extended schema: the child's channels,
+        # then one shifted copy per PREV/NEXT (exec/match_recognize.py)
+        ext_schema: Schema = list(schema) + [schema[ch] for ch, _ in node.shifts]
+        define_fns = [(var, self._bind(pred, ext_schema).fn) for var, pred in node.defines]
+        device = self.device
+        chain.append(lambda ctx: MatchRecognizeOperator(node, schema, define_fns, device))
+        out_schema: Schema = [schema[ch] for ch in node.partition_channels]
+        for m in node.measures:
+            if m.kind == "classifier":
+                # the pattern's variables are known here, so a string
+                # operation above binds against the values it will read
+                out_schema.append((m.out_type, classifier_dictionary(node.pattern)))
+            elif m.channel is not None:
+                out_schema.append((m.out_type, schema[m.channel][1]))
+            else:
+                out_schema.append((m.out_type, None))
         return chain, out_schema
 
     def _visit_EnforceSingleRowNode(self, node: P.EnforceSingleRowNode):
