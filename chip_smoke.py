@@ -91,9 +91,27 @@ Phases (any failure exits nonzero):
                  ops.tz.offset_millis_rowwise on one 1,048,576-row batch
                  over every zone id, CUDA events and the card's peak
                  memory around it, equal to the CPU's.
-  7. explore   — both explorer entry points (trino_tpu_torch.explore),
+  7. write     — the write side at sf1 on a memory catalog `w` beside
+                 tpch, each statement cold once with its wall, scan_s,
+                 sink_s (host time in the page sink, the copy from the card
+                 included), launches and the card's peak memory
+                 (write_identities): CREATE TABLE AS of orders returns
+                 1,500,000 and its count and sums equal tpch's; INSERT ...
+                 SELECT ... GROUP BY returns the distinct customers and its
+                 counts sum to 1,500,000; UPDATE and DELETE return the
+                 source's counts under their predicates and the table
+                 follows; MERGE over a quarter of the orders updates the
+                 rest and re-inserts the deleted ones (bounds once per probe
+                 batch, take_flat); a ROLLBACK keeps w.s.cust's count, a
+                 COMMIT doubles it, a write in a READ ONLY transaction
+                 raises TransactionError; a GROUP BY over the written
+                 table (grouped_sum) sums to the final count; DROP TABLE,
+                 and a later SELECT raises. The bytes of cached batches
+                 before and after each write are printed. This phase's
+                 counts are kept apart (`write_launches`).
+  8. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
-  8. parity    — the queries, and the window and set-operation queries
+  9. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -106,15 +124,19 @@ Phases (any failure exits nonzero):
                  every case of tests/test_timestamptz.py (TSTZ_SQL; now()
                  by its zone) and tests/test_match_recognize.py (MR_SQL,
                  with the NULL-key cases MR_NULL_SQL) at tiny, and phase
-                 zones' queries at tiny and sf0.1.
-  9. summary   — each kind of join-path call (the probe's bounds, the
+                 zones' queries at tiny and sf0.1; so must phase write's
+                 statements at tiny and sf0.1 and every script of the
+                 write corpus (WRITE_SCRIPTS) at tiny, statement by
+                 statement (the same error where one raises), with every
+                 written table read back equal.
+ 10. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
-                 entry with its launches in phases nested and zones beside
-                 the main path's; take_flat's entry with its summed
+                 entry with its launches in phases nested, zones and write
+                 beside the main path's; take_flat's entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -128,6 +150,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1176,6 +1199,301 @@ def check_patterns(rows: dict) -> None:
     if rows["mr_all"] != rows["mr_all_check"]:
         raise AssertionError(f"mr_all {rows['mr_all']} != count(*), most orders of a "
                              f"customer {rows['mr_all_check']}")
+
+# ---- phase write: DDL, DML, MERGE and transactions -------------------------
+
+# phase write's statements at sf1, each cold once on the card: a memory
+# catalog `w` beside the session's tpch (unqualified names are tpch's).
+# tests/test_torch_write.py runs them with their identities at tiny on the
+# CPU; phase parity holds the card to the CPU at tiny and sf0.1
+WRITE_CTAS = "create table w.s.orders as select * from orders"
+WRITE_CTAS_CHECK = "select count(*), sum(o_orderkey), sum(o_totalprice) from {t}"
+WRITE_CUST = "create table w.s.cust (k bigint, n bigint, total double)"
+WRITE_CUST_INSERT = """insert into w.s.cust select o_custkey, count(*), sum(o_totalprice)
+from orders group by 1"""
+WRITE_CUST_CHECK = "select count(*), sum(n) from w.s.cust"
+WRITE_CUSTKEYS = "select count(distinct o_custkey) from orders"
+WRITE_OLD = "o_orderdate < date '1993-01-01'"
+WRITE_UPDATE = f"update w.s.orders set o_orderstatus = 'X' where {WRITE_OLD}"
+WRITE_UPDATE_SOURCE = f"select count(*) from orders where {WRITE_OLD}"
+WRITE_UPDATE_CHECK = "select count(*) from w.s.orders where o_orderstatus = 'X'"
+WRITE_DELETE = "delete from w.s.orders where o_orderpriority = '5-LOW'"
+WRITE_COUNT = "select count(*) from w.s.orders"
+# a quarter of the orders: the deleted 5-LOW orders come back, the rest
+# update
+WRITE_MERGE = """merge into w.s.orders t using (select * from orders
+where o_orderkey % 4 = 0) s on t.o_orderkey = s.o_orderkey
+when matched then update set o_comment = 'merged', o_totalprice = s.o_totalprice + 1
+when not matched then insert values (s.o_orderkey, s.o_custkey, s.o_orderstatus,
+s.o_totalprice, s.o_orderdate, s.o_orderpriority, s.o_clerk, s.o_shippriority,
+s.o_comment)"""
+WRITE_MERGE_SOURCE = """select count(*), count_if(o_orderpriority = '5-LOW')
+from orders where o_orderkey % 4 = 0"""
+WRITE_TXN = [  # (statement, the count of w.s.cust after it: n, or 2n)
+    ("start transaction", 1), ("insert into w.s.cust select * from w.s.cust", 1),
+    ("rollback", 1), ("start transaction", 1),
+    ("insert into w.s.cust select * from w.s.cust", 1), ("commit", 2)]
+WRITE_READ_ONLY = ["start transaction read only", "insert into w.s.cust values (1, 1, 1.0)",
+                   "rollback"]
+# three bounded keys (5 x 6 x 3 slots with the NULL groups, over the dense
+# route's 64): the grouped_sum route
+WRITE_GROUP = """select o_orderstatus, o_orderpriority, o_comment = 'merged' m, count(*),
+sum(o_totalprice) from w.s.orders group by 1, 2, 3 order by 1, 2, 3"""
+WRITE_DROPS = ["drop table w.s.orders", "drop table w.s.cust"]
+
+
+def write_statements() -> list:
+    """Phase write's statements in order, for the card-against-CPU check
+    (the read-only violation and the SELECT after the drops raise on
+    both)."""
+    return ([WRITE_CTAS, WRITE_CTAS_CHECK.format(t="w.s.orders"),
+             WRITE_CTAS_CHECK.format(t="orders"), WRITE_CUST, WRITE_CUST_INSERT,
+             WRITE_CUST_CHECK, WRITE_UPDATE, WRITE_UPDATE_CHECK, WRITE_DELETE, WRITE_COUNT,
+             WRITE_MERGE, WRITE_COUNT] + [s for s, _ in WRITE_TXN] + [WRITE_CUST_CHECK]
+            + WRITE_READ_ONLY + [WRITE_GROUP] + WRITE_DROPS + [WRITE_COUNT])
+
+
+# The write corpus: each script runs on a fresh runner with a memory
+# catalog and tpch (tiny), its setup first. tests/test_torch_write.py holds
+# the port to trino_tpu on every script, statement by statement (where the
+# corpus exposes the test function, it runs that function and checks that
+# it ran exactly these statements); phase parity holds the card to the CPU.
+WRITE_SETUPS = {
+    # tests/test_dml.py TestDeleteUpdate._runner
+    "dml_t": ["CREATE TABLE t (x bigint, name varchar)",
+              "INSERT INTO t VALUES (1, 'a'), (2, 'b'), (3, 'c'), (4, 'd')"],
+    # tests/test_merge.py's r fixture
+    "merge": ["create table memory.t.tgt (id bigint, v varchar, amt double)",
+              "insert into tgt values (1, 'a', 10.0), (2, 'b', 20.0), (3, 'c', 30.0)",
+              "create table memory.t.src (id bigint, v varchar, amt double)",
+              "insert into src values (2, 'B', 200.0), (3, 'C', -1.0), "
+              "(4, 'd', 40.0), (5, 'e', 50.0)"],
+    # tests/test_decimal128.py's r fixture, TestFullDivision.rd and
+    # TestHolisticLongDecimal.rh
+    "decimal_big": [
+        "create table memory.t.big (a decimal(30,4), b decimal(30,4), k bigint)",
+        "insert into big values (12345678901234567890123456.7890, 2.0000, 1), "
+        "(-9999999999999999999999.9999, 3.5000, 1), (0.0001, -1.0000, 2), "
+        "(7777777777777777777777.7777, 0.5000, 2), (null, 1.0000, 3)"],
+    "decimal_dd": [
+        "create table memory.t.dd (a decimal(38,2), b decimal(38,2))",
+        "insert into dd values "
+        "(12345678901234567890123456789012.45, 98765432109876543210987654.32), "
+        "(-9999999999999999999999999999999.99, 12345678901234567890.12), "
+        "(1.00, 33333333333333333333333333333333.33), "
+        "(-5000000000000000000000000000000.00, -7000000000000000000000000000000.00)"],
+    "decimal_hb": [
+        "create table memory.t.hb (k bigint, x decimal(38,2), y bigint)",
+        "insert into hb values (1, 99999999999999999999999999999999999.01, 10), "
+        "(1, -99999999999999999999999999999999999.02, 20), (1, 5.00, 30), "
+        "(2, 12345678901234567890123456789.00, 40), "
+        "(2, 12345678901234567890123456788.99, 50)"],
+    # tests/test_array_columns.py's orders_tags, loaded there, written here
+    "tags": ["create table orders_tags (id bigint, name varchar, tags array(varchar),"
+             " scores array(bigint))",
+             "insert into orders_tags values (1, 'ann', array['red', 'blue'], array[10, 20]),"
+             " (2, 'bob', array['green'], array[30]),"
+             " (3, 'cid', cast(array[] as array(varchar)), cast(array[] as array(bigint))),"
+             " (4, 'dee', array['red', 'green', 'blue'], array[1, 2, 3])"],
+    # a small table for the transaction cases
+    "txn": ["create table c (k bigint, s varchar)",
+            "insert into c values (1, 'a'), (2, 'b')"],
+}
+
+
+def _ws(schema: str, sql: list, setup: str = None, catalog: str = "memory",
+        **session) -> dict:
+    return {"catalog": catalog, "schema": schema, "setup": setup, "sql": sql,
+            "session": session}
+
+
+MERGE_ROWS = "select id, v, amt from tgt"  # tests/test_merge.py rows()
+WRITE_SCRIPTS = {
+    # tests/test_dml.py
+    "dml_create_insert_select_drop": _ws("default", [
+        "CREATE TABLE t (a bigint, b varchar, c double)",
+        "INSERT INTO t VALUES (1, 'x', 1.5), (2, 'y', -2.25), (3, NULL, 0.0)",
+        "SELECT * FROM t ORDER BY a", "INSERT INTO t (a) VALUES (99)",
+        "SELECT count(*), sum(a) FROM t", "DROP TABLE t", "SELECT * FROM t"]),
+    "dml_insert_from_query_with_coercion": _ws("default", [
+        "CREATE TABLE s (k bigint, total double)",
+        "INSERT INTO s SELECT n_regionkey, count(*) FROM tpch.tiny.nation"
+        " GROUP BY n_regionkey", "SELECT sum(total) FROM s"]),
+    "dml_ctas": _ws("default", [
+        "CREATE TABLE agg AS SELECT n_regionkey, count(*) c"
+        " FROM tpch.tiny.nation GROUP BY n_regionkey",
+        "SELECT * FROM agg ORDER BY n_regionkey"]),
+    "dml_values_standalone": _ws("default", [
+        "VALUES (1, 'a'), (2, 'b')", "SELECT 1 UNION ALL VALUES (2)"]),
+    "dml_delete_predicate": _ws("s", [
+        "DELETE FROM t WHERE x > 2", "SELECT x FROM t ORDER BY x"], "dml_t"),
+    "dml_delete_all": _ws("s", [
+        "DELETE FROM t", "SELECT count(*) FROM t", "INSERT INTO t VALUES (9, 'z')",
+        "SELECT count(*) FROM t"], "dml_t"),
+    "dml_delete_null_predicate_keeps_row": _ws("s", [
+        "INSERT INTO t VALUES (NULL, 'n')", "DELETE FROM t WHERE x > 2",
+        "SELECT count(*) FROM t"], "dml_t"),
+    "dml_update_with_predicate": _ws("s", [
+        "UPDATE t SET name = 'z', x = x + 10 WHERE x = 2",
+        "SELECT x, name FROM t ORDER BY x"], "dml_t"),
+    "dml_update_all_rows_with_coercion": _ws("s", [
+        "UPDATE t SET x = x + 0.5", "SELECT sum(x) FROM t"], "dml_t"),
+    "dml_duplicate_assignment_rejected": _ws("s", ["UPDATE t SET x = 1, x = 2"], "dml_t"),
+    "dml_update_unknown_column": _ws("s", ["UPDATE t SET nope = 1"], "dml_t"),
+    "dml_dml_rejected_in_explicit_transaction": _ws("s", [
+        "START TRANSACTION", "DELETE FROM t WHERE x = 1", "ROLLBACK"], "dml_t"),
+    # tests/test_merge.py
+    "merge_full_upsert": _ws("t", [
+        "merge into tgt t using src s on t.id = s.id "
+        "when matched and s.amt < 0 then delete "
+        "when matched then update set v = s.v, amt = s.amt "
+        "when not matched then insert (id, v, amt) values (s.id, s.v, s.amt)",
+        MERGE_ROWS], "merge"),
+    "merge_clause_order_first_match_wins": _ws("t", [
+        "merge into tgt t using src s on t.id = s.id "
+        "when matched and s.amt < 0 then delete "
+        "when matched then update set amt = s.amt "
+        "when not matched and s.amt > 45 then insert (id, v, amt) "
+        "values (s.id, s.v, s.amt)", MERGE_ROWS], "merge"),
+    "merge_update_only": _ws("t", [
+        "merge into tgt t using src s on t.id = s.id "
+        "when matched then update set amt = t.amt + s.amt", MERGE_ROWS], "merge"),
+    "merge_delete_only": _ws("t", [
+        "merge into tgt t using src s on t.id = s.id when matched then delete",
+        MERGE_ROWS], "merge"),
+    "merge_insert_only_with_default_null": _ws("t", [
+        "merge into tgt t using src s on t.id = s.id "
+        "when not matched then insert (id) values (s.id)", MERGE_ROWS], "merge"),
+    "merge_subquery_source": _ws("t", [
+        "merge into tgt t using "
+        "(select id, amt * 2 as amt2 from src where amt > 0) s on t.id = s.id "
+        "when matched then update set amt = s.amt2 "
+        "when not matched then insert (id, amt) values (s.id, s.amt2)",
+        MERGE_ROWS], "merge"),
+    "merge_multiple_match_is_error": _ws("t", [
+        "create table memory.t.dup (id bigint)", "insert into dup values (2), (2)",
+        "merge into tgt t using dup s on t.id = s.id when matched then delete",
+        MERGE_ROWS], "merge"),
+    "merge_no_matches_noop": _ws("t", [
+        "merge into tgt t using (select id from src where id > 100) s "
+        "on t.id = s.id when matched then delete", MERGE_ROWS], "merge"),
+    # TestScaledWriters.test_large_write_scales_out
+    "merge_large_write_scales_out": _ws("t", [
+        "create table memory.t.small (x bigint)", "create table memory.t.big2 (x bigint)",
+        "insert into small values (1), (2)",
+        "insert into big2 select x from unnest(sequence(1, 5000)) as u(x)",
+        "select count(*) from big2"], batch_rows=1 << 16, task_concurrency=4),
+    # TestInsertOnlyMultiMatch.test_insert_only_merge_with_duplicate_matches
+    "merge_insert_only_merge_with_duplicate_matches": _ws("t", [
+        "create table memory.t.tg2 (k bigint, v bigint)",
+        "insert into tg2 values (1, 100), (2, 200)",
+        "create table memory.t.sr2 (k bigint, v bigint)",
+        "insert into sr2 values (1, 111), (1, 112), (3, 300)",
+        "merge into tg2 using sr2 s on tg2.k = s.k "
+        "when not matched then insert (k, v) values (s.k, s.v)",
+        "select k, v from tg2"]),
+    # tests/test_decimal128.py: TestTyping, TestArithmetic, TestRelational
+    "decimal_literal_and_cast": _ws("t", ["select cast('1' as decimal(38,10))"], "decimal_big"),
+    "decimal_add_result_type": _ws("t", ["select a + b from big where k = 2"], "decimal_big"),
+    "decimal_mul_result_type": _ws("t", ["select b * b from big where k = 2"], "decimal_big"),
+    "decimal_div_result_type": _ws("t", ["select a / b from big where k = 2"], "decimal_big"),
+    "decimal_sum_is_38": _ws("t", ["select sum(a) from big"], "decimal_big"),
+    "decimal_add_exact": _ws("t", ["select a + b from big where a is not null"],
+                             "decimal_big"),
+    "decimal_mul_exact_midsize": _ws("t", ["select b * b from big order by k, b"],
+                                     "decimal_big"),
+    "decimal_div_half_up": _ws("t", [
+        "select cast(7 as decimal(20,0)) / cast(2 as decimal(20,0))"], "decimal_big"),
+    "decimal_sum_exact": _ws("t", ["select sum(a) from big"], "decimal_big"),
+    "decimal_group_sum_and_keys": _ws("t", [
+        "select k, sum(a), count(a) from big group by k order by k"], "decimal_big"),
+    "decimal_min_max_global": _ws("t", ["select min(a), max(a) from big"], "decimal_big"),
+    "decimal_avg_long": _ws("t", ["select avg(a) from big where k = 2"], "decimal_big"),
+    "decimal_compare_and_filter": _ws("t", ["select k from big where a > 0 order by a"],
+                                      "decimal_big"),
+    "decimal_order_by_long": _ws("t", [
+        "select a from big where a is not null order by a desc"], "decimal_big"),
+    "decimal_group_by_long_key": _ws("t", [
+        "select a, count(*) from big group by a order by count(*), a"], "decimal_big"),
+    "decimal_join_on_long_key": _ws("t", [
+        "select count(*) from big x join big y on x.a = y.a"], "decimal_big"),
+    "decimal_between_long": _ws("t", [
+        "select count(*) from big where a between -1e22 and 1e25"], "decimal_big"),
+    "decimal_case_unifies_short_and_long": _ws("t", [
+        "select sum(case when k = 1 then a else 0 end) from big"], "decimal_big"),
+    # TestFullDivision, TestHolisticLongDecimal
+    "decimal_div_128_divisor": _ws("t", ["select a / b from dd"], "decimal_dd"),
+    "decimal_mod_128_divisor": _ws("t", ["select a % b from dd"], "decimal_dd"),
+    "decimal_div_overflow_nulls": _ws("t", [
+        "select a / 0.000001 from dd where a < -1e30"], "decimal_dd"),
+    "decimal_min_by_long_decimal_by": _ws("t", [
+        "select k, min_by(y, x), max_by(y, x) from hb group by k order by k"], "decimal_hb"),
+    "decimal_min_max_with_holistic_mix": _ws("t", [
+        "select k, min(x), min_by(y, x) from hb group by k order by k"], "decimal_hb"),
+    # TestWindowValueFns.test_lead_lag_first_last_over_long_decimal
+    "decimal_lead_lag_first_last_over_long_decimal": _ws("t", [
+        "create table memory.t.wd (d decimal(38,2), g bigint)",
+        "insert into wd values (1.50, 1), "
+        "(99999999999999999999999999999999.00, 2), (3.25, 3)",
+        "select lead(d) over (order by g), lag(d) over (order by g),"
+        " first_value(d) over (order by g) from wd"]),
+    # tests/test_nested_types.py test_nested_type_ddl_parses (its SHOW
+    # COLUMNS is ROADMAP §1 item 8b)
+    "nested_type_ddl": _ws("default", [
+        "create table nested_ddl (a array(bigint), m map(varchar, bigint),"
+        " r row(x bigint, y varchar))", "select * from nested_ddl"]),
+    # tests/test_nested_types.py test_full_join_with_nested_payload (fa2
+    # loaded there, written here)
+    "nested_full_join_with_nested_payload": _ws("default", [
+        "create table fa2 (x bigint, t array(bigint))",
+        "insert into fa2 values (1, array[10]), (2, array[20, 21])",
+        "create table fb2 (y bigint)", "insert into fb2 values (2), (3)",
+        "select x, t, y from fa2 full join fb2 on x = y"]),
+    # tests/test_array_columns.py test_ctas_and_insert_arrays and
+    # test_ctas_string_arrays: ARRAY of bigint and of varchar through the
+    # flat store
+    "array_ctas_and_insert_arrays": _ws("default", [
+        "create table arr_copy as select id, scores from orders_tags where id <= 2",
+        "select id, scores from arr_copy order by id",
+        "insert into arr_copy select id, scores from orders_tags where id = 4",
+        "select s from arr_copy, UNNEST(scores) u(s) where id = 4 order by s"], "tags"),
+    "array_ctas_string_arrays": _ws("default", [
+        "create table tag_copy as select id, tags from orders_tags",
+        "select t, count(*) from tag_copy, UNNEST(tags) u(t) group by t order by t",
+        "insert into orders_tags select * from orders_tags",
+        "delete from orders_tags where id = 2",
+        "select id, tags, scores from orders_tags order by id"], "tags"),
+    # TIMESTAMP WITH TIME ZONE written and read back (packed int64); an
+    # UPDATE ... WHERE over it hits the shared CASE fault (ROADMAP §3)
+    "timestamptz_write": _ws("z", [
+        "create table ev (id bigint, t timestamp with time zone)",
+        "insert into ev values (1, timestamp '2021-03-14 01:30:00 America/New_York'),"
+        " (2, timestamp '2021-03-14 03:30:00 America/New_York'),"
+        " (3, timestamp '2021-06-01 12:00:00 Asia/Tokyo'), (4, null)",
+        "create table ev2 as select id, t at time zone 'UTC' u from ev",
+        "select id, t, hour(t) from ev order by id",
+        "update ev set t = t + interval '1' hour",
+        "delete from ev where t > timestamp '2021-05-01 00:00:00 UTC'",
+        "select e.id, e.t, f.u from ev e join ev2 f on e.id = f.id order by e.id"]),
+    # transactions: rollback, commit, the read-only violation, and DELETE,
+    # UPDATE and MERGE inside an explicit transaction
+    "txn_rollback": _ws("s", [
+        "start transaction", "insert into c values (3, 'c')",
+        "create table e as select * from c", "select count(*) from c", "rollback",
+        "select count(*) from c", "select count(*) from e"], "txn"),
+    "txn_commit": _ws("s", [
+        "start transaction", "insert into c select k + 10, s from c",
+        "insert into c values (7, null)", "start transaction", "commit",
+        "select * from c order by k", "commit"], "txn"),
+    "txn_read_only": _ws("s", [
+        "start transaction read only", "insert into c values (1, 'x')",
+        "create table d (k bigint)", "create table d2 as select * from c",
+        "drop table c", "select count(*) from c", "rollback"], "txn"),
+    "txn_dml_rejected": _ws("s", [
+        "start transaction", "delete from c where k = 1", "update c set k = 0",
+        "merge into c t using c s on t.k = s.k when matched then delete",
+        "rollback", "delete from c where k = 1", "select * from c"], "txn"),
+}
 
 
 def log(msg: str) -> None:
@@ -2519,6 +2837,289 @@ def phase_zones(results: dict) -> None:
     log(f"[zones] phase took {time.perf_counter() - t_phase} s")
 
 
+def write_runner(schema: str, device: str):
+    """A tpch runner at `schema` with an empty memory catalog `w`."""
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+
+    r = runner(schema, device)
+    r.register_catalog("w", create_memory_connector())
+    return r
+
+
+def script_runner(script: dict, device: str):
+    """The port's runner for one WRITE_SCRIPTS entry, its setup run: a
+    memory catalog and tpch (tiny)."""
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+
+    r = LocalQueryRunner(Session(catalog=script["catalog"], schema=script["schema"],
+                                 **script["session"]), device=device)
+    r.register_catalog("memory", create_memory_connector())
+    r.register_catalog("tpch", create_tpch_connector())
+    for sql in WRITE_SETUPS.get(script["setup"], ()):
+        r.execute(sql)
+    return r
+
+
+class SinkTimer:
+    """Adds up the host seconds spent in the memory connector's page sink
+    (each batch's live rows copied from the card to the host, the
+    dictionary remap and the append), the rewrites' replace_rows too."""
+
+    def __enter__(self):
+        from trino_tpu_torch.connectors import memory as MEM
+
+        self.cls, self.inner = MEM.MemoryPageSink, MEM.MemoryPageSink.append
+        self.seconds, self.calls = 0.0, 0
+
+        def append(sink, batch):
+            t0 = time.perf_counter()
+            try:
+                return self.inner(sink, batch)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        self.cls.append = append
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.append = self.inner
+
+
+def tensor_bytes(obj, seen=None) -> int:
+    """Bytes of the distinct tensors reachable from a batch, a column or
+    a list of them."""
+    import dataclasses
+
+    import torch
+
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        if obj.data_ptr() in seen:
+            return 0
+        seen.add(obj.data_ptr())
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(x, seen) for x in obj)
+    if dataclasses.is_dataclass(obj):
+        return sum(tensor_bytes(getattr(obj, f.name), seen) for f in dataclasses.fields(obj))
+    return 0
+
+
+def device_cache_bytes(conn) -> int:
+    """Card bytes of the batches the memory connector keeps per table."""
+    return sum(tensor_bytes(list(t.device_cache.values())) for t in conn.store.tables.values())
+
+
+def write_step(r, scans, sink, name, sql, steps, probes):
+    """Runs one statement cold and logs its three lines: wall, scan_s and
+    sink_s; its kernel launches; the card's peak memory. Also the card
+    bytes of the memory catalog's cached batches before and after it (a
+    write drops the older versions')."""
+    import torch
+
+    cache_before = device_cache_bytes(r.catalogs.get("w"))
+    before = join_kernel_counts()
+    batches_before = probes.calls
+    for s in scans:
+        s.seconds = 0.0
+    sink.seconds = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    error = None
+    try:
+        res = r.execute(sql)
+    except Exception as e:  # noqa: BLE001 - the caller checks what was expected
+        res, error = None, e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = join_kernel_counts()
+    rec = steps[name] = {
+        "wall_s": wall, "scan_s": sum(s.seconds for s in scans), "sink_s": sink.seconds,
+        "launches": {k: after[k] - before[k] for k in after},
+        "probe_batches": probes.calls - batches_before,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "cache_bytes": [cache_before, device_cache_bytes(r.catalogs.get("w"))],
+        "error": None if error is None else f"{type(error).__name__}: {error}"}
+    log(f"[write] {name}: wall_s={wall} scan_s={rec['scan_s']} sink_s={rec['sink_s']} "
+        f"(host time in the page sink, the copy from the card included) "
+        f"rows={None if res is None else res.rows[:4]} error={rec['error']}")
+    log(f"[write] {name}: launches={rec['launches']} probe_batches={rec['probe_batches']}")
+    log(f"[write] {name}: peak card memory {rec['peak_bytes']} bytes; cached batches "
+        f"{rec['cache_bytes'][0]} bytes before, {rec['cache_bytes'][1]} after")
+    return res, error
+
+
+def write_identities(r, step, n: int) -> None:
+    """Phase write's statements in order on runner `r` (a tpch runner
+    with the memory catalog `w`), each through `step(name, sql)`, which
+    returns (rows, error), held to its identity; `n` is the orders'
+    row count. tests/test_torch_write.py runs this at tiny."""
+    from trino_tpu_torch.transaction import TransactionError
+
+    def run(name, sql):
+        rows, error = step(name, sql)
+        if error is not None:
+            raise error
+        return rows
+
+    def value(sql):
+        return r.execute(sql).rows
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"phase write: {what}")
+
+    got = run("ctas", WRITE_CTAS)
+    check(got == [[n]], f"CTAS wrote {got}, orders holds {n}")
+    mine = run("ctas_check", WRITE_CTAS_CHECK.format(t="w.s.orders"))
+    source = value(WRITE_CTAS_CHECK.format(t="orders"))
+    check(rows_close(mine, source), f"the written orders {mine} against tpch's {source}")
+    run("cust_create", WRITE_CUST)
+    got = run("cust_insert", WRITE_CUST_INSERT)
+    keys = value(WRITE_CUSTKEYS)
+    check(got == keys and value(WRITE_CUST_CHECK) == [[keys[0][0], n]],
+          f"INSERT ... GROUP BY wrote {got} of {keys} customers")
+    got = run("update", WRITE_UPDATE)
+    old = value(WRITE_UPDATE_SOURCE)
+    check(got == old and value(WRITE_UPDATE_CHECK) == old,
+          f"UPDATE changed {got} rows, {old} match")
+    deleted = run("delete", WRITE_DELETE)[0][0]
+    check(value(WRITE_COUNT) == [[n - deleted]], f"DELETE removed {deleted} rows")
+    (q, q_low), = value(WRITE_MERGE_SOURCE)
+    got = run("merge", WRITE_MERGE)
+    final = n - deleted + q_low
+    check(got == [[q]] and value(WRITE_COUNT) == [[final]],
+          f"MERGE touched {got} rows of {q} ({q_low} re-inserted)")
+    n_cust = keys[0][0]
+    for i, (sql, times) in enumerate(WRITE_TXN):
+        run(f"txn{i}", sql)
+        check(value(WRITE_CUST_CHECK)[0][0] == times * n_cust,
+              f"after {sql!r} w.s.cust does not hold {times} x {n_cust} rows")
+    run("read_only_start", WRITE_READ_ONLY[0])
+    _, error = step("read_only_insert", WRITE_READ_ONLY[1])
+    check(isinstance(error, TransactionError), f"a read-only write gave {error!r}")
+    run("read_only_rollback", WRITE_READ_ONLY[2])
+    groups = run("group", WRITE_GROUP)
+    check(sum(g[3] for g in groups) == final
+          and sum(g[3] for g in groups if g[2]) == q - q_low,
+          f"the GROUP BY's counts {groups} against {final} rows")
+    for i, sql in enumerate(WRITE_DROPS):
+        run(f"drop{i}", sql)
+    _, error = step("select_dropped", WRITE_COUNT)
+    check(error is not None, "a SELECT of the dropped table answered")
+
+
+def phase_write(results: dict) -> None:
+    """The write side at sf1 on the card, each statement cold once, held
+    to its identity (write_identities): CTAS of orders, INSERT ... SELECT
+    with a GROUP BY, UPDATE, DELETE, MERGE, the transactions, a GROUP BY
+    over the written table and DROP. MERGE launches bounds once per probe
+    batch and take_flat, the GROUP BY grouped_sum. Launches count over
+    this phase alone (`write_launches`)."""
+    import torch
+    from trino_tpu_torch.connectors.tpch import base_row_count
+    from trino_tpu_torch.ops import join as TJ
+
+    t_phase = time.perf_counter()
+    r = write_runner("sf1", "cuda")
+    tpch, w = r.catalogs.get("tpch"), r.catalogs.get("w")
+    scans = [TimedPageSource(tpch.page_source), TimedPageSource(w.page_source)]
+    tpch.page_source, w.page_source = scans
+    probes = Capture(TJ, "sorted_run_bounds", lambda sorted_arr, q: (
+        (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None),
+        keep=())
+    steps: dict = {}
+    reset_kernel_counts()
+    with probes, SinkTimer() as sink:
+        def step(name, sql):
+            res, error = write_step(r, scans, sink, name, sql, steps, probes)
+            return (None if res is None else res.rows), error
+
+        write_identities(r, step, base_row_count("orders", 1.0))
+    merge, group = steps["merge"], steps["group"]
+    if not 0 < merge["probe_batches"] <= merge["launches"]["bounds"]:
+        raise AssertionError(f"MERGE launched bounds {merge['launches']['bounds']} times "
+                             f"over {merge['probe_batches']} probe batches")
+    if merge["launches"]["take_flat"] <= 0:
+        raise AssertionError("MERGE never launched take_flat")
+    if group["launches"]["grouped_sum"] <= 0:
+        raise AssertionError("the GROUP BY over w.s.orders never launched grouped_sum")
+    results["write_launches"] = join_kernel_counts()
+    results["write"] = steps
+    writes = ("update", "delete", "merge", "txn5")
+    results["write_cache_bytes"] = {k: steps[k]["cache_bytes"] for k in writes}
+    log(f"[write] cached batches of the written tables before and after each write "
+        f"(bytes; an older version's are dropped at the write): "
+        f"{results['write_cache_bytes']}")
+    log(f"[write] identities hold; launches over the phase: {results['write_launches']}")
+    log(f"[write] phase took {time.perf_counter() - t_phase} s")
+    del r
+    torch.cuda.empty_cache()
+
+
+_ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
+
+
+def same_writes(gpu, cpu, statements, what, catalog) -> None:
+    """Each statement on the card and on the CPU: equal types and rows
+    (in order where it ends with ORDER BY), or the same error; before
+    the first DROP TABLE, and at the end, every table of `catalog`
+    read back equal (as multisets of rows)."""
+
+    def run(r, sql):
+        try:
+            res = r.execute(sql)
+            return [str(t) for t in res.column_types], res.rows
+        except Exception as e:  # noqa: BLE001 - compared below
+            return type(e).__name__, str(e)
+
+    def tables():
+        conn = cpu.catalogs.get(catalog)
+        for schema in conn.metadata.list_schemas():
+            for table in conn.metadata.list_tables(schema):
+                sql = f"select * from {catalog}.{schema}.{table}"
+                a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
+                if not rows_close(sorted(a, key=repr), sorted(b, key=repr)):
+                    raise AssertionError(f"{what}: {table} differs between card and CPU")
+
+    for sql in statements:
+        if sql.lower().startswith("drop table"):
+            tables()
+        a, b = run(gpu, sql), run(cpu, sql)
+        if isinstance(a[1], list) and isinstance(b[1], list) and a[0] == b[0]:
+            ra, rb = a[1], b[1]
+            if not _ENDS_ORDERED.search(sql):
+                ra, rb = sorted(ra, key=repr), sorted(rb, key=repr)
+            if rows_close(ra, rb):
+                continue
+        elif a == b:
+            continue
+        raise AssertionError(f"{what}: card {str(a)[:200]} and CPU {str(b)[:200]} differ "
+                             f"on {sql}")
+    tables()
+
+
+def parity_write() -> None:
+    """The card against the CPU: phase write's statements at tiny and
+    sf0.1, and every script of the write corpus at tiny."""
+    for schema in ("tiny", "sf0.1"):
+        t0 = time.perf_counter()
+        same_writes(write_runner(schema, "cuda"), write_runner(schema, "cpu"),
+                    write_statements(), f"write {schema}", "w")
+        log(f"[parity] write statements {schema}: {len(write_statements())} statements, "
+            f"card == CPU ({time.perf_counter() - t0} s)")
+    t0 = time.perf_counter()
+    for name, script in WRITE_SCRIPTS.items():
+        same_writes(script_runner(script, "cuda"), script_runner(script, "cpu"),
+                    script["sql"], f"write script {name}", "memory")
+    log(f"[parity] write corpus: {len(WRITE_SCRIPTS)} scripts at tiny, card == CPU "
+        f"({time.perf_counter() - t0} s)")
+
+
 def parity_zones() -> None:
     """The card against the CPU: every timestamptz and MATCH_RECOGNIZE
     case at tiny (TSTZ_SQL, MR_SQL, MR_NULL_SQL) and phase zones'
@@ -3028,6 +3629,7 @@ def phase_parity(results: dict) -> None:
         raise AssertionError("wide-string GROUP BY: card, CPU and numpy differ at 2^16 rows")
     log(f"[parity] wide-string GROUP BY 2^16 rows: {len(a)} rows, card == CPU == numpy")
     parity_zones()
+    parity_write()
 
 
 def timed_main_args(results: dict) -> dict:
@@ -3154,7 +3756,7 @@ def kernels_line(results: dict) -> dict:
                   "capacity": timed.get("capacity")},
         "modes": modes,
     }]
-    for phase in ("nested", "zones"):
+    for phase in ("nested", "zones", "write"):
         if f"{phase}_launches" in results:
             line[0][f"{phase}_launches"] = results[f"{phase}_launches"].get("grouped_sum", 0)
     join_checks = results.get("join_kernel_checks", {})
@@ -3196,8 +3798,8 @@ def kernels_line(results: dict) -> dict:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
                  **mode_record(rec, n)}
-        for phase in ("nested", "zones"):
-            # phases nested and zones count apart from the main path
+        for phase in ("nested", "zones", "write"):
+            # phases nested, zones and write count apart from the main path
             if f"{phase}_launches" in results:
                 got = results[f"{phase}_launches"]
                 entry[f"{phase}_launches"] = (
@@ -3213,7 +3815,8 @@ def kernels_line(results: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="identity,build,kernel,main,nested,zones,explore,parity",
+    ap.add_argument("--phases",
+                    default="identity,build,kernel,main,nested,zones,write,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -3254,6 +3857,8 @@ def main() -> int:
         phase_nested(results)
     if "zones" in phases:
         phase_zones(results)
+    if "write" in phases:
+        phase_write(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

@@ -77,6 +77,36 @@ def test_zone_and_pattern_modules_import_alone(module):
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["trino_tpu_torch.transaction",
+                                    "trino_tpu_torch.engine",
+                                    "trino_tpu_torch.connectors.memory"])
+def test_write_side_modules_import_alone(module):
+    # the write side keeps its own transaction manager: imported first and
+    # alone in a fresh process, none of these pulls in jax or trino_tpu
+    # (trino_tpu/transaction.py itself imports trino_tpu.analysis)
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'trino_tpu'))\n"
+        "assert not bad, bad\n"
+        "from trino_tpu_torch.transaction import TransactionManager\n"
+        "from trino_tpu_torch.connectors.spi import CatalogManager\n"
+        "tm = TransactionManager(CatalogManager())\n"
+        "tx = tm.begin(read_only=True)\n"
+        "assert tm.is_read_only(tx) and tm.is_active(tx)\n"
+        "tm.rollback(tx)\n"
+        "assert not tm.is_active(tx)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize(
     "path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO)
 )

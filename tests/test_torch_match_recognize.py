@@ -6,10 +6,9 @@ the same inputs.
   pattern.
 - SQL: every query of tests/test_match_recognize.py (MR_V imported) and
   a few beyond it, over the stock rows loaded with `load_table` in both
-  packages (the port has no CREATE TABLE yet; chip_smoke.MR_SQL lists
-  them for the card-against-CPU check), equal rows; its error cases
-  raise in both. The formatter round trip waits for sql/formatter.py
-  (ROADMAP §1 item 8).
+  packages (chip_smoke.MR_SQL lists them for the card-against-CPU
+  check), equal rows; its error cases raise in both. The formatter round
+  trip waits for sql/formatter.py (ROADMAP §1 item 8b).
 - NULL keys: a NULL ORDER BY key sorts by its data in both. A NULL
   PARTITION BY key whose data equals a real key's merges into that
   partition in the reference and is its own partition in the port, and

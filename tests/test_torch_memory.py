@@ -136,23 +136,35 @@ def test_pushed_down_filter_scans_equal_the_reference(connectors):
 
 
 def test_write_side_and_nested_columns_raise():
-    """The write side raises naming ROADMAP §1 item 8; nested columns
-    (item 4) load and scan: an array column's flat store, sliced by
-    splits and gathered by bucket ids, gives back the loaded values."""
-    conn = tmemory.create_memory_connector()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        conn.page_sink(None)
+    """The write side, once a raise naming ROADMAP §1 item 8: each
+    package's page sink writes the batches its own page source scans out
+    of a loaded table (an array column's flat store, sliced by splits and
+    gathered by bucket ids) into a created table, and both read back the
+    loaded values (item 4's nested columns, through the flat store)."""
     rows = [[1], [], None, [2, None, 3], [4, 5]] * 7
-    conn.load_table("default", "a", [ColumnMetadata("k", T.BIGINT),
-                                     ColumnMetadata("a", T.array_of(T.BIGINT))],
-                    [np.arange(len(rows), dtype=np.int64), rows], bucketed_by=("k",))
-    handle = conn.metadata.get_table_handle("default", "a")
-    for n in (1, 3):
+    want = dict(enumerate(rows))
+    for mod, cm, types in ((tmemory, ColumnMetadata, T), (jmemory, JColumnMetadata, JT)):
+        conn = mod.create_memory_connector()
+        cols = [cm("k", types.BIGINT), cm("a", types.array_of(types.BIGINT))]
+        conn.load_table("default", "a", cols,
+                        [np.arange(len(rows), dtype=np.int64), rows], bucketed_by=("k",))
+        handle = conn.metadata.get_table_handle("default", "a")
+        copy = conn.metadata.create_table("default", "b", cols)
+        sink = conn.page_sink(copy)
+        for n in (1, 3):
+            got = {}
+            for split in conn.split_manager.get_splits(handle, n):
+                for b in conn.page_source.batches(split, ["k", "a"], 4):
+                    got.update(dict(b.to_pylists()))
+                    if n == 3:
+                        sink.append(b)
+            assert got == want
+        assert sink.finish() == len(rows)
         got = {}
-        for split in conn.split_manager.get_splits(handle, n):
-            for b in conn.page_source.batches(split, ["k", "a"], 4):
+        for split in conn.split_manager.get_splits(copy, 2):
+            for b in conn.page_source.batches(split, ["k", "a"], 8):
                 got.update(dict(b.to_pylists()))
-        assert got == dict(enumerate(rows))
+        assert got == want
 
 
 def test_bucketing_refuses_float_keys():

@@ -11,8 +11,9 @@ trino_tpu on the same inputs.
   tests/test_nested_types.py, tests/test_aggregates_r4.py (the collect
   aggregates), tests/test_sketches_r4.py (the array and sketch cases)
   and tests/test_function_breadth_r5.py (qdigest readers, split_to_map),
-  loaded with `load_table` in both packages (the port has no write side
-  yet). Their SQL is inline in those tests, so chip_smoke.py lists it
+  loaded with `load_table` in both packages; the nested DDL, CTAS and
+  INSERT cases run in both over fresh copies (tests/test_torch_write.py
+  holds the rest of the write side). Their SQL is inline in those tests, so chip_smoke.py lists it
   (`NEST_MEMORY_SQL`, `nest_tables`, each with a comment naming the
   test) for its card-against-CPU check, and it is imported here. Rows
   equal, types equal; doubles within tests/oracle.py::assert_rows_match's
@@ -323,7 +324,13 @@ def test_memory_unnest_group_by_equals_numpy():
     " r row(x bigint, y varchar))",
     "create table arr_copy as select id, scores from orders_tags where id <= 2",
     "insert into orders_tags select * from orders_tags"])
-def test_nested_ddl_and_writes_name_their_item(sql, memory):
-    _, port = memory["tags"]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        port.execute(sql)
+def test_nested_ddl_and_writes_name_their_item(sql):
+    """Once a raise naming ROADMAP §1 item 8: the statement runs in both
+    packages over fresh copies of the tags tables, with equal results,
+    and every table then reads back equal."""
+    ref, port = _runners("tags")
+    want, got = ref.execute(sql), port.execute(sql)
+    assert got.rows == want.rows
+    conn = port.catalogs.get("memory")
+    for table in conn.metadata.list_tables("tags"):
+        _same((ref, port), f"select * from {table}", sort=True)

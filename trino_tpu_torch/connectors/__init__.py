@@ -2,8 +2,8 @@
 
 Analogue of trino-spi's connector surface (spi/connector/ ~100
 interfaces, spi/Plugin.java:35 — SURVEY.md §2.12). The port carries the tpch
-and tpcds generators and the memory connector's read side; the memory
-write side, file and blackhole connectors are queued (ROADMAP §1 items 8-9).
+and tpcds generators and the memory connector, read and write sides; the
+file and blackhole connectors are queued (ROADMAP §1 item 9).
 """
 
 from trino_tpu_torch.connectors.spi import (  # noqa: F401
@@ -11,6 +11,7 @@ from trino_tpu_torch.connectors.spi import (  # noqa: F401
     ColumnMetadata,
     Connector,
     ConnectorMetadata,
+    ConnectorPageSink,
     ConnectorPageSource,
     ConnectorSplitManager,
     Split,

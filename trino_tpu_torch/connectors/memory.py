@@ -1,4 +1,4 @@
-"""In-memory connector, the read side.
+"""In-memory connector.
 
 Counterpart of trino_tpu/connectors/memory.py (plugin/trino-memory's
 MemoryPagesStore analogue): tables live as dense host-side numpy column
@@ -9,11 +9,15 @@ coded by one table-wide dictionary); MAP and ROW columns, and arrays of
 nested elements, keep python objects, as in the reference.
 `MemoryConnector.load_table` bulk-loads a table, and the page source
 copies row ranges (or the rows of one hash bucket) to the runner's
-device, keeping the batches per table version.
+device, keeping the batches of the table's current version.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-the write side — the page sink, transactions and `replace_rows` (§1
-item 8).
+The write side: CREATE/DROP/TRUNCATE, the page sink (`MemoryPageSink`:
+each batch's live rows copied from the device to the host and appended,
+string codes remapped into the table dictionary), transactional writes
+buffered until commit (`MemoryTransactionHandle`), and `replace_rows`,
+the stage-then-swap commit of the DELETE/UPDATE/MERGE rewrites. Every
+write bumps the table's version and drops the device batches and bucket
+ids kept for older versions.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from trino_tpu_torch.connectors.spi import (
     ColumnMetadata,
     Connector,
     ConnectorMetadata,
+    ConnectorPageSink,
     ConnectorPageSource,
     ConnectorSplitManager,
     Split,
@@ -46,8 +51,7 @@ from trino_tpu_torch.connectors.spi import (
     TableMetadata,
     TableStatistics,
 )
-
-_WRITE_SIDE = "the memory connector's write side: ROADMAP §1 item 8"
+from trino_tpu_torch.transaction import ConnectorTransactionHandle
 
 
 @dataclasses.dataclass
@@ -68,6 +72,10 @@ class _FlatArrays:
     offsets: np.ndarray  # int64 (n + 1,)
     values: np.ndarray  # element physical values (string codes)
     value_valid: Optional[np.ndarray]  # element NULLs
+
+    @staticmethod
+    def empty(element: T.DataType) -> "_FlatArrays":
+        return _FlatArrays(np.zeros(1, dtype=np.int64), _empty_data(element), None)
 
     @staticmethod
     def of_lists(element: T.DataType, rows, dictionary: Optional[Dictionary]):
@@ -145,6 +153,23 @@ class _StoredTable:
     bucketed_by: Optional[Tuple[str, ...]] = None
     # (version, n_buckets) -> int32 bucket id per row
     bucket_cache: Dict[tuple, np.ndarray] = dataclasses.field(default_factory=dict)
+
+    def written(self) -> None:
+        """A write: a new version, and the older versions' device
+        batches and bucket ids dropped (no later scan can read them)."""
+        self.version += 1
+        self.device_cache.clear()
+        self.bucket_cache.clear()
+
+
+def _empty_data(t: T.DataType):
+    """The empty store of a column of type `t` (an ARRAY of flat
+    elements: a _FlatArrays)."""
+    if t.is_array and not t.element.is_nested:
+        return _FlatArrays.empty(t.element)
+    if t.is_nested:
+        return []
+    return np.zeros((0, 2) if t.lanes == 2 else (0,), dtype=t.np_dtype)
 
 
 class _Store:
@@ -253,18 +278,30 @@ class MemoryMetadata(ConnectorMetadata):
                 raise ValueError(f"table '{schema}.{table}' already exists")
             st = _StoredTable(schema, table, list(columns))
             for c in columns:
-                if c.type.is_nested:
-                    st.data[c.name] = _StoredColumn(c.type, [], None, None)
-                    continue
-                shape = (0, 2) if c.type.lanes == 2 else (0,)
+                strings = c.type.element.is_string if c.type.is_array else c.type.is_string
                 st.data[c.name] = _StoredColumn(
-                    c.type,
-                    np.zeros(shape, dtype=c.type.np_dtype),
-                    None,
-                    Dictionary([]) if c.type.is_string else None,
-                )
+                    c.type, _empty_data(c.type), None,
+                    Dictionary([]) if strings else None)
             self.store.tables[(schema, table)] = st
         return TableHandle("memory", schema, table)
+
+    def truncate_table(self, handle: TableHandle) -> None:
+        with self.store.lock:
+            t = self.store.tables[(handle.schema, handle.table)]
+            for sc in t.data.values():
+                sc.data = _empty_data(sc.type)
+                sc.valid = None
+            t.row_count = 0
+            t.written()
+
+    def drop_table(self, handle: TableHandle) -> None:
+        with self.store.lock:
+            t = self.store.tables.pop((handle.schema, handle.table), None)
+            # the stats cache pins the stored table (host arrays + the
+            # device-resident batch cache); a dropped table frees both
+            self._stats_cache.pop((handle.schema, handle.table), None)
+            if t is not None:
+                t.device_cache.clear()
 
 
 class MemorySplitManager(ConnectorSplitManager):
@@ -338,9 +375,8 @@ class MemoryPageSource(ConnectorPageSource):
         for batch in self._materialize(t, columns, batch_rows, lo, hi, idx, device):
             out.append(batch)
             yield batch
-        for k in [k for k in t.device_cache if k[0] != t.version]:
-            t.device_cache.pop(k, None)
-        t.device_cache[cache_key] = out
+        if cache_key[0] == t.version:  # no write ran during the scan
+            t.device_cache[cache_key] = out
 
     def _bucket_ids(self, t: _StoredTable, nb: int) -> np.ndarray:
         """Row -> bucket id by the engine's exchange hash (the host
@@ -368,8 +404,6 @@ class MemoryPageSource(ConnectorPageSource):
                 lanes.append(np.asarray(sc.data[:n]).astype(np.int64))
             valids.append(None if sc.valid is None else sc.valid[:n])
         bids = partition_of_np(hash32_np(lanes, valids), nb)
-        for k in [k for k in t.bucket_cache if k[0] != t.version]:
-            t.bucket_cache.pop(k, None)
         t.bucket_cache[key] = bids
         return bids
 
@@ -417,6 +451,144 @@ class MemoryPageSource(ConnectorPageSource):
             yield RelBatch(cols, torch.zeros(16, dtype=torch.bool, device=device))
 
 
+def _host_rows(x: torch.Tensor, live: Optional[torch.Tensor]) -> np.ndarray:
+    """The live rows of a device tensor, copied to the host."""
+    return (x if live is None else x[live]).cpu().numpy()
+
+
+def _append_valid(old: Optional[np.ndarray], n_old: int,
+                  new: Optional[np.ndarray], n_new: int) -> Optional[np.ndarray]:
+    if old is None and new is None:
+        return None
+    return np.concatenate([old if old is not None else np.ones(n_old, dtype=bool),
+                           new if new is not None else np.ones(n_new, dtype=bool)])
+
+
+def _remap_strings(sc_dictionary: Optional[Dictionary], incoming: Optional[Dictionary],
+                   old: np.ndarray, codes: np.ndarray):
+    """(table dictionary, stored codes, incoming codes) after folding the
+    incoming dictionary into the table's (Dictionary.unify)."""
+    if not incoming:  # no values: the codes stay (NULLs, or no rows)
+        return sc_dictionary, old, codes
+    if not sc_dictionary or sc_dictionary == incoming:
+        # the merged dictionary is the incoming one, and no code moves
+        return incoming, old, codes
+    merged, remap_old, remap_new = Dictionary.unify(sc_dictionary, incoming)
+    if len(old):
+        old = remap_old[old]
+    return merged, old, remap_new[np.clip(codes, 0, len(incoming) - 1)]
+
+
+class MemoryPageSink(ConnectorPageSink):
+    """Appends batches: each column's live rows are copied from the
+    runner's device to the host once a batch; string columns (and string
+    array elements) re-encode into the table's growing dictionary
+    (unify) so the table dictionary stays authoritative."""
+
+    def __init__(self, store: _Store, handle: TableHandle):
+        self.store = store
+        self.handle = handle
+        self.rows = 0
+
+    def append(self, batch: RelBatch) -> None:
+        key = (self.handle.schema, self.handle.table)
+        live = batch.live
+        if live is not None:
+            n = int(live.sum())
+            if n == live.numel():
+                live = None
+        else:
+            n = batch.capacity
+        with self.store.lock:
+            t = self.store.tables[key]
+            for cm, col in zip(t.columns, batch.columns):
+                sc = t.data[cm.name]
+                if cm.type.is_nested and not isinstance(sc.data, _FlatArrays):
+                    # MAP, ROW and arrays of nested elements: python values
+                    sc.data = list(sc.data) + col.to_pylist(
+                        live=None if live is None else live.cpu().numpy())
+                    continue
+                valid = None if col.valid is None else _host_rows(col.valid, live)
+                if isinstance(sc.data, _FlatArrays):
+                    if not isinstance(col, ArrayColumn):
+                        raise TypeError(f"column {cm.name}: expected ARRAY data")
+                    self._append_flat(sc, col, live, valid, t.row_count, n)
+                else:
+                    data = _host_rows(col.data, live)
+                    if cm.type.is_string:
+                        sc.dictionary, sc.data, data = _remap_strings(
+                            sc.dictionary, col.dictionary, sc.data, data)
+                    sc.data = np.concatenate([sc.data, data.astype(cm.type.np_dtype)])
+                    sc.valid = _append_valid(sc.valid, t.row_count, valid, n)
+            t.row_count += n
+            t.written()
+            self.rows += n
+
+    @staticmethod
+    def _append_flat(sc: _StoredColumn, col: ArrayColumn, live, valid,
+                     n_old: int, n: int) -> None:
+        """An ARRAY of flat elements onto the flat store: the live rows'
+        lengths, and their elements gathered row after row."""
+        lengths = _host_rows(col.data, live).astype(np.int64)
+        starts = _host_rows(col.starts, live).astype(np.int64)
+        if valid is not None:
+            lengths = np.where(valid, lengths, 0)
+        _, pos = element_positions(starts, lengths)
+        idx = torch.from_numpy(pos).to(col.flat.data.device)
+        vals = col.flat.data.index_select(0, idx).cpu().numpy()
+        vvalid = (None if col.flat.valid is None
+                  else col.flat.valid.index_select(0, idx).cpu().numpy())
+        fa = sc.data
+        old_vals = fa.values
+        if col.type.element.is_string:
+            sc.dictionary, old_vals, vals = _remap_strings(
+                sc.dictionary, col.flat.dictionary, old_vals, vals)
+        m_old, m_new = len(fa.values), len(vals)
+        offsets = np.concatenate([fa.offsets, fa.offsets[-1] + np.cumsum(lengths)])
+        sc.data = _FlatArrays(
+            offsets, np.concatenate([old_vals, vals.astype(old_vals.dtype)]),
+            _append_valid(fa.value_valid, m_old, vvalid, m_new))
+        sc.valid = _append_valid(sc.valid, n_old, valid, n)
+
+    def finish(self) -> int:
+        return self.rows
+
+
+class MemoryTransactionHandle(ConnectorTransactionHandle):
+    """Buffers writes until commit (read-committed: in-transaction
+    scans do NOT see the transaction's own pending writes, as in the
+    reference). The staged batches stay on the device until then."""
+
+    def __init__(self, store: _Store):
+        self.store = store
+        self._pending: List[tuple] = []  # (handle, batch)
+
+    def stage(self, handle: TableHandle, batch: RelBatch) -> None:
+        self._pending.append((handle, batch))
+
+    def commit(self) -> None:
+        for handle, batch in self._pending:
+            MemoryPageSink(self.store, handle).append(batch)
+        self._pending.clear()
+
+    def rollback(self) -> None:
+        self._pending.clear()
+
+
+class _TransactionalMemorySink(ConnectorPageSink):
+    def __init__(self, txn: MemoryTransactionHandle, handle: TableHandle):
+        self.txn = txn
+        self.handle = handle
+        self.rows = 0
+
+    def append(self, batch: RelBatch) -> None:
+        self.txn.stage(self.handle, batch)
+        self.rows += batch.row_count()
+
+    def finish(self) -> int:
+        return self.rows  # publish happens at transaction commit
+
+
 class MemoryConnector(Connector):
     def __init__(self):
         store = _Store()
@@ -429,13 +601,38 @@ class MemoryConnector(Connector):
         self.store = store
 
     def begin_transaction(self, read_only: bool = False):
-        raise NotImplementedError(_WRITE_SIDE)
+        return MemoryTransactionHandle(self.store)
 
     def replace_rows(self, handle: TableHandle, batches) -> None:
-        raise NotImplementedError(_WRITE_SIDE)
+        """Atomically replace the table's rows with `batches` (the
+        DELETE/UPDATE/MERGE rewrite commit): stage into a detached copy
+        of the table, then swap under the store lock — a mid-stage
+        failure leaves the original untouched."""
+        key = (handle.schema, handle.table)
+        with self.store.lock:
+            t = self.store.tables[key]
+            staging = _StoredTable(t.schema, t.name, list(t.columns))
+            for cm in t.columns:
+                # keep the table dictionary stable
+                staging.data[cm.name] = _StoredColumn(
+                    cm.type, _empty_data(cm.type), None, t.data[cm.name].dictionary)
+        staging_store = _Store()
+        staging_store.tables[key] = staging
+        sink = MemoryPageSink(staging_store, handle)
+        for b in batches:
+            sink.append(b)
+        with self.store.lock:
+            t = self.store.tables.get(key)
+            if t is None:
+                raise KeyError(f"table {key} dropped during rewrite")
+            t.data = staging.data
+            t.row_count = staging.row_count
+            t.written()
 
-    def page_sink(self, handle: TableHandle, transaction=None):
-        raise NotImplementedError(_WRITE_SIDE)
+    def page_sink(self, handle: TableHandle, transaction=None) -> ConnectorPageSink:
+        if isinstance(transaction, MemoryTransactionHandle):
+            return _TransactionalMemorySink(transaction, handle)
+        return MemoryPageSink(self.store, handle)
 
     def load_table(
         self,
@@ -496,7 +693,7 @@ class MemoryConnector(Connector):
                 ),
             )
         t.row_count = n
-        t.version += 1
+        t.written()
 
     @staticmethod
     def _nested_store(t: T.DataType, rows: list) -> _StoredColumn:

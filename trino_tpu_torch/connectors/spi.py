@@ -4,9 +4,10 @@ The plugin boundary between the engine and data sources — the analogue
 of spi/connector/: ConnectorMetadata (spi/connector/ConnectorMetadata.java:64),
 ConnectorSplitManager, ConnectorPageSourceProvider
 (spi/connector/ConnectorPageSource.java:24) and the Plugin registration
-surface (spi/Plugin.java:35), reduced to the read-only capability set
-the ported engine consumes (writes come with DDL/DML). Deltas from the
-reference:
+surface (spi/Plugin.java:35), reduced to the capability set the
+ported engine consumes: the read side, and the write side of DDL/DML
+(create/drop/truncate, page sinks, connector transactions). Deltas from
+the reference:
 
 - Page sources yield ``RelBatch`` (device-ready SoA) instead of
   Page/Block, and declare *table-stable dictionaries* per string column
@@ -22,6 +23,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.block import Dictionary, RelBatch
+from trino_tpu_torch.transaction import ConnectorTransactionHandle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,10 +162,29 @@ class ConnectorMetadata:
         host-side bucket function)."""
         return None
 
+    # -- writes (optional capability) --
+    def create_table(self, schema: str, table: str,
+                     columns: Sequence[ColumnMetadata]) -> TableHandle:
+        raise NotImplementedError(f"{type(self).__name__} does not support CREATE TABLE")
+
+    def drop_table(self, handle: TableHandle) -> None:
+        raise NotImplementedError(f"{type(self).__name__} does not support DROP TABLE")
+
+    def truncate_table(self, handle: TableHandle) -> None:
+        """Remove all rows, keeping the table (DELETE/UPDATE rewrite
+        support; the reference's ConnectorMetadata.executeDelete
+        whole-table path)."""
+        raise NotImplementedError(f"{type(self).__name__} does not support DELETE")
+
 
 class ConnectorSplitManager:
     def get_splits(self, handle: TableHandle, target_split_count: int) -> List[Split]:
         raise NotImplementedError
+
+    def invalidate_cache(self) -> None:
+        """Drop any cached split listings (a whole-query retry replays
+        against a fresh listing). Default: stateless split managers
+        have nothing to drop."""
 
 
 class ConnectorPageSource:
@@ -173,6 +194,19 @@ class ConnectorPageSource:
 
     def batches(self, split: Split, columns: Sequence[str], batch_rows: int,
                 device="cpu") -> Iterator[RelBatch]:
+        raise NotImplementedError
+
+
+class ConnectorPageSink:
+    """Accepts batches for a write (ConnectorPageSinkProvider analogue).
+    Batches arrive on the runner's device; a sink copies the live rows
+    it keeps to the host."""
+
+    def append(self, batch: RelBatch) -> None:
+        raise NotImplementedError
+
+    def finish(self) -> int:
+        """Commit; returns row count written."""
         raise NotImplementedError
 
 
@@ -207,6 +241,26 @@ class Connector:
         self.page_source = page_source
         self.table_functions = table_functions or {}
 
+    def page_sink(self, handle: TableHandle, transaction=None) -> ConnectorPageSink:
+        """`transaction` is this connector's ConnectorTransactionHandle
+        (trino_tpu_torch.transaction) when the write runs inside an
+        explicit transaction; connectors that support transactional
+        writes buffer until its commit. Autocommit (None) publishes at
+        finish()."""
+        raise NotImplementedError(f"connector {self.name} does not support writes")
+
+    def begin_transaction(self, read_only: bool = False):
+        """Optional: return a connector transaction handle
+        (spi/transaction/ConnectorTransactionHandle analogue). Default
+        is autocommit semantics."""
+        return ConnectorTransactionHandle()
+
+    def invalidate_split_caches(self) -> None:
+        """Flush this catalog's split-listing caches (whole-query retry
+        boundary — see ConnectorSplitManager.invalidate_cache)."""
+        if self.split_manager is not None:
+            self.split_manager.invalidate_cache()
+
 
 class CatalogManager:
     """Engine-wide catalog registry — MetadataManager/CatalogManager
@@ -232,3 +286,13 @@ class CatalogManager:
         if handle is None:
             raise KeyError(f"table '{catalog}.{schema}.{table}' does not exist")
         return conn, handle
+
+    def invalidate_split_listings(self) -> None:
+        """Flush split-listing caches across every catalog. Connector
+        errors are swallowed: a broken cache flush must not mask the
+        failure that asked for it."""
+        for conn in self._catalogs.values():
+            try:
+                conn.invalidate_split_caches()
+            except Exception:
+                pass

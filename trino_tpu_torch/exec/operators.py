@@ -2168,6 +2168,65 @@ class CrossJoinOperator(Operator):
         return self._finishing and not self._outputs
 
 
+class ScaledWriterSink:
+    """Writer scale-out driven by OBSERVED output volume — the
+    SCALED_WRITER_* partitioning + ScaledWriterScheduler analogue
+    (main/sql/planner/SystemPartitioningHandle.java:53-54,
+    main/execution/scheduler/ScaledWriterScheduler.java): start with
+    one connector sink, add another whenever the written volume
+    exceeds scale_rows x current writer count (up to max_writers), and
+    round-robin batches across the active sinks. Volume is measured in
+    batch capacities, so the write path adds no device sync."""
+
+    COUNTERS = {"max_writers": 0, "scale_ups": 0}
+
+    def __init__(self, make_sink, max_writers: int, scale_rows: int = 1 << 21):
+        self._make = make_sink
+        self._sinks = [make_sink()]
+        self._max = max(1, max_writers)
+        self._scale_rows = scale_rows
+        self._rows = 0
+        self._rr = 0
+
+    def append(self, batch) -> None:
+        self._rows += batch.capacity
+        if (self._rows > self._scale_rows * len(self._sinks)
+                and len(self._sinks) < self._max):
+            self._sinks.append(self._make())
+            ScaledWriterSink.COUNTERS["scale_ups"] += 1
+        self._rr += 1
+        self._sinks[self._rr % len(self._sinks)].append(batch)
+
+    def finish(self) -> int:
+        total = sum(s.finish() for s in self._sinks)
+        ScaledWriterSink.COUNTERS["max_writers"] = max(
+            ScaledWriterSink.COUNTERS["max_writers"], len(self._sinks))
+        return total
+
+
+class TableWriterOperator(Operator):
+    """Terminal sink writing batches into a connector page sink
+    (TableWriterOperator + TableFinishOperator collapsed — the commit
+    handshake is the sink's finish(), whose row count lands in
+    `rows_written`)."""
+
+    def __init__(self, sink):
+        self._sink = sink
+        self.rows_written = 0
+
+    def add_input(self, batch: RelBatch) -> None:
+        self._sink.append(batch)
+
+    def finish(self) -> None:
+        if self._finishing:
+            return
+        self._finishing = True
+        self.rows_written = self._sink.finish()
+
+    def is_finished(self) -> bool:
+        return self._finishing
+
+
 class BufferSink(Operator):
     """Collects batches for a later pipeline (the LocalExchange handoff,
     single-buffer form): each input of a UNION ALL ends in one."""
