@@ -109,9 +109,33 @@ Phases (any failure exits nonzero):
                  and a later SELECT raises. The bytes of cached batches
                  before and after each write are printed. This phase's
                  counts are kept apart (`write_launches`).
-  8. explore   — both explorer entry points (trino_tpu_torch.explore),
+  8. statements — the statement surface at sf1 on the card, each step
+                 with plan_s (host time from parse to a physical plan, or
+                 to the plan-cache lookup on a hit), run_s, the cache's
+                 hits and misses and its launches (statement_identities):
+                 a bounded GROUP BY over orders PREPAREd with a date
+                 parameter, EXECUTEd twice with one date (a miss, then a
+                 hit: equal rows, grouped_sum on both, counts summing to
+                 count(*) under the predicate) and once with another (a
+                 miss); an orders-customer join PREPAREd with a
+                 c_mktsegment parameter, EXECUTEd twice (the hit's rows
+                 equal the unprepared text's; bounds once per probe batch
+                 and take_flat on each run, and a hit launches what its
+                 miss did), then after SET SESSION
+                 enable_dynamic_filtering = false (a miss, equal rows);
+                 EXPLAIN of Q3 and SHOW SESSION/SCHEMAS/TABLES/COLUMNS/
+                 FUNCTIONS equal to the CPU runner's; a runner whose
+                 FileBasedAccessControl denies customer to its user raises
+                 AccessDeniedError on the join, on a miss and on a hit
+                 cached under an allowed identity, and still runs the
+                 GROUP BY; a memory table made by CTAS from orders, whose
+                 prepared GROUP BY hits, misses after an INSERT and counts
+                 the new rows, while the tpch plan stays a hit; EXPLAIN of
+                 Q3 under plan_validation = 'rules'. This phase's counts
+                 are kept apart (`statements_launches`).
+  9. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
-  9. parity    — the queries, and the window and set-operation queries
+ 10. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -128,15 +152,16 @@ Phases (any failure exits nonzero):
                  statements at tiny and sf0.1 and every script of the
                  write corpus (WRITE_SCRIPTS) at tiny, statement by
                  statement (the same error where one raises), with every
-                 written table read back equal.
- 10. summary   — each kind of join-path call (the probe's bounds, the
+                 written table read back equal; so must phase statements'
+                 steps at tiny and sf0.1.
+ 11. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
-                 entry with its launches in phases nested, zones and write
-                 beside the main path's; take_flat's entry with its summed
+                 entry with its launches in phases nested, zones, write
+                 and statements beside the main path's; take_flat's entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -786,7 +811,7 @@ NEST_MEMORY_SQL = [
 TZ_NY = "America/New_York"  # tests/test_timestamptz.py's NY
 # each order's date as midnight in New York, and the same instants shown
 # in two zones by o_orderkey % 2 (a UNION ALL: CASE and COALESCE over
-# TIMESTAMP WITH TIME ZONE type as bigint in both packages, ROADMAP §3)
+# TIMESTAMP WITH TIME ZONE type as bigint in the reference, ROADMAP §3)
 TZ_MIDNIGHT = f"with_timezone(cast(o_orderdate as timestamp), '{TZ_NY}')"
 TZ_MIXED_SRC = (f"(select {TZ_MIDNIGHT} at time zone 'Asia/Tokyo' t from orders"
                 f" where o_orderkey % 2 = 0 union all"
@@ -1464,7 +1489,7 @@ WRITE_SCRIPTS = {
         "delete from orders_tags where id = 2",
         "select id, tags, scores from orders_tags order by id"], "tags"),
     # TIMESTAMP WITH TIME ZONE written and read back (packed int64); an
-    # UPDATE ... WHERE over it hits the shared CASE fault (ROADMAP §3)
+    # UPDATE ... WHERE over it hits the reference's CASE fault (ROADMAP §3)
     "timestamptz_write": _ws("z", [
         "create table ev (id bigint, t timestamp with time zone)",
         "insert into ev values (1, timestamp '2021-03-14 01:30:00 America/New_York'),"
@@ -1494,6 +1519,30 @@ WRITE_SCRIPTS = {
         "merge into c t using c s on t.k = s.k when matched then delete",
         "rollback", "delete from c where k = 1", "select * from c"], "txn"),
 }
+
+# CASE, IF and COALESCE over one temporal or nested type keep that type
+# in the port, and UPDATE ... WHERE over a tstz or ARRAY column rewrites
+# each assigned column to such a CASE. The reference types them as
+# bigint and refuses the plan (ROADMAP §3), so they stay out of
+# WRITE_SCRIPTS: tests/test_torch_statements.py and test_torch_write.py
+# hold the port's answers, and phase parity holds the card to the CPU.
+NESTED_CHOICE_SQL = (
+    "select id, case when id = 1 then array['x', 'red'] else tags end from orders_tags"
+    " order by id",
+    "select id, case when id > 2 then tags end, coalesce(case when id > 1 then scores end,"
+    " array[7]) from orders_tags order by id",
+    "select id, if(id = 1, row(id, name), row(id + 10, 'zz')) from orders_tags order by id",
+)
+NON_NUMERIC_UPDATES = (
+    "update ev set t = t + interval '1' hour where id = 1",
+    "update orders_tags set scores = array[0] where id = 1",
+)
+CHOICE_SCRIPT = _ws("z", [
+    *WRITE_SCRIPTS["timestamptz_write"]["sql"][:2],
+    "select id, coalesce(t, timestamp '2024-01-01 00:00:00 UTC'),"
+    " case when id > 1 then t end from ev order by id",
+    *NESTED_CHOICE_SQL, *NON_NUMERIC_UPDATES,
+    "select * from ev order by id", "select * from orders_tags order by id"], "tags")
 
 
 def log(msg: str) -> None:
@@ -3061,6 +3110,267 @@ def phase_write(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase statements: PREPARE/EXECUTE, the plan cache, EXPLAIN, SHOW,
+# SET SESSION and access control ---------------------------------------------
+
+# a bounded GROUP BY over orders with a date parameter: 4 x 6 x 3 slots
+# with the NULL groups, over the dense route's 64, the grouped_sum route
+ST_GROUP = """select o_orderstatus, o_orderpriority, o_totalprice > 200000 big, count(*),
+sum(o_totalprice) from orders where o_orderdate < ? group by 1, 2, 3 order by 1, 2, 3"""
+ST_GROUP_COUNT = "select count(*) from orders where o_orderdate < {d}"
+ST_DATES = ("date '1995-01-01'", "date '1997-06-30'")
+# orders joined to customer with a parameter on c_mktsegment (bounds once
+# per probe batch, take_flat)
+ST_JOIN = """select c_nationkey, count(*), sum(o_totalprice) from orders join customer
+on o_custkey = c_custkey where c_mktsegment = ? group by 1 order by 1"""
+ST_SEGMENT = "'BUILDING'"
+# alice may read every table but customer; admin may read everything
+ST_RULES = [{"user": "alice", "table": "customer", "privileges": []},
+            {"user": "alice", "privileges": ["SELECT"]},
+            {"user": "admin", "privileges": ["OWNERSHIP"]}]
+ST_RECENT = """create table w.s.recent as select o_orderkey, o_orderstatus, o_orderpriority,
+o_totalprice from orders where o_orderdate >= date '1998-01-01'"""
+ST_RECENT_GROUP = """select o_orderstatus, o_orderpriority, count(*) from w.s.recent
+where o_totalprice > ? group by 1, 2 order by 1, 2"""
+ST_RECENT_INSERT = """insert into w.s.recent select o_orderkey, o_orderstatus,
+o_orderpriority, o_totalprice from orders
+where o_orderdate >= date '1997-12-01' and o_orderdate < date '1998-01-01'"""
+ST_PRICE = "100000"
+ST_SHOWS = ("show session", "show schemas", "show tables", "show columns from orders",
+            "show functions")
+
+
+class PlanTimer:
+    """Notes the host clock when a runner's `_plan` returns: the end of
+    parse, analysis and planning, or of the cache lookup on a hit."""
+
+    def __init__(self, r):
+        self.at = None
+        inner = r._plan
+
+        def timed(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            if self.at is None:
+                self.at = time.perf_counter()
+            return out
+
+        r._plan = timed
+
+
+def statement_identities(schema: str, device: str, log, probes=None) -> dict:
+    """Phase statements' steps at `schema` on `device`, each held to its
+    identity; returns {step: record} with its rows (or error), wall_s,
+    plan_s (parse to a physical plan, or to the cache lookup on a hit;
+    None where no query was planned), run_s, the plan cache's hits and
+    misses, and the kernel launches (counted only on the card).
+    tests/test_torch_statements.py runs this at tiny on the CPU."""
+    import torch
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+    from trino_tpu_torch.security import AccessDeniedError, FileBasedAccessControl, Identity
+
+    r = write_runner(schema, device)
+    secure = LocalQueryRunner(Session(catalog="tpch", schema=schema, user="alice"),
+                              access_control=FileBasedAccessControl(ST_RULES), device=device)
+    secure.register_catalog("tpch", r.catalogs.get("tpch"))
+    timers = {id(x): PlanTimer(x) for x in (r, secure)}
+    steps: dict = {}
+
+    def step(name, sql, on=r, **kw):
+        cache, timer = on._plan_cache, timers[id(on)]
+        hits, misses = cache.hits, cache.misses
+        before = join_kernel_counts()
+        batches = probes.calls if probes else 0
+        timer.at = None
+        error = res = None
+        t0 = time.perf_counter()
+        try:
+            res = on.execute(sql, **kw)
+        except Exception as e:  # noqa: BLE001 - the identities check which
+            error = e
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        plan_s = None if timer.at is None else timer.at - t0
+        if sql.startswith("explain"):
+            plan_s = wall  # EXPLAIN plans and runs nothing
+        after = join_kernel_counts()
+        rec = steps[name] = {
+            "rows": None if res is None else res.rows, "wall_s": wall, "plan_s": plan_s,
+            "run_s": wall - (plan_s or 0.0), "hits": cache.hits - hits,
+            "misses": cache.misses - misses,
+            "launches": {k: after[k] - before[k] for k in after},
+            "probe_batches": (probes.calls if probes else 0) - batches,
+            "error": None if error is None else f"{type(error).__name__}: {error}"}
+        log(f"[statements] {schema} {name}: plan_s={plan_s} run_s={rec['run_s']} "
+            f"wall_s={wall} hits={rec['hits']} misses={rec['misses']} "
+            f"probe_batches={rec['probe_batches']} launches={rec['launches']} "
+            f"rows={None if res is None else str(res.rows[:3])[:160]} error={rec['error']}")
+        return res, error
+
+    def run(name, sql, on=r, **kw):
+        res, error = step(name, sql, on, **kw)
+        if error is not None:
+            raise error
+        return res.rows
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"phase statements {schema}: {what}")
+
+    def cached(name, hit):
+        got = (steps[name]["hits"], steps[name]["misses"])
+        check(got == ((1, 0) if hit else (0, 1)),
+              f"{name}: plan cache hits, misses {got}, expected a {'hit' if hit else 'miss'}")
+
+    # 1-2: the bounded GROUP BY, prepared; one date twice, then another
+    run("group_prepare", f"prepare g from {ST_GROUP}")
+    d1, d2 = ST_DATES
+    first = run("group_miss", f"execute g using {d1}")
+    again = run("group_hit", f"execute g using {d1}")
+    cached("group_miss", False)
+    cached("group_hit", True)
+    total = r.execute(ST_GROUP_COUNT.format(d=d1)).rows[0][0]
+    check(first == again and sum(row[3] for row in first) == total,
+          f"the prepared GROUP BY's counts against count(*) {total}")
+    run("group_other", f"execute g using {d2}")
+    cached("group_other", False)
+    # 3-4: the join, prepared; then without dynamic filtering
+    run("join_prepare", f"prepare j from {ST_JOIN}")
+    twin = r.execute(ST_JOIN.replace("?", ST_SEGMENT)).rows
+    rows = [run("join_miss", f"execute j using {ST_SEGMENT}"),
+            run("join_hit", f"execute j using {ST_SEGMENT}")]
+    cached("join_miss", False)
+    cached("join_hit", True)
+    run("set_no_dynamic_filtering", "set session enable_dynamic_filtering = false")
+    rows.append(run("join_no_dynamic_filtering", f"execute j using {ST_SEGMENT}"))
+    cached("join_no_dynamic_filtering", False)
+    check(all(rows_close(x, twin) for x in rows) and twin,
+          "the prepared join's rows against the unprepared text's")
+    # 5-6: EXPLAIN and the SHOWs (the caller holds them to the CPU's)
+    run("explain_q3", f"explain {Q3}")
+    for i, sql in enumerate(ST_SHOWS):
+        run(f"show{i}", sql)
+    # 7: access control denies customer to alice, on a miss and on a hit
+    run("secure_prepare_join", f"prepare j from {ST_JOIN}", secure)
+    for name, kw in (("secure_join_miss", {}),
+                     ("secure_join_admin", {"identity": Identity("admin")}),
+                     ("secure_join_hit", {})):
+        res, error = step(name, f"execute j using {ST_SEGMENT}", secure, **kw)
+        if name == "secure_join_admin":
+            check(error is None and rows_close(res.rows, twin), "admin's join")
+        else:
+            check(isinstance(error, AccessDeniedError), f"{name} gave {error!r}")
+    cached("secure_join_miss", False)
+    cached("secure_join_admin", False)
+    cached("secure_join_hit", True)
+    run("secure_prepare_group", f"prepare g from {ST_GROUP}", secure)
+    check(run("secure_group", f"execute g using {d1}", secure) == first,
+          "alice's GROUP BY over orders")
+    # 8: a memory table: a hit, a miss after its INSERT, and the tpch
+    # plan still cached (the invalidation is table-granular)
+    run("ctas", ST_RECENT)
+    run("recent_prepare", f"prepare m from {ST_RECENT_GROUP}")
+    before = run("recent_miss", f"execute m using {ST_PRICE}")
+    check(run("recent_hit", f"execute m using {ST_PRICE}") == before, "the memory table's hit")
+    cached("recent_miss", False)
+    cached("recent_hit", True)
+    inserted = run("recent_insert", ST_RECENT_INSERT)[0][0]
+    after = run("recent_after_insert", f"execute m using {ST_PRICE}")
+    cached("recent_after_insert", False)
+    want = r.execute(ST_RECENT_GROUP.replace("?", ST_PRICE)).rows
+    check(after == want and inserted > 0 and sum(x[2] for x in after) > sum(x[2] for x in before),
+          f"after inserting {inserted} rows the prepared GROUP BY reads {after}")
+    check(rows_close(run("join_after_insert", f"execute j using {ST_SEGMENT}"), twin),
+          "the tpch plan's rows")
+    cached("join_after_insert", True)
+    # 9: every rule application validated, and double planning, against
+    # EXPLAIN once more under 'passes' (the first one paid the first
+    # reads of lineitem's statistics)
+    run("explain_q3_warm", f"explain {Q3}")
+    run("set_rules", "set session plan_validation = 'rules'")
+    run("explain_q3_rules", f"explain {Q3}")
+    check(steps["explain_q3_rules"]["rows"] == steps["explain_q3"]["rows"],
+          "EXPLAIN under plan_validation = 'rules' differs")
+    return steps
+
+
+def phase_statements(results: dict) -> None:
+    """The statement surface at sf1 on the card (statement_identities),
+    each step's plan_s, run_s, plan-cache hits and misses and launches
+    printed. A cache hit launches the same kernels as its miss and gives
+    the same rows: grouped_sum for the GROUP BY, bounds once per probe
+    batch and take_flat for the join (run_owner where a build key
+    repeats, as many times). EXPLAIN of Q3 and the SHOWs equal the CPU
+    runner's. Launches count over this phase alone
+    (`statements_launches`)."""
+    import torch
+    from trino_tpu_torch.ops import join as TJ
+
+    t_phase = time.perf_counter()
+    probes = Capture(TJ, "sorted_run_bounds", lambda sorted_arr, q: (
+        (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None),
+        keep=())
+    reset_kernel_counts()
+    with probes:
+        steps = statement_identities("sf1", "cuda", log, probes)
+    results["statements_launches"] = join_kernel_counts()
+    for miss, hit in (("group_miss", "group_hit"), ("join_miss", "join_hit"),
+                      ("recent_miss", "recent_hit")):
+        if steps[miss]["launches"] != steps[hit]["launches"]:
+            raise AssertionError(f"{hit} launched {steps[hit]['launches']}, its miss "
+                                 f"{steps[miss]['launches']}")
+    for name in ("group_miss", "group_hit", "group_other", "secure_group"):
+        if steps[name]["launches"]["grouped_sum"] <= 0:
+            raise AssertionError(f"{name} never launched grouped_sum")
+    for name in ("join_miss", "join_hit", "join_no_dynamic_filtering", "secure_join_admin",
+                 "join_after_insert"):
+        run = steps[name]
+        if not 0 < run["launches"]["bounds"] == run["probe_batches"] \
+                or run["launches"]["take_flat"] <= 0:
+            raise AssertionError(f"{name}: bounds {run['launches']['bounds']} over "
+                                 f"{run['probe_batches']} probe batches, take_flat "
+                                 f"{run['launches']['take_flat']}")
+    # EXPLAIN and the SHOWs against a CPU runner in the same session state
+    cpu = write_runner("sf1", "cpu")
+    cpu.execute("set session enable_dynamic_filtering = false")
+    for i, sql in enumerate(ST_SHOWS):
+        if cpu.execute(sql).rows != steps[f"show{i}"]["rows"]:
+            raise AssertionError(f"{sql}: the card's runner and the CPU's differ")
+    if cpu.execute(f"explain {Q3}").rows != steps["explain_q3"]["rows"]:
+        raise AssertionError("EXPLAIN of Q3: the card's runner and the CPU's differ")
+    results["statements"] = {k: {f: v for f, v in rec.items() if f != "rows"}
+                             for k, rec in steps.items()}
+    log(f"[statements] plan_s of EXPLAIN Q3: {steps['explain_q3']['plan_s']} s first and "
+        f"{steps['explain_q3_warm']['plan_s']} s again under plan_validation 'passes', "
+        f"{steps['explain_q3_rules']['plan_s']} s under 'rules'")
+    log(f"[statements] identities hold; launches over the phase: "
+        f"{results['statements_launches']}")
+    log(f"[statements] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
+def parity_statements() -> None:
+    """The card against the CPU: phase statements' steps at tiny and
+    sf0.1, equal rows (or the same error) step by step, and
+    CHOICE_SCRIPT at tiny."""
+    for schema in ("tiny", "sf0.1"):
+        t0 = time.perf_counter()
+        gpu, cpu = (statement_identities(schema, d, lambda msg: None)
+                    for d in ("cuda", "cpu"))
+        for name, rec in gpu.items():
+            if not (rows_close(rec["rows"], cpu[name]["rows"]) if rec["rows"] is not None
+                    else rec["error"] == cpu[name]["error"]):
+                raise AssertionError(f"statements {name}: card and CPU differ at {schema}")
+        log(f"[parity] statements {schema}: {len(gpu)} steps, card == CPU "
+            f"({time.perf_counter() - t0} s)")
+    t0 = time.perf_counter()
+    same_writes(script_runner(CHOICE_SCRIPT, "cuda"), script_runner(CHOICE_SCRIPT, "cpu"),
+                CHOICE_SCRIPT["sql"], "choice script", "memory")
+    log(f"[parity] CASE over nested and zoned values and UPDATE ... WHERE over them: "
+        f"{len(CHOICE_SCRIPT['sql'])} statements at tiny, card == CPU "
+        f"({time.perf_counter() - t0} s)")
+
+
 _ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
 
 
@@ -3630,6 +3940,7 @@ def phase_parity(results: dict) -> None:
     log(f"[parity] wide-string GROUP BY 2^16 rows: {len(a)} rows, card == CPU == numpy")
     parity_zones()
     parity_write()
+    parity_statements()
 
 
 def timed_main_args(results: dict) -> dict:
@@ -3756,7 +4067,7 @@ def kernels_line(results: dict) -> dict:
                   "capacity": timed.get("capacity")},
         "modes": modes,
     }]
-    for phase in ("nested", "zones", "write"):
+    for phase in ("nested", "zones", "write", "statements"):
         if f"{phase}_launches" in results:
             line[0][f"{phase}_launches"] = results[f"{phase}_launches"].get("grouped_sum", 0)
     join_checks = results.get("join_kernel_checks", {})
@@ -3798,8 +4109,9 @@ def kernels_line(results: dict) -> dict:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
                  **mode_record(rec, n)}
-        for phase in ("nested", "zones", "write"):
-            # phases nested, zones and write count apart from the main path
+        for phase in ("nested", "zones", "write", "statements"):
+            # phases nested, zones, write and statements count apart from
+            # the main path
             if f"{phase}_launches" in results:
                 got = results[f"{phase}_launches"]
                 entry[f"{phase}_launches"] = (
@@ -3816,7 +4128,8 @@ def kernels_line(results: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="identity,build,kernel,main,nested,zones,write,explore,parity",
+                    default="identity,build,kernel,main,nested,zones,write,statements,"
+                            "explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -3859,6 +4172,8 @@ def main() -> int:
         phase_zones(results)
     if "write" in phases:
         phase_write(results)
+    if "statements" in phases:
+        phase_statements(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

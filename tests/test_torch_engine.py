@@ -334,18 +334,23 @@ def test_lookup_join_operator_on_carried_batches(kind):
 
 
 def test_session_properties_match_session_fields():
-    # every registered property is a Session field with the same default,
-    # and bind_session validates before it sets
+    # every registered property is a Session field with the same default
+    # (memory_pool_bytes: None on the Session, 0 in the registry, both
+    # unlimited, as in the reference), and bind_session validates before
+    # it sets
     fields = {f.name: f.default for f in dataclasses.fields(Session)}
     for meta in SYSTEM_PROPERTIES.all():
-        assert fields[meta.name] == meta.default, meta.name
+        want = None if meta.name == "memory_pool_bytes" else meta.default
+        assert fields[meta.name] == want, meta.name
     s = Session()
     bind_session(s, {"batch_rows": "4096", "enable_pushdown": "off"})
     assert (s.batch_rows, s.enable_pushdown) == (4096, False)
     with pytest.raises(ValueError):
         bind_session(s, {"join_reordering_strategy": "greedy"})
     with pytest.raises(ValueError):
-        bind_session(s, {"plan_validation": "rules"})
+        bind_session(s, {"plan_validation": "everything"})
+    with pytest.raises(ValueError):
+        bind_session(s, {"no_such_property": 1})
 
 
 @pytest.mark.parametrize("overrides", [

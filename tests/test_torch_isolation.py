@@ -107,6 +107,31 @@ def test_write_side_modules_import_alone(module):
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["trino_tpu_torch.security", "trino_tpu_torch.config",
+                                    "trino_tpu_torch.serving.plan_cache",
+                                    "trino_tpu_torch.serving.params",
+                                    "trino_tpu_torch.sql.formatter",
+                                    "trino_tpu_torch.sql.validate"])
+def test_statement_surface_modules_import_alone(module):
+    # the port keeps its own copy of each (trino_tpu/security.py and
+    # sql/formatter.py import no jax, but are the reference's): imported
+    # first and alone in a fresh process, none pulls in jax or trino_tpu
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'trino_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize(
     "path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO)
 )

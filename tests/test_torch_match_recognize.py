@@ -8,7 +8,7 @@ the same inputs.
   a few beyond it, over the stock rows loaded with `load_table` in both
   packages (chip_smoke.MR_SQL lists them for the card-against-CPU
   check), equal rows; its error cases raise in both. The formatter round
-  trip waits for sql/formatter.py (ROADMAP §1 item 8b).
+  trip runs on the port's sql/formatter.py in tests/test_torch_statements.py.
 - NULL keys: a NULL ORDER BY key sorts by its data in both. A NULL
   PARTITION BY key whose data equals a real key's merges into that
   partition in the reference and is its own partition in the port, and

@@ -298,19 +298,50 @@ def test_zone_query_identities_at_tiny(tiny):
 
 
 def test_case_and_coalesce_over_zoned_values_type_as_bigint(runners):
-    # a fault of the analyzer both packages share (ROADMAP §3): its
-    # _unify_types has no temporal branch, so CASE and COALESCE over
-    # TIMESTAMP WITH TIME ZONE type as bigint. The reference's plan
-    # validation refuses the plan; the port, which has none yet, answers
-    # the packed values
+    # reference fault (ROADMAP §3): the reference's _unify_types has no
+    # temporal branch, so CASE and COALESCE over TIMESTAMP WITH TIME ZONE
+    # type as bigint and its plan validation refuses the plan. The port's
+    # keep the type (its plan validation passes them) and answer the
+    # zoned values
     port, ref = runners["z"]
     sql = ("select coalesce(ts, timestamp '2024-01-01 00:00:00 UTC'),"
            " case when v > 1 then ts end from mz order by v")
     with pytest.raises(Exception, match="typed timestamp with time zone, node typed bigint"):
         ref.execute(sql)
     got = port.execute(sql)
-    assert [t.kind.name for t in got.column_types] == ["BIGINT", "BIGINT"]
-    assert got.rows[0] == [TZ.parse_tstz("2024-03-10 01:59:00 America/New_York"), None]
+    assert [t.kind.name for t in got.column_types] == ["TIMESTAMP_TZ", "TIMESTAMP_TZ"]
+    assert got.rows[0] == ["2024-03-10 01:59:00.000 America/New_York", None]
+    assert got.rows[1][1] == got.rows[1][0]  # v > 1: the case takes ts
+
+
+# GREATEST, LEAST and ARRAY literals keep the reference's typing: only
+# CASE, IF and COALESCE keep one temporal type (ROADMAP §3)
+SAME_TYPING_SQL = (
+    "select greatest(ts, timestamp '2024-03-10 07:00:00 UTC') from mz order by v",
+    "select least(ts, timestamp '2024-03-10 07:00:00 UTC'), v from mz order by v",
+    "select greatest(timestamp '2024-01-01 00:00:00', timestamp '2024-01-02 00:00:00')",
+    "select least(timestamp '2024-01-01 00:00:00', timestamp '2024-01-02 00:00:00')",
+    "select greatest(interval '1' year, interval '2' month)",
+    "select least(interval '1' day, interval '2' hour)",
+    "select array[timestamp '2024-01-01 00:00:00', timestamp '2024-01-02 00:00:00']",
+    "select array[timestamp '2024-01-01 00:00:00 UTC']",
+    "select array[interval '1' day, interval '2' hour]",
+)
+
+
+@pytest.mark.parametrize("sql", SAME_TYPING_SQL)
+def test_greatest_least_and_array_literals_type_as_the_reference(runners, sql):
+    port, ref = runners["z"]
+    try:
+        want = ref.execute(sql)
+    except Exception as e:
+        with pytest.raises(Exception) as got:
+            port.execute(sql)
+        assert (type(got.value).__name__, str(got.value)) == (type(e).__name__, str(e))
+        return
+    got = port.execute(sql)
+    assert got.rows == want.rows
+    assert [str(t) for t in got.column_types] == [str(t) for t in want.column_types]
 
 
 def test_gap_and_overlap_resolve_by_two_offset_reads_in_both():

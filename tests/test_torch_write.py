@@ -35,10 +35,12 @@ import tests.test_dml as dml_corpus
 import tests.test_merge as merge_corpus
 import tests.test_table_functions as tf_corpus
 from tests.oracle import assert_rows_match
+from trino_tpu import security as jsecurity
 from trino_tpu.connectors import memory as jmemory
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.engine import LocalQueryRunner as JRunner
 from trino_tpu.engine import Session as JSession
+from trino_tpu_torch import security as tsecurity
 from trino_tpu_torch.connectors import memory as tmemory
 from trino_tpu_torch.connectors import tpch as ttpch
 from trino_tpu_torch.engine import LocalQueryRunner, Session
@@ -51,24 +53,97 @@ def tpch():
     return jtpch.create_tpch_connector(), ttpch.create_tpch_connector()
 
 
+_VOLATILE = re.compile(r"\brand\(\)", re.IGNORECASE)
+# the statement-level protocol fields of a result
+_PROTOCOL = ("column_names", "started_transaction_id", "cleared_transaction",
+             "added_prepare", "deallocated_prepare", "data_plane")
+
+
+class Both:
+    """One object per package (a connector, an access control, an
+    identity) for corpus code that builds its own runners."""
+
+    def __init__(self, ref, port):
+        self.ref, self.port = ref, port
+
+
+def side(x, i):
+    return (x.ref, x.port)[i] if isinstance(x, Both) else x
+
+
+class BothSessions(Both):
+    """The two runners' sessions: a write reaches both, a read must
+    agree."""
+
+    def __init__(self, ref, port):
+        object.__setattr__(self, "ref", ref)
+        object.__setattr__(self, "port", port)
+
+    def __getattr__(self, name):
+        a, b = getattr(self.ref, name), getattr(self.port, name)
+        assert a == b, (name, a, b)
+        return b
+
+    def __setattr__(self, name, value):
+        setattr(self.ref, name, value)
+        setattr(self.port, name, value)
+
+
+class BothCaches(Both):
+    """The two runners' plan caches: every counter read must agree."""
+
+    def __getattr__(self, name):
+        a, b = getattr(self.ref, name), getattr(self.port, name)
+        if callable(b):
+            return lambda *args: _agree(name, a(*args), b(*args))
+        return _agree(name, a, b)
+
+
+def _agree(name, a, b):
+    assert a == b, (name, a, b)
+    return b
+
+
 class ParityRunner:
     """Runs each statement on the reference and on the port and holds
     them equal; returns the port's result, or re-raises the reference's
-    error once the port raised the same."""
+    error once the port raised the same. A statement calling rand()
+    compares types only. Corpus code that sets the session, the access
+    control or the catalogs reaches both runners."""
 
     def __init__(self, ref, port, memory="memory"):
         self.ref, self.port, self.memory = ref, port, memory
         self.log = []
 
-    def execute(self, sql):
+    @property
+    def session(self):
+        return BothSessions(self.ref.session, self.port.session)
+
+    @property
+    def access_control(self):
+        return Both(self.ref.access_control, self.port.access_control)
+
+    @access_control.setter
+    def access_control(self, ac):
+        self.ref.access_control, self.port.access_control = side(ac, 0), side(ac, 1)
+
+    @property
+    def _plan_cache(self):
+        return BothCaches(self.ref._plan_cache, self.port._plan_cache)
+
+    def register_catalog(self, name, connector):
+        self.ref.register_catalog(name, side(connector, 0))
+        self.port.register_catalog(name, side(connector, 1))
+
+    def execute(self, sql, **kw):
         self.log.append(sql)
         want = got = None
         try:
-            want = self.ref.execute(sql)
+            want = self.ref.execute(sql, **{k: side(v, 0) for k, v in kw.items()})
         except Exception as e:  # noqa: BLE001 - compared below
             want = e
         try:
-            got = self.port.execute(sql)
+            got = self.port.execute(sql, **{k: side(v, 1) for k, v in kw.items()})
         except Exception as e:  # noqa: BLE001 - compared below
             got = e
         if isinstance(want, Exception) or isinstance(got, Exception):
@@ -76,8 +151,13 @@ class ParityRunner:
                 sql, repr(want), repr(got))
             raise want
         assert [str(t) for t in got.column_types] == [str(t) for t in want.column_types], sql
-        assert_rows_match(got.rows, [tuple(r) for r in want.rows],
-                          ordered=bool(_ORDERED.search(sql)))
+        for f in _PROTOCOL:
+            if f != "started_transaction_id":  # each package mints its own ids
+                assert getattr(got, f) == getattr(want, f), (sql, f)
+        assert (got.started_transaction_id is None) == (want.started_transaction_id is None)
+        if not _VOLATILE.search(sql):
+            assert_rows_match(got.rows, [tuple(r) for r in want.rows],
+                              ordered=bool(_ORDERED.search(sql)))
         return got
 
     def check_tables(self):
@@ -91,6 +171,43 @@ class ParityRunner:
             sql = f"select * from {self.memory}.{schema}.{table}"
             want, got = self.ref.execute(sql), self.port.execute(sql)
             assert_rows_match(got.rows, [tuple(r) for r in want.rows], ordered=False)
+
+
+# the reference's constructors, kept before any corpus patch replaces them
+_J_MEMORY = jmemory.create_memory_connector
+_J_ACCESS = jsecurity.FileBasedAccessControl
+
+
+def patch_corpus(monkeypatch, module, tpch) -> list:
+    """Replace the runner, session, connector and access-control
+    constructors a corpus module reaches (its globals, and the
+    reference modules its functions import from) by ones that build an
+    object per package; a runner built so is a ParityRunner. Returns the
+    ParityRunners built."""
+    built = []
+
+    def runner(session=None, access_control=None):
+        pr = ParityRunner(
+            JRunner(side(session, 0), access_control=side(access_control, 0)),
+            LocalQueryRunner(side(session, 1), access_control=side(access_control, 1),
+                             device="cpu"))
+        built.append(pr)
+        return pr
+
+    names = {
+        "LocalQueryRunner": runner,
+        "Session": lambda *a, **kw: Both(JSession(*a, **kw), Session(*a, **kw)),
+        "create_memory_connector": lambda: Both(_J_MEMORY(), tmemory.create_memory_connector()),
+        "create_tpch_connector": lambda: Both(*tpch),
+        "FileBasedAccessControl": lambda rules: Both(_J_ACCESS(rules),
+                                                     tsecurity.FileBasedAccessControl(rules)),
+    }
+    for name, make in names.items():
+        if hasattr(module, name):
+            monkeypatch.setattr(module, name, make)
+    monkeypatch.setattr(jmemory, "create_memory_connector", names["create_memory_connector"])
+    monkeypatch.setattr(jsecurity, "FileBasedAccessControl", names["FileBasedAccessControl"])
+    return built
 
 
 def pair(tpch, catalog="memory", schema="default", setup=None, memory="memory", **session):
@@ -144,14 +261,16 @@ for _cls in (decimal_corpus.TestTyping, decimal_corpus.TestArithmetic,
         if _n.startswith("test_"):
             CORPUS[f"decimal_{_n[5:]}"] = _method(_cls, _n)
 
-# tests/test_dml.py's access-control cases wait for ROADMAP §1 item 8b
-ITEM_8B = {"test_update_requires_update_privilege", "test_dml_subquery_scan_is_checked",
-           "test_access_control_gates_delete"}
+# tests/test_dml.py's access-control cases build their own runners and
+# access controls: test_dml_access_control runs them on ParityRunners
+ACCESS_CASES = ("test_update_requires_update_privilege", "test_dml_subquery_scan_is_checked",
+                "test_access_control_gates_delete")
 
 
 def test_the_corpus_is_covered():
-    """Every test of tests/test_dml.py (but the item-8b cases),
-    tests/test_merge.py and tests/test_decimal128.py has its script."""
+    """Every test of tests/test_dml.py (but the access-control cases,
+    test_dml_access_control below), tests/test_merge.py and
+    tests/test_decimal128.py has its script."""
     names = set()
     for mod, prefix in ((dml_corpus, "dml_"), (merge_corpus, "merge_"),
                         (decimal_corpus, "decimal_")):
@@ -160,7 +279,7 @@ def test_the_corpus_is_covered():
             tests = ([attr] if attr.startswith("test_") and callable(obj) else
                      [n for n in dir(obj) if n.startswith("test_")]
                      if attr.startswith("Test") else [])
-            names |= {prefix + n[5:] for n in tests if n not in ITEM_8B}
+            names |= {prefix + n[5:] for n in tests if n not in ACCESS_CASES}
     names -= {"dml_grouping_sets"}  # test_write_grouping_sets below
     assert names <= set(CS.WRITE_SCRIPTS), sorted(names - set(CS.WRITE_SCRIPTS))
     assert sum(n.startswith("decimal_") for n in CS.WRITE_SCRIPTS) == 24
@@ -299,18 +418,33 @@ def test_explicit_transaction_threading(tpch):
     pr.check_tables()
 
 
+@pytest.mark.parametrize("name", ACCESS_CASES)
+def test_dml_access_control(name, tpch, monkeypatch):
+    """tests/test_dml.py's access-control cases, each on ParityRunners:
+    the denials (AccessDeniedError) are equal in both packages."""
+    built = patch_corpus(monkeypatch, dml_corpus, tpch)
+    getattr(dml_corpus.TestDeleteUpdate(), name)()
+    assert built
+    for pr in built:  # the tables, read back by a user allowed to
+        pr.access_control = Both(jsecurity.AllowAllAccessControl(),
+                                 tsecurity.AllowAllAccessControl())
+        pr.check_tables()
+
+
 @pytest.mark.parametrize("sql", [
     "explain select 1", "show session", "show functions", "show schemas", "show tables",
     "show columns from t", "set session batch_rows = 1024", "prepare p from select 1",
     "execute p", "deallocate prepare p"])
-def test_the_rest_of_the_statement_surface_names_item_8b(sql):
-    """EXPLAIN, SHOW, SET SESSION and the prepared statements raise,
-    naming ROADMAP §1 item 8b (with access control, whose tests/test_dml.py
-    cases are ITEM_8B above)."""
-    r = LocalQueryRunner(Session(catalog="memory", schema="default"), device="cpu")
-    r.register_catalog("memory", tmemory.create_memory_connector())
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8b"):
-        r.execute(sql)
+def test_the_rest_of_the_statement_surface_names_item_8b(sql, tpch):
+    """EXPLAIN, SHOW, SET SESSION and the prepared statements, which
+    waited for ROADMAP §1 item 8b: equal in both packages (rows, types
+    and the protocol fields), a table t and a statement p prepared
+    first."""
+    pr = pair(tpch)
+    for setup in ("create table t (a bigint, b varchar)", "prepare p from select 1"):
+        pr.execute(setup)
+    pr.execute(sql)
+    assert pr.execute("show session").rows == pr.port.execute("show session").rows
 
 
 @pytest.fixture(scope="module")
@@ -371,21 +505,25 @@ def test_map_and_row_columns_read_back_as_written(sql, column, want, tpch):
     assert pr.port.execute(f"select count(*) from m2 where k >= 10").rows == [[len(want)]]
 
 
-@pytest.mark.parametrize("sql", [
-    "update ev set t = t + interval '1' hour where id = 1",
-    "update orders_tags set scores = array[0] where id = 1"])
+@pytest.mark.parametrize("sql", CS.NON_NUMERIC_UPDATES)
 def test_update_where_over_a_non_numeric_column_raises(sql, tpch):
-    """The shared CASE fault (ROADMAP §3): UPDATE ... WHERE rewrites each
-    assigned column as CASE WHEN pred THEN new ELSE old END, which both
-    packages' analyzer types as bigint for a TIMESTAMP WITH TIME ZONE or
-    an ARRAY column. trino_tpu's plan validation (sql/validate.py, item
-    8b) refuses it; the port refuses its cast. Neither changes the
-    table."""
+    """Reference fault (ROADMAP §3): UPDATE ... WHERE rewrites each
+    assigned column as CASE WHEN pred THEN new ELSE old END, which
+    trino_tpu's analyzer types as bigint for a TIMESTAMP WITH TIME ZONE
+    or an ARRAY column; its plan validation refuses the plan and the
+    table stays. The port's CASE keeps the column's type: the row with
+    id 1 takes the new value and the other rows stay as the reference
+    holds them."""
     pr = pair(tpch, schema="z", setup="tags")
     pr.execute(CS.WRITE_SCRIPTS["timestamptz_write"]["sql"][0])
     pr.execute(CS.WRITE_SCRIPTS["timestamptz_write"]["sql"][1])
-    with pytest.raises(Exception, match="bigint"):
+    with pytest.raises(Exception, match="bigint") as refused:
         pr.ref.execute(sql)
-    with pytest.raises(NotImplementedError, match="cast bigint"):
-        pr.port.execute(sql)
-    pr.check_tables()
+    assert type(refused.value).__name__ == "PlanValidationError"
+    assert pr.port.execute(sql).rows == [[1]]
+    table, column = sql.split()[1], sql.split()[3]
+    read = f"select * from {table} order by id"
+    want = pr.ref.execute(read)
+    at = want.column_names.index(column)
+    want.rows[0][at] = {"t": "2021-03-14 03:30:00.000 America/New_York", "scores": [0]}[column]
+    assert pr.port.execute(read).rows == want.rows

@@ -17,21 +17,32 @@ ScaledWriterSink for autocommit writes); DELETE, UPDATE and MERGE are
 read-rewrites whose result batches replace the table's rows. Every
 query they run plans on the runner's device.
 
-Not ported yet: access control, EXPLAIN, SHOW, SET SESSION, prepared
-statements and the plan cache (ROADMAP §1 item 8b), and the resident,
-adaptive, recovery, serving, compile-cache, tracing and metrics tiers
-(item 13).
+The statement surface (the reference's engine.py:380-685, :1289-1373):
+PREPARE, EXECUTE ... USING (parameters checked by serving/params.py),
+DEALLOCATE, EXPLAIN, SET SESSION, SHOW SESSION/FUNCTIONS/SCHEMAS/
+TABLES/COLUMNS, access control (security.py) on every statement and
+scan, and plan validation (sql/validate.py). A query keyed by its
+canonical text (sql/formatter.py), the plan-shaping properties and the
+bound dtypes hits the plan cache (serving/plan_cache.py): the cached
+physical plan's operators are instantiated afresh and launch the same
+kernels, with no parse, analysis or planning. A write drops the cached
+plans over its table.
+
+Not ported yet: EXPLAIN ANALYZE (exec/stats.py, ROADMAP §1 item 10),
+query events, metrics and spans (item 11), and the resident, adaptive,
+recovery, serving-front and compile-cache tiers (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from trino_tpu_torch import types as T
+from trino_tpu_torch.config import SYSTEM_PROPERTIES, check_session
 from trino_tpu_torch.connectors.spi import CatalogManager, ColumnMetadata, Connector
 from trino_tpu_torch.exec import (
     CollectorSink,
@@ -41,47 +52,136 @@ from trino_tpu_torch.exec import (
     TableWriterOperator,
 )
 from trino_tpu_torch.expr import ir
+from trino_tpu_torch.expr.registry import REGISTRY
+from trino_tpu_torch.security import AllowAllAccessControl, Identity
+from trino_tpu_torch.serving.params import check_parameters
+from trino_tpu_torch.serving.plan_cache import PlanCache, plan_tables
 from trino_tpu_torch.sql import ast
 from trino_tpu_torch.sql import plan as P
 from trino_tpu_torch.sql.analyzer import (
     AnalysisError,
     Analyzer,
+    plan_is_volatile,
+    reset_volatile_plan,
     resolve_type,
     set_session_info,
     set_session_zone,
 )
+from trino_tpu_torch.sql.formatter import format_statement
 from trino_tpu_torch.sql.local_planner import LocalPlanner
 from trino_tpu_torch.sql.optimizer import canonicalize_tstz_keys, optimize
 from trino_tpu_torch.sql.parser import parse
+from trino_tpu_torch.sql.validate import check_plan_determinism, validate_logical
 from trino_tpu_torch.transaction import TransactionError, TransactionManager
 
-# statements the port does not run yet, all of ROADMAP §1 item 8b
-_ITEM_8B = (ast.ExplainStatement, ast.SetSession, ast.ShowSession, ast.ShowFunctions,
-            ast.ShowSchemas, ast.ShowTables, ast.ShowColumns, ast.Prepare,
-            ast.ExecuteStmt, ast.Deallocate)
+_SHOWS = (ast.ShowSession, ast.ShowFunctions, ast.ShowSchemas, ast.ShowTables,
+          ast.ShowColumns)
 
 
 @dataclasses.dataclass
 class Session:
-    """Per-query context: the fields the ported query path reads.
-    `batch_rows` counts source rows per scan chunk (orders for the
-    lineitem generator), as in the reference."""
+    """Per-query context: every field of the reference's Session
+    (config.SYSTEM_PROPERTIES names one property per field), with its
+    default. `batch_rows` counts source rows per scan chunk (orders for
+    the lineitem generator), as in the reference. The fields read only by
+    the reference's distributed, retry, mesh, replica, scheduler and
+    fabric runtimes are stored and read by nothing here; a field whose
+    reader is an unported tier raises away from its default
+    (config.UNPORTED_READERS)."""
 
     catalog: str = "tpch"
     schema: str = "tiny"
     user: str = "user"
+    # session time zone: fixes literal parsing, timestamp<->tstz
+    # casts, now()/current_date
     timezone: str = "UTC"
     batch_rows: int = 1 << 20
     target_splits: int = 1
+    retry_policy: str = "none"
+    query_retry_count: int = 2
+    task_retries: int = 3
+    memory_pool_bytes: Optional[int] = None
+    hash_partition_count: int = 4
+    # a join build's keys filter its probe (LocalPlanner.dynamic_filtering)
+    enable_dynamic_filtering: bool = True
+    broadcast_join_threshold: int = 1_000_000
+    mesh_execution: bool = True
+    mesh_chunk_rows: int = 0
+    # the iterative rule pipeline and the cost-based join reorderer
     enable_optimizer: bool = True
     join_reordering_strategy: str = "automatic"
+    # connector scan pushdown (the apply_filter/apply_projection SPI hooks)
     enable_pushdown: bool = True
+    speculation_enabled: bool = True
+    speculation_quantile: float = 2.0
+    # writers per autocommit bulk write (ScaledWriterSink); 1 = one sink
+    task_concurrency: int = 2
+    request_max_error_duration_s: float = 30.0
+    node_breaker_threshold: int = 3
+    node_breaker_cooldown_s: float = 1.0
+    low_memory_killer_enabled: bool = True
+    query_max_planning_time_s: float = 0.0
+    query_max_execution_time_s: float = 0.0
+    query_max_run_time_s: float = 0.0
+    query_max_cpu_time_s: float = 0.0
+    client_timeout_s: float = 300.0
+    stuck_task_interrupt_s: float = 0.0
+    speculation_percentile: float = 0.75
+    # plan sanity checking (sql/validate.py): "off" | "passes" (after
+    # each optimizer pass) | "rules" (also after every rule, and the
+    # plan planned twice for determinism)
+    plan_validation: str = "passes"
+    compile_churn_warn_threshold: int = 32
+    shape_stabilization: bool = True
+    capacity_ladder_base: int = 2
+    warmup_mode: str = "off"
+    stuck_task_interrupt_warm_s: float = 0.0
+    query_trace: str = "off"
+    # the plan cache's LRU bound (serving/plan_cache.py)
+    plan_cache_entries: int = 256
+    micro_batch_window_ms: float = 0.0
+    micro_batch_max: int = 16
+    admission_fast_depth: int = 64
+    admission_general_depth: int = 256
+    admission_retry_after_s: float = 1.0
+    resident_tables: str = ""
+    resident_pin_budget_mb: int = 64
+    resident_delta_max_rows: int = 4096
+    adaptive_execution: bool = False
+    adaptive_replan_threshold: float = 4.0
+    shared_subtree_materialization: bool = False
+    skewed_join_salting: bool = False
+    skew_hot_key_threshold: float = 0.2
+    skew_spill_min_rows: int = 1 << 18
     # the join-project route (ops/mxu_join.py) for a grouped aggregate
     # over a high-fanout inner equi-join, and its work threshold
     mxu_join_enabled: bool = False
     mxu_join_min_work: float = 16.0
-    # writers per autocommit bulk write (ScaledWriterSink); 1 = one sink
-    task_concurrency: int = 2
+    mesh_checkpoint_interval_chunks: int = 0
+    mesh_resume_attempts: int = 2
+    recovery_spool_stages: bool = False
+    mesh_replicas: int = 1
+    replica_failover_enabled: bool = True
+    replica_breaker_threshold: int = 3
+    replica_breaker_cooldown_s: float = 1.0
+    mesh_scheduler: bool = True
+    preemption_enabled: bool = True
+    park_max_bytes: int = 256 << 20
+    mesh_scheduler_weights: str = ""
+    mesh_scheduler_min_slice_chunks: int = 1
+    mesh_scheduler_group: str = ""
+    mesh_steal_enabled: bool = True
+    mesh_park_max_bytes: int = 0
+    fabric_peers: str = ""
+    fabric_queue_depth: int = 8
+    fabric_max_error_duration_s: float = 5.0
+
+    def set_property(self, name: str, value) -> None:
+        """SET SESSION entry point — validated through the typed
+        registry (config.SYSTEM_PROPERTIES)."""
+        from trino_tpu_torch.config import bind_session
+
+        bind_session(self, {name: value})
 
 
 @dataclasses.dataclass
@@ -89,9 +189,16 @@ class MaterializedResult:
     rows: List[list]
     column_names: List[str]
     column_types: List[T.DataType]
-    # START TRANSACTION's id, for explicit threading (execute's
-    # transaction_id)
+    # transaction protocol surface (StatementClientV1's
+    # X-Trino-Started-Transaction-Id / Clear-Transaction-Id headers)
     started_transaction_id: Optional[str] = None
+    cleared_transaction: bool = False
+    # prepared-statement protocol surface (X-Trino-Added-Prepare /
+    # X-Trino-Deallocated-Prepare response headers)
+    added_prepare: Optional[tuple] = None
+    deallocated_prepare: Optional[str] = None
+    # the data plane that ran the query: always one process here
+    data_plane: str = "local"
 
     def only_value(self):
         assert len(self.rows) == 1 and len(self.rows[0]) == 1, self.rows
@@ -128,7 +235,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class LocalQueryRunner:
-    def __init__(self, session: Optional[Session] = None, device=None):
+    def __init__(self, session: Optional[Session] = None, access_control=None,
+                 device=None):
         self.session = session or Session()
         self.device = resolve_device(device)
         self.catalogs = CatalogManager()
@@ -136,27 +244,72 @@ class LocalQueryRunner:
         self._current_txn: Optional[str] = None
         # per-statement active transaction (explicit protocol threading)
         self._stmt_txn = threading.local()
+        self.access_control = access_control or AllowAllAccessControl()
+        # per-request identity override (a front end passes the
+        # authenticated principal; the runner is shared across threads)
+        self._identity_override = threading.local()
+        # PREPARE store: name -> (ast statement, formatted text)
+        self._prepared: Dict[str, tuple] = {}
+        self._request_prepared: Optional[Dict[str, str]] = None
+        # canonical text + plan-shaping properties + parameter dtypes ->
+        # (OutputNode, PhysicalPlan) planned on this runner's device: a
+        # hit instantiates the cached plan's operators afresh and plans
+        # nothing
+        self._plan_cache = PlanCache(max_entries=self.session.plan_cache_entries)
+        # dtype vector of the current EXECUTE's bound parameters (part of
+        # the plan-cache key), per thread like the identity
+        self._bound_dtypes_tls = threading.local()
+
+    @property
+    def identity(self) -> Identity:
+        override = getattr(self._identity_override, "value", None)
+        return override or Identity(self.session.user)
+
+    def _check_scans(self, plan) -> None:
+        """AccessControl over every table the plan reads (the analyzer
+        already resolved views and CTEs away, so the ScanNodes are the
+        whole read set)."""
+        if isinstance(plan, P.ScanNode):
+            h = plan.handle
+            self.access_control.check_can_select(
+                self.identity, h.catalog, h.schema, h.table, plan.columns)
+        for c in plan.children():
+            self._check_scans(c)
 
     def register_catalog(self, name: str, connector: Connector) -> None:
         self.catalogs.register(name, connector)
 
     # -- entry point --
-    def execute(self, sql: str, transaction_id: Optional[str] = None) -> MaterializedResult:
-        """`transaction_id` selects EXPLICIT transaction threading — the
+    def execute(self, sql: str, identity=None, transaction_id: Optional[str] = None,
+                prepared: Optional[Dict[str, str]] = None) -> MaterializedResult:
+        """`identity` overrides the session user for this statement.
+
+        `transaction_id` selects EXPLICIT transaction threading — the
         protocol model, where each client carries its own transaction id
         and the shared runner holds no cross-client state. Pass "NONE"
         for an autocommit statement in explicit mode. When None, the
-        runner's own session transaction applies."""
+        runner's own session transaction applies.
+
+        `prepared` maps names to the statement texts the client carries
+        (the protocol's prepared-statement headers); EXECUTE looks there
+        before the runner's own PREPARE store."""
+        check_session(self.session)
         stmt = parse(sql)
         explicit = transaction_id is not None
         active = None if transaction_id in (None, "NONE") else transaction_id
         if not explicit:
             active = self._current_txn
+        if identity is not None:
+            self._identity_override.value = identity
         self._stmt_txn.value = active
+        self._request_prepared = prepared
         try:
-            return self._dispatch(stmt, active, explicit)
+            return self._dispatch(stmt, sql, active, explicit)
         finally:
             self._stmt_txn.value = None
+            self._request_prepared = None
+            if identity is not None:
+                self._identity_override.value = None
 
     def _active_txn(self) -> Optional[str]:
         return getattr(self._stmt_txn, "value", None)
@@ -168,12 +321,45 @@ class LocalQueryRunner:
                 "READ_ONLY_VIOLATION: cannot write in a read-only transaction"
             )
 
-    def _dispatch(self, stmt, active: Optional[str], explicit: bool) -> MaterializedResult:
-        # access control (check_can_*) waits for security.py, ROADMAP §1
-        # item 8b: until then every statement is allowed, as under the
-        # reference's default AllowAllAccessControl
-        if isinstance(stmt, ast.Query):
-            return self._execute_query(stmt)
+    def _dispatch(self, stmt, sql: str, active: Optional[str],
+                  explicit: bool) -> MaterializedResult:
+        self.access_control.check_can_execute_query(self.identity)
+        if isinstance(stmt, ast.Prepare):
+            try:
+                text = format_statement(stmt.statement)
+            except Exception:  # noqa: BLE001 - the reference keeps the raw text
+                text = stmt.sql or ""
+            self._prepared[stmt.name] = (stmt.statement, text)
+            return dataclasses.replace(_done(), added_prepare=(stmt.name, text))
+        if isinstance(stmt, ast.ExecuteStmt):
+            # request-carried statements take precedence: they are the
+            # client's session state, the store is shared by every caller
+            hit = None
+            if self._request_prepared:
+                text = self._request_prepared.get(stmt.name)
+                if text is not None:
+                    hit = (parse(text), text)
+            if hit is None:
+                hit = self._prepared.get(stmt.name)
+            if hit is None:
+                raise ValueError(f"Prepared statement not found: {stmt.name}")
+            # arity and dtypes checked before substitution
+            dtypes = check_parameters(hit[0], stmt.parameters, self.catalogs,
+                                      self.session.catalog, self.session.schema)
+            body = ast.substitute_parameters(hit[0], stmt.parameters)
+            # the cache key canonicalizes the BOUND statement, and the
+            # dtype vector rides along as its own component
+            prior = getattr(self._bound_dtypes_tls, "value", None)
+            self._bound_dtypes_tls.value = tuple(dtypes)
+            try:
+                return self._dispatch(body, sql, active, explicit)
+            finally:
+                self._bound_dtypes_tls.value = prior
+        if isinstance(stmt, ast.Deallocate):
+            if stmt.name not in self._prepared:
+                raise ValueError(f"Prepared statement not found: {stmt.name}")
+            del self._prepared[stmt.name]
+            return dataclasses.replace(_done(), deallocated_prepare=stmt.name)
         if isinstance(stmt, ast.StartTransaction):
             if active is not None:
                 raise TransactionError("transaction already in progress")
@@ -194,12 +380,29 @@ class LocalQueryRunner:
                 # reference's semantics): never wedge the session
                 if not explicit:
                     self._current_txn = None
-            return _done()
+                if isinstance(stmt, ast.Commit):
+                    self._invalidate_plans()
+            return dataclasses.replace(_done(), cleared_transaction=True)
+        if isinstance(stmt, ast.Query):
+            # the reference's _run_tracked wraps this in query events,
+            # metrics and spans: runtime/events.py, metrics.py and
+            # tracing.py, ROADMAP §1 item 11
+            return self._execute_query(stmt, sql_key=sql)
+        if isinstance(stmt, ast.ExplainStatement):
+            if stmt.analyze:
+                raise NotImplementedError(
+                    "EXPLAIN ANALYZE: its operator statistics (exec/stats.py) are not "
+                    "in trino_tpu_torch yet (ROADMAP §1 item 10)"
+                )
+            plan = self._analyze(stmt.query)
+            return MaterializedResult([[P.explain_text(plan)]], ["Query Plan"], [T.VARCHAR])
         if isinstance(stmt, ast.CreateTable):
-            _, conn, schema, table = self._resolve_target(stmt.table)
+            cat, conn, schema, table = self._resolve_target(stmt.table)
+            self.access_control.check_can_create_table(self.identity, conn.name, schema, table)
             self._check_writable()
             cols = [ColumnMetadata(n, resolve_type(t)) for n, t in stmt.columns]
             conn.metadata.create_table(schema, table, cols)
+            self._invalidate_plans(table=(cat, schema, table))
             return _done()
         if isinstance(stmt, ast.CreateTableAs):
             return self._execute_ctas(stmt)
@@ -215,45 +418,133 @@ class LocalQueryRunner:
                 raise AnalysisError("multiple assignments for the same column")
             return self._execute_rewrite_dml(stmt.table, stmt.where, dict(stmt.assignments))
         if isinstance(stmt, ast.DropTable):
-            _, conn, schema, table = self._resolve_target(stmt.table)
+            cat, conn, schema, table = self._resolve_target(stmt.table)
+            self.access_control.check_can_drop_table(self.identity, conn.name, schema, table)
             self._check_writable()
             handle = conn.metadata.get_table_handle(schema, table)
             if handle is None:
                 raise AnalysisError(f"table {schema}.{table} does not exist")
             conn.metadata.drop_table(handle)
+            self._invalidate_plans(table=(cat, schema, table))
             return _done()
-        if isinstance(stmt, _ITEM_8B):
-            raise NotImplementedError(
-                f"{type(stmt).__name__}: not in trino_tpu_torch yet (EXPLAIN, SHOW, "
-                "SET SESSION and prepared statements: ROADMAP §1 item 8b)"
-            )
+        if isinstance(stmt, ast.SetSession):
+            self.access_control.check_can_set_session_property(self.identity, stmt.name)
+            # plan-shaping properties are part of the plan-cache key, so
+            # SET SESSION invalidates nothing
+            self.session.set_property(stmt.name, stmt.value)
+            return _done()
+        if isinstance(stmt, _SHOWS):
+            return self._show(stmt)
         raise AnalysisError(f"cannot execute {type(stmt).__name__}")
+
+    def _show(self, stmt) -> MaterializedResult:
+        """SHOW SESSION, FUNCTIONS, SCHEMAS, TABLES and COLUMNS."""
+        if isinstance(stmt, ast.ShowSession):
+            rows = []
+            for meta in SYSTEM_PROPERTIES.all():
+                current = getattr(self.session, meta.name, None)
+                if meta.name == "memory_pool_bytes":
+                    current = self.session.memory_pool_bytes or 0
+                rows.append([meta.name, str(current), str(meta.default), meta.description])
+            return MaterializedResult(rows, ["Name", "Value", "Default", "Description"],
+                                      [T.VARCHAR] * 4)
+        if isinstance(stmt, ast.ShowFunctions):
+            rows = []
+            for m in REGISTRY.all():
+                arity = (str(m.min_arity) if m.max_arity == m.min_arity
+                         else f"{m.min_arity}..{m.max_arity or 'N'}")
+                # one row per callable name and per concrete overload
+                for nm in (m.name, *m.aliases):
+                    for sig in m.overloads or (m.returns,):
+                        rows.append([nm, sig, arity, m.category, m.description])
+            rows.sort(key=lambda r: (r[3], r[0], r[1]))
+            return MaterializedResult(
+                rows, ["Function", "Return Type", "Arity", "Function Type", "Description"],
+                [T.VARCHAR] * 5)
+        if isinstance(stmt, ast.ShowSchemas):
+            conn = self.catalogs.get(stmt.catalog or self.session.catalog)
+            return MaterializedResult([[s] for s in conn.metadata.list_schemas()],
+                                      ["Schema"], [T.VARCHAR])
+        if isinstance(stmt, ast.ShowTables):
+            cat, schema = self.session.catalog, self.session.schema
+            if stmt.schema:
+                if len(stmt.schema) == 2:
+                    cat, schema = stmt.schema
+                else:
+                    schema = stmt.schema[0]
+            conn = self.catalogs.get(cat)
+            return MaterializedResult([[t] for t in conn.metadata.list_tables(schema)],
+                                      ["Table"], [T.VARCHAR])
+        cat, _, schema, table = self._resolve_target(stmt.table)
+        conn, handle = self.catalogs.resolve_table(cat, schema, table)
+        meta = conn.metadata.get_table_metadata(handle)
+        return MaterializedResult([[c.name, str(c.type)] for c in meta.columns],
+                                  ["Column", "Type"], [T.VARCHAR, T.VARCHAR])
 
     def _analyze(self, q: ast.Query):
         set_session_zone(self.session.timezone)
-        set_session_info(
-            self.session.catalog, self.session.schema, self.session.user
-        )
-        analyzer = Analyzer(
-            self.catalogs, self.session.catalog, self.session.schema
-        )
-        root = optimize(analyzer.plan(q), self.catalogs, self.session)
-        return canonicalize_tstz_keys(root)
+        set_session_info(self.session.catalog, self.session.schema, self.identity.user)
+
+        def plan_once():
+            analyzer = Analyzer(self.catalogs, self.session.catalog, self.session.schema)
+            root = optimize(analyzer.plan(q), self.catalogs, self.session)
+            # correctness pass: runs regardless of enable_optimizer
+            return canonicalize_tstz_keys(root)
+
+        root = plan_once()
+        mode = self.session.plan_validation
+        if mode != "off":
+            validate_logical(root, stage="canonicalize_tstz_keys")
+        if mode == "rules":
+            # replanning the same AST must give byte-identical EXPLAIN
+            # text (a fresh analyzer each time: the plan cache would
+            # hide a nondeterministic rule)
+            check_plan_determinism(plan_once)
+        return root
 
     def _planner(self) -> LocalPlanner:
         return LocalPlanner(
             self.catalogs, self.device,
             batch_rows=self.session.batch_rows,
             target_splits=self.session.target_splits,
+            dynamic_filtering=self.session.enable_dynamic_filtering,
             mxu_join=self.session.mxu_join_enabled,
             mxu_join_min_work=self.session.mxu_join_min_work,
         )
 
-    def _instantiate(self, node) -> tuple:
-        """(ctx, pipelines, chain) of `node` planned on the runner's device."""
-        ctx: dict = {}
-        pipelines, chain = self._planner().plan(node).instantiate(ctx)
-        return ctx, pipelines, chain
+    def _plan(self, q: ast.Query, sql_key: Optional[str]):
+        """(OutputNode, PhysicalPlan) of `q`: from the plan cache when
+        `sql_key` is given and the key hits, else planned on the runner's
+        device (and stored, unless analysis folded a volatile value).
+        Access control re-checks the scans either way. The reference's
+        adaptive controller, shape stabilizer and warmup sit here too:
+        ROADMAP §1 item 13."""
+        cache_key = None
+        if sql_key is not None:
+            # the formatter's canonical text, the plan-shaping properties
+            # and the bound parameters' dtypes
+            try:
+                canonical = format_statement(q)
+            except Exception:  # noqa: BLE001 - the reference keys on the raw text
+                canonical = sql_key
+            cache_key = self._plan_cache.key(
+                canonical, self.session, getattr(self._bound_dtypes_tls, "value", None) or ())
+        cached = self._plan_cache.lookup(cache_key) if cache_key else None
+        if cached is not None:
+            # a cached plan is no grant: the scans re-check every time
+            self._check_scans(cached[0])
+            return cached
+        # snapshot the generation BEFORE planning: a write landing while
+        # this plans must win over the store below
+        generation = self._plan_cache.generation
+        reset_volatile_plan()
+        output = self._analyze(q)
+        self._check_scans(output)
+        physical = self._planner().plan(output)
+        if cache_key and not plan_is_volatile():
+            self._plan_cache.store(cache_key, (output, physical), generation=generation,
+                                   tables=plan_tables(output))
+        return output, physical
 
     @staticmethod
     def _drive(instance: tuple, sink) -> None:
@@ -266,21 +557,40 @@ class LocalQueryRunner:
         Driver(Pipeline(chain + [sink])).run()
         _raise_deferred_checks(ctx)
 
-    def _run(self, node, sink) -> None:
-        self._drive(self._instantiate(node), sink)
+    @staticmethod
+    def _instance(physical) -> tuple:
+        """(ctx, pipelines, chain): fresh operators for one execution;
+        the join bridges live in `ctx`, so two executions of one cached
+        plan share no state."""
+        ctx: dict = {}
+        pipelines, chain = physical.instantiate(ctx)
+        return ctx, pipelines, chain
 
-    def _execute_query(self, q: ast.Query) -> MaterializedResult:
-        output = self._analyze(q)
+    def _run(self, node, sink) -> None:
+        self._drive(self._instance(self._planner().plan(node)), sink)
+
+    def _execute_query(self, q: ast.Query, sql_key: Optional[str] = None) -> MaterializedResult:
+        output, physical = self._plan(q, sql_key)
         sink = CollectorSink()
-        self._run(output, sink)
+        self._drive(self._instance(physical), sink)
         return MaterializedResult(
             sink.rows(), list(output.names), [f.type for f in output.fields]
         )
 
+    def _invalidate_plans(self, table=None) -> None:
+        """Cached physical plans capture split lists (data snapshots) at
+        plan time, so a write drops them: only the plans that read the
+        written table when the write names it (`table` = (catalog,
+        schema, table), the registered catalog name), all of them
+        otherwise (COMMIT). The reference also bumps the resident tier's
+        table generation, taps the fast lane and clears mesh
+        checkpoints here: ROADMAP §1 item 13."""
+        if table is None:
+            self._plan_cache.invalidate()
+        else:
+            self._plan_cache.invalidate_tables([table])
+
     # -- DML (BeginTableWrite/TableWriter/TableFinish path) --
-    # The reference's _invalidate_plans serves the plan cache (item 8b)
-    # and the resident tier (item 13); the port has neither, and the
-    # memory connector drops a written table's device batches itself.
     def _resolve_target(self, parts):
         """(registered catalog name, connector, schema, table)."""
         cat, schema = self.session.catalog, self.session.schema
@@ -293,20 +603,24 @@ class LocalQueryRunner:
 
     def _execute_ctas(self, stmt: ast.CreateTableAs) -> MaterializedResult:
         output = self._analyze(stmt.query)
-        _, conn, schema, table = self._resolve_target(stmt.table)
+        self._check_scans(output)
+        cat, conn, schema, table = self._resolve_target(stmt.table)
+        self.access_control.check_can_create_table(self.identity, conn.name, schema, table)
         self._check_writable()  # before the table is created
         cols = [
             ColumnMetadata(n or f"_col{i}", f.type)
             for i, (n, f) in enumerate(zip(output.names, output.fields))
         ]
         conn.metadata.create_table(schema, table, cols)
-        return self._write_into(conn, schema, table, output, list(output.names))
+        return self._write_into(cat, conn, schema, table, output, list(output.names))
 
     def _execute_insert(self, parts, columns, query: ast.Query) -> MaterializedResult:
-        _, conn, schema, table = self._resolve_target(parts)
+        cat, conn, schema, table = self._resolve_target(parts)
+        self.access_control.check_can_insert(self.identity, conn.name, schema, table)
         output = self._analyze(query)
+        self._check_scans(output)
         return self._write_into(
-            conn, schema, table, output, list(columns) if columns else None
+            cat, conn, schema, table, output, list(columns) if columns else None
         )
 
     def _table(self, conn, schema: str, table: str):
@@ -321,7 +635,10 @@ class LocalQueryRunner:
         as the table's rows — the memory-connector analogue of the
         reference's row-level delete/update pushdown. The affected-row
         count comes from a matched-rows count pass."""
-        _, conn, schema, table = self._resolve_target(parts)
+        cat, conn, schema, table = self._resolve_target(parts)
+        check = (self.access_control.check_can_delete if assignments is None
+                 else self.access_control.check_can_update)
+        check(self.identity, conn.name, schema, table)
         self._check_writable()
         if self._active_txn() is not None:
             raise TransactionError(
@@ -343,6 +660,7 @@ class LocalQueryRunner:
         if assignments is None:
             if where is None:  # unconditional DELETE = truncate
                 conn.metadata.truncate_table(handle)
+                self._invalidate_plans(table=(cat, schema, table))
                 return _count(affected)
             # keep rows where the predicate is NOT TRUE
             keep = ast.UnaryOp(
@@ -362,7 +680,7 @@ class LocalQueryRunner:
                          if where is not None else new)
                 items.append(ast.SelectItem(e, c.name))
             rewrite_q = ast.Query(ast.QuerySpec(tuple(items), from_=rel))
-        self._replace_table_from_queries(conn, handle, meta, [rewrite_q])
+        self._replace_table_from_queries(cat, conn, handle, meta, [rewrite_q])
         return _count(affected)
 
     def _coerced(self, output, meta, sources) -> P.ProjectNode:
@@ -381,7 +699,7 @@ class LocalQueryRunner:
         fields = tuple(P.Field(c.name, c.type) for c in meta.columns)
         return P.ProjectNode(output.child, tuple(exprs), fields)
 
-    def _replace_table_from_queries(self, conn, handle, meta, queries) -> List[int]:
+    def _replace_table_from_queries(self, cat, conn, handle, meta, queries) -> List[int]:
         """Materialize each rewrite query, coerce onto the table schema,
         and swap the combined batches in as the table's new contents
         (shared by DELETE/UPDATE/MERGE; MERGE runs survivors and inserts
@@ -392,6 +710,8 @@ class LocalQueryRunner:
         counts = []
         for rewrite_q in queries:
             output = self._analyze(rewrite_q)
+            # a rewrite may scan other tables: SELECT checks as any query
+            self._check_scans(output)
             sink = CollectorSink()
             self._run(self._coerced(output, meta, range(len(meta.columns))), sink)
             counts.append(sum(b.row_count() for b in sink.batches))
@@ -405,6 +725,7 @@ class LocalQueryRunner:
             for b in batches:
                 writer_sink.append(b)
             writer_sink.finish()
+        self._invalidate_plans(table=(cat, handle.schema, handle.table))
         return counts
 
     def _execute_merge(self, stmt: ast.Merge) -> MaterializedResult:
@@ -420,7 +741,15 @@ class LocalQueryRunner:
         - a target row matching >1 source rows is an error (Trino's
           MERGE cardinality rule), checked with a row_number-keyed
           grouped count before the rewrite."""
-        _, conn, schema, table = self._resolve_target(stmt.table)
+        cat, conn, schema, table = self._resolve_target(stmt.table)
+        # each privilege gates only the arms present (Trino checks UPDATE,
+        # DELETE and INSERT per MERGE case kind)
+        if any(c.action == "update" for c in stmt.clauses):
+            self.access_control.check_can_update(self.identity, conn.name, schema, table)
+        if any(not c.matched for c in stmt.clauses):
+            self.access_control.check_can_insert(self.identity, conn.name, schema, table)
+        if any(c.action == "delete" for c in stmt.clauses):
+            self.access_control.check_can_delete(self.identity, conn.name, schema, table)
         self._check_writable()
         if self._active_txn() is not None:
             raise TransactionError("MERGE inside an explicit transaction is not supported")
@@ -563,13 +892,13 @@ class LocalQueryRunner:
                 tuple(ins_items), from_=stmt.source,
                 where=ast.BinaryOp("and", anti, any_of(nm_clauses)),
             )))
-        counts = self._replace_table_from_queries(conn, handle, meta, queries)
+        counts = self._replace_table_from_queries(cat, conn, handle, meta, queries)
         # the insert rewrite IS the anti join: its row count is the
         # inserted count (no third join execution)
         inserted = counts[1] if nm_clauses else 0
         return _count(updated + inserted)
 
-    def _write_into(self, conn, schema: str, table: str, output,
+    def _write_into(self, cat: str, conn, schema: str, table: str, output,
                     insert_columns: Optional[List[str]]) -> MaterializedResult:
         """Coerce the source onto the table schema and stream it into
         the connector page sink (TableWriterOperator)."""
@@ -584,8 +913,8 @@ class LocalQueryRunner:
         if len(set(insert_columns)) != len(insert_columns):
             raise AnalysisError("duplicate target column names in INSERT/CTAS")
         src_of = {name: i for i, name in enumerate(insert_columns)}
-        instance = self._instantiate(
-            self._coerced(output, meta, [src_of.get(c.name) for c in meta.columns]))
+        instance = self._instance(self._planner().plan(
+            self._coerced(output, meta, [src_of.get(c.name) for c in meta.columns])))
         self._check_writable()
         active = self._active_txn()
         txn_handle = (self.transactions.join(active, conn.name, conn)
@@ -601,4 +930,5 @@ class LocalQueryRunner:
         # the resident tier's delta tap (fastlane.TeeSink) is item 13
         writer = TableWriterOperator(sink_impl)
         self._drive(instance, writer)
+        self._invalidate_plans(table=(cat, schema, table))
         return _count(writer.rows_written)

@@ -58,6 +58,7 @@ from trino_tpu_torch.block import (
     MapColumn,
     RowColumn,
     RuntimeDictionary,
+    _concat_columns,
 )
 from trino_tpu_torch.expr import functions as F
 from trino_tpu_torch.expr import pyfns
@@ -209,6 +210,25 @@ def _where_lanes(cond, a, b):
     if a.dim() == 2 or b.dim() == 2:
         cond = cond[:, None]
     return torch.where(cond, a, b)
+
+
+def _with_valid(col: Column, valid) -> Column:
+    return col if valid is None else dataclasses.replace(col, valid=valid)
+
+
+def _null_like(col: Column) -> Column:
+    """A column of NULLs laid out as `col` (its views, flats and
+    dictionaries), as many rows."""
+    zeros = torch.zeros(col.capacity, dtype=torch.int64, device=col.device)
+    return col.gather(zeros, zeros.to(torch.bool))
+
+
+def _nested_select(take, a: Column, b: Column) -> Column:
+    """Per row, `a`'s value where `take`, else `b`'s (nested columns of
+    one type: both are laid end to end and the rows' views gathered)."""
+    both = _concat_columns([a, b])
+    idx = torch.arange(take.shape[0], device=take.device)
+    return both.gather(torch.where(take, idx, idx + a.capacity))
 
 
 class _Table:
@@ -1035,6 +1055,8 @@ class ExprBinder:
             default = self.bind(e.default) if e.default is not None else None
         finally:
             self._in_branch -= 1
+        if e.type.is_nested:
+            return self._nested_choice(e.type, conds, results, default)
         out_dict = None
         if e.type.is_string:
             merged = None
@@ -1073,6 +1095,50 @@ class ExprBinder:
             return data, valid
 
         return Bound(out_t, fn, out_dict)
+
+    def _nested_choice(self, out_t: T.DataType, conds, results, default) -> Bound:
+        """CASE over ARRAY, MAP or ROW values: per row the first result
+        whose condition holds, else the default (NULL without one). The
+        branches of an array of strings are remapped onto one merged
+        element dictionary first."""
+        branches = results + ([default] if default is not None else [])
+        out_dict = None
+        if out_t.is_array and out_t.element.is_string:
+            for b in branches:
+                if b.dictionary is not None:
+                    out_dict = (b.dictionary if out_dict is None
+                                else Dictionary.unify(out_dict, b.dictionary)[0])
+            branches = [self._remap_elements_to(b, out_dict) for b in branches]
+            results = branches[:len(results)]
+            default = branches[len(results)] if default is not None else None
+
+        def fn(cols, valids):
+            # a NULL branch (an untyped NULL, or no ELSE) takes the layout
+            # of a typed one
+            got = [None if b is None or b.type.kind == T.TypeKind.UNKNOWN
+                   else _with_valid(*b.fn(cols, valids)) for b in results + [default]]
+            null = _null_like(next(c for c in got if c is not None))
+            col = got[-1] if got[-1] is not None else null
+            for cb, rc in reversed(list(zip(conds, got[:-1]))):
+                cd, cv = cb.fn(cols, valids)
+                take = cd if cv is None else (cd & cv)
+                col = _nested_select(take, null if rc is None else rc, col)
+            return col, col.valid
+        return Bound(out_t, fn, out_dict)
+
+    def _remap_elements_to(self, b: Bound, target: Optional[Dictionary]) -> Bound:
+        """An array-of-strings Bound with its elements' codes moved onto
+        `target`."""
+        if target is None or b.dictionary is None or b.dictionary == target:
+            return Bound(b.type, b.fn, target)
+        remap = _table([target.code(v) for v in b.dictionary.values], torch.int32)
+
+        def fn(cols, valids, bfn=b.fn):
+            d, v = bfn(cols, valids)
+            flat = d.flat
+            return dataclasses.replace(d, flat=Column(
+                flat.type, _lookup(remap, flat.data), flat.valid, target)), v
+        return Bound(b.type, fn, target)
 
     # ---- IN list ----
     def _bind_in(self, e: InList) -> Bound:
@@ -2244,6 +2310,17 @@ class ExprBinder:
         return Bound(T.BOOLEAN, fn)
 
     def _bind_coalesce(self, e: Call, args) -> Bound:
+        if e.type.is_nested:
+            # the first non-NULL argument: a CASE over their validities
+            known = [a for a in args if a.type.kind != T.TypeKind.UNKNOWN]
+
+            def valid_of(a: Bound) -> Bound:
+                def fn(cols, valids, afn=a.fn):
+                    _, v = afn(cols, valids)
+                    return (_const(_ref(cols), True, torch.bool) if v is None else v), None
+                return Bound(T.BOOLEAN, fn)
+            return self._nested_choice(e.type, [valid_of(a) for a in known[:-1]],
+                                       known[:-1], known[-1])
         out_dict = None
         if e.type.is_string:
             merged = None

@@ -189,6 +189,21 @@ def _shift_date(days: int, unit: str, n: int) -> int:
     raise AnalysisError(f"unsupported interval unit {unit}")
 
 
+_KEEP_KINDS = frozenset((
+    T.TypeKind.TIMESTAMP, T.TypeKind.TIMESTAMP_TZ, T.TypeKind.INTERVAL_DAY,
+    T.TypeKind.INTERVAL_YEAR, T.TypeKind.ARRAY, T.TypeKind.MAP, T.TypeKind.ROW))
+
+
+def _choice_type(types: Sequence[T.DataType]) -> T.DataType:
+    """The type of CASE, IF and COALESCE: one temporal or nested type
+    throughout keeps that type (the reference falls through to BIGINT
+    here: ROADMAP §3); anything else unifies as GREATEST and ARRAY do."""
+    known = [t for t in types if t.kind != T.TypeKind.UNKNOWN]
+    if known and known[0].kind in _KEEP_KINDS and all(t == known[0] for t in known):
+        return known[0]
+    return _unify_types(types)
+
+
 def _unify_types(types: Sequence[T.DataType]) -> T.DataType:
     types = [t for t in types if t.kind != T.TypeKind.UNKNOWN]
     if not types:
@@ -549,7 +564,7 @@ class ExprConverter:
             conds = [self.convert(w.condition) for w in whens]
         results = [self.convert(w.result) for w in whens]
         default = self.convert(e.default) if e.default is not None else None
-        out_t = _unify_types(
+        out_t = _choice_type(
             [r.type for r in results] + ([default.type] if default is not None else [])
         )
         return ir.Case(tuple(conds), tuple(results), default, out_t)
@@ -1365,7 +1380,7 @@ class ExprConverter:
             out = T.DOUBLE if args[0].type.is_floating else T.BIGINT
             return ir.Call(nm, args, out)
         if name == "coalesce":
-            out = _unify_types([a.type for a in args])
+            out = _choice_type([a.type for a in args])
             return ir.Call(name, args, out)
         if name == "concat":
             return ir.Call("concat", args, T.VARCHAR)
@@ -1412,7 +1427,7 @@ class ExprConverter:
             if len(args) not in (2, 3):
                 raise AnalysisError("if() takes 2 or 3 arguments")
             default = args[2] if len(args) == 3 else None
-            out = _unify_types(
+            out = _choice_type(
                 [args[1].type] + ([default.type] if default is not None else [])
             )
             return ir.Case((args[0],), (args[1],), default, out)

@@ -93,11 +93,14 @@ class PhysicalPlan:
 class LocalPlanner:
     def __init__(self, catalogs: CatalogManager, device,
                  batch_rows: int = 1 << 20, target_splits: int = 1,
+                 dynamic_filtering: bool = True,
                  mxu_join: bool = False, mxu_join_min_work: float = 16.0):
         self.catalogs = catalogs
         self.device = torch.device(device)
         self.batch_rows = batch_rows
         self.target_splits = target_splits
+        # enable_dynamic_filtering: build-side key domains prune the probe
+        self.dynamic_filtering = dynamic_filtering
         self.mxu_join = mxu_join
         self.mxu_join_min_work = float(mxu_join_min_work)
         self.pipelines: List[List[Factory]] = []
@@ -538,7 +541,7 @@ class LocalPlanner:
             )
         lkeys = list(node.left_keys)
         kind = node.kind
-        if kind in ("inner", "semi"):
+        if kind in ("inner", "semi") and self.dynamic_filtering:
             # when the probe side is a bare scan, the build-side key
             # domains also fold into the scan's split handles (read at the
             # first probe batch, after the build pipeline has run); the

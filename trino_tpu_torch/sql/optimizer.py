@@ -133,7 +133,8 @@ def _fresh_tree(node: P.PlanNode) -> P.PlanNode:
     Rewrites that replicate a subtree into several plan positions (the
     multi-sketch UNION ALL expansion) must not alias the same node
     object from two parents: node identity doubles as the plan-node id,
-    and id()-keyed consumers (StatsCalculator's memo) assume tree shape. Leaves stay shared — they have no
+    and id()-keyed consumers (StatsCalculator's memo, the structure
+    validator) assume tree shape. Leaves stay shared — they have no
     children for a traversal to double-visit.
     """
     kids = tuple(node.children())
@@ -225,10 +226,13 @@ class Memo:
 
 @dataclasses.dataclass
 class Context:
-    """Rule.Context analogue: lookup + stats."""
+    """Rule.Context analogue: lookup + stats. `last_rule` records the
+    most recently applied rule so a PlanValidationError can name the
+    rewrite that broke the invariant."""
 
     memo: Memo
     stats: Optional[StatsCalculator] = None
+    last_rule: Optional[str] = None
 
     def resolve(self, node: P.PlanNode) -> P.PlanNode:
         return self.memo.resolve(node)
@@ -996,7 +1000,12 @@ class IterativeOptimizer:
         self,
         root: P.PlanNode,
         stats: Optional[StatsCalculator] = None,
+        validator=None,
     ) -> P.PlanNode:
+        """`validator(plan, rule_name)` — when given (plan_validation=
+        rules), the extracted plan is re-validated after EVERY rule
+        application, so a violation names the exact rewrite that
+        introduced it."""
         memo = Memo(root)
         ctx = Context(memo, stats)
         for _ in range(MAX_FIXPOINT_PASSES):
@@ -1012,6 +1021,9 @@ class IterativeOptimizer:
                         result = rule.apply(node, ctx)
                         if result is not None and result is not node:
                             memo.replace(gid, result)
+                            ctx.last_rule = rule.name
+                            if validator is not None:
+                                validator(memo.extract(), rule.name)
                             progress = True
                             fired = True
                             break
@@ -1857,6 +1869,23 @@ def optimize(
     if session is not None and not getattr(session, "enable_optimizer", True):
         return root
     strategy = getattr(session, "join_reordering_strategy", "automatic")
+    validation = getattr(session, "plan_validation", "passes")
+    if validation != "off":
+        from trino_tpu_torch.sql.validate import validate_logical
+    else:
+        validate_logical = None
+    per_rule = None
+    if validation == "rules":
+        per_rule = lambda plan, rule: validate_logical(
+            plan, stage="optimizer", rule=rule
+        )
+
+    def checkpoint(plan: P.PlanNode, stage: str) -> None:
+        # PlanSanityChecker.validateIntermediatePlan: every pass must
+        # hand the next one a well-formed plan
+        if validate_logical is not None:
+            validate_logical(plan, stage=stage)
+
     stats = StatsCalculator(catalogs)
     rules: Tuple[Rule, ...] = SIMPLIFICATION_RULES
     if getattr(session, "enable_pushdown", True) and catalogs is not None:
@@ -1865,15 +1894,20 @@ def optimize(
             PushProjectionIntoTableScan(catalogs),
         )
     it = IterativeOptimizer(rules)
-    root = it.optimize(root, stats)
+    checkpoint(root, "analyzer")
+    root = it.optimize(root, stats, validator=per_rule)
+    checkpoint(root, "iterative")
     root = RewriteMultiSketch().rewrite(root)
     root = RewriteApproxDistinct().rewrite(root)
     root = RewriteApproxPercentile().rewrite(root)
+    checkpoint(root, "approx_rewrites")
     root = RewriteDistinctAggs().rewrite(root)
+    checkpoint(root, "distinct_aggs")
     if strategy == "automatic":
         cost = CostCalculator(stats)
         root = ReorderJoins(stats, cost).rewrite(root)
-        root = it.optimize(root, stats)
+        root = it.optimize(root, stats, validator=per_rule)
+        checkpoint(root, "join_reordering")
     return root
 
 
