@@ -133,9 +133,31 @@ Phases (any failure exits nonzero):
                  the new rows, while the tpch plan stays a hit; EXPLAIN of
                  Q3 under plan_validation = 'rules'. This phase's counts
                  are kept apart (`statements_launches`).
-  9. explore   — both explorer entry points (trino_tpu_torch.explore),
+  9. files     — the file connectors at sf1 on the card (file_identities),
+                 in a temporary directory removed at the end, each step
+                 with its wall, parse_s (host time parsing files), scan_s
+                 (host time in the page source), sink_s (in the file
+                 sinks), bytes_scanned and launches: CTAS of orders (all 9
+                 columns) and customer into a parquet catalog and of
+                 customer into a CSV catalog, each returning its row
+                 count; the parquet orders' first parse and its totals
+                 equal to tpch's; a cold catalog on the same files pruned
+                 to o_orderkey < 60000, fewer page bytes than the full
+                 parse and tpch's totals; the bounded GROUP BY (grouped_sum)
+                 and the orders-customer join (bounds once per probe batch,
+                 take_flat) over the parquet tables, the join again with
+                 the CSV customer as its build side, and a join whose 63
+                 customers fold into the parquet probe's splits as an
+                 IN-list dynamic filter, each equal to its twin over tpch;
+                 an INSERT ... SELECT of about 1 % of the orders adds one
+                 part, and the table's count and sum grow by the source's;
+                 a CTAS into blackhole returns its count and a SELECT from
+                 it no rows; DROP TABLE of the CSV customer removes its
+                 files. Every file batch lies on the card. This phase's
+                 counts are kept apart (`files_launches`).
+ 10. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 10. parity    — the queries, and the window and set-operation queries
+ 11. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -153,15 +175,16 @@ Phases (any failure exits nonzero):
                  write corpus (WRITE_SCRIPTS) at tiny, statement by
                  statement (the same error where one raises), with every
                  written table read back equal; so must phase statements'
-                 steps at tiny and sf0.1.
- 11. summary   — each kind of join-path call (the probe's bounds, the
+                 steps at tiny and sf0.1, and phase files' steps at tiny
+                 and sf0.1 (their bytes_scanned too).
+ 12. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
-                 entry with its launches in phases nested, zones, write
-                 and statements beside the main path's; take_flat's entry with its summed
+                 entry with its launches in phases nested, zones, write,
+                 statements and files beside the main path's; take_flat's entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -3371,6 +3394,304 @@ def parity_statements() -> None:
         f"({time.perf_counter() - t0} s)")
 
 
+# ---- phase files: CSV and Parquet tables, the file connector and blackhole --
+
+FILES_CTAS = (("ctas_orders", "create table pq.s.orders as select * from orders", "orders"),
+              ("ctas_customer", "create table pq.s.customer as select * from customer",
+               "customer"),
+              ("ctas_customer_csv", "create table csv.s.customer as select * from customer",
+               "customer"))
+FILES_TOTALS = "select count(*), sum(o_totalprice) from {t}"
+# row-group pruning: o_orderkey ascends through the written orders, so
+# one of its 65,536-row groups holds every key below 60,000
+FILES_PRUNED = FILES_TOTALS + " where o_orderkey < 60000"
+# a join whose build side (63 customers) folds into the file probe's
+# splits as an IN-list dynamic filter
+FILES_FAULT = """select count(*), sum(o.o_totalprice) from {o} o join {c} c
+on o.o_custkey = c.c_custkey where c.c_custkey < 64"""
+FILES_INSERT = "insert into pq.s.orders select * from {t} where o_orderkey % 100 = 1"
+FILES_BLACKHOLE = "create table bh.default.customer as select * from customer"
+
+
+class FileSinkTimer:
+    """Adds up the host seconds spent in the file connector's page sinks
+    (each batch's live rows copied from the card, the CSV text or the
+    parquet encoding, the part's write and rename)."""
+
+    def __enter__(self):
+        from trino_tpu_torch.connectors import file as F
+
+        self.seconds = 0.0
+        self.saved = []
+        for cls in (F.FilePageSink, F.ParquetPageSink):
+            for attr in ("append", "finish"):
+                inner = getattr(cls, attr)
+                self.saved.append((cls, attr, inner))
+
+                def timed(sink, *args, _inner=inner):
+                    t0 = time.perf_counter()
+                    try:
+                        return _inner(sink, *args)
+                    finally:
+                        self.seconds += time.perf_counter() - t0
+
+                setattr(cls, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, attr, inner in self.saved:
+            setattr(cls, attr, inner)
+
+
+class ParseTimer:
+    """Adds up the host seconds the file connector spends parsing files
+    (CSV and JSON-lines text, parquet pages: decompression, decoding,
+    string dictionaries), which split enumeration reaches first."""
+
+    def __enter__(self):
+        from trino_tpu_torch.connectors import file as F
+
+        self.seconds = 0.0
+        self.saved = [(attr, getattr(F._FileStore, attr)) for attr in ("_parse", "_parse_parquet")]
+        for attr, inner in self.saved:
+            def timed(store, *args, _inner=inner, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _inner(store, *args, **kwargs)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+
+            setattr(F._FileStore, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from trino_tpu_torch.connectors import file as F
+
+        for attr, inner in self.saved:
+            setattr(F._FileStore, attr, inner)
+
+
+class FileScans(TimedPageSource):
+    """TimedPageSource over a file catalog that also notes the device of
+    every batch it yields and the splits that gained constraints at run
+    time (the dynamic filters' build domains)."""
+
+    def __init__(self, inner):
+        super().__init__(inner)
+        self.devices: set = set()
+        self.folded = 0
+
+    def batches(self, split, *args, **kwargs):
+        if len(split.table.constraints) > len(split.payload):
+            self.folded += 1
+        for batch in super().batches(split, *args, **kwargs):
+            self.devices.add(batch.live_mask().device.type)
+            yield batch
+
+
+def file_identities(schema: str, device: str, log, probes=None) -> dict:
+    """Phase files' steps at `schema` on `device`, each held to its
+    identity; returns {step: record} with its rows (or error), wall_s,
+    parse_s (host time parsing files, where split enumeration first asks
+    for a table), scan_s (in the file catalogs' page sources: the copies
+    to the device), sink_s (in the file sinks), the parquet pages' bytes
+    read (bytes_scanned), the
+    kernel launches (counted only on the card) and the probe batches.
+    The tables are written into a fresh temporary directory, removed at
+    the end. tests/test_torch_isolation.py runs this at tiny on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+    from trino_tpu_torch.connectors import parquet_format as PQ
+    from trino_tpu_torch.connectors.blackhole import create_blackhole_connector
+    from trino_tpu_torch.connectors.file import create_file_connector
+    from trino_tpu_torch.connectors.tpch import base_row_count
+
+    sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
+    n_orders, n_customers = (base_row_count(t, sf) for t in ("orders", "customer"))
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    steps: dict = {}
+    parse = ParseTimer()
+    try:
+        parse.__enter__()
+        r = runner(schema, device)
+        pq_root, csv_root = os.path.join(root, "pq"), os.path.join(root, "csv")
+        r.register_catalog("pq", create_file_connector(pq_root, file_format="parquet"))
+        r.register_catalog("csv", create_file_connector(csv_root))
+        r.register_catalog("bh", create_blackhole_connector())
+        scans = {}
+        for name in ("pq", "csv"):
+            conn = r.catalogs.get(name)
+            scans[name] = conn.page_source = FileScans(conn.page_source)
+
+        def step(name, sql, sink=None):
+            before = join_kernel_counts()
+            batches = probes.calls if probes else 0
+            for x in scans.values():
+                x.seconds = 0.0
+            sink_before = sink.seconds if sink else 0.0
+            parse_before = parse.seconds
+            b0 = PQ.bytes_scanned
+            error = res = None
+            t0 = time.perf_counter()
+            try:
+                res = r.execute(sql)
+            except Exception as e:  # noqa: BLE001 - the identities check which
+                error = e
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = join_kernel_counts()
+            rec = steps[name] = {
+                "rows": None if res is None else res.rows, "wall_s": wall,
+                "parse_s": parse.seconds - parse_before,
+                "scan_s": sum(x.seconds for x in scans.values()),
+                "sink_s": (sink.seconds - sink_before) if sink else 0.0,
+                "bytes_scanned": PQ.bytes_scanned - b0,
+                "launches": {k: after[k] - before[k] for k in after},
+                "probe_batches": (probes.calls if probes else 0) - batches,
+                "error": None if error is None else f"{type(error).__name__}: {error}"}
+            log(f"[files] {schema} {name}: wall_s={wall} parse_s={rec['parse_s']} "
+                f"scan_s={rec['scan_s']} "
+                f"sink_s={rec['sink_s']} bytes_scanned={rec['bytes_scanned']} "
+                f"probe_batches={rec['probe_batches']} launches={rec['launches']} "
+                f"rows={None if res is None else str(res.rows[:3])[:160]} error={rec['error']}")
+            if error is not None:
+                raise error
+            return res.rows
+
+        def check(ok, what):
+            if not ok:
+                raise AssertionError(f"phase files {schema}: {what}")
+
+        def twin(name, sql, want_sql):
+            got, want = step(name, sql), r.execute(want_sql).rows
+            check(rows_close(got, want) and got, f"{name}: {str(got)[:200]} against the tpch "
+                  f"twin's {str(want)[:200]}")
+            return got
+
+        # writes: CTAS of orders and customer into parquet, customer into CSV
+        with FileSinkTimer() as sink:
+            for name, sql, table in FILES_CTAS:
+                n = {"orders": n_orders, "customer": n_customers}[table]
+                check(step(name, sql, sink) == [[n]], f"{name} did not write {n} rows")
+        # the catalog's first parse of the whole table, then a cold catalog
+        # on the same files pruned to one row group
+        twin("first_parse", FILES_TOTALS.format(t="pq.s.orders"),
+             FILES_TOTALS.format(t="orders"))
+        r.register_catalog("pq_cold", create_file_connector(pq_root))
+        cold = r.catalogs.get("pq_cold")
+        scans["pq_cold"] = cold.page_source = FileScans(cold.page_source)
+        twin("pruned", FILES_PRUNED.format(t="pq_cold.s.orders"),
+             FILES_PRUNED.format(t="orders"))
+        # (tiny's orders fill one row group: nothing to prune)
+        check(0 < steps["pruned"]["bytes_scanned"] < steps["first_parse"]["bytes_scanned"]
+              or n_orders <= 1 << 16, f"the pruned scan read {steps['pruned']['bytes_scanned']} bytes, the full one "
+              f"{steps['first_parse']['bytes_scanned']}")
+        group = ST_GROUP.replace("?", ST_DATES[0])
+        twin("group", group.replace("from orders", "from pq.s.orders"), group)
+        join = ST_JOIN.replace("?", ST_SEGMENT)
+        twin("join", join.replace("from orders join customer",
+                                  "from pq.s.orders join pq.s.customer"), join)
+        twin("join_csv", join.replace("from orders join customer",
+                                      "from pq.s.orders join csv.s.customer"), join)
+        folded = scans["pq"].folded
+        twin("fault_join", FILES_FAULT.format(o="pq.s.orders", c="pq.s.customer"),
+             FILES_FAULT.format(o="orders", c="customer"))
+        check(scans["pq"].folded > folded, "the dynamic filter never reached the file probe")
+        # a second part: INSERT ... SELECT of about 1 % of the orders
+        parts = sorted(os.listdir(os.path.join(pq_root, "s", "orders")))
+        with FileSinkTimer() as sink:
+            got = step("insert", FILES_INSERT.format(t="orders"), sink)
+        added = r.execute(FILES_TOTALS.format(t="orders") + " where o_orderkey % 100 = 1").rows
+        check(got == [[added[0][0]]], f"INSERT wrote {got}, the source holds {added}")
+        new = sorted(set(os.listdir(os.path.join(pq_root, "s", "orders"))) - set(parts))
+        check(len(new) == 1 and new[0].endswith(".parquet"), f"INSERT added the parts {new}")
+        (count, price), = step("after_insert", FILES_TOTALS.format(t="pq.s.orders"))
+        whole = steps["first_parse"]["rows"][0]
+        check(count == whole[0] + added[0][0]
+              and scaled(price, 2) == scaled(whole[1], 2) + scaled(added[0][1], 2),
+              f"after the INSERT pq.s.orders holds {count} rows, {price}")
+        # blackhole counts and discards; DROP TABLE removes a CSV table
+        with FileSinkTimer() as sink:
+            check(step("blackhole_ctas", FILES_BLACKHOLE, sink) == [[n_customers]],
+                  "the blackhole CTAS count")
+        check(step("blackhole_select", "select * from bh.default.customer") == [],
+              "a SELECT from blackhole returned rows")
+        step("drop_csv", "drop table csv.s.customer")
+        check(step("show_csv", "show tables from csv.s") == [], "DROP TABLE left the table")
+        check(not os.path.exists(os.path.join(csv_root, "s", "customer")),
+              "DROP TABLE left the files")
+        devices = set().union(*(x.devices for x in scans.values()))
+        check(devices == {torch.device(device).type},
+              f"the file page sources yielded batches on {devices}")
+    finally:
+        parse.__exit__()
+        shutil.rmtree(root, ignore_errors=True)
+    return steps
+
+
+def phase_files(results: dict) -> None:
+    """The file connectors at sf1 on the card (file_identities), each
+    step's wall, scan_s (the first parse apart from scans from the parse
+    cache), sink_s, bytes_scanned and launches printed: the bounded GROUP
+    BY over the parquet orders launches grouped_sum; each join bounds once
+    per probe batch and take_flat; run_owner runs in the phase. Launches
+    count over this phase alone (`files_launches`)."""
+    import torch
+    from trino_tpu_torch.ops import join as TJ
+
+    t_phase = time.perf_counter()
+    probes = Capture(TJ, "sorted_run_bounds", lambda sorted_arr, q: (
+        (q.numel(), int(sorted_arr.shape[0])) if q.numel() and sorted_arr.numel() else None),
+        keep=())
+    reset_kernel_counts()
+    with probes:
+        steps = file_identities("sf1", "cuda", log, probes)
+    results["files_launches"] = join_kernel_counts()
+    if steps["group"]["launches"]["grouped_sum"] <= 0:
+        raise AssertionError("the GROUP BY over the parquet orders never launched grouped_sum")
+    for name in ("join", "join_csv", "fault_join"):
+        run = steps[name]
+        if not 0 < run["launches"]["bounds"] == run["probe_batches"] \
+                or run["launches"]["take_flat"] <= 0:
+            raise AssertionError(f"{name}: bounds {run['launches']['bounds']} over "
+                                 f"{run['probe_batches']} probe batches, take_flat "
+                                 f"{run['launches']['take_flat']}")
+    for k in ("grouped_sum", "bounds", "run_owner", "take_flat"):
+        if results["files_launches"][k] <= 0:
+            raise AssertionError(f"phase files never launched {k}")
+    results["files"] = {k: {f: v for f, v in rec.items() if f != "rows"}
+                        for k, rec in steps.items()}
+    log(f"[files] the first parse of orders: parse_s {steps['first_parse']['parse_s']} s, "
+        f"scan_s {steps['first_parse']['scan_s']} s; from the parse cache: group parse_s "
+        f"{steps['group']['parse_s']} s, scan_s {steps['group']['scan_s']} s; join (its first "
+        f"parse of customer) parse_s {steps['join']['parse_s']} s, scan_s "
+        f"{steps['join']['scan_s']} s")
+    log(f"[files] bytes_scanned: pruned to o_orderkey < 60000 "
+        f"{steps['pruned']['bytes_scanned']}, a full scan {steps['first_parse']['bytes_scanned']}, "
+        f"the dynamic-filter join {steps['fault_join']['bytes_scanned']} (parse cache)")
+    log(f"[files] identities hold; launches over the phase: {results['files_launches']}")
+    log(f"[files] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
+def parity_files() -> None:
+    """The card against the CPU: phase files' steps at tiny and sf0.1,
+    equal rows (or the same error) and bytes_scanned step by step."""
+    for schema in ("tiny", "sf0.1"):
+        t0 = time.perf_counter()
+        gpu, cpu = (file_identities(schema, d, lambda msg: None) for d in ("cuda", "cpu"))
+        for name, rec in gpu.items():
+            if not (rows_close(rec["rows"], cpu[name]["rows"]) if rec["rows"] is not None
+                    else rec["error"] == cpu[name]["error"]) \
+                    or rec["bytes_scanned"] != cpu[name]["bytes_scanned"]:
+                raise AssertionError(f"files {name}: card and CPU differ at {schema}")
+        log(f"[parity] files {schema}: {len(gpu)} steps, card == CPU "
+            f"({time.perf_counter() - t0} s)")
+
+
 _ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
 
 
@@ -3941,6 +4262,7 @@ def phase_parity(results: dict) -> None:
     parity_zones()
     parity_write()
     parity_statements()
+    parity_files()
 
 
 def timed_main_args(results: dict) -> dict:
@@ -4067,7 +4389,7 @@ def kernels_line(results: dict) -> dict:
                   "capacity": timed.get("capacity")},
         "modes": modes,
     }]
-    for phase in ("nested", "zones", "write", "statements"):
+    for phase in ("nested", "zones", "write", "statements", "files"):
         if f"{phase}_launches" in results:
             line[0][f"{phase}_launches"] = results[f"{phase}_launches"].get("grouped_sum", 0)
     join_checks = results.get("join_kernel_checks", {})
@@ -4109,9 +4431,9 @@ def kernels_line(results: dict) -> dict:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
                  **mode_record(rec, n)}
-        for phase in ("nested", "zones", "write", "statements"):
-            # phases nested, zones, write and statements count apart from
-            # the main path
+        for phase in ("nested", "zones", "write", "statements", "files"):
+            # phases nested, zones, write, statements and files count
+            # apart from the main path
             if f"{phase}_launches" in results:
                 got = results[f"{phase}_launches"]
                 entry[f"{phase}_launches"] = (
@@ -4129,7 +4451,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "explore,parity",
+                            "files,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -4174,6 +4496,8 @@ def main() -> int:
         phase_write(results)
     if "statements" in phases:
         phase_statements(results)
+    if "files" in phases:
+        phase_files(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

@@ -132,6 +132,51 @@ def test_statement_surface_modules_import_alone(module):
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["trino_tpu_torch.connectors.file",
+                                    "trino_tpu_torch.connectors.parquet_format",
+                                    "trino_tpu_torch.connectors.blackhole",
+                                    "trino_tpu_torch.utils.snappy"])
+def test_file_connector_modules_import_alone(module):
+    # the port keeps its own codec and snappy (trino_tpu's import no jax,
+    # but are the reference's), and the card machine has neither pyarrow
+    # nor, maybe, zstandard: imported first and alone in a fresh process,
+    # none of these pulls in jax, trino_tpu, pyarrow or zstandard
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'trino_tpu', 'pyarrow', 'zstandard'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_phase_files_statements_at_tiny():
+    """chip_smoke.py phase files' statements and identities at tiny on
+    the port's CPU runner (the card runs them at sf1), its temporary
+    directory removed after."""
+    import tempfile
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as CS
+
+    before = set(os.listdir(tempfile.gettempdir()))
+    steps = CS.file_identities("tiny", "cpu", lambda msg: None)
+    assert all(rec["error"] is None for rec in steps.values())
+    assert steps["ctas_orders"]["rows"] == [[15000]]
+    assert steps["insert"]["rows"][0][0] > 0
+    assert steps["blackhole_select"]["rows"] == []
+    assert steps["first_parse"]["bytes_scanned"] > 0 and steps["group"]["bytes_scanned"] == 0
+    assert {k for k in set(os.listdir(tempfile.gettempdir())) - before
+            if k.startswith("chip_smoke_files_")} == set()
+
+
 @pytest.mark.parametrize(
     "path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO)
 )

@@ -458,6 +458,14 @@ class RelBatch:
             return self.capacity
         return int(torch.sum(self.live))
 
+    def live_rows(self):
+        """(the live mask, None when every row is live; the live-row
+        count), host-synced: what a sink copying the live rows needs."""
+        if self.live is None:
+            return None, self.capacity
+        n = int(self.live.sum())
+        return (None if n == self.live.numel() else self.live), n
+
     def mask(self, keep: torch.Tensor) -> "RelBatch":
         """Filter: AND `keep` into the live mask (no data movement)."""
         live = keep if self.live is None else (self.live & keep)
@@ -501,6 +509,12 @@ class RelBatch:
         live = None if self.live is None else self.live.cpu().numpy()
         cols = [c.to_pylist(live=live) for c in self.columns]
         return [list(row) for row in zip(*cols)] if cols else []
+
+
+def host_rows(x: torch.Tensor, live: Optional[torch.Tensor]) -> np.ndarray:
+    """The rows of a device tensor that `live` keeps (all when None),
+    copied to the host."""
+    return (x if live is None else x[live]).cpu().numpy()
 
 
 def decode_values(type_: T.DataType, data, valid, dict_values) -> list:

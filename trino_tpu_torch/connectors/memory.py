@@ -37,6 +37,7 @@ from trino_tpu_torch.block import (
     RelBatch,
     bucket_capacity,
     element_positions,
+    host_rows,
     phys_zeros,
 )
 from trino_tpu_torch.connectors.spi import (
@@ -451,11 +452,6 @@ class MemoryPageSource(ConnectorPageSource):
             yield RelBatch(cols, torch.zeros(16, dtype=torch.bool, device=device))
 
 
-def _host_rows(x: torch.Tensor, live: Optional[torch.Tensor]) -> np.ndarray:
-    """The live rows of a device tensor, copied to the host."""
-    return (x if live is None else x[live]).cpu().numpy()
-
-
 def _append_valid(old: Optional[np.ndarray], n_old: int,
                   new: Optional[np.ndarray], n_new: int) -> Optional[np.ndarray]:
     if old is None and new is None:
@@ -492,13 +488,7 @@ class MemoryPageSink(ConnectorPageSink):
 
     def append(self, batch: RelBatch) -> None:
         key = (self.handle.schema, self.handle.table)
-        live = batch.live
-        if live is not None:
-            n = int(live.sum())
-            if n == live.numel():
-                live = None
-        else:
-            n = batch.capacity
+        live, n = batch.live_rows()
         with self.store.lock:
             t = self.store.tables[key]
             for cm, col in zip(t.columns, batch.columns):
@@ -508,13 +498,13 @@ class MemoryPageSink(ConnectorPageSink):
                     sc.data = list(sc.data) + col.to_pylist(
                         live=None if live is None else live.cpu().numpy())
                     continue
-                valid = None if col.valid is None else _host_rows(col.valid, live)
+                valid = None if col.valid is None else host_rows(col.valid, live)
                 if isinstance(sc.data, _FlatArrays):
                     if not isinstance(col, ArrayColumn):
                         raise TypeError(f"column {cm.name}: expected ARRAY data")
                     self._append_flat(sc, col, live, valid, t.row_count, n)
                 else:
-                    data = _host_rows(col.data, live)
+                    data = host_rows(col.data, live)
                     if cm.type.is_string:
                         sc.dictionary, sc.data, data = _remap_strings(
                             sc.dictionary, col.dictionary, sc.data, data)
@@ -529,8 +519,8 @@ class MemoryPageSink(ConnectorPageSink):
                      n_old: int, n: int) -> None:
         """An ARRAY of flat elements onto the flat store: the live rows'
         lengths, and their elements gathered row after row."""
-        lengths = _host_rows(col.data, live).astype(np.int64)
-        starts = _host_rows(col.starts, live).astype(np.int64)
+        lengths = host_rows(col.data, live).astype(np.int64)
+        starts = host_rows(col.starts, live).astype(np.int64)
         if valid is not None:
             lengths = np.where(valid, lengths, 0)
         _, pos = element_positions(starts, lengths)

@@ -1,0 +1,1195 @@
+"""Parquet reader/writer (from-scratch, no external parquet deps).
+
+Analogue of lib/trino-parquet (28.1k LoC in the reference), built
+directly on the parquet-format spec: Thrift Compact Protocol footers,
+v1 data pages with PLAIN and RLE_DICTIONARY encodings, RLE/bit-packed
+definition AND repetition levels, per-chunk min/max statistics driving
+row-group predicate pruning, and SNAPPY (pure-python, utils/snappy.py)
+/ GZIP (RFC-1952 framing) / ZSTD page compression. Nested 3-level
+LIST columns (the shape every modern writer emits) read and write with
+Dremel-style record assembly; interop is cross-checked against pyarrow
+in both directions (tests/test_parquet_interop.py, which
+tests/test_torch_files.py runs on this copy). Physical/logical
+types covered:
+
+  BOOLEAN                           <- boolean
+  INT32 (+DATE)                     <- integer, date
+  INT64 (+DECIMAL/TIMESTAMP_MICROS) <- bigint, decimal(<=18), timestamp
+  FLOAT / DOUBLE                    <- real, double
+  BYTE_ARRAY (+UTF8)                <- varchar
+  3-level LIST of any of the above  <- array(T)
+
+The reader skips unknown thrift fields, so files with extra metadata
+(CRCs, column indexes, bloom filters) still read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+# compressed page bytes read_parquet has read, process-wide (the
+# reference counts them in its metrics registry's `bytes_scanned`)
+bytes_scanned = 0
+
+MAGIC = b"PAR1"
+
+# thrift compact type ids
+_CT_STOP = 0
+_CT_TRUE = 1
+_CT_FALSE = 2
+_CT_BYTE = 3
+_CT_I16 = 4
+_CT_I32 = 5
+_CT_I64 = 6
+_CT_DOUBLE = 7
+_CT_BINARY = 8
+_CT_LIST = 9
+_CT_SET = 10
+_CT_MAP = 11
+_CT_STRUCT = 12
+
+# parquet physical types
+T_BOOLEAN = 0
+T_INT32 = 1
+T_INT64 = 2
+T_INT96 = 3
+T_FLOAT = 4
+T_DOUBLE = 5
+T_BYTE_ARRAY = 6
+T_FIXED = 7
+
+# converted (logical) types
+C_UTF8 = 0
+C_DECIMAL = 5
+C_DATE = 6
+C_TIMESTAMP_MICROS = 10
+
+
+# ---------------------------------------------------------------------------
+# thrift compact protocol
+# ---------------------------------------------------------------------------
+
+
+def _uvarint(x: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = x & 0x7F
+        x >>= 7
+        if x:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _zigzag(x: int) -> int:
+    return (x << 1) ^ (x >> 63)
+
+
+def _unzigzag(x: int) -> int:
+    return (x >> 1) ^ -(x & 1)
+
+
+class _Writer:
+    def __init__(self):
+        self.buf = bytearray()
+        self._last_fid = [0]
+
+    def _field(self, fid: int, ctype: int) -> None:
+        delta = fid - self._last_fid[-1]
+        if 0 < delta <= 15:
+            self.buf.append((delta << 4) | ctype)
+        else:
+            self.buf.append(ctype)
+            self.buf += _uvarint(_zigzag(fid))
+        self._last_fid[-1] = fid
+
+    def i32(self, fid: int, v: int) -> None:
+        self._field(fid, _CT_I32)
+        self.buf += _uvarint(_zigzag(v))
+
+    def i64(self, fid: int, v: int) -> None:
+        self._field(fid, _CT_I64)
+        self.buf += _uvarint(_zigzag(v))
+
+    def string(self, fid: int, s: str) -> None:
+        self._field(fid, _CT_BINARY)
+        b = s.encode("utf-8")
+        self.buf += _uvarint(len(b))
+        self.buf += b
+
+    def list_begin(self, fid: int, etype: int, n: int) -> None:
+        self._field(fid, _CT_LIST)
+        if n < 15:
+            self.buf.append((n << 4) | etype)
+        else:
+            self.buf.append(0xF0 | etype)
+            self.buf += _uvarint(n)
+
+    def list_i32_elem(self, v: int) -> None:
+        self.buf += _uvarint(_zigzag(v))
+
+    def list_string_elem(self, s: str) -> None:
+        b = s.encode("utf-8")
+        self.buf += _uvarint(len(b))
+        self.buf += b
+
+    def bytes_field(self, fid: int, b: bytes) -> None:
+        self._field(fid, _CT_BINARY)
+        self.buf += _uvarint(len(b))
+        self.buf += b
+
+    def struct_begin(self, fid: int) -> None:
+        self._field(fid, _CT_STRUCT)
+        self._last_fid.append(0)
+
+    def struct_end(self) -> None:
+        self.buf.append(_CT_STOP)
+        self._last_fid.pop()
+
+    def root_end(self) -> None:
+        self.buf.append(_CT_STOP)
+
+
+class _Reader:
+    def __init__(self, data: bytes, pos: int = 0):
+        self.d = data
+        self.pos = pos
+
+    def _uvarint(self) -> int:
+        x = 0
+        shift = 0
+        while True:
+            b = self.d[self.pos]
+            self.pos += 1
+            x |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return x
+            shift += 7
+
+    def _zig(self) -> int:
+        return _unzigzag(self._uvarint())
+
+    def read_struct(self) -> Dict[int, Any]:
+        """Generic struct -> {field_id: value}; unknown fields kept
+        (values are ints/bytes/lists/dicts)."""
+        out: Dict[int, Any] = {}
+        last = 0
+        while True:
+            head = self.d[self.pos]
+            self.pos += 1
+            if head == _CT_STOP:
+                return out
+            ctype = head & 0x0F
+            delta = head >> 4
+            if delta:
+                fid = last + delta
+            else:
+                fid = self._zig()
+            last = fid
+            out[fid] = self._value(ctype)
+
+    def _value(self, ctype: int):
+        if ctype == _CT_TRUE:
+            return True
+        if ctype == _CT_FALSE:
+            return False
+        if ctype == _CT_BYTE:
+            v = self.d[self.pos]
+            self.pos += 1
+            return v
+        if ctype in (_CT_I16, _CT_I32, _CT_I64):
+            return self._zig()
+        if ctype == _CT_DOUBLE:
+            v = struct.unpack_from("<d", self.d, self.pos)[0]
+            self.pos += 8
+            return v
+        if ctype == _CT_BINARY:
+            n = self._uvarint()
+            v = self.d[self.pos:self.pos + n]
+            self.pos += n
+            return v
+        if ctype == _CT_LIST or ctype == _CT_SET:
+            head = self.d[self.pos]
+            self.pos += 1
+            etype = head & 0x0F
+            n = head >> 4
+            if n == 0xF:
+                n = self._uvarint()
+            return [self._value(etype) for _ in range(n)]
+        if ctype == _CT_STRUCT:
+            return self.read_struct()
+        if ctype == _CT_MAP:
+            n = self._uvarint()
+            if n == 0:
+                return {}
+            kv = self.d[self.pos]
+            self.pos += 1
+            kt, vt = kv >> 4, kv & 0x0F
+            return {
+                self._value(kt): self._value(vt) for _ in range(n)
+            }
+        raise ValueError(f"thrift compact type {ctype}")
+
+
+# ---------------------------------------------------------------------------
+# column model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ParquetColumn:
+    """One leaf column: name, physical/converted types, values +
+    validity (None = all valid)."""
+
+    name: str
+    physical: int
+    converted: Optional[int] = None
+    scale: Optional[int] = None
+    precision: Optional[int] = None
+    values: Any = None          # np.ndarray, or list[bytes] for BYTE_ARRAY
+    valid: Optional[np.ndarray] = None
+    # LIST columns (3-level parquet lists): per-row element counts,
+    # per-FLAT-ELEMENT validity; `values` holds the flat elements and
+    # `valid` the per-row validity
+    list_lengths: Optional[np.ndarray] = None
+    element_valid: Optional[np.ndarray] = None
+
+
+def _bitpack_levels(valid: np.ndarray) -> bytes:
+    """Definition levels (bit width 1) as one BIT_PACKED run of the
+    RLE/bit-packed hybrid."""
+    n = len(valid)
+    groups = (n + 7) // 8
+    padded = np.zeros(groups * 8, dtype=bool)
+    padded[:n] = valid
+    packed = np.packbits(padded, bitorder="little").tobytes()
+    return _uvarint((groups << 1) | 1) + packed
+
+
+def _read_levels(data: bytes, pos: int, n: int) -> Tuple[np.ndarray, int]:
+    """RLE/bit-packed hybrid, bit width 1, length-prefixed (v1 pages)."""
+    (total_len,) = struct.unpack_from("<I", data, pos)
+    pos += 4
+    end = pos + total_len
+    out = np.zeros(n, dtype=np.uint8)
+    i = 0
+    r = _Reader(data, pos)
+    while i < n and r.pos < end:
+        header = r._uvarint()
+        if header & 1:  # bit-packed: (groups << 1) | 1
+            groups = header >> 1
+            cnt = groups * 8
+            raw = np.frombuffer(
+                r.d[r.pos:r.pos + groups], dtype=np.uint8
+            )
+            r.pos += groups
+            bits = np.unpackbits(raw, bitorder="little")[:cnt]
+            take = min(cnt, n - i)
+            out[i:i + take] = bits[:take]
+            i += take
+        else:  # RLE run: (count << 1); value in 1 byte (bit width 1)
+            count = header >> 1
+            val = r.d[r.pos]
+            r.pos += 1
+            take = min(count, n - i)
+            out[i:i + take] = val & 1
+            i += take
+    return out.astype(bool), end
+
+
+def _read_levels_n(data: bytes, pos: int, n: int, width: int
+                   ) -> Tuple[np.ndarray, int]:
+    """RLE/bit-packed hybrid at an arbitrary bit width (repetition and
+    definition levels of nested columns), length-prefixed (v1 pages)."""
+    (total_len,) = struct.unpack_from("<I", data, pos)
+    pos += 4
+    end = pos + total_len
+    out = np.zeros(n, dtype=np.uint8)
+    i = 0
+    r = _Reader(data, pos)
+    vbytes = (width + 7) // 8
+    while i < n and r.pos < end:
+        header = r._uvarint()
+        if header & 1:  # bit-packed: (groups << 1) | 1
+            groups = header >> 1
+            cnt = groups * 8
+            raw = np.frombuffer(
+                r.d[r.pos:r.pos + groups * width], dtype=np.uint8
+            )
+            r.pos += groups * width
+            bits = np.unpackbits(raw, bitorder="little")
+            vals = np.zeros(cnt, dtype=np.uint8)
+            for b in range(width):
+                vals |= (bits[b::width][:cnt] << b).astype(np.uint8)
+            take = min(cnt, n - i)
+            out[i:i + take] = vals[:take]
+            i += take
+        else:  # RLE run: (count << 1); value in ceil(width/8) bytes
+            count = header >> 1
+            val = int.from_bytes(r.d[r.pos:r.pos + vbytes], "little")
+            r.pos += vbytes
+            take = min(count, n - i)
+            out[i:i + take] = val
+            i += take
+    return out, end
+
+
+def _bitpack_levels_n(levels: np.ndarray, width: int) -> bytes:
+    """Arbitrary-width levels as ONE bit-packed run of the hybrid."""
+    n = len(levels)
+    groups = (n + 7) // 8
+    padded = np.zeros(groups * 8, dtype=np.uint8)
+    padded[:n] = np.asarray(levels, np.uint8)
+    bits = np.zeros((groups * 8, width), dtype=np.uint8)
+    for b in range(width):
+        bits[:, b] = (padded >> b) & 1
+    packed = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    header = bytes([(groups << 1) | 1]) if groups < 64 else None
+    if header is None:
+        out = bytearray()
+        g = groups
+        v = (g << 1) | 1
+        while v >= 0x80:
+            out.append((v & 0x7F) | 0x80)
+            v >>= 7
+        out.append(v)
+        header = bytes(out)
+    return header + packed
+
+
+def _plain_encode(col: ParquetColumn) -> bytes:
+    vals = col.values
+    if col.physical == T_BOOLEAN:
+        arr = np.asarray(vals, dtype=bool)
+        return np.packbits(arr, bitorder="little").tobytes()
+    if col.physical == T_INT32:
+        return np.asarray(vals, dtype="<i4").tobytes()
+    if col.physical == T_INT64:
+        return np.asarray(vals, dtype="<i8").tobytes()
+    if col.physical == T_FLOAT:
+        return np.asarray(vals, dtype="<f4").tobytes()
+    if col.physical == T_DOUBLE:
+        return np.asarray(vals, dtype="<f8").tobytes()
+    if col.physical == T_BYTE_ARRAY:
+        out = bytearray()
+        for b in vals:
+            if isinstance(b, str):
+                b = b.encode("utf-8")
+            out += struct.pack("<I", len(b))
+            out += b
+        return bytes(out)
+    raise ValueError(f"physical type {col.physical}")
+
+
+def _plain_decode(physical: int, data: bytes, n: int):
+    if physical == T_BOOLEAN:
+        bits = np.unpackbits(
+            np.frombuffer(data, dtype=np.uint8), bitorder="little"
+        )[:n]
+        return bits.astype(bool)
+    if physical == T_INT32:
+        return np.frombuffer(data, dtype="<i4", count=n).copy()
+    if physical == T_INT64:
+        return np.frombuffer(data, dtype="<i8", count=n).copy()
+    if physical == T_FLOAT:
+        return np.frombuffer(data, dtype="<f4", count=n).copy()
+    if physical == T_DOUBLE:
+        return np.frombuffer(data, dtype="<f8", count=n).copy()
+    if physical == T_BYTE_ARRAY:
+        out = []
+        pos = 0
+        for _ in range(n):
+            (ln,) = struct.unpack_from("<I", data, pos)
+            pos += 4
+            out.append(data[pos:pos + ln])
+            pos += ln
+        return out
+    raise ValueError(f"physical type {physical}")
+
+
+# ---------------------------------------------------------------------------
+# write
+# ---------------------------------------------------------------------------
+
+# parquet compression codecs this codec speaks: GZIP via zlib,
+# SNAPPY via the pure-python codec (utils/snappy.py — the codec real
+# lakes actually write), ZSTD via the baked-in zstandard module
+CODEC_UNCOMPRESSED = 0
+CODEC_SNAPPY = 1
+CODEC_GZIP = 2
+CODEC_ZSTD = 6
+_CODEC_NAMES = {"none": CODEC_UNCOMPRESSED, "snappy": CODEC_SNAPPY,
+                "gzip": CODEC_GZIP, "zstd": CODEC_ZSTD}
+
+
+def _compress(codec: int, payload: bytes) -> bytes:
+    if codec == CODEC_GZIP:
+        import zlib
+
+        # parquet GZIP is RFC-1952 gzip framing (other engines reject
+        # bare zlib streams)
+        co = zlib.compressobj(wbits=zlib.MAX_WBITS | 16)
+        return co.compress(payload) + co.flush()
+    if codec == CODEC_SNAPPY:
+        from trino_tpu_torch.utils import snappy
+
+        return snappy.compress(payload)
+    if codec == CODEC_ZSTD:
+        import zstandard
+
+        return zstandard.ZstdCompressor().compress(payload)
+    return payload
+
+
+def _decompress(codec: int, payload: bytes, uncompressed_size: int) -> bytes:
+    if codec == CODEC_GZIP:
+        import zlib
+
+        # auto-detect gzip or legacy zlib framing (files this codec
+        # wrote before r5 used bare zlib)
+        return zlib.decompress(payload, wbits=zlib.MAX_WBITS | 32)
+    if codec == CODEC_SNAPPY:
+        from trino_tpu_torch.utils import snappy
+
+        return snappy.decompress(payload)
+    if codec == CODEC_ZSTD:
+        import zstandard
+
+        return zstandard.ZstdDecompressor().decompress(
+            payload, max_output_size=max(uncompressed_size, 1)
+        )
+    if codec == CODEC_UNCOMPRESSED:
+        return payload
+    raise ValueError(
+        f"unsupported parquet codec {codec} "
+        "(UNCOMPRESSED/SNAPPY/GZIP/ZSTD)"
+    )
+
+
+def _pack_indices(idx: np.ndarray, bit_width: int) -> bytes:
+    """Dictionary indices as ONE bit-packed run of the RLE/bit-packed
+    hybrid (preceded by the 1-byte bit width, per RLE_DICTIONARY)."""
+    n = len(idx)
+    groups = (n + 7) // 8
+    padded = np.zeros(groups * 8, dtype=np.uint64)
+    padded[:n] = idx.astype(np.uint64)
+    # bit-pack little-endian within each 8-value group
+    bits = np.zeros((groups * 8, bit_width), dtype=np.uint8)
+    for b in range(bit_width):
+        bits[:, b] = (padded >> np.uint64(b)) & np.uint64(1)
+    packed = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    return (
+        bytes([bit_width])
+        + _uvarint((groups << 1) | 1)
+        + packed
+    )
+
+
+def _unpack_indices(data: bytes, n: int) -> np.ndarray:
+    """Inverse of _pack_indices (also accepts RLE runs)."""
+    bit_width = data[0]
+    out = np.zeros(n, dtype=np.int64)
+    r = _Reader(data, 1)
+    i = 0
+    while i < n:
+        header = r._uvarint()
+        if header & 1:
+            groups = header >> 1
+            nbytes = groups * bit_width
+            raw = np.frombuffer(r.d[r.pos:r.pos + nbytes], np.uint8)
+            r.pos += nbytes
+            bits = np.unpackbits(raw, bitorder="little").reshape(
+                -1, bit_width
+            )
+            vals = np.zeros(len(bits), dtype=np.int64)
+            for b in range(bit_width):
+                vals |= bits[:, b].astype(np.int64) << b
+            take = min(len(vals), n - i)
+            out[i:i + take] = vals[:take]
+            i += take
+        else:
+            count = header >> 1
+            nbytes = (bit_width + 7) // 8
+            val = int.from_bytes(r.d[r.pos:r.pos + nbytes], "little")
+            r.pos += nbytes
+            take = min(count, n - i)
+            out[i:i + take] = val
+            i += take
+    return out
+
+
+def _chunk_stats(col: ParquetColumn, valid_mask) -> Optional[Tuple[bytes, bytes, int]]:
+    """(min_value, max_value, null_count) little-endian-encoded per the
+    Statistics struct, or None when the type has no cheap ordering."""
+    vals = col.values
+    nulls = 0
+    if valid_mask is not None:
+        nulls = int((~valid_mask).sum())
+        if col.physical == T_BYTE_ARRAY:
+            vals = [v for v, ok in zip(vals, valid_mask) if ok]
+        else:
+            vals = np.asarray(vals)[valid_mask]
+    if len(vals) == 0:
+        return None
+    if col.physical == T_BYTE_ARRAY:
+        bs = [
+            v.encode("utf-8") if isinstance(v, str) else v for v in vals
+        ]
+        return min(bs), max(bs), nulls
+    arr = np.asarray(vals)
+    fmt = {T_INT32: "<i4", T_INT64: "<i8", T_FLOAT: "<f4",
+           T_DOUBLE: "<f8"}.get(col.physical)
+    if fmt is None:
+        return None
+    return (
+        np.asarray(arr.min(), fmt).tobytes(),
+        np.asarray(arr.max(), fmt).tobytes(),
+        nulls,
+    )
+
+
+def _write_chunk(body: bytearray, col: ParquetColumn, codec: int,
+                 use_dictionary: bool):
+    """One column chunk (optionally dictionary-encoded BYTE_ARRAY):
+    returns (offsets + metadata dict for the footer)."""
+    n = (
+        len(col.values)
+        if col.physical == T_BYTE_ARRAY or not hasattr(col.values, "shape")
+        else int(np.asarray(col.values).shape[0])
+    )
+    valid = None if col.valid is None else np.asarray(col.valid, bool)
+    dict_page_offset = None
+    encoding = 0  # PLAIN
+    first_offset = len(body)
+
+    payload = bytearray()
+    if col.list_lengths is not None:
+        # LIST leaf: [rep levels][def levels][PLAIN dense values]
+        lengths = np.asarray(col.list_lengths, np.int64)
+        row_valid = (
+            np.ones(len(lengths), bool) if valid is None else valid
+        )
+        ev = (
+            np.ones(int(lengths.sum()), bool)
+            if col.element_valid is None
+            else np.asarray(col.element_valid, bool)
+        )
+        base = 1  # outer group written optional
+        max_def = 3  # outer optional + repeated + optional element
+        reps: List[int] = []
+        defs: List[int] = []
+        fi = 0
+        for L, rv in zip(lengths, row_valid):
+            if not rv:
+                reps.append(0)
+                defs.append(0)
+                fi += int(L)
+                continue
+            if L == 0:
+                reps.append(0)
+                defs.append(base)
+                continue
+            for j in range(int(L)):
+                reps.append(0 if j == 0 else 1)
+                defs.append(max_def if ev[fi] else max_def - 1)
+                fi += 1
+        n = len(reps)
+        rl = _bitpack_levels_n(np.asarray(reps, np.uint8), 1)
+        dl = _bitpack_levels_n(np.asarray(defs, np.uint8), 2)
+        payload += struct.pack("<I", len(rl)) + rl
+        payload += struct.pack("<I", len(dl)) + dl
+        # elements belonging to NULL rows carry no def-level entries,
+        # so they must not enter the dense value stream either
+        rv_per_elem = np.repeat(row_valid, lengths)
+        keep = ev & rv_per_elem
+        if col.physical == T_BYTE_ARRAY:
+            dense_vals = [v for v, ok in zip(col.values, keep) if ok]
+        else:
+            dense_vals = np.asarray(col.values)[keep]
+        payload += _plain_encode(
+            dataclasses.replace(
+                col, values=dense_vals, valid=None, list_lengths=None
+            )
+        )
+        raw = bytes(payload)
+        comp = _compress(codec, raw)
+        ph = _Writer()
+        ph.i32(1, 0)                # DATA_PAGE
+        ph.i32(2, len(raw))
+        ph.i32(3, len(comp))
+        ph.struct_begin(5)
+        ph.i32(1, n)
+        ph.i32(2, 0)                # PLAIN
+        ph.i32(3, 3)                # def levels: RLE
+        ph.i32(4, 3)                # rep levels: RLE
+        ph.struct_end()
+        ph.root_end()
+        first_offset = data_page_offset = len(body)
+        body += ph.buf
+        body += comp
+        nbytes = len(body) - first_offset
+        return None, data_page_offset, first_offset, nbytes, n, None
+    if valid is not None:
+        levels = _bitpack_levels(valid)
+        payload += struct.pack("<I", len(levels))
+        payload += levels
+        if col.physical == T_BYTE_ARRAY:
+            dense_vals = [v for v, ok in zip(col.values, valid) if ok]
+        else:
+            dense_vals = np.asarray(col.values)[valid]
+    else:
+        dense_vals = col.values
+
+    if use_dictionary and col.physical == T_BYTE_ARRAY:
+        bs = [
+            v.encode("utf-8") if isinstance(v, str) else v
+            for v in dense_vals
+        ]
+        uniq = sorted(set(bs))
+        if len(uniq) and len(uniq) * 2 <= max(len(bs), 1):
+            code = {v: i for i, v in enumerate(uniq)}
+            idx = np.asarray([code[v] for v in bs], np.int64)
+            bw = max(int(len(uniq) - 1).bit_length(), 1)
+            # dictionary page first
+            dpl = _compress(codec, _plain_encode(dataclasses.replace(
+                col, values=uniq, valid=None
+            )))
+            raw_len = len(_plain_encode(dataclasses.replace(
+                col, values=uniq, valid=None
+            )))
+            dh = _Writer()
+            dh.i32(1, 2)            # DICTIONARY_PAGE
+            dh.i32(2, raw_len)
+            dh.i32(3, len(dpl))
+            dh.struct_begin(7)      # dictionary_page_header
+            dh.i32(1, len(uniq))
+            dh.i32(2, 0)            # PLAIN
+            dh.struct_end()
+            dh.root_end()
+            dict_page_offset = len(body)
+            first_offset = dict_page_offset
+            body += dh.buf
+            body += dpl
+            payload += _pack_indices(idx, bw)
+            encoding = 8  # RLE_DICTIONARY
+    if encoding == 0:
+        payload += _plain_encode(
+            dataclasses.replace(col, values=dense_vals, valid=None)
+        )
+
+    raw = bytes(payload)
+    comp = _compress(codec, raw)
+    ph = _Writer()
+    ph.i32(1, 0)                    # DATA_PAGE
+    ph.i32(2, len(raw))             # uncompressed size
+    ph.i32(3, len(comp))            # compressed size
+    ph.struct_begin(5)              # data_page_header
+    ph.i32(1, n)                    # num_values (incl. nulls)
+    ph.i32(2, encoding)
+    ph.i32(3, 3)                    # def levels: RLE
+    ph.i32(4, 3)                    # rep levels: RLE (absent, flat)
+    ph.struct_end()
+    ph.root_end()
+    data_page_offset = len(body)
+    if dict_page_offset is None:
+        first_offset = data_page_offset
+    body += ph.buf
+    body += comp
+    nbytes = len(body) - first_offset
+    stats = _chunk_stats(col, valid)
+    return dict_page_offset, data_page_offset, first_offset, nbytes, n, stats
+
+
+def write_parquet(path: str, columns: List[ParquetColumn], num_rows: int,
+                  codec: str = "none", row_group_rows: Optional[int] = None,
+                  use_dictionary: bool = True) -> None:
+    """`codec`: none | gzip. `row_group_rows` splits the file into
+    multiple row groups whose per-chunk min/max statistics feed
+    read_parquet's predicate pruning."""
+    codec_id = _CODEC_NAMES[codec]
+    if row_group_rows is None or row_group_rows >= num_rows:
+        row_group_rows = max(num_rows, 1)
+    body = bytearray(MAGIC)
+    groups = []  # list of (chunk_meta list, rows_in_group)
+    for g0 in range(0, max(num_rows, 1), row_group_rows):
+        g1 = min(g0 + row_group_rows, num_rows)
+        chunk_meta = []
+        for col in columns:
+            if col.list_lengths is not None:
+                lens = np.asarray(col.list_lengths, np.int64)
+                cum = np.concatenate([[0], np.cumsum(lens)])
+                f0, f1 = int(cum[g0]), int(cum[g1])
+                sl = dataclasses.replace(
+                    col,
+                    values=(
+                        col.values[f0:f1]
+                        if col.physical == T_BYTE_ARRAY
+                        else np.asarray(col.values)[f0:f1]
+                    ),
+                    valid=None if col.valid is None
+                    else np.asarray(col.valid, bool)[g0:g1],
+                    list_lengths=lens[g0:g1],
+                    element_valid=None if col.element_valid is None
+                    else np.asarray(col.element_valid, bool)[f0:f1],
+                )
+                chunk_meta.append(
+                    (col, _write_chunk(body, sl, codec_id, False))
+                )
+                continue
+            sl_vals = (
+                col.values[g0:g1]
+                if col.physical == T_BYTE_ARRAY
+                else np.asarray(col.values)[g0:g1]
+            )
+            sl = dataclasses.replace(
+                col,
+                values=sl_vals,
+                valid=None if col.valid is None
+                else np.asarray(col.valid, bool)[g0:g1],
+            )
+            chunk_meta.append(
+                (col, _write_chunk(body, sl, codec_id, use_dictionary))
+            )
+        groups.append((chunk_meta, g1 - g0))
+        if num_rows == 0:
+            break
+
+    # footer
+    w = _Writer()
+    w.i32(1, 1)  # version
+    # schema: root + leaves
+    n_schema = 1 + sum(
+        3 if c.list_lengths is not None else 1 for c in columns
+    )
+    w.list_begin(2, _CT_STRUCT, n_schema)
+    root = _Writer()
+    root.string(4, "schema")
+    root.i32(5, len(columns))
+    root.root_end()
+    w.buf += root.buf
+    for col in columns:
+        if col.list_lengths is not None:
+            # 3-level LIST: optional group (LIST) > repeated group
+            # "list" > optional leaf "element"
+            outer = _Writer()
+            outer.i32(3, 1)
+            outer.string(4, col.name)
+            outer.i32(5, 1)
+            outer.i32(6, 3)  # converted LIST
+            outer.root_end()
+            w.buf += outer.buf
+            mid = _Writer()
+            mid.i32(3, 2)  # repeated
+            mid.string(4, "list")
+            mid.i32(5, 1)
+            mid.root_end()
+            w.buf += mid.buf
+            se = _Writer()
+            se.i32(1, col.physical)
+            se.i32(3, 1)  # optional element
+            se.string(4, "element")
+            if col.converted is not None:
+                se.i32(6, col.converted)
+            if col.scale is not None:
+                se.i32(7, col.scale)
+            if col.precision is not None:
+                se.i32(8, col.precision)
+            se.root_end()
+            w.buf += se.buf
+            continue
+        se = _Writer()
+        se.i32(1, col.physical)
+        se.i32(3, 1 if col.valid is not None else 0)  # optional/required
+        se.string(4, col.name)
+        if col.converted is not None:
+            se.i32(6, col.converted)
+        if col.scale is not None:
+            se.i32(7, col.scale)
+        if col.precision is not None:
+            se.i32(8, col.precision)
+        se.root_end()
+        w.buf += se.buf
+    w.i64(3, num_rows)
+    w.list_begin(4, _CT_STRUCT, len(groups))
+    for chunk_meta, g_rows in groups:
+        rg = _Writer()
+        rg.list_begin(1, _CT_STRUCT, len(columns))
+        total = 0
+        for col, (dict_off, data_off, first_off, nbytes, nvals, stats) in chunk_meta:
+            cc = _Writer()
+            cc.i64(2, first_off)            # file_offset
+            cc.struct_begin(3)              # meta_data
+            cc.i32(1, col.physical)
+            cc.list_begin(2, _CT_I32, 2 if dict_off is not None else 1)
+            cc.list_i32_elem(0)             # PLAIN
+            if dict_off is not None:
+                cc.list_i32_elem(8)         # RLE_DICTIONARY
+            if col.list_lengths is not None:
+                cc.list_begin(3, _CT_BINARY, 3)
+                cc.list_string_elem(col.name)
+                cc.list_string_elem("list")
+                cc.list_string_elem("element")
+            else:
+                cc.list_begin(3, _CT_BINARY, 1)
+                cc.list_string_elem(col.name)
+            cc.i32(4, codec_id)
+            cc.i64(5, nvals)
+            cc.i64(6, nbytes)
+            cc.i64(7, nbytes)
+            cc.i64(9, data_off)             # data_page_offset
+            if dict_off is not None:
+                cc.i64(11, dict_off)        # dictionary_page_offset
+            if stats is not None:
+                mn, mx, nulls = stats
+                cc.struct_begin(12)         # statistics
+                cc.bytes_field(5, mx)       # max_value
+                cc.bytes_field(6, mn)       # min_value
+                cc.i64(3, nulls)
+                cc.struct_end()
+            cc.struct_end()
+            cc.root_end()
+            rg.buf += cc.buf
+            total += nbytes
+        rg.i64(2, total)
+        rg.i64(3, g_rows)
+        rg.root_end()
+        w.buf += rg.buf
+    w.string(6, "trino-tpu")
+    w.root_end()
+
+    body += w.buf
+    body += struct.pack("<I", len(w.buf))
+    body += MAGIC
+    with open(path, "wb") as f:
+        f.write(body)
+
+
+# ---------------------------------------------------------------------------
+# read
+# ---------------------------------------------------------------------------
+
+
+def _decode_stat(physical: int, raw: bytes):
+    fmt = {T_INT32: "<i4", T_INT64: "<i8", T_FLOAT: "<f4",
+           T_DOUBLE: "<f8"}.get(physical)
+    if fmt is None:
+        return raw  # BYTE_ARRAY: compare as bytes
+    return np.frombuffer(raw, fmt)[0].item()
+
+
+def _assemble_list_column(col: ParquetColumn, li: dict, parts) -> None:
+    """(rep, def, values) page parts -> per-row lengths + flat elements
+    (the record-shredding inverse, Dremel assembly)."""
+    base = 1 if li["outer_opt"] else 0
+    max_def = li["max_def"]
+    lengths: List[int] = []
+    row_valid: List[bool] = []
+    elem_valid: List[bool] = []
+    flats: List = []
+    for (rep, deff), vals in parts:
+        vi = 0
+        for i in range(len(rep)):
+            if rep[i] == 0:  # new row
+                lengths.append(0)
+                row_valid.append(deff[i] >= base)
+            if deff[i] > base:  # an element entry (maybe null)
+                lengths[-1] += 1
+                ok = deff[i] == max_def
+                elem_valid.append(bool(ok))
+                if ok:
+                    if col.physical == T_BYTE_ARRAY:
+                        flats.append(vals[vi])
+                    else:
+                        flats.append(vals[vi].item()
+                                     if hasattr(vals[vi], "item")
+                                     else vals[vi])
+                    vi += 1
+                else:
+                    flats.append(
+                        b"" if col.physical == T_BYTE_ARRAY else 0
+                    )
+    col.list_lengths = np.asarray(lengths, np.int32)
+    col.valid = (
+        np.asarray(row_valid, bool) if li["outer_opt"] else None
+    )
+    col.element_valid = np.asarray(elem_valid, bool)
+    if col.physical == T_BYTE_ARRAY:
+        col.values = flats
+    else:
+        dtype = {T_INT32: np.int32, T_INT64: np.int64,
+                 T_FLOAT: np.float32, T_DOUBLE: np.float64,
+                 T_BOOLEAN: np.bool_}.get(col.physical, np.float64)
+        col.values = np.asarray(flats, dtype=dtype)
+
+
+def _read_footer(path: str) -> Tuple[bytes, Any]:
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != MAGIC or data[-4:] != MAGIC:
+        raise ValueError("not a parquet file")
+    (meta_len,) = struct.unpack_from("<I", data, len(data) - 8)
+    meta = _Reader(data, len(data) - 8 - meta_len).read_struct()
+    return data, meta
+
+
+def _schema_columns(schema) -> Tuple[List[dict], List[ParquetColumn]]:
+    """Schema tree walk: flat leaves plus 3-level LIST groups (the
+    shape every modern writer emits for arrays — LogicalTypes.md#lists).
+    Leaf order matches row-group chunk order."""
+    descs: List[dict] = []
+    idx = [1]
+
+    def _walk_field():
+        se = schema[idx[0]]
+        idx[0] += 1
+        nch = se.get(5, 0)
+        if nch == 0:
+            descs.append({"se": se, "list": None})
+            return
+        if se.get(6) == 3 and nch == 1:  # converted LIST
+            outer_opt = se.get(3, 0) == 1
+            mid = schema[idx[0]]
+            idx[0] += 1
+            if mid.get(3, 0) != 2 or mid.get(5, 0) != 1:
+                raise ValueError("unsupported LIST shape")
+            leaf = schema[idx[0]]
+            idx[0] += 1
+            if leaf.get(5, 0):
+                raise ValueError(
+                    "nested parquet beyond one LIST level not supported"
+                )
+            elem_opt = leaf.get(3, 0) == 1
+            descs.append({
+                "se": leaf, "list": {
+                    "name": se[4].decode("utf-8"),
+                    "outer_opt": outer_opt,
+                    "elem_opt": elem_opt,
+                    "max_def": (1 if outer_opt else 0) + 1
+                    + (1 if elem_opt else 0),
+                },
+            })
+            return
+        raise ValueError("nested parquet group schemas not supported")
+
+    n_root = schema[0].get(5, 0)
+    for _ in range(n_root):
+        _walk_field()
+
+    cols: List[ParquetColumn] = []
+    for d in descs:
+        se = d["se"]
+        if d["list"] is None:
+            cols.append(ParquetColumn(
+                name=se[4].decode("utf-8"),
+                physical=se[1],
+                converted=se.get(6),
+                scale=se.get(7),
+                precision=se.get(8),
+                valid=None if se.get(3, 0) == 0 else np.zeros(0, bool),
+            ))
+        else:
+            li = d["list"]
+            cols.append(ParquetColumn(
+                name=li["name"],
+                physical=se[1],
+                converted=se.get(6),
+                scale=se.get(7),
+                precision=se.get(8),
+                valid=np.zeros(0, bool) if li["outer_opt"] else None,
+                list_lengths=np.zeros(0, np.int32),
+            ))
+    return descs, cols
+
+
+def read_parquet_meta(path: str) -> Tuple[
+    List[ParquetColumn], int, Dict[str, Optional[tuple]]
+]:
+    """Footer-only read: (columns with empty values, num_rows,
+    {column: (min, max, null_count) | None}) with min/max/null_count
+    aggregated over row-group chunk statistics (None for a column when
+    any chunk lacks them). No data pages are touched, so this never
+    counts toward bytes_scanned — the seat metadata/statistics queries
+    use instead of parsing the whole file."""
+    _, meta = _read_footer(path)
+    _, cols = _schema_columns(meta[2])
+    stats: Dict[str, Optional[tuple]] = {c.name: None for c in cols}
+    complete = {c.name: True for c in cols}
+    acc: Dict[str, list] = {}
+    for rg in meta[4]:
+        for ci, cc in enumerate(rg[1]):
+            name = cols[ci].name
+            st = cc[3].get(12)
+            if not st or 5 not in st or 6 not in st:
+                complete[name] = False
+                continue
+            mn = _decode_stat(cols[ci].physical, st[6])
+            mx = _decode_stat(cols[ci].physical, st[5])
+            nulls = st.get(3)
+            if name not in acc:
+                acc[name] = [mn, mx, nulls]
+                continue
+            a = acc[name]
+            a[0] = min(a[0], mn)
+            a[1] = max(a[1], mx)
+            a[2] = (
+                None if a[2] is None or nulls is None else a[2] + nulls
+            )
+    for name, a in acc.items():
+        if complete[name]:
+            stats[name] = tuple(a)
+    return cols, meta[3], stats
+
+
+def read_parquet(path: str, predicate: Optional[Dict[str, tuple]] = None
+                 ) -> Tuple[List[ParquetColumn], int]:
+    """`predicate`: {column: (lo, hi)} closed ranges (None = unbounded
+    side); row groups whose min/max statistics prove emptiness are
+    skipped entirely (lib/trino-parquet predicate pushdown analogue)."""
+    global bytes_scanned
+    data, meta = _read_footer(path)
+    num_rows = meta[3]
+    row_groups = meta[4]
+    descs, cols = _schema_columns(meta[2])
+    chunks: List[List[Tuple[np.ndarray, Any]]] = [[] for _ in cols]
+    rows_read = 0
+    for rg in row_groups:
+        # row-group pruning from chunk statistics (min_value/max_value)
+        if predicate:
+            skip = False
+            for ci, cc in enumerate(rg[1]):
+                name = cols[ci].name
+                if name not in predicate:
+                    continue
+                st = cc[3].get(12)
+                if not st or 5 not in st or 6 not in st:
+                    continue
+                lo, hi = predicate[name]
+                mn = _decode_stat(cols[ci].physical, st[6])
+                mx = _decode_stat(cols[ci].physical, st[5])
+                if (hi is not None and mn is not None and mn > hi) or (
+                    lo is not None and mx is not None and mx < lo
+                ):
+                    skip = True
+                    break
+            if skip:
+                continue
+        rows_read += rg.get(3, 0)
+        for ci, cc in enumerate(rg[1]):
+            md = cc[3]
+            codec = md.get(4, 0)
+            pos = md.get(11, md.get(9, cc.get(2)))
+            n_remaining = md[5]
+            dictionary = None
+            while n_remaining > 0:
+                r = _Reader(data, pos)
+                ph = r.read_struct()
+                raw_len = ph[2]
+                page_len = ph[3]
+                page_start = r.pos
+                bytes_scanned += page_len
+                page = _decompress(
+                    codec, data[page_start:page_start + page_len], raw_len
+                )
+                if ph.get(7) is not None:  # dictionary page
+                    n_dict = ph[7][1]
+                    dictionary = _plain_decode(
+                        cols[ci].physical, page, n_dict
+                    )
+                    pos = page_start + page_len
+                    continue
+                dph = ph.get(5)
+                if dph is None:  # index/other pages: skip
+                    pos = page_start + page_len
+                    continue
+                n_vals = dph[1]
+                enc = dph.get(2, 0)
+                li = descs[ci]["list"]
+                if li is not None:
+                    # [rep levels][def levels][PLAIN values]
+                    max_def = li["max_def"]
+                    def_w = max(max_def.bit_length(), 1)
+                    rep, p2 = _read_levels_n(page, 0, n_vals, 1)
+                    deff, p3 = _read_levels_n(page, p2, n_vals, def_w)
+                    if enc != 0:
+                        raise ValueError(
+                            "dictionary-encoded LIST pages not supported"
+                        )
+                    n_phys = int((deff == max_def).sum())
+                    vals = _plain_decode(
+                        cols[ci].physical, page[p3:], n_phys
+                    )
+                    chunks[ci].append(((rep, deff), vals))
+                    n_remaining -= n_vals
+                    pos = page_start + page_len
+                    continue
+                if cols[ci].valid is not None:
+                    valid, vpos = _read_levels(page, 0, n_vals)
+                    body_bytes = page[vpos:]
+                    n_dense = int(valid.sum())
+                else:
+                    valid = None
+                    body_bytes = page
+                    n_dense = n_vals
+                if enc in (2, 8):  # PLAIN_DICTIONARY / RLE_DICTIONARY
+                    if dictionary is None:
+                        raise ValueError("dictionary page missing")
+                    idx = _unpack_indices(body_bytes, n_dense)
+                    if cols[ci].physical == T_BYTE_ARRAY:
+                        vals = [dictionary[int(i)] for i in idx]
+                    else:
+                        vals = np.asarray(dictionary)[idx]
+                elif enc == 0:
+                    vals = _plain_decode(
+                        cols[ci].physical, body_bytes, n_dense
+                    )
+                else:
+                    raise ValueError(
+                        f"unsupported parquet encoding {enc}"
+                    )
+                chunks[ci].append((valid, vals))
+                n_remaining -= n_vals
+                pos = page_start + page_len
+    for ci, col in enumerate(cols):
+        parts = chunks[ci]
+        li = descs[ci]["list"]
+        if li is not None:
+            _assemble_list_column(col, li, parts)
+            continue
+        if col.physical == T_BYTE_ARRAY:
+            dense: List[bytes] = []
+            for _, v in parts:
+                dense.extend(v)
+        else:
+            dense = (
+                np.concatenate([v for _, v in parts])
+                if parts
+                else np.zeros(0)
+            )
+        if col.valid is not None:
+            valid = (
+                np.concatenate([v for v, _ in parts])
+                if parts
+                else np.zeros(0, bool)
+            )
+            # re-expand to row positions (nulls get placeholder zeros)
+            if col.physical == T_BYTE_ARRAY:
+                out: List[bytes] = []
+                it = iter(dense)
+                for ok in valid:
+                    out.append(next(it) if ok else b"")
+                col.values = out
+            else:
+                full = np.zeros(len(valid), dtype=dense.dtype)
+                full[valid] = dense
+                col.values = full
+            col.valid = valid
+        else:
+            col.values = dense
+    # with predicate pruning the returned row count covers the ROW
+    # GROUPS ACTUALLY READ, matching the data arrays
+    return cols, (rows_read if predicate else num_rows)
