@@ -155,9 +155,27 @@ Phases (any failure exits nonzero):
                  it no rows; DROP TABLE of the CSV customer removes its
                  files. Every file batch lies on the card. This phase's
                  counts are kept apart (`files_launches`).
- 10. explore   — both explorer entry points (trino_tpu_torch.explore),
+ 10. spill     — the memory pool, spill and the grace hash join at sf1
+                 over orders and customer (spill_identities), on a runner
+                 whose pool is 1/SPILL_POOL_FRACTION of one orders batch's
+                 device bytes (printed) and on its twin with no pool, both
+                 at SPILL_BATCH_ROWS rows a batch: GROUP BY o_custkey (the
+                 sort route), GROUP BY o_clerk (the grouped-sum route), a
+                 full ORDER BY of orders, and tests/test_memory.py's four
+                 JOIN_QS shapes over orders and customer (inner join under
+                 a GROUP BY, left, semi, anti), each row-equal to its twin,
+                 each spilling, each join finishing partition by partition
+                 and launching the bounds kernel; each with both
+                 walls, spilled bytes, spill files, grace partitions and
+                 launches; EXPLAIN ANALYZE of the inner join, its operators'
+                 in=/out= rows equal to the twin's. Then every orders batch
+                 through the page serde: bytes equal to the CPU port's for
+                 the same rows, read back onto the card equal, its one
+                 device->host copy timed. The pooled runs' launches are
+                 kept apart (`spill_launches`).
+ 11. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 11. parity    — the queries, and the window and set-operation queries
+ 12. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -175,16 +193,18 @@ Phases (any failure exits nonzero):
                  write corpus (WRITE_SCRIPTS) at tiny, statement by
                  statement (the same error where one raises), with every
                  written table read back equal; so must phase statements'
-                 steps at tiny and sf0.1, and phase files' steps at tiny
-                 and sf0.1 (their bytes_scanned too).
- 12. summary   — each kind of join-path call (the probe's bounds, the
+                 steps at tiny and sf0.1, phase files' steps at tiny
+                 and sf0.1 (their bytes_scanned too), and
+                 tests/test_memory.py's queries at tiny under their pools
+                 (MEMORY_QS).
+ 13. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
                  entry with its launches in phases nested, zones, write,
-                 statements and files beside the main path's; take_flat's entry with its summed
+                 statements, files and spill beside the main path's; take_flat's entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -3692,6 +3712,229 @@ def parity_files() -> None:
             f"({time.perf_counter() - t0} s)")
 
 
+# ---- phase spill: the memory pool, spill, the grace hash join, serde --------
+
+SPILL_BATCH_ROWS = 1 << 18
+# the pool is this fraction of one sf1 orders batch's device bytes: below
+# every operator state the phase accumulates (two batches' grouped-sum
+# tables of 1,024 slots included), so each statement spills
+SPILL_POOL_FRACTION = 128
+SP_ORDERS = "(select o_orderkey, o_custkey, o_totalprice from orders)"
+SP_CUSTOMER = "(select c_custkey, c_mktsegment from customer)"
+SPILL_STATEMENTS = (
+    # HashAggregationOperator, the sort route (about 100,000 groups)
+    ("group", "select o_custkey, count(*), sum(o_totalprice) from orders group by o_custkey"),
+    # the grouped-sum route (1,000 clerks, 1,024 slots)
+    ("group_bounded", "select o_clerk, count(*), sum(o_custkey), sum(o_shippriority)"
+                      " from orders group by o_clerk"),
+    # SortOperator: a full ORDER BY of orders
+    ("sort", "select o_orderkey, o_custkey, o_totalprice from orders"
+             " order by o_totalprice desc, o_orderkey"),
+    # tests/test_memory.py's four JOIN_QS shapes over orders and customer
+    # (each side projected first, so the scans read only the columns used)
+    ("inner_agg", f"select c_mktsegment, count(*), sum(o_totalprice) from {SP_ORDERS} o,"
+                  f" {SP_CUSTOMER} c where o_custkey = c_custkey group by c_mktsegment"
+                  " order by c_mktsegment"),
+    ("left", f"select c_custkey, o_orderkey from {SP_CUSTOMER} c left join {SP_ORDERS} o"
+             " on c_custkey = o_custkey where c_custkey < 5000 order by c_custkey, o_orderkey"),
+    ("semi", f"select count(*) from {SP_CUSTOMER} c where c_custkey in"
+             " (select o_custkey from orders where o_totalprice > 400000)"),
+    ("anti", f"select count(*) from {SP_CUSTOMER} c where c_custkey not in"
+             " (select o_custkey from orders)"),
+)
+SPILL_JOINS = ("inner_agg", "left", "semi", "anti")
+# tests/test_memory.py's queries with their sessions (AGG_Q, SORT_Q,
+# JOIN_QS); tests/test_torch_spill.py holds them equal to the file's
+MEMORY_QS = {
+    "agg": ("select l_orderkey, sum(l_quantity) q, count(*) c from lineitem"
+            " group by l_orderkey order by q desc, l_orderkey limit 10",
+            {"batch_rows": 8192, "memory_pool_bytes": 256 * 1024}),
+    "sort": ("select l_orderkey, l_extendedprice from lineitem"
+             " order by l_extendedprice desc, l_orderkey limit 20",
+             {"batch_rows": 4096, "memory_pool_bytes": 256 * 1024}),
+    "inner_agg": ("select o_orderpriority, count(*), sum(l_quantity) from orders,"
+                  " lineitem where o_orderkey = l_orderkey"
+                  " group by o_orderpriority order by o_orderpriority",
+                  {"batch_rows": 4096, "memory_pool_bytes": 192 * 1024}),
+    "left": ("select c_custkey, o_orderkey from customer left join orders"
+             " on c_custkey = o_custkey where c_custkey < 50"
+             " order by c_custkey, o_orderkey",
+             {"batch_rows": 4096, "memory_pool_bytes": 192 * 1024}),
+    "semi": ("select count(*) from orders where o_orderkey in"
+             " (select l_orderkey from lineitem where l_quantity > 48)",
+             {"batch_rows": 4096, "memory_pool_bytes": 192 * 1024}),
+    "anti": ("select count(*) from customer where c_custkey not in"
+             " (select o_custkey from orders)",
+             {"batch_rows": 4096, "memory_pool_bytes": 192 * 1024}),
+}
+_EA_ROWS = re.compile(r"^\s+(\w+): in=(\d+) rows/\d+ batches, out=(\d+) rows/", re.MULTILINE)
+
+
+def orders_batches(schema: str, device: str) -> list:
+    """The orders table at `schema` as its scan gives it, SPILL_BATCH_ROWS
+    rows a batch, every column, on `device`."""
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.exec.operators import TableScanOperator
+
+    conn = create_tpch_connector()
+    handle = conn.metadata.get_table_handle(schema, "orders")
+    cols = [c.name for c in conn.metadata.get_table_metadata(handle).columns]
+    op = TableScanOperator(conn.page_source, conn.split_manager.get_splits(handle, 1),
+                           cols, SPILL_BATCH_ROWS, device)
+    out = []
+    while not op.is_finished():
+        b = op.get_output()
+        if b is not None:
+            out.append(b)
+    return out
+
+
+def spill_pool_bytes(batch) -> int:
+    """The phase's pool: a fraction of one orders batch's device bytes."""
+    from trino_tpu_torch.runtime.memory import batch_bytes
+
+    return batch_bytes(batch) // SPILL_POOL_FRACTION
+
+
+def spill_identities(schema: str, device: str, log, pool: int, unspilled=()) -> dict:
+    """Phase spill's statements at `schema` on `device`: each on a runner
+    whose pool is `pool` bytes and on its twin with no pool (both at
+    SPILL_BATCH_ROWS rows a batch); returns {statement: record} with both
+    walls, the rows' count, the spilled bytes, spill files and grace
+    partitions (exec/spill.stats) and the pooled run's launches (counted
+    only on the card). Every statement must equal its twin row for row
+    and spill (but those named in `unspilled`: at tiny the bounded GROUP
+    BY reads one batch of ten clerks); each join must finish partition
+    by partition and launch the bounds kernel. Then EXPLAIN ANALYZE of the inner join on both
+    runners: its operators' in=/out= rows must be the twin's.
+    tests/test_torch_grace_join.py runs this at tiny on the CPU."""
+    import torch
+    from trino_tpu_torch.exec import spill
+
+    pooled = runner(schema, device, batch_rows=SPILL_BATCH_ROWS, memory_pool_bytes=pool)
+    plain = runner(schema, device, batch_rows=SPILL_BATCH_ROWS)
+
+    def timed(r, sql):
+        t0 = time.perf_counter()
+        res = r.execute(sql)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    steps: dict = {}
+    for name, sql in SPILL_STATEMENTS + (("explain_analyze",
+                                          "explain analyze " + dict(SPILL_STATEMENTS)["inner_agg"]),):
+        s0, k0 = spill.stats(), join_kernel_counts()
+        res, wall = timed(pooled, sql)
+        s1, k1 = spill.stats(), join_kernel_counts()
+        twin, twin_wall = timed(plain, sql)
+        rec = steps[name] = {
+            "wall_s": wall, "twin_wall_s": twin_wall, "rows": len(res.rows),
+            **{k: s1[k] - s0[k] for k in s1},
+            "launches": {k: k1[k] - k0[k] for k in k1}}
+        log(f"[spill] {schema} {name}: wall_s={wall} twin_wall_s={twin_wall} "
+            f"rows={rec['rows']} spilled_bytes={rec['spilled_bytes']} "
+            f"spill_files={rec['spill_files']} grace_partitions={rec['grace_partitions']} "
+            f"launches={rec['launches']}")
+        if name == "explain_analyze":
+            got, want = (_EA_ROWS.findall(x.only_value()) for x in (res, twin))
+            if not got or got != want:
+                raise AssertionError(f"EXPLAIN ANALYZE operator rows {got} != the plain "
+                                     f"run's {want}")
+            log(f"[spill] {schema} EXPLAIN ANALYZE of the inner join, operator rows as "
+                f"without a pool: {got}")
+        elif res.rows != twin.rows:
+            raise AssertionError(f"spill {name}: rows differ from the unspilled twin")
+        if rec["spilled_bytes"] <= 0 and name not in unspilled:
+            raise AssertionError(f"spill {name} spilled nothing under a {pool}-byte pool")
+        if name in SPILL_JOINS + ("explain_analyze",) and rec["grace_partitions"] <= 0:
+            raise AssertionError(f"spill {name}: the join never ran partition by partition")
+        if device == "cuda" and name in SPILL_JOINS and rec["launches"]["bounds"] <= 0:
+            raise AssertionError(f"spill {name}: the grace join never launched bounds")
+    return steps
+
+
+def serde_round_trips(gpu: list, cpu: list, log) -> dict:
+    """Every orders batch through the page serde on the card (`gpu`, and
+    `cpu`, the same scan on the CPU): its page bytes equal the CPU port's
+    for the same rows, and the page read back onto the card serializes
+    to the same bytes. The one device->host copy of each batch
+    (serde.to_host) is timed."""
+    import torch
+    from trino_tpu_torch.exec import serde
+    from trino_tpu_torch.runtime.memory import batch_bytes
+
+    if len(gpu) != len(cpu):
+        raise AssertionError("serde: the card and the CPU scanned orders in different batches")
+    copy_s, ser_s, nbytes, dev_bytes = [], [], 0, 0
+    for g, c in zip(gpu, cpu):
+        tensors = [g.live] if g.live is not None else []
+        tensors += [x for col in g.columns for x in (col.data, col.valid) if x is not None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serde.to_host(tensors)
+        copy_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        data = serde.serialize_batch(g)
+        ser_s.append(time.perf_counter() - t0)
+        if data != serde.serialize_batch(c):
+            raise AssertionError("serde: the card's page bytes differ from the CPU's")
+        back = serde.deserialize_batch(data, "cuda")
+        if back.device.type != "cuda" or serde.serialize_batch(back) != data:
+            raise AssertionError("serde: a page read back onto the card differs")
+        nbytes += len(data)
+        dev_bytes += batch_bytes(g)
+    rec = {"batches": len(gpu), "page_bytes": nbytes, "device_bytes": dev_bytes,
+           "copy_s": copy_s, "serialize_s": ser_s}
+    log(f"[spill] serde: {len(gpu)} orders batches ({dev_bytes} device bytes) "
+        f"-> {nbytes} page bytes, card == CPU and round trips equal; device->host "
+        f"copies {copy_s} s, serialize (the copy included) {ser_s} s")
+    return rec
+
+
+def phase_spill(results: dict) -> None:
+    """The memory pool, spill and the grace hash join at sf1 on the card
+    (spill_identities), the pool worked out from one orders batch and
+    printed, and the page serde round trip of every orders batch. Launches
+    of the pooled runs count apart (`spill_launches`)."""
+    import torch
+
+    from trino_tpu_torch.runtime.memory import batch_bytes
+
+    t_phase = time.perf_counter()
+    reset_kernel_counts()
+    batches = orders_batches("sf1", "cuda")
+    pool = spill_pool_bytes(batches[0])
+    log(f"[spill] one sf1 orders batch ({batches[0].capacity} rows, 9 columns): "
+        f"{batch_bytes(batches[0])} device bytes; the pool: 1/{SPILL_POOL_FRACTION} of it, "
+        f"{pool} bytes")
+    serde_rec = serde_round_trips(batches, orders_batches("sf1", "cpu"), log)
+    del batches
+    steps = spill_identities("sf1", "cuda", log, pool)
+    launches = {k: sum(rec["launches"][k] for rec in steps.values())
+                for k in join_kernel_counts()}
+    results["spill_launches"] = launches
+    for k in ("bounds", "run_owner", "take_flat", "grouped_sum"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase spill never launched {k}")
+    results["spill"] = {"pool_bytes": pool, "steps": steps, "serde": serde_rec}
+    log(f"[spill] identities hold; launches of the pooled runs: {launches}")
+    log(f"[spill] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
+def parity_spill() -> None:
+    """The card against the CPU: tests/test_memory.py's queries at tiny
+    with their pools (MEMORY_QS), equal rows."""
+    t0 = time.perf_counter()
+    for name, (sql, session) in MEMORY_QS.items():
+        a, b = (runner("tiny", d, **session).execute(sql).rows for d in ("cuda", "cpu"))
+        if a != b:
+            raise AssertionError(f"memory {name}: card and CPU rows differ at tiny")
+    log(f"[parity] memory corpus: {len(MEMORY_QS)} queries at tiny under their pools, "
+        f"card == CPU ({time.perf_counter() - t0} s)")
+
+
 _ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
 
 
@@ -4263,6 +4506,7 @@ def phase_parity(results: dict) -> None:
     parity_write()
     parity_statements()
     parity_files()
+    parity_spill()
 
 
 def timed_main_args(results: dict) -> dict:
@@ -4389,7 +4633,7 @@ def kernels_line(results: dict) -> dict:
                   "capacity": timed.get("capacity")},
         "modes": modes,
     }]
-    for phase in ("nested", "zones", "write", "statements", "files"):
+    for phase in ("nested", "zones", "write", "statements", "files", "spill"):
         if f"{phase}_launches" in results:
             line[0][f"{phase}_launches"] = results[f"{phase}_launches"].get("grouped_sum", 0)
     join_checks = results.get("join_kernel_checks", {})
@@ -4431,9 +4675,9 @@ def kernels_line(results: dict) -> dict:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
                  **mode_record(rec, n)}
-        for phase in ("nested", "zones", "write", "statements", "files"):
-            # phases nested, zones, write, statements and files count
-            # apart from the main path
+        for phase in ("nested", "zones", "write", "statements", "files", "spill"):
+            # phases nested, zones, write, statements, files and spill
+            # count apart from the main path
             if f"{phase}_launches" in results:
                 got = results[f"{phase}_launches"]
                 entry[f"{phase}_launches"] = (
@@ -4451,7 +4695,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "files,explore,parity",
+                            "files,spill,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -4498,6 +4742,8 @@ def main() -> int:
         phase_statements(results)
     if "files" in phases:
         phase_files(results)
+    if "spill" in phases:
+        phase_spill(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

@@ -157,6 +157,37 @@ def test_file_connector_modules_import_alone(module):
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["trino_tpu_torch.runtime",
+                                    "trino_tpu_torch.runtime.memory",
+                                    "trino_tpu_torch.native",
+                                    "trino_tpu_torch.exec.serde",
+                                    "trino_tpu_torch.exec.exchange_ops",
+                                    "trino_tpu_torch.exec.spill",
+                                    "trino_tpu_torch.exec.stats",
+                                    "trino_tpu_torch.exec.local_exchange",
+                                    "trino_tpu_torch.exec.driver"])
+def test_memory_spill_and_page_modules_import_alone(module):
+    # imported first and alone in a fresh process, none of the memory,
+    # spill, serde, exchange or statistics modules pulls in jax or
+    # trino_tpu, and the native library is not built by an import
+    code = (
+        "import importlib, sys, os\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'trino_tpu'))\n"
+        "assert not bad, bad\n"
+        "native = sys.modules.get('trino_tpu_torch.native')\n"
+        "assert native is None or native._lib is None\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_phase_files_statements_at_tiny():
     """chip_smoke.py phase files' statements and identities at tiny on
     the port's CPU runner (the card runs them at sf1), its temporary

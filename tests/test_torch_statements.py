@@ -24,7 +24,7 @@ and over small memory tables.
   TIMESTAMP WITH TIME ZONE (tests/test_torch_timestamptz.py) or ARRAY.
 - test_the_corpora_are_covered lists the cases that wait for a later
   item (the HTTP server and the fragmenter: item 11; admission, the
-  batcher and the shape census: item 13; EXPLAIN ANALYZE: item 10).
+  batcher and the shape census, EXPLAIN ANALYZE's included: item 13).
 - chip_smoke.py's phase statements, its identities at tiny.
 """
 
@@ -236,11 +236,11 @@ _VALIDATE_WAITS = {
     "test_partial_agg_skips_when_keys_nearly_unique": "item 11",
     "test_partial_agg_fires_when_ndv_unknown": "item 11",
     "test_partial_agg_stays_structural_without_stats": "item 11",
-    # the shape census counts XLA lowerings (EXPLAIN ANALYZE's: item 10)
+    # the shape census counts XLA lowerings (EXPLAIN ANALYZE's too)
     "test_shape_census_simple_aggregation": "item 13",
     "test_shape_census_join_marks_retry_variant": "item 13",
-    "test_explain_analyze_census_matches_observed": "item 10",
-    "test_explain_analyze_census_tail_classes": "item 10",
+    "test_explain_analyze_census_matches_observed": "item 13",
+    "test_explain_analyze_census_tail_classes": "item 13",
     "test_census_warns_above_threshold": "item 13",
 }
 _VALIDATE = _cases(validate_corpus, skip=set(_VALIDATE_WAITS))
@@ -379,10 +379,11 @@ def test_a_property_whose_reader_is_not_ported_raises(name):
     assert r.execute("select 1").rows == [[1]]
 
 
-def test_explain_analyze_names_item_10():
+def test_explain_analyze_answers():
     r = LocalQueryRunner(Session(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        r.execute("explain analyze select 1")
+    text = r.execute("explain analyze select 1").only_value()
+    assert text.startswith(r.execute("explain select 1").only_value() + "\n\n")
+    assert "Pipeline 0:" in text and "CollectorSink: in=1 rows/1 batches" in text
 
 
 # ---- the plan cache --------------------------------------------------------

@@ -363,8 +363,7 @@ def load_properties_file(path: str) -> Dict[str, str]:
 # (query_trace included: the local runner traces every query), and are
 # stored as the reference stores them.
 UNPORTED_READERS = {
-    "memory_pool_bytes": "item 10 (runtime/memory.py's query memory pool)",
-    "compile_churn_warn_threshold": "item 10 (EXPLAIN ANALYZE)",
+    "compile_churn_warn_threshold": "item 13 (EXPLAIN ANALYZE's shape census)",
     "shape_stabilization": "item 13 (compile/shapes.py)",
     "capacity_ladder_base": "item 13 (compile/shapes.py)",
     "warmup_mode": "item 13 (compile/warmup.py)",
@@ -390,10 +389,7 @@ def check_session(session) -> None:
     """check_ported over every field of `session` with an unported
     reader (a field can be set directly as well as by SET SESSION)."""
     for name in UNPORTED_READERS:
-        value = getattr(session, name, None)
-        if name == "memory_pool_bytes":
-            value = value or 0  # None means unlimited, as 0 does
-        check_ported(name, value)
+        check_ported(name, getattr(session, name, None))
 
 
 def bind_session(session, overrides: Dict[str, Any]) -> None:

@@ -28,15 +28,28 @@ physical plan's operators are instantiated afresh and launch the same
 kernels, with no parse, analysis or planning. A write drops the cached
 plans over its table.
 
-Not ported yet: EXPLAIN ANALYZE (exec/stats.py, ROADMAP §1 item 10),
-query events, metrics and spans (item 11), and the resident, adaptive,
-recovery, serving-front and compile-cache tiers (item 13).
+Memory and EXPLAIN ANALYZE (the reference's engine.py:1375-1387,
+:1491-1601): with `memory_pool_bytes` set, each execution gets its own
+MemoryPool (runtime/memory.py) and a spill directory; the aggregation,
+sort and hash build spill into it under pool pressure (a spilled build
+finishes as a grace hash join), and the directory is removed when the
+execution ends, also when it fails. EXPLAIN ANALYZE runs the plan with
+instrumented operators (exec/stats.py) and renders the plan text, then
+each pipeline's per-operator rows, batches and device-inclusive walls.
+
+Not ported yet: query events, metrics and spans (ROADMAP §1 item 11),
+and the resident, adaptive, recovery, serving-front and compile-cache
+tiers (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
+import tempfile
 import threading
+import uuid
 from typing import Dict, List, Optional
 
 import torch
@@ -259,6 +272,8 @@ class LocalQueryRunner:
         # dtype vector of the current EXECUTE's bound parameters (part of
         # the plan-cache key), per thread like the identity
         self._bound_dtypes_tls = threading.local()
+        # the memory pool of the last query (None without a pool)
+        self._last_pool = None
 
     @property
     def identity(self) -> Identity:
@@ -390,10 +405,7 @@ class LocalQueryRunner:
             return self._execute_query(stmt, sql_key=sql)
         if isinstance(stmt, ast.ExplainStatement):
             if stmt.analyze:
-                raise NotImplementedError(
-                    "EXPLAIN ANALYZE: its operator statistics (exec/stats.py) are not "
-                    "in trino_tpu_torch yet (ROADMAP §1 item 10)"
-                )
+                return self._explain_analyze(stmt.query)
             plan = self._analyze(stmt.query)
             return MaterializedResult([[P.explain_text(plan)]], ["Query Plan"], [T.VARCHAR])
         if isinstance(stmt, ast.CreateTable):
@@ -546,23 +558,47 @@ class LocalQueryRunner:
                                    tables=plan_tables(output))
         return output, physical
 
+    def _execution_ctx(self) -> dict:
+        """A fresh per-execution context: with `memory_pool_bytes` set,
+        its own MemoryPool and a spill directory (made by the first
+        spill). The reference also attaches the resident tier's pins to
+        the pool (RESIDENT.attach_pool): resident/ is ROADMAP §1 item 13."""
+        ctx: dict = {}
+        if self.session.memory_pool_bytes is not None:
+            from trino_tpu_torch.runtime.memory import MemoryPool
+
+            ctx["memory_pool"] = MemoryPool(self.session.memory_pool_bytes)
+            ctx["spill_dir"] = os.path.join(
+                tempfile.gettempdir(), f"trino-tpu-torch-spill-{uuid.uuid4().hex}")
+        return ctx
+
     @staticmethod
-    def _drive(instance: tuple, sink) -> None:
+    def _release(ctx: dict) -> None:
+        """End of an execution: close its memory contexts and remove its
+        spill directory with every file an operator left there."""
+        for mc in ctx.get("memory_contexts", ()):
+            mc.close()
+        if "spill_dir" in ctx:
+            shutil.rmtree(ctx["spill_dir"], ignore_errors=True)
+
+    def _drive(self, instance: tuple, sink) -> None:
         """Run an instantiated plan into `sink`: build pipelines first,
         in plan order (each fills the bridge that a later pipeline or
         the main chain probes)."""
         ctx, pipelines, chain = instance
-        for ops in pipelines:
-            Driver(Pipeline(ops)).run()
-        Driver(Pipeline(chain + [sink])).run()
-        _raise_deferred_checks(ctx)
+        try:
+            for ops in pipelines:
+                Driver(Pipeline(ops)).run()
+            Driver(Pipeline(chain + [sink])).run()
+            _raise_deferred_checks(ctx)
+        finally:
+            self._release(ctx)
 
-    @staticmethod
-    def _instance(physical) -> tuple:
+    def _instance(self, physical) -> tuple:
         """(ctx, pipelines, chain): fresh operators for one execution;
-        the join bridges live in `ctx`, so two executions of one cached
-        plan share no state."""
-        ctx: dict = {}
+        the join bridges and the memory pool live in `ctx`, so two
+        executions of one cached plan share no state."""
+        ctx = self._execution_ctx()
         pipelines, chain = physical.instantiate(ctx)
         return ctx, pipelines, chain
 
@@ -572,10 +608,37 @@ class LocalQueryRunner:
     def _execute_query(self, q: ast.Query, sql_key: Optional[str] = None) -> MaterializedResult:
         output, physical = self._plan(q, sql_key)
         sink = CollectorSink()
-        self._drive(self._instance(physical), sink)
+        instance = self._instance(physical)
+        self._last_pool = instance[0].get("memory_pool")
+        self._drive(instance, sink)
         return MaterializedResult(
             sink.rows(), list(output.names), [f.type for f in output.fields]
         )
+
+    def _explain_analyze(self, q: ast.Query) -> MaterializedResult:
+        """EXPLAIN ANALYZE: run the plan with instrumented operators and
+        render the plan, then per-operator statistics, each operator
+        section closed by a device barrier (ExplainAnalyzeOperator)."""
+        from trino_tpu_torch.exec.stats import instrument, render_stats
+
+        output, physical = self._plan(q, sql_key=None)
+        ctx, pipelines, chain = self._instance(physical)
+        groups, wrapped = [], []
+        for ops in pipelines + [chain + [CollectorSink()]]:
+            w, stats = instrument(ops, device_sync=True, device=self.device)
+            groups.append(stats)
+            wrapped.append(w)
+        self._drive((ctx, wrapped[:-1], wrapped[-1][:-1]), wrapped[-1][-1])
+        for ops in wrapped:
+            for op in ops:
+                op.flush_counts()
+        # the reference's shape census with its expected/observed classes,
+        # xla_compiles_this_query and the program/persistent cache lines
+        # count XLA programs: compile/, ROADMAP §1 item 13
+        # the reference's warmup line: compile/warmup.py, item 13
+        # the reference's adaptive report: adaptive/, item 13
+        text = P.explain_text(output) + "\n\n" + render_stats(groups)
+        return MaterializedResult([[text]], ["Query Plan"], [T.VARCHAR])
 
     def _invalidate_plans(self, table=None) -> None:
         """Cached physical plans capture split lists (data snapshots) at

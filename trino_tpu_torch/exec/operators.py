@@ -17,15 +17,25 @@ DynamicFilter, the cross join, BufferSink/BufferSource (UNION ALL) and
 CollectorSink; nested ARRAY/MAP/ROW columns ride every one of them
 whole, and the collect aggregates (array_agg, map_agg, histogram, the
 sketch builders, ...) run on the holistic path (UNNEST is
-exec/unnest.py, MATCH_RECOGNIZE exec/match_recognize.py). Partial/final
-aggregation steps and spill (grace joins included) are queued in
-ROADMAP.md.
+exec/unnest.py, MATCH_RECOGNIZE exec/match_recognize.py).
+
+Under a memory pool (runtime/memory.py) the sort, the grouped
+aggregation and the hash build account their buffered state and give it
+back when revoked: the sort spills sorted runs and merges them at
+finish, the aggregation spills its group state in the partial wire
+format (`partial_output_schema`) and merges it back at finish, and the
+build side turns into a grace hash join, whose probe side spills to the
+same hash partitions and joins partition by partition at finish
+(exec/spill.py). Revocation may come from another operator's thread, so
+buffered state changes under each operator's lock. The partial/final
+aggregation steps of the distributed plane are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,6 +80,12 @@ class Operator:
     def is_finished(self) -> bool:
         raise NotImplementedError
 
+    def is_blocked(self) -> bool:
+        """True while the operator waits on another thread (a local
+        exchange's producers); the driver then yields instead of
+        declaring the pipeline stalled."""
+        return False
+
     _finishing = False
 
 
@@ -80,6 +96,12 @@ def empty_batch(schema: Schema, device, capacity: int = 16) -> RelBatch:
     cols = [null_column(t, capacity, d, device) if t.is_nested
             else Column(t, phys_zeros(t, capacity, device), None, d) for t, d in schema]
     return RelBatch(cols, torch.zeros(capacity, dtype=torch.bool, device=device))
+
+
+def _spill_dir(memory_context) -> Optional[str]:
+    """Where an operator's spill files go: the query's directory when
+    the engine gave one, else the process's temporary directory."""
+    return getattr(memory_context, "spill_dir", None)
 
 
 # ---------------------------------------------------------------------------
@@ -321,27 +343,83 @@ def _topn_merge(parts: Sequence[RelBatch], keys: Sequence[SortKey], n: int,
 
 
 class SortOperator(Operator):
-    """Full ORDER BY: consolidate + one sort at finish."""
+    """Full ORDER BY: consolidate + one sort at finish. Under a memory
+    pool the buffered input is revocable: a revoke sorts it into a run
+    on disk, and finish sorts the runs read back with the remaining
+    input (one consolidating sort, as in the reference). The runs come
+    first, in spill order, so rows that tie keep their input order, as
+    without a spill (the reference puts the remaining input first)."""
 
     def __init__(self, keys: Sequence[SortKey], input_schema: Schema, device,
-                 pre_fn=None):
+                 pre_fn=None, memory_context=None):
         self._keys = list(keys)
         self._schema = list(input_schema)
         self._device = device
         self._pre = pre_fn
         self._inputs: List[RelBatch] = []
         self._out: Optional[RelBatch] = None
+        self._memory = memory_context
+        self._spiller = None
+        self._in_finish = False
+        self._state_lock = threading.Lock()  # SortOperator._state_lock
+        if self._memory is not None:
+            self._memory.set_revoker(self._revoke_memory)
 
     def add_input(self, batch: RelBatch) -> None:
-        self._inputs.append(self._pre(batch) if self._pre is not None else batch)
+        if self._pre is not None:
+            batch = self._pre(batch)
+        with self._state_lock:
+            self._inputs.append(batch)
+        self._track_memory()
+
+    def _track_memory(self) -> None:
+        """Accounts the buffered input; the final sort's output is not
+        operator state and goes unaccounted, as in the reference."""
+        if self._memory is None:
+            return
+        from trino_tpu_torch.runtime.memory import ExceededMemoryLimitError, batch_bytes
+
+        with self._state_lock:
+            total = sum(batch_bytes(b) for b in self._inputs)
+        try:
+            self._memory.set_bytes(total)
+        except ExceededMemoryLimitError:
+            if total == 0:
+                raise
+            self._revoke_memory()
+            return
+        self._memory.set_revocable_bytes(total)
+
+    def _revoke_memory(self) -> None:
+        with self._state_lock:
+            if not self._inputs or self._in_finish:
+                return
+            if self._spiller is None:
+                from trino_tpu_torch.exec.spill import FileSpiller
+
+                self._spiller = FileSpiller(_spill_dir(self._memory))
+            self._spiller.spill(_concat_sort(self._inputs, self._keys))
+            self._inputs = []
+        self._track_memory()
 
     def finish(self) -> None:
         if self._finishing:
             return
         self._finishing = True
-        parts = self._inputs or [empty_batch(self._schema, self._device)]
-        self._inputs = []
-        self._out = _concat_sort(parts, self._keys)
+        with self._state_lock:
+            self._in_finish = True
+            parts, self._inputs = self._inputs, []
+            spiller, self._spiller = self._spiller, None
+        if spiller is not None:
+            try:
+                parts = list(spiller.unspill()) + parts
+            finally:
+                spiller.close()
+        self._out = _concat_sort(parts or [empty_batch(self._schema, self._device)],
+                                 self._keys)
+        if self._memory is not None:
+            self._memory.set_bytes(0)
+            self._memory.set_revocable_bytes(0)
 
     def get_output(self) -> Optional[RelBatch]:
         out, self._out = self._out, None
@@ -854,6 +932,56 @@ def _slot_merge_reducers(spec: AggSpec, arg_type: Optional[T.DataType]):
     return [_MERGE_REDUCER[spec.kind]]
 
 
+def agg_state_meta(spec: AggSpec, input_schema: Schema) -> List[tuple]:
+    """Wire schema of one aggregate's partial state: its (value, count)
+    columns (the accumulator serialization between the partial and final
+    steps, and the spill format)."""
+    if spec.kind in ("count", "count_star"):
+        return [(T.BIGINT, None), (T.BIGINT, None)]
+    arg_t, arg_d = input_schema[spec.arg_channel]
+    if spec.kind in ("sum", "avg"):
+        if arg_t.is_long_decimal:
+            # one (hi, lo) Int128 column at the argument's scale: the limb
+            # sums join before the wire and split again after it
+            return [(T.DataType(T.TypeKind.DECIMAL, 38, arg_t.scale), None),
+                    (T.BIGINT, None)]
+        if arg_t.is_floating:
+            val_t = T.DOUBLE
+        elif arg_t.is_decimal:
+            val_t = T.DataType(T.TypeKind.DECIMAL, 18, arg_t.scale)
+        else:
+            val_t = T.BIGINT
+        return [(val_t, None), (T.BIGINT, None)]
+    # min/max/any carry the argument representation through the wire
+    return [(arg_t, arg_d), (T.BIGINT, None)]
+
+
+def partial_output_schema(aggs: Sequence[AggSpec], group_channels: Sequence[int],
+                          input_schema: Schema) -> List[tuple]:
+    """Schema of a partial aggregation's state batch: [group keys...,
+    (value, count) per aggregate...]."""
+    out = [input_schema[c] for c in group_channels]
+    for a in aggs:
+        out.extend(agg_state_meta(a, input_schema))
+    return out
+
+
+def _slots_to_wire_column(spec: AggSpec, arg_type: Optional[T.DataType], vt, vd,
+                          vals, si: int):
+    """One aggregate's wire-format value column from its slots at `si`
+    (the serialization half of `_slots_to_state`). Returns (column,
+    next si)."""
+    kslots = _agg_slot_count(spec, arg_type)
+    if kslots == 4:
+        h, lo = _limb_join(vals[si: si + 4])
+        col = Column(vt, torch.stack([h, lo], dim=-1), None, vd)
+    elif kslots == 2:
+        col = Column(vt, torch.stack([vals[si], vals[si + 1]], dim=-1), None, vd)
+    else:
+        col = Column(vt, vals[si].to(vt.dtype), None, vd)
+    return col, si + kslots
+
+
 def _merge_group_states(states, reducers: tuple, out_capacity: int):
     """Concat N (keys, valids, used, vals, cnts) group-state sets and
     re-group-reduce them in one pass."""
@@ -1019,7 +1147,14 @@ class HashAggregationOperator(Operator):
     schema = [group keys..., aggregate results...]. Route selection is
     the reference's: dense slots for bounded domains up to 64 slots, the
     grouped-sum kernel for bounded sum/count domains up to 2048 slots,
-    the sort path otherwise."""
+    the sort path otherwise.
+
+    Under a memory pool the group state of a grouped aggregation is
+    revocable (SpillableHashAggregationBuilder): a revoke merges it,
+    spills it in the partial wire format and resets; finish reads the
+    spilled states back through `_add_state_input`, the final step's
+    ingestion, and merges them. The holistic route accounts its buffered
+    rows and never spills; the global route holds one row."""
 
     def __init__(
         self,
@@ -1030,6 +1165,7 @@ class HashAggregationOperator(Operator):
         initial_capacity: int = 1024,
         deferred_checks: Optional[List] = None,
         pre_fn=None,
+        memory_context=None,
     ):
         self._device = torch.device(device)
         self._pre = pre_fn
@@ -1118,6 +1254,15 @@ class HashAggregationOperator(Operator):
             a.arg_channel is not None and input_schema[a.arg_channel][0].is_long_decimal
             for a in self._aggs
         )
+        self._memory = memory_context
+        self._spiller = None
+        self._in_finish = False
+        # revocation runs on the reserving thread (MemoryPool.reserve
+        # calls the victim's callback), so state changes and the revoke
+        # serialize on this lock; accounting calls stay outside it
+        self._state_lock = threading.Lock()  # HashAggregationOperator._state_lock
+        if self._memory is not None and not self._global and not self._holistic:
+            self._memory.set_revoker(self._revoke_memory)
 
     @property
     def route(self) -> str:
@@ -1134,6 +1279,12 @@ class HashAggregationOperator(Operator):
             if self._pre is not None:
                 batch = self._pre(batch)
             self._collected.append(batch)
+            if self._memory is not None:
+                # buffered raw rows: accounted so the pool sees them, not
+                # revocable (an oversized holistic input fails loudly)
+                from trino_tpu_torch.runtime.memory import batch_bytes
+
+                self._memory.set_bytes(sum(batch_bytes(b) for b in self._collected))
             return
         if self._global:
             if self._pre is not None:
@@ -1165,7 +1316,107 @@ class HashAggregationOperator(Operator):
                 break
             cap = max(cap * 2, bucket_capacity(int(ngroups)))
             self._cap = max(self._cap, cap)
-        self._pending.append((tuple(gk), tuple(gv), used, tuple(vals), tuple(cnts)))
+        with self._state_lock:
+            self._pending.append((tuple(gk), tuple(gv), used, tuple(vals), tuple(cnts)))
+        self._track_memory()
+
+    # -- spill (revocable memory) --
+    def _revoke_memory(self) -> None:
+        """Merge the group state, spill it in the partial wire format
+        and reset. May run on another operator's thread."""
+        with self._state_lock:
+            if self._in_finish:
+                return  # finish owns the state
+            self._merge_pending()
+            if self._acc is None:
+                return
+            if self._spiller is None:
+                from trino_tpu_torch.exec.spill import FileSpiller
+
+                self._spiller = FileSpiller(_spill_dir(self._memory))
+            self._spiller.spill(self._partial_state_batch())
+            self._acc = None
+        self._track_memory()
+
+    def _track_memory(self) -> None:
+        """Accounts the accumulation state (merged and pending group
+        states). The finish-phase merge produces output, not state, and
+        goes unaccounted, as in the reference."""
+        if self._memory is None or self._in_finish:
+            return
+        from trino_tpu_torch.runtime.memory import ExceededMemoryLimitError
+
+        with self._state_lock:
+            states = ([self._acc] if self._acc is not None else []) + list(self._pending)
+        total = 0
+        for gk, gv, used, vals, cnts in states:
+            total += sum(t.nbytes for t in (*gk, *gv, used, *vals, *cnts))
+        try:
+            self._memory.set_bytes(total)
+        except ExceededMemoryLimitError:
+            # the pool is full even after revoking others: spill our own
+            if not states:
+                raise
+            self._revoke_memory()
+            return
+        self._memory.set_revocable_bytes(total)
+
+    def _partial_state_batch(self) -> RelBatch:
+        """The merged group state as a partial-wire-format batch
+        (`partial_output_schema`'s layout)."""
+        cols: List[Column] = []
+        gk, gv, used, vals, cnts = self._acc
+        ki = 0
+        for ch in self._group_channels:
+            t, d = self._schema[ch]
+            if t.lanes == 2:  # reassemble split long-decimal key limbs
+                cols.append(Column(t, torch.stack([gk[ki], gk[ki + 1]], dim=-1), gv[ki], d))
+                ki += 2
+            else:
+                cols.append(Column(t, gk[ki], gv[ki], d))
+                ki += 1
+        si = 0
+        for a, (arg_t, _) in zip(self._aggs, self._arg_meta):
+            vt, vd = agg_state_meta(a, self._schema)[0]
+            cnt = cnts[si]
+            col, si = _slots_to_wire_column(a, arg_t, vt, vd, vals, si)
+            cols.append(col)
+            cols.append(Column(T.BIGINT, cnt.to(torch.int64), None, None))
+        return RelBatch(cols, used)
+
+    def _add_state_input(self, batch: RelBatch) -> None:
+        """Ingest a partial-wire-format batch as a group-state set: k key
+        columns, then one (value, count) pair per aggregate; long
+        decimals split back into the slot layout (keys into limb lanes,
+        sums into four limb slots, extremes into (hi, lo) slots)."""
+        k = len(self._group_channels)
+        keys, valids = [], []
+        for c in range(k):
+            col = batch.columns[c]
+            v = col.valid_mask()
+            if col.data.dim() == 2:
+                keys.extend([col.data[:, 0], col.data[:, 1]])
+                valids.extend([v, v])
+            else:
+                keys.append(col.data)
+                valids.append(v)
+        vals, cnts = [], []
+        for i, a in enumerate(self._aggs):
+            val_col = batch.columns[k + 2 * i]
+            cnt = batch.columns[k + 2 * i + 1].data.to(torch.int64)
+            if val_col.data.dim() == 2:
+                if a.kind in ("sum", "avg"):
+                    pieces = _limb_split(val_col.data)
+                else:  # min/max/any: the slots are the (hi, lo) pair
+                    pieces = [val_col.data[:, 0], val_col.data[:, 1]]
+                vals.extend(pieces)
+                cnts.extend([cnt] * len(pieces))
+            else:
+                vals.append(val_col.data)
+                cnts.append(cnt)
+        with self._state_lock:
+            self._pending.append(
+                (tuple(keys), tuple(valids), batch.live_mask(), tuple(vals), tuple(cnts)))
 
     def _merge_pending(self) -> None:
         """Fold pending per-batch states (+ current acc) into one."""
@@ -1237,8 +1488,26 @@ class HashAggregationOperator(Operator):
         self._finishing = True
         if self._holistic:
             self._out = self._finish_holistic()
+            if self._memory is not None:
+                self._memory.set_bytes(0)
             return
-        self._merge_pending()
+        with self._state_lock:
+            # from here finish owns the state: revocation is off
+            self._in_finish = True
+            spiller, self._spiller = self._spiller, None
+        if spiller is not None:
+            # merge on unspill: the spilled states re-enter through the
+            # final step's ingestion
+            try:
+                for b in spiller.unspill():
+                    self._add_state_input(b)
+            finally:
+                spiller.close()
+        with self._state_lock:
+            self._merge_pending()
+        if self._memory is not None and not self._global:
+            self._memory.set_bytes(0)
+            self._memory.set_revocable_bytes(0)
         if self._deferred_ovf:
             flag = torch.any(torch.stack(self._deferred_ovf))
             msg = (
@@ -1543,7 +1812,9 @@ class EnforceSingleRowOperator(Operator):
 
 class JoinBridge:
     """Build->probe handoff (PartitionedLookupSourceFactory). The engine
-    runs the build pipeline to completion before the probe pipeline."""
+    runs the build pipeline to completion before the probe pipeline.
+    When the build side spilled (grace mode), `grace` carries the
+    hash-partitioned build pages instead of a lookup source."""
 
     def __init__(self):
         self.lookup_source: Optional[J.LookupSource] = None
@@ -1552,6 +1823,13 @@ class JoinBridge:
         self.key_dicts: Optional[List[Optional[Dictionary]]] = None
         # build-side key channels (pair verify, dynamic-filter domains)
         self.build_key_channels: List[int] = []
+        # grace mode: the partitioned build spill and its schema
+        self.grace = None  # Optional[spill.GracePartitionSpill]
+        self.build_schema: Optional[list] = None
+        self.spill_dir: Optional[str] = None
+
+
+GRACE_PARTITIONS = 8
 
 
 def _consolidate_build(parts: Sequence[RelBatch], key_channels: Sequence[int]):
@@ -1596,29 +1874,99 @@ def _compact_to(parts: Sequence[RelBatch], n_live: int, capacity: int) -> RelBat
 class HashBuildSink(Operator):
     """Consumes the build side, consolidates it and builds the
     LookupSource (HashBuilderOperator: one sort instead of row inserts).
-    Spilling to grace partitions is not ported (ROADMAP §1 item 10)."""
+
+    Out of core: a revoke under memory pressure, or `force_spill`, turns
+    the sink into grace mode (HashBuilderOperator's spill states): the
+    batches held and every later one hash-partition to disk, and the
+    probe joins partition by partition."""
 
     def __init__(self, bridge: JoinBridge, key_channels: Sequence[int],
-                 input_schema: Schema, device, force_spill: bool = False):
-        if force_spill:
-            raise NotImplementedError(
-                "grace (spilled) hash join: ROADMAP §1 item 10 (memory and spill)"
-            )
+                 input_schema: Schema, device, memory_context=None,
+                 force_spill: bool = False):
         self._bridge = bridge
         self._keys = list(key_channels)
         self._schema = list(input_schema)
         self._device = device
         self._inputs: List[RelBatch] = []
+        self._memory = memory_context
+        self._grace = None
+        self._state_lock = threading.Lock()  # HashBuildSink._state_lock
+        if force_spill:
+            # the grace partitions open before the first batch arrives
+            self._grace = self._new_grace()
+        if self._memory is not None:
+            self._memory.set_revoker(self._revoke_memory)
+
+    def _new_grace(self):
+        from trino_tpu_torch.exec.spill import GracePartitionSpill
+
+        return GracePartitionSpill(GRACE_PARTITIONS, self._keys,
+                                   _spill_dir(self._memory))
 
     def add_input(self, batch: RelBatch) -> None:
-        self._inputs.append(batch)
+        with self._state_lock:
+            if self._grace is not None:
+                self._grace.add(batch)
+                return
+            self._inputs.append(batch)
+        self._track_memory()
+
+    def _track_memory(self) -> None:
+        if self._memory is None:
+            return
+        from trino_tpu_torch.runtime.memory import ExceededMemoryLimitError, batch_bytes
+
+        with self._state_lock:
+            total = sum(batch_bytes(b) for b in self._inputs)
+        try:
+            self._memory.set_bytes(total)
+        except ExceededMemoryLimitError:
+            if total == 0:
+                raise
+            self._revoke_memory()
+            return
+        # a revocation from another thread may have spilled the inputs
+        # since the snapshot: advertise only what is still revocable
+        with self._state_lock:
+            still = sum(batch_bytes(b) for b in self._inputs)
+        self._memory.set_revocable_bytes(min(total, still))
+
+    def _revoke_memory(self) -> None:
+        """Move the held build rows into the partitioned spill and go on
+        in grace mode."""
+        with self._state_lock:
+            if self._finishing or self._grace is not None and not self._inputs:
+                return
+            if self._grace is None:
+                self._grace = self._new_grace()
+            for b in self._inputs:
+                self._grace.add(b)
+            self._inputs = []
+        if self._memory is not None:
+            self._memory.set_bytes(0)
+            self._memory.set_revocable_bytes(0)
 
     def finish(self) -> None:
         if self._finishing:
             return
-        self._finishing = True
-        parts = self._inputs or [empty_batch(self._schema, self._device)]
-        self._inputs = []
+        with self._state_lock:
+            self._finishing = True
+            grace, inputs = self._grace, self._inputs
+            self._inputs = []
+        if grace is not None:
+            for b in inputs:
+                grace.add(b)
+            if grace.device is None:  # nothing spilled: partitions rebuild here
+                grace.device = torch.device(self._device)
+            self._bridge.grace = grace
+            self._bridge.build_schema = self._schema
+            self._bridge.build_key_channels = list(self._keys)
+            self._bridge.spill_dir = _spill_dir(self._memory)
+            if self._memory is not None:
+                self._memory.set_bytes(0)
+                self._memory.set_revocable_bytes(0)
+            return
+        parts = inputs or [empty_batch(self._schema, self._device)]
         total_cap = sum(b.capacity for b in parts)
         if total_cap >= _SHRINK_MIN_CAPACITY:
             # sparse build side (e.g. a HAVING-filtered aggregate): compact
@@ -1829,7 +2177,14 @@ class LookupJoinOperator(Operator):
     columns] for inner/left/full, probe columns for semi/anti, probe
     columns + a BOOLEAN match column for mark joins. `residual_fn` runs
     on candidate pairs before the match flags (filtered semi/anti
-    joins)."""
+    joins).
+
+    When the build side spilled (grace mode), probe batches partition to
+    disk by the same key hash, and finish joins partition by partition:
+    each partition's build rows are read back onto the device, built
+    into a lookup source and probed with that partition's probe rows,
+    through the same build_lookup / probe_counts / expand_matches path
+    as an in-memory join."""
 
     def __init__(self, bridge: JoinBridge, key_channels: Sequence[int],
                  join_type: str, probe_schema: Schema, residual_fn=None):
@@ -1840,6 +2195,8 @@ class LookupJoinOperator(Operator):
         self._residual_fn = residual_fn
         self._outputs: List[RelBatch] = []
         self._remap_cache: dict = {}
+        # grace mode: probe rows hash-partitioned to disk
+        self._probe_spill = None
         # FULL outer: build-side matched bitmap across probe batches
         self._build_matched = None
         # depth-1 pipeline: batch i's match total is read only when
@@ -1852,9 +2209,20 @@ class LookupJoinOperator(Operator):
         return not self._outputs and not self._finishing
 
     def add_input(self, probe: RelBatch) -> None:
+        bridge = self._bridge
+        if bridge.grace is not None:
+            if self._probe_spill is None:
+                from trino_tpu_torch.exec.spill import GracePartitionSpill
+
+                self._probe_spill = GracePartitionSpill(
+                    bridge.grace.n, self._keys, bridge.spill_dir)
+            self._probe_spill.add(probe)
+            return
+        self._probe_one(bridge.lookup_source, bridge.build_batch, bridge.key_dicts, probe)
+
+    def _probe_one(self, ls, build: RelBatch, key_dicts, probe: RelBatch) -> None:
         keys, valids = [], []
         remapped = False
-        key_dicts = self._bridge.key_dicts
         for i, c in enumerate(self._keys):
             col = probe.columns[c]
             v = col.valid_mask()
@@ -1879,10 +2247,9 @@ class LookupJoinOperator(Operator):
             else:
                 keys.append(col.data)
                 valids.append(v)
-        ls = self._bridge.lookup_source
         lo, counts, total = J.probe_counts(ls, keys, valids, probe.live_mask())
         self._probe_pending.append({
-            "probe": probe, "keys": keys, "valids": valids, "lo": lo,
+            "ls": ls, "build": build, "probe": probe, "keys": keys, "valids": valids, "lo": lo,
             "counts": counts, "total": total, "fan1": _fanout_le_one(counts),
             "remapped": remapped,
         })
@@ -1891,8 +2258,7 @@ class LookupJoinOperator(Operator):
 
     def _expand_oldest(self) -> None:
         rec = self._probe_pending.pop(0)
-        ls, build, probe = (self._bridge.lookup_source, self._bridge.build_batch,
-                            rec["probe"])
+        ls, build, probe = rec["ls"], rec["build"], rec["probe"]
         # pair-column verify only when every key is a pass-through column
         pkc = bkc = None
         if not rec["remapped"] and self._bridge.build_key_channels:
@@ -1950,12 +2316,19 @@ class LookupJoinOperator(Operator):
         valid = None
         if self._type == "mark":
             b_live = build.live_mask()
-            nonempty = torch.any(b_live)
-            has_null = torch.zeros((), dtype=torch.bool, device=b_live.device)
-            for ch in self._bridge.build_key_channels:
-                bc = build.columns[ch]
-                if bc.valid is not None:
-                    has_null = has_null | torch.any(b_live & ~bc.valid)
+            grace = self._bridge.grace
+            if grace is not None:
+                # one partition's build holds some of the rows: the IN
+                # semantics read the whole build side's
+                nonempty = torch.tensor(grace.rows > 0, device=b_live.device)
+                has_null = torch.tensor(grace.null_keys, device=b_live.device)
+            else:
+                nonempty = torch.any(b_live)
+                has_null = torch.zeros((), dtype=torch.bool, device=b_live.device)
+                for ch in self._bridge.build_key_channels:
+                    bc = build.columns[ch]
+                    if bc.valid is not None:
+                        has_null = has_null | torch.any(b_live & ~bc.valid)
             pv = None
             for vv in valids:
                 pv = vv if pv is None else (pv & vv)
@@ -1964,18 +2337,58 @@ class LookupJoinOperator(Operator):
         col = Column(T.BOOLEAN, matched, valid, None)
         return RelBatch(list(probe.columns) + [col], probe.live_mask())
 
-    def finish(self) -> None:
-        if self._finishing:
-            return
-        self._finishing = True
+    def _drain(self, build: RelBatch) -> None:
+        """Expand every pending probe batch; a FULL join then emits the
+        build rows no probe row matched."""
         while self._probe_pending:
             self._expand_oldest()
         if self._type == "full":
-            build = self._bridge.build_batch
             mb = (self._build_matched if self._build_matched is not None
                   else torch.zeros(build.capacity, dtype=torch.bool,
                                    device=build.device))
             self._outputs.append(_right_unmatched(self._probe_schema, build, mb))
+
+    def finish(self) -> None:
+        if self._finishing:
+            return
+        self._finishing = True
+        grace = self._bridge.grace
+        if grace is None:
+            self._drain(self._bridge.build_batch)
+            return
+        try:
+            self._grace_join(grace)
+        finally:
+            if self._probe_spill is not None:
+                self._probe_spill.close()
+                self._probe_spill = None
+            # the probe is the bridge's one consumer: release the build spill
+            grace.close()
+            self._bridge.grace = None
+
+    def _grace_join(self, grace) -> None:
+        """Partition by partition (PartitionedConsumption): both sides
+        routed by the same key hash, so each partition joins alone."""
+        from trino_tpu_torch.exec import spill
+
+        spilled = self._probe_spill
+        device = grace.device
+        build_keys = self._bridge.build_key_channels
+        for p in range(grace.n):
+            probe_pages = spilled.partition_pages(p) if spilled is not None else []
+            if not probe_pages and self._type != "full":
+                continue  # no probe rows: the build partition stays on disk
+            parts = ([pg.to_batch(device=device) for pg in grace.partition_pages(p)]
+                     or [empty_batch(self._bridge.build_schema, device)])
+            ls, merged = _consolidate_build(parts, build_keys)
+            key_dicts = [merged.columns[c].dictionary for c in build_keys]
+            # FULL: each build row lives in one partition, so the matched
+            # flags are per partition
+            self._build_matched = None
+            for pg in probe_pages:
+                self._probe_one(ls, merged, key_dicts, pg.to_batch(device=device))
+            self._drain(merged)
+            spill.record("grace_partitions")
 
     def get_output(self) -> Optional[RelBatch]:
         return self._outputs.pop(0) if self._outputs else None
@@ -2032,6 +2445,10 @@ class DynamicFilterOperator(Operator):
         self._out: Optional[RelBatch] = None
 
     def _prepare(self, probe: RelBatch) -> None:
+        if self._bridge.build_batch is None:
+            # grace mode: no build batch on the device to read domains from
+            self._active = []
+            return
         key_dicts = self._bridge.key_dicts or [None] * len(self._keys)
         active = []
         for i, c in enumerate(self._keys):

@@ -137,6 +137,15 @@ def hash32_np(columns, valids=None, seed: int = 0):
     return _fmix32_np(h)
 
 
+def partition_of(h: torch.Tensor, num_partitions: int) -> torch.Tensor:
+    """Map a 32-bit hash (int64 carrier holding [0, 2^32)) to an int32
+    partition id: a mask when the count is a power of two, else a
+    modulo (bit-equal to `partition_of_np` and the reference's)."""
+    if num_partitions & (num_partitions - 1) == 0:
+        return (h & (num_partitions - 1)).to(torch.int32)
+    return (h % num_partitions).to(torch.int32)
+
+
 def partition_of_np(h, num_partitions: int):
     """Host-side map of a 32-bit hash (numpy uint32) to a partition id,
     as the reference's `partition_of` does on the device."""

@@ -74,6 +74,21 @@ Factory = Callable[[dict], Operator]
 mxu_join_selected = 0
 
 
+def _mem_ctx(ctx: dict):
+    """Per-operator MemoryContext when the execution context carries a
+    pool (OperatorContext.newLocalUserMemoryContext). Contexts register
+    in ctx["memory_contexts"] so the engine closes them when the query
+    ends, and spill into ctx["spill_dir"]."""
+    pool = ctx.get("memory_pool")
+    if pool is None:
+        return None
+    from trino_tpu_torch.runtime.memory import MemoryContext
+
+    mc = MemoryContext(pool, query_id=ctx.get("query_id"), spill_dir=ctx.get("spill_dir"))
+    ctx.setdefault("memory_contexts", []).append(mc)
+    return mc
+
+
 class PhysicalPlan:
     """Executable form of one query: the build pipelines, in the order
     they must run, and the main chain; instantiate() stamps fresh
@@ -234,7 +249,7 @@ class LocalPlanner:
             lambda ctx: HashAggregationOperator(
                 groups, specs, schema, device,
                 deferred_checks=ctx.setdefault("deferred_checks", []),
-                pre_fn=pre,
+                pre_fn=pre, memory_context=_mem_ctx(ctx),
             )
         )
 
@@ -364,6 +379,7 @@ class LocalPlanner:
             lambda ctx: HashAggregationOperator(
                 list(range(g)), specs, partial_schema, device,
                 deferred_checks=ctx.setdefault("deferred_checks", []),
+                memory_context=_mem_ctx(ctx),
             )
         )
         mxu_join_selected += 1
@@ -491,7 +507,8 @@ class LocalPlanner:
         keys = list(node.keys)
         pre = self._take_fused(chain)
         device = self.device
-        chain.append(lambda ctx: SortOperator(keys, schema, device, pre_fn=pre))
+        chain.append(lambda ctx: SortOperator(keys, schema, device, pre_fn=pre,
+                                              memory_context=_mem_ctx(ctx)))
         return chain, schema
 
     def _visit_TopNNode(self, node: P.TopNNode):
@@ -531,7 +548,7 @@ class LocalPlanner:
         force_spill = bool(getattr(node, "spill_build", False))
         build_chain.append(
             lambda ctx: HashBuildSink(bridge_of(ctx), rkeys, build_schema, device,
-                                      force_spill=force_spill)
+                                      memory_context=_mem_ctx(ctx), force_spill=force_spill)
         )
         self.pipelines.append(build_chain)
         residual_fn = None
