@@ -173,9 +173,29 @@ Phases (any failure exits nonzero):
                  the same rows, read back onto the card equal, its one
                  device->host copy timed. The pooled runs' launches are
                  kept apart (`spill_launches`).
- 11. explore   — both explorer entry points (trino_tpu_torch.explore),
+ 11. distributed — the distributed runner at sf1 on the card
+                 (distributed_identities): DIST_WORKERS in-process workers
+                 and hash partitions, the page exchange, beside its
+                 LocalQueryRunner twin over the same connector, each
+                 statement with both walls, its rows, rows_shuffled, the
+                 host time of the exchange's page copies (page_out_s:
+                 Page.from_batch and the hash split; page_in_s:
+                 Page.to_batch) and its launches: GROUP BY o_clerk
+                 (partial on the grouped-sum route, hash exchange, final),
+                 GROUP BY o_custkey (the sort route), customer join orders
+                 under GROUP BY c_mktsegment (both inputs repartitioned:
+                 bounds, take_flat), supplier join nation (nation
+                 broadcast), ORDER BY o_totalprice DESC LIMIT 10 and a full
+                 ORDER BY o_orderkey (the merging gather), count(*), and
+                 EXPLAIN and EXPLAIN ANALYZE of the join (every order read
+                 by 4 tasks), each row-equal to its twin with no task left
+                 behind. Then the 22 TPC-H queries at tiny through the
+                 distributed runner on the card and on the CPU, equal
+                 within tests/oracle.py's tolerances. Its launches count
+                 apart (`distributed_launches`).
+ 12. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 12. parity    — the queries, and the window and set-operation queries
+ 13. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -197,14 +217,15 @@ Phases (any failure exits nonzero):
                  and sf0.1 (their bytes_scanned too), and
                  tests/test_memory.py's queries at tiny under their pools
                  (MEMORY_QS).
- 13. summary   — each kind of join-path call (the probe's bounds, the
+ 14. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
                  entry with its launches in phases nested, zones, write,
-                 statements, files and spill beside the main path's; take_flat's entry with its summed
+                 statements, files, spill and distributed beside the main
+                 path's; take_flat's entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -2443,28 +2464,33 @@ class Capture:
     arguments of a key's first call stay in `args` only while that key is
     the largest under one of the orders `keep` (every key's when `keep`
     is None, none when it is empty), so that a capture holds little of
-    the card's memory."""
+    the card's memory. The bookkeeping holds a lock: a distributed query's
+    tasks call from several threads."""
 
     def __init__(self, module, attr: str, key, keep=(lambda k: k,)):
+        import threading
+
         self.module, self.attr, self.key, self.keep = module, attr, key, keep
         self.inner = getattr(module, attr)
         self.args: dict = {}
         self.keys: set = set()
         self.calls = 0
+        self._lock = threading.Lock()
 
     def __enter__(self):
         def capturing(*args):
             k = self.key(*args)
             if k is not None:
-                self.calls += 1
-                self.keys.add(k)
-                if self.keep is None:
-                    self.args.setdefault(k, args)
-                else:
-                    best = {max(self.keys, key=order) for order in self.keep}
-                    if k in best:
+                with self._lock:
+                    self.calls += 1
+                    self.keys.add(k)
+                    if self.keep is None:
                         self.args.setdefault(k, args)
-                    self.args = {b: self.args[b] for b in best if b in self.args}
+                    else:
+                        best = {max(self.keys, key=order) for order in self.keep}
+                        if k in best:
+                            self.args.setdefault(k, args)
+                        self.args = {b: self.args[b] for b in best if b in self.args}
             return self.inner(*args)
 
         setattr(self.module, self.attr, capturing)
@@ -3523,10 +3549,10 @@ def file_identities(schema: str, device: str, log, probes=None) -> dict:
     import tempfile
 
     import torch
-    from trino_tpu_torch.connectors import parquet_format as PQ
     from trino_tpu_torch.connectors.blackhole import create_blackhole_connector
     from trino_tpu_torch.connectors.file import create_file_connector
     from trino_tpu_torch.connectors.tpch import base_row_count
+    from trino_tpu_torch.runtime.metrics import METRICS
 
     sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
     n_orders, n_customers = (base_row_count(t, sf) for t in ("orders", "customer"))
@@ -3552,7 +3578,7 @@ def file_identities(schema: str, device: str, log, probes=None) -> dict:
                 x.seconds = 0.0
             sink_before = sink.seconds if sink else 0.0
             parse_before = parse.seconds
-            b0 = PQ.bytes_scanned
+            b0 = METRICS.counter("bytes_scanned")
             error = res = None
             t0 = time.perf_counter()
             try:
@@ -3568,7 +3594,7 @@ def file_identities(schema: str, device: str, log, probes=None) -> dict:
                 "parse_s": parse.seconds - parse_before,
                 "scan_s": sum(x.seconds for x in scans.values()),
                 "sink_s": (sink.seconds - sink_before) if sink else 0.0,
-                "bytes_scanned": PQ.bytes_scanned - b0,
+                "bytes_scanned": METRICS.counter("bytes_scanned") - b0,
                 "launches": {k: after[k] - before[k] for k in after},
                 "probe_batches": (probes.calls if probes else 0) - batches,
                 "error": None if error is None else f"{type(error).__name__}: {error}"}
@@ -3933,6 +3959,225 @@ def parity_spill() -> None:
             raise AssertionError(f"memory {name}: card and CPU rows differ at tiny")
     log(f"[parity] memory corpus: {len(MEMORY_QS)} queries at tiny under their pools, "
         f"card == CPU ({time.perf_counter() - t0} s)")
+
+
+DIST_WORKERS = 4  # tests/test_distributed.py's topology: 4 workers, 4 hash partitions
+DIST_JOIN = """select c_mktsegment, count(*), sum(o_totalprice) from customer
+join orders on c_custkey = o_custkey group by c_mktsegment order by c_mktsegment"""
+DIST_STATEMENTS = (
+    ("clerk_group", "select o_clerk, count(*), sum(o_totalprice) from orders "
+                    "group by o_clerk order by o_clerk"),
+    ("custkey_group", "select o_custkey, count(*), sum(o_totalprice) from orders "
+                      "group by o_custkey order by o_custkey"),
+    ("segment_join", DIST_JOIN),
+    ("supplier_nation", "select n_name, count(*), sum(s_acctbal) from supplier join nation "
+                        "on s_nationkey = n_nationkey group by n_name order by n_name"),
+    ("top_price", "select o_orderkey, o_totalprice from orders "
+                  "order by o_totalprice desc, o_orderkey limit 10"),
+    ("full_sort", "select o_orderkey, o_custkey from orders order by o_orderkey"),
+    ("count", "select count(*) from orders"),
+    ("explain", "explain " + DIST_JOIN),
+    ("explain_analyze", "explain analyze " + DIST_JOIN),
+)
+_EA_SCAN = re.compile(r"TableScanOperator: in=\d+ rows/\d+ batches, out=(\d+) rows/")
+
+
+def dist_runners(schema: str, device: str) -> tuple:
+    """A DistributedQueryRunner (DIST_WORKERS in-process workers and
+    hash partitions, the page exchange) and its LocalQueryRunner twin on
+    `device`, over one tpch connector. The broadcast threshold is half
+    of customer's rows, so customer and orders repartition for their
+    join and nation broadcasts."""
+    from trino_tpu_torch.connectors.tpch import base_row_count, create_tpch_connector
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+
+    sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
+    session = dict(catalog="tpch", schema=schema,
+                   broadcast_join_threshold=base_row_count("customer", sf) // 2)
+    conn = create_tpch_connector()
+    dist = DistributedQueryRunner(Session(mesh_execution=False, **session),
+                                  n_workers=DIST_WORKERS, hash_partitions=DIST_WORKERS,
+                                  device=device)
+    dist.register_catalog("tpch", conn)
+    twin = LocalQueryRunner(Session(**session), device=device)
+    twin.register_catalog("tpch", conn)
+    return dist, twin
+
+
+def distributed_identities(schema: str, device: str, log) -> dict:
+    """Phase distributed's statements at `schema` on `device`: each
+    through the DistributedQueryRunner and through its LocalQueryRunner
+    twin (dist_runners); returns {statement: record} with both walls, the
+    rows, rows_shuffled, the host time of the exchange's page copies
+    (exchange.page_out_s: Page.from_batch and the hash split;
+    exchange.page_in_s: Page.to_batch) and the distributed run's
+    launches (counted only on the card). Rows must equal the twin's
+    exactly; the plans must be the fragments expected (a partial and a
+    final step, a hash join over two repartitioned inputs, a broadcast
+    of nation, a merging gather); EXPLAIN ANALYZE's orders scan must
+    report every order; no task may be left on a worker. The twin of the
+    join runs first, untimed, to build the generator's dictionaries.
+    tests/test_torch_distributed.py runs this at tiny on the CPU."""
+    import torch
+    from trino_tpu_torch.connectors.tpch import base_row_count
+    from trino_tpu_torch.runtime.metrics import METRICS
+
+    sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
+    dist, twin = dist_runners(schema, device)
+    twin.execute(DIST_JOIN)
+
+    def timed(r, sql):
+        t0 = time.perf_counter()
+        res = r.execute(sql)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    counters = ("rows_shuffled", "exchange.page_out_s", "exchange.page_in_s")
+    steps: dict = {}
+    for name, sql in DIST_STATEMENTS:
+        m0, k0 = METRICS.snapshot(), join_kernel_counts()
+        res, wall = timed(dist, sql)
+        m1, k1 = METRICS.snapshot(), join_kernel_counts()
+        twin_res, twin_wall = timed(twin, sql)
+        rec = steps[name] = {
+            "wall_s": wall, "twin_wall_s": twin_wall, "rows": len(res.rows),
+            **{c: m1.get(c, 0.0) - m0.get(c, 0.0) for c in counters},
+            "launches": {k: k1[k] - k0[k] for k in k1}}
+        log(f"[distributed] {schema} {name}: wall_s={wall} twin_wall_s={twin_wall} "
+            f"rows={rec['rows']} rows_shuffled={rec['rows_shuffled']} "
+            f"page_out_s={rec['exchange.page_out_s']} page_in_s={rec['exchange.page_in_s']} "
+            f"launches={rec['launches']}")
+        if name == "explain":
+            text = res.only_value()
+            for want in ("Fragment", "output=hash", "RemoteSource"):
+                if want not in text:
+                    raise AssertionError(f"distributed EXPLAIN lacks {want!r}:\n{text}")
+            log(f"[distributed] {schema} EXPLAIN of the join:\n{text}")
+        elif name == "explain_analyze":
+            text = res.only_value()
+            scans = [int(n) for n in _EA_SCAN.findall(text)]
+            n_orders = base_row_count("orders", sf)
+            if n_orders not in scans or f"[{DIST_WORKERS} tasks]" not in text:
+                raise AssertionError(f"EXPLAIN ANALYZE's stages do not read every order "
+                                     f"({n_orders}) in {DIST_WORKERS} tasks: {scans}")
+            log(f"[distributed] {schema} EXPLAIN ANALYZE of the join:\n{text}")
+        elif res.rows != twin_res.rows:
+            raise AssertionError(f"distributed {name}: rows differ from the local twin")
+        if any(w.task_ids() for w in dist.workers):
+            raise AssertionError(f"distributed {name}: tasks left on the workers")
+    plans = {name: dist.execute("explain " + sql).only_value()
+             for name, sql in DIST_STATEMENTS[:6]}
+    for name, want in (("clerk_group", "step=partial"), ("segment_join", "[hash] output"),
+                       ("supplier_nation", "output=broadcast")):
+        if want not in plans[name]:
+            raise AssertionError(f"distributed {name}: the plan lacks {want!r}:\n{plans[name]}")
+    from trino_tpu_torch.sql.fragmenter import plan_distributed
+    from trino_tpu_torch.sql.parser import parse
+
+    sort_plan = plan_distributed(dist._analyze(parse(dict(DIST_STATEMENTS)["full_sort"])),
+                                 dist.catalogs)
+    if not any(f.output_merge_keys for f in sort_plan.all_fragments()):
+        raise AssertionError("distributed full_sort: no merging gather in its plan")
+    if steps["segment_join"]["rows_shuffled"] < base_row_count("orders", sf):
+        raise AssertionError("the join's inputs did not cross the exchange")
+    if device == "cuda":
+        for name, kernels in (("clerk_group", ("grouped_sum",)),
+                              ("segment_join", ("bounds", "take_flat")),
+                              ("supplier_nation", ("bounds",))):
+            for k in kernels:
+                if steps[name]["launches"][k] <= 0:
+                    raise AssertionError(f"distributed {name} never launched {k}")
+    return steps
+
+
+def rows_match(a: list, b: list, rel_tol: float = 1e-9, abs_tol: float = 1e-6) -> bool:
+    """tests/oracle.py's assert_rows_match for ordered rows, as a
+    predicate: equal rows, doubles within max(abs_tol, rel_tol * |x|)."""
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        if len(ra) != len(rb):
+            return False
+        for x, y in zip(ra, rb):
+            if isinstance(x, float) or isinstance(y, float):
+                if x is None or y is None:
+                    if not (x is None and y is None):
+                        return False
+                elif abs(x - y) > max(abs_tol, rel_tol * max(abs(x), abs(y))):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def tpch_queries() -> dict:
+    """tests/tpch_queries.py's 22 queries, loaded by path (see
+    function_corpus)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tpch_queries", os.path.join(HERE, "tests", "tpch_queries.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.QUERIES
+
+
+def distributed_tpch(schema: str, log) -> dict:
+    """The 22 TPC-H queries at `schema` through the distributed runner on
+    the card and on the CPU (4 workers each): rows equal, doubles within
+    tests/oracle.py's tolerances (rows_match). Returns {query: (card
+    wall, CPU wall)}."""
+    import torch
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+
+    def cluster(device):
+        r = DistributedQueryRunner(Session(catalog="tpch", schema=schema, mesh_execution=False),
+                                   n_workers=DIST_WORKERS, hash_partitions=DIST_WORKERS,
+                                   device=device)
+        r.register_catalog("tpch", create_tpch_connector())
+        return r
+
+    card, cpu = cluster("cuda"), cluster("cpu")
+    walls = {}
+    for qid, sql in sorted(tpch_queries().items()):
+        t0 = time.perf_counter()
+        a = card.execute(sql).rows
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = cpu.execute(sql).rows
+        walls[qid] = (t1 - t0, time.perf_counter() - t1)
+        if not rows_match(a, b):
+            raise AssertionError(f"distributed TPC-H Q{qid} at {schema}: card and CPU rows differ")
+    log(f"[distributed] the 22 TPC-H queries at {schema}, 4 workers: card == CPU; walls "
+        f"(card s, CPU s): {walls}")
+    return walls
+
+
+def phase_distributed(results: dict) -> None:
+    """The distributed runner on the card: phase distributed's
+    statements at sf1 (distributed_identities), then the 22 TPC-H
+    queries at tiny against the CPU's distributed rows. Launches count
+    apart (`distributed_launches`)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    reset_kernel_counts()
+    steps = distributed_identities("sf1", "cuda", log)
+    launches = {k: sum(rec["launches"][k] for rec in steps.values())
+                for k in join_kernel_counts()}
+    results["distributed_launches"] = launches
+    for k in ("bounds", "take_flat", "grouped_sum"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase distributed never launched {k}")
+    tpch = distributed_tpch("tiny", log)
+    results["distributed"] = {"steps": steps, "tpch_tiny_walls": tpch}
+    log(f"[distributed] identities hold; launches of the distributed runs: {launches}")
+    log(f"[distributed] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
 
 
 _ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
@@ -4584,6 +4829,10 @@ def family_modes(results: dict, on_path: dict, kernels) -> dict:
     return out
 
 
+# the phases whose launches count apart from the main path's
+PHASE_LAUNCHES = ("nested", "zones", "write", "statements", "files", "spill", "distributed")
+
+
 def kernels_line(results: dict) -> dict:
     checks = results.get("grouped_sum_checks", {})
     timed = checks.get("q_mxu_sf1", {})
@@ -4633,7 +4882,7 @@ def kernels_line(results: dict) -> dict:
                   "capacity": timed.get("capacity")},
         "modes": modes,
     }]
-    for phase in ("nested", "zones", "write", "statements", "files", "spill"):
+    for phase in PHASE_LAUNCHES:
         if f"{phase}_launches" in results:
             line[0][f"{phase}_launches"] = results[f"{phase}_launches"].get("grouped_sum", 0)
     join_checks = results.get("join_kernel_checks", {})
@@ -4675,9 +4924,8 @@ def kernels_line(results: dict) -> dict:
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "max_abs_err": max([c["max_abs_err"] for c in recs], default=None),
                  **mode_record(rec, n)}
-        for phase in ("nested", "zones", "write", "statements", "files", "spill"):
-            # phases nested, zones, write, statements, files and spill
-            # count apart from the main path
+        for phase in PHASE_LAUNCHES:
+            # these phases count apart from the main path
             if f"{phase}_launches" in results:
                 got = results[f"{phase}_launches"]
                 entry[f"{phase}_launches"] = (
@@ -4695,7 +4943,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "files,spill,explore,parity",
+                            "files,spill,distributed,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -4744,6 +4992,8 @@ def main() -> int:
         phase_files(results)
     if "spill" in phases:
         phase_spill(results)
+    if "distributed" in phases:
+        phase_distributed(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

@@ -14,8 +14,7 @@ against trino_tpu.
   constants) are the port's, so the reference reads files the port's
   codec wrote.
 - test_pushdown.py's cases: each statement's bytes_scanned delta of the
-  port (parquet_format.bytes_scanned) equals the reference's METRICS
-  delta.
+  port's METRICS equals the reference's METRICS delta.
 - tests/test_parquet_interop.py and tests/test_connectors.py run on the
   port's modules (the codec, snappy; tpch's generator, memory and
   blackhole at the SPI).
@@ -23,8 +22,9 @@ against trino_tpu.
   a file table probed under a dynamic filter, long decimals written to
   CSV and to parquet, REAL written to CSV. Every type written by each
   sink and read back is recorded per package (`ROUND_TRIPS`).
-- test_the_corpora_are_covered lists the case that waits for item 11
-  (the distributed runner).
+- tests/test_file_connector.py's distributed scan runs on the port's
+  DistributedQueryRunner (test_distributed_scan_over_files);
+  test_the_corpora_are_covered checks that every corpus case runs.
 """
 
 import dataclasses
@@ -56,6 +56,7 @@ from trino_tpu_torch.connectors import parquet_format as TPQ
 from trino_tpu_torch.connectors import spi as tspi
 from trino_tpu_torch.connectors import tpch as ttpch
 from trino_tpu_torch.engine import LocalQueryRunner, Session
+from trino_tpu_torch.runtime.metrics import METRICS as TMETRICS
 from trino_tpu_torch.utils import snappy as tsnappy
 
 tpch = W.tpch
@@ -96,8 +97,18 @@ def patch_files(monkeypatch, module, tpch, tmp_path_factory) -> list:
 
 # ---- tests/test_file_connector.py ------------------------------------------
 
-_FILE_WAITS = {"test_distributed_scan_over_files": "item 11 (the distributed runner)"}
-_FILE = _cases(file_corpus, skip=set(_FILE_WAITS))
+_FILE_DISTRIBUTED = {"test_distributed_scan_over_files"}
+_FILE = _cases(file_corpus, skip=_FILE_DISTRIBUTED)
+
+
+def test_distributed_scan_over_files(tmp_path, monkeypatch):
+    """The corpus's distributed case on the port's runner (2 workers,
+    the page exchange), over the port's file connector: its names bound
+    by test_torch_distributed.py's portify."""
+    from tests.test_torch_distributed import portify
+
+    portify(monkeypatch, file_corpus)
+    file_corpus.test_distributed_scan_over_files(file_corpus.root.__wrapped__(tmp_path))
 
 
 @pytest.mark.parametrize("case", _FILE, ids=_ids(_FILE))
@@ -196,12 +207,12 @@ def test_pushdown_parquet_corpus(name, tpch, tmp_path, tmp_path_factory, monkeyp
     execute = W.ParityRunner.execute
 
     def counted(self, sql, **kw):
-        j0, t0 = METRICS.snapshot().get("bytes_scanned", 0), TPQ.bytes_scanned
+        j0, t0 = METRICS.snapshot().get("bytes_scanned", 0), TMETRICS.counter("bytes_scanned")
         try:
             return execute(self, sql, **kw)
         finally:
             deltas.append((sql, METRICS.snapshot().get("bytes_scanned", 0) - j0,
-                           TPQ.bytes_scanned - t0))
+                           TMETRICS.counter("bytes_scanned") - t0))
 
     monkeypatch.setattr(W.ParityRunner, "execute", counted)
     getattr(pushdown_corpus, name)(tmp_path)
@@ -211,7 +222,7 @@ def test_pushdown_parquet_corpus(name, tpch, tmp_path, tmp_path_factory, monkeyp
 
 # ---- the corpora's coverage ------------------------------------------------
 
-WAITING = {f"test_file_connector.py::{n}": i for n, i in _FILE_WAITS.items()}
+WAITING: dict = {}
 
 
 def test_the_corpora_are_covered():
@@ -219,6 +230,7 @@ def test_the_corpora_are_covered():
     its item; test_pushdown.py's parquet cases are all of its cases that
     reach the file connector."""
     ran = {f"test_file_connector.py::{n}" for _, n in _FILE}
+    ran |= {f"test_file_connector.py::{n}" for n in _FILE_DISTRIBUTED}
     ran |= {f"test_parquet.py::{n}" for _, n in _PARQUET}
     ran |= {f"test_parquet_interop.py::{n}" for _, n, _ in _INTEROP}
     ran |= {f"test_connectors.py::{n}" for _, n in _CONNECTORS}

@@ -2,9 +2,10 @@
 
 tests/test_local_exchange.py's cases run unedited with the corpus
 module's names bound to the port's LocalExchange and its operators
-(test_distributed_with_task_concurrency waits for the distributed
-runtime, ROADMAP §1 item 11; the rebalancer cases run in
-test_torch_serde.py beside the rest of exchange_ops). Every thread a case
+(test_distributed_with_task_concurrency on the port's
+DistributedQueryRunner, its names bound by test_torch_distributed.py's
+portify; the rebalancer cases run in test_torch_serde.py beside the
+rest of exchange_ops). Every thread a case
 starts is joined with a timeout and must be dead when the case ends. The
 port's own cases drive the exchange through Driver on two threads: the
 consumer's driver waits while its source is blocked, a failed producer
@@ -22,10 +23,10 @@ from trino_tpu_torch.exec import local_exchange as lx
 from trino_tpu_torch.exec.driver import Driver, Pipeline, TaskAbortedError, run_pipelines
 from trino_tpu_torch.exec.operators import CollectorSink, ValuesOperator
 
-WAITING = {"test_distributed_with_task_concurrency": "item 11 (the distributed runtime)"}
+DISTRIBUTED = {"test_distributed_with_task_concurrency"}
 REBALANCER = {"test_rebalancer_balances_uneven_pages", "test_rebalancer_even_stream_round_robins"}
 CASES = sorted(n for n in dir(lx_corpus) if n.startswith("test_")
-               and n not in WAITING and n not in REBALANCER)
+               and n not in DISTRIBUTED and n not in REBALANCER)
 
 JOIN_S = 10.0
 
@@ -50,7 +51,17 @@ def threads():
 
 def test_the_corpus_is_covered():
     names = {n for n in dir(lx_corpus) if n.startswith("test_")}
-    assert names == set(CASES) | set(WAITING) | REBALANCER
+    assert names == set(CASES) | DISTRIBUTED | REBALANCER
+
+
+def test_distributed_with_task_concurrency(monkeypatch, threads):
+    """The corpus's distributed case on the port's runner (4 workers,
+    the page exchange): the remote-source chain splits at a local
+    exchange under task_concurrency = 2 and answers as with 1."""
+    from tests.test_torch_distributed import _port_cluster, portify
+
+    portify(monkeypatch, lx_corpus)
+    lx_corpus.test_distributed_with_task_concurrency(_port_cluster())
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -23,8 +23,8 @@ and over small memory tables.
   the plan-cache key without mxu_join_enabled, and CASE/COALESCE over
   TIMESTAMP WITH TIME ZONE (tests/test_torch_timestamptz.py) or ARRAY.
 - test_the_corpora_are_covered lists the cases that wait for a later
-  item (the HTTP server and the fragmenter: item 11; admission, the
-  batcher and the shape census, EXPLAIN ANALYZE's included: item 13).
+  item (the HTTP server: item 11b; admission, the batcher and the shape
+  census, EXPLAIN ANALYZE's included: item 13).
 - chip_smoke.py's phase statements, its identities at tiny.
 """
 
@@ -52,6 +52,7 @@ from trino_tpu_torch.expr import ir as tir
 from trino_tpu_torch.serving import plan_cache as tplan_cache
 from trino_tpu_torch.sql import ast as tast
 from trino_tpu_torch.sql import formatter as tformatter
+from trino_tpu_torch.sql import fragmenter as tfragmenter
 from trino_tpu_torch.sql import optimizer as toptimizer
 from trino_tpu_torch.sql import parser as tparser
 from trino_tpu_torch.sql import plan as TP
@@ -229,13 +230,6 @@ def test_serving_corpus(case, tpch, monkeypatch):
 # ---- tests/test_plan_validate.py -------------------------------------------
 
 _VALIDATE_WAITS = {
-    # a SubPlan of PlanFragments: sql/fragmenter.py
-    "test_dangling_remote_source_names_structure_checker": "item 11",
-    "test_remote_source_schema_disagreement": "item 11",
-    "test_partial_agg_fires_when_groups_reduce": "item 11",
-    "test_partial_agg_skips_when_keys_nearly_unique": "item 11",
-    "test_partial_agg_fires_when_ndv_unknown": "item 11",
-    "test_partial_agg_stays_structural_without_stats": "item 11",
     # the shape census counts XLA lowerings (EXPLAIN ANALYZE's too)
     "test_shape_census_simple_aggregation": "item 13",
     "test_shape_census_join_marks_retry_variant": "item 13",
@@ -271,8 +265,11 @@ def _validate_run(name, port, runner, monkeypatch):
                                 ("IterativeOptimizer", toptimizer.IterativeOptimizer)):
                 mp.setattr(validate_corpus, attr, value)
             for attr in ("PlanValidationError", "check_plan_determinism",
-                         "check_sql_stability", "validate_logical"):
+                         "check_sql_stability", "validate_logical", "validate_subplan"):
                 mp.setattr(validate_corpus, attr, getattr(tvalidate, attr))
+            for attr in ("PlanFragment", "SubPlan",
+                         "push_partial_aggregation_through_exchange"):
+                mp.setattr(validate_corpus, attr, getattr(tfragmenter, attr))
         fn = getattr(validate_corpus, name)
         if "tpch_runner" in inspect.signature(fn).parameters:
             fn(runner)
@@ -292,11 +289,30 @@ def test_plan_validate_corpus(case, port_tpch_runner, tpch, monkeypatch):
     assert _validate_run(name, True, port_tpch_runner, monkeypatch) == want
 
 
-def test_partial_step_aggregate_names_item_11():
-    vals = TP.ValuesNode((TP.Field("k", T.BIGINT),), ((0,),))
-    agg = TP.AggregateNode(vals, (0,), (), (TP.Field("k", T.BIGINT),), step="partial")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tvalidate.validate_logical(agg)
+def test_partial_step_aggregate_validates_as_the_reference():
+    """A partial-step AggregateNode passes validate_logical in both
+    packages (its state layout is the fragmenter's), and one whose
+    fields miss the state layout is refused the same way."""
+    from trino_tpu import types as JT
+    from trino_tpu.sql import plan as JP
+    from trino_tpu.sql import validate as jvalidate
+
+    def agg(Tm, Pm, fields):
+        vals = Pm.ValuesNode((Pm.Field("k", Tm.BIGINT), Pm.Field("v", Tm.BIGINT)), ((0, 1),))
+        return Pm.AggregateNode(vals, (0,), (Pm.AggCall("sum", 1, Tm.BIGINT),),
+                                tuple(Pm.Field(n, getattr(Tm, t)) for n, t in fields),
+                                step="partial")
+
+    good = [("k", "BIGINT"), ("sum_1_val", "BIGINT"), ("sum_1_cnt", "BIGINT")]
+    jvalidate.validate_logical(agg(JT, JP, good))
+    tvalidate.validate_logical(agg(T, TP, good))
+    bad = [("k", "BIGINT"), ("sum_1_val", "DOUBLE"), ("sum_1_cnt", "BIGINT")]
+    errors = []
+    for mod, Tm, Pm in ((jvalidate, JT, JP), (tvalidate, T, TP)):
+        with pytest.raises(mod.PlanValidationError) as e:
+            mod.validate_logical(agg(Tm, Pm, bad))
+        errors.append((e.value.checker, e.value.node_path, str(e.value)))
+    assert errors[0] == errors[1]
 
 
 def test_rules_mode_validates_every_tpch_query(port_tpch_runner):
@@ -316,7 +332,7 @@ def test_rules_mode_validates_every_tpch_query(port_tpch_runner):
 
 # corpus case -> the ROADMAP §1 item it waits for
 WAITING = {
-    **{f"test_security.py::{n}": "item 11 (the HTTP server)" for n in sorted(_SERVER)},
+    **{f"test_security.py::{n}": "item 11b (the HTTP server)" for n in sorted(_SERVER)},
     **{f"test_plan_validate.py::{n}": i for n, i in _VALIDATE_WAITS.items()},
     **{f"test_serving.py::{n}": "item 13 (admission, the batcher, the worker deadline)"
        for _, n in _cases(serving_corpus) if (None, n) not in _SERVING},

@@ -31,9 +31,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-# compressed page bytes read_parquet has read, process-wide (the
-# reference counts them in its metrics registry's `bytes_scanned`)
-bytes_scanned = 0
+from trino_tpu_torch.runtime.metrics import METRICS
+
+# the compressed page bytes read_parquet reads count in METRICS'
+# `bytes_scanned`, as the reference's do
 
 MAGIC = b"PAR1"
 
@@ -1050,7 +1051,6 @@ def read_parquet(path: str, predicate: Optional[Dict[str, tuple]] = None
     """`predicate`: {column: (lo, hi)} closed ranges (None = unbounded
     side); row groups whose min/max statistics prove emptiness are
     skipped entirely (lib/trino-parquet predicate pushdown analogue)."""
-    global bytes_scanned
     data, meta = _read_footer(path)
     num_rows = meta[3]
     row_groups = meta[4]
@@ -1091,7 +1091,7 @@ def read_parquet(path: str, predicate: Optional[Dict[str, tuple]] = None
                 raw_len = ph[2]
                 page_len = ph[3]
                 page_start = r.pos
-                bytes_scanned += page_len
+                METRICS.increment("bytes_scanned", page_len)
                 page = _decompress(
                     codec, data[page_start:page_start + page_len], raw_len
                 )

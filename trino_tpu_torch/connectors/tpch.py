@@ -575,7 +575,10 @@ def _lineitem_rows(order_lo: int, order_hi: int, sf: float):
     order_idx = np.arange(order_lo, order_hi, dtype=np.int64)
     counts = _line_counts(order_idx)
     oi = np.repeat(order_idx, counts)
-    ln = np.concatenate([np.arange(1, c + 1) for c in counts]) if len(counts) else np.zeros(0, np.int64)
+    # line numbers 1..count within each order, without a per-order loop:
+    # each row's position minus its order's first position, plus one
+    first = np.cumsum(counts) - counts
+    ln = np.arange(len(oi), dtype=np.int64) - np.repeat(first, counts) + 1
     return oi, ln.astype(np.int64)
 
 

@@ -37,9 +37,15 @@ execution ends, also when it fails. EXPLAIN ANALYZE runs the plan with
 instrumented operators (exec/stats.py) and renders the plan text, then
 each pipeline's per-operator rows, batches and device-inclusive walls.
 
-Not ported yet: query events, metrics and spans (ROADMAP §1 item 11),
-and the resident, adaptive, recovery, serving-front and compile-cache
-tiers (item 13).
+Query events, metrics and spans (the reference's engine.py:1207-1290):
+every query runs under a span tree (runtime/tracing.py), counts into
+METRICS (runtime/metrics.py) and fires QueryCreated/QueryCompleted to
+`event_listeners` (runtime/events.py); EXPLAIN ANALYZE ends with the
+engine counters' deltas. The reference's per-query XLA compile count
+has no torch meaning: compile_count reads 0.
+
+Not ported yet: the resident, adaptive, recovery, serving-front and
+compile-cache tiers (ROADMAP §1 item 13).
 """
 
 from __future__ import annotations
@@ -210,7 +216,9 @@ class MaterializedResult:
     # X-Trino-Deallocated-Prepare response headers)
     added_prepare: Optional[tuple] = None
     deallocated_prepare: Optional[str] = None
-    # the data plane that ran the query: always one process here
+    # the data plane that ran the query: "local" for LocalQueryRunner,
+    # "http" for the distributed runner's page exchange (the reference's
+    # name for it, in process or not)
     data_plane: str = "local"
 
     def only_value(self):
@@ -274,6 +282,13 @@ class LocalQueryRunner:
         self._bound_dtypes_tls = threading.local()
         # the memory pool of the last query (None without a pool)
         self._last_pool = None
+        from trino_tpu_torch.runtime.events import EventListenerManager
+
+        self.event_listeners = EventListenerManager()
+        self.event_listeners.register_metrics()
+        self._query_seq = 0
+        # the last completed query's span tree
+        self._last_trace: Optional[tuple] = None
 
     @property
     def identity(self) -> Identity:
@@ -399,10 +414,7 @@ class LocalQueryRunner:
                     self._invalidate_plans()
             return dataclasses.replace(_done(), cleared_transaction=True)
         if isinstance(stmt, ast.Query):
-            # the reference's _run_tracked wraps this in query events,
-            # metrics and spans: runtime/events.py, metrics.py and
-            # tracing.py, ROADMAP §1 item 11
-            return self._execute_query(stmt, sql_key=sql)
+            return self._run_tracked(sql, stmt)
         if isinstance(stmt, ast.ExplainStatement):
             if stmt.analyze:
                 return self._explain_analyze(stmt.query)
@@ -615,13 +627,108 @@ class LocalQueryRunner:
             sink.rows(), list(output.names), [f.type for f in output.fields]
         )
 
+    def _run_tracked(self, sql: str, stmt: ast.Query) -> MaterializedResult:
+        """Query lifecycle: span tree + event listener dispatch around
+        the execution (SqlQueryExecution's tracing shape)."""
+        import time as _time
+
+        from trino_tpu_torch.runtime.events import QueryCreatedEvent
+        from trino_tpu_torch.runtime.metrics import METRICS
+        from trino_tpu_torch.runtime.tracing import KIND_QUERY, QueryTrace
+
+        self._query_seq += 1
+        query_id = f"local-{self._query_seq}"
+        trace = QueryTrace(query_id)
+        qspan = trace.span(f"query {query_id}", KIND_QUERY, sql=sql[:500])
+        counters_before = METRICS.snapshot()
+        self.event_listeners.query_created(
+            QueryCreatedEvent(query_id, sql, _time.time())
+        )
+        status, failure, rows_n = "finished", None, 0
+        try:
+            result = self._execute_query(stmt, sql_key=sql)
+            rows_n = len(result.rows)
+            return result
+        except BaseException as e:
+            status, failure = "failed", repr(e)
+            if not qspan.ended:
+                qspan.event("exception", error=repr(e)[:300])
+                qspan.set(error=True)
+            raise
+        finally:
+            self._finalize_query(
+                query_id, sql, trace, qspan, status, failure, rows_n,
+                counters_before,
+            )
+
+    def _finalize_query(self, query_id, sql, trace, qspan, status,
+                        failure, rows_n, counters_before):
+        """Close the span tree and fire the enriched completion event.
+        Observability finalization must never mask the query's own
+        verdict, so it swallows."""
+        try:
+            from trino_tpu_torch.exec.stats import engine_counters_delta
+            from trino_tpu_torch.runtime.events import QueryCompletedEvent
+            from trino_tpu_torch.runtime.metrics import METRICS
+
+            qspan.set(state=status)
+            qspan.end()
+            trace.end_open_spans(qspan.end_s)
+            wall = qspan.duration_s
+            METRICS.observe("query_wall_s", wall)
+            counters = engine_counters_delta(counters_before, METRICS.snapshot())
+            peak = 0
+            if self._last_pool is not None:
+                peaks = self._last_pool.query_peaks()
+                peak = int(max(peaks.values(), default=0))
+            self._last_trace = (query_id, trace)
+            self.event_listeners.query_completed(
+                QueryCompletedEvent(
+                    query_id, sql, status, wall,
+                    rows=rows_n, failure=failure,
+                    peak_memory_bytes=peak,
+                    rows_scanned=int(counters.get("rows_scanned", 0)),
+                    bytes_scanned=int(counters.get("bytes_scanned", 0)),
+                    rows_shuffled=int(counters.get("rows_shuffled", 0)),
+                    compile_count=0,
+                )
+            )
+        except Exception:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "query finalization failed for %s", query_id, exc_info=True
+            )
+
+    def query_trace_export(self, query_id: Optional[str] = None):
+        """Span tree of the most recent query (the local runner keeps
+        only the last trace); None when the id does not match."""
+        if self._last_trace is None:
+            return None
+        qid, trace = self._last_trace
+        if query_id is not None and query_id != qid:
+            return None
+        return trace.export()
+
+    def query_chrome_trace(self, query_id: Optional[str] = None):
+        from trino_tpu_torch.runtime.tracing import chrome_trace
+
+        export = self.query_trace_export(query_id)
+        if export is None:
+            return None
+        return {"traceEvents": chrome_trace(export)}
+
     def _explain_analyze(self, q: ast.Query) -> MaterializedResult:
         """EXPLAIN ANALYZE: run the plan with instrumented operators and
         render the plan, then per-operator statistics, each operator
         section closed by a device barrier (ExplainAnalyzeOperator)."""
         from trino_tpu_torch.exec.stats import instrument, render_stats
 
+        from trino_tpu_torch.exec.stats import engine_counters_delta
+        from trino_tpu_torch.runtime.metrics import METRICS
+
         output, physical = self._plan(q, sql_key=None)
+        before = METRICS.snapshot()
         ctx, pipelines, chain = self._instance(physical)
         groups, wrapped = [], []
         for ops in pipelines + [chain + [CollectorSink()]]:
@@ -637,7 +744,8 @@ class LocalQueryRunner:
         # count XLA programs: compile/, ROADMAP §1 item 13
         # the reference's warmup line: compile/warmup.py, item 13
         # the reference's adaptive report: adaptive/, item 13
-        text = P.explain_text(output) + "\n\n" + render_stats(groups)
+        counters = engine_counters_delta(before, METRICS.snapshot())
+        text = P.explain_text(output) + "\n\n" + render_stats(groups, counters)
         return MaterializedResult([[text]], ["Query Plan"], [T.VARCHAR])
 
     def _invalidate_plans(self, table=None) -> None:

@@ -7,10 +7,11 @@ batch's device; filters only flip `live` mask bits and dead rows ride
 along until an explicit compact, as in the reference.
 
 Ported: TableScan (with runtime dynamic-filter constraints), Values,
-FilterProject, Limit, Sort, TopN, Window, single-step HashAggregation
-(global, dense, grouped-sum kernel and sort routes, with the N-way state
-merge, and the holistic path for min_by/max_by, approx_distinct,
-approx_percentile, pctl_merge and listagg), EnforceSingleRow, the hash
+FilterProject, Limit, Sort, TopN, Window, HashAggregation in its single,
+partial and final steps (global, dense, grouped-sum kernel and sort
+routes, with the N-way state merge, and the holistic path for
+min_by/max_by, approx_distinct, approx_percentile, pctl_merge and
+listagg), EnforceSingleRow, the hash
 join (HashBuildSink + LookupJoinOperator for inner, left, full, semi,
 anti and mark joins), the join-project MxuJoinAggOperator,
 DynamicFilter, the cross join, BufferSink/BufferSource (UNION ALL) and
@@ -27,8 +28,9 @@ format (`partial_output_schema`) and merges it back at finish, and the
 build side turns into a grace hash join, whose probe side spills to the
 same hash partitions and joins partition by partition at finish
 (exec/spill.py). Revocation may come from another operator's thread, so
-buffered state changes under each operator's lock. The partial/final
-aggregation steps of the distributed plane are queued in ROADMAP.md.
+buffered state changes under each operator's lock. The distributed
+plane's partial step emits the same partial wire format, and its final
+step ingests it through the spill's merge path.
 """
 
 from __future__ import annotations
@@ -136,11 +138,13 @@ class TableScanOperator(Operator):
             cs = tuple(self._runtime_constraints())
             if cs:
                 from trino_tpu_torch.connectors.pushdown import merge_handle_constraints
+                from trino_tpu_torch.runtime.metrics import METRICS
 
                 splits = [
                     dataclasses.replace(s, table=merge_handle_constraints(s.table, cs))
                     for s in splits
                 ]
+                METRICS.increment("dynamic_filter_scan_constraints")
         for split in splits:
             yield from self._page_source.batches(
                 split, self._columns, self._batch_rows, device=self._device
@@ -157,6 +161,16 @@ class TableScanOperator(Operator):
         nxt = next(self._iters, None)
         if nxt is None:
             self._done = True
+            return None
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        if nxt.live is not None:
+            n = int(torch.sum(nxt.live))
+        elif nxt.columns:
+            n = int(nxt.columns[0].data.shape[0])
+        else:
+            n = 0
+        METRICS.increment("rows_scanned", n)
         return nxt
 
     def is_finished(self) -> bool:
@@ -1142,12 +1156,19 @@ def kernel_band_enabled(device) -> bool:
 
 
 class HashAggregationOperator(Operator):
-    """GROUP BY + aggregates, single step (raw rows in, results out).
-    Per-batch group states collect and merge in one N-way pass; output
-    schema = [group keys..., aggregate results...]. Route selection is
-    the reference's: dense slots for bounded domains up to 64 slots, the
-    grouped-sum kernel for bounded sum/count domains up to 2048 slots,
-    the sort path otherwise.
+    """GROUP BY + aggregates. Per-batch group states collect and merge
+    in one N-way pass; output schema = [group keys..., aggregate
+    results...]. Route selection is the reference's: dense slots for
+    bounded domains up to 64 slots, the grouped-sum kernel for bounded
+    sum/count domains up to 2048 slots, the sort path otherwise.
+
+    `step` is the reference's AggregationNode.Step: "single" (raw rows
+    in, results out), "partial" (raw rows in, the accumulator state out
+    in `partial_output_schema`'s layout) or "final" (that state in,
+    results out). A final step's input value columns carry each
+    aggregate's argument representation (decimal scale, dictionary), so
+    finalization reads it from the input schema. A partial step picks
+    its route as a single step does.
 
     Under a memory pool the group state of a grouped aggregation is
     revocable (SpillableHashAggregationBuilder): a revoke merges it,
@@ -1166,7 +1187,10 @@ class HashAggregationOperator(Operator):
         deferred_checks: Optional[List] = None,
         pre_fn=None,
         memory_context=None,
+        step: str = "single",
     ):
+        assert step in ("single", "partial", "final"), step
+        self._step = step
         self._device = torch.device(device)
         self._pre = pre_fn
         self._group_channels = list(group_channels)
@@ -1183,9 +1207,15 @@ class HashAggregationOperator(Operator):
         # holistic aggregates need the raw rows: batches collect and
         # reduce once at finish
         self._holistic = any(a.kind in HOLISTIC_KINDS for a in self._aggs)
+        if self._holistic:
+            assert step == "single", "holistic aggregates run single-step"
         self._collected: List[RelBatch] = []
         self._acc = None
         self._pending: List[tuple] = []
+        # a state ingested off the wire may carry duplicate group keys
+        # within one batch (pages of several producers), so it passes
+        # through a group-reduce even when it is the only pending state
+        self._unreduced_state = False
         self._gstate = None
         self._out: Optional[RelBatch] = None
         self._arg_meta = [
@@ -1286,6 +1316,12 @@ class HashAggregationOperator(Operator):
 
                 self._memory.set_bytes(sum(batch_bytes(b) for b in self._collected))
             return
+        if self._step == "final":
+            if self._pre is not None:
+                batch = self._pre(batch)
+            self._add_state_input(batch)
+            self._track_memory()
+            return
         if self._global:
             if self._pre is not None:
                 batch = self._pre(batch)
@@ -1363,7 +1399,10 @@ class HashAggregationOperator(Operator):
 
     def _partial_state_batch(self) -> RelBatch:
         """The merged group state as a partial-wire-format batch
-        (`partial_output_schema`'s layout)."""
+        (`partial_output_schema`'s layout), shared by the exchange and
+        the spiller."""
+        if self._acc is None:
+            self._acc = self._empty_acc()
         cols: List[Column] = []
         gk, gv, used, vals, cnts = self._acc
         ki = 0
@@ -1388,8 +1427,12 @@ class HashAggregationOperator(Operator):
         """Ingest a partial-wire-format batch as a group-state set: k key
         columns, then one (value, count) pair per aggregate; long
         decimals split back into the slot layout (keys into limb lanes,
-        sums into four limb slots, extremes into (hi, lo) slots)."""
+        sums into four limb slots, extremes into (hi, lo) slots). A global
+        final step folds the single-row states instead."""
         k = len(self._group_channels)
+        if self._global:
+            self._merge_global_state(batch, batch.live_mask())
+            return
         keys, valids = [], []
         for c in range(k):
             col = batch.columns[c]
@@ -1417,6 +1460,80 @@ class HashAggregationOperator(Operator):
         with self._state_lock:
             self._pending.append(
                 (tuple(keys), tuple(valids), batch.live_mask(), tuple(vals), tuple(cnts)))
+            self._unreduced_state = True
+
+    def _merge_global_state(self, batch: RelBatch, live) -> None:
+        """Global (no GROUP BY) final step: fold incoming single-row
+        states with the merge reducers."""
+        if self._gstate is None:
+            self._gstate = self._global_init()
+        out = []
+        for i, a in enumerate(self._aggs):
+            val, cnt = self._gstate[i]
+            v_in = batch.columns[2 * i].data
+            c_in = batch.columns[2 * i + 1].data.to(torch.int64)
+            c_in = torch.where(live, c_in, torch.zeros_like(c_in))
+            n = torch.sum(c_in)
+            present = live & (c_in > 0)
+            any_present = torch.any(present)
+            red = _MERGE_REDUCER[a.kind]
+            if v_in.dim() == 2:
+                # Int128 partial states merge in limb arithmetic
+                if red == "sum":
+                    zero = torch.zeros((), dtype=torch.int64, device=v_in.device)
+                    limb_sums = [torch.sum(torch.where(live, piece, zero))
+                                 for piece in _limb_split(v_in)]
+                    bh, bl = _limb_join(limb_sums)
+                    h, lo = I128.add(val[0], val[1], bh, bl)
+                    out.append((torch.stack([h, lo]), cnt + n))
+                elif red in ("min", "max"):
+                    m1, m2 = _lex128_reduce(v_in[:, 0], v_in[:, 1], present, red)
+                    better = (I128.lt(m1, m2, val[0], val[1]) if red == "min"
+                              else I128.lt(val[0], val[1], m1, m2))
+                    take = (better | (cnt == 0)) & any_present
+                    out.append((torch.stack([torch.where(take, m1, val[0]),
+                                             torch.where(take, m2, val[1])]), cnt + n))
+                else:  # first
+                    first = v_in[torch.argmax(present.to(torch.int8))]
+                    new_val = torch.where(
+                        cnt > 0, val, torch.where(any_present, first, val))
+                    out.append((new_val, cnt + n))
+                continue
+            if red == "sum":
+                contrib = torch.where(live, v_in.to(val.dtype),
+                                      torch.zeros((), dtype=val.dtype, device=v_in.device))
+                out.append((val + torch.sum(contrib), cnt + n))
+            elif red in ("min", "max"):
+                neutral = torch.tensor(G.minmax_neutral(v_in.dtype, red),
+                                       dtype=v_in.dtype, device=v_in.device)
+                masked = torch.where(present, v_in, neutral)
+                r = torch.min(masked) if red == "min" else torch.max(masked)
+                op = torch.minimum if red == "min" else torch.maximum
+                out.append((op(val, r.to(val.dtype)), cnt + n))
+            else:  # first
+                first = v_in[torch.argmax(present.to(torch.int8))]
+                new_val = torch.where(cnt > 0, val, torch.where(any_present, first, val))
+                out.append((new_val, cnt + n))
+        self._gstate = out
+
+    def _emit_partial(self) -> None:
+        """The partial step's output: the accumulator state in the
+        partial wire format (a global step's single row of states)."""
+        if self._global:
+            cols: List[Column] = []
+            states = self._gstate if self._gstate is not None else self._global_init()
+            for a, (val, cnt) in zip(self._aggs, states):
+                vt, vd = agg_state_meta(a, self._schema)[0]
+                cols.append(Column(vt, val[None].to(vt.dtype), None, vd))
+                cols.append(Column(T.BIGINT, cnt[None].to(torch.int64), None, None))
+            self._out = RelBatch(
+                cols, torch.ones(1, dtype=torch.bool, device=self._device))
+            return
+        out = self._partial_state_batch()
+        if out.capacity >= _SHRINK_MIN_CAPACITY and self._dense_dims is None \
+                and self._mxu_dims is None:
+            out = _shrink_prefix(out, int(torch.sum(out.live_mask())))
+        self._out = out
 
     def _merge_pending(self) -> None:
         """Fold pending per-batch states (+ current acc) into one."""
@@ -1424,7 +1541,7 @@ class HashAggregationOperator(Operator):
         self._pending = []
         if not states:
             return
-        if len(states) == 1:
+        if len(states) == 1 and not self._unreduced_state:
             self._acc = states[0]
             return
         reducers = []
@@ -1442,6 +1559,7 @@ class HashAggregationOperator(Operator):
                 break
             self._cap = max(self._cap * 2, bucket_capacity(int(ngroups)))
         self._acc = merged
+        self._unreduced_state = False
 
     def _global_init(self):
         states = []
@@ -1519,6 +1637,9 @@ class HashAggregationOperator(Operator):
             elif bool(flag):
                 raise RuntimeError(msg)
             self._deferred_ovf = []
+        if self._step == "partial":
+            self._emit_partial()
+            return
         cols: List[Column] = []
         if self._global:
             states = self._gstate if self._gstate is not None else self._global_init()

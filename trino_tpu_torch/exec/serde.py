@@ -25,8 +25,10 @@ registry differs names other zones.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import struct
+import threading
 import zlib
 from typing import List, Optional, Sequence, Tuple
 
@@ -259,6 +261,31 @@ def _nested_to_device(hn: HostNested, capacity: int, device):
 COMPRESS_MIN_BYTES = 1 << 13  # below this, compression costs more than it saves
 
 
+# Dictionary objects of recently seen wire value tuples, by identity:
+# the pages cut from one batch (a hash split, a broadcast's replicas)
+# share their producer's value tuple, so each consumer page would
+# otherwise sort and index the same values again. Each entry holds its
+# tuple, so an id in the cache is never reused while the entry lives.
+_DICT_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_DICT_CACHE_LOCK = threading.Lock()
+_DICT_CACHE_MAX = 64
+
+
+def _dictionary_of(dvals) -> Dictionary:
+    key = id(dvals)
+    with _DICT_CACHE_LOCK:
+        hit = _DICT_CACHE.get(key)
+        if hit is not None and hit[0] is dvals:
+            _DICT_CACHE.move_to_end(key)
+            return hit[1]
+    d = Dictionary(dvals)
+    with _DICT_CACHE_LOCK:
+        _DICT_CACHE[key] = (dvals, d)
+        while len(_DICT_CACHE) > _DICT_CACHE_MAX:
+            _DICT_CACHE.popitem(last=False)
+    return d
+
+
 @dataclasses.dataclass
 class Page:
     """Host-side compacted batch: the unit of exchange and of spill.
@@ -349,7 +376,7 @@ class Page:
             if isinstance(data, HostNested):
                 out.append(_nested_to_device(data, cap, device))
                 continue
-            d = Dictionary(dvals) if dvals is not None else None
+            d = _dictionary_of(dvals) if dvals is not None else None
             # Dictionary values are sorted and deduplicated on
             # construction; re-encode the codes if that moved any
             if d is not None and d.values != tuple(dvals):

@@ -10,8 +10,16 @@ add_input/get_output/finish). Two timing modes:
   timed section on a CUDA device, so each operator's wall includes the
   device time of the work it launched (a no-op on the CPU).
 
-Left out: the shape ledger that EXPLAIN ANALYZE's census reads (ROADMAP
-§1 item 13) and the task heartbeat and operator trace spans (item 11).
+Two hooks ride the recording path, as in the reference: `heartbeat`
+(zero-arg callable) fires at entry and exit of every add_input/
+get_output/finish (a distributed task's watchdog freshness), and `span`
+(runtime/tracing.py) is anchored at the operator's first activity and
+ended by `close_span` with the final stats attached. EXPLAIN ANALYZE's
+"Engine counters:" line reads the METRICS deltas of ENGINE_COUNTERS.
+
+Left out: the shape ledger that EXPLAIN ANALYZE's census reads and the
+`xla_compiles` engine counter; both count XLA programs (ROADMAP §1 item
+13).
 """
 
 from __future__ import annotations
@@ -67,8 +75,12 @@ class InstrumentedOperator:
     OperationTimer discipline without touching operator code)."""
 
     def __init__(self, inner, stats: OperatorStats, count_rows: bool,
-                 device_sync: bool = False, device=None):
+                 device_sync: bool = False, device=None, heartbeat=None,
+                 span=None):
         self.inner = inner
+        self._heartbeat = heartbeat
+        self._span = span
+        self._span_anchored = False
         self.stats = stats
         self.stats.operator = type(inner).__name__
         self.stats.device_synced = device_sync
@@ -83,6 +95,15 @@ class InstrumentedOperator:
     def _barrier(self) -> None:
         if self._device_sync:
             _device_barrier(self._device)
+
+    def _beat(self) -> None:
+        if self._heartbeat is not None:
+            self._heartbeat()
+        if self._span is not None and not self._span_anchored:
+            # span start = first activity, not wrap time: operators deep
+            # in a pipeline idle until data reaches them
+            self._span_anchored = True
+            self._span.start_s = time.time()
 
     def _count(self, attr: str, batch) -> None:
         live = getattr(batch, "live", None)
@@ -99,10 +120,24 @@ class InstrumentedOperator:
         for attr, v in pending:
             setattr(self.stats, attr, getattr(self.stats, attr) + int(v))
 
+    def close_span(self) -> None:
+        """Flush the deferred row counts, then end the operator span
+        with the final stats attached (called by the task when its
+        pipelines complete)."""
+        self.flush_counts()
+        if self._span is None:
+            return
+        self._span.set(**{
+            k: v for k, v in dataclasses.asdict(self.stats).items()
+            if k != "operator"
+        })
+        self._span.end()
+
     def needs_input(self) -> bool:
         return self.inner.needs_input()
 
     def add_input(self, batch) -> None:
+        self._beat()
         t0 = time.monotonic()
         self.inner.add_input(batch)
         self._barrier()
@@ -111,8 +146,10 @@ class InstrumentedOperator:
         self.stats.input_batches += 1
         if self._count_rows:
             self._count("input_rows", batch)
+        self._beat()
 
     def get_output(self):
+        self._beat()
         t0 = time.monotonic()
         out = self.inner.get_output()
         if out is not None:
@@ -124,13 +161,16 @@ class InstrumentedOperator:
             self.stats.output_batches += 1
             if self._count_rows:
                 self._count("output_rows", out)
+            self._beat()
         return out
 
     def finish(self) -> None:
+        self._beat()
         t0 = time.monotonic()
         self.inner.finish()
         self._barrier()
         self.stats.finish_s += time.monotonic() - t0
+        self._beat()
 
     def is_finished(self) -> bool:
         return self.inner.is_finished()
@@ -144,19 +184,41 @@ class InstrumentedOperator:
 
 
 def instrument(operators, count_rows: bool = True, device_sync: bool = False,
-               device=None):
+               device=None, heartbeat=None, span_factory=None):
     """Wrap a pipeline's operators; returns (wrapped, [OperatorStats]).
     `device_sync=True` closes every timed section with a barrier on
-    `device` (EXPLAIN ANALYZE's device-inclusive attribution)."""
+    `device` (EXPLAIN ANALYZE's device-inclusive attribution);
+    `heartbeat` is beaten around every call; `span_factory(operator
+    name) -> Span` opens one trace span per operator."""
     stats = [OperatorStats() for _ in operators]
     wrapped = [
-        InstrumentedOperator(op, st, count_rows, device_sync, device)
+        InstrumentedOperator(
+            op, st, count_rows, device_sync, device, heartbeat=heartbeat,
+            span=(span_factory(type(op).__name__)
+                  if span_factory is not None else None),
+        )
         for op, st in zip(operators, stats)
     ]
     return wrapped, stats
 
 
-def render_stats(groups: List[List[OperatorStats]]) -> str:
+ENGINE_COUNTERS = (
+    "rows_scanned",
+    "bytes_scanned",
+    "rows_shuffled",
+    "exchanges_elided",
+)
+
+
+def engine_counters_delta(before: dict, after: dict) -> dict:
+    """Per-query view of the METRICS singleton's cumulative engine
+    counters: snapshot() before and after the run, subtract."""
+    return {
+        k: after.get(k, 0.0) - before.get(k, 0.0) for k in ENGINE_COUNTERS
+    }
+
+
+def render_stats(groups: List[List[OperatorStats]], counters=None) -> str:
     lines = []
     if any(st.device_synced for g in groups for st in g):
         lines.append(
@@ -168,6 +230,9 @@ def render_stats(groups: List[List[OperatorStats]]) -> str:
         lines.append(f"Pipeline {i}:")
         for st in group:
             lines.append("  " + st.line())
-    # the reference's "Engine counters:" line reads runtime/metrics.py's
-    # METRICS: ROADMAP §1 item 11
+    if counters is not None:
+        lines.append(
+            "Engine counters: "
+            + " ".join(f"{k}={counters.get(k, 0.0):.0f}" for k in ENGINE_COUNTERS)
+        )
     return "\n".join(lines)

@@ -26,6 +26,17 @@ PTXAS_LOG: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# guards every wrapper's `launches` and `shapes`: a distributed query's
+# tasks launch kernels from several threads at once
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, shape) -> None:
+    """One launch of `wrapper`'s kernel: add one to its `launches` and
+    record `shape` in its `shapes`."""
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.shapes.add(shape)
 
 
 def source_path(name: str) -> str:

@@ -138,10 +138,9 @@ def _launch_flat(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     go, out = flat_launcher(table, idx)
     if out.numel():
         go()
-        take_flat.launches += 1
-        take_flat.shapes.add((int(table.shape[0]), out.numel(), table.element_size(),
-                              idx.element_size(),
-                              flat_ilp(out.numel(), cuda_build.sm_count(table.device))))
+        cuda_build.count_launch(take_flat, (
+            int(table.shape[0]), out.numel(), table.element_size(), idx.element_size(),
+            flat_ilp(out.numel(), cuda_build.sm_count(table.device))))
     return out
 
 
@@ -175,8 +174,7 @@ def take_rows_sum(table2d: torch.Tensor, ridx: torch.Tensor) -> torch.Tensor:
     go, out = rows_sum_launcher(table2d, ridx)
     if out.numel():
         go()
-        take_rows_sum.launches += 1
-        take_rows_sum.shapes.add(tuple(table2d.shape) + (
+        cuda_build.count_launch(take_rows_sum, tuple(table2d.shape) + (
             out.numel(), rows_sum_path(int(table2d.shape[0]), out.numel())))
     return out
 
@@ -238,8 +236,7 @@ def take_along_lanes(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     go, out = along_launcher(src, sel)
     if out.numel():
         go()
-        take_along_lanes.launches += 1
-        take_along_lanes.shapes.add(tuple(src.shape))
+        cuda_build.count_launch(take_along_lanes, tuple(src.shape))
     return out
 
 

@@ -94,8 +94,7 @@ def _launch(gid, values, live, capacity: int) -> List[torch.Tensor]:
         stream,
     )
     cuda_build.check(err, "grouped_sum")
-    grouped_sum.launches += 1
-    grouped_sum.shapes.add((n, k, capacity))
+    cuda_build.count_launch(grouped_sum, (n, k, capacity))
     return list(out.unbind(0))
 
 

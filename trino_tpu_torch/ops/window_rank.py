@@ -199,9 +199,9 @@ def _launch(a, b, searched: bool, w0: int, nwin: int, edge: bool) -> torch.Tenso
     go, out = launcher(a, b, searched, w0, nwin, edge)
     if out.numel():
         go()
-        rank.launches += 1
-        rank.shapes.add((out.numel(), int(b.shape[0]),
-                         "searched" if searched else "fixed", nwin, a.element_size()))
+        cuda_build.count_launch(rank, (out.numel(), int(b.shape[0]),
+                                       "searched" if searched else "fixed", nwin,
+                                       a.element_size()))
     return out
 
 
@@ -257,8 +257,7 @@ def _launch_bounds(q: torch.Tensor, b: torch.Tensor):
     go, (lo, hi) = bounds_launcher(q, b)
     if lo.numel():
         go()
-        bounds.launches += 1
-        bounds.shapes.add((lo.numel(), int(b.shape[0]), q.element_size()))
+        cuda_build.count_launch(bounds, (lo.numel(), int(b.shape[0]), q.element_size()))
     return lo, hi
 
 
@@ -307,8 +306,7 @@ def _launch_run_owner(off: torch.Tensor, n_out: int) -> torch.Tensor:
     go, out = run_owner_launcher(off, n_out)
     if out.numel():
         go()
-        run_owner.launches += 1
-        run_owner.shapes.add((n_out, int(off.shape[0])))
+        cuda_build.count_launch(run_owner, (n_out, int(off.shape[0])))
     return out
 
 

@@ -30,8 +30,8 @@ read the written table) and wholesale
 otherwise (`invalidate` — COMMIT, catalog registration; cached
 physical plans capture split listings, i.e. data snapshots). The
 counters are the cache's hits/misses/evictions/invalidations
-attributes; their /v1/metrics names come with runtime/metrics.py
-(ROADMAP §1 item 11).
+attributes, also counted in runtime/metrics.py's METRICS as
+plan_cache.{hits,misses,evictions,invalidations} (`metrics_prefix`).
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from typing import Any, Optional, Tuple
+
+from trino_tpu_torch.runtime.metrics import METRICS
 
 # Session properties that shape the plan (resolution, optimizer
 # decisions, physical layout). Anything listed here that
@@ -101,8 +103,9 @@ class PlanCache:
     Values are opaque to the cache: the runner stores
     (OutputNode, PhysicalPlan)."""
 
-    def __init__(self, max_entries: int = 256):
+    def __init__(self, max_entries: int = 256, metrics_prefix: str = "plan_cache"):
         self.max_entries = max(1, int(max_entries))
+        self._prefix = metrics_prefix
         self._lock = threading.Lock()
         self._entries: "OrderedDict[Tuple, Any]" = OrderedDict()
         self._tables: dict = {}  # key -> frozenset of source tables
@@ -128,9 +131,11 @@ class PlanCache:
             entry = self._entries.get(key)
             if entry is None:
                 self.misses += 1
+                METRICS.increment(f"{self._prefix}.misses")
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
+            METRICS.increment(f"{self._prefix}.hits")
             return entry
 
     def contains(self, key: Tuple) -> bool:
@@ -154,6 +159,7 @@ class PlanCache:
                 old, _ = self._entries.popitem(last=False)
                 self._tables.pop(old, None)
                 self.evictions += 1
+                METRICS.increment(f"{self._prefix}.evictions")
 
     def invalidate(self) -> None:
         """Catalog/schema changed (DDL, DML, commit): every cached plan
@@ -163,6 +169,7 @@ class PlanCache:
             self._tables.clear()
             self.generation += 1
             self.invalidations += 1
+            METRICS.increment(f"{self._prefix}.invalidations")
 
     def invalidate_tables(self, tables) -> int:
         """Table-granular invalidation: drop plans that read any of
@@ -183,6 +190,7 @@ class PlanCache:
                 self._tables.pop(k, None)
             self.generation += 1
             self.invalidations += 1
+            METRICS.increment(f"{self._prefix}.invalidations")
             return len(victims)
 
     def __len__(self) -> int:

@@ -13,12 +13,15 @@ join's build side becomes a pipeline of its own, which the engine runs
 to completion before the pipelines that probe it.
 
 Ported node kinds: Output, Scan, Values, Filter, Project, Aggregate
-(single step, DISTINCT aggregates in the single-distinct shape, and the
-join-project route over an inner equi-join when the session enables it),
-Join (hash joins of every kind, with dynamic filtering, and cross
-joins), Window, UnionAll, EnforceSingleRow, Sort, TopN, Limit, Unnest,
-MatchRecognize. Remote sources and the partial/final aggregation steps
-are queued in ROADMAP.md.
+(single, partial and final steps, DISTINCT aggregates in the
+single-distinct shape, and the join-project route over an inner
+equi-join when the session enables it), Join (hash joins of every kind,
+with dynamic filtering, and cross joins), Window, UnionAll,
+EnforceSingleRow, Sort, TopN, Limit, Unnest, MatchRecognize and
+RemoteSource (a distributed task's exchange input: the execution context
+supplies "make_remote_source"). A task plans its fragment with
+`remote_schemas` (producer fragment id -> schema) and `scan_slice`
+((task index, task count): the task's share of the splits).
 """
 
 from __future__ import annotations
@@ -109,8 +112,11 @@ class LocalPlanner:
     def __init__(self, catalogs: CatalogManager, device,
                  batch_rows: int = 1 << 20, target_splits: int = 1,
                  dynamic_filtering: bool = True,
-                 mxu_join: bool = False, mxu_join_min_work: float = 16.0):
+                 mxu_join: bool = False, mxu_join_min_work: float = 16.0,
+                 remote_schemas=None, scan_slice=None):
         self.catalogs = catalogs
+        self.remote_schemas = remote_schemas or {}
+        self.scan_slice = scan_slice
         self.device = torch.device(device)
         self.batch_rows = batch_rows
         self.target_splits = target_splits
@@ -140,11 +146,7 @@ class LocalPlanner:
     def _visit(self, node: P.PlanNode):
         m = getattr(self, f"_visit_{type(node).__name__}", None)
         if m is None:
-            raise NotImplementedError(
-                f"no physical plan for {type(node).__name__} in trino_tpu_torch "
-                "yet (ROADMAP §1 item 11: the distributed plane's remote sources "
-                "are still to port)"
-            )
+            raise NotImplementedError(f"no physical plan for {type(node).__name__}")
         return m(node)
 
     def _visit_OutputNode(self, node: P.OutputNode):
@@ -153,6 +155,9 @@ class LocalPlanner:
     def _visit_ScanNode(self, node: P.ScanNode):
         conn = self.catalogs.get(node.catalog)
         splits = conn.split_manager.get_splits(node.handle, self.target_splits)
+        if self.scan_slice is not None:
+            idx, count = self.scan_slice
+            splits = splits[idx::count]
         columns = list(node.columns)
         page_source = conn.page_source
         batch_rows, device = self.batch_rows, self.device
@@ -206,6 +211,27 @@ class LocalPlanner:
             chain.pop()
         return pf
 
+    def _visit_RemoteSourceNode(self, node: P.RemoteSourceNode):
+        """The exchange client as a source operator (ExchangeOperator;
+        with merge_keys, MergeOperator). The execution context provides
+        "make_remote_source": (fragment_ids) -> page source; each page
+        lands on this planner's device."""
+        from trino_tpu_torch.exec.exchange_ops import RemoteSourceOperator
+
+        schemas = [self.remote_schemas[fid] for fid in node.fragment_ids]
+        assert schemas and all(
+            [t for t, _ in s] == [t for t, _ in schemas[0]] for s in schemas
+        ), "remote source fragments must share one schema"
+        schema: Schema = schemas[0]
+        fragment_ids = tuple(node.fragment_ids)
+        merge_keys = list(node.merge_keys) if node.merge_keys else None
+        device = self.device
+        return [
+            lambda ctx: RemoteSourceOperator(
+                ctx["make_remote_source"](fragment_ids), merge_keys, device=device,
+            )
+        ], schema
+
     def _visit_FilterNode(self, node: P.FilterNode):
         chain, schema = self._visit(node.child)
         flt = self._bind(node.predicate, schema)
@@ -225,10 +251,6 @@ class LocalPlanner:
         return chain, [(b.type, b.dictionary) for b in bounds]
 
     def _visit_AggregateNode(self, node: P.AggregateNode):
-        if node.step != "single":
-            raise NotImplementedError(
-                f"{node.step} aggregation step: ROADMAP §1 item 11 (distributed plane)"
-            )
         mxu = self._try_mxu_join_agg(node)
         if mxu is not None:
             return mxu
@@ -243,15 +265,20 @@ class LocalPlanner:
             for a in node.aggs
         ]
         groups = list(node.group_channels)
+        step = node.step
         pre = self._take_fused(chain)
         device = self.device
         chain.append(
             lambda ctx: HashAggregationOperator(
                 groups, specs, schema, device,
                 deferred_checks=ctx.setdefault("deferred_checks", []),
-                pre_fn=pre, memory_context=_mem_ctx(ctx),
+                pre_fn=pre, memory_context=_mem_ctx(ctx), step=step,
             )
         )
+        if step == "partial":
+            from trino_tpu_torch.exec.operators import partial_output_schema
+
+            return chain, partial_output_schema(specs, groups, schema)
 
         def _out_dict(a):
             # results taken from the argument column keep its dictionary;
@@ -266,6 +293,13 @@ class LocalPlanner:
         out_schema: Schema = [schema[c] for c in node.group_channels] + [
             (a.out_type, _out_dict(a)) for a in node.aggs
         ]
+        if step == "final":
+            # keys and min/max/any results keep the dictionaries that
+            # rode through the state wire format
+            out_schema = [schema[c] for c in range(len(groups))] + [
+                (a.out_type, schema[len(groups) + 2 * i][1])
+                for i, a in enumerate(node.aggs)
+            ]
         return chain, out_schema
 
     def _try_mxu_join_agg(self, node: P.AggregateNode):
@@ -303,7 +337,7 @@ class LocalPlanner:
             or getattr(join, "spill_build", False)
         ):
             return None
-        if not node.group_channels or not node.aggs:
+        if node.step != "single" or not node.group_channels or not node.aggs:
             return None
         probe_width = len(join.left.fields)
         if any(tr(ch) < probe_width for ch in node.group_channels):

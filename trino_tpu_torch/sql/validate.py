@@ -1,10 +1,10 @@
 """Plan sanity checking.
 
 Counterpart of trino_tpu/sql/validate.py's logical part: the four
-checkers of LOGICAL_CHECKERS, validate_logical and the determinism
-checks. The fragment checks and a partial-step aggregate's state layout
-need sql/fragmenter.py (ROADMAP §1 item 11); the shape census counts XLA
-lowerings and waits for the compile tier (item 13).
+checkers of LOGICAL_CHECKERS, validate_logical, the fragment-level
+checks over sql/fragmenter.py's SubPlan (validate_subplan) and the
+determinism checks. The shape census counts XLA lowerings and waits for
+the compile tier (ROADMAP §1 item 13).
 
 Analogue of Trino's sanity/PlanSanityChecker (ValidateDependenciesChecker,
 TypeValidator, NoDuplicatePlanNodeIdsChecker, the AddExchanges
@@ -309,13 +309,14 @@ def _check_expr_types(
 
 
 def _agg_partial_fields(node: P.AggregateNode) -> Optional[List[P.Field]]:
-    """Expected partial-step output fields. A partial-step aggregate
-    exists only after fragmenting, and the fragmenter whose state layout
-    this reads is ROADMAP §1 item 11."""
-    raise NotImplementedError(
-        "partial-step AggregateNode: its state layout is sql/fragmenter.py's, "
-        "not in trino_tpu_torch yet (ROADMAP §1 item 11)"
-    )
+    """Expected partial-step output fields (partial_output_schema shape);
+    None when the state layout can't be derived (unknown kind)."""
+    from trino_tpu_torch.sql.fragmenter import _partial_fields
+
+    try:
+        return _partial_fields(node, node.child)
+    except Exception:
+        return None
 
 
 def _check_types(root: P.PlanNode) -> List[Violation]:
@@ -546,6 +547,168 @@ def validate_logical(
 
 
 # -- checker 5: determinism ---------------------------------------------------
+
+
+# -- fragment-level validation ------------------------------------------------
+
+
+def _fragment_violations(subplan) -> List[Violation]:
+    frags = {f.id: f for f in subplan.all_fragments()}
+    out: List[Violation] = []
+    ids = [f.id for f in subplan.all_fragments()]
+    if len(ids) != len(set(ids)):
+        out.append(Violation(
+            "structure", "SubPlan", f"duplicate fragment ids: {sorted(ids)}"
+        ))
+    for f in frags.values():
+        fpath = f"Fragment {f.id}"
+        for _, check in LOGICAL_CHECKERS:
+            for v in check(f.root):
+                out.append(dataclasses.replace(
+                    v, node_path=f"{fpath}/{v.node_path}"
+                ))
+        for v in _check_structure(f.root, fragmented=True):
+            if "ExchangeNode" in v.message:
+                out.append(dataclasses.replace(
+                    v, node_path=f"{fpath}/{v.node_path}"
+                ))
+        # consumer-side remote source checks
+        for path, node in _walk(f.root):
+            if not isinstance(node, P.RemoteSourceNode):
+                continue
+            here = f"{fpath}/{path}"
+            for fid in node.fragment_ids:
+                prod = frags.get(fid)
+                if prod is None:
+                    out.append(Violation(
+                        "structure", here,
+                        f"dangling reference to fragment {fid} "
+                        f"(existing: {sorted(frags)})",
+                    ))
+                    continue
+                pf = prod.root.fields
+                if len(pf) != len(node.fields):
+                    out.append(Violation(
+                        "structure", here,
+                        f"width {len(node.fields)} != producer fragment "
+                        f"{fid} width {len(pf)}",
+                    ))
+                else:
+                    for i, (a, b) in enumerate(zip(node.fields, pf)):
+                        if a.type != b.type:
+                            out.append(Violation(
+                                "structure", here,
+                                f"fields[{i}] {a.type} != producer "
+                                f"fragment {fid} fields[{i}] {b.type}",
+                            ))
+                if tuple(node.merge_keys) != tuple(prod.output_merge_keys):
+                    out.append(Violation(
+                        "structure", here,
+                        f"merge keys {node.merge_keys} != producer "
+                        f"fragment {fid} {prod.output_merge_keys}",
+                    ))
+        # every hash producer feeding one consumer fragment must agree
+        # on the partition-key dtype vector: the schedulers route
+        # partition p of EVERY input to consumer task p, so two inputs
+        # hashing different key types desynchronize silently
+        hash_producers: List[Tuple[int, List[T.DataType]]] = []
+
+        def gather(n):
+            if isinstance(n, P.RemoteSourceNode):
+                for fid in n.fragment_ids:
+                    prod = frags.get(fid)
+                    if prod is not None and prod.output_kind == "hash":
+                        pf = prod.root.fields
+                        hash_producers.append((fid, [
+                            pf[c].type for c in prod.output_channels
+                            if 0 <= c < len(pf)
+                        ]))
+            for c in n.children():
+                gather(c)
+
+        gather(f.root)
+        for fid, ktypes in hash_producers[1:]:
+            fid0, k0 = hash_producers[0]
+            if ktypes != k0:
+                out.append(Violation(
+                    "exchange_keys", fpath,
+                    f"hash inputs disagree: fragment {fid0} partitions on "
+                    f"{[str(t) for t in k0]}, fragment {fid} on "
+                    f"{[str(t) for t in ktypes]}",
+                ))
+    # producer-side: tstz output partition keys must be canonicalized
+    for f in frags.values():
+        if f.output_kind != "hash":
+            continue
+        pf = f.root.fields
+        for c in f.output_channels:
+            if 0 <= c < len(pf) and _is_tstz(pf[c].type) and not (
+                _masked_name(pf[c])
+            ):
+                out.append(Violation(
+                    "exchange_keys", f"Fragment {f.id}",
+                    f"hash output channel {c} ({pf[c].name}: "
+                    f"{pf[c].type}) is not zone-mask-canonicalized",
+                ))
+    return out
+
+
+def collect_subplan_violations(subplan) -> List[Violation]:
+    return _fragment_violations(subplan)
+
+
+def validate_subplan(subplan, rule: Optional[str] = None) -> None:
+    """Fragmented-plan validation (run after sql/fragmenter.py)."""
+    for v in _fragment_violations(subplan):
+        raise PlanValidationError(
+            v.checker, v.node_path, v.message, rule=rule, stage="fragmenter"
+        )
+
+
+# -- checker 5: determinism ---------------------------------------------------
+
+
+def check_plan_determinism(
+    plan_once: Callable[[], P.PlanNode], what: str = "plan"
+) -> None:
+    """PlanDeterminismChecker analogue: run the full planning pipeline
+    twice over the same AST; the EXPLAIN renderings must be
+    byte-identical (a nondeterministic rule poisons the plan cache and
+    makes EXPLAIN lie about what executed)."""
+    a = P.explain_text(plan_once())
+    b = P.explain_text(plan_once())
+    if a == b:
+        return
+    for la, lb in zip(a.splitlines(), b.splitlines()):
+        if la != lb:
+            raise PlanValidationError(
+                "determinism", "Output",
+                f"{what}: two plannings diverge: {la.strip()!r} vs "
+                f"{lb.strip()!r}",
+            )
+    raise PlanValidationError(
+        "determinism", "Output",
+        f"{what}: two plannings differ in length "
+        f"({len(a.splitlines())} vs {len(b.splitlines())} lines)",
+    )
+
+
+def check_sql_stability(sql: str, what: str = "statement") -> None:
+    """Formatter leg of the determinism checker: formatting must be a
+    fixpoint (format(parse(format(parse(sql)))) == format(parse(sql))).
+    Prepared-statement plan-cache keys are formatted text (engine.py),
+    so an unstable formatter silently splits the cache per rendering."""
+    from trino_tpu_torch.sql.formatter import format_statement
+    from trino_tpu_torch.sql.parser import parse
+
+    once = format_statement(parse(sql))
+    twice = format_statement(parse(once))
+    if once != twice:
+        raise PlanValidationError(
+            "determinism", "SQL",
+            f"{what}: formatter is not idempotent: {once!r} reformats "
+            f"to {twice!r}",
+        )
 
 
 def check_plan_determinism(
