@@ -193,9 +193,26 @@ Phases (any failure exits nonzero):
                  distributed runner on the card and on the CPU, equal
                  within tests/oracle.py's tolerances. Its launches count
                  apart (`distributed_launches`).
- 12. explore   — both explorer entry points (trino_tpu_torch.explore),
+ 12. wire      — the wire and the front door on the card: phase
+                 distributed's GROUP BY o_clerk and customer join orders
+                 at sf1 through WIRE_WORKERS WorkerServers on 127.0.0.1
+                 (each a Worker(device=None), internal auth on through
+                 TRINO_TPU_INTERNAL_SECRET) beside their in-process twin
+                 (the same count of in-process workers), row-equal, with
+                 both walls and the bytes pulled over HTTP; then
+                 retry_policy="task" with every task's first attempt
+                 killed at "start" and at "mid" over WIRE_FTE_SHAPES at
+                 tiny, row-equal to the run without failures, with the
+                 retries and the spool's bytes and seconds; then a
+                 CoordinatorServer over LocalQueryRunner(device=None):
+                 TPC-H Q1, Q3 and Q18 at tiny through the port's Client
+                 and DB-API equal runner.execute, and `python -m
+                 trino_tpu_torch.cli --server` prints Q1's rows.
+                 grouped_sum, bounds and take_flat must each launch in
+                 the phase; its launches count apart (`wire_launches`).
+ 13. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 13. parity    — the queries, and the window and set-operation queries
+ 14. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -217,14 +234,14 @@ Phases (any failure exits nonzero):
                  and sf0.1 (their bytes_scanned too), and
                  tests/test_memory.py's queries at tiny under their pools
                  (MEMORY_QS).
- 14. summary   — each kind of join-path call (the probe's bounds, the
+ 15. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
                  entry with its launches in phases nested, zones, write,
-                 statements, files, spill and distributed beside the main
+                 statements, files, spill, distributed and wire beside the main
                  path's; take_flat's entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
@@ -4180,6 +4197,228 @@ def phase_distributed(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+WIRE_WORKERS = 2
+WIRE_STATEMENTS = ("clerk_group", "segment_join")  # of DIST_STATEMENTS
+# tests/test_distributed.py's FTE_SHAPES "agg" and "join_agg" (a test
+# keeps them equal)
+WIRE_FTE_SHAPES = {
+    "agg": ("SELECT l_returnflag, sum(l_quantity), count(*) FROM lineitem"
+            " GROUP BY l_returnflag ORDER BY l_returnflag"),
+    "join_agg": ("SELECT o_orderpriority, count(*) FROM orders, lineitem"
+                 " WHERE o_orderkey = l_orderkey AND l_shipmode = 'MAIL'"
+                 " GROUP BY o_orderpriority ORDER BY o_orderpriority"),
+}
+WIRE_FRONT_DOOR = (1, 3, 18)  # TPC-H queries through the Client and DB-API
+
+
+def _synced(device, fn):
+    """fn()'s result and its wall (host clock, the card synchronized)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    if device is None or str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def wire_http(schema: str, device, log) -> dict:
+    """WIRE_STATEMENTS at `schema` through WIRE_WORKERS WorkerServers on
+    127.0.0.1 (Worker(device=device) each, None: the card), the internal
+    secret set for the phase in TRINO_TPU_INTERNAL_SECRET, beside their
+    in-process twin: a DistributedQueryRunner over as many in-process
+    Workers on the same device and connector. Rows must be equal; an
+    unauthenticated request must get 401. Returns {statement: record}
+    with both walls, the rows, the bytes pulled over HTTP
+    (exchange.http_bytes) and the HTTP run's launches."""
+    import secrets
+    import urllib.error
+    import urllib.request
+
+    from trino_tpu_torch.connectors.spi import CatalogManager
+    from trino_tpu_torch.connectors.tpch import base_row_count, create_tpch_connector
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner, Worker
+    from trino_tpu_torch.runtime.http import HttpWorkerClient, WorkerServer
+    from trino_tpu_torch.runtime.metrics import METRICS
+
+    sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
+    session = dict(catalog="tpch", schema=schema, mesh_execution=False,
+                   broadcast_join_threshold=base_row_count("customer", sf) // 2)
+    conn = create_tpch_connector()
+    cats = CatalogManager()
+    cats.register("tpch", conn)
+    saved = os.environ.get("TRINO_TPU_INTERNAL_SECRET")
+    os.environ["TRINO_TPU_INTERNAL_SECRET"] = secrets.token_hex(16)
+    servers = []
+    try:
+        servers = [WorkerServer(Worker(f"http-w{i}", cats, device=device))
+                   for i in range(WIRE_WORKERS)]
+        try:
+            urllib.request.urlopen(servers[0].uri + "/v1/status", timeout=10)
+            raise AssertionError("a worker answered a request without the internal secret")
+        except urllib.error.HTTPError as e:
+            if e.code != 401:
+                raise
+        http = DistributedQueryRunner(
+            Session(**session), worker_handles=[HttpWorkerClient(s.uri) for s in servers],
+            hash_partitions=WIRE_WORKERS, device=device)
+        http.catalogs = cats
+        twin = DistributedQueryRunner(Session(**session), n_workers=WIRE_WORKERS,
+                                      hash_partitions=WIRE_WORKERS, device=device)
+        twin.register_catalog("tpch", conn)
+        twin.execute(DIST_JOIN)  # the generator's dictionaries, untimed
+        steps = {}
+        for name in WIRE_STATEMENTS:
+            sql = dict(DIST_STATEMENTS)[name]
+            b0, k0 = METRICS.counter("exchange.http_bytes"), join_kernel_counts()
+            res, wall = _synced(device, lambda: http.execute(sql))
+            b1, k1 = METRICS.counter("exchange.http_bytes"), join_kernel_counts()
+            twin_res, twin_wall = _synced(device, lambda: twin.execute(sql))
+            if res.rows != twin_res.rows:
+                raise AssertionError(f"wire {name}: HTTP rows differ from the in-process run")
+            rec = steps[name] = {"wall_s": wall, "twin_wall_s": twin_wall,
+                                 "rows": len(res.rows), "http_bytes": b1 - b0,
+                                 "launches": {k: k1[k] - k0[k] for k in k1}}
+            log(f"[wire] {schema} {name} over HTTP: wall_s={wall} in-process "
+                f"twin_wall_s={twin_wall} rows={rec['rows']} http_bytes={rec['http_bytes']} "
+                f"launches={rec['launches']}")
+            if any(s.worker.task_ids() for s in servers):
+                raise AssertionError(f"wire {name}: tasks left on the workers")
+        return steps
+    finally:
+        for srv in servers:
+            srv.stop()
+        if saved is None:
+            os.environ.pop("TRINO_TPU_INTERNAL_SECRET", None)
+        else:
+            os.environ["TRINO_TPU_INTERNAL_SECRET"] = saved
+
+
+def wire_fte(schema: str, device, log) -> dict:
+    """retry_policy="task" over WIRE_WORKERS in-process Workers on
+    `device`: each of WIRE_FTE_SHAPES at `schema` without failures, then
+    with every task's first attempt killed at "start" and at "mid"; the
+    rows must equal the clean run's. Returns {shape: record} with the
+    walls, the retries and the spool's bytes and host seconds
+    (spool.bytes_written/write_s, spool.bytes_read/read_s)."""
+    from trino_tpu_torch.connectors.spi import CatalogManager
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner, Worker
+    from trino_tpu_torch.runtime.failure import FailureInjector
+    from trino_tpu_torch.runtime.metrics import METRICS
+
+    inj = FailureInjector()
+    cats = CatalogManager()
+    cats.register("tpch", create_tpch_connector())
+    workers = [Worker(f"fte-w{i}", cats, failure_injector=inj, device=device)
+               for i in range(WIRE_WORKERS)]
+    r = DistributedQueryRunner(Session(catalog="tpch", schema=schema, retry_policy="task"),
+                               worker_handles=workers, hash_partitions=WIRE_WORKERS,
+                               device=device)
+    r.catalogs = cats
+    spool = ("spool.bytes_written", "spool.write_s", "spool.bytes_read", "spool.read_s")
+    out = {}
+    for shape, sql in WIRE_FTE_SHAPES.items():
+        rec = out[shape] = {}
+        want = None
+        for where in ("none", "start", "mid"):
+            inj.clear()
+            if where != "none":
+                inj.inject(attempts=(0,), where=where)
+            m0 = {c: METRICS.counter(c) for c in spool}
+            try:
+                res, wall = _synced(device, lambda: r.execute(sql))
+            finally:
+                inj.clear()
+            run = rec[where] = {"wall_s": wall, "retries": r.last_fte_stats["retries"],
+                                **{c: METRICS.counter(c) - m0[c] for c in spool}}
+            if where == "none":
+                want = res.rows
+            elif res.rows != want:
+                raise AssertionError(f"wire FTE {shape}: rows under failures at {where} "
+                                     "differ from the clean run")
+            elif run["retries"] < 1:
+                raise AssertionError(f"wire FTE {shape}: no retry under failures at {where}")
+            log(f"[wire] {schema} FTE {shape} failures={where}: {run}")
+    if any(w.task_ids() for w in workers):
+        raise AssertionError("wire FTE: tasks left on the workers")
+    return out
+
+
+def wire_front_door(schema: str, device, log) -> dict:
+    """A CoordinatorServer over LocalQueryRunner(device=device): TPC-H
+    WIRE_FRONT_DOOR at `schema` through the port's Client and DB-API must
+    equal runner.execute; `python -m trino_tpu_torch.cli --server` in a
+    subprocess must print Q1's rows as format_table renders them."""
+    from trino_tpu_torch import dbapi
+    from trino_tpu_torch.cli import format_table
+    from trino_tpu_torch.client import Client
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+    from trino_tpu_torch.runtime.server import CoordinatorServer
+
+    r = LocalQueryRunner(Session(catalog="tpch", schema=schema), device=device)
+    r.register_catalog("tpch", create_tpch_connector())
+    queries = tpch_queries()
+    srv = CoordinatorServer(r)
+    out = {}
+    try:
+        for qid in WIRE_FRONT_DOOR:
+            sql = queries[qid]
+            want, wall = _synced(device, lambda: r.execute(sql))
+            got, client_wall = _synced(device, lambda: Client(srv.uri).execute(sql))
+            cur = dbapi.connect(srv.uri, user="chip_smoke").cursor()
+            _, dbapi_wall = _synced(device, lambda: cur.execute(sql))
+            if got.rows != want.rows or got.column_names != want.column_names:
+                raise AssertionError(f"front door Q{qid}: Client rows differ from execute's")
+            if cur.fetchall() != want.rows:
+                raise AssertionError(f"front door Q{qid}: DB-API rows differ from execute's")
+            out[f"q{qid}"] = {"rows": len(want.rows), "execute_s": wall,
+                              "client_s": client_wall, "dbapi_s": dbapi_wall}
+            log(f"[wire] {schema} front door Q{qid}: {out[f'q{qid}']}")
+        want = r.execute(queries[1])
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "trino_tpu_torch.cli", "--server", srv.uri,
+             "--execute", queries[1]],
+            cwd=HERE, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": HERE})
+        out["cli_s"] = time.perf_counter() - t0
+        if cli.returncode != 0 or cli.stdout.strip() != format_table(want.column_names,
+                                                                     want.rows):
+            raise AssertionError(f"the CLI's Q1 differs (rc {cli.returncode}):\n"
+                                 f"{cli.stdout}\n{cli.stderr}")
+        log(f"[wire] {schema} CLI over the server printed Q1's {len(want.rows)} rows "
+            f"in {out['cli_s']} s")
+    finally:
+        srv.stop()
+    return out
+
+
+def phase_wire(results: dict) -> None:
+    """The wire and the front door on the card (see the module
+    docstring); grouped_sum, bounds and take_flat must each launch."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log(f"[wire] card: {card_line()}")
+    reset_kernel_counts()
+    http = wire_http("sf1", None, log)
+    fte = wire_fte("tiny", None, log)
+    front = wire_front_door("tiny", None, log)
+    launches = join_kernel_counts()
+    results["wire_launches"] = launches
+    for k in ("grouped_sum", "bounds", "take_flat"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase wire never launched {k}")
+    results["wire"] = {"http": http, "fte": fte, "front_door": front}
+    log(f"[wire] identities hold; launches of the phase: {launches}")
+    log(f"[wire] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
 _ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
 
 
@@ -4830,7 +5069,8 @@ def family_modes(results: dict, on_path: dict, kernels) -> dict:
 
 
 # the phases whose launches count apart from the main path's
-PHASE_LAUNCHES = ("nested", "zones", "write", "statements", "files", "spill", "distributed")
+PHASE_LAUNCHES = ("nested", "zones", "write", "statements", "files", "spill", "distributed",
+                  "wire")
 
 
 def kernels_line(results: dict) -> dict:
@@ -4943,7 +5183,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "files,spill,distributed,explore,parity",
+                            "files,spill,distributed,wire,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -4994,6 +5234,8 @@ def main() -> int:
         phase_spill(results)
     if "distributed" in phases:
         phase_distributed(results)
+    if "wire" in phases:
+        phase_wire(results)
     if "explore" in phases:
         phase_explore(results)
     if "parity" in phases:

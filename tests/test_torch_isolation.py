@@ -188,6 +188,39 @@ def test_memory_spill_and_page_modules_import_alone(module):
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["trino_tpu_torch.runtime.http",
+                                    "trino_tpu_torch.runtime.fte",
+                                    "trino_tpu_torch.runtime.server",
+                                    "trino_tpu_torch.runtime.spool",
+                                    "trino_tpu_torch.runtime.codec",
+                                    "trino_tpu_torch.runtime.resource_groups",
+                                    "trino_tpu_torch.serving.admission",
+                                    "trino_tpu_torch.client",
+                                    "trino_tpu_torch.dbapi",
+                                    "trino_tpu_torch.cli",
+                                    "trino_tpu_torch.service.proxy",
+                                    "trino_tpu_torch.service.verifier"])
+def test_wire_and_front_door_modules_import_alone(module):
+    # imported first and alone in a fresh process, none of the wire or
+    # front-door modules pulls in jax or trino_tpu, and none starts a
+    # server thread or opens a socket
+    code = (
+        "import importlib, sys, threading\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'trino_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_phase_files_statements_at_tiny():
     """chip_smoke.py phase files' statements and identities at tiny on
     the port's CPU runner (the card runs them at sf1), its temporary

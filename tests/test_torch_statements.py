@@ -22,9 +22,10 @@ and over small memory tables.
 - Reference faults (ROADMAP §3) are pinned against the port's answer:
   the plan-cache key without mxu_join_enabled, and CASE/COALESCE over
   TIMESTAMP WITH TIME ZONE (tests/test_torch_timestamptz.py) or ARRAY.
-- test_the_corpora_are_covered lists the cases that wait for a later
-  item (the HTTP server: item 11b; admission, the batcher and the shape
-  census, EXPLAIN ANALYZE's included: item 13).
+- test_the_corpora_are_covered lists the cases that run elsewhere (the
+  HTTP server and admission: tests/test_torch_front_door.py) and those
+  that wait for a later item (the batcher, the worker deadline and the
+  shape census, EXPLAIN ANALYZE's included: item 13).
 - chip_smoke.py's phase statements, its identities at tiny.
 """
 
@@ -330,12 +331,19 @@ def test_rules_mode_validates_every_tpch_query(port_tpch_runner):
 
 # ---- the corpora's coverage ------------------------------------------------
 
+# corpus case -> the test file that runs it on the port
+_ADMISSION = {"test_admission_sheds_past_depth", "test_server_sheds_with_429_and_retry_after",
+              "test_fast_path_probe_requires_warm_plan"}
+ELSEWHERE = {
+    **{f"test_security.py::{n}": "tests/test_torch_front_door.py" for n in sorted(_SERVER)},
+    **{f"test_serving.py::{n}": "tests/test_torch_front_door.py" for n in sorted(_ADMISSION)},
+}
 # corpus case -> the ROADMAP §1 item it waits for
 WAITING = {
-    **{f"test_security.py::{n}": "item 11b (the HTTP server)" for n in sorted(_SERVER)},
     **{f"test_plan_validate.py::{n}": i for n, i in _VALIDATE_WAITS.items()},
-    **{f"test_serving.py::{n}": "item 13 (admission, the batcher, the worker deadline)"
-       for _, n in _cases(serving_corpus) if (None, n) not in _SERVING},
+    **{f"test_serving.py::{n}": "item 13 (the batcher, the worker deadline)"
+       for _, n in _cases(serving_corpus)
+       if (None, n) not in _SERVING and n not in _ADMISSION},
 }
 
 
@@ -355,8 +363,10 @@ def test_the_corpora_are_covered():
                       ("test_plan_validate.py", validate_corpus),
                       ("test_formatter.py", formatter_corpus)):
         every = {f"{f}::{n}" for _, n in _cases(module)}
-        assert every == (ran | set(WAITING)) & every, sorted(every - ran - set(WAITING))
-    assert not ran & set(WAITING)
+        accounted = ran | set(WAITING) | set(ELSEWHERE)
+        assert every == accounted & every, sorted(every - accounted)
+    assert not ran & set(WAITING) and not ran & set(ELSEWHERE) and not set(WAITING) & set(ELSEWHERE)
+    assert all(v.startswith("item 13") for v in WAITING.values())
     assert (len(_SEMANTICS), len(_SUBQUERY), len(_SERVING)) == (13, 20, 8)
     assert len(_cases(formatter_corpus)) == 6
 

@@ -355,9 +355,10 @@ def load_properties_file(path: str) -> Dict[str, str]:
     return out
 
 
-# Properties whose only reader on the reference's LocalQueryRunner path
-# lies in a tier the port does not have yet (ROADMAP §1): away from its
-# default, such a property would change nothing, so it raises instead.
+# Properties whose only reader on the reference's LocalQueryRunner or
+# CoordinatorServer path lies in a tier the port does not have yet
+# (ROADMAP §1): away from its default, such a property would change
+# nothing, so it raises instead.
 # The distributed, retry, mesh, replica, scheduler, fabric and tracing
 # properties are read only by runtimes that LocalQueryRunner does not use
 # (query_trace included: the local runner traces every query), and are
@@ -371,6 +372,8 @@ UNPORTED_READERS = {
     "adaptive_replan_threshold": "item 13 (adaptive/)",
     "shared_subtree_materialization": "item 13 (adaptive/)",
     "resident_tables": "item 13 (resident/)",
+    "micro_batch_window_ms": "item 13 (serving/batcher.py)",
+    "micro_batch_max": "item 13 (serving/batcher.py)",
 }
 
 

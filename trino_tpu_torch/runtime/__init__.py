@@ -4,9 +4,11 @@ Counterpart of trino_tpu/runtime/ (the coordinator/worker split: a host
 control plane around the device data plane). The in-process form, N
 Workers on threads in one process sharing one card, is the
 DistributedQueryRunner topology; its task threads plan their fragments
-on the worker's device and launch the port's CUDA kernels. The HTTP
-wire, the spooled exchange and the front door are ROADMAP §1 item 11b;
-the query memory pool is memory.py.
+on the worker's device and launch the port's CUDA kernels. The wire
+form puts each Worker behind a WorkerServer (http.py: typed spec JSON
+from codec.py, pages pulled as serde bytes); retry_policy="task" runs
+fte.py over the spooled exchange (spool.py); the front door is
+server.py with resource_groups.py; the query memory pool is memory.py.
 
 The package's names load on first use, so a module that counts through
 runtime/metrics.py does not pull in the coordinator.

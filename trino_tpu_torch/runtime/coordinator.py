@@ -10,11 +10,12 @@ EXPLAIN ANALYZE (the stages), QueryInfo and the trace exports.
 embedded runner on the CUDA card and raises when there is none; the CPU
 is used only when the caller passes device="cpu".
 
-Arms of later items raise, naming the item, and never fall back to the
-page plane or to the CPU: the mesh data plane (mesh_execution with
-in-process workers, ROADMAP §1 item 12), retry_policy="task" (FTE over
-the spooled exchange, item 11b), remote worker handles (the HTTP worker,
-item 11b) and recovery_spool_stages (item 13). The reference's census
+retry_policy="task" runs the FaultTolerantQueryScheduler (runtime/fte.py)
+over the spooled exchange; worker handles may be HttpWorkerClients
+(runtime/http.py), whose tasks pull pages over HTTP. Arms of later items
+raise, naming the item, and never fall back to the page plane or to the
+CPU: the mesh data plane (mesh_execution with in-process workers,
+ROADMAP §1 item 12) and recovery_spool_stages (item 13). The reference's census
 annotations, the adaptive controller's report and per-stage
 estimated-vs-observed lines, and the resident, recovery, skew, replica,
 scheduler, membership and concurrency lines of EXPLAIN ANALYZE belong to
@@ -308,8 +309,8 @@ class DistributedQueryRunner:
         """Default topology: N in-process Workers sharing the coordinator
         CatalogManager, each on `device` (None: the CUDA card, raising
         without one). `worker_handles` schedules over Workers the caller
-        built instead (their catalogs registered by the caller); the
-        HTTP worker client is ROADMAP §1 item 11b. `access_control`
+        built instead (their catalogs registered by the caller), in-process
+        Workers or HttpWorkerClients of WorkerServers. `access_control`
         guards distributed Query statements AND the embedded single-node
         runner (same policy object on both paths)."""
         from trino_tpu_torch.engine import resolve_device
@@ -373,6 +374,9 @@ class DistributedQueryRunner:
         # how many whole-query attempts the last statement took
         # (retry_policy=QUERY observability; 1 = no retry happened)
         self.last_query_attempts: int = 0
+        # retry_policy=TASK observability: retries, speculation and
+        # attempts per partition of the last FTE query
+        self.last_fte_stats: Optional[dict] = None
         # cluster memory arbiter over the in-process workers' SHARED
         # pools: on exhaustion kill the largest query, not the worker
         self.memory_manager = None
@@ -757,11 +761,22 @@ class DistributedQueryRunner:
             if budgets:
                 deadline_epoch_s = _time.time() + min(budgets)
         result_meta = (list(output.names), [f.type for f in output.fields])
-        if self.session.retry_policy == "task":
+        # the reference's recovery tier: with recovery_spool_stages on,
+        # every stage records its output pages and a retry substitutes
+        # the failed attempt's finished fragments for recomputing them
+        # (in the FTE scheduler and the QUERY retry loop alike)
+        if getattr(self.session, "recovery_spool_stages", False):
             raise NotImplementedError(
-                'retry_policy = "task": fault-tolerant execution over the '
-                "spooled exchange is ROADMAP §1 item 11b"
+                "recovery_spool_stages: stage-output recovery is ROADMAP §1 item 13"
             )
+        if self.session.retry_policy == "task":
+            self._last_data_plane = "fte"
+            rows = self._execute_fte(
+                subplan, query_id=base_qid, cancel=cancel, tq=tq,
+                trace=trace, query_span=query_span,
+                deadline_epoch_s=deadline_epoch_s,
+            )
+            return MaterializedResult(rows, *result_meta, data_plane="fte")
         if self.session.mesh_execution and self._mesh_colocated():
             # the reference runs this query on the device mesh (exchanges
             # as collectives); the port raises rather than run the page
@@ -776,14 +791,6 @@ class DistributedQueryRunner:
             if self.session.retry_policy == "query"
             else 1
         )
-        # the reference's recovery tier: with recovery_spool_stages on,
-        # every stage records its output pages and a QUERY retry
-        # substitutes the failed attempt's finished fragments for
-        # recomputing them
-        if getattr(self.session, "recovery_spool_stages", False):
-            raise NotImplementedError(
-                "recovery_spool_stages: stage-output recovery is ROADMAP §1 item 13"
-            )
         last_error: Optional[BaseException] = None
         accrued_cpu = 0.0  # CPU spent by completed attempts
         for attempt in range(attempts):
@@ -875,6 +882,103 @@ class DistributedQueryRunner:
                     pass  # observability must never mask the verdict
                 scheduler.abort()
         raise last_error
+
+    def _execute_fte(
+        self, subplan, query_id=None, cancel=None, tq=None,
+        trace=None, query_span=None, deadline_epoch_s=None,
+    ) -> List[list]:
+        """retry_policy=TASK: FTE over the spooled exchange."""
+        import os
+        import shutil
+        import tempfile
+
+        from trino_tpu_torch.runtime.fte import (
+            FaultTolerantQueryScheduler,
+            TaskRetriesExceeded,
+        )
+        from trino_tpu_torch.runtime.spool import read_spool
+
+        query_id = query_id or f"q{next(_query_counter)}"
+        spool_dir = tempfile.mkdtemp(prefix=f"trino-tpu-torch-spool-{query_id}-")
+        scheduler = None
+        try:
+            scheduler = FaultTolerantQueryScheduler(
+                query_id,
+                subplan,
+                self.workers,
+                self.catalogs,
+                self.session,
+                spool_dir,
+                self.hash_partitions,
+                max_task_retries=self.session.task_retries,
+                node_manager=self.node_manager,
+                trace=trace,
+                query_span=query_span,
+                collect_stats=(
+                    getattr(self.session, "query_trace", "off") == "on"
+                ),
+                deadline_epoch_s=deadline_epoch_s,
+                device=self.device,
+            )
+            if tq is not None:
+                # CPU budget over the FTE attempt ledgers (polled task
+                # states carry cpu_s; finished attempts keep their last
+                # reading in the scheduler's per-task dict)
+                tq.cpu_time_fn = scheduler.cpu_time_s
+            try:
+                _, root_key = scheduler.run(cancel=cancel)
+            except TaskRetriesExceeded as e:
+                if "ExceededMemoryLimitError" in str(e) or (
+                    "low-memory killer" in str(e)
+                ):
+                    from trino_tpu_torch.runtime.memory import (
+                        ExceededMemoryLimitError,
+                    )
+
+                    raise ExceededMemoryLimitError(str(e)) from e
+                raise
+            finally:
+                # bounded-attempt observability, success or failure
+                self.last_fte_stats = {
+                    "retries": scheduler.retries,
+                    "speculative_hits": scheduler.speculative_hits,
+                    "speculation_wins": scheduler.speculation_wins,
+                    "speculation_losses": scheduler.speculation_losses,
+                    "attempts_per_partition": dict(
+                        scheduler.attempts_per_partition
+                    ),
+                    # which quantile sized the straggler threshold, and
+                    # the per-fragment wall-time estimates it produced
+                    "speculation_percentile": (
+                        scheduler.speculation_percentile
+                    ),
+                    "speculation_estimates": dict(
+                        scheduler.speculation_estimates
+                    ),
+                }
+                # QueryInfo stage rollups from the FTE attempt snapshots
+                # (taken at each attempt's terminal observation); the
+                # reference's estimated-vs-observed divergence lines are
+                # the adaptive tier's (ROADMAP §1 item 13)
+                try:
+                    self._last_stage_infos = self._stage_infos(
+                        scheduler.task_snapshots()
+                    )
+                except Exception:
+                    pass
+            root_dir = os.path.join(spool_dir, root_key)
+            rows: List[list] = []
+            token = 0
+            while True:
+                pages, token, complete = read_spool(root_dir, 0, token)
+                for page in pages:
+                    rows.extend(_page_rows(page))
+                if complete:
+                    return rows
+        finally:
+            if scheduler is not None:
+                scheduler.release()
+            shutil.rmtree(spool_dir, ignore_errors=True)
 
     def _explain_text(self, subplan) -> str:
         """The fragments (the reference also annotates each with its
@@ -1112,13 +1216,24 @@ class DistributedQueryRunner:
                     err_code = "EXCEEDED_MEMORY_LIMIT"
             retry_count = max(0, self.last_query_attempts - 1)
             attempt_count = 1
+            is_fte = (
+                getattr(self.session, "retry_policy", "none") == "task"
+            )
+            if is_fte and self.last_fte_stats:
+                app = (
+                    self.last_fte_stats.get("attempts_per_partition")
+                    or {}
+                )
+                attempt_count = sum(app.values()) or 1
             info = build_query_info(
                 base_qid, status, sql=sql, wall_s=wall, stages=stages,
                 peak_memory_bytes=peak, compile_count=compile_count,
                 counters=counters, error_code=err_code,
                 failure=failure_txt, retry_count=retry_count,
                 attempt_count=attempt_count,
-                data_plane=getattr(self, "_last_data_plane", None) or "http",
+                data_plane=getattr(
+                    self, "_last_data_plane", None
+                ) or ("fte" if is_fte else "http"),
             )
             with self._lock:
                 self._active_traces.pop(base_qid, None)

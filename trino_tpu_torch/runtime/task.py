@@ -4,9 +4,13 @@ output buffer.
 Counterpart of trino_tpu/runtime/task.py. A task plans its fragment with
 the port's LocalPlanner on its worker's device and drives the operators
 from its own thread, so its CUDA kernels launch from that thread (on the
-device's current stream, which every task shares). Input locations are
-in-process fetch callables; the ("http", ...) and ("spool", ...) wire
-forms and a spooled output (`spool_dir`) are ROADMAP §1 item 11b. The
+device's current stream, which every task shares). An input location is
+an in-process fetch callable, or a wire descriptor: ("http", uri,
+task_id) pulls pages from a WorkerServer (runtime/http.py), ("spool",
+base_dir, task_key) reads a committed FTE attempt (runtime/spool.py).
+Pages from either arrive as host bytes; the RemoteSourceOperator puts
+them on the task's device. With `spool_dir` set the task spools its
+output instead of buffering it (SpoolingExchangeSink). The
 reference's shape stabilization and shape census (the capacity ladder,
 the warm-class registry) are the compile tier's, item 13: a port task
 plans without a ladder, and its `shapes_warm` stays False, so the
@@ -101,11 +105,16 @@ def _resolve_fetch(location):
     FTE attempt — the wire forms a codec-encoded TaskSpec carries."""
     if callable(location):
         return location
-    kind = location[0]
-    raise NotImplementedError(
-        f"a {kind!r} input location: the HTTP page wire and the spooled "
-        "exchange are ROADMAP §1 item 11b"
-    )
+    kind, a, b = location
+    if kind == "http":
+        from trino_tpu_torch.runtime.http import http_fetch
+
+        return http_fetch(a, b)
+    if kind != "spool":
+        raise ValueError(f"unknown input location kind {kind!r}")
+    from trino_tpu_torch.runtime.spool import spool_fetch
+
+    return spool_fetch(a, b)
 
 
 class _MidFailureBuffer:
@@ -138,11 +147,13 @@ class TaskExecution:
                  memory_pool=None, *, device):
         self.spec = spec
         if spec.spool_dir is not None:
-            raise NotImplementedError(
-                "TaskSpec.spool_dir: the spooled exchange (FTE) is "
-                "ROADMAP §1 item 11b"
+            from trino_tpu_torch.runtime.spool import SpoolingExchangeSink
+
+            self.buffer = SpoolingExchangeSink(
+                spec.spool_dir, str(spec.task_id), spec.n_output_partitions
             )
-        self.buffer = OutputBuffer(spec.n_output_partitions)
+        else:
+            self.buffer = OutputBuffer(spec.n_output_partitions)
         self.device = torch.device(device)
         # listener-driven lifecycle (TaskStateMachine analogue,
         # runtime/state_machine.py); `.state` stays the string API the
@@ -397,7 +408,10 @@ class TaskExecution:
             )
         try:
             if self._injector is not None:
-                self._injector.check(spec.task_id, "start")
+                # abort-polling: remove_task joins this thread, so a
+                # stalled attempt that lost to its speculative twin must
+                # wake when it is removed
+                self._injector.check(spec.task_id, "start", abort=self._stopping)
             planner = LocalPlanner(
                 self._catalogs,
                 self.device,

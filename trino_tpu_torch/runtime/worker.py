@@ -4,11 +4,11 @@ Counterpart of trino_tpu/runtime/worker.py. A Worker owns one torch
 device: `Worker(..., device=None)` takes the CUDA card and raises when
 there is none; the CPU is used only when the caller passes
 device="cpu". Every task it runs plans its fragment on that device and
-launches its kernels from the task's own thread. The HTTP form of a
-worker is ROADMAP §1 item 11b. The watchdog's tighter threshold for
-tasks whose shape classes are all warm needs the shape census (the
-compile tier, item 13): no port task is ever warm, so the conservative
-stuck_task_interrupt_s applies to every task.
+launches its kernels from the task's own thread. Its HTTP form is a
+WorkerServer (runtime/http.py) around the same Worker. The watchdog's
+tighter threshold for tasks whose shape classes are all warm needs the
+shape census (the compile tier, item 13): no port task is ever warm, so
+the conservative stuck_task_interrupt_s applies to every task.
 
 Analogue of main/execution/SqlTaskManager.java:109 (updateTask:466 —
 idempotent task creation, local planning, driver execution) plus the
