@@ -86,8 +86,9 @@ Phases (any failure exits nonzero):
                  rest_s split into device work and the host automaton),
                  PATTERN (a) counting every order and numbering up to the
                  most orders of a customer (MR_ALL), and SKIP TO NEXT ROW
-                 with up{2,4} (MR_NEXT). MR_ORDERS, MR_NEXT and TZ_TRUNC
-                 also on the CPU at sf1, rows equal; then
+                 with up{2,4} (MR_NEXT). TZ_TRUNC also on the CPU at
+                 sf1, rows equal (phase parity holds the pattern
+                 queries card against CPU at tiny and sf0.1); then
                  ops.tz.offset_millis_rowwise on one 1,048,576-row batch
                  over every zone id, CUDA events and the card's peak
                  memory around it, equal to the CPU's.
@@ -189,7 +190,8 @@ Phases (any failure exits nonzero):
                  ORDER BY o_orderkey (the merging gather), count(*), and
                  EXPLAIN and EXPLAIN ANALYZE of the join (every order read
                  by 4 tasks), each row-equal to its twin with no task left
-                 behind. Then the 22 TPC-H queries at tiny through the
+                 behind. Then six TPC-H queries at tiny
+                 (DIST_TINY_QUERIES, none of phase mesh's) through the
                  distributed runner on the card and on the CPU, equal
                  within tests/oracle.py's tolerances. Its launches count
                  apart (`distributed_launches`).
@@ -210,14 +212,36 @@ Phases (any failure exits nonzero):
                  trino_tpu_torch.cli --server` prints Q1's rows.
                  grouped_sum, bounds and take_flat must each launch in
                  the phase; its launches count apart (`wire_launches`).
- 13. explore   — both explorer entry points (trino_tpu_torch.explore),
+ 13. mesh      — the mesh data plane on the card (mesh_identities):
+                 DistributedQueryRunner with in-process workers and the
+                 default mesh_execution over a MESH_SHARDS-shard mesh on
+                 the one card (`mesh_devices=[cuda:0] * 4`), at sf1 over
+                 orders, customer, supplier, nation and lineitem (the
+                 mark join's subquery), each statement beside its
+                 mesh_execution=False twin (the page plane): GROUP BY
+                 o_clerk, GROUP BY o_custkey, customer join orders, supplier
+                 join nation (all_gather), the mark join (IN under OR:
+                 psum of the build flags), a top 10, count(*) and a window
+                 over o_custkey; GROUP BY o_custkey and the join again
+                 with mesh_chunk_rows = MESH_CHUNK_ROWS (chunked, equal to
+                 unchunked). Each row-equal to its twin, on the mesh with
+                 no fallback, its collectives counted where the plan has
+                 that exchange; each join launches bounds, run_owner and
+                 take_flat. Printed: both walls, the collective counts,
+                 attempts, chunks and chunk_cap, the launches. Then one
+                 statement on the default device list (every visible
+                 card: one here), which runs no collective, and
+                 MESH_FAST_QUERIES (tests/test_mesh.py's) at tiny on the
+                 4-shard card mesh, equal to the same code on 4 CPU
+                 shards. Its launches count apart (`mesh_launches`).
+ 14. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 14. parity    — the queries, and the window and set-operation queries
+ 15. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
-                 row-equal; so must the ten TPC-DS templates at tiny, the
-                 nine other than q72 at sf0.1, a listagg over nation and
+                 row-equal; so must the nine TPC-DS templates other than
+                 q72 at tiny and sf0.1, a listagg over nation and
                  the wide-string GROUP BY at 2^16 rows (also equal to
                  numpy's). So must every case of tests/test_functions.py's
                  five lists at tiny and the functions queries at sf0.1
@@ -234,15 +258,15 @@ Phases (any failure exits nonzero):
                  and sf0.1 (their bytes_scanned too), and
                  tests/test_memory.py's queries at tiny under their pools
                  (MEMORY_QS).
- 15. summary   — each kind of join-path call (the probe's bounds, the
+ 16. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
                  entry with its launches in phases nested, zones, write,
-                 statements, files, spill, distributed and wire beside the main
-                 path's; take_flat's entry with its summed
+                 statements, files, spill, distributed, wire and mesh beside
+                 the main path's; take_flat's entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -2912,8 +2936,10 @@ def zone_rowwise(results: dict) -> None:
 def phase_zones(results: dict) -> None:
     """TIMESTAMP WITH TIME ZONE and MATCH_RECOGNIZE at sf1, each query
     cold once with its scan_s, rest_s and launches, held to their
-    identities; MR_ORDERS, MR_NEXT and TZ_TRUNC also against the CPU at
-    sf1; then offset_millis_rowwise alone on one batch."""
+    identities; TZ_TRUNC also against the CPU at sf1 (the pattern
+    queries' CPU runs at sf1 took 35 s: phase parity holds them card
+    against CPU at tiny and sf0.1); then offset_millis_rowwise alone on
+    one batch."""
     import zoneinfo
 
     import torch
@@ -2961,7 +2987,7 @@ def phase_zones(results: dict) -> None:
     del r
     torch.cuda.empty_cache()
     cpu = zones_runner("sf1", "cpu")
-    for name in ("tz_trunc", "mr_orders", "mr_next"):
+    for name in ("tz_trunc",):
         t0 = time.perf_counter()
         got = cpu.execute(dict(ZONE_QUERIES)[name]).rows
         if got != rows[name]:
@@ -3979,6 +4005,9 @@ def parity_spill() -> None:
 
 
 DIST_WORKERS = 4  # tests/test_distributed.py's topology: 4 workers, 4 hash partitions
+# TPC-H queries phase distributed runs at tiny, card against CPU: joins,
+# an outer join, a semi join and subqueries, none of phase mesh's
+DIST_TINY_QUERIES = (2, 4, 13, 16, 17, 18)
 DIST_JOIN = """select c_mktsegment, count(*), sum(o_totalprice) from customer
 join orders on c_custkey = o_custkey group by c_mktsegment order by c_mktsegment"""
 DIST_STATEMENTS = (
@@ -4142,10 +4171,12 @@ def tpch_queries() -> dict:
 
 
 def distributed_tpch(schema: str, log) -> dict:
-    """The 22 TPC-H queries at `schema` through the distributed runner on
+    """The TPC-H queries at `schema` through the distributed runner on
     the card and on the CPU (4 workers each): rows equal, doubles within
-    tests/oracle.py's tolerances (rows_match). Returns {query: (card
-    wall, CPU wall)}."""
+    tests/oracle.py's tolerances (rows_match): DIST_TINY_QUERIES, six
+    that phase mesh does not run (MESH_FAST_QUERIES run there, card
+    against CPU, on the mesh plane; Q7 and Q8 took 45 s of a 121 s
+    phase). Returns {query: (card wall, CPU wall)}."""
     import torch
     from trino_tpu_torch.connectors.tpch import create_tpch_connector
     from trino_tpu_torch.engine import Session
@@ -4160,7 +4191,9 @@ def distributed_tpch(schema: str, log) -> dict:
 
     card, cpu = cluster("cuda"), cluster("cpu")
     walls = {}
-    for qid, sql in sorted(tpch_queries().items()):
+    queries = tpch_queries()
+    for qid in DIST_TINY_QUERIES:
+        sql = queries[qid]
         t0 = time.perf_counter()
         a = card.execute(sql).rows
         torch.cuda.synchronize()
@@ -4169,15 +4202,15 @@ def distributed_tpch(schema: str, log) -> dict:
         walls[qid] = (t1 - t0, time.perf_counter() - t1)
         if not rows_match(a, b):
             raise AssertionError(f"distributed TPC-H Q{qid} at {schema}: card and CPU rows differ")
-    log(f"[distributed] the 22 TPC-H queries at {schema}, 4 workers: card == CPU; walls "
+    log(f"[distributed] {len(walls)} TPC-H queries at {schema}, 4 workers: card == CPU; walls "
         f"(card s, CPU s): {walls}")
     return walls
 
 
 def phase_distributed(results: dict) -> None:
     """The distributed runner on the card: phase distributed's
-    statements at sf1 (distributed_identities), then the 22 TPC-H
-    queries at tiny against the CPU's distributed rows. Launches count
+    statements at sf1 (distributed_identities), then DIST_TINY_QUERIES
+    at tiny against the CPU's distributed rows. Launches count
     apart (`distributed_launches`)."""
     import torch
 
@@ -4416,6 +4449,215 @@ def phase_wire(results: dict) -> None:
     results["wire"] = {"http": http, "fte": fte, "front_door": front}
     log(f"[wire] identities hold; launches of the phase: {launches}")
     log(f"[wire] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
+MESH_SHARDS = 4  # shards of the card mesh: mesh_devices=[cuda:0] * 4
+MESH_CHUNK_ROWS = 262144  # orders at sf1 holds 375,000 rows a shard: 2 chunks
+# tests/test_mesh.py's FAST_MESH_QUERIES (a test keeps them equal)
+MESH_FAST_QUERIES = (1, 3, 5, 6, 11, 12, 14, 19, 20, 22)
+MESH_MARK = ("select count(*) from orders where o_custkey < 10 or o_orderkey in "
+             "(select l_orderkey from lineitem where l_quantity > 48)")
+# (name, sql, the collectives its plan exchanges over, a join)
+MESH_STATEMENTS = (
+    ("clerk_group", dict(DIST_STATEMENTS)["clerk_group"], ("all_to_all",), False),
+    ("custkey_group", dict(DIST_STATEMENTS)["custkey_group"], ("all_to_all",), False),
+    ("segment_join", DIST_JOIN, ("all_to_all",), True),
+    ("supplier_nation", dict(DIST_STATEMENTS)["supplier_nation"], ("all_gather",), True),
+    ("mark", MESH_MARK, ("all_to_all",), True),
+    ("top_price", dict(DIST_STATEMENTS)["top_price"], (), False),
+    ("count", dict(DIST_STATEMENTS)["count"], (), False),
+    ("window", "select count(*), max(rn), sum(rn) from (select row_number() over "
+               "(partition by o_custkey order by o_orderkey) rn from orders)",
+     ("all_to_all",), False),
+)
+MESH_CHUNKED = ("custkey_group", "segment_join")
+
+
+def mesh_runners(schema: str, device, mesh_devices, chunk_rows: int = MESH_CHUNK_ROWS) -> tuple:
+    """A DistributedQueryRunner with in-process workers and the default
+    mesh_execution over `mesh_devices` (DIST_WORKERS workers and hash
+    partitions), its chunked twin (mesh_chunk_rows = `chunk_rows`) and
+    its mesh_execution=False twin (the page plane), over one tpch
+    connector; the broadcast threshold as dist_runners'."""
+    from trino_tpu_torch.connectors.tpch import base_row_count, create_tpch_connector
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+
+    sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
+    session = dict(catalog="tpch", schema=schema,
+                   broadcast_join_threshold=base_row_count("customer", sf) // 2)
+    conn = create_tpch_connector()
+    out = []
+    for kw in ({}, {"mesh_chunk_rows": chunk_rows}, {"mesh_execution": False}):
+        r = DistributedQueryRunner(Session(**session, **kw), n_workers=DIST_WORKERS,
+                                   hash_partitions=DIST_WORKERS, device=device,
+                                   mesh_devices=mesh_devices)
+        r.register_catalog("tpch", conn)
+        out.append(r)
+    return tuple(out)
+
+
+def mesh_identities(schema: str, device, mesh_devices, log,
+                    chunk_rows: int = MESH_CHUNK_ROWS) -> dict:
+    """Phase mesh's statements at `schema` on `device` over
+    `mesh_devices`: each on the mesh plane and on its page-plane twin
+    (mesh_runners); returns {statement: record} with both walls, the
+    rows, the collective counts, the run's attempts, chunks and
+    chunk_cap, and the mesh run's launches (counted only on the card).
+    Rows must equal the twin's exactly, the mesh run must report
+    data_plane == "mesh" with no fallback, each statement's exchanges
+    must move their counters and each join must launch bounds,
+    run_owner and take_flat on the card; MESH_CHUNKED run again with
+    mesh_chunk_rows = `chunk_rows` in two chunks or more, equal to the
+    unchunked rows. tests/test_torch_mesh.py runs this at tiny on the
+    CPU."""
+    import torch
+    from trino_tpu_torch.parallel import mesh_chunk, mesh_plan
+
+    mesh, chunked, twin = mesh_runners(schema, device, mesh_devices, chunk_rows)
+    twin.execute(DIST_JOIN)  # the generator's dictionaries, untimed
+
+    def timed(r, sql):
+        t0 = time.perf_counter()
+        res = r.execute(sql)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def on_mesh(r, name, sql, exchanges, join):
+        c0, k0 = mesh_plan.mesh_counters_snapshot(), join_kernel_counts()
+        res, wall = timed(r, sql)
+        c1, k1 = mesh_plan.mesh_counters_snapshot(), join_kernel_counts()
+        info = mesh_chunk.last_run_info()
+        rec = {"wall_s": wall, "rows": len(res.rows),
+               "collectives": {c: c1[c] - c0[c] for c in ("all_to_all", "all_gather")},
+               "attempts": info.get("attempts"), "chunks": info.get("chunks"),
+               "chunk_cap": info.get("chunk_cap"),
+               "launches": {k: k1[k] - k0[k] for k in k1}}
+        if res.data_plane != "mesh" or r.last_mesh_fallback is not None:
+            raise AssertionError(f"mesh {name}: data_plane={res.data_plane}, "
+                                 f"fallback {r.last_mesh_fallback!r}")
+        if c1["queries"] != c0["queries"] + 1:
+            raise AssertionError(f"mesh {name}: the queries counter moved "
+                                 f"{c1['queries'] - c0['queries']}")
+        for c in exchanges:
+            if rec["collectives"][c] <= 0:
+                raise AssertionError(f"mesh {name}: its plan's {c} never ran")
+        if join and torch.device(device).type == "cuda":
+            for k in ("bounds", "run_owner", "take_flat"):
+                if rec["launches"][k] <= 0:
+                    raise AssertionError(f"mesh {name} never launched {k}")
+        return res, rec
+
+    steps: dict = {}
+    for name, sql, exchanges, join in MESH_STATEMENTS:
+        res, rec = on_mesh(mesh, name, sql, exchanges, join)
+        twin_res, rec["twin_wall_s"] = timed(twin, sql)
+        if res.rows != twin_res.rows:
+            raise AssertionError(f"mesh {name}: rows differ from the page-plane twin")
+        steps[name] = rec
+        log(f"[mesh] {schema} {name}: wall_s={rec['wall_s']} twin_wall_s={rec['twin_wall_s']} "
+            f"rows={rec['rows']} collectives={rec['collectives']} attempts={rec['attempts']} "
+            f"chunks={rec['chunks']} chunk_cap={rec['chunk_cap']} launches={rec['launches']}")
+        if name in MESH_CHUNKED:
+            cres, crec = on_mesh(chunked, name + "_chunked", sql, exchanges, join)
+            if cres.rows != res.rows:
+                raise AssertionError(f"mesh {name}: chunked rows differ from unchunked")
+            if crec["chunks"] < 2:
+                raise AssertionError(f"mesh {name}_chunked ran {crec['chunks']} chunk(s)")
+            steps[name + "_chunked"] = crec
+            log(f"[mesh] {schema} {name}_chunked: wall_s={crec['wall_s']} "
+                f"collectives={crec['collectives']} attempts={crec['attempts']} "
+                f"chunks={crec['chunks']} chunk_cap={crec['chunk_cap']} "
+                f"launches={crec['launches']}")
+    return steps
+
+
+def mesh_default_width(schema: str, log) -> dict:
+    """GROUP BY o_clerk on the default mesh (mesh_devices=None: every
+    visible card), which on a one-card host is one shard and runs no
+    collective, as the reference's width-1 mesh; equal to its twin."""
+    import torch
+    from trino_tpu_torch.parallel import mesh_plan
+
+    r, _chunked, twin = mesh_runners(schema, None, None)
+    sql = dict(DIST_STATEMENTS)["clerk_group"]
+    c0 = mesh_plan.mesh_counters_snapshot()
+    t0 = time.perf_counter()
+    res = r.execute(sql)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c1 = mesh_plan.mesh_counters_snapshot()
+    width = torch.cuda.device_count()
+    moved = {c: c1[c] - c0[c] for c in ("queries", "all_to_all", "all_gather")}
+    if res.data_plane != "mesh" or moved["queries"] != 1:
+        raise AssertionError(f"mesh default width: data_plane={res.data_plane}, {moved}")
+    if width == 1 and (moved["all_to_all"] or moved["all_gather"]):
+        raise AssertionError(f"mesh default width 1 ran collectives: {moved}")
+    if res.rows != twin.execute(sql).rows:
+        raise AssertionError("mesh default width: rows differ from the page-plane twin")
+    log(f"[mesh] {schema} default width ({width} card(s)): clerk_group wall_s={wall} "
+        f"counters moved {moved}")
+    return {"width": width, "wall_s": wall, **moved}
+
+
+def mesh_tiny_parity(log) -> dict:
+    """MESH_FAST_QUERIES at tiny on the MESH_SHARDS-shard card mesh and
+    on MESH_SHARDS CPU shards, the same code: rows equal within
+    tests/oracle.py's tolerances, both on the mesh plane. Returns
+    {query: (card wall, CPU wall)}."""
+    import torch
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+
+    def cluster(device):
+        r = DistributedQueryRunner(Session(catalog="tpch", schema="tiny"), n_workers=2,
+                                   hash_partitions=2, device=device,
+                                   mesh_devices=[torch.device(device)] * MESH_SHARDS)
+        r.register_catalog("tpch", create_tpch_connector())
+        return r
+
+    card, cpu = cluster("cuda"), cluster("cpu")
+    queries = tpch_queries()
+    walls = {}
+    for qid in MESH_FAST_QUERIES:
+        t0 = time.perf_counter()
+        a = card.execute(queries[qid])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = cpu.execute(queries[qid])
+        walls[qid] = (t1 - t0, time.perf_counter() - t1)
+        if a.data_plane != "mesh" or b.data_plane != "mesh":
+            raise AssertionError(f"mesh TPC-H Q{qid} at tiny left the mesh: "
+                                 f"{card.last_mesh_fallback} / {cpu.last_mesh_fallback}")
+        if not rows_match(a.rows, b.rows):
+            raise AssertionError(f"mesh TPC-H Q{qid} at tiny: card and CPU rows differ")
+    log(f"[mesh] MESH_FAST_QUERIES at tiny, {MESH_SHARDS} shards: card == CPU; walls "
+        f"(card s, CPU s): {walls}")
+    return walls
+
+
+def phase_mesh(results: dict) -> None:
+    """The mesh data plane on the card (see the module docstring): the
+    sf1 statements over MESH_SHARDS shards of the one card, the default
+    width, the tiny TPC-H queries against the CPU. Launches count apart
+    (`mesh_launches`)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log(f"[mesh] card: {card_line()}")
+    reset_kernel_counts()
+    steps = mesh_identities("sf1", "cuda", [torch.device("cuda", 0)] * MESH_SHARDS, log)
+    launches = {k: sum(rec["launches"][k] for rec in steps.values())
+                for k in join_kernel_counts()}
+    results["mesh_launches"] = launches
+    default = mesh_default_width("sf1", log)
+    tiny = mesh_tiny_parity(log)
+    results["mesh"] = {"steps": steps, "default_width": default, "tpch_tiny_walls": tiny}
+    log(f"[mesh] identities hold; launches of the sf1 mesh runs: {launches}")
+    log(f"[mesh] phase took {time.perf_counter() - t_phase} s")
     torch.cuda.empty_cache()
 
 
@@ -4950,6 +5192,7 @@ def phase_parity(results: dict) -> None:
          + breadth + tests),
         ("sf0.1", (("q3", Q3, False), ("q18", Q18, False)) + breadth),
     ):
+        t0 = time.perf_counter()
         gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
         for name, sql, mxu in queries:
             gpu.session.mxu_join_enabled = cpu.session.mxu_join_enabled = mxu
@@ -4957,20 +5200,26 @@ def phase_parity(results: dict) -> None:
             if a != b:
                 raise AssertionError(f"{name}: card and CPU rows differ at {schema}")
             log(f"[parity] {name} {schema}: {len(a)} rows, card == CPU")
+        log(f"[timing] parity TPC-H {schema} took {time.perf_counter() - t0:.1f} s")
     # the scalar function corpus of tests/test_functions.py at tiny, and
     # the functions queries at sf0.1; doubles within rows_close's 1e-12
     for schema, queries in (("tiny", list(enumerate(function_corpus()))),
                             ("sf0.1", FN_QUERIES)):
+        t0 = time.perf_counter()
         gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
         for name, sql in queries:
             a, b = gpu.execute(sql).rows, cpu.execute(sql).rows
             if not rows_close(a, b):
                 raise AssertionError(f"functions {name}: card {a[:3]} and CPU {b[:3]} "
                                      f"differ at {schema}")
-        log(f"[parity] functions {schema}: {len(queries)} queries, card == CPU")
-    # TPC-DS: the ten templates at tiny, the nine other than q72 at sf0.1
-    for schema, names in (("tiny", sorted(TPCDS_QUERIES)),
-                          ("sf0.1", [n for n in sorted(TPCDS_QUERIES) if n != "q72"])):
+        log(f"[parity] functions {schema}: {len(queries)} queries, card == CPU "
+            f"({time.perf_counter() - t0:.1f} s)")
+    # TPC-DS: the nine templates other than q72 at tiny and sf0.1 (q72's
+    # CPU run at tiny took most of this step's 42.5 s; phase main holds
+    # q72 to its identities on the card at Q72_SCHEMA)
+    nine = [n for n in sorted(TPCDS_QUERIES) if n != "q72"]
+    for schema, names in (("tiny", nine), ("sf0.1", nine)):
+        t0 = time.perf_counter()
         gpu, cpu = runner(schema, "cuda", "tpcds"), runner(schema, "cpu", "tpcds")
         for name in names:
             sql = tpcds_sql(name, cpu)
@@ -4980,17 +5229,17 @@ def phase_parity(results: dict) -> None:
             if schema == "tiny" and name in TPCDS_NONEMPTY and not a:
                 raise AssertionError(f"TPC-DS {name} selected no rows at tiny")
             log(f"[parity] TPC-DS {name} {schema}: {len(a)} rows, card == CPU")
+        log(f"[timing] parity TPC-DS {schema} took {time.perf_counter() - t0:.1f} s")
     # the wide-string GROUP BY at 2^16 rows, also against numpy
     (gpu, arrays), (cpu, _) = widestr_runner(1 << 16, "cuda"), widestr_runner(1 << 16, "cpu")
     a, b = gpu.execute(WIDESTR).rows, cpu.execute(WIDESTR).rows
     if a != b or a != widestr_numpy(*arrays):
         raise AssertionError("wide-string GROUP BY: card, CPU and numpy differ at 2^16 rows")
     log(f"[parity] wide-string GROUP BY 2^16 rows: {len(a)} rows, card == CPU == numpy")
-    parity_zones()
-    parity_write()
-    parity_statements()
-    parity_files()
-    parity_spill()
+    for part in (parity_zones, parity_write, parity_statements, parity_files, parity_spill):
+        t0 = time.perf_counter()
+        part()
+        log(f"[timing] {part.__name__} took {time.perf_counter() - t0:.1f} s")
 
 
 def timed_main_args(results: dict) -> dict:
@@ -5070,7 +5319,7 @@ def family_modes(results: dict, on_path: dict, kernels) -> dict:
 
 # the phases whose launches count apart from the main path's
 PHASE_LAUNCHES = ("nested", "zones", "write", "statements", "files", "spill", "distributed",
-                  "wire")
+                  "wire", "mesh")
 
 
 def kernels_line(results: dict) -> dict:
@@ -5183,7 +5432,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "files,spill,distributed,wire,explore,parity",
+                            "files,spill,distributed,wire,mesh,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -5215,33 +5464,26 @@ def main() -> int:
                                for n in cuda_build.SOURCES}
     for name, ops in results["sass_atomics"].items():
         log(f"[build] {name} SASS atomics: {ops}")
-    if "kernel" in phases:
-        phase_kernel(results)
-        phase_kernel_join(results)
-    if "main" in phases:
-        phase_main(results)
-    if "nested" in phases:
-        phase_nested(results)
-    if "zones" in phases:
-        phase_zones(results)
-    if "write" in phases:
-        phase_write(results)
-    if "statements" in phases:
-        phase_statements(results)
-    if "files" in phases:
-        phase_files(results)
-    if "spill" in phases:
-        phase_spill(results)
-    if "distributed" in phases:
-        phase_distributed(results)
-    if "wire" in phases:
-        phase_wire(results)
-    if "explore" in phases:
-        phase_explore(results)
-    if "parity" in phases:
-        phase_parity(results)
+    ordered = (("kernel", (phase_kernel, phase_kernel_join)), ("main", (phase_main,)),
+               ("nested", (phase_nested,)), ("zones", (phase_zones,)),
+               ("write", (phase_write,)), ("statements", (phase_statements,)),
+               ("files", (phase_files,)), ("spill", (phase_spill,)),
+               ("distributed", (phase_distributed,)), ("wire", (phase_wire,)),
+               ("mesh", (phase_mesh,)), ("explore", (phase_explore,)),
+               ("parity", (phase_parity,)))
+    walls = results["phase_walls_s"] = {}
+    for name, fns in ordered:
+        if name in phases:
+            t0 = time.perf_counter()
+            for fn in fns:
+                fn(results)
+            walls[name] = time.perf_counter() - t0
+            log(f"[timing] phase {name} took {walls[name]:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    t0 = time.perf_counter()
     line = kernels_line(results)
+    walls["summary"] = time.perf_counter() - t0
+    log(f"[timing] the summary's timings took {walls['summary']:.1f} s")
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         results.pop("main_args", None)
         json.dump({"card": card, **results, **line}, fh, indent=1, default=str)

@@ -38,6 +38,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 import tests.test_distributed as dist_corpus
 import tests.test_node_scheduler as ns_corpus
@@ -79,15 +80,20 @@ _MODULES = [
     "runtime.queryinfo", "config", "security", "runtime.codec", "runtime.spool",
     "runtime.http", "runtime.fte", "runtime.resource_groups", "runtime.server",
     "serving.admission", "client", "dbapi", "cli", "service.proxy", "service.verifier",
-    "transaction", "sql.ast", "sql.cost",
+    "transaction", "sql.ast", "sql.cost", "parallel.mesh_plan", "parallel.mesh_chunk",
 ]
 # constructors that take the port's device: built on the CPU
 _ON_CPU = {"LocalQueryRunner", "DistributedQueryRunner", "Worker", "TaskExecution"}
+# the mesh plane's shards: 8 on the CPU, as tests/conftest.py gives the
+# reference 8 CPU devices
+MESH_DEVICES = [torch.device("cpu")] * 8
 
 
 def _cpu(cls):
     def make(*args, **kw):
         kw.setdefault("device", "cpu")
+        if cls is DistributedQueryRunner:
+            kw.setdefault("mesh_devices", MESH_DEVICES)
         return cls(*args, **kw)
 
     return make
@@ -419,11 +425,21 @@ def test_the_corpora_are_covered():
 
 
 def test_mesh_execution_with_in_process_workers_raises_item_12():
+    """mesh_execution (item 12, since ported) with in-process workers:
+    the default runner answers on the mesh plane (8 CPU shards here),
+    counted once, with the rows of its mesh_execution=False twin."""
+    from trino_tpu_torch.parallel import mesh_plan
+
     r = DistributedQueryRunner(Session(catalog="tpch", schema="tiny"), n_workers=2,
-                               device="cpu")
+                               device="cpu", mesh_devices=MESH_DEVICES)
     r.register_catalog("tpch", ttpch.create_tpch_connector())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        r.execute("select count(*) from nation")
+    sql = "select n_regionkey, count(*) from nation group by 1 order by 1"
+    before = mesh_plan.mesh_counter("queries")
+    res = r.execute(sql)
+    assert res.data_plane == "mesh" and r.last_mesh_fallback is None
+    assert mesh_plan.mesh_counter("queries") == before + 1
+    twin = _port_cluster()
+    assert res.rows == twin.execute(sql).rows == [[k, 5] for k in range(5)]
 
 
 def test_retry_policy_task_raises_item_11b():

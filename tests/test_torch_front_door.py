@@ -9,9 +9,10 @@ proxy and verifier.
   test_state_machine.py's metrics endpoint, test_tracing.py's query
   endpoints, test_security.py's three server cases and test_serving.py's
   three admission cases. test_the_corpora_are_covered accounts for every
-  case, and for every case the other port test files send here. One
-  case waits: test_services.py's distributed transactions run a query
-  over in-process workers with mesh_execution on (item 12).
+  case, and for every case the other port test files send here.
+  test_services.py's distributed transactions run a query over
+  in-process workers with mesh_execution on: the mesh plane (item 12),
+  over the 8 CPU shards portify gives the runner.
 - Against the runner: TPC-H Q1, Q3 and Q18 at tiny give the same rows
   through the port's Client and DB-API as through runner.execute, and
   `python -m trino_tpu_torch.cli --server` prints them.
@@ -94,11 +95,7 @@ def services_server():
 # ---- tests/test_protocol.py, test_services.py ---------------------------------
 
 # corpus case -> the ROADMAP §1 item it waits for
-WAITING = {
-    "test_services.py::test_distributed_runner_transactions":
-        "item 12 (a query over in-process workers under the default "
-        "mesh_execution = true)",
-}
+WAITING: dict = {}
 _PROTOCOL = _cases(protocol_corpus)
 _SERVICES = [c for c in _cases(services_corpus) if f"test_services.py::{c[1]}" not in WAITING]
 
@@ -256,5 +253,5 @@ def test_the_corpora_are_covered():
     every = {f"test_services.py::{n}" for _, n in _cases(services_corpus)}
     assert every == (ran | set(WAITING)) & every and not ran & set(WAITING)
     assert all(v.startswith(("item 12", "item 13")) for v in WAITING.values())
-    assert (len(_PROTOCOL), len(_SERVICES), len(_SCHED), len(_RG)) == (14, 17, 8, 5)
+    assert (len(_PROTOCOL), len(_SERVICES), len(_SCHED), len(_RG)) == (14, 18, 8, 5)
     assert (len(_SECURITY_SERVER), len(_ADMISSION)) == (3, 3)

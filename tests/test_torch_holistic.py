@@ -17,7 +17,10 @@ the same seeded numpy inputs.
   tests/test_aggregates_r4.py and tests/test_approx_aggs.py through both
   runners on the same tables (integers, decimals and strings equal,
   doubles within assert_rows_match's tolerance), and the reference's
-  answer for a lone approx_distinct (its HLL plan, not exact).
+  answer for a lone approx_distinct (its HLL plan, not exact). The
+  memory-table cases (MEMORY_CASES) run in
+  tests/test_torch_holistic_memory.py, so that --dist loadfile spreads
+  the two halves over two workers.
 """
 
 import jax.numpy as jnp
@@ -487,18 +490,6 @@ def test_listagg_downstream_string_ops_raise(sql, tpch_runners):
     for r in (ref, port):
         with pytest.raises(NotImplementedError):
             r.execute(sql)
-
-
-@pytest.mark.parametrize("sql,float_sums", MEMORY_CASES)
-def test_memory_aggregates_match_reference(sql, float_sums, memory_runners):
-    # float_sums: avg/regr over doubles add in another order, so those
-    # doubles agree within assert_rows_match's 1e-9 relative
-    ref, port = memory_runners
-    got, want = port.execute(sql).rows, ref.execute(sql).rows
-    if float_sums:
-        assert_rows_match(got, want, ordered=True)
-    else:
-        assert got == want
 
 
 def test_lone_approx_distinct_is_the_references_hll_estimate(tpch_runners):

@@ -2,6 +2,7 @@
 silent CPU fallback for the runner."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -31,8 +32,45 @@ def _module_names():
     return names
 
 
-def test_import_pulls_in_no_jax_and_no_reference_package():
-    code = (
+_BAD = "('jax', 'jaxlib', 'trino_tpu')"
+_BAD_FILES = "('jax', 'jaxlib', 'trino_tpu', 'pyarrow', 'zstandard')"
+
+
+def _imports_clean(module: str, bad: str = _BAD) -> str:
+    """Check code: import `module`, then find nothing of `bad` loaded."""
+    return (
+        "import importlib, sys, threading, os\n"
+        f"importlib.import_module({module!r})\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {bad})\n"
+        "assert not bad, bad\n"
+    )
+
+
+ZONE_MODULES = ["trino_tpu_torch.ops.tz", "trino_tpu_torch.exec.match_recognize"]
+WRITE_MODULES = ["trino_tpu_torch.transaction", "trino_tpu_torch.engine",
+                 "trino_tpu_torch.connectors.memory"]
+STATEMENT_MODULES = ["trino_tpu_torch.security", "trino_tpu_torch.config",
+                     "trino_tpu_torch.serving.plan_cache", "trino_tpu_torch.serving.params",
+                     "trino_tpu_torch.sql.formatter", "trino_tpu_torch.sql.validate"]
+FILE_MODULES = ["trino_tpu_torch.connectors.file", "trino_tpu_torch.connectors.parquet_format",
+                "trino_tpu_torch.connectors.blackhole", "trino_tpu_torch.utils.snappy"]
+MEMORY_MODULES = ["trino_tpu_torch.runtime", "trino_tpu_torch.runtime.memory",
+                  "trino_tpu_torch.native", "trino_tpu_torch.exec.serde",
+                  "trino_tpu_torch.exec.exchange_ops", "trino_tpu_torch.exec.spill",
+                  "trino_tpu_torch.exec.stats", "trino_tpu_torch.exec.local_exchange",
+                  "trino_tpu_torch.exec.driver"]
+WIRE_MODULES = ["trino_tpu_torch.runtime.http", "trino_tpu_torch.runtime.fte",
+                "trino_tpu_torch.runtime.server", "trino_tpu_torch.runtime.spool",
+                "trino_tpu_torch.runtime.codec", "trino_tpu_torch.runtime.resource_groups",
+                "trino_tpu_torch.serving.admission", "trino_tpu_torch.client",
+                "trino_tpu_torch.dbapi", "trino_tpu_torch.cli",
+                "trino_tpu_torch.service.proxy", "trino_tpu_torch.service.verifier"]
+MESH_PACKAGES = [("trino_tpu_torch.parallel", ("mesh", "exchange", "mesh_plan", "mesh_chunk")),
+                 ("trino_tpu_torch.compile", ("shapes",))]
+
+# check name -> code run first and alone in a child process (see `alone`)
+ALONE = {
+    "all": (
         "import importlib, sys\n"
         f"for m in {_module_names()!r}:\n"
         "    importlib.import_module(m)\n"
@@ -41,184 +79,142 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'trino_tpu' or m.startswith('trino_tpu.'))\n"
         "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
-
-
-@pytest.mark.parametrize("module", ["trino_tpu_torch.ops.tz",
-                                    "trino_tpu_torch.exec.match_recognize"])
-def test_zone_and_pattern_modules_import_alone(module):
-    # each imported first and alone in a fresh process: neither pulls in
-    # jax nor anything of trino_tpu, and the zone module builds no table
-    # until a device function runs
-    code = (
-        "import importlib, sys\n"
-        f"m = importlib.import_module({module!r})\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'trino_tpu'))\n"
-        "assert not bad, bad\n"
+    ),
+    **{f"zone:{m}": _imports_clean(m) + (
+        # and the zone module builds no table until a device function runs
         "tz = sys.modules.get('trino_tpu_torch.ops.tz')\n"
-        "assert tz is None or tz._zone_flat.cache_info().currsize == 0\n"
-        "print('ok')\n"
-    )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
-
-
-@pytest.mark.parametrize("module", ["trino_tpu_torch.transaction",
-                                    "trino_tpu_torch.engine",
-                                    "trino_tpu_torch.connectors.memory"])
-def test_write_side_modules_import_alone(module):
-    # the write side keeps its own transaction manager: imported first and
-    # alone in a fresh process, none of these pulls in jax or trino_tpu
-    # (trino_tpu/transaction.py itself imports trino_tpu.analysis)
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'trino_tpu'))\n"
-        "assert not bad, bad\n"
+        "assert tz is None or tz._zone_flat.cache_info().currsize == 0\n") for m in ZONE_MODULES},
+    **{f"write:{m}": _imports_clean(m) + (
         "from trino_tpu_torch.transaction import TransactionManager\n"
         "from trino_tpu_torch.connectors.spi import CatalogManager\n"
         "tm = TransactionManager(CatalogManager())\n"
         "tx = tm.begin(read_only=True)\n"
         "assert tm.is_read_only(tx) and tm.is_active(tx)\n"
         "tm.rollback(tx)\n"
-        "assert not tm.is_active(tx)\n"
-        "print('ok')\n"
-    )
+        "assert not tm.is_active(tx)\n") for m in WRITE_MODULES},
+    **{f"statement:{m}": _imports_clean(m) for m in STATEMENT_MODULES},
+    **{f"file:{m}": _imports_clean(m, _BAD_FILES) for m in FILE_MODULES},
+    **{f"memory:{m}": _imports_clean(m) + (
+        # and the native library is not built by an import
+        "native = sys.modules.get('trino_tpu_torch.native')\n"
+        "assert native is None or native._lib is None\n") for m in MEMORY_MODULES},
+    **{f"wire:{m}": _imports_clean(m) + (
+        # and no server thread is started (nor a socket opened)
+        "assert threading.active_count() == 1, threading.enumerate()\n") for m in WIRE_MODULES},
+    **{f"mesh:{p}": _imports_clean(p) + "".join(
+        f"importlib.import_module({p + '.' + m!r})\n" for m in ms) + (
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_BAD})\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n")
+       for p, ms in MESH_PACKAGES},
+}
+
+_ALONE_HELPER = r"""
+import io, json, os, sys, traceback
+import torch  # what every port module imports first
+assert not [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'trino_tpu')]
+results = {}
+for name, code in json.load(sys.stdin).items():
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        out, err, rc = io.StringIO(), "", 0
+        sys.stdout = out
+        try:
+            exec(compile(code, name, "exec"), {"__name__": "__main__"})
+        except BaseException:
+            rc, err = 1, traceback.format_exc()
+        with os.fdopen(w, "w") as fh:
+            json.dump({"rc": rc, "stdout": out.getvalue(), "stderr": err}, fh)
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r) as fh:
+        results[name] = json.loads(fh.read() or '{"rc": 1, "stderr": "no report"}')
+    os.waitpid(pid, 0)
+print(json.dumps(results))
+"""
+
+
+@pytest.fixture(scope="module")
+def alone():
+    """Each check of ALONE in a process of its own whose only earlier
+    import is torch: one helper process imports torch (and asserts that
+    this pulled in nothing of jax or trino_tpu), then forks one child a
+    check, so every module is still imported first and alone, without
+    paying torch's import once a check."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _ALONE_HELPER], input=json.dumps(ALONE),
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    return json.loads(proc.stdout)
 
 
-@pytest.mark.parametrize("module", ["trino_tpu_torch.security", "trino_tpu_torch.config",
-                                    "trino_tpu_torch.serving.plan_cache",
-                                    "trino_tpu_torch.serving.params",
-                                    "trino_tpu_torch.sql.formatter",
-                                    "trino_tpu_torch.sql.validate"])
-def test_statement_surface_modules_import_alone(module):
+def _check_alone(alone, name):
+    res = alone[name]
+    assert res["rc"] == 0, res["stderr"]
+    assert res["stdout"] == ""
+
+
+def test_import_pulls_in_no_jax_and_no_reference_package(alone):
+    _check_alone(alone, "all")
+
+
+@pytest.mark.parametrize("module", ZONE_MODULES)
+def test_zone_and_pattern_modules_import_alone(module, alone):
+    # each imported first and alone: neither pulls in jax nor anything of
+    # trino_tpu, and the zone module builds no table until a device
+    # function runs
+    _check_alone(alone, f"zone:{module}")
+
+
+@pytest.mark.parametrize("module", WRITE_MODULES)
+def test_write_side_modules_import_alone(module, alone):
+    # the write side keeps its own transaction manager: imported first and
+    # alone, none of these pulls in jax or trino_tpu
+    # (trino_tpu/transaction.py itself imports trino_tpu.analysis)
+    _check_alone(alone, f"write:{module}")
+
+
+@pytest.mark.parametrize("module", STATEMENT_MODULES)
+def test_statement_surface_modules_import_alone(module, alone):
     # the port keeps its own copy of each (trino_tpu/security.py and
     # sql/formatter.py import no jax, but are the reference's): imported
-    # first and alone in a fresh process, none pulls in jax or trino_tpu
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'trino_tpu'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    # first and alone, none pulls in jax or trino_tpu
+    _check_alone(alone, f"statement:{module}")
 
 
-@pytest.mark.parametrize("module", ["trino_tpu_torch.connectors.file",
-                                    "trino_tpu_torch.connectors.parquet_format",
-                                    "trino_tpu_torch.connectors.blackhole",
-                                    "trino_tpu_torch.utils.snappy"])
-def test_file_connector_modules_import_alone(module):
+@pytest.mark.parametrize("module", FILE_MODULES)
+def test_file_connector_modules_import_alone(module, alone):
     # the port keeps its own codec and snappy (trino_tpu's import no jax,
     # but are the reference's), and the card machine has neither pyarrow
-    # nor, maybe, zstandard: imported first and alone in a fresh process,
-    # none of these pulls in jax, trino_tpu, pyarrow or zstandard
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'trino_tpu', 'pyarrow', 'zstandard'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    # nor, maybe, zstandard: imported first and alone, none of these
+    # pulls in jax, trino_tpu, pyarrow or zstandard
+    _check_alone(alone, f"file:{module}")
 
 
-@pytest.mark.parametrize("module", ["trino_tpu_torch.runtime",
-                                    "trino_tpu_torch.runtime.memory",
-                                    "trino_tpu_torch.native",
-                                    "trino_tpu_torch.exec.serde",
-                                    "trino_tpu_torch.exec.exchange_ops",
-                                    "trino_tpu_torch.exec.spill",
-                                    "trino_tpu_torch.exec.stats",
-                                    "trino_tpu_torch.exec.local_exchange",
-                                    "trino_tpu_torch.exec.driver"])
-def test_memory_spill_and_page_modules_import_alone(module):
-    # imported first and alone in a fresh process, none of the memory,
-    # spill, serde, exchange or statistics modules pulls in jax or
-    # trino_tpu, and the native library is not built by an import
-    code = (
-        "import importlib, sys, os\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'trino_tpu'))\n"
-        "assert not bad, bad\n"
-        "native = sys.modules.get('trino_tpu_torch.native')\n"
-        "assert native is None or native._lib is None\n"
-        "print('ok')\n"
-    )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+@pytest.mark.parametrize("module", MEMORY_MODULES)
+def test_memory_spill_and_page_modules_import_alone(module, alone):
+    # imported first and alone, none of the memory, spill, serde,
+    # exchange or statistics modules pulls in jax or trino_tpu, and the
+    # native library is not built by an import
+    _check_alone(alone, f"memory:{module}")
 
 
-@pytest.mark.parametrize("module", ["trino_tpu_torch.runtime.http",
-                                    "trino_tpu_torch.runtime.fte",
-                                    "trino_tpu_torch.runtime.server",
-                                    "trino_tpu_torch.runtime.spool",
-                                    "trino_tpu_torch.runtime.codec",
-                                    "trino_tpu_torch.runtime.resource_groups",
-                                    "trino_tpu_torch.serving.admission",
-                                    "trino_tpu_torch.client",
-                                    "trino_tpu_torch.dbapi",
-                                    "trino_tpu_torch.cli",
-                                    "trino_tpu_torch.service.proxy",
-                                    "trino_tpu_torch.service.verifier"])
-def test_wire_and_front_door_modules_import_alone(module):
-    # imported first and alone in a fresh process, none of the wire or
-    # front-door modules pulls in jax or trino_tpu, and none starts a
-    # server thread or opens a socket
-    code = (
-        "import importlib, sys, threading\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'trino_tpu'))\n"
-        "assert not bad, bad\n"
-        "assert threading.active_count() == 1, threading.enumerate()\n"
-        "print('ok')\n"
-    )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+@pytest.mark.parametrize("module", WIRE_MODULES)
+def test_wire_and_front_door_modules_import_alone(module, alone):
+    # imported first and alone, none of the wire or front-door modules
+    # pulls in jax or trino_tpu, and none starts a server thread or opens
+    # a socket
+    _check_alone(alone, f"wire:{module}")
+
+
+@pytest.mark.parametrize("package", [p for p, _ in MESH_PACKAGES])
+def test_mesh_plane_packages_import_alone(package, alone):
+    # the mesh plane's packages, imported first and alone, pull in
+    # neither jax nor trino_tpu and start no thread
+    _check_alone(alone, f"mesh:{package}")
 
 
 def test_phase_files_statements_at_tiny():

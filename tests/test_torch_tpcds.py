@@ -9,7 +9,8 @@ sqlite oracle.
   trino_tpu's (integers, decimals and strings exactly; the decimals of
   both packages decode to the same doubles), and to the sqlite oracle
   within assert_rows_match's tolerance (abs 1e-2, as
-  tests/test_tpcds.py). q72 runs once per engine for the module.
+  tests/test_tpcds.py). Each template runs once per engine for the
+  module; q72 runs in tests/test_torch_tpcds_q72.py.
 """
 
 import sqlite3
@@ -75,7 +76,12 @@ def test_generator_columns_equal_the_reference(table):
             assert gd.values == wd.values, col
 
 
-@pytest.mark.parametrize("name", sorted(QUERIES))
+# q72 (most of this file's time) runs in tests/test_torch_tpcds_q72.py, so
+# that --dist loadfile gives it a worker of its own
+TEMPLATES = sorted(n for n in QUERIES if n != "q72")
+
+
+@pytest.mark.parametrize("name", TEMPLATES)
 def test_template_matches_reference_and_oracle(name, results):
     got, want, oracle_rows, ordered = results(name)
     if name in _NONEMPTY:

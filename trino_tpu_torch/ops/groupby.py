@@ -22,13 +22,26 @@ grouped_argbest, grouped_percentile, grouped_weighted_percentile,
 grouped_count_distinct, grouped_rows_order/_sorted) sort by the same
 keys, so their slots align with sort_group_reduce's.
 
+The streaming group table (GroupTable, insert_group_ids,
+assign_group_ids, grow_table) is the reference's fixed-capacity
+putIfAbsent by linear probing, which the mesh plane's
+distributed_groupby_step (parallel/exchange.py) uses. The reference
+loops its rounds in a `lax.while_loop`; here each round is a claim
+(scatter_reduce amin of the row id over the slot), a verify and an
+advance of the losers, looped on the host. Which row of a colliding
+set wins a slot is backend-defined in both packages, so slot positions
+may differ; the table's contract (same key, same id; distinct keys,
+distinct ids; the group count; the overflow flag; the set of slot keys)
+is the reference's.
+
 Integer outputs are bit-equal to the reference; float sums may differ
 in the last bits (another summation order).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -75,6 +88,124 @@ def _segment_extreme(idx, contrib, size: int, red: str):
         0, idx, contrib, "amin" if red == "min" else "amax", include_self=True
     )[:size]
     return out.to(torch.bool) if as_bool else out
+
+
+# ---------------------------------------------------------------------------
+# Streaming group table (GroupByHash putIfAbsent analogue)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GroupTable:
+    """Fixed-capacity group table: slot i holds the keys of group id i."""
+
+    slot_keys: List[torch.Tensor]  # each (C,)
+    slot_valids: List[torch.Tensor]  # each (C,) bool
+    slot_used: torch.Tensor  # (C,) bool
+
+    @property
+    def capacity(self) -> int:
+        return int(self.slot_used.shape[0])
+
+    def num_groups(self) -> torch.Tensor:
+        return torch.sum(self.slot_used)
+
+
+def _keys_equal(a_keys, a_valids, b_keys, b_valids):
+    """GROUP-BY equality: NULL == NULL (IS NOT DISTINCT FROM)."""
+    eq = None
+    for ak, av, bk, bv in zip(a_keys, a_valids, b_keys, b_valids):
+        e = ((ak == bk) & av & bv) | (~av & ~bv)
+        eq = e if eq is None else (eq & e)
+    return eq
+
+
+def new_group_table(key_dtypes: Sequence, capacity: int, device="cpu") -> GroupTable:
+    """Fresh empty table (host helper for streaming aggregation)."""
+    assert capacity & (capacity - 1) == 0
+    return GroupTable(
+        [torch.zeros(capacity, dtype=dt, device=device) for dt in key_dtypes],
+        [torch.zeros(capacity, dtype=torch.bool, device=device) for _ in key_dtypes],
+        torch.zeros(capacity, dtype=torch.bool, device=device),
+    )
+
+
+def _set_slots(arr: torch.Tensor, wpos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """arr with arr[wpos] = vals where wpos < C; wpos == C drops (the
+    reference's scatter with mode='drop')."""
+    ext = torch.cat([arr, arr[:1]])
+    ext[wpos] = vals.to(arr.dtype)
+    return ext[:-1]
+
+
+def insert_group_ids(table: GroupTable, keys: Sequence[torch.Tensor],
+                     valids: Sequence[torch.Tensor], mask: torch.Tensor):
+    """Map each live row to a group id in [0, C), inserting new groups
+    into `table` (the putIfAbsent analogue, MultiChannelGroupByHash.java:264).
+
+    Returns (group_ids, table', overflowed). Dead rows get id = C
+    (callers scatter with a drop slot). `overflowed` is True if the
+    table filled up: the caller rebuilds at 2x capacity (rehash).
+    Rounds: unresolved rows read their probe slot; a matching key takes
+    it, an empty slot is claimed by the smallest row id wanting it
+    (losers retry the same slot next round), an occupied slot with
+    another key advances the probe."""
+    C = table.capacity
+    n = keys[0].shape[0]
+    dev = mask.device
+    keys, valids = list(keys), list(valids)
+    h = hash32(keys, valids) & (C - 1)
+    slot_keys = list(table.slot_keys)
+    slot_valids = list(table.slot_valids)
+    slot_used = table.slot_used
+    gid = torch.where(mask, -1, C).to(torch.int64)
+    probe = torch.zeros(n, dtype=torch.int64, device=dev)
+    row_id = torch.arange(n, dtype=torch.int64, device=dev)
+    it = 0
+    while it < C + 2 and bool(torch.any(gid < 0)):
+        active = gid < 0
+        pos = (h + probe) & (C - 1)
+        occ = take_clip(slot_used, pos)
+        slot_k = [take_clip(sk, pos) for sk in slot_keys]
+        slot_v = [take_clip(sv, pos) for sv in slot_valids]
+        match = occ & _keys_equal(slot_k, slot_v, keys, valids)
+        gid = torch.where(active & match, pos, gid)
+        want = active & ~occ & ~match
+        claim = torch.full((C + 1,), n, dtype=torch.int64, device=dev)
+        claim = claim.scatter_reduce(0, torch.where(want, pos, C), row_id, "amin")
+        winner = want & (take_clip(claim, pos) == row_id)
+        wpos = torch.where(winner, pos, C)
+        for i in range(len(keys)):
+            slot_keys[i] = _set_slots(slot_keys[i], wpos, keys[i])
+            slot_valids[i] = _set_slots(slot_valids[i], wpos, valids[i])
+        slot_used = _set_slots(slot_used, wpos, torch.ones_like(winner))
+        gid = torch.where(winner, pos, gid)
+        probe = torch.where(active & occ & ~match, probe + 1, probe)
+        it += 1
+    overflowed = torch.any(gid < 0)
+    gid = torch.where(gid < 0, C, gid).to(torch.int32)
+    return gid, GroupTable(slot_keys, slot_valids, slot_used), overflowed
+
+
+def assign_group_ids(keys: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                     mask: torch.Tensor, capacity: int):
+    """One-shot form: insert a single batch into a fresh table."""
+    table = new_group_table([k.dtype for k in keys], capacity, mask.device)
+    return insert_group_ids(table, keys, valids, mask)
+
+
+def grow_table(table: GroupTable, new_capacity: int):
+    """Rebuild at a larger capacity, the tryRehash analogue
+    (MultiChannelGroupByHash.java:350). Returns (new_table, remap) where
+    remap[old_slot] = new group id (or new_capacity for unused slots) so
+    callers migrate accumulator state with a scatter."""
+    remap, table2, overflowed = insert_group_ids(
+        new_group_table([k.dtype for k in table.slot_keys], new_capacity,
+                        table.slot_used.device),
+        table.slot_keys, table.slot_valids, table.slot_used,
+    )
+    assert not bool(overflowed)
+    return table2, remap
 
 
 # ---------------------------------------------------------------------------

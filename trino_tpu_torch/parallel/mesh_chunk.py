@@ -1,0 +1,876 @@
+"""Chunked mesh execution: preemptible programs over the shard mesh.
+
+Counterpart of trino_tpu/parallel/mesh_chunk.py, as it runs on one
+mesh. The mesh compiler's output splits at batch granularity:
+
+- **prelude**: every fragment whose subtree does not depend on the
+  driver scan runs once (build sides of joins, dimension tables,
+  uncorrelated subqueries); its exchange outputs stay on the shards'
+  devices;
+- **step**: fragments that stream over the driver scan run once per
+  chunk of it, each shard slicing its own rows; group/join state
+  between steps lives in carries (accumulator RelBatches with explicit
+  live/valid lanes, one per shard). Each fragment group (producer, its
+  exchange, consumer) runs inside the step;
+- **flush**: fragments that need the complete driver relation (final
+  aggregations, sorts, limits) run once over the accumulated carries.
+
+Between program boundaries the host regains control: the coordinator's
+preemption hook (deadline / abandonment checks) and the stuck-task
+watchdog run there. Chunking engages only when `mesh_chunk_rows > 0`;
+with the default 0 the whole plan is one prelude program, preemption
+checks still around it.
+
+The reference traces each program once under `jax.eval_shape` and
+caches it in PROGRAM_CACHE; eager torch has no lowering, so `_record`
+builds a record's host-side metadata (fragment split, carry metadata,
+caps) directly, and carries take their shape from the first chunk's
+contribution. Static capacities and the reference's retry protocol
+stay: device overflow flags are read at every program boundary (one
+device->host sync, where `preempt` runs) and an overflow restarts the
+run under doubled capacities, at most 12 times. The program cache and
+warmup registry are ROADMAP §1 item 13.1; checkpoints, parking and
+work stealing (13.2, 13.3) are not here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from trino_tpu_torch.block import Column, RelBatch, bucket_capacity
+from trino_tpu_torch.compile.shapes import CapacityLadder
+from trino_tpu_torch.parallel.mesh_plan import (
+    MeshUnsupported,
+    Shards,
+    _exchange_hash,
+    _FragVisitor,
+    _local_partition,
+    _replicate,
+    _rows,
+    _salted_exchange_hash,
+    _salted_local_partition,
+)
+from trino_tpu_torch.sql import plan as P
+
+# Most recent chunked run, for tests and EXPLAIN surfaces: chunk shape,
+# fragment classification and attempt count. Written by chunk loops of
+# concurrent queries: the clear()+update() must not expose an empty
+# dict mid-publish.
+_run_info_lock = threading.Lock()
+LAST_RUN_INFO: Dict[str, object] = {}
+
+
+def last_run_info() -> Dict[str, object]:
+    """Snapshot of the most recent chunked run's info dict."""
+    with _run_info_lock:
+        return dict(LAST_RUN_INFO)
+
+
+def publish_run_info(info: Dict[str, object]) -> None:
+    """Atomically replace LAST_RUN_INFO with `info`."""
+    with _run_info_lock:
+        LAST_RUN_INFO.clear()
+        LAST_RUN_INFO.update(info)
+
+
+class MeshStuck(RuntimeError):
+    """A chunk step exceeded the stuck-task watchdog threshold. Treated
+    as retryable (a program hung here may succeed on the page plane), so
+    the coordinator falls back rather than failing the query."""
+
+
+class MeshDeviceLost(RuntimeError):
+    """A device backing the mesh failed mid-run. Retryable like
+    MeshStuck: without a checkpoint to resume from (ROADMAP §1 item
+    13.2), the coordinator falls back to the page plane. Nothing in the
+    port raises it yet: the replica plane and the chaos harness that do
+    in the reference are item 13.3."""
+
+
+class _Overflow(Exception):
+    """Device overflow flags fired; restart the run with bumped caps."""
+
+    def __init__(self, sites: List[Tuple[str, int]]):
+        super().__init__(f"capacity overflow at {sites}")
+        self.sites = sites
+
+
+# ---------------------------------------------------------------------------
+# Fragment classification: prelude / stream / flush
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkPlan:
+    """How one SubPlan splits across the three mesh programs."""
+
+    driver_pos: Optional[int]  # feed position of the driver scan (None = unchunked)
+    driver_ids: frozenset  # id(ScanNode) values served by that feed
+    chunk_cap: int  # per-shard rows per chunk (capacity-ladder rung)
+    n_chunks: int
+    prelude_fids: frozenset
+    stream_fids: frozenset
+    flush_fids: frozenset
+
+    @property
+    def chunked(self) -> bool:
+        return self.driver_pos is not None
+
+
+def _classify(mesh_sps, root_child_ids, driver_ids):
+    """Split fragments by their relationship to the driver scan.
+
+    dep      = subtree reads the driver scan (directly or via a dep
+               fragment's exchange)
+    stream   = dep AND every operator on the dep path distributes over
+               chunk-wise union (safe to run per chunk and accumulate)
+    flush    = dep but not stream (needs the complete driver relation)
+    prelude  = not dep (driver-independent; runs once, results stay)
+    """
+    dep_fids: set = set()
+    dep_cache: Dict[int, bool] = {}
+
+    def node_dep(node) -> bool:
+        r = dep_cache.get(id(node))
+        if r is None:
+            if isinstance(node, P.ScanNode):
+                r = id(node) in driver_ids
+            elif isinstance(node, P.RemoteSourceNode):
+                r = any(fid in dep_fids for fid in node.fragment_ids)
+            else:
+                r = any(node_dep(c) for c in node.children())
+            dep_cache[id(node)] = r
+        return r
+
+    def safe(node, is_root: bool) -> bool:
+        # a driver-independent subtree recomputes identically every
+        # chunk: always safe (its cost is paid K times, but prelude
+        # exchanges keep the heavy driver-independent work out of here)
+        if not node_dep(node):
+            return True
+        if isinstance(node, P.ScanNode):
+            return True
+        if isinstance(node, (P.FilterNode, P.ProjectNode)):
+            return all(safe(c, False) for c in node.children())
+        if isinstance(node, P.AggregateNode):
+            # only a PARTIAL agg at the fragment root: per-chunk partials
+            # are more (but valid) partial rows under the partial/final
+            # contract. Grouped single-step or FINAL aggs need it all.
+            return is_root and node.step == "partial" and safe(node.child, False)
+        if isinstance(node, P.JoinNode):
+            ld, rd = node_dep(node.left), node_dep(node.right)
+            if ld and rd:
+                return False  # chunk x chunk misses cross-chunk pairs
+            if node.kind == "cross":
+                return safe(node.left if ld else node.right, False)
+            if rd:
+                # chunked BUILD side: only inner joins distribute over a
+                # partition of the build relation
+                return node.kind == "inner" and safe(node.right, False)
+            # chunked PROBE side: per-probe-row verdicts against the
+            # complete build side are exact for every kind except FULL
+            return node.kind != "full" and safe(node.left, False)
+        if isinstance(node, P.RemoteSourceNode):
+            if node.merge_keys:
+                return False  # chunk concat breaks merge-sorted runs
+            deps = [fid in dep_fids for fid in node.fragment_ids]
+            if any(deps) and not all(deps):
+                # a union of dep + non-dep sources would replay the
+                # non-dep source once per chunk (duplication)
+                return False
+            return True
+        # Sort/TopN/Limit/Window/EnforceSingleRow/UnionAll/Values...:
+        # order- or cardinality-global: conservative flush
+        return False
+
+    for sp in mesh_sps:
+        if node_dep(sp.fragment.root):
+            dep_fids.add(sp.fragment.id)
+
+    stream: set = set()
+    for sp in mesh_sps:
+        fid = sp.fragment.id
+        if fid not in dep_fids:
+            continue
+        if sp.fragment.output_merge_keys:
+            # chunk-major accumulation is not merge-sorted; consumers
+            # expecting sorted runs must see the full relation
+            continue
+        if any(c.fragment.id in dep_fids and c.fragment.id not in stream
+               for c in sp.children):
+            continue
+        if safe(sp.fragment.root, True):
+            stream.add(fid)
+
+    all_fids = {sp.fragment.id for sp in mesh_sps}
+    prelude = all_fids - dep_fids
+    flush = dep_fids - stream
+    return frozenset(prelude), frozenset(stream), frozenset(flush)
+
+
+def build_chunk_plan(mesh_sps, root_child_ids, feeds, shard_caps, session):
+    """Pick a driver scan and classify fragments. Chunking engages only
+    when the session asks for it (mesh_chunk_rows > 0) and some feed
+    admits a non-empty stream set; otherwise every fragment lands in the
+    prelude (single-program execution, preemption checks around it)."""
+    all_fids = frozenset(sp.fragment.id for sp in mesh_sps)
+    chunk_rows = int(getattr(session, "mesh_chunk_rows", 0) or 0)
+    if chunk_rows > 0 and feeds:
+        ladder = CapacityLadder(base=int(getattr(session, "capacity_ladder_base", 2) or 2))
+        by_pos: Dict[int, List[int]] = {}
+        for key, pos in feeds.items():
+            by_pos.setdefault(pos, []).append(key)
+        # largest scan first: chunking the biggest relation buys the
+        # most preemption granularity per program
+        for pos in sorted(by_pos, key=lambda p: -shard_caps[p]):
+            driver_ids = frozenset(by_pos[pos])
+            prelude, stream, flush = _classify(mesh_sps, root_child_ids, driver_ids)
+            if not stream:
+                continue
+            chunk_cap = ladder.rung(min(chunk_rows, shard_caps[pos]))
+            n_chunks = max(1, math.ceil(shard_caps[pos] / chunk_cap))
+            return ChunkPlan(pos, driver_ids, chunk_cap, n_chunks, prelude, stream, flush)
+    return ChunkPlan(None, frozenset(), 0, 1, all_fids, frozenset(), frozenset())
+
+
+# Join kinds whose per-probe-row verdict stays exact when hot build rows
+# are replicated to every shard and hot probe rows are salted off their
+# canonical shard. FULL and MARK need globally consistent build-side
+# placement, so they never salt.
+_SALTED_JOIN_KINDS = ("inner", "left", "semi", "anti")
+
+
+def _skew_exchange_map(mesh_sps, root_child_ids):
+    """{producer fid: ("build"|"probe", hot_values)} for every exchange
+    edge that should take the salted repartition.
+
+    A JoinNode annotated with `skew_hot_keys` (the adaptive controller,
+    ROADMAP §1 item 13.2) qualifies only when salting changes nothing
+    but row routing: kind inner/left/semi/anti with a single integer-like
+    equi key on both sides; both inputs RemoteSourceNode leaves whose
+    producers each emit a single-channel FIXED_HASH exchange feeding
+    only this edge; above the join only Filter/Project and PARTIAL
+    aggregations. All-or-nothing per join: both sides resolve, or
+    neither is salted.
+    """
+    frag_by_id = {sp.fragment.id: sp.fragment for sp in mesh_sps}
+    ref_count: Dict[int, int] = {}
+
+    def count_refs(node):
+        if isinstance(node, P.RemoteSourceNode):
+            for fid in node.fragment_ids:
+                ref_count[fid] = ref_count.get(fid, 0) + 1
+        for c in node.children():
+            count_refs(c)
+
+    for sp in mesh_sps:
+        count_refs(sp.fragment.root)
+
+    out: Dict[int, Tuple[str, tuple]] = {}
+
+    def consider(join):
+        if join.kind not in _SALTED_JOIN_KINDS:
+            return
+        if len(join.left_keys) != 1 or len(join.right_keys) != 1:
+            return
+        for node, ch in ((join.left, join.left_keys[0]), (join.right, join.right_keys[0])):
+            t = node.fields[ch].type
+            if t.is_nested or t.lanes != 1 or not t.is_integerlike:
+                return
+        if not (isinstance(join.left, P.RemoteSourceNode)
+                and isinstance(join.right, P.RemoteSourceNode)):
+            return
+        probe_fids = tuple(join.left.fragment_ids)
+        build_fids = tuple(join.right.fragment_ids)
+        for fid in probe_fids + build_fids:
+            frag = frag_by_id.get(fid)
+            if (
+                frag is None
+                or ref_count.get(fid, 0) != 1
+                or fid in root_child_ids
+                or fid in out
+                or frag.output_kind != "hash"
+                or len(frag.output_channels) != 1
+            ):
+                return
+        hot = tuple(join.skew_hot_keys)
+        for fid in build_fids:
+            out[fid] = ("build", hot)
+        for fid in probe_fids:
+            out[fid] = ("probe", hot)
+
+    def walk(node, clean):
+        if isinstance(node, P.JoinNode) and getattr(node, "skew_hot_keys", ()) and clean:
+            consider(node)
+        kid_clean = clean and (
+            isinstance(node, (P.FilterNode, P.ProjectNode))
+            or (isinstance(node, P.AggregateNode) and node.step == "partial")
+        )
+        for c in node.children():
+            walk(c, kid_clean)
+
+    for sp in mesh_sps:
+        walk(sp.fragment.root, True)
+    return out
+
+
+def static_collective_counts(mesh_sps, root_child_ids, repl) -> Tuple[int, int]:
+    """Structural collective census for one pass over the plan: each
+    non-replicated hash edge is one all_to_all, each non-replicated
+    broadcast/gather edge one all_gather, plus one all_gather per
+    EnforceSingleRow occurrence and one per salted non-replicated BUILD
+    edge. Static (no execution), so EXPLAIN surfaces stay deterministic.
+    A chunked run executes a stream fragment's exchanges once a chunk."""
+
+    def count_sr(node) -> int:
+        own = 1 if isinstance(node, P.EnforceSingleRowNode) else 0
+        return own + sum(count_sr(c) for c in node.children())
+
+    skew = _skew_exchange_map(mesh_sps, root_child_ids)
+    a2a = ag = 0
+    for sp in mesh_sps:
+        frag = sp.fragment
+        ag += count_sr(frag.root)
+        if frag.id in root_child_ids:
+            continue
+        if repl.get(frag.id):
+            continue  # replicated producers exchange without collectives
+        if frag.output_kind == "hash":
+            a2a += 1
+            if skew.get(frag.id, ("", ()))[0] == "build":
+                ag += 1
+        else:
+            ag += 1
+    return a2a, ag
+
+
+# ---------------------------------------------------------------------------
+# Chunk primitives (per shard)
+# ---------------------------------------------------------------------------
+
+
+def _slice_chunk(batch: RelBatch, k: int, cap: int) -> RelBatch:
+    """Chunk k of one shard's (padded) driver feed: rows [k*cap, (k+1)*cap)."""
+    start = k * cap
+
+    def sl(a):
+        return a.narrow(0, start, cap)
+
+    cols = [Column(c.type, sl(c.data), None if c.valid is None else sl(c.valid),
+                   c.dictionary) for c in batch.columns]
+    return RelBatch(cols, None if batch.live is None else sl(batch.live))
+
+
+def _put(arr: torch.Tensor, tgt: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """arr with arr[tgt] = vals, rows with tgt >= len(arr) dropped (the
+    reference's scatter with mode="drop", through one trash row)."""
+    cap = arr.shape[0]
+    ext = torch.cat([arr, torch.zeros((1,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                                      device=arr.device)])
+    ext[torch.clamp(tgt, max=cap)] = vals.to(arr.dtype)
+    return ext[:cap]
+
+
+def _accumulate(carry: RelBatch, contrib: RelBatch):
+    """Append contrib's live rows to one shard's carry accumulator.
+
+    The carry keeps live rows densely packed at the front, so appended
+    chunks preserve scan order (chunk-major = scan-major after compact).
+    Returns (new_carry, overflow_flag): the flag carries the exact
+    needed capacity when the carry would overflow, 0 otherwise (the
+    agg/join sites' protocol, so the restart ladder handles it).
+    """
+    cap_c = _rows(carry)
+    comp = contrib.compact()
+    live_in = comp.live_mask()
+    count = torch.sum(carry.live_mask().to(torch.int64))
+    idx = torch.arange(live_in.shape[0], dtype=torch.int64, device=live_in.device)
+    # dead rows and overflow both land out of range -> dropped
+    tgt = torch.where(live_in, count + idx, cap_c)
+    cols = []
+    for cc, sc in zip(carry.columns, comp.columns):
+        cols.append(Column(cc.type, _put(cc.data, tgt, sc.data),
+                           _put(cc.valid, tgt, sc.valid_mask()), cc.dictionary))
+    live = _put(carry.live, tgt, live_in)
+    needed = count + torch.sum(live_in.to(torch.int64))
+    flag = torch.where(needed > cap_c, needed, 0).to(torch.int32)
+    return RelBatch(cols, live), flag
+
+
+def _carry_template(contrib: RelBatch, cap: int) -> RelBatch:
+    """One shard's empty carry accumulator of `cap` rows shaped like
+    `contrib`. live and valid lanes are always explicit tensors, so
+    `_accumulate` writes every lane in place."""
+    dev = contrib.device
+    cols = []
+    for c in contrib.columns:
+        if type(c) is not Column:
+            raise MeshUnsupported("nested column in mesh carry")
+        cols.append(Column(
+            c.type,
+            torch.zeros((cap,) + tuple(c.data.shape[1:]), dtype=c.data.dtype, device=dev),
+            torch.zeros(cap, dtype=torch.bool, device=dev),
+            c.dictionary,
+        ))
+    return RelBatch(cols, torch.zeros(cap, dtype=torch.bool, device=dev))
+
+
+def _host_lanes(batch: RelBatch, n: int, cap: int):
+    """(data, valid) per column and the live mask of a host-stacked
+    (n * cap,) batch, each reshaped to (n, cap, ...) (valid None stays
+    None; live None means all live)."""
+    cols = []
+    for c in batch.columns:
+        d = c.data.cpu().numpy()
+        v = None if c.valid is None else c.valid.cpu().numpy().astype(bool).reshape(n, cap)
+        cols.append((d.reshape((n, cap) + d.shape[1:]), v))
+    live = (np.ones((n, cap), dtype=bool) if batch.live is None
+            else batch.live.cpu().numpy().astype(bool).reshape(n, cap))
+    return cols, live
+
+
+def _pad_shards(batch: RelBatch, n: int, old_cap: int, new_cap: int) -> RelBatch:
+    """Re-pad a host-stacked (n * old_cap,) feed to (n * new_cap,) so the
+    per-shard extent divides evenly into chunk_cap slices. Padding rows
+    are dead (live=False)."""
+    if new_cap == old_cap:
+        return batch
+    pad = new_cap - old_cap
+    cols_np, live = _host_lanes(batch, n, old_cap)
+    cols = []
+    for c, (d, v) in zip(batch.columns, cols_np):
+        d = np.pad(d, [(0, 0), (0, pad)] + [(0, 0)] * (d.ndim - 2))
+        v = np.ones((n, old_cap), dtype=bool) if v is None else v
+        v = np.pad(v, [(0, 0), (0, pad)])
+        cols.append(Column(c.type, torch.from_numpy(d.reshape((n * new_cap,) + d.shape[2:])),
+                           torch.from_numpy(v.reshape(-1)), c.dictionary))
+    return RelBatch(cols, torch.from_numpy(np.pad(live, [(0, 0), (0, pad)]).reshape(-1)))
+
+
+def _merge_out_carry(mine: RelBatch, theirs: RelBatch, n: int) -> Optional[RelBatch]:
+    """Append `theirs`'s packed live rows after `mine`'s per-shard live
+    count, both host-stacked (n * cap,) carries (the drain-failover
+    merge of work stealing, ROADMAP §1 item 13.3, whose caller is not
+    ported). `_accumulate` packs live rows densely at the shard front
+    in chunk order, so this concatenation equals the sequential layout.
+    Returns None when the combined rows overflow a shard or the packing
+    precondition fails."""
+    if mine.width != theirs.width or mine.capacity != theirs.capacity:
+        return None
+    cap = mine.capacity // n
+    m_cols, m_live = _host_lanes(mine, n, cap)
+    t_cols, t_live = _host_lanes(theirs, n, cap)
+    datas = [d.copy() for d, _v in m_cols]
+    valids = [None if v is None else v.copy() for _d, v in m_cols]
+    new_live = m_live.copy()
+    for s in range(n):
+        cm = int(m_live[s].sum())
+        idx_t = np.nonzero(t_live[s])[0]
+        ct = len(idx_t)
+        if cm + ct > cap:
+            return None
+        if (cm and not m_live[s][:cm].all()) or (ct and int(idx_t[-1]) != ct - 1):
+            return None  # rows not packed at the front
+        if ct == 0:
+            continue
+        for j, (td, tv) in enumerate(t_cols):
+            datas[j][s, cm:cm + ct] = td[s, idx_t]
+            if valids[j] is not None:
+                valids[j][s, cm:cm + ct] = (np.ones(cap, dtype=bool) if tv is None
+                                            else tv[s])[idx_t]
+        new_live[s, cm:cm + ct] = True
+    cols = [
+        Column(c.type, torch.from_numpy(datas[j].reshape((n * cap,) + datas[j].shape[2:])),
+               None if valids[j] is None else torch.from_numpy(valids[j].reshape(-1)),
+               c.dictionary)
+        for j, c in enumerate(mine.columns)
+    ]
+    return RelBatch(cols, torch.from_numpy(new_live.reshape(-1)))
+
+
+def _place(batch: RelBatch, devices) -> Shards:
+    """A host-stacked (n * cap,) batch cut into its n shards, shard s on
+    devices[s]."""
+    n = len(devices)
+    cap = _rows(batch) // n
+
+    def part(t, s):
+        return None if t is None else t.narrow(0, s * cap, cap).to(devices[s])
+
+    return [
+        RelBatch([Column(c.type, part(c.data, s), part(c.valid, s), c.dictionary)
+                  for c in batch.columns], part(batch.live, s))
+        for s in range(n)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Program record: the host metadata of the three programs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MeshProgramRecord:
+    n_chunks: int
+    chunk_cap: int
+    # the caps the run starts from; every site a visitor reaches sets
+    # its own (setdefault), so after a run this holds all of them
+    resolved_caps: Dict[str, int]
+    pctx_fids: Tuple[int, ...]
+    carry_meta: Tuple[Tuple[str, int], ...]  # ("out"|"ctx", fid)
+    prelude_sps: list
+    stream_sps: list
+    flush_sps: list
+
+
+def _build_record(mesh_sps, root_child_ids, cplan, caps_in) -> MeshProgramRecord:
+    prelude_sps = [sp for sp in mesh_sps if sp.fragment.id in cplan.prelude_fids]
+    stream_sps = [sp for sp in mesh_sps if sp.fragment.id in cplan.stream_fids]
+    flush_sps = [sp for sp in mesh_sps if sp.fragment.id in cplan.flush_fids]
+    consumer: Dict[int, int] = {}
+    for sp in mesh_sps:
+        for c in sp.children:
+            consumer[c.fragment.id] = sp.fragment.id
+    # prelude exchange outputs consumed by later programs stay resident
+    pctx_fids = tuple(sorted({
+        c.fragment.id
+        for sp in stream_sps + flush_sps
+        for c in sp.children
+        if c.fragment.id in cplan.prelude_fids
+    }))
+    carry_meta: List[Tuple[str, int]] = []
+    for sp in stream_sps:
+        fid = sp.fragment.id
+        if fid in root_child_ids:
+            carry_meta.append(("out", fid))
+        elif consumer.get(fid) in cplan.flush_fids:
+            carry_meta.append(("ctx", fid))
+    return MeshProgramRecord(
+        n_chunks=cplan.n_chunks,
+        chunk_cap=cplan.chunk_cap,
+        resolved_caps=dict(caps_in),
+        pctx_fids=pctx_fids,
+        carry_meta=tuple(carry_meta),
+        prelude_sps=prelude_sps,
+        stream_sps=stream_sps,
+        flush_sps=flush_sps,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Runner
+# ---------------------------------------------------------------------------
+
+
+class ChunkedMeshRunner:
+    """Drives one query's mesh programs: prelude once, K chunk steps
+    with host preemption/watchdog checks at every boundary, flush once;
+    restarts the whole loop under bumped capacities on device overflow
+    (a deterministic ladder: a second execution replays the same
+    capacity sequence)."""
+
+    def __init__(self, ex, mesh_sps, root_child_ids, repl, feeds, host_feeds):
+        self.ex = ex
+        self.session = ex.session
+        self.mesh_sps = mesh_sps
+        self.root_child_ids = root_child_ids
+        self.repl = repl
+        self.feeds = feeds
+        self.skew_map = _skew_exchange_map(mesh_sps, root_child_ids)
+        n = ex.n
+        shard_caps = [_rows(b) // n for b in host_feeds]
+        self.cplan = build_chunk_plan(mesh_sps, root_child_ids, feeds, shard_caps,
+                                      self.session)
+        host_feeds = list(host_feeds)
+        if self.cplan.chunked:
+            pos = self.cplan.driver_pos
+            host_feeds[pos] = _pad_shards(host_feeds[pos], n, shard_caps[pos],
+                                          self.cplan.n_chunks * self.cplan.chunk_cap)
+        self.feed_args = [_place(b, ex.mesh.devices) for b in host_feeds]
+        self.info: Dict[str, object] = {}
+        self._chunk_steps = 0  # chunk steps run by the current run
+
+    def _record(self, caps) -> MeshProgramRecord:
+        return _build_record(self.mesh_sps, self.root_child_ids, self.cplan, caps)
+
+    # -- execution ---------------------------------------------------
+    def run(self, preempt=None, query_span=None) -> Dict[int, list]:
+        from trino_tpu_torch.runtime.tracing import KIND_STAGE, KIND_TASK
+
+        if self.cplan.chunked and int(
+            getattr(self.session, "mesh_checkpoint_interval_chunks", 0) or 0
+        ) > 0:
+            raise NotImplementedError(
+                "mesh_checkpoint_interval_chunks: mesh checkpoints are ROADMAP §1 item 13.2")
+        stage_span = task_span = None
+        if query_span is not None:
+            stage_span = query_span.child("stage mesh", KIND_STAGE, data_plane="mesh",
+                                          fragments=len(self.mesh_sps))
+            task_span = stage_span.child("task mesh.0", KIND_TASK, chunks=self.cplan.n_chunks,
+                                         chunk_rows=self.cplan.chunk_cap)
+        try:
+            caps: Dict[str, int] = {}
+            self._chunk_steps = 0
+            overflows = 0
+            attempt = 0
+            while True:
+                record = self._record(caps)
+                try:
+                    sources = self._execute(record, preempt, task_span, attempt)
+                    break
+                except _Overflow as ov:
+                    for site, _needed in ov.sites:
+                        if site.startswith("err:single_row"):
+                            raise RuntimeError(
+                                "Scalar sub-query has returned multiple rows") from None
+                    overflows += 1
+                    if overflows >= 12:
+                        raise RuntimeError("mesh capacity retry limit exceeded")
+                    # restart from the record's fully resolved caps so
+                    # the ladder is deterministic across executions
+                    caps = dict(record.resolved_caps)
+                    for site, needed in ov.sites:
+                        caps[site] = max(caps.get(site, 16) * 2,
+                                         bucket_capacity(max(needed, 16)))
+                    attempt += 1
+                # MeshStuck / MeshDeviceLost propagate with their type: the
+                # reference's in-run resume needs a checkpoint (item 13.2),
+                # so the coordinator's fallback takes over
+            if self.skew_map:
+                from trino_tpu_torch.runtime.metrics import METRICS
+
+                METRICS.increment("skew.salted_exchanges", len(self.skew_map))
+            self.info = {
+                "chunked": self.cplan.chunked,
+                "chunks": record.n_chunks,
+                "chunk_cap": record.chunk_cap,
+                "driver_pos": self.cplan.driver_pos,
+                "prelude_fragments": sorted(self.cplan.prelude_fids),
+                "stream_fragments": sorted(self.cplan.stream_fids),
+                "flush_fragments": sorted(self.cplan.flush_fids),
+                "attempts": attempt + 1,
+                "salted_exchanges": len(self.skew_map),
+                "executed_chunk_steps": self._chunk_steps,
+                "shards": self.ex.n,
+            }
+            publish_run_info(self.info)
+            self._record_divergences(sources, query_span)
+            return sources
+        finally:
+            if task_span is not None:
+                task_span.end()
+                stage_span.end()
+
+    def _emit_exchange(self, frag, batches: Shards, ctx) -> None:
+        mesh, n = self.ex.mesh, self.ex.n
+        repl = self.repl[frag.id]
+        if frag.output_kind == "hash":
+            sk = self.skew_map.get(frag.id)
+            chans = frag.output_channels
+            if sk is not None:
+                role, hot = sk
+                ctx[frag.id] = (
+                    [_salted_local_partition(b, chans, n, hot, role, s)
+                     for s, b in enumerate(batches)]
+                    if repl else _salted_exchange_hash(mesh, batches, chans, hot, role))
+            else:
+                ctx[frag.id] = (
+                    [_local_partition(b, chans, n, s) for s, b in enumerate(batches)]
+                    if repl else _exchange_hash(mesh, batches, chans))
+        else:  # broadcast, or gather consumed by another mesh fragment
+            ctx[frag.id] = batches if repl else _replicate(mesh, batches)
+
+    def _run_frags(self, record, sps, local_feeds, ctx, flags, outputs) -> None:
+        for sp in sps:
+            frag = sp.fragment
+            vis = _FragVisitor(self.ex, frag.id, local_feeds, ctx, record.resolved_caps,
+                               flags)
+            batches = vis.visit(frag.root)
+            if frag.id in self.root_child_ids:
+                outputs[frag.id] = (batches, self.repl[frag.id])
+                continue
+            self._emit_exchange(frag, batches, ctx)
+
+    def _local_feeds(self, k: Optional[int]) -> Dict[int, Shards]:
+        out = {}
+        for key, pos in self.feeds.items():
+            b = self.feed_args[pos]
+            if k is not None and pos == self.cplan.driver_pos:
+                b = [_slice_chunk(x, k, self.cplan.chunk_cap) for x in b]
+            out[key] = b
+        return out
+
+    def _execute(self, record: MeshProgramRecord, preempt, task_span,
+                 attempt: int) -> Dict[int, list]:
+        from trino_tpu_torch.runtime.metrics import METRICS
+        from trino_tpu_torch.runtime.tracing import KIND_OPERATOR
+
+        def op_span(name, **attrs):
+            if task_span is None:
+                return contextlib.nullcontext()
+            return task_span.child(name, KIND_OPERATOR, **attrs)
+
+        K = record.n_chunks
+        watchdog_s = float(getattr(self.session, "stuck_task_interrupt_s", 0.0) or 0.0)
+        outs: Dict[int, Tuple[Shards, bool]] = {}
+        if preempt is not None:
+            preempt(0, K)
+        pctx: Dict[int, Shards] = {}
+        if record.prelude_sps:
+            with op_span("MeshPrelude", attempt=attempt):
+                ctx: Dict[int, Shards] = {}
+                flags: list = []
+                self._run_frags(record, record.prelude_sps, self._local_feeds(None), ctx,
+                                flags, outs)
+                self._check_flags(flags)
+            pctx = {fid: ctx[fid] for fid in record.pctx_fids}
+
+        carries: List[Optional[Shards]] = [None] * len(record.carry_meta)
+        if record.stream_sps:
+            carry_index = {fid: i for i, (_k, fid) in enumerate(record.carry_meta)}
+            with op_span("MeshChunkStep", attempt=attempt, chunks=K):
+                for k in range(K):
+                    if preempt is not None:
+                        preempt(k, K)
+                    t0 = time.monotonic()
+                    flags = []
+                    self._step(record, k, pctx, carries, carry_index, flags)
+                    # flag readback is the natural device sync point
+                    self._check_flags(flags)
+                    dt = time.monotonic() - t0
+                    self._chunk_steps += 1
+                    METRICS.increment("mesh.chunk_steps")
+                    if task_span is not None:
+                        task_span.event("chunk", index=k, of=K, wall_s=round(dt, 6))
+                    # chunk 0 pays the cold start; boundary progress is
+                    # only meaningful from the second chunk on
+                    if watchdog_s and k >= 1 and dt > watchdog_s:
+                        raise MeshStuck(
+                            f"mesh chunk {k} made no boundary progress for {dt:.3f}s "
+                            f"(stuck_task_interrupt_s={watchdog_s}); retryable on the "
+                            "page plane")
+
+        if preempt is not None:
+            preempt(K, K)
+        if record.flush_sps:
+            with op_span("MeshFlush", attempt=attempt):
+                ctx = dict(pctx)
+                for (kind, fid), cb in zip(record.carry_meta, carries):
+                    if kind == "ctx":
+                        ctx[fid] = cb
+                flags = []
+                self._run_frags(record, record.flush_sps, self._local_feeds(None), ctx,
+                                flags, outs)
+                self._check_flags(flags)
+        for (kind, fid), c in zip(record.carry_meta, carries):
+            if kind == "out":
+                outs[fid] = (c, self.repl[fid])
+        return {fid: self.ex._shard_pages(batches, rep)
+                for fid, (batches, rep) in outs.items()}
+
+    def _step(self, record, k: int, pctx, carries, carry_index, flags) -> None:
+        """Chunk k through the stream fragments, appending each carried
+        fragment's contribution to its carry."""
+        ctx: Dict[int, Shards] = dict(pctx)
+        local_feeds = self._local_feeds(k)
+        for sp in record.stream_sps:
+            frag = sp.fragment
+            vis = _FragVisitor(self.ex, frag.id, local_feeds, ctx, record.resolved_caps,
+                               flags)
+            batches = vis.visit(frag.root)
+            if frag.id not in self.root_child_ids:
+                self._emit_exchange(frag, batches, ctx)
+            i = carry_index.get(frag.id)
+            if i is None:
+                continue  # stream->stream link: flows within the step
+            kind = record.carry_meta[i][0]
+            contribs = batches if kind == "out" else ctx[frag.id]
+            if carries[i] is None:
+                contrib_cap = max(1, _rows(contribs[0]))
+                # start near the expected total contribution, capped so
+                # a huge K doesn't pre-allocate the world; the overflow
+                # ladder jumps straight to the flagged exact size
+                initial = bucket_capacity(max(
+                    16, min(record.n_chunks * contrib_cap, max(contrib_cap, 8192))))
+                cap = record.resolved_caps.setdefault(f"carry:f{frag.id}", initial)
+                carries[i] = [_carry_template(c, cap) for c in contribs]
+            new, fl = [], []
+            for carry, contrib in zip(carries[i], contribs):
+                c2, f = _accumulate(carry, contrib)
+                new.append(c2)
+                fl.append(f)
+            carries[i] = new
+            flags.append((f"carry:f{frag.id}", fl))
+
+    def _record_divergences(self, sources, query_span) -> None:
+        """Observability at the mesh barrier: each mesh fragment's
+        exported row count against the optimizer's estimate, as an
+        instant event on the query span, counting `adaptive.divergences`
+        past adaptive_replan_threshold (the adaptive controller that
+        re-plans on it is ROADMAP §1 item 13.2). Never fails the run."""
+        try:
+            from trino_tpu_torch.runtime.metrics import METRICS
+            from trino_tpu_torch.sql.stats import PlanStats, StatsCalculator
+
+            threshold = float(getattr(self.session, "adaptive_replan_threshold", 4.0) or 4.0)
+            frag_rows: Dict[int, float] = {}
+
+            class _FragmentStats(StatsCalculator):
+                # producer fragments' estimates feed consumer leaves
+                def _RemoteSourceNode(self, node):
+                    rows = sum(frag_rows.get(fid, 1.0) for fid in node.fragment_ids)
+                    return PlanStats(max(rows, 1.0))
+
+            calc = _FragmentStats(self.ex.catalogs)
+
+            def estimate(sp) -> float:
+                for c in sp.children:
+                    estimate(c)
+                fid = sp.fragment.id
+                if fid not in frag_rows:
+                    frag_rows[fid] = calc.stats(sp.fragment.root).row_count
+                return frag_rows[fid]
+
+            for sp in self.mesh_sps:
+                estimate(sp)
+            for sp in self.mesh_sps:
+                pages = sources.get(sp.fragment.id)
+                if pages is None:
+                    continue
+                est = float(frag_rows.get(sp.fragment.id, 1.0))
+                observed = float(sum(int(p.row_count) for p in pages))
+                e, o = max(est, 1.0), max(observed, 1.0)
+                ratio = e / o if e >= o else o / e
+                divergent = ratio >= threshold
+                if query_span is not None:
+                    query_span.event(
+                        "adaptive_observation", site=f"mesh-fragment:{sp.fragment.id}",
+                        estimated_rows=round(est, 1), observed_rows=int(observed),
+                        divergence=round(ratio, 3), divergent=divergent)
+                if divergent:
+                    METRICS.increment("adaptive.divergences")
+        except Exception:
+            pass  # observability must never fail the run
+
+    def _check_flags(self, flags) -> None:
+        """One device->host read of every site's per-shard flags; raise
+        _Overflow naming each site whose max over shards is nonzero."""
+        if not flags:
+            return
+        home = self.ex.mesh.devices[0]
+        vals = torch.stack([
+            torch.stack([f.to(home).to(torch.int64).reshape(()) for f in per_shard])
+            for _site, per_shard in flags
+        ]).cpu()
+        over = vals.max(dim=1).values.tolist()
+        sites_over = [(site, int(v)) for (site, _f), v in zip(flags, over) if v]
+        if sites_over:
+            raise _Overflow(sites_over)

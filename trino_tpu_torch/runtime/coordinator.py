@@ -12,14 +12,21 @@ is used only when the caller passes device="cpu".
 
 retry_policy="task" runs the FaultTolerantQueryScheduler (runtime/fte.py)
 over the spooled exchange; worker handles may be HttpWorkerClients
-(runtime/http.py), whose tasks pull pages over HTTP. Arms of later items
-raise, naming the item, and never fall back to the page plane or to the
-CPU: the mesh data plane (mesh_execution with in-process workers,
-ROADMAP §1 item 12) and recovery_spool_stages (item 13). The reference's census
-annotations, the adaptive controller's report and per-stage
-estimated-vs-observed lines, and the resident, recovery, skew, replica,
-scheduler, membership and concurrency lines of EXPLAIN ANALYZE belong to
-items 12-13 and are left out.
+(runtime/http.py), whose tasks pull pages over HTTP. With in-process
+workers and mesh_execution on (the default) a query runs on the mesh
+data plane (parallel/mesh_plan.py: its exchanges as collectives over
+`mesh_devices`, by default every visible card); a plan the mesh cannot
+run, or a stuck or lost mesh device, falls back to the page plane
+observably (`last_mesh_fallback`, the fallbacks counter, a span event).
+Any other mesh failure propagates: the reference's catch-all rerun on
+the page plane is deliberately not carried (ROADMAP §3). Arms of later
+items raise, naming the item, and never fall back to the page plane or
+to the CPU: mesh_replicas >= 2 (item 13.3) and recovery_spool_stages
+(item 13). The reference's census annotations, the adaptive
+controller's report and per-stage estimated-vs-observed lines, and the
+resident, recovery, skew, replica, scheduler, membership and
+concurrency lines of EXPLAIN ANALYZE belong to item 13 and are left
+out.
 
 Analogue of SqlQueryExecution (planQuery/planDistribution,
 SqlQueryExecution.java:457/503) + PipelinedQueryScheduler.java:155
@@ -305,6 +312,7 @@ class DistributedQueryRunner:
         worker_handles: Optional[List] = None,
         access_control=None,
         device=None,
+        mesh_devices=None,
     ):
         """Default topology: N in-process Workers sharing the coordinator
         CatalogManager, each on `device` (None: the CUDA card, raising
@@ -312,7 +320,10 @@ class DistributedQueryRunner:
         built instead (their catalogs registered by the caller), in-process
         Workers or HttpWorkerClients of WorkerServers. `access_control`
         guards distributed Query statements AND the embedded single-node
-        runner (same policy object on both paths)."""
+        runner (same policy object on both paths). `mesh_devices` lists
+        the mesh plane's shard devices, repeats allowed (the reference's
+        `devices`); None is every visible card of `device`'s type, one
+        shard on the CPU."""
         from trino_tpu_torch.engine import resolve_device
         from trino_tpu_torch.security import AllowAllAccessControl
 
@@ -340,6 +351,13 @@ class DistributedQueryRunner:
             ]
             self._in_process_workers = True
         self.hash_partitions = hash_partitions
+        self.mesh_devices = None if mesh_devices is None else list(mesh_devices)
+        # why the last query left the mesh plane (None = it didn't)
+        self.last_mesh_fallback: Optional[str] = None
+        # meshes wider than one shard run one query at a time (the
+        # reference's path with mesh_scheduler off; its run queue,
+        # runtime/scheduler.py, is ROADMAP §1 item 13.3)
+        self._mesh_exec_lock = threading.Lock()
         # the reference registers the recovery tier's counters here
         # (ROADMAP §1 item 13)
         # resiliency plane: every worker is registered with a
@@ -406,9 +424,11 @@ class DistributedQueryRunner:
 
         self.event_listeners = EventListenerManager()
         self.event_listeners.register_metrics()
+        from trino_tpu_torch.parallel.mesh_plan import register_mesh_metrics
+
+        register_mesh_metrics()
         # the reference also installs its XLA compile listener and
-        # registers the mesh plane's (ROADMAP §1 item 12) and the
-        # analysis tier's (item 13) gauges here
+        # registers the analysis tier's (item 13) gauges here
         # serving tier: canonical-text plan cache over the distributed
         # planning pipeline (analyze -> optimize -> fragment). DDL/DML
         # through the embedded runner and catalog registration
@@ -684,6 +704,9 @@ class DistributedQueryRunner:
             return query_span.child(name, KIND_PHASE)
 
         tracker = self.query_tracker
+        # reset BEFORE any plane decision: a stale reason from an earlier
+        # query must not read as applying to this one
+        self.last_mesh_fallback = None
         cache_key = None
         try:
             from trino_tpu_torch.sql.formatter import format_statement
@@ -778,14 +801,42 @@ class DistributedQueryRunner:
             )
             return MaterializedResult(rows, *result_meta, data_plane="fte")
         if self.session.mesh_execution and self._mesh_colocated():
-            # the reference runs this query on the device mesh (exchanges
-            # as collectives); the port raises rather than run the page
-            # plane in its place
-            raise NotImplementedError(
-                "mesh_execution with in-process workers: the multi-GPU mesh "
-                "plane is ROADMAP §1 item 12 (pass mesh_execution=False for "
-                "the page exchange)"
+            # tasks share this process's devices: exchanges ride
+            # collectives over the shard mesh in chunked programs
+            # (parallel/mesh_chunk.py) with preemption checks at every
+            # program boundary, so deadline-bearing queries run here
+            # too, killed between chunks with the page plane's typed
+            # errors. Unsupported plan shapes fall back to the page
+            # exchange, observably.
+            from trino_tpu_torch.parallel.mesh_chunk import MeshDeviceLost, MeshStuck
+            from trino_tpu_torch.parallel.mesh_plan import MeshUnsupported
+            from trino_tpu_torch.runtime.query_tracker import preemption_check
+
+            preempt = preemption_check(
+                tracker, base_qid, cancel=cancel, deadline_epoch_s=deadline_epoch_s,
             )
+            try:
+                rows = self._execute_mesh(subplan, preempt, query_span)
+                self._last_data_plane = "mesh"
+                return MaterializedResult(rows, *result_meta, data_plane="mesh")
+            except MeshUnsupported as ex:
+                # fallback must be OBSERVABLE, not silent: count it and
+                # record why, whether raised statically or mid-run
+                self._record_mesh_fallback(str(ex), query_span)
+            except (MeshStuck, MeshDeviceLost) as ex:
+                # retryable by classification: a program hung (or lost
+                # its device) may succeed on the page plane
+                self._record_mesh_fallback(str(ex), query_span)
+            except QueryDeadlineError:
+                raise  # the preemption hook fired: typed, no fallback
+            except Exception as e:
+                if deadline_code(str(e)) is not None:
+                    # a latched kill that travelled as a failure string:
+                    # re-type it so it stays non-retryable
+                    raise deadline_error(str(e)) from e
+                # no catch-all rerun on the page plane (ROADMAP §3): on
+                # the card it would hide a kernel or device failure
+                raise
         attempts = (
             1 + self.session.query_retry_count
             if self.session.retry_policy == "query"
@@ -882,6 +933,62 @@ class DistributedQueryRunner:
                     pass  # observability must never mask the verdict
                 scheduler.abort()
         raise last_error
+
+    def _execute_mesh(self, subplan, preempt, query_span) -> List[list]:
+        """The single-mesh branch of the reference's mesh dispatch: one
+        MeshExecutor over `mesh_devices`. A width-1 mesh runs no
+        collectives and keeps the historic concurrency; a wider one
+        runs one query at a time under `_mesh_exec_lock`."""
+        import contextlib
+
+        from trino_tpu_torch.parallel.mesh_plan import MeshExecutor
+
+        if int(getattr(self.session, "mesh_replicas", 1) or 1) >= 2:
+            raise NotImplementedError(
+                "mesh_replicas >= 2: replicated serving meshes are ROADMAP §1 item 13.3")
+        ex = MeshExecutor(self.catalogs, self.session, devices=self.mesh_devices,
+                          device=self.device)
+        guard = self._mesh_exec_lock if ex.n > 1 else contextlib.nullcontext()
+        with guard:
+            return ex.execute(subplan, preempt=preempt, query_span=query_span)
+
+    def _record_mesh_fallback(self, reason: str, query_span=None) -> None:
+        """One mesh->page fallback: bump the aggregate counter, latch
+        the reason for QueryInfo/EXPLAIN, export a per-reason counter
+        (mesh_fallbacks.{slug}) and drop an instant event on the query
+        span so the trace timeline shows where the plane switched."""
+        import re
+
+        from trino_tpu_torch.parallel.mesh_plan import bump_mesh_counter
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        bump_mesh_counter("fallbacks")
+        self.last_mesh_fallback = reason
+        slug = re.sub(r"[^a-z0-9]+", "_", reason.lower()).strip("_")[:40]
+        if slug:
+            METRICS.increment(f"mesh_fallbacks.{slug}")
+        if query_span is not None:
+            query_span.event("mesh_fallback", reason=reason[:300])
+
+    def _mesh_plane_line(self, subplan) -> str:
+        """The EXPLAIN ANALYZE data-plane line: which plane `execute`
+        would pick for this plan, decided statically (structural
+        eligibility + collective census, no second execution)."""
+        if getattr(self.session, "retry_policy", "none") == "task":
+            return "data_plane=fte"
+        if not (self.session.mesh_execution and self._mesh_colocated()):
+            return "data_plane=http"
+        from trino_tpu_torch.parallel.mesh_plan import MeshUnsupported, mesh_eligibility
+
+        try:
+            info = mesh_eligibility(subplan)
+        except MeshUnsupported as ex:
+            self._record_mesh_fallback(str(ex))
+            return f"data_plane=http (mesh fallback: {ex})"
+        chunk_rows = int(getattr(self.session, "mesh_chunk_rows", 0) or 0)
+        chunking = f"chunk_rows={chunk_rows}" if chunk_rows > 0 else "unchunked"
+        return (f"data_plane=mesh (all_to_all={info['all_to_all']}, "
+                f"all_gather={info['all_gather']}, {chunking})")
 
     def _execute_fte(
         self, subplan, query_id=None, cancel=None, tq=None,
@@ -1009,9 +1116,13 @@ class DistributedQueryRunner:
             lines = [self._explain_text(subplan)]
             for stage in stages:
                 lines.append(stage_text(stage))
-            # the reference goes on with the data-plane, resident,
-            # recovery, skew, replica, scheduler, membership and
-            # concurrency lines of items 12-13
+            # which plane a plain `execute` of this statement would take
+            # (the ANALYZE instrumentation itself runs the page
+            # scheduler above either way, for the operator stats)
+            lines.append(self._mesh_plane_line(subplan))
+            # the reference goes on with the resident, recovery, skew,
+            # replica, scheduler, membership and concurrency lines of
+            # item 13
             return MaterializedResult(
                 [["\n".join(lines)]], ["Query Plan"], [T.VARCHAR]
             )
@@ -1234,6 +1345,7 @@ class DistributedQueryRunner:
                 data_plane=getattr(
                     self, "_last_data_plane", None
                 ) or ("fte" if is_fte else "http"),
+                mesh_fallback=self.last_mesh_fallback,
             )
             with self._lock:
                 self._active_traces.pop(base_qid, None)

@@ -18,8 +18,8 @@ Two passes:
 Counterpart of trino_tpu/sql/fragmenter.py: host code over the port's
 plan nodes, stats and aggregation state layout, so the fragments (and
 EXPLAIN's rendering of them) are the reference's. The fragments run as
-tasks over the page exchange (runtime/); the collective form of the
-same repartition is the multi-GPU plane (ROADMAP §1 item 12). The
+tasks over the page exchange (runtime/), or over the shard mesh, where
+the same repartition is a collective (parallel/mesh_plan.py). The
 reference's EXPLAIN also annotates each fragment with its expected XLA
 lowerings (the shape census); that counts XLA programs and waits for the
 compile tier (item 13), so `explain_distributed` renders the fragments
