@@ -234,9 +234,49 @@ Phases (any failure exits nonzero):
                  MESH_FAST_QUERIES (tests/test_mesh.py's) at tiny on the
                  4-shard card mesh, equal to the same code on 4 CPU
                  shards. Its launches count apart (`mesh_launches`).
- 14. explore   — both explorer entry points (trino_tpu_torch.explore),
+ 14. serve     — the serving tier on the card (results["serve"]): a
+                 CoordinatorServer over a LocalQueryRunner(device="cuda")
+                 with resident_tables = 'orders', over a memory copy of
+                 tpch sf1 orders (o_orderkey, o_custkey, o_totalprice:
+                 the copy takes writes), each answer held against one
+                 cold scan of the table (the oracle) and some against the
+                 cold execute of the lookup itself. The first lookup
+                 builds and pins orders (pinned_bytes printed beside
+                 resident_pin_budget_mb); then SERVE_CLIENTS clients send
+                 SERVE_LOOKUPS point lookups each over the client
+                 protocol, every one a hit, at the Client's default poll
+                 and at 1 ms, and one client alone; each lookup's latency
+                 splits into queued, executing and the protocol by the
+                 server's stamps of its job; then the fast lane in
+                 process from one thread and from SERVE_CLIENTS; an
+                 INSERT rides the delta (no rebuild), an INSERT of 2,048
+                 rows crosses half the delta budget and a compaction folds
+                 it in, an UPDATE evicts the pin and the next lookup
+                 rebuilds it. A second server, resident lane off and
+                 micro_batch_window_ms = SERVE_WINDOW_MS, takes a closed
+                 burst from every client at once: it coalesces, and every
+                 demultiplexed row equals the oracle. Q-MXU and TPC-H Q3 at
+                 sf1 with warmup_mode = 'block' (the reference's name for
+                 a warmup the query waits for): no entry fails, rows equal
+                 the cold twins' (phase main's rows when it ran), Q-MXU's
+                 second execution builds no program, and the warmers'
+                 launches on dead batches (grouped_sum, bounds, run_owner
+                 and take_flat, each at least once) count apart from the
+                 live ones; then each kernel at every shape a warmer
+                 launched it, on dead inputs, held against its plain
+                 version. serving/harness.serve_smoke at tiny with the
+                 reference's gates, its completed rate beside the offered
+                 one, then its statements straight into one runner from
+                 one thread and from 8 (no server). Runs marked "switch
+                 interval / 10" set the interpreter's thread switch
+                 interval to a tenth for that run only. `python -m pytest
+                 --noconftest tests/test_torch_card.py` runs beside the
+                 warmed queries and must pass. Launches count apart
+                 (`serve_launches`, `serve_dead_launches`,
+                 `serve_warm_live_launches`).
+ 15. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 15. parity    — the queries, and the window and set-operation queries
+ 16. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -250,15 +290,16 @@ Phases (any failure exits nonzero):
                  by its zone) and tests/test_match_recognize.py (MR_SQL,
                  with the NULL-key cases MR_NULL_SQL) at tiny, and phase
                  zones' queries at tiny and sf0.1; so must phase write's
-                 statements at tiny and sf0.1 and every script of the
-                 write corpus (WRITE_SCRIPTS) at tiny, statement by
-                 statement (the same error where one raises), with every
-                 written table read back equal; so must phase statements'
-                 steps at tiny and sf0.1, phase files' steps at tiny
-                 and sf0.1 (their bytes_scanned too), and
-                 tests/test_memory.py's queries at tiny under their pools
-                 (MEMORY_QS).
- 16. summary   — each kind of join-path call (the probe's bounds, the
+                 statements at tiny and every script of the write corpus
+                 (WRITE_SCRIPTS) at tiny, statement by statement (the same
+                 error where one raises), with every written table read
+                 back equal; so must phase statements' steps at tiny and
+                 sf0.1, phase files' steps at tiny (their bytes_scanned
+                 too), and tests/test_memory.py's queries at tiny under
+                 their pools (MEMORY_QS). (Phase write's and phase files'
+                 sf0.1 runs are left out to keep the run inside half its
+                 time limit; their sf1 phases stay.)
+ 17. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
@@ -266,7 +307,8 @@ Phases (any failure exits nonzero):
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
                  entry with its launches in phases nested, zones, write,
                  statements, files, spill, distributed, wire and mesh beside
-                 the main path's; take_flat's entry with its summed
+                 the main path's, and phase serve's three counts; take_flat's
+                 entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
                  its bound counts), the card line, then the result line
@@ -1650,8 +1692,15 @@ CHOICE_SCRIPT = _ws("z", [
     "select * from ev order by id", "select * from orders_tags order by id"], "tags")
 
 
+# the whole log, also written to chiprun_out/chip_smoke.log by main()
+_LOG_FILE = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _LOG_FILE is not None:
+        _LOG_FILE.write(msg + "\n")
+        _LOG_FILE.flush()
 
 
 def card_line() -> str:
@@ -2695,6 +2744,8 @@ def phase_main(results: dict) -> None:
             r.session.mxu_join_enabled = mxu
             rows[name] = run_query(r, scan, name, "cold", sql, per_query, probes)
         r.session.mxu_join_enabled = False
+        # phase serve's cold twins of its warmed runs
+        results["main_rows"] = {k: rows[k] for k in ("q_mxu", "q3")}
         # the largest flat gather of the TPC-H queries alone
         results["main_args"]["tpch"] = (None, None, tf.largest())
         flat_timer.family = "functions"
@@ -3767,9 +3818,10 @@ def phase_files(results: dict) -> None:
 
 
 def parity_files() -> None:
-    """The card against the CPU: phase files' steps at tiny and sf0.1,
-    equal rows (or the same error) and bytes_scanned step by step."""
-    for schema in ("tiny", "sf0.1"):
+    """The card against the CPU: phase files' steps at tiny (sf0.1 is
+    left out to keep the run inside its time), equal rows (or the same
+    error) and bytes_scanned step by step."""
+    for schema in ("tiny",):
         t0 = time.perf_counter()
         gpu, cpu = (file_identities(schema, d, lambda msg: None) for d in ("cuda", "cpu"))
         for name, rec in gpu.items():
@@ -4661,6 +4713,556 @@ def phase_mesh(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# phase serve: the serving tier at sf1
+SERVE_POINT = "select o_custkey, o_totalprice from orders where o_orderkey = {}"
+SERVE_CLIENTS = 8
+SERVE_LOOKUPS = 25  # point lookups each client sends to the fast lane
+SERVE_BURST = 6  # lookups each client sends in the batcher's closed burst
+SERVE_WINDOW_MS = 20.0
+SERVE_SEED = 18
+# rows of the INSERT that crosses half the delta budget (4096 by
+# default) and so schedules a compaction: the orders with o_orderkey <=
+# this, renumbered past the table's last key
+SERVE_DELTA_KEYS = 8192
+SERVE_KEY_SHIFT = 6_000_000
+SERVE_WARM_QUERIES = (("q_mxu", "Q_MXU"), ("q3", "Q3"))
+SERVE_SMOKE_QUERIES = ("Q1", "Q6")
+
+
+def serve_runner(mem, device, **session):
+    """A runner over memory.s (where the phase's orders copy lives) with
+    the tpch catalog beside it."""
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+
+    r = LocalQueryRunner(Session(catalog="memory", schema="s", **session), device=device)
+    r.register_catalog("memory", mem)
+    r.register_catalog("tpch", create_tpch_connector())
+    return r
+
+
+def serve_clients(srv, batches, oracle, what, poll_interval=None):
+    """Each list of keys in `batches` from its own client thread, all at
+    once, polling every `poll_interval` s (None: the Client's default);
+    every answer held against `oracle`. Returns one (latency, queued,
+    executing) a lookup: the client's wall, and from the server's stamps
+    of its job the wait for an executor thread and the execution (the
+    fast lane, the batcher or the runner)."""
+    import threading
+
+    from trino_tpu_torch.client import Client
+
+    recs, errors, lock = [], [], threading.Lock()
+    poll = {} if poll_interval is None else {"poll_interval": poll_interval}
+
+    def client(keys):
+        c = Client(srv.uri, timeout=120, **poll)
+        for k in keys:
+            t0 = time.perf_counter()
+            try:
+                res = c.execute(SERVE_POINT.format(k))
+            except Exception as e:  # noqa: BLE001 - reported below
+                with lock:
+                    errors.append(f"{k}: {e!r}")
+                continue
+            dt = time.perf_counter() - t0
+            job = srv._jobs[res.query_id]
+            with lock:
+                recs.append((dt, job.started_at - job.created_at,
+                             job.finished_at - job.started_at))
+                if res.rows != oracle.get(k, []):
+                    errors.append(f"{k}: {res.rows} != {oracle.get(k, [])}")
+
+    ts = [threading.Thread(target=client, args=(keys,)) for keys in batches]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        raise AssertionError(f"{what}: {len(errors)} wrong or failed lookups, first "
+                             f"{errors[:3]}")
+    return recs
+
+
+def lookup_split(recs, wall) -> dict:
+    """p50 and p99 (ms) of each part of a lookup's latency: queued and
+    executing from the server's stamps, and the protocol (the rest: the
+    POST before the job exists, the polls, the responses); and the
+    lookups a second over the run's wall."""
+    from trino_tpu_torch.serving.harness import exact_percentile
+
+    parts = {"latency": [r[0] for r in recs], "queued": [r[1] for r in recs],
+             "executing": [r[2] for r in recs],
+             "protocol": [r[0] - r[1] - r[2] for r in recs]}
+    out = {"lookups": len(recs), "wall_s": wall, "per_s": len(recs) / wall}
+    for name, xs in parts.items():
+        out[f"{name}_p50_ms"] = exact_percentile(xs, 0.50) * 1e3
+        out[f"{name}_p99_ms"] = exact_percentile(xs, 0.99) * 1e3
+    return out
+
+
+def serve_lanes(r, batches, oracle) -> list:
+    """Each list of keys in `batches` from its own thread straight into
+    the fast lane (no server, no protocol); returns the latencies."""
+    import threading
+
+    from trino_tpu_torch.resident import fastlane
+
+    lat, errors, lock = [], [], threading.Lock()
+
+    def lane(keys):
+        for k in keys:
+            t0 = time.perf_counter()
+            res = fastlane.try_resident_lookup(r, SERVE_POINT.format(k))
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt)
+                if res is None or res.rows != oracle[k]:
+                    errors.append(k)
+
+    ts = [threading.Thread(target=lane, args=(keys,)) for keys in batches]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        raise AssertionError(f"the fast lane in-process missed or differs on {errors[:3]}")
+    return lat
+
+
+def serve_cold(r, keys, oracle) -> None:
+    """The cold path's rows of each of `keys` into `oracle`: one ordinary
+    execution of an IN-list over them (the fast lane takes no IN-list)."""
+    keys = sorted(set(keys) - set(oracle))
+    for a in range(0, len(keys), 256):
+        part = keys[a:a + 256]
+        got = {k: [] for k in part}
+        for k, c, p in r.execute("select o_orderkey, o_custkey, o_totalprice from orders "
+                                 f"where o_orderkey in ({', '.join(map(str, part))})").rows:
+            got[k].append([c, p])
+        oracle.update(got)
+
+
+def serve_resident(results, mem, log) -> tuple:
+    """The resident fast lane over a CoordinatorServer (see the module
+    docstring). Returns the oracle it held the lookups against and the
+    table's keys."""
+    import random
+
+    from trino_tpu_torch.resident import RESIDENT, fastlane
+    from trino_tpu_torch.runtime.server import CoordinatorServer
+    from trino_tpu_torch.serving.harness import exact_percentile
+
+    r = serve_runner(mem, "cuda", resident_tables="orders")
+    t0 = time.perf_counter()
+    r.execute("create table orders as select o_orderkey, o_custkey, o_totalprice "
+              "from tpch.sf1.orders")
+    ctas_s = time.perf_counter() - t0
+    (existing, _), = orders_columns(1.0, "o_orderkey")
+    existing = [int(k) for k in existing]
+    rng = random.Random(SERVE_SEED)
+    keys = [[rng.choice(existing) if i % 5 else rng.randrange(1, SERVE_KEY_SHIFT)
+             for i in range(SERVE_LOOKUPS)] for _ in range(SERVE_CLIENTS)]
+    oracle: dict = {}
+    t0 = time.perf_counter()
+    serve_cold(r, [k for ks in keys for k in ks] + existing[:2] + existing[-1:], oracle)
+    log(f"[serve] orders copied to memory.s.orders in {ctas_s} s; the oracle of "
+        f"{len(oracle)} keys (cold IN-list executions) took {time.perf_counter() - t0} s")
+    stats = {}
+    srv = CoordinatorServer(r, max_concurrent=SERVE_CLIENTS)
+    try:
+        t0 = time.perf_counter()
+        serve_clients(srv, [[keys[0][0]]], oracle, "the first lookup")
+        build_s = time.perf_counter() - t0
+        st = RESIDENT.stats()
+        if st["pins"] != 1 or st["misses"] != 1:
+            raise AssertionError(f"the first lookup did not build and pin: {st}")
+        pinned, budget = st["pinned_bytes"], st["budget_bytes"]
+        log(f"[serve] first lookup built and pinned orders in {build_s} s: pinned_bytes="
+            f"{pinned}, resident_pin_budget_mb={r.session.resident_pin_budget_mb} "
+            f"({budget} bytes)")
+        # where a lookup waits: 8 clients and one, at the Client's
+        # default poll and at 1 ms, split by the server's stamps; then
+        # the fast lane alone, one thread and 8, no protocol
+        runs = {}
+        switch = sys.getswitchinterval()
+        for label, batches, poll, interval in (
+                ("8 clients, default poll", keys, None, switch),
+                ("8 clients, 1 ms poll", keys, 0.001, switch),
+                ("one client, default poll", keys[3:4], None, switch),
+                ("one client, 1 ms poll", keys[3:4], 0.001, switch)):
+            hits0 = RESIDENT.stats()["hits"]
+            sys.setswitchinterval(interval)
+            try:
+                t0 = time.perf_counter()
+                recs = serve_clients(srv, batches, oracle, label, poll)
+                runs[label] = lookup_split(recs, time.perf_counter() - t0)
+            finally:
+                sys.setswitchinterval(switch)
+            hits = RESIDENT.stats()["hits"] - hits0
+            if hits != len(recs):
+                raise AssertionError(f"{label}: {hits} of {len(recs)} lookups hit the pin")
+            log(f"[serve] {label}: {runs[label]}")
+        for k in keys[1][:SERVE_CLIENTS]:  # each answer also equals the cold execute
+            if r.execute(SERVE_POINT.format(k)).rows != oracle[k]:
+                raise AssertionError(f"the cold execute of {k} differs from the oracle")
+        for label, batches, interval in (
+                ("fast lane, one thread", keys[2:3], switch),
+                ("fast lane, 8 threads", keys, switch),
+                ("fast lane, 8 threads, switch interval / 10", keys, switch / 10)):
+            sys.setswitchinterval(interval)
+            try:
+                t0 = time.perf_counter()
+                lat = serve_lanes(r, batches, oracle)
+                wall = time.perf_counter() - t0
+            finally:
+                sys.setswitchinterval(switch)
+            runs[label] = {"lookups": len(lat), "wall_s": wall, "per_s": len(lat) / wall,
+                           "latency_p50_ms": exact_percentile(lat, 0.50) * 1e3,
+                           "latency_p99_ms": exact_percentile(lat, 0.99) * 1e3}
+            log(f"[serve] {label}: {runs[label]}")
+        main = runs["8 clients, default poll"]
+        stats["lookups"] = {"clients": SERVE_CLIENTS, "hits": main["lookups"],
+                            "p50_ms": main["latency_p50_ms"], "p99_ms": main["latency_p99_ms"],
+                            "build_s": build_s, "pinned_bytes": pinned, "budget_bytes": budget,
+                            "runs": runs}
+        log(f"[serve] {main['lookups']} lookups from {SERVE_CLIENTS} clients at the Client's "
+            f"default poll, all hits: p50={main['latency_p50_ms']} ms "
+            f"p99={main['latency_p99_ms']} ms")
+        # an INSERT rides the delta; the next crosses half its budget
+        pins = RESIDENT.stats()["pins"]
+        new = SERVE_KEY_SHIFT + 1
+        r.execute(f"insert into orders values ({new}, 7, 1.50)")
+        oracle[new] = r.execute(SERVE_POINT.format(new)).rows
+        serve_clients(srv, [[new, existing[0]]], oracle, "after the insert")
+        if RESIDENT.stats()["pins"] != pins:
+            raise AssertionError("the insert rebuilt the pin instead of riding the delta")
+        compactions = RESIDENT.stats()["compactions"]
+        t0 = time.perf_counter()
+        n = r.execute(f"insert into orders select o_orderkey + {SERVE_KEY_SHIFT + 1}, "
+                      f"o_custkey, o_totalprice from tpch.sf1.orders "
+                      f"where o_orderkey <= {SERVE_DELTA_KEYS}").rows[0][0]
+        fastlane.drain_compactions()
+        compact_s = time.perf_counter() - t0
+        if RESIDENT.stats()["compactions"] != compactions + 1:
+            raise AssertionError(f"no compaction after the {n}-row insert")
+        probe = [SERVE_KEY_SHIFT + 2, SERVE_KEY_SHIFT + 1 + SERVE_DELTA_KEYS, existing[-1]]
+        for k in probe:
+            oracle[k] = r.execute(SERVE_POINT.format(k)).rows
+        serve_clients(srv, [probe], oracle, "after the compaction")
+        # an UPDATE evicts the pin; the next lookup rebuilds it
+        k7 = existing[1]
+        t0 = time.perf_counter()
+        r.execute(f"update orders set o_custkey = 0 where o_orderkey = {k7}")
+        oracle[k7] = r.execute(SERVE_POINT.format(k7)).rows
+        serve_clients(srv, [[k7]], oracle, "after the update")
+        update_s = time.perf_counter() - t0
+        if RESIDENT.stats()["pins"] != pins + 1:
+            raise AssertionError("the update did not evict and rebuild the pin")
+        st = RESIDENT.stats()
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        skips = {k: METRICS.counter(k) for k in ("resident.skips", "resident.skips_nested",
+                                                 "resident.skips_key_type",
+                                                 "resident.skips_fanout")}
+        stats.update({"insert_rows": 1 + n, "compaction_s": compact_s, "update_s": update_s,
+                      "counters": st, "skips": skips})
+        log(f"[serve] the delta took {1 + n} inserted rows, a compaction folded them in "
+            f"({compact_s} s with the insert); the update evicted and rebuilt the pin "
+            f"({update_s} s); hits={st['hits']} misses={st['misses']} pins={st['pins']} "
+            f"evictions={st['evictions']} compactions={st['compactions']} "
+            f"pinned_bytes={st['pinned_bytes']} skips={skips}")
+    finally:
+        srv.stop()
+    results["serve"]["resident"] = stats
+    return oracle, existing, r
+
+
+def serve_batcher(results, mem, cold, oracle, existing, log) -> None:
+    """A second server, resident lane off, micro-batching on: a closed
+    burst of point lookups from every client at once coalesces; `cold`
+    is the first server's runner, the oracle's cold path."""
+    import random
+
+    from trino_tpu_torch.runtime.server import CoordinatorServer
+
+    r = serve_runner(mem, "cuda", micro_batch_window_ms=SERVE_WINDOW_MS, micro_batch_max=16)
+    rng = random.Random(SERVE_SEED + 1)
+    burst = [[rng.choice(existing) for _ in range(SERVE_BURST)] for _ in range(SERVE_CLIENTS)]
+    serve_cold(cold, [k for ks in burst for k in ks], oracle)
+    srv = CoordinatorServer(r, max_concurrent=SERVE_CLIENTS)
+    try:
+        t0 = time.perf_counter()
+        serve_clients(srv, burst, oracle, "batched burst")
+        wall = time.perf_counter() - t0
+        st = srv.batcher.stats()
+    finally:
+        srv.stop()
+    if not (st["batches"] > 0 and st["batched_queries"] > st["batches"]):
+        raise AssertionError(f"the burst did not coalesce: {st}")
+    results["serve"]["batcher"] = {**st, "wall_s": wall}
+    log(f"[serve] batched burst: {st['batched_queries']} lookups in {st['batches']} "
+        f"executions ({wall} s), every demultiplexed row equal to the oracle")
+
+
+def serve_warmup(results, log) -> None:
+    """Q-MXU and TPC-H Q3 at sf1 with warmup_mode = 'block': no entry
+    fails, rows equal the cold twins', the warmers' launches on dead
+    batches apart from the live ones; Q-MXU's second execution builds no
+    program (the warmed run follows its cold twin's, so it is that second
+    execution unless it built some, and then a third run must build
+    none). Then every kernel at each shape a warmer launched it,
+    on dead inputs, held against its plain version."""
+    import torch
+
+    from trino_tpu_torch.runtime.metrics import METRICS
+
+    twins = results.get("main_rows", {})
+    dead_total = {k: 0 for k in join_kernel_counts()}
+    live_total = dict(dead_total)
+    dead_shapes = {k: set() for k in dead_total}
+    out = {}
+    for name, var in SERVE_WARM_QUERIES:
+        sql = globals()[var]
+        if name not in twins:
+            twins[name] = runner("sf1", "cuda").execute(sql).rows
+        w = runner("sf1", "cuda", warmup_mode="block")
+        marks = []
+        start = w._start_warmup
+
+        def hooked(physical, start=start, marks=marks):
+            shapes = {k: set(fn.shapes) for k, fn in launch_counters().items()}
+            svc = start(physical)
+            marks.append(join_kernel_counts())
+            for k, fn in launch_counters().items():
+                dead_shapes[k] |= set(fn.shapes) - shapes[k]
+            return svc
+
+        w._start_warmup = hooked
+        runs = 2 if name == "q_mxu" else 1
+        for run in range(runs):
+            marks.clear()
+            before = join_kernel_counts()
+            built0 = METRICS.counter("programs_built")
+            t0 = time.perf_counter()
+            rows = w.execute(sql).rows
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = join_kernel_counts()
+            built = METRICS.counter("programs_built") - built0
+            svc = w._last_warmup
+            if svc is None or svc.failures():
+                raise AssertionError(f"{name}: warmup entries failed on the card: "
+                                     f"{svc.failures() if svc else 'no warmup ran'}")
+            if rows != twins[name]:
+                raise AssertionError(f"{name}: the warmed run's rows differ from its cold twin's")
+            dead = {k: marks[0][k] - before[k] for k in after}
+            live = {k: after[k] - marks[0][k] for k in after}
+            for k in after:
+                dead_total[k] += dead[k]
+                live_total[k] += live[k]
+            out[f"{name}_run{run + 1}"] = {
+                "wall_s": wall, "entries": svc.status_counts(), "programs_built": built,
+                "dead_launches": dead, "live_launches": live}
+            log(f"[serve] warmup {name} run {run + 1}: {wall} s, entries {svc.status_counts()}, "
+                f"programs_built={built}, launches on dead batches {dead}, live {live}")
+            if built == 0:
+                break  # its cold twin ran first: this run was its second execution
+        if runs == 2 and out[f"{name}_run{run + 1}"]["programs_built"] != 0:
+            raise AssertionError(f"{name}: the second execution built programs")
+    missing = [k for k in ("grouped_sum", "bounds", "run_owner", "take_flat")
+               if not dead_total[k]]
+    if missing:
+        raise AssertionError(f"the warmers launched no {missing} on a dead batch")
+    results["serve_dead_launches"] = dead_total
+    results["serve_warm_live_launches"] = live_total
+    out["dead_checks"] = serve_dead_checks({k: sorted(v) for k, v in dead_shapes.items()}, log)
+    results["serve"]["warmup"] = out
+
+
+def serve_dead_checks(shapes, log) -> dict:
+    """Each kernel on all-dead inputs at the shapes the warmers launched
+    it (zero data, no live row; zero counts; zero indices), against its
+    plain version on the same tensors, and on the empty input a dead
+    batch can give (no launch: the plain version's empty result)."""
+    import torch
+
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import mxu_groupby as M
+    from trino_tpu_torch.ops import window_rank as W
+
+    dev = torch.device("cuda")
+    held = {}
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, (list, tuple)) else [want]
+        for g, x in zip(got, want):
+            if g.shape != x.shape or not torch.equal(g, x):
+                raise AssertionError(f"{name} on a dead batch differs from its plain version")
+        held[name] = held.get(name, 0) + 1
+
+    for n, k, cap in shapes["grouped_sum"]:
+        gid = torch.zeros(n, dtype=torch.int32, device=dev)
+        v = torch.zeros((k, n), dtype=torch.int64, device=dev)
+        live = torch.zeros(n, dtype=torch.bool, device=dev)
+        check("grouped_sum", M.grouped_sum(gid, v, live, cap),
+              M.grouped_sum_reference(gid, v, live, cap))
+    for n_q, n_b, elem in shapes["bounds"]:
+        dt = torch.int64 if elem == 8 else torch.int32
+        q, b = torch.zeros(n_q, dtype=dt, device=dev), torch.zeros(n_b, dtype=dt, device=dev)
+        check("bounds", W.bounds(q, b), W.bounds_reference(q, b))
+    for n_out, n_off in shapes["run_owner"]:
+        off = torch.zeros(n_off, dtype=torch.int32, device=dev)
+        check("run_owner", W.run_owner(off, n_out), W.run_owner_reference(off, n_out))
+        check("run_owner", W.run_owner(off, 0), W.run_owner_reference(off, 0))
+    for n_table, n, elem, idx_bytes, _ilp in shapes["take_flat"]:
+        table = torch.zeros(n_table, dtype=torch.int64 if elem == 8 else torch.int32, device=dev)
+        idx = torch.zeros(n, dtype=torch.int64 if idx_bytes == 8 else torch.int32, device=dev)
+        check("take_flat", GK.take_flat(table, idx), GK.take_flat_reference(table, idx))
+        check("take_flat", GK.take_flat(table, idx[:0]), GK.take_flat_reference(table, idx[:0]))
+    log(f"[serve] dead-batch results held against the plain versions: {held} "
+        f"(at the warmers' shapes {shapes})")
+    return {"held": held, "shapes": {k: [list(s) for s in v] for k, v in shapes.items()}}
+
+
+def serve_smoke_tiny(results, log) -> None:
+    """serving/harness.serve_smoke at tiny on the card, with the
+    reference's gates."""
+    from trino_tpu_torch.serving.harness import serve_smoke
+
+    t0 = time.perf_counter()
+    report, violations = serve_smoke({q.lower(): globals()[q] for q in SERVE_SMOKE_QUERIES},
+                                     n_clients=SERVE_CLIENTS, duration_s=3.0, seed=SERVE_SEED)
+    results["serve"]["serve_smoke"] = {**report, "violations": violations,
+                                       "wall_s": time.perf_counter() - t0}
+    keys = ("rate_qps", "offered", "completed", "qps", "p50_ms", "p99_ms", "p99_over_p50",
+            "plan_cache_hit_rate", "programs_built_after_warmup")
+    log(f"[serve] serve_smoke at tiny: {({k: report[k] for k in keys})}, batch phase "
+        f"{({k: report['batch_phase'][k] for k in ('queries', 'batches', 'batched_queries')})}"
+        f"; completed {report['qps']} a second of {report['rate_qps']} offered "
+        f"({report['qps'] / report['rate_qps']})")
+    if violations:
+        raise AssertionError(f"serve_smoke gates failed: {violations}")
+    results["serve"]["mix_direct"] = serve_mix_direct(log)
+
+
+def serve_mix_direct(log) -> dict:
+    """serve_smoke's statements straight into one runner at tiny, no
+    server: each one after another, then from 8 threads at once, at the
+    interpreter's switch interval and at a tenth of it; the statements
+    a second each way. Says whether concurrent statements add
+    throughput without the protocol."""
+    import threading
+
+    from trino_tpu_torch.serving.harness import DEFAULT_POINT_KEYS, DEFAULT_POINT_TEMPLATE
+    from trino_tpu_torch.serving.harness import build_tiny_runner
+
+    r = build_tiny_runner("cuda")
+    mix = [globals()[q] for q in SERVE_SMOKE_QUERIES] + [
+        DEFAULT_POINT_TEMPLATE.format(key=k) for k in DEFAULT_POINT_KEYS]
+    want = [r.execute(q).rows for q in mix]  # plans and programs warm
+    out = {}
+
+    def rounds(n_threads):
+        errors = []
+
+        def worker(i):
+            for j in range(len(mix)):
+                q = (i + j) % len(mix)
+                if r.execute(mix[q]).rows != want[q]:
+                    errors.append(q)
+
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(n_threads)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"concurrent statements differ from their serial rows: {errors}")
+        return n_threads * len(mix) / wall
+
+    switch = sys.getswitchinterval()
+    try:
+        for label, n, interval in (("one thread", 1, switch), ("8 threads", 8, switch),
+                                   ("8 threads, switch interval / 10", 8, switch / 10)):
+            sys.setswitchinterval(interval)
+            out[label] = rounds(n)
+    finally:
+        sys.setswitchinterval(switch)
+    log(f"[serve] serve_smoke's mix straight into the runner at tiny, statements a second "
+        f"(switch interval {switch} s): {out}")
+    return out
+
+
+def serve_card_tests_start():
+    """tests/test_torch_card.py under pytest on this card (no conftest:
+    it imports neither jax nor trino_tpu), in a process of its own that
+    runs beside the warmed queries; serve_card_tests reads it."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+         os.path.join("tests", "test_torch_card.py")],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def serve_card_tests(results, log, proc, t0) -> None:
+    """Waits for serve_card_tests_start's pytest; fails unless it passed."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    tail = out.strip().splitlines()[-1:] or [""]
+    results["serve"]["card_tests"] = {"rc": proc.returncode, "summary": tail[0],
+                                      "wall_s": time.perf_counter() - t0}
+    log(f"[serve] tests/test_torch_card.py: rc {proc.returncode}, {tail[0]}")
+    if proc.returncode != 0 or "skipped" in tail[0]:
+        raise AssertionError(f"tests/test_torch_card.py failed or skipped on the card:\n"
+                             f"{out[-4000:]}\n{err[-2000:]}")
+
+
+def phase_serve(results: dict) -> None:
+    """The serving tier on the card (see the module docstring): the
+    resident fast lane and the micro-batcher behind CoordinatorServers
+    at sf1, census-driven warmup, serve_smoke at tiny, and
+    tests/test_torch_card.py. Launches count apart (`serve_launches`;
+    the warmers' on dead batches `serve_dead_launches`)."""
+    import torch
+
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.resident import RESIDENT
+
+    t_phase = time.perf_counter()
+    log(f"[serve] card: {card_line()}")
+    RESIDENT.evict_all()
+    RESIDENT.reset_stats()
+    results["serve"] = {}
+    reset_kernel_counts()
+    mem = create_memory_connector()
+    oracle, existing, cold = serve_resident(results, mem, log)
+    serve_batcher(results, mem, cold, oracle, existing, log)
+    lanes = join_kernel_counts()
+    # the card tests run beside the warmed queries (whose walls are no
+    # measurement), after the lookups' latencies and before serve_smoke's
+    t0, proc = time.perf_counter(), serve_card_tests_start()
+    try:
+        serve_warmup(results, log)
+    finally:
+        serve_card_tests(results, log, proc, t0)
+    results["serve_launches"] = lanes
+    serve_smoke_tiny(results, log)
+    RESIDENT.evict_all()
+    log(f"[serve] launches of the resident and batcher runs: {lanes}; of the warmers on "
+        f"dead batches: {results['serve_dead_launches']}; of the warmed queries' live "
+        f"batches: {results['serve_warm_live_launches']}")
+    log(f"[serve] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
 _ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
 
 
@@ -4704,9 +5306,10 @@ def same_writes(gpu, cpu, statements, what, catalog) -> None:
 
 
 def parity_write() -> None:
-    """The card against the CPU: phase write's statements at tiny and
-    sf0.1, and every script of the write corpus at tiny."""
-    for schema in ("tiny", "sf0.1"):
+    """The card against the CPU: phase write's statements at tiny (sf0.1
+    is left out to keep the run inside its time), and every script of
+    the write corpus at tiny."""
+    for schema in ("tiny",):
         t0 = time.perf_counter()
         same_writes(write_runner(schema, "cuda"), write_runner(schema, "cpu"),
                     write_statements(), f"write {schema}", "w")
@@ -5319,7 +5922,7 @@ def family_modes(results: dict, on_path: dict, kernels) -> dict:
 
 # the phases whose launches count apart from the main path's
 PHASE_LAUNCHES = ("nested", "zones", "write", "statements", "files", "spill", "distributed",
-                  "wire", "mesh")
+                  "wire", "mesh", "serve", "serve_dead", "serve_warm_live")
 
 
 def kernels_line(results: dict) -> dict:
@@ -5432,7 +6035,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "files,spill,distributed,wire,mesh,explore,parity",
+                            "files,spill,distributed,wire,mesh,serve,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -5445,6 +6048,9 @@ def main() -> int:
         return 2
     from trino_tpu_torch.ops import cuda_build
 
+    global _LOG_FILE
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    _LOG_FILE = open(os.path.join(HERE, "chiprun_out", "chip_smoke.log"), "w")
     results: dict = {}
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5469,7 +6075,8 @@ def main() -> int:
                ("write", (phase_write,)), ("statements", (phase_statements,)),
                ("files", (phase_files,)), ("spill", (phase_spill,)),
                ("distributed", (phase_distributed,)), ("wire", (phase_wire,)),
-               ("mesh", (phase_mesh,)), ("explore", (phase_explore,)),
+               ("mesh", (phase_mesh,)), ("serve", (phase_serve,)),
+               ("explore", (phase_explore,)),
                ("parity", (phase_parity,)))
     walls = results["phase_walls_s"] = {}
     for name, fns in ordered:
@@ -5486,6 +6093,7 @@ def main() -> int:
     log(f"[timing] the summary's timings took {walls['summary']:.1f} s")
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         results.pop("main_args", None)
+        results.pop("main_rows", None)
         json.dump({"card": card, **results, **line}, fh, indent=1, default=str)
     log(f"[summary] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)

@@ -1,0 +1,190 @@
+"""The port's kernels on the card, against their plain versions.
+
+Runs on a machine with an NVIDIA card and no jax: it imports neither jax
+nor trino_tpu nor tests/conftest.py. Run it there with
+
+    python -m pytest --noconftest tests/test_torch_card.py
+
+(chip_smoke.py's phase serve does, and fails its run if pytest fails).
+Without a card every case skips.
+
+Each kernel (grouped_sum, bounds, run_owner, take_flat, take_rows_sum,
+take_along_lanes and the searched and fixed rank) is held bit for bit
+against its plain version on the same CUDA tensors, at ordinary shapes
+and on the all-dead batches the warmers feed: rows that are all dead, a
+probe into a build whose rows are all dead, zero counts, zero indices.
+A wrapper given an empty result launches nothing and returns what its
+plain version returns; the next non-empty call launches again.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from trino_tpu_torch.ops import gather_kernels as GK
+from trino_tpu_torch.ops import mxu_groupby as MG
+from trino_tpu_torch.ops import window_rank as W
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (a CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _t(x, dev):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    if isinstance(got, (list, tuple)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _equal(g, w)
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+# ---- grouped_sum ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,cap,live_frac", [(4096, 3, 480, 0.7), (1 << 20, 13, 2048, 0.5),
+                                               (65536, 9, 16, 0.0), (1 << 20, 13, 480, 0.0)])
+def test_grouped_sum(dev, n, k, cap, live_frac):
+    rng = np.random.default_rng(n + k)
+    gid = _t(rng.integers(0, cap, n).astype(np.int32), dev)
+    vals = _t(rng.integers(-1 << 40, 1 << 40, (k, n)).astype(np.int64), dev)
+    live = _t(rng.random(n) < live_frac, dev)
+    before = MG.grouped_sum.launches
+    _equal(MG.grouped_sum(gid, vals, live, cap), MG.grouped_sum_reference(gid, vals, live, cap))
+    assert MG.grouped_sum.launches == before + 1
+
+
+def test_grouped_sum_on_a_dead_zero_batch(dev):
+    """The aggregation warmer's input: zero data, every row dead."""
+    n, k, cap = 1 << 16, 7, 2048
+    gid = torch.zeros(n, dtype=torch.int32, device=dev)
+    vals = torch.zeros((k, n), dtype=torch.int64, device=dev)
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    got = MG.grouped_sum(gid, vals, live, cap)
+    _equal(got, MG.grouped_sum_reference(gid, vals, live, cap))
+    assert all(not bool(g.any()) for g in got)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = MG.grouped_sum.launches
+    _equal(MG.grouped_sum(empty, torch.zeros((k, 0), dtype=torch.int64, device=dev),
+                          torch.zeros(0, dtype=torch.bool, device=dev), cap),
+           [torch.zeros(cap, dtype=torch.int64, device=dev)] * (k + 1))
+    assert MG.grouped_sum.launches == before  # no zero-block grid
+
+
+# ---- the join probe: bounds, run_owner, take_flat ----------------------------------
+
+
+@pytest.mark.parametrize("n_q,n_b,dtype", [(4096, 65536, torch.int64),
+                                           (1 << 20, 1 << 22, torch.int64),
+                                           (100_000, 4096, torch.int32)])
+def test_bounds(dev, n_q, n_b, dtype):
+    rng = np.random.default_rng(n_q)
+    info = np.iinfo(np.int64 if dtype == torch.int64 else np.int32)
+    b = np.sort(rng.integers(-1000, 1000, n_b)).astype(info.dtype)
+    q = rng.integers(-1100, 1100, n_q).astype(info.dtype)
+    q[:3] = [info.max, info.min, b[0]]
+    b_t, q_t = _t(b, dev), _t(q, dev)
+    _equal(W.bounds(q_t, b_t), W.bounds_reference(q_t, b_t))
+
+
+def test_bounds_into_a_dead_build(dev):
+    """The join warmer's probe: the hashes of dead probe rows searched in
+    the sorted hashes of a build whose rows are all dead, and in an
+    empty build."""
+    from trino_tpu_torch.ops import join as J
+
+    dead = torch.zeros(4096, dtype=torch.bool, device=dev)
+    key = torch.zeros(4096, dtype=torch.int64, device=dev)
+    ls = J.build_lookup([key], [torch.ones_like(dead)], dead)
+    ls_cpu = J.build_lookup([key.cpu()], [torch.ones_like(dead).cpu()], dead.cpu())
+    q = torch.zeros(65536, dtype=torch.int64, device=dev)
+    qd = torch.zeros(65536, dtype=torch.bool, device=dev)
+    lo, counts, total = J.probe_counts(ls, [q], [torch.ones_like(qd)], qd)
+    lo_c, counts_c, total_c = J.probe_counts(ls_cpu, [q.cpu()], [torch.ones_like(qd).cpu()],
+                                             qd.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(lo.cpu(), lo_c) and torch.equal(counts.cpu(), counts_c)
+    assert int(total) == int(total_c) == 0
+    hashes = ls.sorted_hash
+    _equal(W.bounds(hashes[:100], hashes), W.bounds_reference(hashes[:100], hashes))
+    nothing = hashes[:0]
+    before = W.bounds.launches
+    _equal(W.bounds(hashes[:100], nothing), W.bounds_reference(hashes[:100], nothing))
+    assert W.bounds.launches == before + 1
+
+
+@pytest.mark.parametrize("n,n_out", [(4096, 65536), (1000, 16), (1 << 20, 1 << 21)])
+def test_run_owner(dev, n, n_out):
+    rng = np.random.default_rng(n)
+    counts = rng.integers(0, 4, n).astype(np.int32)
+    off = _t(np.cumsum(counts).astype(np.int32), dev)
+    _equal(W.run_owner(off, n_out), W.run_owner_reference(off, n_out))
+
+
+def test_run_owner_over_zero_counts(dev):
+    """A dead probe's expansion: every count zero."""
+    off = torch.zeros(65536, dtype=torch.int32, device=dev)
+    before = W.run_owner.launches
+    _equal(W.run_owner(off, 16), W.run_owner_reference(off, 16))
+    assert W.run_owner.launches == before + 1
+    _equal(W.run_owner(off, 0), W.run_owner_reference(off, 0))
+    assert W.run_owner.launches == before + 1  # an empty result launches nothing
+    _equal(W.run_owner(off, 16), W.run_owner_reference(off, 16))
+    assert W.run_owner.launches == before + 2  # and the next call launches again
+
+
+@pytest.mark.parametrize("n_table,n,elem", [(65536, 4096, torch.int64), (1 << 22, 1 << 20, torch.int32),
+                                            (17, 3, torch.int64)])
+def test_take_flat(dev, n_table, n, elem):
+    rng = np.random.default_rng(n_table)
+    table = _t(rng.integers(-1 << 30, 1 << 30, n_table).astype(
+        np.int64 if elem == torch.int64 else np.int32), dev)
+    for idx_type in (np.int32, np.int64):
+        idx = _t(rng.integers(-5, n_table + 5, n).astype(idx_type), dev)
+        _equal(GK.take_flat(table, idx), GK.take_flat_reference(table, idx))
+
+
+def test_take_flat_with_zero_and_no_indices(dev):
+    table = torch.zeros(4096, dtype=torch.int64, device=dev)
+    zero = torch.zeros(16, dtype=torch.int32, device=dev)
+    before = GK.take_flat.launches
+    _equal(GK.take_flat(table, zero), GK.take_flat_reference(table, zero))
+    none = zero[:0]
+    _equal(GK.take_flat(table, none), GK.take_flat_reference(table, none))
+    assert GK.take_flat.launches == before + 1
+
+
+# ---- the explorers' kernels and the rank ---------------------------------------------
+
+
+def test_take_rows_sum(dev):
+    rng = np.random.default_rng(3)
+    table = _t(rng.integers(-1000, 1000, (4096, 128)).astype(np.int32), dev)
+    ridx = _t(rng.integers(0, 4096, 2048).astype(np.int32), dev)
+    _equal(GK.take_rows_sum(table, ridx), GK.take_rows_sum_reference(table, ridx))
+
+
+def test_take_along_lanes(dev):
+    rng = np.random.default_rng(4)
+    src = _t(rng.integers(-1000, 1000, (2048, 128)).astype(np.int32), dev)
+    sel = _t(rng.integers(0, 128, (2048, 128)).astype(np.int32), dev)
+    _equal(GK.take_along_lanes(src, sel), GK.take_along_lanes_reference(src, sel))
+
+
+@pytest.mark.parametrize("searched", [True, False])
+def test_rank(dev, searched):
+    rng = np.random.default_rng(5)
+    a = _t(rng.integers(-1000, 1000, 8192).astype(np.int32), dev)
+    b = _t(np.sort(rng.integers(-1000, 1000, 16384)).astype(np.int32), dev)
+    _equal(W.rank(a, b, searched), W.rank_reference(a, b, searched))

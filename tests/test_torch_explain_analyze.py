@@ -7,8 +7,10 @@
   spilled operators too): the plan part equals the reference's
   explain_text, every operator line carries the reference's
   in=/out= rows and batches, operator by operator, and the engine
-  counters line carries its counters (the reference's xla_compiles
-  aside).
+  counters line carries its counters (the reference's xla_compiles and
+  the port's programs_built aside: each package's compile counter).
+  The census block that follows is held against the reference's in
+  tests/test_torch_compile.py.
 - On a CUDA device each timed section ends with torch.cuda.synchronize
   (checked here with a fake operator and a recording synchronize).
 """
@@ -70,13 +72,14 @@ def test_device_inclusive_attribution_case_on_the_port(tpch, monkeypatch):
     stats_corpus.test_explain_analyze_device_inclusive_attribution()
 
 
-_XLA_COMPILES = re.compile(r" xla_compiles=\d+")
+_XLA_COMPILES = re.compile(r" (xla_compiles|programs_built)=\d+")
 
 
 def _split(text):
     """(plan part, operator lines without their walls and the engine
-    counters line without the reference's xla_compiles, which counts
-    XLA lowerings: ROADMAP §1 item 13)."""
+    counters line without its compile counter: the reference's
+    xla_compiles counts XLA lowerings, the port's programs_built its
+    program-cache builds and kernel-library builds)."""
     plan, stats = text.split("\n\n")[:2]
     return plan, [_XLA_COMPILES.sub("", _WALL.sub("", line)) for line in stats.splitlines()]
 
@@ -91,7 +94,8 @@ def test_plan_and_operator_rows_equal_the_reference(name, tpch):
     got = port.execute("explain analyze " + sql).only_value()
     assert _split(got) == _split(want)
     assert "Engine counters: rows_scanned=" in got
-    assert "xla_compiles" not in got and "census" not in got
+    assert "xla_compiles" not in got and "programs_built=" in got
+    assert "Compile-churn census:" in got and "programs_built_this_query=" in got
 
 
 class _Echo:

@@ -16,12 +16,14 @@ proxy and verifier.
 - Against the runner: TPC-H Q1, Q3 and Q18 at tiny give the same rows
   through the port's Client and DB-API as through runner.execute, and
   `python -m trino_tpu_torch.cli --server` prints them.
-- The arms of item 13 raise or answer naming it: a batcher, the
-  micro-batch properties, GET /v1/fabric.
+- The server's serving arms: a batcher given to it, or built from the
+  micro-batch properties, coalesces point lookups into the reference's
+  rows; GET /v1/fabric answers 501 naming item 13.3.
 - Every server is stopped, and no server thread outlives a test.
 """
 
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -149,7 +151,8 @@ def test_query_endpoints_over_http(monkeypatch):
 _SECURITY_SERVER = [c for c in _cases(security_corpus)
                     if f"test_security.py::{c[1]}" in STATEMENTS_ELSEWHERE]
 _ADMISSION = [c for c in _cases(serving_corpus)
-              if f"test_serving.py::{c[1]}" in STATEMENTS_ELSEWHERE]
+              if STATEMENTS_ELSEWHERE.get(f"test_serving.py::{c[1]}")
+              == "tests/test_torch_front_door.py"]
 
 
 @pytest.mark.parametrize("case", _SECURITY_SERVER, ids=_ids(_SECURITY_SERVER))
@@ -211,22 +214,53 @@ def test_the_cli_local_backend_needs_a_card_or_device_cpu():
     assert backend.execute("select count(*) from nation") == (["_col0"], [[25]])
 
 
-# ---- the arms of item 13 -------------------------------------------------------------
+# ---- the serving arms ------------------------------------------------------------------
 
 
 def test_the_item_13_arms_raise_or_answer_naming_it():
+    """The batcher arm (since ported): a MicroBatcher given to
+    the server, and one it builds from micro_batch_window_ms, coalesce
+    concurrent point lookups and answer the reference's rows; GET
+    /v1/fabric answers 501 naming item 13.3."""
+    from trino_tpu.connectors import tpch as jtpch
+    from trino_tpu.engine import LocalQueryRunner as JRunner
+    from trino_tpu.engine import Session as JSession
+    from trino_tpu_torch.serving.batcher import MicroBatcher
+
+    ref = JRunner(JSession(catalog="tpch", schema="tiny"))
+    ref.register_catalog("tpch", jtpch.create_tpch_connector())
+    sql = "select o_custkey, o_totalprice from orders where o_orderkey = {}"
+    keys = [1, 2, 3, 7, 32, 33]
+    want = {k: ref.execute(sql.format(k)).rows for k in keys}
     r = LocalQueryRunner(Session(catalog="tpch", schema="tiny"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CoordinatorServer(r, batcher=object())
-    r.session.micro_batch_window_ms = 5.0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CoordinatorServer(r)
-    r.session.micro_batch_window_ms = 0.0
+    r.register_catalog("tpch", create_tpch_connector())
+    given = MicroBatcher(r, window_s=0.5, max_batch=len(keys))
+    r2 = LocalQueryRunner(Session(catalog="tpch", schema="tiny", micro_batch_window_ms=500.0,
+                                  micro_batch_max=len(keys)), device="cpu")
+    r2.register_catalog("tpch", create_tpch_connector())
+    for srv in (CoordinatorServer(r, batcher=given, max_concurrent=len(keys)),
+                CoordinatorServer(r2, max_concurrent=len(keys))):
+        try:
+            got = {}
+
+            def ask(k, srv=srv, got=got):
+                got[k] = Client(srv.uri, timeout=60).execute(sql.format(k)).rows
+
+            ts = [threading.Thread(target=ask, args=(k,)) for k in keys]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(60)
+            assert got == want
+            st = srv.batcher.stats()
+            assert st["batched_queries"] == len(keys) and 1 <= st["batches"] < len(keys)
+        finally:
+            srv.stop()
     srv = CoordinatorServer(r)
     try:
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(srv.uri + "/v1/fabric", timeout=10)
-        assert e.value.code == 501 and "item 13" in e.value.read().decode()
+        assert e.value.code == 501 and "item 13.3" in e.value.read().decode()
     finally:
         srv.stop()
 
@@ -252,6 +286,6 @@ def test_the_corpora_are_covered():
         "test_state_machine.py", "test_tracing.py", "test_security.py", "test_serving.py")}
     every = {f"test_services.py::{n}" for _, n in _cases(services_corpus)}
     assert every == (ran | set(WAITING)) & every and not ran & set(WAITING)
-    assert all(v.startswith(("item 12", "item 13")) for v in WAITING.values())
+    assert all(re.match(r"item 13\.[234] ", v) for v in WAITING.values())
     assert (len(_PROTOCOL), len(_SERVICES), len(_SCHED), len(_RG)) == (14, 18, 8, 5)
     assert (len(_SECURITY_SERVER), len(_ADMISSION)) == (3, 3)

@@ -67,6 +67,10 @@ WIRE_MODULES = ["trino_tpu_torch.runtime.http", "trino_tpu_torch.runtime.fte",
                 "trino_tpu_torch.service.proxy", "trino_tpu_torch.service.verifier"]
 MESH_PACKAGES = [("trino_tpu_torch.parallel", ("mesh", "exchange", "mesh_plan", "mesh_chunk")),
                  ("trino_tpu_torch.compile", ("shapes",))]
+SERVING_MODULES = ["trino_tpu_torch.compile.cache", "trino_tpu_torch.compile.warmup",
+                   "trino_tpu_torch.resident", "trino_tpu_torch.resident.manager",
+                   "trino_tpu_torch.resident.table", "trino_tpu_torch.resident.fastlane",
+                   "trino_tpu_torch.serving.batcher", "trino_tpu_torch.serving.harness"]
 
 # check name -> code run first and alone in a child process (see `alone`)
 ALONE = {
@@ -107,6 +111,11 @@ ALONE = {
         "assert not bad, bad\n"
         "assert threading.active_count() == 1, threading.enumerate()\n")
        for p, ms in MESH_PACKAGES},
+    **{f"serving:{m}": _imports_clean(m) + (
+        # and no thread is started, no kernel-library directory prepared
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "cache = sys.modules.get('trino_tpu_torch.compile.cache')\n"
+        "assert cache is None or cache.ACTIVE_PERSISTENT_CACHE is None\n") for m in SERVING_MODULES},
 }
 
 _ALONE_HELPER = r"""
@@ -215,6 +224,14 @@ def test_mesh_plane_packages_import_alone(package, alone):
     # the mesh plane's packages, imported first and alone, pull in
     # neither jax nor trino_tpu and start no thread
     _check_alone(alone, f"mesh:{package}")
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_tier_modules_import_alone(module, alone):
+    # the program cache, warmup, resident and serving modules, imported
+    # first and alone, pull in neither jax nor trino_tpu, start no thread
+    # and prepare no kernel-library directory
+    _check_alone(alone, f"serving:{module}")
 
 
 def test_phase_files_statements_at_tiny():

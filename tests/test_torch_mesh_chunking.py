@@ -7,7 +7,8 @@ setting to come from a port runner with mesh_execution off.
 test_bucketed.py's hash-lockstep case calls the reference's jnp hashing:
 its port-side copy holds the port's hash32/partition_of to their numpy
 replicas. tests/test_torch_mesh.py::test_the_corpora_are_covered
-accounts for every case, and names the two that wait (item 13.1).
+accounts for every case; the compile regime's two run in
+tests/test_torch_compile.py.
 """
 
 import numpy as np
@@ -20,8 +21,9 @@ import tests.test_mesh_decimal as decimal_corpus
 from tests.test_torch_distributed import _run, portify
 from tests.test_torch_statements import _cases
 
-_WAITING = ("test_second_execution_zero_relowerings", "test_warmup_registration")
-CHUNKING = [n for _, n in _cases(chunk_corpus) if n not in _WAITING]
+# the compile regime's two cases run in tests/test_torch_compile.py
+_COMPILE_CASES = ("test_second_execution_zero_relowerings", "test_warmup_registration")
+CHUNKING = [n for _, n in _cases(chunk_corpus) if n not in _COMPILE_CASES]
 DECIMAL = [n for _, n in _cases(decimal_corpus)]
 BUCKETED = [n for _, n in _cases(bucketed_corpus)
             if n != "test_np_hash_is_lockstep_with_device_hash"]

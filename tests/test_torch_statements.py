@@ -23,13 +23,15 @@ and over small memory tables.
   the plan-cache key without mxu_join_enabled, and CASE/COALESCE over
   TIMESTAMP WITH TIME ZONE (tests/test_torch_timestamptz.py) or ARRAY.
 - test_the_corpora_are_covered lists the cases that run elsewhere (the
-  HTTP server and admission: tests/test_torch_front_door.py) and those
-  that wait for a later item (the batcher, the worker deadline and the
-  shape census, EXPLAIN ANALYZE's included: item 13).
+  HTTP server and admission: tests/test_torch_front_door.py; the
+  batcher, the worker deadline and the harness:
+  tests/test_torch_serving.py; the shape census, EXPLAIN ANALYZE's
+  included: tests/test_torch_compile.py); none waits.
 - chip_smoke.py's phase statements, its identities at tiny.
 """
 
 import inspect
+import re
 
 import pytest
 
@@ -230,15 +232,13 @@ def test_serving_corpus(case, tpch, monkeypatch):
 
 # ---- tests/test_plan_validate.py -------------------------------------------
 
-_VALIDATE_WAITS = {
-    # the shape census counts XLA lowerings (EXPLAIN ANALYZE's too)
-    "test_shape_census_simple_aggregation": "item 13",
-    "test_shape_census_join_marks_retry_variant": "item 13",
-    "test_explain_analyze_census_matches_observed": "item 13",
-    "test_explain_analyze_census_tail_classes": "item 13",
-    "test_census_warns_above_threshold": "item 13",
-}
-_VALIDATE = _cases(validate_corpus, skip=set(_VALIDATE_WAITS))
+# the shape census's five cases run in tests/test_torch_compile.py
+_VALIDATE_CENSUS = ("test_shape_census_simple_aggregation",
+                    "test_shape_census_join_marks_retry_variant",
+                    "test_explain_analyze_census_matches_observed",
+                    "test_explain_analyze_census_tail_classes",
+                    "test_census_warns_above_threshold")
+_VALIDATE = _cases(validate_corpus, skip=set(_VALIDATE_CENSUS))
 
 
 @pytest.fixture(scope="module")
@@ -337,14 +337,13 @@ _ADMISSION = {"test_admission_sheds_past_depth", "test_server_sheds_with_429_and
 ELSEWHERE = {
     **{f"test_security.py::{n}": "tests/test_torch_front_door.py" for n in sorted(_SERVER)},
     **{f"test_serving.py::{n}": "tests/test_torch_front_door.py" for n in sorted(_ADMISSION)},
-}
-# corpus case -> the ROADMAP §1 item it waits for
-WAITING = {
-    **{f"test_plan_validate.py::{n}": i for n, i in _VALIDATE_WAITS.items()},
-    **{f"test_serving.py::{n}": "item 13 (the batcher, the worker deadline)"
+    **{f"test_plan_validate.py::{n}": "tests/test_torch_compile.py" for n in _VALIDATE_CENSUS},
+    **{f"test_serving.py::{n}": "tests/test_torch_serving.py"
        for _, n in _cases(serving_corpus)
        if (None, n) not in _SERVING and n not in _ADMISSION},
 }
+# corpus case -> the ROADMAP §1 item it waits for
+WAITING: dict = {}
 
 
 def test_the_corpora_are_covered():
@@ -366,7 +365,7 @@ def test_the_corpora_are_covered():
         accounted = ran | set(WAITING) | set(ELSEWHERE)
         assert every == accounted & every, sorted(every - accounted)
     assert not ran & set(WAITING) and not ran & set(ELSEWHERE) and not set(WAITING) & set(ELSEWHERE)
-    assert all(v.startswith("item 13") for v in WAITING.values())
+    assert all(re.match(r"item 13\.[234] ", v) for v in WAITING.values())
     assert (len(_SEMANTICS), len(_SUBQUERY), len(_SERVING)) == (13, 20, 8)
     assert len(_cases(formatter_corpus)) == 6
 
@@ -383,16 +382,29 @@ def test_show_session_lists_the_reference_properties(tpch):
     assert pr.execute("show session").rows != rows
 
 
-@pytest.mark.parametrize("name", sorted(tconfig.UNPORTED_READERS))
+# the properties that raised before the serving tier came; the seven it
+# ported are accepted now
+_UNPORTED_BEFORE = sorted(set(tconfig.UNPORTED_READERS) | {
+    "compile_churn_warn_threshold", "shape_stabilization", "capacity_ladder_base",
+    "warmup_mode", "resident_tables", "micro_batch_window_ms", "micro_batch_max"})
+
+
+@pytest.mark.parametrize("name", _UNPORTED_BEFORE)
 def test_a_property_whose_reader_is_not_ported_raises(name):
     """Away from its default, a property read only by an unported tier
     raises naming the item, by SET SESSION and on a session set
-    directly; at its default it is accepted."""
+    directly; at its default it is accepted. A property whose reader
+    came since is accepted away from its default too."""
     meta = next(m for m in tconfig.SYSTEM_PROPERTIES.all() if m.name == name)
     other = {bool: not meta.default, int: 4096, float: 8.0,
              str: (meta.allowed or ("", "x"))[-1]}[meta.type]
     r = LocalQueryRunner(Session(), device="cpu")
     literal = f"'{other}'" if meta.type is str else str(other).lower()
+    if name not in tconfig.UNPORTED_READERS:
+        r.execute(f"set session {name} = {literal}")
+        assert getattr(r.session, name) == other
+        assert r.execute("select 1").rows == [[1]]
+        return
     item = tconfig.UNPORTED_READERS[name].split(" (")[0]
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         r.execute(f"set session {name} = {literal}")

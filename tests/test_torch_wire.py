@@ -4,9 +4,9 @@ fault-tolerant execution (FTE).
 
 - The codec's bytes: for every fragment of TPC-H Q1, Q3 and Q18 at tiny,
   as the distributed runner plans them, the port's codec.dumps(TaskSpec)
-  equals the reference's once the three TaskSpec fields the port lacks
-  (shape_stabilization, capacity_ladder_base, record_output) are dropped
-  from the reference's JSON. Those scans carry pushed-down predicates,
+  equals the reference's once the TaskSpec field the port lacks
+  (record_output, the recovery tier's) is dropped from the reference's
+  JSON. Those scans carry pushed-down predicates,
   and the reference's registry lacks ColumnConstraint (ROADMAP §3), so
   its registry is given that class for the comparison; unpatched it
   refuses the spec. loads refuses pickle and unknown tags as the
@@ -23,13 +23,14 @@ fault-tolerant execution (FTE).
   HTTP, FTE, spool and codec cases, test_node_scheduler.py's speculation
   case, test_tracing.py's FTE span case and tests/test_deadlines.py.
   test_the_corpora_are_covered accounts for every case; the chaos
-  harness's wait for ROADMAP §1 item 13.
+  harness's wait for ROADMAP §1 item 13.3.
 - Every server is stopped, and no task or server thread outlives a test.
 """
 
 import importlib
 import inspect
 import json
+import re
 import pickle
 import threading
 import time
@@ -72,8 +73,8 @@ from trino_tpu_torch.runtime.task import TaskId, TaskSpec
 from trino_tpu_torch.sql import fragmenter as tfragmenter
 from trino_tpu_torch.sql.parser import parse
 
-# TaskSpec fields of the reference's compile and recovery tiers (item 13)
-_UNPORTED_FIELDS = ("shape_stabilization", "capacity_ladder_base", "record_output")
+# the TaskSpec field of the reference's recovery tier (item 13.2)
+_UNPORTED_FIELDS = ("record_output",)
 
 
 def _threads():
@@ -409,7 +410,7 @@ def test_phase_wire_fte_shapes_are_the_corpus():
 # ---- the corpora's coverage ------------------------------------------------------
 
 WAITING = {
-    **{f"test_deadlines.py::{n}": "item 13 (the chaos harness)" for n in _DEADLINES_WAIT},
+    **{f"test_deadlines.py::{n}": "item 13.3 (the chaos harness)" for n in _DEADLINES_WAIT},
 }
 
 
@@ -430,6 +431,6 @@ def test_the_corpora_are_covered():
     sent_here = {k for k, v in DIST_ELSEWHERE.items() if v == "tests/test_torch_wire.py"}
     assert sent_here == {k for k in ran if not k.startswith("test_deadlines.py")}
     for waiting in (WAITING, DIST_WAITING):
-        assert all(v.startswith(("item 12", "item 13")) for v in waiting.values())
+        assert all(re.match(r"item 13\.[234] ", v) for v in waiting.values())
         assert not any("11b" in v for v in waiting.values())
     assert len(_DEADLINES) == 17 and len(_cases(deadlines_corpus)) == 19

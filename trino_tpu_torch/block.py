@@ -517,31 +517,46 @@ def host_rows(x: torch.Tensor, live: Optional[torch.Tensor]) -> np.ndarray:
     return (x if live is None else x[live]).cpu().numpy()
 
 
-def decode_values(type_: T.DataType, data, valid, dict_values) -> list:
-    """Physical values -> python values (the host-side decode rules)."""
-    out = []
-    for x, ok in zip(data, valid):
-        if not ok:
-            out.append(None)
-        elif type_.is_string:
-            out.append(dict_values[int(x)] if dict_values else str(int(x)))
-        elif type_.is_decimal:
-            if type_.is_long_decimal:
-                from trino_tpu_torch.ops.int128 import to_python
+# an int64 magnitude below this, and every decimal(<=18) scale factor
+# (10**18 = 2**18 * 5**18), convert to float64 exactly, so a float64
+# division is Python's correctly rounded int / int
+_EXACT_FLOAT = 1 << 53
 
-                v = to_python(int(x[0]), int(x[1]))
-                out.append(v / T.decimal_scale_factor(type_))
-            else:
-                out.append(int(x) / T.decimal_scale_factor(type_))
-        elif type_.kind == T.TypeKind.BOOLEAN:
-            out.append(bool(x))
-        elif type_.is_floating:
-            out.append(float(x))
-        elif type_.kind == T.TypeKind.TIMESTAMP_TZ:
-            out.append(format_tstz(int(x)))
+
+def decode_values(type_: T.DataType, data, valid, dict_values) -> list:
+    """Physical values -> python values (the host-side decode rules).
+    A flat column decodes as one array (numpy's tolist); long decimals,
+    zoned timestamps and decimals at 2**53 or above decode value by
+    value. NULL slots decode to None."""
+    arr = np.asarray(data)
+    valid = np.asarray(valid, dtype=bool)
+    if type_.is_long_decimal:
+        from trino_tpu_torch.ops.int128 import to_python
+
+        scale = T.decimal_scale_factor(type_)
+        vals = [to_python(int(x[0]), int(x[1])) / scale if ok else None
+                for x, ok in zip(arr, valid)]
+    elif type_.kind == T.TypeKind.TIMESTAMP_TZ:
+        vals = [format_tstz(x) if ok else None for x, ok in zip(arr.tolist(), valid)]
+    elif type_.is_decimal:
+        scale = T.decimal_scale_factor(type_)
+        ints = np.where(valid, arr, 0).astype(np.int64)
+        if ints.size and int(np.abs(ints).max()) >= _EXACT_FLOAT:
+            vals = [x / scale for x in ints.tolist()]
         else:
-            out.append(int(x))
-    return out
+            vals = (ints.astype(np.float64) / float(scale)).tolist()
+    elif type_.is_string:
+        codes = np.where(valid, arr, 0).astype(np.int64).tolist()
+        vals = [dict_values[c] for c in codes] if dict_values else [str(c) for c in codes]
+    elif type_.kind == T.TypeKind.BOOLEAN:
+        vals = arr.astype(bool).tolist()
+    elif type_.is_floating:
+        vals = arr.astype(np.float64).tolist()
+    else:
+        vals = arr.astype(np.int64).tolist()
+    if valid.all():
+        return vals
+    return [v if ok else None for v, ok in zip(vals, valid.tolist())]
 
 
 def unify_column_dicts(cols: Sequence[Column]) -> list:

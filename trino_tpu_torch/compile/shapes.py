@@ -2,11 +2,13 @@
 
 Counterpart of trino_tpu/compile/shapes.py, line for line (host code).
 The mesh plane's chunk runner (parallel/mesh_chunk.py) reads the
-ladder; the ShapeStabilizer's reader in the local planner is ROADMAP §1
-item 13.1.
+ladder; the engine and the distributed task hand a ShapeStabilizer to
+the local planner, which threads it into the connectors' page sources
+and predicts its warmup capacities from it.
 
 In the reference, the static-shape discipline compiles one XLA program
-per (operator, capacity, dtype-sig). Anything that makes batch capacities
+per (operator, capacity, dtype-sig); in the port each such class is one
+set of kernel launch shapes and allocator block sizes. Anything that makes batch capacities
 data-dependent — connector pushdown pruning, dynamic-filter pruning,
 tail chunks of large tables, spill re-reads — mints fresh capacities
 and therefore fresh lowerings, which is exactly the compile churn the

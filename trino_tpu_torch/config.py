@@ -364,16 +364,9 @@ def load_properties_file(path: str) -> Dict[str, str]:
 # (query_trace included: the local runner traces every query), and are
 # stored as the reference stores them.
 UNPORTED_READERS = {
-    "compile_churn_warn_threshold": "item 13 (EXPLAIN ANALYZE's shape census)",
-    "shape_stabilization": "item 13 (compile/shapes.py)",
-    "capacity_ladder_base": "item 13 (compile/shapes.py)",
-    "warmup_mode": "item 13 (compile/warmup.py)",
-    "adaptive_execution": "item 13 (adaptive/)",
-    "adaptive_replan_threshold": "item 13 (adaptive/)",
-    "shared_subtree_materialization": "item 13 (adaptive/)",
-    "resident_tables": "item 13 (resident/)",
-    "micro_batch_window_ms": "item 13 (serving/batcher.py)",
-    "micro_batch_max": "item 13 (serving/batcher.py)",
+    "adaptive_execution": "item 13.2 (adaptive/)",
+    "adaptive_replan_threshold": "item 13.2 (adaptive/)",
+    "shared_subtree_materialization": "item 13.2 (adaptive/)",
 }
 
 

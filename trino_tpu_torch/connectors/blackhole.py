@@ -68,7 +68,7 @@ class BlackholePageSource(ConnectorPageSource):
         self.metadata = metadata
 
     def batches(self, split: Split, columns: Sequence[str], batch_rows: int,
-                device="cpu") -> Iterator[RelBatch]:
+                device="cpu", stabilizer=None) -> Iterator[RelBatch]:
         cols_meta = {
             c.name: c for c in self.metadata.tables[(split.table.schema, split.table.table)]
         }

@@ -856,7 +856,7 @@ class FilePageSource(ConnectorPageSource):
 
     def batches(
         self, split: Split, columns: Sequence[str], batch_rows: int,
-        device="cpu",
+        device="cpu", stabilizer=None,
     ) -> Iterator[RelBatch]:
         """The split's rows of the table filtered by the constraints it
         was enumerated under (its payload), in chunks of `batch_rows`,
@@ -888,8 +888,17 @@ class FilePageSource(ConnectorPageSource):
         else:
             sels = [slice(a, min(a + batch_rows, hi)) for a in range(lo, hi, batch_rows)]
         for sel in sels:
-            n = (sel.stop - sel.start) if isinstance(sel, slice) else len(sel)
-            cap = bucket_capacity(n)
+            ranged = isinstance(sel, slice)
+            n = (sel.stop - sel.start) if ranged else len(sel)
+            if stabilizer is None:
+                cap = bucket_capacity(n)
+            elif ranged:
+                # a contiguous chunk's length is its span
+                cap = stabilizer.chunk_capacity(n)
+            else:
+                # rows masked by a run-time constraint pad to the range's
+                # main class, so the filter never mints a smaller class
+                cap = stabilizer.chunk_capacity(min(hi - lo, batch_rows))
             cols = []
             for name in columns:
                 valid = t.valid[name]

@@ -332,13 +332,17 @@ class MemoryPageSource(ConnectorPageSource):
         self.store = store
 
     def batches(self, split: Split, columns: Sequence[str], batch_rows: int,
-                device="cpu") -> Iterator[RelBatch]:
+                device="cpu", stabilizer=None) -> Iterator[RelBatch]:
         """The split's rows in chunks of `batch_rows`, as batches on
         `device`; a second scan of the same table version, columns,
-        split and device yields the batches built by the first."""
+        split, device and capacity ladder yields the batches built by
+        the first."""
         t = self.store.tables[(split.table.schema, split.table.table)]
         cs = getattr(split.table, "constraints", ())
-        dev = str(torch.device(device))
+        # the stabilizer changes capacities, so it keys the cache too
+        dev = (str(torch.device(device)),
+               (stabilizer.ladder.base, stabilizer.ladder.min_capacity)
+               if stabilizer is not None else None)
         if split.payload is not None and split.payload[0] == "bucket":
             _, bi, nb = split.payload
             idx = np.nonzero(self._bucket_ids(t, nb) == bi)[0]
@@ -373,7 +377,8 @@ class MemoryPageSource(ConnectorPageSource):
             else:
                 idx = idx[mask[idx]]
         out = []
-        for batch in self._materialize(t, columns, batch_rows, lo, hi, idx, device):
+        for batch in self._materialize(t, columns, batch_rows, lo, hi, idx, device,
+                                       stabilizer):
             out.append(batch)
             yield batch
         if cache_key[0] == t.version:  # no write ran during the scan
@@ -409,7 +414,8 @@ class MemoryPageSource(ConnectorPageSource):
         return bids
 
     def _materialize(self, t: _StoredTable, columns: Sequence[str], batch_rows: int,
-                     lo, hi, idx: Optional[np.ndarray], device) -> Iterator[RelBatch]:
+                     lo, hi, idx: Optional[np.ndarray], device,
+                     stabilizer=None) -> Iterator[RelBatch]:
         """Chunk a contiguous [lo, hi) row range (slices) or an explicit
         row-index array (bucket splits, pushed-down filters: gathers)."""
         if idx is None:
@@ -420,8 +426,17 @@ class MemoryPageSource(ConnectorPageSource):
             total = len(idx)
             sels = (idx[a: a + batch_rows] for a in range(0, total, batch_rows))
         for sel in sels:
-            n = (sel.stop - sel.start) if isinstance(sel, slice) else len(sel)
-            cap = bucket_capacity(n)
+            ranged = isinstance(sel, slice)
+            n = (sel.stop - sel.start) if ranged else len(sel)
+            if stabilizer is None:
+                cap = bucket_capacity(n)
+            elif ranged:
+                # contiguous chunks are unpruned: the slice is the span
+                cap = stabilizer.chunk_capacity(n)
+            else:
+                # gathered chunks (pruned rows, bucket splits) pad to the
+                # table's main scan class
+                cap = stabilizer.chunk_capacity(min(t.row_count, batch_rows))
             cols = []
             for name in columns:
                 sc = t.data[name]

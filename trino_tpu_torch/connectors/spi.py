@@ -193,7 +193,7 @@ class ConnectorPageSource:
     where the yielded batches' tensors live (the runner's device)."""
 
     def batches(self, split: Split, columns: Sequence[str], batch_rows: int,
-                device="cpu") -> Iterator[RelBatch]:
+                device="cpu", stabilizer=None) -> Iterator[RelBatch]:
         raise NotImplementedError
 
 

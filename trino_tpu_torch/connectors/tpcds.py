@@ -509,7 +509,7 @@ class TpcdsSplitManager(ConnectorSplitManager):
 
 class TpcdsPageSource(ConnectorPageSource):
     def batches(self, split: Split, columns: Sequence[str], batch_rows: int,
-                device="cpu") -> Iterator[RelBatch]:
+                device="cpu", stabilizer=None) -> Iterator[RelBatch]:
         """Generated rows of one split in chunks of `batch_rows`, as
         batches on `device`."""
         table = split.table.table
@@ -518,7 +518,8 @@ class TpcdsPageSource(ConnectorPageSource):
         types = dict(TABLES[table])
         for a in range(lo, hi, batch_rows):
             b = min(a + batch_rows, hi)
-            cap = bucket_capacity(b - a)
+            cap = (stabilizer.chunk_capacity(b - a) if stabilizer is not None
+                   else bucket_capacity(b - a))
             cols = []
             for name in columns:
                 data, d = generate_column(table, name, sf, a, b)

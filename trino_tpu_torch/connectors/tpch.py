@@ -854,11 +854,11 @@ class TpchSplitManager(ConnectorSplitManager):
 
 class TpchPageSource(ConnectorPageSource):
     def batches(self, split: Split, columns: Sequence[str], batch_rows: int,
-                device="cpu") -> Iterator[RelBatch]:
+                device="cpu", stabilizer=None) -> Iterator[RelBatch]:
         """Generated rows of one split in chunks of `batch_rows` source
-        rows, as batches on `device`. The capacity of a chunk is the
-        bucket of its row span before pushdown pruning, as in the
-        reference's default shape stabilization."""
+        rows, as batches on `device`. With a `stabilizer` a chunk's
+        capacity is the ladder rung of its row span before pushdown
+        pruning; without, the bucket of its surviving rows."""
         table = split.table.table
         sf = split.table.payload
         cs = getattr(split.table, "constraints", ())
@@ -900,7 +900,12 @@ class TpchPageSource(ConnectorPageSource):
                     oi_count = len(oi)
                 nrows = oi_count
                 span = nrows
-            cap = bucket_capacity(span)
+            # stabilized scans pad to the class of the chunk's
+            # pre-pruning span, so pruning never mints a smaller class
+            if stabilizer is not None:
+                cap = stabilizer.chunk_capacity(span)
+            else:
+                cap = bucket_capacity(nrows)
             cols = []
             for name in columns:
                 data, d = gen[name]

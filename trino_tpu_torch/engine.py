@@ -41,11 +41,22 @@ Query events, metrics and spans (the reference's engine.py:1207-1290):
 every query runs under a span tree (runtime/tracing.py), counts into
 METRICS (runtime/metrics.py) and fires QueryCreated/QueryCompleted to
 `event_listeners` (runtime/events.py); EXPLAIN ANALYZE ends with the
-engine counters' deltas. The reference's per-query XLA compile count
-has no torch meaning: compile_count reads 0.
+engine counters' deltas. A query's compile_count is the programs and
+kernel libraries built on its thread (compile/cache.py,
+`programs_built`).
 
-Not ported yet: the resident, adaptive, recovery, serving-front and
-compile-cache tiers (ROADMAP §1 item 13).
+The compile regime (the reference's engine.py:1389-1420, :1556-1590):
+the session's ShapeStabilizer pads scans onto its capacity ladder,
+`warmup_mode` (off | background | block) drives the plan's warmup
+entries on all-dead batches before or beside the execution
+(compile/warmup.py; the last service is `_last_warmup`), and EXPLAIN
+ANALYZE ends with the shape census (expected against observed classes),
+`programs_built_this_query=`, the warmup line and the program and
+kernel-cache lines. Writes bump the resident tier's table generations
+and evict or re-key its pins (resident/); an INSERT into a pinned table
+tees its rows through the fast lane's DeltaTap.
+
+Not ported yet: the adaptive and recovery tiers (ROADMAP §1 item 13.2).
 """
 
 from __future__ import annotations
@@ -282,6 +293,8 @@ class LocalQueryRunner:
         self._bound_dtypes_tls = threading.local()
         # the memory pool of the last query (None without a pool)
         self._last_pool = None
+        # the WarmupService of the last execution that started one
+        self._last_warmup = None
         from trino_tpu_torch.runtime.events import EventListenerManager
 
         self.event_listeners = EventListenerManager()
@@ -534,15 +547,41 @@ class LocalQueryRunner:
             dynamic_filtering=self.session.enable_dynamic_filtering,
             mxu_join=self.session.mxu_join_enabled,
             mxu_join_min_work=self.session.mxu_join_min_work,
+            stabilizer=self._make_stabilizer(),
         )
+
+    def _make_stabilizer(self):
+        """The session's capacity policy (compile/shapes.py); None when
+        shape stabilization is off."""
+        if not self.session.shape_stabilization:
+            return None
+        from trino_tpu_torch.compile.shapes import CapacityLadder, ShapeStabilizer
+
+        return ShapeStabilizer(CapacityLadder(base=self.session.capacity_ladder_base),
+                               batch_rows=self.session.batch_rows)
+
+    def _start_warmup(self, physical):
+        """Start the plan's warmup per `warmup_mode`; returns the started
+        WarmupService, or None. Mode block waits here, so the execution
+        starts with every entry driven."""
+        mode = self.session.warmup_mode
+        entries = physical.warmup_entries
+        if mode == "off" or not entries:
+            return None
+        from trino_tpu_torch.compile.warmup import WarmupService
+
+        svc = WarmupService(entries, mode=mode).start()
+        if mode == "block":
+            svc.wait()
+        self._last_warmup = svc
+        return svc
 
     def _plan(self, q: ast.Query, sql_key: Optional[str]):
         """(OutputNode, PhysicalPlan) of `q`: from the plan cache when
         `sql_key` is given and the key hits, else planned on the runner's
         device (and stored, unless analysis folded a volatile value).
         Access control re-checks the scans either way. The reference's
-        adaptive controller, shape stabilizer and warmup sit here too:
-        ROADMAP §1 item 13."""
+        adaptive controller sits here too: ROADMAP §1 item 13.2."""
         cache_key = None
         if sql_key is not None:
             # the formatter's canonical text, the plan-shaping properties
@@ -573,23 +612,33 @@ class LocalQueryRunner:
     def _execution_ctx(self) -> dict:
         """A fresh per-execution context: with `memory_pool_bytes` set,
         its own MemoryPool and a spill directory (made by the first
-        spill). The reference also attaches the resident tier's pins to
-        the pool (RESIDENT.attach_pool): resident/ is ROADMAP §1 item 13."""
+        spill), and the resident tier's pins charged to the pool and
+        registered revocable, so a reservation that cannot fit reclaims
+        warm state before the pool considers killing a query."""
         ctx: dict = {}
         if self.session.memory_pool_bytes is not None:
+            from trino_tpu_torch.resident import RESIDENT
             from trino_tpu_torch.runtime.memory import MemoryPool
 
             ctx["memory_pool"] = MemoryPool(self.session.memory_pool_bytes)
             ctx["spill_dir"] = os.path.join(
                 tempfile.gettempdir(), f"trino-tpu-torch-spill-{uuid.uuid4().hex}")
+            RESIDENT.attach_pool(ctx["memory_pool"])
         return ctx
 
     @staticmethod
     def _release(ctx: dict) -> None:
-        """End of an execution: close its memory contexts and remove its
-        spill directory with every file an operator left there."""
+        """End of an execution: close its memory contexts, detach the
+        resident pins from its pool (the reference leaves them charged
+        to a pool whose query has ended, so a later pin is refused by
+        that pool) and remove its spill directory with every file an
+        operator left there."""
         for mc in ctx.get("memory_contexts", ()):
             mc.close()
+        if "memory_pool" in ctx:
+            from trino_tpu_torch.resident import RESIDENT
+
+            RESIDENT.release_pool(ctx["memory_pool"])
         if "spill_dir" in ctx:
             shutil.rmtree(ctx["spill_dir"], ignore_errors=True)
 
@@ -617,12 +666,25 @@ class LocalQueryRunner:
     def _run(self, node, sink) -> None:
         self._drive(self._instance(self._planner().plan(node)), sink)
 
-    def _execute_query(self, q: ast.Query, sql_key: Optional[str] = None) -> MaterializedResult:
-        output, physical = self._plan(q, sql_key)
-        sink = CollectorSink()
-        instance = self._instance(physical)
-        self._last_pool = instance[0].get("memory_pool")
-        self._drive(instance, sink)
+    def _execute_query(self, q: ast.Query, sql_key: Optional[str] = None,
+                       query_id: Optional[str] = None) -> MaterializedResult:
+        from trino_tpu_torch.runtime.metrics import (
+            compile_attribution,
+            set_compile_attribution,
+        )
+
+        # builds are charged to the tracked query; an internal subquery
+        # (a DML rewrite) inherits its statement's attribution, if any
+        prev = set_compile_attribution(query_id or compile_attribution())
+        try:
+            output, physical = self._plan(q, sql_key)
+            self._start_warmup(physical)
+            sink = CollectorSink()
+            instance = self._instance(physical)
+            self._last_pool = instance[0].get("memory_pool")
+            self._drive(instance, sink)
+        finally:
+            set_compile_attribution(prev)
         return MaterializedResult(
             sink.rows(), list(output.names), [f.type for f in output.fields]
         )
@@ -646,7 +708,7 @@ class LocalQueryRunner:
         )
         status, failure, rows_n = "finished", None, 0
         try:
-            result = self._execute_query(stmt, sql_key=sql)
+            result = self._execute_query(stmt, sql_key=sql, query_id=query_id)
             rows_n = len(result.rows)
             return result
         except BaseException as e:
@@ -669,7 +731,7 @@ class LocalQueryRunner:
         try:
             from trino_tpu_torch.exec.stats import engine_counters_delta
             from trino_tpu_torch.runtime.events import QueryCompletedEvent
-            from trino_tpu_torch.runtime.metrics import METRICS
+            from trino_tpu_torch.runtime.metrics import METRICS, retire_query_compiles
 
             qspan.set(state=status)
             qspan.end()
@@ -690,7 +752,7 @@ class LocalQueryRunner:
                     rows_scanned=int(counters.get("rows_scanned", 0)),
                     bytes_scanned=int(counters.get("bytes_scanned", 0)),
                     rows_shuffled=int(counters.get("rows_shuffled", 0)),
-                    compile_count=0,
+                    compile_count=int(retire_query_compiles(query_id)),
                 )
             )
         except Exception:
@@ -722,44 +784,90 @@ class LocalQueryRunner:
         """EXPLAIN ANALYZE: run the plan with instrumented operators and
         render the plan, then per-operator statistics, each operator
         section closed by a device barrier (ExplainAnalyzeOperator)."""
-        from trino_tpu_torch.exec.stats import instrument, render_stats
+        from trino_tpu_torch.compile import cache as compile_cache
+        from trino_tpu_torch.exec.stats import engine_counters_delta, instrument, render_stats
+        from trino_tpu_torch.runtime.metrics import (
+            METRICS,
+            retire_query_compiles,
+            set_compile_attribution,
+        )
+        from trino_tpu_torch.sql.validate import census_text, shape_census
 
-        from trino_tpu_torch.exec.stats import engine_counters_delta
-        from trino_tpu_torch.runtime.metrics import METRICS
-
-        output, physical = self._plan(q, sql_key=None)
-        before = METRICS.snapshot()
-        ctx, pipelines, chain = self._instance(physical)
-        groups, wrapped = [], []
-        for ops in pipelines + [chain + [CollectorSink()]]:
-            w, stats = instrument(ops, device_sync=True, device=self.device)
-            groups.append(stats)
-            wrapped.append(w)
-        self._drive((ctx, wrapped[:-1], wrapped[-1][:-1]), wrapped[-1][-1])
+        qid = f"local-explain-{uuid.uuid4().hex[:8]}"
+        prev = set_compile_attribution(qid)
+        try:
+            output, physical = self._plan(q, sql_key=None)
+            stabilizer = self._make_stabilizer()
+            classes = shape_census(
+                output, self.catalogs, batch_rows=self.session.batch_rows,
+                dynamic_filtering=self.session.enable_dynamic_filtering,
+                ladder=stabilizer.ladder if stabilizer is not None else None,
+            )
+            warmup_svc = self._start_warmup(physical)
+            before = METRICS.snapshot()
+            ctx, pipelines, chain = self._instance(physical)
+            groups, wrapped, ledger = [], [], set()
+            for ops in pipelines + [chain + [CollectorSink()]]:
+                w, stats = instrument(ops, device_sync=True, device=self.device,
+                                      shape_ledger=ledger)
+                groups.append(stats)
+                wrapped.append(w)
+            self._drive((ctx, wrapped[:-1], wrapped[-1][:-1]), wrapped[-1][-1])
+        finally:
+            set_compile_attribution(prev)
         for ops in wrapped:
             for op in ops:
                 op.flush_counts()
-        # the reference's shape census with its expected/observed classes,
-        # xla_compiles_this_query and the program/persistent cache lines
-        # count XLA programs: compile/, ROADMAP §1 item 13
-        # the reference's warmup line: compile/warmup.py, item 13
-        # the reference's adaptive report: adaptive/, item 13
         counters = engine_counters_delta(before, METRICS.snapshot())
-        text = P.explain_text(output) + "\n\n" + render_stats(groups, counters)
+        # the compile-regime lines ride under the census: the programs
+        # and kernel libraries this query built, warmup's hits and
+        # misses, and the caches (the reference's adaptive report is
+        # ROADMAP §1 item 13.2)
+        census = census_text(classes, warn_threshold=self.session.compile_churn_warn_threshold,
+                             observed=len(ledger))
+        census += f"\nprograms_built_this_query={int(retire_query_compiles(qid))}"
+        if warmup_svc is not None:
+            if warmup_svc.mode == "background":
+                warmup_svc.wait(timeout=60.0)  # settle the entry statuses
+            census += "\n" + warmup_svc.report_line(ledger)
+        ps = compile_cache.PROGRAM_CACHE.stats()
+        census += (f"\nprogram_cache: entries={ps['entries']} hits={ps['hits']} "
+                   f"misses={ps['misses']} evictions={ps['evictions']}")
+        kc = compile_cache.ACTIVE_PERSISTENT_CACHE
+        if kc is not None:
+            cs = kc.stats()
+            census += (f"\npersistent_cache: entries={cs['entries']} bytes={cs['bytes']} "
+                       f"scrubbed={cs['scrubbed']} evicted={cs['evicted']}")
+        # the census goes after the runtime stats: its class lines name
+        # operators too, and readers grep for an operator's first line
+        text = (P.explain_text(output) + "\n\n" + render_stats(groups, counters)
+                + "\n\n" + census)
         return MaterializedResult([[text]], ["Query Plan"], [T.VARCHAR])
 
-    def _invalidate_plans(self, table=None) -> None:
+    def _invalidate_plans(self, table=None, appended: bool = False, tap=None) -> None:
         """Cached physical plans capture split lists (data snapshots) at
         plan time, so a write drops them: only the plans that read the
         written table when the write names it (`table` = (catalog,
         schema, table), the registered catalog name), all of them
-        otherwise (COMMIT). The reference also bumps the resident tier's
-        table generation, taps the fast lane and clears mesh
-        checkpoints here: ROADMAP §1 item 13."""
+        otherwise (COMMIT). The resident tier follows the same protocol:
+        a named write bumps the table's generation and evicts its pins,
+        or, for an INSERT whose rows a DeltaTap captured
+        (`appended`/`tap`), re-keys them onto their delta side; COMMIT
+        bumps every generation and evicts every pin. (The reference also
+        clears mesh checkpoints here: ROADMAP §1 item 13.2.)"""
+        from trino_tpu_torch.resident import GENERATIONS, RESIDENT
+        from trino_tpu_torch.resident import fastlane
+        from trino_tpu_torch.resident.manager import table_key
+
         if table is None:
             self._plan_cache.invalidate()
-        else:
-            self._plan_cache.invalidate_tables([table])
+            GENERATIONS.bump_all()
+            RESIDENT.evict_all()
+            return
+        tkey = table_key(*table)
+        self._plan_cache.invalidate_tables([tkey])
+        GENERATIONS.bump(tkey)
+        fastlane.table_written(*tkey, appended=appended, tap=tap)
 
     # -- DML (BeginTableWrite/TableWriter/TableFinish path) --
     def _resolve_target(self, parts):
@@ -1098,8 +1206,18 @@ class LocalQueryRunner:
                                          max_writers=self.session.task_concurrency)
         else:
             sink_impl = conn.page_sink(handle, transaction=txn_handle)
-        # the resident tier's delta tap (fastlane.TeeSink) is item 13
+        # a resident pin over this table absorbs an autocommit insert on
+        # its delta side: tee the written rows through a DeltaTap. Rows
+        # written inside a transaction are not visible before COMMIT, so
+        # that insert evicts the pin instead (the reference taps it too)
+        from trino_tpu_torch.resident import fastlane
+
+        tap = None
+        if txn_handle is None:
+            tap = fastlane.delta_tap(cat, schema, table, [c.name for c in meta.columns])
+        if tap is not None:
+            sink_impl = fastlane.TeeSink(sink_impl, tap)
         writer = TableWriterOperator(sink_impl)
         self._drive(instance, writer)
-        self._invalidate_plans(table=(cat, schema, table))
+        self._invalidate_plans(table=(cat, schema, table), appended=True, tap=tap)
         return _count(writer.rows_written)

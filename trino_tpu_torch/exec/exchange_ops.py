@@ -226,9 +226,9 @@ class RemoteSourceOperator(Operator):
     `device`. With `merge_keys` it behaves like MergeOperator: waits for
     all producers, then emits one merged sorted batch.
 
-    `ladder` is the reference's capacity ladder, which snaps page
-    capacities onto the session's shape classes: the compile tier,
-    ROADMAP §1 item 13."""
+    `ladder` (compile.shapes.CapacityLadder) snaps each page's capacity
+    onto the session's ladder (base 2 is the native bucket grid, so the
+    default changes nothing; a coarser ladder collapses classes)."""
 
     def __init__(
         self,
@@ -238,11 +238,7 @@ class RemoteSourceOperator(Operator):
         *,
         device,
     ):
-        if ladder is not None:
-            raise NotImplementedError(
-                "RemoteSourceOperator(ladder=...): the capacity ladder is the "
-                "compile tier's (ROADMAP §1 item 13)"
-            )
+        self._ladder = ladder
         self._source = source
         self._merge_keys = tuple(merge_keys) if merge_keys else None
         self._device = torch.device(device)
@@ -251,7 +247,8 @@ class RemoteSourceOperator(Operator):
 
     def _to_batch(self, page: Page) -> RelBatch:
         t0 = time.monotonic()
-        batch = page.to_batch(device=self._device)
+        cap = self._ladder.rung(page.row_count) if self._ladder is not None else None
+        batch = page.to_batch(capacity=cap, device=self._device)
         METRICS.increment("exchange.page_in_s", time.monotonic() - t0)
         return batch
 

@@ -113,11 +113,14 @@ def _spill_dir(memory_context) -> Optional[str]:
 
 class TableScanOperator(Operator):
     """Pulls batches from a page source over a list of splits, placing
-    them on the runner's device."""
+    them on the runner's device. `stabilizer` (compile.shapes
+    .ShapeStabilizer) pads each chunk onto the session's capacity
+    ladder; None keeps the bucket of the chunk's surviving rows."""
 
     def __init__(self, page_source, splits, columns: Sequence[str],
-                 batch_rows: int, device):
+                 batch_rows: int, device, stabilizer=None):
         self._page_source = page_source
+        self._stabilizer = stabilizer
         self._splits = list(splits)
         self._columns = columns
         self._batch_rows = batch_rows
@@ -147,7 +150,8 @@ class TableScanOperator(Operator):
                 METRICS.increment("dynamic_filter_scan_constraints")
         for split in splits:
             yield from self._page_source.batches(
-                split, self._columns, self._batch_rows, device=self._device
+                split, self._columns, self._batch_rows, device=self._device,
+                stabilizer=self._stabilizer,
             )
 
     def needs_input(self) -> bool:

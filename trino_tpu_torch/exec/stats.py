@@ -17,9 +17,12 @@ get_output/finish (a distributed task's watchdog freshness), and `span`
 ended by `close_span` with the final stats attached. EXPLAIN ANALYZE's
 "Engine counters:" line reads the METRICS deltas of ENGINE_COUNTERS.
 
-Left out: the shape ledger that EXPLAIN ANALYZE's census reads and the
-`xla_compiles` engine counter; both count XLA programs (ROADMAP §1 item
-13).
+The shape ledger rides it too: a shared `shape_ledger` set collects the
+(operator, capacity, dtype-sig) class of every output batch, the
+vocabulary of sql/validate.py's shape census, so EXPLAIN ANALYZE prints
+expected and observed classes side by side and a task can tell which
+classes it ran. The reference's `xla_compiles` engine counter is the
+port's `programs_built` (compile/cache.py).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import List
+from typing import List, Optional, Set, Tuple
 
 import torch
 
@@ -76,8 +79,10 @@ class InstrumentedOperator:
 
     def __init__(self, inner, stats: OperatorStats, count_rows: bool,
                  device_sync: bool = False, device=None, heartbeat=None,
-                 span=None):
+                 span=None, shape_ledger: Optional[Set[Tuple]] = None):
         self.inner = inner
+        # observed (operator, capacity, dtype-sig) classes
+        self._shape_ledger = shape_ledger
         self._heartbeat = heartbeat
         self._span = span
         self._span_anchored = False
@@ -133,6 +138,15 @@ class InstrumentedOperator:
         })
         self._span.end()
 
+    def _record_shape(self, batch) -> None:
+        if self._shape_ledger is None:
+            return
+        self._shape_ledger.add((
+            type(self.inner).__name__,
+            batch.capacity,
+            tuple(str(c.type) for c in batch.columns),
+        ))
+
     def needs_input(self) -> bool:
         return self.inner.needs_input()
 
@@ -161,6 +175,7 @@ class InstrumentedOperator:
             self.stats.output_batches += 1
             if self._count_rows:
                 self._count("output_rows", out)
+            self._record_shape(out)
             self._beat()
         return out
 
@@ -184,18 +199,21 @@ class InstrumentedOperator:
 
 
 def instrument(operators, count_rows: bool = True, device_sync: bool = False,
-               device=None, heartbeat=None, span_factory=None):
+               device=None, heartbeat=None, span_factory=None,
+               shape_ledger: Optional[Set[Tuple]] = None):
     """Wrap a pipeline's operators; returns (wrapped, [OperatorStats]).
     `device_sync=True` closes every timed section with a barrier on
     `device` (EXPLAIN ANALYZE's device-inclusive attribution);
     `heartbeat` is beaten around every call; `span_factory(operator
-    name) -> Span` opens one trace span per operator."""
+    name) -> Span` opens one trace span per operator; `shape_ledger`
+    collects the observed output shape classes."""
     stats = [OperatorStats() for _ in operators]
     wrapped = [
         InstrumentedOperator(
             op, st, count_rows, device_sync, device, heartbeat=heartbeat,
             span=(span_factory(type(op).__name__)
                   if span_factory is not None else None),
+            shape_ledger=shape_ledger,
         )
         for op, st in zip(operators, stats)
     ]
@@ -207,6 +225,7 @@ ENGINE_COUNTERS = (
     "bytes_scanned",
     "rows_shuffled",
     "exchanges_elided",
+    "programs_built",
 )
 
 

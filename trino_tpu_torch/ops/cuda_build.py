@@ -1,10 +1,18 @@
 """Build the port's CUDA sources and bind them through ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc
-for sm_90a into ``_build/lib<name>.so`` at first use (skipped while the
-library is newer than its source). ``build_all`` starts one nvcc per
-source at once. Nothing here runs when a module is imported: the CPU
-tests import every module on a machine with no nvcc.
+for sm_90a into ``lib<name>.so`` at first use (skipped while the library
+is newer than its source). ``build_all`` starts one nvcc per source at
+once. Nothing here runs when a module is imported: the CPU tests import
+every module on a machine with no nvcc.
+
+The libraries live in the salted directory of
+compile/cache.PersistentCompileCache
+(``_build/torch<version>-cuda<version>-schema<rev>/``): the first build
+of a process scrubs it and evicts past its bound, and each library is
+written to a temporary file and renamed into place. A failed build
+raises. Each successful build counts once in METRICS ``programs_built``
+(compile/cache.py).
 """
 
 from __future__ import annotations
@@ -18,7 +26,6 @@ from typing import Dict, Iterable, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("grouped_sum", "window_rank", "gather")
 
 # what `nvcc -Xptxas -v` said about each source built in this process
@@ -43,8 +50,15 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def build_dir() -> str:
+    """The salted library directory, prepared at the first call."""
+    from trino_tpu_torch.compile.cache import kernel_cache
+
+    return kernel_cache().ensure()
+
+
 def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+    return os.path.join(build_dir(), f"lib{name}.so")
 
 
 def _nvcc() -> str:
@@ -59,7 +73,6 @@ def _fresh(name: str) -> bool:
 
 
 def _start(name: str):
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{library_path(name)}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -76,6 +89,9 @@ def _finish(name: str, tmp: str, proc) -> None:
         raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n{out}\n{err}")
     os.replace(tmp, library_path(name))
     PTXAS_LOG[name] = err
+    from trino_tpu_torch.runtime.metrics import note_program_built
+
+    note_program_built()
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:

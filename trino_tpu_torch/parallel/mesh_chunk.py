@@ -22,15 +22,22 @@ with the default 0 the whole plan is one prelude program, preemption
 checks still around it.
 
 The reference traces each program once under `jax.eval_shape` and
-caches it in PROGRAM_CACHE; eager torch has no lowering, so `_record`
-builds a record's host-side metadata (fragment split, carry metadata,
-caps) directly, and carries take their shape from the first chunk's
-contribution. Static capacities and the reference's retry protocol
-stay: device overflow flags are read at every program boundary (one
-device->host sync, where `preempt` runs) and an overflow restarts the
-run under doubled capacities, at most 12 times. The program cache and
-warmup registry are ROADMAP §1 item 13.1; checkpoints, parking and
-work stealing (13.2, 13.3) are not here.
+caches the record in PROGRAM_CACHE. Eager torch has nothing to trace, so
+a record is host metadata (the fragment split, carry metadata, caps and
+the three programs' shape classes); it is cached in PROGRAM_CACHE under
+the reference's key (the fragments' structure, the feed schemas and
+capacities, the devices, the chunk plan and the caps), so a replanned
+query with the same structure builds nothing, and carries take their
+shape from the first chunk's contribution. A successful run registers
+the record's WarmupEntrys (MESH_WARMUP_ENTRIES) and notes its classes
+warm. With `resident_pin_budget_mb` > 0 the prelude's outputs are
+pinned in the resident tier under the feed tables' generations, and a
+later run of the same record reuses them instead of running the prelude.
+Static capacities and the reference's retry protocol stay: device
+overflow flags are read at every program boundary (one device->host
+sync, where `preempt` runs) and an overflow restarts the run under
+doubled capacities, at most 12 times. Checkpoints, parking and work
+stealing (ROADMAP §1 items 13.2, 13.3) are not here.
 """
 
 from __future__ import annotations
@@ -45,8 +52,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from trino_tpu_torch import types as T
 from trino_tpu_torch.block import Column, RelBatch, bucket_capacity
+from trino_tpu_torch.compile.cache import PROGRAM_CACHE, expr_fingerprint, schema_cache_key
 from trino_tpu_torch.compile.shapes import CapacityLadder
+from trino_tpu_torch.compile.warmup import WarmupEntry, note_classes_warm
 from trino_tpu_torch.parallel.mesh_plan import (
     MeshUnsupported,
     Shards,
@@ -79,6 +89,26 @@ def publish_run_info(info: Dict[str, object]) -> None:
     with _run_info_lock:
         LAST_RUN_INFO.clear()
         LAST_RUN_INFO.update(info)
+
+
+# WarmupEntry registry of the mesh programs (the local planner's entries'
+# counterpart): bounded, oldest dropped; written by concurrent query
+# threads
+_warmup_entries_lock = threading.Lock()
+MESH_WARMUP_ENTRIES: List[WarmupEntry] = []
+_MAX_WARMUP_ENTRIES = 128
+
+
+def register_mesh_warmup(entries) -> None:
+    with _warmup_entries_lock:
+        known = {id(e.fn) for e in MESH_WARMUP_ENTRIES}
+        MESH_WARMUP_ENTRIES.extend(e for e in entries if id(e.fn) not in known)
+        del MESH_WARMUP_ENTRIES[:-_MAX_WARMUP_ENTRIES]
+
+
+def mesh_warmup_entries() -> List[WarmupEntry]:
+    with _warmup_entries_lock:
+        return list(MESH_WARMUP_ENTRIES)
 
 
 class MeshStuck(RuntimeError):
@@ -529,6 +559,62 @@ class MeshProgramRecord:
     prelude_sps: list
     stream_sps: list
     flush_sps: list
+    warmup_entries: List[WarmupEntry] = dataclasses.field(default_factory=list)
+    class_keys: set = dataclasses.field(default_factory=set)
+
+
+class _ProgramWarmer:
+    """WarmupEntry.fn of a mesh program. The port's programs are the
+    local operators' kernels launched shard by shard, so warming one
+    means building and loading those kernels for the shard devices
+    (ops/cuda_build.py); on the CPU there is nothing to load."""
+
+    def __init__(self, devices):
+        self.devices = tuple(str(d) for d in devices)
+
+    def __call__(self, _batch=None) -> None:
+        if any(torch.device(d).type == "cuda" for d in self.devices):
+            from trino_tpu_torch.ops import cuda_build
+
+            for name in cuda_build.SOURCES:
+                cuda_build.load(name, {})
+
+
+def _record_key(ex, mesh_sps, root_child_ids, repl, feed_sigs, cplan, caps):
+    """The record's PROGRAM_CACHE key: the fragments by repr
+    fingerprint (a structurally identical fresh plan reuses the record),
+    the feeds' schemas and capacities, the shard devices, the chunk plan
+    and the caps. None (uncached) when a repr leaks object identity or a
+    feed's dictionary exists only at run time."""
+    frag_parts = []
+    for sp in mesh_sps:
+        f = sp.fragment
+        frag_parts.append((f.id, f.partitioning, f.output_kind, tuple(f.output_channels),
+                           tuple(f.output_merge_keys or ()), f.root,
+                           tuple(c.fragment.id for c in sp.children)))
+    fp = expr_fingerprint(tuple(frag_parts))
+    if fp is None or any(sig is None for sig, _cap in feed_sigs):
+        return None
+    return ("mesh-chunk", ex.n, tuple(str(d) for d in ex.mesh.devices), fp,
+            tuple(sorted(root_child_ids)), tuple(sorted(repl.items())), tuple(feed_sigs),
+            cplan.driver_pos, cplan.chunk_cap, cplan.n_chunks, tuple(sorted(caps.items())))
+
+
+def _record_entries(ex, cplan, record) -> None:
+    """The record's WarmupEntrys (one per program it runs) and their
+    class keys, as the reference's _build_record makes them."""
+    sig = (f"frags{len(record.prelude_sps) + len(record.stream_sps) + len(record.flush_sps)}",
+           f"k{cplan.n_chunks}", f"n{ex.n}")
+    warm_cap = cplan.chunk_cap or 16
+    warmer = _ProgramWarmer(ex.mesh.devices)
+    for operator, sps in (("MeshPrelude", record.prelude_sps),
+                          ("MeshChunkStep", record.stream_sps),
+                          ("MeshFlush", record.flush_sps)):
+        if sps:
+            record.warmup_entries.append(WarmupEntry(
+                operator=operator, fn=warmer, in_schema=[(T.BIGINT, None)], out_dtypes=sig,
+                capacities=(warm_cap,), device=ex.mesh.devices[0]))
+    record.class_keys = set().union(*(e.keys() for e in record.warmup_entries))
 
 
 def _build_record(mesh_sps, root_child_ids, cplan, caps_in) -> MeshProgramRecord:
@@ -577,8 +663,10 @@ class ChunkedMeshRunner:
     (a deterministic ladder: a second execution replays the same
     capacity sequence)."""
 
-    def __init__(self, ex, mesh_sps, root_child_ids, repl, feeds, host_feeds):
+    def __init__(self, ex, mesh_sps, root_child_ids, repl, feeds, host_feeds,
+                 feed_tables=()):
         self.ex = ex
+        self.feed_tables = tuple(feed_tables)
         self.session = ex.session
         self.mesh_sps = mesh_sps
         self.root_child_ids = root_child_ids
@@ -594,12 +682,37 @@ class ChunkedMeshRunner:
             pos = self.cplan.driver_pos
             host_feeds[pos] = _pad_shards(host_feeds[pos], n, shard_caps[pos],
                                           self.cplan.n_chunks * self.cplan.chunk_cap)
+        self.feed_sigs = tuple(
+            (schema_cache_key([(c.type, c.dictionary) for c in b.columns]), _rows(b))
+            for b in host_feeds)
         self.feed_args = [_place(b, ex.mesh.devices) for b in host_feeds]
         self.info: Dict[str, object] = {}
         self._chunk_steps = 0  # chunk steps run by the current run
+        self._last_record_key = None
+        self._prelude_resident = False  # the run reused a pinned prelude
 
     def _record(self, caps) -> MeshProgramRecord:
-        return _build_record(self.mesh_sps, self.root_child_ids, self.cplan, caps)
+        """The record for `caps`, from PROGRAM_CACHE when this plan's
+        structure was recorded before. The cached record is a template:
+        the run gets its fragments (this plan's nodes, which the feeds
+        are keyed by) and its own copy of the caps, which the run
+        extends."""
+        def build():
+            record = _build_record(self.mesh_sps, self.root_child_ids, self.cplan, caps)
+            _record_entries(self.ex, self.cplan, record)
+            return record
+
+        key = _record_key(self.ex, self.mesh_sps, self.root_child_ids, self.repl,
+                          self.feed_sigs, self.cplan, caps)
+        self._last_record_key = key
+        if key is None:
+            return build()
+        template = PROGRAM_CACHE.get_or_create(key, build)
+        fresh = _build_record(self.mesh_sps, self.root_child_ids, self.cplan,
+                              template.resolved_caps)
+        fresh.warmup_entries = template.warmup_entries
+        fresh.class_keys = template.class_keys
+        return fresh
 
     # -- execution ---------------------------------------------------
     def run(self, preempt=None, query_span=None) -> Dict[int, list]:
@@ -644,6 +757,9 @@ class ChunkedMeshRunner:
                 # MeshStuck / MeshDeviceLost propagate with their type: the
                 # reference's in-run resume needs a checkpoint (item 13.2),
                 # so the coordinator's fallback takes over
+            if record.warmup_entries:
+                register_mesh_warmup(record.warmup_entries)
+                note_classes_warm(record.class_keys)
             if self.skew_map:
                 from trino_tpu_torch.runtime.metrics import METRICS
 
@@ -661,6 +777,8 @@ class ChunkedMeshRunner:
                 "executed_chunk_steps": self._chunk_steps,
                 "shards": self.ex.n,
             }
+            if self._prelude_resident:
+                self.info["prelude_resident"] = True
             publish_run_info(self.info)
             self._record_divergences(sources, query_span)
             return sources
@@ -725,13 +843,8 @@ class ChunkedMeshRunner:
             preempt(0, K)
         pctx: Dict[int, Shards] = {}
         if record.prelude_sps:
-            with op_span("MeshPrelude", attempt=attempt):
-                ctx: Dict[int, Shards] = {}
-                flags: list = []
-                self._run_frags(record, record.prelude_sps, self._local_feeds(None), ctx,
-                                flags, outs)
-                self._check_flags(flags)
-            pctx = {fid: ctx[fid] for fid in record.pctx_fids}
+            outs, pctx = self._run_prelude(record, op_span, task_span, attempt)
+            outs = dict(outs)
 
         carries: List[Optional[Shards]] = [None] * len(record.carry_meta)
         if record.stream_sps:
@@ -775,6 +888,50 @@ class ChunkedMeshRunner:
                 outs[fid] = (c, self.repl[fid])
         return {fid: self.ex._shard_pages(batches, rep)
                 for fid, (batches, rep) in outs.items()}
+
+    def _run_prelude(self, record, op_span, task_span, attempt: int):
+        """(outputs, pctx) of the prelude, with a resident-tier consult:
+        a hit reuses the pinned shards and skips the prelude (nothing
+        writes into them later: the steps only read pctx, and carries
+        are fresh tensors); a miss runs it and pins what it exported
+        under the feed tables' generation snapshot. Keyed by the program
+        record's key, so an uncached record never pins."""
+        rkey = None
+        budget_mb = int(getattr(self.session, "resident_pin_budget_mb", 64) or 0)
+        if self._last_record_key is not None and budget_mb > 0:
+            from trino_tpu_torch.resident import GENERATIONS, RESIDENT
+
+            rkey = ("resident-mesh", self._last_record_key,
+                    GENERATIONS.snapshot(self.feed_tables))
+            cached = RESIDENT.lookup(rkey)
+            if cached is not None:
+                if task_span is not None:
+                    task_span.event("resident_hit", tier="mesh-prelude")
+                self._prelude_resident = True
+                return cached
+            # an entry under a stale generation is unreachable by key:
+            # reclaim its device memory now
+            for stale in RESIDENT.entries_for_prefix(("resident-mesh", self._last_record_key)):
+                if stale != rkey and RESIDENT.evict(stale) and task_span is not None:
+                    task_span.event("resident_evict", tier="mesh-prelude")
+        outs: Dict[int, Tuple[Shards, bool]] = {}
+        with op_span("MeshPrelude", attempt=attempt):
+            ctx: Dict[int, Shards] = {}
+            flags: list = []
+            self._run_frags(record, record.prelude_sps, self._local_feeds(None), ctx,
+                            flags, outs)
+            self._check_flags(flags)
+        pctx = {fid: ctx[fid] for fid in record.pctx_fids}
+        if rkey is not None:
+            from trino_tpu_torch.resident import RESIDENT
+            from trino_tpu_torch.runtime.memory import batch_bytes
+
+            shards = [b for batches, _ in outs.values() for b in batches]
+            shards += [b for batches in pctx.values() for b in batches]
+            RESIDENT.configure(budget_mb << 20)
+            RESIDENT.pin(rkey, (dict(outs), pctx), sum(batch_bytes(b) for b in shards),
+                         set(self.feed_tables))
+        return outs, pctx
 
     def _step(self, record, k: int, pctx, carries, carry_index, flags) -> None:
         """Chunk k through the stream fragments, appending each carried
@@ -874,3 +1031,4 @@ class ChunkedMeshRunner:
         sites_over = [(site, int(v)) for (site, _f), v in zip(flags, over) if v]
         if sites_over:
             raise _Overflow(sites_over)
+

@@ -1016,8 +1016,12 @@ class MeshExecutor:
 
         mesh_sps, root_sp, root_child_ids = _split(subplan)
         repl = _replicated_map(mesh_sps)
+        # each feed's source table (aligned with host_feeds): the
+        # generation-snapshot domain of a pinned prelude
+        self._feed_tables: List[tuple] = []
         feeds, host_feeds = self._load_scans(mesh_sps)
-        runner = ChunkedMeshRunner(self, mesh_sps, root_child_ids, repl, feeds, host_feeds)
+        runner = ChunkedMeshRunner(self, mesh_sps, root_child_ids, repl, feeds, host_feeds,
+                                   feed_tables=tuple(self._feed_tables))
         sources = runner.run(preempt=preempt, query_span=query_span)
         # count only after the programs have produced results: a
         # fallback from above must not register as a mesh-run query
@@ -1072,6 +1076,9 @@ class MeshExecutor:
                     shard_batches = list(pool.map(scan, range(self.n)))
                 feeds[id(node)] = len(host_feeds)
                 host_feeds.append(_stack_shards(shard_batches, self.n))
+                self._feed_tables.append((str(node.catalog).lower(),
+                                          str(node.handle.schema).lower(),
+                                          str(node.handle.table).lower()))
         return feeds, host_feeds
 
     # -- host boundary --

@@ -16,8 +16,8 @@ Callables (in-process fetch closures) are not encodable by design;
 cross-process specs carry descriptor tuples (task._resolve_fetch). A
 torch.Tensor is not encodable either: tensors never travel in a spec,
 pages travel as serde bytes. The adaptive tier's SpooledValuesNode is
-ROADMAP §1 item 13 and raises, as do the TaskSpec fields the port does
-not have (shape_stabilization, capacity_ladder_base, record_output).
+ROADMAP §1 item 13.2 and raises, as does the TaskSpec field the port
+does not have (record_output, the recovery tier's).
 The registry adds one class the reference's lacks, ColumnConstraint,
 without which no scan with a pushed-down predicate could cross the wire.
 """
@@ -52,7 +52,7 @@ class CodecError(ValueError):
 
 
 # wire classes of tiers the port does not have yet (ROADMAP §1)
-_UNPORTED = {"SpooledValuesNode": "item 13 (adaptive/spool.py)"}
+_UNPORTED = {"SpooledValuesNode": "item 13.2 (adaptive/spool.py)"}
 
 
 def _registry() -> Dict[str, type]:

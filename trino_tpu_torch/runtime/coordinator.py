@@ -22,11 +22,10 @@ Any other mesh failure propagates: the reference's catch-all rerun on
 the page plane is deliberately not carried (ROADMAP §3). Arms of later
 items raise, naming the item, and never fall back to the page plane or
 to the CPU: mesh_replicas >= 2 (item 13.3) and recovery_spool_stages
-(item 13). The reference's census annotations, the adaptive
-controller's report and per-stage estimated-vs-observed lines, and the
-resident, recovery, skew, replica, scheduler, membership and
-concurrency lines of EXPLAIN ANALYZE belong to item 13 and are left
-out.
+(item 13.2). The adaptive controller's report and per-stage
+estimated-vs-observed lines (13.2) and the recovery, skew, replica,
+scheduler, membership and concurrency lines of EXPLAIN ANALYZE
+(13.2-13.4) are left out.
 
 Analogue of SqlQueryExecution (planQuery/planDistribution,
 SqlQueryExecution.java:457/503) + PipelinedQueryScheduler.java:155
@@ -189,6 +188,8 @@ class QueryScheduler:
                     dynamic_filtering=self.session.enable_dynamic_filtering,
                     collect_stats=self.collect_stats,
                     task_concurrency=self.session.task_concurrency,
+                    shape_stabilization=self.session.shape_stabilization,
+                    capacity_ladder_base=self.session.capacity_ladder_base,
                     deadline_epoch_s=self.deadline_epoch_s,
                 )
                 if tracing:
@@ -359,7 +360,7 @@ class DistributedQueryRunner:
         # runtime/scheduler.py, is ROADMAP §1 item 13.3)
         self._mesh_exec_lock = threading.Lock()
         # the reference registers the recovery tier's counters here
-        # (ROADMAP §1 item 13)
+        # (ROADMAP §1 item 13.2)
         # resiliency plane: every worker is registered with a
         # NodeManager whose per-node circuit breakers graylist
         # misbehaving workers (ping loop NOT started here — call
@@ -427,8 +428,9 @@ class DistributedQueryRunner:
         from trino_tpu_torch.parallel.mesh_plan import register_mesh_metrics
 
         register_mesh_metrics()
-        # the reference also installs its XLA compile listener and
-        # registers the analysis tier's (item 13) gauges here
+        # the reference also installs its XLA compile listener (the
+        # port counts builds without one) and registers the analysis
+        # tier's (item 13.4) gauges here
         # serving tier: canonical-text plan cache over the distributed
         # planning pipeline (analyze -> optimize -> fragment). DDL/DML
         # through the embedded runner and catalog registration
@@ -479,10 +481,13 @@ class DistributedQueryRunner:
 
     def register_catalog(self, name: str, connector: Connector) -> None:
         self.catalogs.register(name, connector)
-        # a new catalog can shadow names any cached plan resolved
-        # against: wholesale, not table-granular. The reference also
-        # bumps the resident tier's generations here (ROADMAP §1 item 13)
+        # a new catalog can shadow names any cached state resolved
+        # against: a wholesale epoch bump, not table-granular
+        from trino_tpu_torch.resident import GENERATIONS, RESIDENT
+
         self._plan_cache.invalidate()
+        GENERATIONS.bump_all()
+        RESIDENT.evict_all()
 
     def _dml_target(self, stmt):
         """(catalog, schema, table) a non-Query statement writes, via
@@ -738,7 +743,7 @@ class DistributedQueryRunner:
             self._check_access(output, identity)
             # the reference's adaptive controller re-plans here when
             # adaptive_execution is on; config.check_session refused
-            # that property (ROADMAP §1 item 13) before planning began
+            # that property (ROADMAP §1 item 13.2) before planning began
             with phase("fragment"):
                 subplan = plan_distributed(
                     output,
@@ -790,7 +795,7 @@ class DistributedQueryRunner:
         # (in the FTE scheduler and the QUERY retry loop alike)
         if getattr(self.session, "recovery_spool_stages", False):
             raise NotImplementedError(
-                "recovery_spool_stages: stage-output recovery is ROADMAP §1 item 13"
+                "recovery_spool_stages: stage-output recovery is ROADMAP §1 item 13.2"
             )
         if self.session.retry_policy == "task":
             self._last_data_plane = "fte"
@@ -815,6 +820,9 @@ class DistributedQueryRunner:
             preempt = preemption_check(
                 tracker, base_qid, cancel=cancel, deadline_epoch_s=deadline_epoch_s,
             )
+            from trino_tpu_torch.runtime.metrics import set_compile_attribution
+
+            prev_attr = set_compile_attribution(base_qid)
             try:
                 rows = self._execute_mesh(subplan, preempt, query_span)
                 self._last_data_plane = "mesh"
@@ -837,6 +845,8 @@ class DistributedQueryRunner:
                 # no catch-all rerun on the page plane (ROADMAP §3): on
                 # the card it would hide a kernel or device failure
                 raise
+            finally:
+                set_compile_attribution(prev_attr)
         attempts = (
             1 + self.session.query_retry_count
             if self.session.retry_policy == "query"
@@ -970,6 +980,20 @@ class DistributedQueryRunner:
         if query_span is not None:
             query_span.event("mesh_fallback", reason=reason[:300])
 
+    def _resident_line(self) -> str:
+        """The EXPLAIN ANALYZE resident-tier line: the pins held now and
+        the process's counter totals."""
+        from trino_tpu_torch.resident import RESIDENT
+
+        s = RESIDENT.stats()
+        return (
+            f"resident= entries={s['entries']} "
+            f"pinned_bytes={s['pinned_bytes']} hits={s['hits']} "
+            f"misses={s['misses']} pins={s['pins']} "
+            f"evictions={s['evictions']} revocations={s['revocations']} "
+            f"compactions={s['compactions']}"
+        )
+
     def _mesh_plane_line(self, subplan) -> str:
         """The EXPLAIN ANALYZE data-plane line: which plane `execute`
         would pick for this plan, decided statically (structural
@@ -1066,7 +1090,7 @@ class DistributedQueryRunner:
                 # QueryInfo stage rollups from the FTE attempt snapshots
                 # (taken at each attempt's terminal observation); the
                 # reference's estimated-vs-observed divergence lines are
-                # the adaptive tier's (ROADMAP §1 item 13)
+                # the adaptive tier's (ROADMAP §1 item 13.2)
                 try:
                     self._last_stage_infos = self._stage_infos(
                         scheduler.task_snapshots()
@@ -1088,9 +1112,12 @@ class DistributedQueryRunner:
             shutil.rmtree(spool_dir, ignore_errors=True)
 
     def _explain_text(self, subplan) -> str:
-        """The fragments (the reference also annotates each with its
-        census of expected XLA lowerings: ROADMAP §1 item 13)."""
-        return explain_distributed(subplan)
+        """The fragments, each annotated with its shape census summary
+        (sql/validate.py)."""
+        return explain_distributed(
+            subplan, catalogs=self.catalogs, batch_rows=self.session.batch_rows,
+            dynamic_filtering=self.session.enable_dynamic_filtering,
+            warn_threshold=self.session.compile_churn_warn_threshold)
 
     def _explain_analyze(self, subplan) -> MaterializedResult:
         """Distributed EXPLAIN ANALYZE: run the query with operator
@@ -1120,9 +1147,10 @@ class DistributedQueryRunner:
             # (the ANALYZE instrumentation itself runs the page
             # scheduler above either way, for the operator stats)
             lines.append(self._mesh_plane_line(subplan))
-            # the reference goes on with the resident, recovery, skew,
-            # replica, scheduler, membership and concurrency lines of
-            # item 13
+            lines.append(self._resident_line())
+            # the reference goes on with the recovery, skew, replica,
+            # scheduler, membership and concurrency lines of items
+            # 13.2-13.4
             return MaterializedResult(
                 [["\n".join(lines)]], ["Query Plan"], [T.VARCHAR]
             )
@@ -1249,7 +1277,9 @@ class DistributedQueryRunner:
             task_infos = [
                 build_task_info(tid, st) for tid, st in states[fid]
             ]
-            info = build_stage_info(fid, task_infos)
+            expected = max((int(st.get("expected_shape_classes") or 0)
+                            for _, st in states[fid]), default=0)
+            info = build_stage_info(fid, task_infos, expected_lowerings=expected)
             if info["wall_s"] is not None:
                 METRICS.observe("stage_wall_s", info["wall_s"])
             infos.append(info)

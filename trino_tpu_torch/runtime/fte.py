@@ -7,7 +7,7 @@ device; a failed attempt is re-run as a task again, never as a CPU run
 in its place. The reference's recovery hooks (substituting and
 recording whole stage outputs) sit behind recovery_spool_stages, which
 the coordinator refuses before this scheduler is built (ROADMAP §1
-item 13). Unlike the reference, the scheduler removes every attempt it
+item 13.2). Unlike the reference, the scheduler removes every attempt it
 launched from its worker once the query is over (`release`): a worker
 that serves many queries keeps no finished task.
 
@@ -357,6 +357,8 @@ class FaultTolerantQueryScheduler:
                 dynamic_filtering=self.session.enable_dynamic_filtering,
                 task_concurrency=self.session.task_concurrency,
                 collect_stats=self.collect_stats,
+                shape_stabilization=self.session.shape_stabilization,
+                capacity_ladder_base=self.session.capacity_ladder_base,
                 deadline_epoch_s=self.deadline_epoch_s,
             )
             if tspan is not None and self.collect_stats:

@@ -170,24 +170,46 @@ class MetricsRegistry:
 METRICS = MetricsRegistry()
 
 
-# -- per-query compile counters ----------------------------------------
+# -- the port's compile counter ----------------------------------------
 #
 # The reference charges every XLA backend compile to the query whose
-# thread dispatched it (set_compile_attribution and
-# install_xla_compile_listener over jax.monitoring). Those counters
-# count XLA lowerings and have no torch meaning, so the port leaves both
-# out: nothing writes `xla_compiles` or `xla_compiles_by_query.*`, and a
-# QueryInfo's compile_count reads 0. The retirement below stays so a
-# counter written under those names is still pruned per query.
+# thread dispatched it (`xla_compiles`, `xla_compiles_by_query.<id>`).
+# The port has no XLA: what it builds at run time is the programs its
+# ProgramCache builds and the kernel libraries ops/cuda_build.py
+# compiles (compile/cache.py says why). Each build counts once in
+# `programs_built`, and in `programs_built_by_query.<id>` for the query
+# whose thread built it (set_compile_attribution).
+
+_attribution = threading.local()
+
+
+def set_compile_attribution(query_id) -> object:
+    """Charge this thread's later builds to `query_id` (None to clear).
+    Returns the previous tag, for a finally block to restore."""
+    prev = getattr(_attribution, "query_id", None)
+    _attribution.query_id = query_id
+    return prev
+
+
+def compile_attribution():
+    return getattr(_attribution, "query_id", None)
+
+
+def note_program_built() -> None:
+    """One program or kernel library built in this process."""
+    METRICS.increment("programs_built")
+    qid = compile_attribution()
+    if qid is not None:
+        METRICS.increment(f"programs_built_by_query.{qid}")
 
 
 def retire_query_compiles(query_id) -> float:
-    """Pull a query's compile-attribution counters out of the registry
-    (base id plus every `{qid}r*` QUERY-retry namespace) and return the
-    summed count, for retirement into the final QueryInfo. Exact-match
-    plus an `r`-suffix prefix so q3 never swallows q30's counters."""
-    total = METRICS.remove(f"xla_compiles_by_query.{query_id}")
+    """Pull a query's build counters out of the registry (base id plus
+    every `{qid}r*` QUERY-retry namespace) and return their sum, for the
+    final QueryInfo. Exact match plus an `r`-suffix prefix, so q3 never
+    swallows q30's counters."""
+    total = METRICS.remove(f"programs_built_by_query.{query_id}")
     total += sum(
-        METRICS.remove_prefix(f"xla_compiles_by_query.{query_id}r").values()
+        METRICS.remove_prefix(f"programs_built_by_query.{query_id}r").values()
     )
     return total

@@ -9,11 +9,10 @@ flattens everything into one plain-data dict the server can serve
 and EXPLAIN ANALYZE can render. Shared by the coordinator's pipelined
 and FTE paths so the two cannot drift apart.
 
-Counterpart of trino_tpu/runtime/queryinfo.py. The reference also
-attaches each stage's expected and observed XLA lowering counts (the
-shape census and the operators' shape ledger); those count XLA programs
-and wait for the compile tier (ROADMAP §1 item 13), so a port stage
-carries neither key and EXPLAIN ANALYZE prints no lowerings line."""
+Counterpart of trino_tpu/runtime/queryinfo.py. Each stage carries its
+expected and observed shape-class counts (`expected_lowerings`, from the
+fragment's shape census; `observed_lowerings`, from its tasks' shape
+ledgers), under the reference's names."""
 
 from __future__ import annotations
 
@@ -61,12 +60,20 @@ def build_task_info(task_id: str, state: dict) -> dict:
         "cpu_s": float(state.get("cpu_s") or 0.0),
         "wall_s": wall,
         "operator_stats": state.get("stats"),
+        "shape_classes": int(state.get("shape_classes") or 0),
     }
 
 
-def build_stage_info(fragment_id: int, task_infos: List[dict]) -> dict:
+def build_stage_info(
+    fragment_id: int,
+    task_infos: List[dict],
+    expected_lowerings: Optional[int] = None,
+) -> dict:
     """Stage rollup: merged operator lines + totals over the stage's
-    task attempts."""
+    task attempts. `expected_lowerings` is the census prediction for
+    this fragment (sql/validate.py shape_census); observed is the most
+    any one task's ledger saw: every task of a fragment runs the same
+    classes, so a sum would overcount by the task count."""
     merged = merge_operator_stats(
         [t.get("operator_stats") for t in task_infos]
     )
@@ -84,7 +91,12 @@ def build_stage_info(fragment_id: int, task_infos: List[dict]) -> dict:
         "input_rows": sum(int(op.get("input_rows") or 0) for op in flat),
         "output_rows": sum(int(op.get("output_rows") or 0) for op in flat),
         "device_synced": any(bool(op.get("device_synced")) for op in flat),
+        "observed_lowerings": max(
+            (t["shape_classes"] for t in task_infos), default=0
+        ),
     }
+    if expected_lowerings is not None:
+        info["expected_lowerings"] = int(expected_lowerings)
     return info
 
 
@@ -148,6 +160,11 @@ def stage_text(stage: dict) -> str:
         f"\nFragment {stage['fragment_id']} [{stage['tasks']} tasks]:",
         render_stats(groups),
     ]
+    if stage.get("expected_lowerings") is not None:
+        lines.append(
+            f"lowerings: expected={stage['expected_lowerings']} "
+            f"observed={stage['observed_lowerings']}"
+        )
     if stage.get("estimated_vs_observed"):
         lines.append(stage["estimated_vs_observed"])
     for t in stage["task_infos"]:

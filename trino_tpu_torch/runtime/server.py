@@ -3,11 +3,12 @@
 Counterpart of trino_tpu/runtime/server.py: the same routes and JSON in
 front of any port runner (LocalQueryRunner or DistributedQueryRunner,
 each on its own device), with the admission pipeline and resource
-groups. Three arms of the reference wait for ROADMAP §1 item 13: the
-MicroBatcher (micro_batch_window_ms and micro_batch_max raise when set,
-config.UNPORTED_READERS, and a `batcher` raises here), the resident
-fast lane (resident_tables raises when set, so no lookup is tried) and
-GET /v1/fabric, which answers 501 naming the item.
+groups. A statement tries the resident fast lane first
+(resident/fastlane.py: a point lookup on a table named in
+resident_tables probes its pin on the device), then the MicroBatcher
+(serving/batcher.py, built when micro_batch_window_ms > 0), then the
+runner. GET /v1/fabric answers 501: the checkpoint fabric is ROADMAP §1
+item 13.3.
 
 Analogue of the reference's client protocol (client/trino-client
 StatementClientV1.java:65 — POST /v1/statement, poll nextUri, token-
@@ -92,6 +93,7 @@ class _QueryJob:
         self.drained = False  # final result page delivered to the client
         self.abandoned = False
         self.created_at = time.monotonic()  # admission-queue wait base
+        self.started_at: Optional[float] = None  # monotonic, out of the queue
         self.last_heartbeat = time.monotonic()  # any client poll refreshes
         self.lock = threading.Lock()  # _QueryJob.lock
 
@@ -121,7 +123,7 @@ class CoordinatorServer:
         client_timeout_s: Optional[float] = None,
         reap_interval_s: Optional[float] = None,
         admission=None,  # serving.admission.AdmissionPipeline
-        batcher=None,  # serving.batcher.MicroBatcher: ROADMAP §1 item 13
+        batcher=None,  # serving.batcher.MicroBatcher
     ):
         from trino_tpu_torch.security import AuthenticationError, InsecureAuthenticator
 
@@ -147,17 +149,16 @@ class CoordinatorServer:
                 ),
             )
         self.admission = admission
-        # point-lookup coalescing: the reference builds a MicroBatcher
-        # when micro_batch_window_ms > 0
-        if batcher is not None:
-            raise NotImplementedError(
-                "the micro-batcher (serving/batcher.py) is ROADMAP §1 item 13"
-            )
-        if _sess is not None:
-            from trino_tpu_torch.config import check_ported
+        # point-lookup coalescing
+        _window_ms = float(getattr(_sess, "micro_batch_window_ms", 0.0) or 0.0)
+        if batcher is None and _window_ms > 0:
+            from trino_tpu_torch.serving.batcher import MicroBatcher
 
-            for name in ("micro_batch_window_ms", "micro_batch_max"):
-                check_ported(name, getattr(_sess, name))
+            batcher = MicroBatcher(
+                runner, window_s=_window_ms / 1000.0,
+                max_batch=int(getattr(_sess, "micro_batch_max", 16) or 16),
+            )
+        self.batcher = batcher
         self._jobs: Dict[str, _QueryJob] = {}
         self._pool = ThreadPoolExecutor(max_workers=max_concurrent)
         # client-abandonment TTL: explicit arg wins, else the runner
@@ -511,6 +512,7 @@ class CoordinatorServer:
                     if job.abandoned:
                         return  # expired while queued: don't run or revive
                     job.state = "running"
+                    job.started_at = time.monotonic()
                 # query_max_run_time_s covers the QUEUED phase too: a
                 # query that burned its whole wall budget waiting for an
                 # admission slot fails typed, before launching anything
@@ -549,10 +551,25 @@ class CoordinatorServer:
                         kwargs["cancel"] = lambda: job.abandoned
                 except (TypeError, ValueError):
                     pass
-                # the reference tries its resident fast lane and the
-                # micro-batcher first (ROADMAP §1 item 13; neither can
-                # be switched on in the port)
-                result = self.runner.execute(sql, **kwargs)
+                # the resident fast lane first: a pinned point lookup is a
+                # probe on the device; None falls through unchanged. Both
+                # it and the batcher read committed state outside any
+                # transaction, so a statement inside an open transaction
+                # takes neither (the reference lets it)
+                from trino_tpu_torch.resident.fastlane import try_resident_lookup
+
+                autocommit = transaction_id in (None, "NONE")
+                result = None
+                if autocommit:
+                    result = try_resident_lookup(self.runner, sql, identity=identity,
+                                                 prepared=prepared or None)
+                if result is None and autocommit and self.batcher is not None:
+                    # point lookups coalesce into one execution (None:
+                    # not batchable, the ordinary execution below)
+                    result = self.batcher.submit(sql, identity=identity,
+                                                 prepared=prepared or None)
+                if result is None:
+                    result = self.runner.execute(sql, **kwargs)
                 with job.lock:
                     if job.abandoned:
                         return  # expired while executing: keep the verdict

@@ -10,11 +10,14 @@ task_id) pulls pages from a WorkerServer (runtime/http.py), ("spool",
 base_dir, task_key) reads a committed FTE attempt (runtime/spool.py).
 Pages from either arrive as host bytes; the RemoteSourceOperator puts
 them on the task's device. With `spool_dir` set the task spools its
-output instead of buffering it (SpoolingExchangeSink). The
-reference's shape stabilization and shape census (the capacity ladder,
-the warm-class registry) are the compile tier's, item 13: a port task
-plans without a ladder, and its `shapes_warm` stays False, so the
-stuck-task watchdog keeps its conservative threshold.
+output instead of buffering it (SpoolingExchangeSink). The compile
+regime rides the task as in the reference: it plans with the session's
+capacity ladder (`shape_stabilization`, `capacity_ladder_base`), its
+operators record the classes they run (the shape ledger), and the shape
+census of its fragment decides `shapes_warm`: once every predicted class
+is in compile/warmup.WARM_CLASSES (a completed task of the same shape
+notes its classes there), the stuck-task watchdog applies its tighter
+warm threshold.
 
 Analogue of main/execution/SqlTask / SqlTaskExecution.java:84 (drivers
 from DriverFactories per split/task lifecycle) + SqlTaskManager.updateTask
@@ -85,6 +88,10 @@ class TaskSpec:
     # pipelines concurrently and overlap remote-page pulls with the
     # compute chain (task.concurrency analogue)
     task_concurrency: int = 2
+    # compile regime: pad operator-facing batches onto the session's
+    # capacity ladder (compile/shapes.py)
+    shape_stabilization: bool = True
+    capacity_ladder_base: int = 2
     # query tracing (runtime/tracing.py wire_context dict): when set the
     # task records one operator span per operator, parented on the
     # coordinator's task-attempt span, shipped back in terminal status
@@ -180,16 +187,25 @@ class TaskExecution:
         # these into the query_max_cpu_time_s budget
         self._cpu_base: Dict[int, float] = {}
         self._cpu_by_thread: Dict[int, float] = {}
-        # the reference sets this once every shape class the census
-        # predicts is warm, letting the watchdog apply the tighter warm
-        # threshold; the census is the compile tier's (item 13)
+        # True once every shape class the census predicts for this
+        # fragment is registered warm: the watchdog's warm threshold
         self.shapes_warm: bool = False
+        self._census_keys: frozenset = frozenset()
+        # observed (operator, capacity, dtype-sig) classes (expected
+        # against observed per stage in QueryInfo)
+        self._shape_ledger: set = set()
         # observability: wall-clock bounds for TaskInfo; the remote span
         # recorder + wrapped operators when tracing is on
         self.start_time: Optional[float] = None
         self.end_time: Optional[float] = None
         self._trace = None
         self._instrumented: list = []
+
+    def observed_shape_classes(self) -> int:
+        return len(self._shape_ledger)
+
+    def expected_shape_classes(self) -> int:
+        return len(self._census_keys)
 
     def operator_stats(self):
         """JSON-ready [[dict]] per pipeline, or None."""
@@ -406,12 +422,22 @@ class TaskExecution:
             self._trace = QueryTrace.remote(
                 spec.trace_ctx, query_id=spec.task_id.query_id
             )
+        from trino_tpu_torch.runtime.metrics import set_compile_attribution
+
+        # builds on this thread count toward the query's compile_count
+        prev_attr = set_compile_attribution(spec.task_id.query_id)
         try:
             if self._injector is not None:
                 # abort-polling: remove_task joins this thread, so a
                 # stalled attempt that lost to its speculative twin must
                 # wake when it is removed
                 self._injector.check(spec.task_id, "start", abort=self._stopping)
+            stabilizer = None
+            if spec.shape_stabilization:
+                from trino_tpu_torch.compile.shapes import CapacityLadder, ShapeStabilizer
+
+                stabilizer = ShapeStabilizer(CapacityLadder(base=spec.capacity_ladder_base),
+                                             batch_rows=spec.batch_rows)
             planner = LocalPlanner(
                 self._catalogs,
                 self.device,
@@ -420,8 +446,10 @@ class TaskExecution:
                 remote_schemas=spec.remote_schemas,
                 scan_slice=spec.scan_slice,
                 dynamic_filtering=spec.dynamic_filtering,
+                stabilizer=stabilizer,
             )
             physical = planner.plan(spec.fragment.root)
+            self._note_census(stabilizer)
             if self._memory_pool is not None:
                 ctx["memory_pool"] = self._memory_pool
                 ctx["spill_dir"] = os.path.join(
@@ -466,6 +494,7 @@ class TaskExecution:
                     count_rows=spec.collect_stats,
                     heartbeat=self.heartbeat,
                     span_factory=span_factory,
+                    shape_ledger=self._shape_ledger,
                 )
                 self._instrumented.extend(wrapped)
                 return wrapped, stats
@@ -486,6 +515,12 @@ class TaskExecution:
             from trino_tpu_torch.engine import _raise_deferred_checks
 
             _raise_deferred_checks(ctx)
+            if self._census_keys:
+                # a completed run has met every class it touched: later
+                # attempts of this fragment shape are warm
+                from trino_tpu_torch.compile.warmup import note_classes_warm
+
+                note_classes_warm(self._census_keys)
             self.state = "finished"
         except BaseException as e:
             # full traceback, not just the message: TaskInfo failures
@@ -501,6 +536,7 @@ class TaskExecution:
             self.state = "failed"
             self.buffer.abort()
         finally:
+            set_compile_attribution(prev_attr)
             self.end_time = time.time()
             if self._trace is not None:
                 # a failed/killed task still exports a fully-closed
@@ -518,6 +554,20 @@ class TaskExecution:
                 c.close()
             if "spill_dir" in ctx:
                 shutil.rmtree(ctx["spill_dir"], ignore_errors=True)
+
+    def _note_census(self, stabilizer) -> None:
+        """Predict this fragment's shape classes (sql/validate
+        .shape_census) and check them against the warm registry."""
+        from trino_tpu_torch.compile.warmup import classes_warm
+        from trino_tpu_torch.sql.validate import shape_census
+
+        census = shape_census(
+            self.spec.fragment.root, self._catalogs, batch_rows=self.spec.batch_rows,
+            dynamic_filtering=self.spec.dynamic_filtering,
+            ladder=stabilizer.ladder if stabilizer is not None else None,
+        )
+        self._census_keys = frozenset((c.operator, c.capacity, c.dtypes) for c in census)
+        self.shapes_warm = classes_warm(self._census_keys)
 
     def _run_pipelines(self, pipelines, chain, concurrency: int) -> None:
         """Drive the task's pipelines. concurrency > 1 enables the

@@ -6,9 +6,10 @@ there is none; the CPU is used only when the caller passes
 device="cpu". Every task it runs plans its fragment on that device and
 launches its kernels from the task's own thread. Its HTTP form is a
 WorkerServer (runtime/http.py) around the same Worker. The watchdog's
-tighter threshold for tasks whose shape classes are all warm needs the
-shape census (the compile tier, item 13): no port task is ever warm, so
-the conservative stuck_task_interrupt_s applies to every task.
+tighter threshold (stuck_task_interrupt_warm_s) applies to a task whose
+census-predicted shape classes are all warm (runtime/task.py,
+`shapes_warm`); every other task gets the conservative
+stuck_task_interrupt_s.
 
 Analogue of main/execution/SqlTaskManager.java:109 (updateTask:466 —
 idempotent task creation, local planning, driver execution) plus the
@@ -187,12 +188,14 @@ class Worker:
         stats = t.operator_stats()
         if stats is not None:
             out["stats"] = stats
-        # TaskInfo observability surface: wall bounds (the reference's
-        # lowering counts are the compile tier's, ROADMAP §1 item 13)
+        # TaskInfo observability surface: wall bounds and shape-class
+        # counts (observed by the ledger, expected by the census)
         if t.start_time is not None:
             out["start_time"] = t.start_time
         if t.end_time is not None:
             out["end_time"] = t.end_time
+        out["shape_classes"] = t.observed_shape_classes()
+        out["expected_shape_classes"] = t.expected_shape_classes()
         # operator spans ship only once the task is TERMINAL: grafting a
         # still-open span would poison the coordinator's closed tree
         if t.state in ("finished", "failed", "aborted"):

@@ -19,11 +19,9 @@ Counterpart of trino_tpu/sql/fragmenter.py: host code over the port's
 plan nodes, stats and aggregation state layout, so the fragments (and
 EXPLAIN's rendering of them) are the reference's. The fragments run as
 tasks over the page exchange (runtime/), or over the shard mesh, where
-the same repartition is a collective (parallel/mesh_plan.py). The
-reference's EXPLAIN also annotates each fragment with its expected XLA
-lowerings (the shape census); that counts XLA programs and waits for the
-compile tier (item 13), so `explain_distributed` renders the fragments
-alone.
+the same repartition is a collective (parallel/mesh_plan.py). Given the
+catalogs, `explain_distributed` annotates each fragment with its shape
+census summary, as the reference does.
 """
 
 from __future__ import annotations
@@ -671,14 +669,23 @@ def plan_distributed(
     return subplan
 
 
-def explain_distributed(subplan: SubPlan) -> str:
-    """EXPLAIN (TYPE DISTRIBUTED) rendering: one section per fragment."""
+def explain_distributed(subplan: SubPlan, catalogs=None, batch_rows: int = 1 << 20,
+                        dynamic_filtering: bool = True, warn_threshold: int = 0) -> str:
+    """EXPLAIN (TYPE DISTRIBUTED) rendering: one section per fragment.
+    With `catalogs` each fragment also carries its shape census summary
+    (sql/validate.py)."""
     lines = []
     for f in sorted(subplan.all_fragments(), key=lambda f: f.id):
         out = f.output_kind
         if f.output_channels:
             out += f" on={list(f.output_channels)}"
         header = f"Fragment {f.id} [{f.partitioning}] output={out}"
+        if catalogs is not None:
+            from trino_tpu_torch.sql.validate import census_line, shape_census
+
+            classes = shape_census(f.root, catalogs, batch_rows=batch_rows,
+                                   dynamic_filtering=dynamic_filtering)
+            header += " " + census_line(classes, warn_threshold)
         lines.append(header)
         lines.append(P.explain_text(f.root, indent=1))
     return "\n".join(lines)

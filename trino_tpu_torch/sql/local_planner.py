@@ -22,12 +22,21 @@ RemoteSource (a distributed task's exchange input: the execution context
 supplies "make_remote_source"). A task plans its fragment with
 `remote_schemas` (producer fragment id -> schema) and `scan_slice`
 ((task index, task count): the task's share of the splits).
+
+The compile regime, as in the reference: a `stabilizer`
+(compile/shapes.py) pads scan chunks onto the session's capacity ladder,
+each fused filter/project closure comes from the process-wide
+PROGRAM_CACHE (keyed by structure, input schema and device, so a
+replanned stage reuses its bound closure), and every fused stage,
+aggregation and hash join over a scan whose capacity classes the census
+predicts records a WarmupEntry (`PhysicalPlan.warmup_entries`) that the
+engine's WarmupService drives on all-dead batches.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,17 +104,70 @@ def _mem_ctx(ctx: dict):
 class PhysicalPlan:
     """Executable form of one query: the build pipelines, in the order
     they must run, and the main chain; instantiate() stamps fresh
-    operators for both."""
+    operators for both. `warmup_entries` are the compile.warmup
+    WarmupEntrys of the stages this plan runs, with their predicted
+    capacity classes."""
 
     def __init__(self, pipelines: List[List[Factory]], chain: List[Factory],
-                 schema: Schema):
+                 schema: Schema, warmup_entries: Sequence = ()):
         self.pipeline_factories = pipelines
         self.chain_factories = chain
         self.schema = schema
+        self.warmup_entries = list(warmup_entries)
 
     def instantiate(self, ctx: dict) -> Tuple[List[List[Operator]], List[Operator]]:
         pipelines = [[f(ctx) for f in fs] for fs in self.pipeline_factories]
         return pipelines, [f(ctx) for f in self.chain_factories]
+
+
+class _AggWarmer:
+    """WarmupEntry.fn for an aggregation: a throwaway operator driven
+    over the dead batch reaches the group-reduce kernels the query's
+    operator will launch (grouped_sum over rows that are all dead)."""
+
+    def __init__(self, groups, specs, schema, step, device):
+        self.groups = list(groups)
+        self.specs = list(specs)
+        self.schema = list(schema)
+        self.step = step
+        self.device = device
+
+    def __call__(self, batch):
+        op = HashAggregationOperator(self.groups, self.specs, self.schema, self.device,
+                                     deferred_checks=[], step=self.step)
+        op.add_input(batch)
+        op.finish()
+        for _ in range(8):
+            if op.get_output() is None:
+                break
+
+
+class _JoinWarmer:
+    """WarmupEntry.fn for a hash join: build from an all-dead batch at
+    the build side's predicted capacity, then probe it with the entry's
+    dead batch (the probe's bounds search the dead build's hashes,
+    run_owner and take_flat expand its empty runs)."""
+
+    def __init__(self, lkeys, rkeys, kind, probe_schema, build_schema, build_cap, device):
+        self.lkeys, self.rkeys, self.kind = list(lkeys), list(rkeys), kind
+        self.probe_schema = list(probe_schema)
+        self.build_schema = list(build_schema)
+        self.build_cap = int(build_cap)
+        self.device = device
+
+    def __call__(self, batch):
+        from trino_tpu_torch.compile.warmup import zeros_batch
+
+        bridge = JoinBridge()
+        sink = HashBuildSink(bridge, self.rkeys, self.build_schema, self.device)
+        sink.add_input(zeros_batch(self.build_schema, self.build_cap, self.device))
+        sink.finish()
+        op = LookupJoinOperator(bridge, self.lkeys, self.kind, self.probe_schema)
+        op.add_input(batch)
+        op.finish()
+        for _ in range(8):
+            if op.get_output() is None:
+                break
 
 
 class LocalPlanner:
@@ -113,8 +175,13 @@ class LocalPlanner:
                  batch_rows: int = 1 << 20, target_splits: int = 1,
                  dynamic_filtering: bool = True,
                  mxu_join: bool = False, mxu_join_min_work: float = 16.0,
-                 remote_schemas=None, scan_slice=None):
+                 remote_schemas=None, scan_slice=None, stabilizer=None):
+        """`stabilizer` (compile.shapes.ShapeStabilizer) pads scan chunks
+        onto the session's capacity ladder and enables warmup-entry
+        collection."""
         self.catalogs = catalogs
+        self.stabilizer = stabilizer
+        self._warmup_entries: List = []
         self.remote_schemas = remote_schemas or {}
         self.scan_slice = scan_slice
         self.device = torch.device(device)
@@ -130,7 +197,8 @@ class LocalPlanner:
 
     def plan(self, root: P.PlanNode) -> PhysicalPlan:
         chain, schema = self._visit(root)
-        return PhysicalPlan(self.pipelines, chain, schema)
+        return PhysicalPlan(self.pipelines, chain, schema,
+                            warmup_entries=self._warmup_entries)
 
     def _key(self) -> int:
         self._next_key += 1
@@ -160,16 +228,34 @@ class LocalPlanner:
             splits = splits[idx::count]
         columns = list(node.columns)
         page_source = conn.page_source
-        batch_rows, device = self.batch_rows, self.device
+        batch_rows, device, stabilizer = self.batch_rows, self.device, self.stabilizer
         schema: Schema = [
             (f.type, conn.metadata.column_dictionary(node.handle, c))
             for c, f in zip(node.columns, node.fields)
         ]
 
         def factory(ctx):
-            return TableScanOperator(page_source, splits, columns, batch_rows, device)
+            return TableScanOperator(page_source, splits, columns, batch_rows, device,
+                                     stabilizer=stabilizer)
 
+        # predicted output capacity classes (main + tail): the warmup
+        # entries of the stages above read them
+        factory.out_caps = self._scan_caps(node)
         return [factory], schema
+
+    def _scan_caps(self, node: P.PlanNode) -> Optional[Tuple[int, ...]]:
+        """The census-predicted capacity classes of a scan's batches;
+        None when stabilization is off or the row count is unknown."""
+        if self.stabilizer is None:
+            return None
+        if self._stats_calc is None:
+            from trino_tpu_torch.sql.stats import StatsCalculator
+
+            self._stats_calc = StatsCalculator(self.catalogs)
+        rows = self._stats_calc.stats(node).row_count
+        if not rows or rows != rows or rows >= 1e9:  # no usable estimate
+            return None
+        return self.stabilizer.scan_classes(rows)
 
     def _visit_ValuesNode(self, node: P.ValuesNode):
         keys = [f.name or f"_c{i}" for i, f in enumerate(node.fields)]
@@ -182,24 +268,100 @@ class LocalPlanner:
         schema_t = [(k, f.type) for k, f in zip(keys, node.fields)]
         batch = RelBatch.from_pydict(schema_t, data, device=self.device)
         schema: Schema = [(c.type, c.dictionary) for c in batch.columns]
-        return [lambda ctx: ValuesOperator([batch])], schema
+
+        def factory(ctx):
+            return ValuesOperator([batch])
+
+        if self.stabilizer is not None and batch.columns:
+            factory.out_caps = (batch.capacity,)
+        return [factory], schema
 
     # -- filter/project folding --
-    @staticmethod
-    def _append_fp(chain: List[Factory], fn) -> None:
+    def _cached_fp(self, build, schema: Schema, fingerprint):
+        """(fn, out_schema) of a fused filter/project stage: from the
+        process-wide PROGRAM_CACHE when the stage is structurally keyed
+        (expression reprs, the input schema with its dictionary values,
+        the device), else bound afresh. `build()` binds and returns
+        (fn, out_schema); a hit skips it."""
+        from trino_tpu_torch.compile.cache import (
+            PROGRAM_CACHE,
+            expr_fingerprint,
+            schema_cache_key,
+        )
+
+        fp = expr_fingerprint(fingerprint)
+        skey = schema_cache_key(schema)
+        if fp is None or skey is None:
+            fn, out_schema = build()
+            return fn, out_schema
+
+        def program():
+            fn, out_schema = build()
+            fn.out_schema = out_schema
+            return fn
+
+        fn = PROGRAM_CACHE.get_or_create(("fp", fp, skey, str(self.device)), program)
+        return fn, fn.out_schema
+
+    def _append_fp(self, chain: List[Factory], fn, in_schema: Schema,
+                   out_schema: Schema) -> None:
         """Append a filter/project stage, folding it into a directly
-        preceding one."""
+        preceding one (the composition cached under its parts' keys),
+        and record its warmup entry: the (composed) closure, the schema
+        feeding it, and the capacity classes of the chain's source."""
+        from trino_tpu_torch.compile.cache import PROGRAM_CACHE
+
         prev = chain[-1] if chain else None
         pf = getattr(prev, "fused_fn", None)
+        caps = getattr(prev, "out_caps", None)
         if pf is not None:
             chain.pop()
-            fn = compose_batch_fns(pf, fn)
+            prev_entry = getattr(prev, "warmup_entry", None)
+            if prev_entry is not None:
+                # the folded stage runs as one: its parts are not warmed
+                # apart
+                self._warmup_entries.remove(prev_entry)
+                in_schema = prev_entry.in_schema
+            inner = fn
+            k1, k2 = PROGRAM_CACHE.key_of(pf), PROGRAM_CACHE.key_of(inner)
+            if k1 is not None and k2 is not None:
+                fn = PROGRAM_CACHE.get_or_create(
+                    ("compose", k1, k2), lambda: compose_batch_fns(pf, inner))
+            else:
+                fn = compose_batch_fns(pf, inner)
 
         def factory(ctx, fn=fn):
             return FilterProjectOperator(fn)
 
         factory.fused_fn = fn
+        # filter/project keeps capacity: the source classes flow through
+        factory.out_caps = caps
+        if caps:
+            from trino_tpu_torch.compile.warmup import WarmupEntry
+
+            entry = WarmupEntry(
+                operator="FilterProjectOperator", fn=fn, in_schema=list(in_schema),
+                out_dtypes=tuple(str(t) for t, _ in out_schema), capacities=tuple(caps),
+                device=self.device,
+            )
+            factory.warmup_entry = entry
+            self._warmup_entries.append(entry)
         chain.append(factory)
+
+    def _record_kernel_warmup(self, operator: str, warmer, in_schema, out_schema,
+                              caps) -> None:
+        """Warmup entry of a blocking kernel (aggregation, join) whose
+        input classes the census predicted; no-op without a
+        prediction."""
+        if not caps:
+            return
+        from trino_tpu_torch.compile.warmup import WarmupEntry
+
+        self._warmup_entries.append(WarmupEntry(
+            operator=operator, fn=warmer, in_schema=list(in_schema),
+            out_dtypes=tuple(str(t) for t, _ in out_schema), capacities=tuple(caps),
+            device=self.device,
+        ))
 
     @staticmethod
     def _take_fused(chain: List[Factory]):
@@ -226,29 +388,44 @@ class LocalPlanner:
         fragment_ids = tuple(node.fragment_ids)
         merge_keys = list(node.merge_keys) if node.merge_keys else None
         device = self.device
+        ladder = self.stabilizer.ladder if self.stabilizer is not None else None
         return [
             lambda ctx: RemoteSourceOperator(
-                ctx["make_remote_source"](fragment_ids), merge_keys, device=device,
+                ctx["make_remote_source"](fragment_ids), merge_keys, ladder=ladder,
+                device=device,
             )
         ], schema
 
     def _visit_FilterNode(self, node: P.FilterNode):
         chain, schema = self._visit(node.child)
-        flt = self._bind(node.predicate, schema)
-        self._append_fp(chain, make_filter_project_fn(flt, self._identity(schema)))
+
+        def build():
+            flt = self._bind(node.predicate, schema)
+            return make_filter_project_fn(flt, self._identity(schema)), schema
+
+        fn, _ = self._cached_fp(build, schema, ("flt", repr(node.predicate)))
+        self._append_fp(chain, fn, schema, schema)
         return chain, schema
 
     def _visit_ProjectNode(self, node: P.ProjectNode):
         child = node.child
-        flt = None
+        predicate = None
         if isinstance(child, P.FilterNode):
             chain, schema = self._visit(child.child)
-            flt = self._bind(child.predicate, schema)
+            predicate = child.predicate
         else:
             chain, schema = self._visit(child)
-        bounds = [self._bind(e, schema) for e in node.exprs]
-        self._append_fp(chain, make_filter_project_fn(flt, bounds))
-        return chain, [(b.type, b.dictionary) for b in bounds]
+
+        def build():
+            flt = self._bind(predicate, schema) if predicate is not None else None
+            bounds = [self._bind(e, schema) for e in node.exprs]
+            return make_filter_project_fn(flt, bounds), [(b.type, b.dictionary) for b in bounds]
+
+        fingerprint = ("proj", repr(predicate) if predicate is not None else None,
+                       tuple(repr(e) for e in node.exprs))
+        fn, out_schema = self._cached_fp(build, schema, fingerprint)
+        self._append_fp(chain, fn, schema, out_schema)
+        return chain, out_schema
 
     def _visit_AggregateNode(self, node: P.AggregateNode):
         mxu = self._try_mxu_join_agg(node)
@@ -266,6 +443,9 @@ class LocalPlanner:
         ]
         groups = list(node.group_channels)
         step = node.step
+        # the input classes before the fused stage is absorbed
+        # (filter/project keeps capacity, so they flow through)
+        src_caps = getattr(chain[-1], "out_caps", None) if chain else None
         pre = self._take_fused(chain)
         device = self.device
         chain.append(
@@ -275,10 +455,14 @@ class LocalPlanner:
                 pre_fn=pre, memory_context=_mem_ctx(ctx), step=step,
             )
         )
+        warmer = _AggWarmer(groups, specs, schema, step, device)
         if step == "partial":
             from trino_tpu_torch.exec.operators import partial_output_schema
 
-            return chain, partial_output_schema(specs, groups, schema)
+            out_schema = partial_output_schema(specs, groups, schema)
+            self._record_kernel_warmup("HashAggregationOperator", warmer, schema,
+                                       out_schema, src_caps)
+            return chain, out_schema
 
         def _out_dict(a):
             # results taken from the argument column keep its dictionary;
@@ -300,6 +484,8 @@ class LocalPlanner:
                 (a.out_type, schema[len(groups) + 2 * i][1])
                 for i, a in enumerate(node.aggs)
             ]
+        self._record_kernel_warmup("HashAggregationOperator", warmer, schema,
+                                   out_schema, src_caps)
         return chain, out_schema
 
     def _try_mxu_join_agg(self, node: P.AggregateNode):
@@ -565,6 +751,8 @@ class LocalPlanner:
     def _visit_JoinNode(self, node: P.JoinNode):
         build_chain, build_schema = self._visit(node.right)
         probe_chain, probe_schema = self._visit(node.left)
+        build_caps = getattr(build_chain[-1], "out_caps", None) if build_chain else None
+        probe_caps = getattr(probe_chain[-1], "out_caps", None) if probe_chain else None
         key = self._key()
         device = self.device
 
@@ -612,6 +800,7 @@ class LocalPlanner:
                     )
                     return op
 
+                df_scan_factory.out_caps = getattr(scan_factory, "out_caps", None)
                 probe_chain[0] = df_scan_factory
             probe_chain.append(lambda ctx: DynamicFilterOperator(bridge_of(ctx), lkeys))
         probe_chain.append(
@@ -620,7 +809,17 @@ class LocalPlanner:
             )
         )
         if kind in ("semi", "anti"):
-            return probe_chain, probe_schema
-        if kind in ("mark", "mark_exists"):
-            return probe_chain, probe_schema + [(T.BOOLEAN, None)]
-        return probe_chain, probe_schema + build_schema
+            out_schema = probe_schema
+        elif kind in ("mark", "mark_exists"):
+            out_schema = probe_schema + [(T.BOOLEAN, None)]
+        else:
+            out_schema = probe_schema + build_schema
+        # a residual join is not warmed: its residual closure belongs to
+        # this plan, and the dead-batch warmer does not rebuild it
+        if probe_caps and build_caps and residual_fn is None:
+            self._record_kernel_warmup(
+                "LookupJoinOperator",
+                _JoinWarmer(lkeys, rkeys, kind, probe_schema, build_schema, build_caps[0],
+                            device),
+                probe_schema, out_schema, probe_caps)
+        return probe_chain, out_schema

@@ -3,8 +3,11 @@
 Counterpart of trino_tpu/sql/validate.py's logical part: the four
 checkers of LOGICAL_CHECKERS, validate_logical, the fragment-level
 checks over sql/fragmenter.py's SubPlan (validate_subplan) and the
-determinism checks. The shape census counts XLA lowerings and waits for
-the compile tier (ROADMAP §1 item 13).
+determinism checks, and the shape census (`shape_census`, Lowering):
+the (operator, capacity, dtype-sig) classes a plan will run, which
+EXPLAIN ANALYZE prints beside the classes its operators produced, the
+planner's warmup predicts, and a task checks against the warm
+registry.
 
 Analogue of Trino's sanity/PlanSanityChecker (ValidateDependenciesChecker,
 TypeValidator, NoDuplicatePlanNodeIdsChecker, the AddExchanges
@@ -711,45 +714,235 @@ def check_sql_stability(sql: str, what: str = "statement") -> None:
         )
 
 
-def check_plan_determinism(
-    plan_once: Callable[[], P.PlanNode], what: str = "plan"
-) -> None:
-    """PlanDeterminismChecker analogue: run the full planning pipeline
-    twice over the same AST; the EXPLAIN renderings must be
-    byte-identical (a nondeterministic rule poisons the plan cache and
-    makes EXPLAIN lie about what executed)."""
-    a = P.explain_text(plan_once())
-    b = P.explain_text(plan_once())
-    if a == b:
-        return
-    for la, lb in zip(a.splitlines(), b.splitlines()):
-        if la != lb:
-            raise PlanValidationError(
-                "determinism", "Output",
-                f"{what}: two plannings diverge: {la.strip()!r} vs "
-                f"{lb.strip()!r}",
+# -- compile-churn static analyzer -------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Lowering:
+    """One expected shape class: (operator, padded capacity class, dtype
+    signature), the key the reference compiles one XLA program under and
+    the port launches one set of kernel shapes for. `retry_variant`
+    marks classes that appear only when dynamic-filter pruning
+    re-buckets capacities across retry attempts."""
+
+    operator: str
+    capacity: int
+    dtypes: Tuple[str, ...]
+    retry_variant: bool = False
+    # any column in the class is array/map/row-typed: no scalar device
+    # layout exists, so the class is ineligible for zero-batch warmup
+    # AND for resident pinning (resident/fastlane skips it) — the census
+    # names these classes instead of letting them vanish silently
+    nested: bool = False
+
+
+def nested_column_types(types) -> List[str]:
+    """The nested-kind entries in a column-type set — the shared
+    eligibility predicate for warmup and resident pinning. Non-empty
+    means 'skip, and say so' (resident.skips_nested / census [nested]
+    marker), never a silent drop."""
+    return [str(t) for t in types if getattr(t, "is_nested", False)]
+
+
+def _sig(fields: Sequence[P.Field]) -> Tuple[str, ...]:
+    return tuple(str(f.type) for f in fields)
+
+
+def _cap(rows: float, batch_rows: int, ladder=None) -> int:
+    from trino_tpu_torch.block import bucket_capacity
+
+    n = int(min(max(rows, 1.0), float(batch_rows)))
+    if ladder is not None:
+        # snap through the session's capacity ladder so the census
+        # predicts the same classes a stabilized scan will produce
+        return ladder.rung(n)
+    return bucket_capacity(n)
+
+
+def _tail_rows(rows: float, batch_rows: int) -> float:
+    """Rows in the final (smaller) chunk of a table larger than
+    batch_rows — 0 when the table fits one chunk or divides evenly."""
+    r = int(rows)
+    if r > batch_rows and r % batch_rows:
+        return float(r % batch_rows)
+    return 0.0
+
+
+_FUSE_CONSUMERS = (P.AggregateNode, P.SortNode, P.TopNNode)
+
+
+def shape_census(
+    root: P.PlanNode,
+    catalogs,
+    batch_rows: int = 1 << 20,
+    dynamic_filtering: bool = True,
+    stats=None,
+    ladder=None,
+) -> List[Lowering]:
+    """Enumerate the distinct lowerings this (fragment) plan will
+    request, mirroring LocalPlanner's operator selection and fusion:
+    consecutive Filter/Project stages share one FilterProjectOperator
+    program, and one feeding directly into an Aggregate/Sort/TopN runs
+    inside the consumer's kernel (pre_fn) and compiles no program of its
+    own. Capacities come from the stats framework, so the census is as
+    exact as the connector's row counts. Tables larger than batch_rows
+    scan in batch_rows chunks plus one smaller tail chunk, so scans
+    (and filter/project chains directly over them) contribute a tail
+    capacity class too. `ladder` (compile.shapes.CapacityLadder) snaps
+    predicted capacities onto the session's stabilization ladder."""
+    if stats is None:
+        from trino_tpu_torch.sql.stats import StatsCalculator
+
+        stats = StatsCalculator(catalogs)
+    classes: List[Lowering] = []
+
+    def rows(node: P.PlanNode) -> float:
+        try:
+            return stats.stats(node).row_count
+        except Exception:
+            return float(batch_rows)
+
+    def add(op: str, rc: float, fields, retry_variant: bool = False):
+        classes.append(
+            Lowering(
+                op, _cap(rc, batch_rows, ladder), _sig(fields), retry_variant,
+                nested=bool(
+                    nested_column_types([f.type for f in fields])
+                ),
             )
-    raise PlanValidationError(
-        "determinism", "Output",
-        f"{what}: two plannings differ in length "
-        f"({len(a.splitlines())} vs {len(b.splitlines())} lines)",
-    )
-
-
-def check_sql_stability(sql: str, what: str = "statement") -> None:
-    """Formatter leg of the determinism checker: formatting must be a
-    fixpoint (format(parse(format(parse(sql)))) == format(parse(sql))).
-    Prepared-statement plan-cache keys are formatted text (engine.py),
-    so an unstable formatter silently splits the cache per rendering."""
-    from trino_tpu_torch.sql.formatter import format_statement
-    from trino_tpu_torch.sql.parser import parse
-
-    once = format_statement(parse(sql))
-    twice = format_statement(parse(once))
-    if once != twice:
-        raise PlanValidationError(
-            "determinism", "SQL",
-            f"{what}: formatter is not idempotent: {once!r} reformats "
-            f"to {twice!r}",
         )
 
+    def visit(node: P.PlanNode, fused_into_consumer: bool = False) -> None:
+        if isinstance(node, (P.OutputNode, P.ExchangeNode)):
+            visit(node.child, fused_into_consumer)
+            return
+        if isinstance(node, (P.FilterNode, P.ProjectNode)):
+            # walk to the bottom of the maximal Filter/Project chain
+            bottom = node
+            while isinstance(bottom.child, (P.FilterNode, P.ProjectNode)):
+                bottom = bottom.child
+            if not fused_into_consumer:
+                # filters keep capacity (live-mask discipline): the
+                # chain's class is the INPUT capacity at the chain's
+                # output signature
+                src = rows(bottom.child)
+                add("FilterProjectOperator", src, node.fields)
+                if isinstance(bottom.child, P.ScanNode):
+                    tail = _tail_rows(src, batch_rows)
+                    if tail:
+                        add("FilterProjectOperator", tail, node.fields)
+            visit(bottom.child)
+            return
+        if isinstance(node, P.ScanNode):
+            rc = rows(node)
+            add("TableScanOperator", rc, node.fields)
+            tail = _tail_rows(rc, batch_rows)
+            if tail:
+                add("TableScanOperator", tail, node.fields)
+            return
+        if isinstance(node, P.ValuesNode):
+            add("ValuesOperator", float(len(node.rows)), node.fields)
+            return
+        if isinstance(node, P.RemoteSourceNode):
+            add("RemoteSourceOperator", rows(node), node.fields)
+            return
+        if isinstance(node, P.AggregateNode):
+            if any(a.distinct for a in node.aggs):
+                add("HashAggregationOperator", rows(node.child), node.fields)
+            add("HashAggregationOperator", rows(node), node.fields)
+            visit(node.child, fused_into_consumer=True)
+            return
+        if isinstance(node, (P.SortNode, P.TopNNode)):
+            op = ("TopNOperator" if isinstance(node, P.TopNNode)
+                  else "SortOperator")
+            add(op, rows(node), node.fields)
+            visit(node.child, fused_into_consumer=True)
+            return
+        if isinstance(node, P.JoinNode):
+            probe_rows = rows(node.left)
+            if node.kind == "cross":
+                add("CrossJoinOperator", rows(node), node.fields)
+            else:
+                if node.kind in ("inner", "semi") and dynamic_filtering:
+                    # the filter compacts probe batches to a DATA-
+                    # DEPENDENT capacity; which capacity depends on which
+                    # retry attempt's build side survives, so every
+                    # pruned class is a fresh lowering no warm run covers
+                    add("DynamicFilterOperator", probe_rows,
+                        node.left.fields, retry_variant=True)
+                # an equi-join's output rides at the bucketed MATCH
+                # capacity, which is data-dependent: selective keys land
+                # near the output-row estimate, FK-ish multiplicity
+                # lands near the probe's own class. Report both ends of
+                # that band (they coincide and dedup when the estimator
+                # is confident) so the census bounds join churn from
+                # above instead of trusting a collapsed estimate.
+                add("LookupJoinOperator", rows(node), node.fields)
+                add("LookupJoinOperator", probe_rows, node.fields)
+            visit(node.left)
+            visit(node.right)
+            return
+        if isinstance(node, P.WindowNode):
+            add("WindowOperator", rows(node), node.fields)
+        elif isinstance(node, P.UnnestNode):
+            add("UnnestOperator", rows(node), node.fields)
+        elif isinstance(node, P.MatchRecognizeNode):
+            add("MatchRecognizeOperator", rows(node), node.fields)
+        elif isinstance(node, P.LimitNode):
+            add("LimitOperator", rows(node), node.fields)
+        elif isinstance(node, P.EnforceSingleRowNode):
+            add("EnforceSingleRowOperator", rows(node), node.fields)
+        elif isinstance(node, P.UnionAllNode):
+            for inp in node.inputs:
+                add("BufferSource", rows(inp), inp.fields)
+        for c in node.children():
+            visit(c)
+
+    visit(root)
+    # distinct classes only: a repeated (op, cap, sig) hits the jit cache
+    seen: Set[Lowering] = set()
+    out: List[Lowering] = []
+    for c in classes:
+        if c not in seen:
+            seen.add(c)
+            out.append(c)
+    return out
+
+
+def census_line(classes: List[Lowering], warn_threshold: int = 0) -> str:
+    """One summary line for EXPLAIN (ANALYZE) output."""
+    n = len(classes)
+    variants = sum(1 for c in classes if c.retry_variant)
+    nested = sum(1 for c in classes if c.nested)
+    line = f"expected_xla_lowerings={n}"
+    if variants:
+        line += f" ({variants} retry-variant)"
+    if nested:
+        line += f" ({nested} nested: warmup/resident-ineligible)"
+    if warn_threshold and n > warn_threshold:
+        line += (
+            f"  WARNING: exceeds compile_churn_warn_threshold="
+            f"{warn_threshold}; expect XLA recompilation stalls "
+            "(see ROADMAP shape stabilization)"
+        )
+    return line
+
+
+def census_text(
+    classes: List[Lowering],
+    warn_threshold: int = 0,
+    observed: Optional[int] = None,
+) -> str:
+    """Multi-line census block: summary + one line per class."""
+    lines = ["Compile-churn census: " + census_line(classes, warn_threshold)]
+    if observed is not None:
+        lines[0] += f" observed_shape_classes={observed}"
+    for c in sorted(classes, key=lambda c: (c.operator, c.capacity)):
+        mark = " [retry-variant]" if c.retry_variant else ""
+        if c.nested:
+            mark += " [nested]"
+        lines.append(
+            f"  {c.operator} cap={c.capacity} "
+            f"[{', '.join(c.dtypes)}]{mark}"
+        )
+    return "\n".join(lines)
