@@ -274,9 +274,38 @@ Phases (any failure exits nonzero):
                  warmed queries and must pass. Launches count apart
                  (`serve_launches`, `serve_dead_launches`,
                  `serve_warm_live_launches`).
- 15. explore   — both explorer entry points (trino_tpu_torch.explore),
+ 15. adaptive  — the adaptive and recovery tiers on the card
+                 (adaptive_identities), on seeded memory tables: the
+                 two-join GROUP BY over facts (ADAPTIVE_FACT_ROWS rows)
+                 and two dimensions of ADAPTIVE_DIM_ROWS rows reported at
+                 ADAPTIVE_LIE of them re-plans twice with adaptive_execution
+                 on, equal to adaptive off, and its second execution takes
+                 both barriers from the spool and builds no program; the
+                 join into `big` (ADAPTIVE_SPILL_ROWS unique keys, past the
+                 spool bound) re-plans into spill mode (spill_builds == 1,
+                 spill bytes > 0), equal to its in-memory twin; SALT_SQL
+                 over zipf(1.4) keys on MESH_SHARDS shards of the card runs
+                 a salted exchange (the hot key's build rows on every
+                 shard), byte-equal to the page plane; mesh checkpoints at
+                 every chunk with a one-shot MeshDeviceLost at chunk K // 2
+                 resume once with every chunk executed once, for Q_GROUP
+                 over lineitem at sf1 (RECOVERY_CHUNK_ROWS a chunk), phase
+                 mesh's chunked join and the salted join, each equal to its
+                 unfaulted run and its page-plane twin (checkpoint bytes and
+                 milliseconds a snapshot printed); a QUERY retry of
+                 RECOVERY_STAGE_SQL at sf1 after the root task failed once
+                 replays the finished stages from the spool and scans no
+                 table again, and under retry_policy = 'task' a second
+                 submission replays the committed stages. bounds,
+                 run_owner and take_flat at the largest arguments they were
+                 given over the re-uploaded builds and over restored
+                 carries are held against their plain versions;
+                 tests/test_torch_card.py's checkpoint and salted-exchange
+                 cases run beside the phase and must pass. Launches count
+                 apart (`adaptive_launches`).
+ 16. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 16. parity    — the queries, and the window and set-operation queries
+ 17. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
                  queries at sf0.1, on the card and on the CPU must be
@@ -299,15 +328,16 @@ Phases (any failure exits nonzero):
                  their pools (MEMORY_QS). (Phase write's and phase files'
                  sf0.1 runs are left out to keep the run inside half its
                  time limit; their sf1 phases stay.)
- 17. summary   — each kind of join-path call (the probe's bounds, the
+ 18. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
                  entry with its launches in phases nested, zones, write,
-                 statements, files, spill, distributed, wire and mesh beside
-                 the main path's, and phase serve's three counts; take_flat's
+                 statements, files, spill, distributed, wire, mesh and
+                 adaptive beside the main path's, and phase serve's three
+                 counts; take_flat's
                  entry with its summed
                  main-path time per family, and each of its
                  records with the table sectors its indices touch, which
@@ -5263,6 +5293,541 @@ def phase_serve(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# phase adaptive: the adaptive and recovery tiers at full size
+ADAPTIVE_FACT_ROWS = 1 << 22  # facts: k1, k2, v, all int64 (about 100.7 MB on the card)
+ADAPTIVE_DIM_ROWS = 200_000  # dim1, dim2: k, grp = k % 100, a varchar name
+ADAPTIVE_SPILL_ROWS = 1 << 20  # big: unique keys, past MAX_SPOOL_ROWS
+ADAPTIVE_SALT_KEYS = 64  # the salted join's keys, zipf(1.4)
+ADAPTIVE_SALT_DIM_ROWS = 32
+ADAPTIVE_SEED = 19
+ADAPTIVE_LIE = 0.1  # the dimensions' row counts are reported at this factor
+ADAPTIVE_TWO_JOIN = ("select d1.grp, d2.grp, sum(f.v) from facts f "
+                     "join dim1 d1 on f.k1 = d1.k join dim2 d2 on f.k2 = d2.k "
+                     "group by d1.grp, d2.grp order by 1, 2")
+ADAPTIVE_SPILL_SQL = "select count(*), sum(f.v + b.tag) from facts f join big b on f.k1 = b.k"
+# tests/test_skew_join.py's SALT_SQL and tests/test_recovery.py's
+# Q_GROUP (tests/test_torch_recovery.py keeps the copies equal)
+SALT_SQL = "select sum(f.v + d.w), count(*) from facts f join dim d on f.k1 = d.k"
+RECOVERY_Q_GROUP = (
+    "select l_returnflag, l_linestatus, count(*) c, "
+    "sum(l_quantity) q, min(l_orderkey) mn, max(l_orderkey) mx "
+    "from lineitem group by l_returnflag, l_linestatus "
+    "order by l_returnflag, l_linestatus"
+)
+RECOVERY_CHUNK_ROWS = 131_072  # lineitem at sf1 over 4 shards: about 12 chunks
+# phase distributed's GROUP BY o_clerk over the customer-orders join, its
+# sum over an integer column: a stage whose output holds a decimal is not
+# recordable (decimals do not round-trip through Python rows)
+RECOVERY_STAGE_SQL = ("select o_clerk, count(*), sum(o_custkey) from customer "
+                      "join orders on c_custkey = o_custkey group by o_clerk order by o_clerk")
+
+
+def lie_about_rows(conn, factors) -> None:
+    """Scale the connector's reported row counts per table (the
+    forced-misestimate fixture of tests/test_adaptive.py)."""
+    import dataclasses
+
+    real = conn.metadata.get_table_statistics
+
+    def lying(handle):
+        ts = real(handle)
+        f = factors.get(handle.table)
+        if f is not None and ts.row_count is not None:
+            return dataclasses.replace(ts, row_count=ts.row_count * f)
+        return ts
+
+    conn.metadata.get_table_statistics = lying
+
+
+def zipf_keys(rng, n, n_keys, s=1.4):
+    import numpy as np
+
+    p = 1.0 / np.arange(1, n_keys + 1, dtype=np.float64) ** s
+    return rng.choice(n_keys, size=n, p=p / p.sum()).astype(np.int64)
+
+
+def adaptive_tables(fact_rows: int, dim_rows: int, spill_rows: int, seed: int = ADAPTIVE_SEED):
+    """The phase's memory connector, its tables made from `seed`: facts
+    (k1, k2 in [0, dim_rows), v in [0, 100)), dim1 and dim2 (k, grp =
+    k % 100, name), big (spill_rows unique keys k, tag), and the salted
+    join's sfacts (k1 zipf over ADAPTIVE_SALT_KEYS keys, v) and sdim
+    (ADAPTIVE_SALT_DIM_ROWS keys drawn the same way, w)."""
+    import numpy as np
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.memory import create_memory_connector
+    from trino_tpu_torch.connectors.spi import ColumnMetadata as C
+
+    rng = np.random.default_rng(seed)
+    conn = create_memory_connector()
+    conn.load_table("s", "facts", [C("k1", T.BIGINT), C("k2", T.BIGINT), C("v", T.BIGINT)],
+                    [rng.integers(0, dim_rows, fact_rows), rng.integers(0, dim_rows, fact_rows),
+                     rng.integers(0, 100, fact_rows)])
+    k = np.arange(dim_rows, dtype=np.int64)
+    names = np.array([f"n{i % 997}" for i in range(dim_rows)], dtype=object)
+    for name in ("dim1", "dim2"):
+        conn.load_table("s", name, [C("k", T.BIGINT), C("grp", T.BIGINT), C("name", T.VARCHAR)],
+                        [k, k % 100, names])
+    conn.load_table("s", "big", [C("k", T.BIGINT), C("tag", T.BIGINT)],
+                    [rng.permutation(spill_rows).astype(np.int64),
+                     rng.integers(0, 1000, spill_rows)])
+    conn.load_table("s", "sfacts", [C("k1", T.BIGINT), C("v", T.BIGINT)],
+                    [zipf_keys(rng, fact_rows, ADAPTIVE_SALT_KEYS), rng.integers(0, 100, fact_rows)])
+    conn.load_table("s", "sdim", [C("k", T.BIGINT), C("w", T.BIGINT)],
+                    [zipf_keys(rng, ADAPTIVE_SALT_DIM_ROWS, ADAPTIVE_SALT_KEYS),
+                     rng.integers(0, 10, ADAPTIVE_SALT_DIM_ROWS)])
+    return conn
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(r, sql, device):
+    t0 = time.perf_counter()
+    res = r.execute(sql)
+    _sync(device)
+    return res, time.perf_counter() - t0
+
+
+def adaptive_replan(conn, device, log, lie=ADAPTIVE_LIE, gate=None) -> dict:
+    """The two-join query with both dimensions reported at `lie` of
+    their rows: adaptive_execution re-plans twice, the rows equal the
+    query with adaptive off, and a second execution takes both barriers
+    from the spool and builds no program (bench.py --adaptive-smoke's
+    gate, run as a check)."""
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+    from trino_tpu_torch.runtime.metrics import METRICS
+
+    lie_about_rows(conn, {"dim1": lie, "dim2": lie})
+
+    def runner(**kw):
+        r = LocalQueryRunner(Session(catalog="memory", schema="s", **kw), device=device)
+        r.register_catalog("memory", conn)
+        return r
+
+    off, _ = _timed(runner(), ADAPTIVE_TWO_JOIN, device)
+    r = runner(adaptive_execution=True, adaptive_replan_threshold=2.0)
+    cold, cold_s = _timed(r, ADAPTIVE_TWO_JOIN, device)
+    rep = r._last_adaptive_report.as_dict()
+    if rep["replans"] != 2 or cold.rows != off.rows:
+        raise AssertionError(f"adaptive re-plan: replans={rep['replans']}, rows equal to the "
+                             f"adaptive-off twin: {cold.rows == off.rows}")
+    built0 = METRICS.counter("programs_built")
+    gate = gate if gate is not None else {}
+    gate["on"] = True  # the warm run probes the re-uploaded dimensions
+    try:
+        warm, warm_s = _timed(r, ADAPTIVE_TWO_JOIN, device)
+    finally:
+        gate["on"] = False
+    built = METRICS.counter("programs_built") - built0
+    wrep = r._last_adaptive_report.as_dict()
+    if wrep["spool_hits"] != 2 or built != 0 or warm.rows != off.rows:
+        raise AssertionError(f"adaptive warm re-plan: spool_hits={wrep['spool_hits']}, "
+                             f"programs_built={built}, rows equal: {warm.rows == off.rows}")
+    out = {"rows": len(cold.rows), "cold_s": cold_s, "warm_s": warm_s, "report": rep,
+           "warm_report": wrep, "warm_programs_built": built}
+    log(f"[adaptive] re-plan: {len(cold.rows)} groups, replans={rep['replans']} "
+        f"(observations {[(o['site'], o['estimated'], o['observed']) for o in rep['observations']]}), "
+        f"cold {cold_s} s, warm {warm_s} s with spool_hits={wrep['spool_hits']} and "
+        f"programs_built={built}; rows equal to adaptive off")
+    return out
+
+
+def adaptive_spill(conn, device, log, spill_min_rows: int = 1 << 18, lie=ADAPTIVE_LIE) -> dict:
+    """The join into `big` (reported at `lie` of its rows, more than
+    MAX_SPOOL_ROWS and skew_spill_min_rows of them): the barrier
+    overflows the spool, the re-plan sets spill_build, the build opens
+    its grace partitions before its first batch, and the rows equal the
+    join with adaptive off."""
+    from trino_tpu_torch.engine import LocalQueryRunner, Session
+    from trino_tpu_torch.exec import spill
+
+    lie_about_rows(conn, {"big": lie})
+
+    def runner(**kw):
+        r = LocalQueryRunner(Session(catalog="memory", schema="s", **kw), device=device)
+        r.register_catalog("memory", conn)
+        return r
+
+    twin, twin_s = _timed(runner(), ADAPTIVE_SPILL_SQL, device)
+    r = runner(adaptive_execution=True, adaptive_replan_threshold=2.0,
+               skew_spill_min_rows=spill_min_rows)
+    s0 = spill.stats()
+    res, wall = _timed(r, ADAPTIVE_SPILL_SQL, device)
+    s1 = spill.stats()
+    moved = {k: s1[k] - s0.get(k, 0) for k in s1}
+    rep = r._last_adaptive_report.as_dict()
+    if rep["spill_builds"] != 1 or moved.get("spilled_bytes", 0) <= 0 or res.rows != twin.rows:
+        raise AssertionError(f"adaptive spill: spill_builds={rep['spill_builds']}, spill {moved}, "
+                             f"rows equal to the twin: {res.rows == twin.rows}")
+    log(f"[adaptive] spill-mode re-plan: {res.rows}, spill_builds=1, spill {moved}, "
+        f"{wall} s (in-memory twin {twin_s} s)")
+    return {"rows": res.rows, "wall_s": wall, "twin_wall_s": twin_s, "spill": moved,
+            "report": rep}
+
+
+def _emit_spy(seen):
+    """A ChunkedMeshRunner._emit_exchange that also records, for each
+    salted build exchange, the hot values and each shard's live keys."""
+    from trino_tpu_torch.parallel import mesh_chunk
+
+    orig = mesh_chunk.ChunkedMeshRunner._emit_exchange
+
+    def spy(self, frag, batches, ctx):
+        orig(self, frag, batches, ctx)
+        sk = self.skew_map.get(frag.id)
+        if sk is not None and sk[0] == "build":
+            ch = frag.output_channels[0]
+            seen.append((sk[1], [b.columns[ch].data[b.live_mask()].tolist()
+                                 for b in ctx[frag.id]]))
+
+    return orig, spy
+
+
+def adaptive_salted(conn, device, mesh_devices, log, gate=None) -> dict:
+    """SALT_SQL over sfacts and sdim on the shard mesh with salting on:
+    the controller classifies the hot build keys, the mesh exchange runs
+    salted (the hot key's build rows on every shard, each cold key's on
+    one), and the rows are byte-equal to the page-plane twin's."""
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.parallel import mesh_chunk
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+    from trino_tpu_torch.runtime.metrics import METRICS
+
+    sql = SALT_SQL.replace("facts f", "sfacts f").replace("dim d", "sdim d")
+
+    def runner(**kw):
+        r = DistributedQueryRunner(Session(catalog="memory", schema="s",
+                                           broadcast_join_threshold=0, **kw),
+                                   n_workers=DIST_WORKERS, hash_partitions=DIST_WORKERS,
+                                   device=device, mesh_devices=mesh_devices)
+        r.register_catalog("memory", conn)
+        return r
+
+    twin, twin_s = _timed(runner(mesh_execution=False), sql, device)
+    seen: list = []
+    orig, spy = _emit_spy(seen)
+    r = runner(adaptive_execution=True, skewed_join_salting=True)
+    se0 = METRICS.counter("skew.salted_exchanges")
+    mesh_chunk.ChunkedMeshRunner._emit_exchange = spy
+    gate = gate if gate is not None else {}
+    gate["on"] = True  # its join probes the re-uploaded build
+    try:
+        res, wall = _timed(r, sql, device)
+    finally:
+        gate["on"] = False
+        mesh_chunk.ChunkedMeshRunner._emit_exchange = orig
+    salted = METRICS.counter("skew.salted_exchanges") - se0
+    rep = r._last_adaptive_report.as_dict()
+    if res.rows != twin.rows or res.data_plane != "mesh" or salted < 1 or not seen:
+        raise AssertionError(f"salted join: rows equal to the page plane: {res.rows == twin.rows},"
+                             f" plane {res.data_plane} ({r.last_mesh_fallback}), "
+                             f"salted_exchanges={salted}, report {rep}")
+    hot, per_shard = seen[-1]
+    for key in hot:
+        counts = [keys.count(key) for keys in per_shard]
+        if min(counts) <= 0 or len(set(counts)) != 1:
+            raise AssertionError(f"salted join: hot key {key}'s build rows per shard {counts}")
+    cold = {k for keys in per_shard for k in keys if k not in hot}
+    if any(sum(k in keys for keys in per_shard) != 1 for k in cold):
+        raise AssertionError("salted join: a cold build key sits on more than one shard")
+    log(f"[adaptive] salted join: {res.rows[0][1]} joined rows, sum {res.rows[0][0]}, "
+        f"hot keys {list(hot)} on every one of {len(per_shard)} shards, "
+        f"salted_exchanges={salted}, heavy_hitters={rep['heavy_hitters']}, {wall} s "
+        f"(page plane {twin_s} s); rows byte-equal to the page plane")
+    return {"rows": res.rows, "joined_rows": res.rows[0][1], "wall_s": wall,
+            "twin_wall_s": twin_s, "salted_exchanges": salted, "hot_keys": list(hot),
+            "report": rep}, twin.rows
+
+
+class OneShotFault:
+    """MESH_FAULT_HOOK raising MeshDeviceLost the first time the chunk
+    loop reaches `target` (tests/test_recovery.py's); `fired` tells the
+    kernel captures that the run now works on restored carries."""
+
+    def __init__(self, target, gate=None):
+        self.target, self.fired, self.gate = target, False, gate
+
+    def __call__(self, k, K):
+        from trino_tpu_torch.parallel.mesh_chunk import MeshDeviceLost
+
+        if not self.fired and k == self.target:
+            self.fired = True
+            if self.gate is not None:
+                self.gate["on"] = True
+            raise MeshDeviceLost(f"injected mesh fault at chunk {k}/{K}")
+
+
+def adaptive_resume(name, mesh, twin, sql, device, log, gate=None) -> dict:
+    """`sql` on `mesh` (checkpoints every chunk): an unfaulted run, then
+    a run with a one-shot MeshDeviceLost at chunk K // 2. The faulted
+    run resumes once from chunk K // 2, executes every chunk once, stays
+    on the mesh, and its rows equal the unfaulted run's and `twin`'s
+    (the page plane's rows, or a runner to get them from)."""
+    from trino_tpu_torch.parallel import mesh_chunk
+
+    clean, clean_s = _timed(mesh, sql, device)
+    K = mesh_chunk.last_run_info()["chunks"]
+    fault = OneShotFault(K // 2, gate)
+    mesh_chunk.MESH_FAULT_HOOK = fault
+    try:
+        res, wall = _timed(mesh, sql, device)
+    finally:
+        mesh_chunk.MESH_FAULT_HOOK = None
+        if gate is not None:
+            gate["on"] = False
+    info = mesh_chunk.last_run_info()
+    want = twin if isinstance(twin, list) else _timed(twin, sql, device)[0].rows
+    got = (info.get("resumes"), info.get("resumed_from_chunk"), info.get("executed_chunk_steps"))
+    if (not fault.fired or got != (1, K // 2, K) or res.rows != clean.rows or res.rows != want
+            or mesh.last_mesh_fallback is not None or res.data_plane != "mesh"):
+        raise AssertionError(f"resume {name}: K={K}, (resumes, resumed_from_chunk, "
+                             f"executed_chunk_steps)={got}, rows equal to the unfaulted run "
+                             f"{res.rows == clean.rows} and the page plane {res.rows == want}, "
+                             f"fallback {mesh.last_mesh_fallback!r}")
+    n_ck = max(int(info.get("checkpoints") or 0), 1)
+    rec = {"chunks": K, "chunk_cap": info.get("chunk_cap"), "clean_s": clean_s, "wall_s": wall,
+           "checkpoints": info.get("checkpoints"),
+           "checkpoint_bytes": info.get("checkpoint_bytes"),
+           "ms_per_snapshot": 1e3 * float(info.get("checkpoint_s") or 0.0) / n_ck}
+    log(f"[adaptive] resume {name}: K={K} (chunk_cap {rec['chunk_cap']}), fault at chunk "
+        f"{K // 2}, resumed once from it, {K} chunk steps executed; {rec['checkpoints']} "
+        f"checkpoints of {rec['checkpoint_bytes']} bytes, {rec['ms_per_snapshot']} ms a "
+        f"snapshot; {wall} s faulted against {clean_s} s unfaulted; rows equal to both twins")
+    return rec
+
+
+def adaptive_stage_recovery(schema: str, device, log) -> dict:
+    """RECOVERY_STAGE_SQL at `schema` on the page plane: under
+    retry_policy = 'query' with recovery_spool_stages on and the root
+    fragment's task failed once, the retry replays the finished stages
+    from the spool (spooled_stage_hits >= 1) and no retry task scans a
+    table; then under retry_policy = 'task' a second submission replays
+    the committed stages. Rows equal the clean run's throughout."""
+    from trino_tpu_torch.adaptive import SPOOL
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+    from trino_tpu_torch.runtime.failure import FailureInjector
+    from trino_tpu_torch.runtime.metrics import METRICS
+    from trino_tpu_torch.sql import plan as P
+
+    conn = create_tpch_connector()
+
+    def runner(**kw):
+        r = DistributedQueryRunner(Session(catalog="tpch", schema=schema, mesh_execution=False,
+                                           recovery_spool_stages=True, **kw),
+                                   n_workers=DIST_WORKERS, hash_partitions=DIST_WORKERS,
+                                   device=device)
+        r.register_catalog("tpch", conn)
+        return r
+
+    def scans(node) -> bool:
+        return isinstance(node, P.ScanNode) or any(scans(c) for c in node.children())
+
+    r = runner(retry_policy="query", query_retry_count=2)
+    clean, clean_s = _timed(r, RECOVERY_STAGE_SQL, device)
+    root_id = max(si["fragment_id"] for si in r._last_stage_infos)
+    inj, specs = FailureInjector(), []
+    for w in r.workers:
+        w.failure_injector = inj
+        orig = w.create_task
+
+        def spy(spec, orig=orig):
+            specs.append(spec)
+            return orig(spec)
+
+        w.create_task = spy
+    inj.inject(where="mid", fragment_id=root_id, attempts=(0,), max_hits=1)
+    hits0 = METRICS.counter("recovery.spooled_stage_hits")
+    res, wall = _timed(r, RECOVERY_STAGE_SQL, device)
+    hits = METRICS.counter("recovery.spooled_stage_hits") - hits0
+    retry = [s for s in specs if "r1." in str(s.task_id)]
+    rescans = sorted({s.task_id.fragment_id for s in retry if scans(s.fragment.root)})
+    if res.rows != clean.rows or r.last_query_attempts != 2 or hits < 1 or not retry or rescans:
+        raise AssertionError(f"stage recovery: rows equal {res.rows == clean.rows}, attempts "
+                             f"{r.last_query_attempts}, spooled_stage_hits {hits}, retry tasks "
+                             f"{len(retry)}, fragments scanned again {rescans}")
+    SPOOL.clear()
+    fte = runner(retry_policy="task")
+    first, first_s = _timed(fte, RECOVERY_STAGE_SQL, device)
+    h1 = METRICS.counter("recovery.spooled_stage_hits")
+    second, second_s = _timed(fte, RECOVERY_STAGE_SQL, device)
+    fte_hits = METRICS.counter("recovery.spooled_stage_hits") - h1
+    if first.rows != clean.rows or second.rows != clean.rows or fte_hits < 1:
+        raise AssertionError(f"stage recovery over FTE: rows equal {first.rows == clean.rows} "
+                             f"{second.rows == clean.rows}, spooled_stage_hits {fte_hits}")
+    SPOOL.clear()
+    log(f"[adaptive] stage recovery {schema}: {len(clean.rows)} rows; QUERY retry after the "
+        f"root failed once: {hits} spooled stage hit(s), {len(retry)} retry tasks, none scanning "
+        f"({wall} s against {clean_s} s clean); FTE second submission: {fte_hits} hit(s), "
+        f"{second_s} s against {first_s} s")
+    return {"rows": len(clean.rows), "clean_s": clean_s, "retry_s": wall,
+            "spooled_stage_hits": hits, "retry_tasks": len(retry), "fte_first_s": first_s,
+            "fte_second_s": second_s, "fte_hits": fte_hits}
+
+
+def adaptive_identities(device, mesh_devices, schema: str, log, fact_rows=ADAPTIVE_FACT_ROWS,
+                        dim_rows=ADAPTIVE_DIM_ROWS, spill_rows=ADAPTIVE_SPILL_ROWS,
+                        chunk_rows=RECOVERY_CHUNK_ROWS, salt_chunk_rows=RECOVERY_CHUNK_ROWS,
+                        spill_min_rows=1 << 18, captures=None) -> dict:
+    """Phase adaptive's steps on `device` (the tpch ones at `schema`):
+    the re-plan, the spill-mode re-plan, the salted mesh join, mesh
+    checkpoints with in-run resume (Q_GROUP, phase mesh's chunked join
+    and the salted join chunked) and stage-output recovery. `captures`
+    ({"reuploaded": gate, "restored": gate}) turns the kernel captures
+    on around the runs over re-uploaded builds and restored carries.
+    tests/test_torch_recovery.py runs this at tiny on the CPU."""
+    from trino_tpu_torch.adaptive import SPOOL
+    from trino_tpu_torch.connectors.tpch import base_row_count, create_tpch_connector
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.recovery import CHECKPOINTS
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+
+    gates = captures or {"reuploaded": {"on": False}, "restored": {"on": False}}
+    SPOOL.clear()
+    CHECKPOINTS.clear()
+    out = {}
+    conn = adaptive_tables(fact_rows, dim_rows, spill_rows)
+    t0 = time.perf_counter()
+    out["replan"] = adaptive_replan(conn, device, log, gate=gates["reuploaded"])
+    out["replan"]["step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["spill"] = adaptive_spill(conn, device, log, spill_min_rows)
+    out["spill"]["step_s"] = time.perf_counter() - t0
+    SPOOL.clear()
+    t0 = time.perf_counter()
+    out["salted"], salt_twin = adaptive_salted(conn, device, mesh_devices, log,
+                                               gate=gates["reuploaded"])
+    out["salted"]["step_s"] = time.perf_counter() - t0
+    SPOOL.clear()
+    t0 = time.perf_counter()
+    sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
+    tpch = create_tpch_connector()
+    resume = {}
+    for name, sql, cat, rows, kw in (
+            ("q_group", RECOVERY_Q_GROUP, "tpch", chunk_rows, {}),
+            ("segment_join", DIST_JOIN, "tpch", chunk_rows,
+             {"broadcast_join_threshold": base_row_count("customer", sf) // 2}),
+            ("salted_chunked", SALT_SQL.replace("facts f", "sfacts f").replace("dim d", "sdim d"),
+             "memory", salt_chunk_rows,
+             {"broadcast_join_threshold": 0, "adaptive_execution": True,
+              "skewed_join_salting": True})):
+        pair = []
+        for mesh_kw in ({"mesh_chunk_rows": rows, "mesh_checkpoint_interval_chunks": 1},
+                        {"mesh_execution": False}):
+            r = DistributedQueryRunner(
+                Session(catalog=cat, schema=schema if cat == "tpch" else "s", **kw, **mesh_kw),
+                n_workers=DIST_WORKERS, hash_partitions=DIST_WORKERS, device=device,
+                mesh_devices=mesh_devices)
+            r.register_catalog(cat, tpch if cat == "tpch" else conn)
+            pair.append(r)
+        twin = salt_twin if name == "salted_chunked" else pair[1]
+        resume[name] = adaptive_resume(name, pair[0], twin, sql, device, log, gates["restored"])
+        SPOOL.clear()
+    out["resume"] = resume
+    out["resume"]["step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["stage_recovery"] = adaptive_stage_recovery(schema, device, log)
+    out["stage_recovery"]["step_s"] = time.perf_counter() - t0
+    CHECKPOINTS.clear()
+    log("[adaptive] step walls (s): " + ", ".join(
+        f"{k} {v['step_s']}" for k, v in out.items()))
+    return out
+
+
+def adaptive_kernel_checks(caps, log) -> dict:
+    """bounds, run_owner and take_flat at the largest arguments each
+    launched with over a re-uploaded build and over restored carries,
+    each against its plain version (check_*: bit-exact)."""
+    held_recs = {}
+    for where, (bd, ro, tf) in caps.items():
+        for name, cap in (("bounds", bd), ("run_owner", ro), ("take_flat", tf)):
+            if not cap.calls:
+                raise AssertionError(f"phase adaptive: {name} never launched on {where}")
+        held_recs[where] = {
+            "bounds": {**check_bounds(f"adaptive {where}", *bd.largest()), "calls": bd.calls},
+            "run_owner": {**check_run_owner(f"adaptive {where}", *ro.largest()),
+                          "calls": ro.calls},
+            "take_flat": {**check_take_flat(f"adaptive {where}", *tf.largest()),
+                          "calls": tf.calls},
+        }
+        log(f"[adaptive] kernels on {where}, at their largest arguments, against their plain "
+            f"versions: " + ", ".join(f"{k} ({v['calls']} launches, max_abs_err "
+                                      f"{v['max_abs_err']})" for k, v in held_recs[where].items()))
+    return held_recs
+
+
+def adaptive_card_tests_start():
+    """tests/test_torch_card.py's checkpoint and salted-exchange cases,
+    in a process of their own beside the phase."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+         "-k", "checkpoint or salted", os.path.join("tests", "test_torch_card.py")],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_adaptive(results: dict) -> None:
+    """The adaptive and recovery tiers on the card (see the module
+    docstring), every launch counted in `adaptive_launches`."""
+    import contextlib
+
+    import torch
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import window_rank as W
+
+    t_phase = time.perf_counter()
+    log(f"[adaptive] card: {card_line()}")
+    proc = adaptive_card_tests_start()
+    gates = {"reuploaded": {"on": False}, "restored": {"on": False}}
+
+    def gated(gate, key):
+        return lambda *a: key(*a) if gate["on"] else None
+
+    caps = {}
+    reset_kernel_counts()
+    try:
+        with contextlib.ExitStack() as stack:
+            # each Capture wraps what is in place when it is made, so the
+            # second gate's wrap the first's
+            for where, gate in gates.items():
+                caps[where] = tuple(stack.enter_context(c) for c in (
+                    Capture(W, "_launch_bounds", gated(gate, lambda q, b: (
+                        q.numel(), int(b.shape[0]), q.element_size()))),
+                    Capture(W, "_launch_run_owner", gated(gate, lambda off, n_out: (
+                        n_out, int(off.shape[0])))),
+                    Capture(GK, "_launch_flat", gated(gate, lambda table, idx: (
+                        idx.numel(), int(table.shape[0]), table.element_size())))))
+            steps = adaptive_identities(
+                "cuda", [torch.device("cuda", 0)] * MESH_SHARDS, "sf1", log, captures=gates)
+        results["adaptive_launches"] = join_kernel_counts()
+        results["adaptive"] = steps
+        results["adaptive"]["kernel_checks"] = adaptive_kernel_checks(caps, log)
+    finally:
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    tail = out.strip().splitlines()[-1:] or [""]
+    results["adaptive"]["card_tests"] = {"rc": proc.returncode, "summary": tail[0]}
+    log(f"[adaptive] tests/test_torch_card.py -k 'checkpoint or salted': rc {proc.returncode}, "
+        f"{tail[0]}")
+    if proc.returncode != 0 or "skipped" in tail[0]:
+        raise AssertionError(f"tests/test_torch_card.py's adaptive cases failed or skipped:\n"
+                             f"{out[-4000:]}\n{err[-2000:]}")
+    for k in ("bounds", "run_owner", "take_flat"):
+        if results["adaptive_launches"][k] <= 0:
+            raise AssertionError(f"phase adaptive never launched {k}")
+    log(f"[adaptive] launches of the phase: {results['adaptive_launches']}")
+    log(f"[adaptive] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
 _ENDS_ORDERED = re.compile(r"order\s+by[^()]*$", re.IGNORECASE | re.DOTALL)
 
 
@@ -5922,7 +6487,7 @@ def family_modes(results: dict, on_path: dict, kernels) -> dict:
 
 # the phases whose launches count apart from the main path's
 PHASE_LAUNCHES = ("nested", "zones", "write", "statements", "files", "spill", "distributed",
-                  "wire", "mesh", "serve", "serve_dead", "serve_warm_live")
+                  "wire", "mesh", "serve", "serve_dead", "serve_warm_live", "adaptive")
 
 
 def kernels_line(results: dict) -> dict:
@@ -6035,7 +6600,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "files,spill,distributed,wire,mesh,serve,explore,parity",
+                            "files,spill,distributed,wire,mesh,serve,adaptive,explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -6076,7 +6641,7 @@ def main() -> int:
                ("files", (phase_files,)), ("spill", (phase_spill,)),
                ("distributed", (phase_distributed,)), ("wire", (phase_wire,)),
                ("mesh", (phase_mesh,)), ("serve", (phase_serve,)),
-               ("explore", (phase_explore,)),
+               ("adaptive", (phase_adaptive,)), ("explore", (phase_explore,)),
                ("parity", (phase_parity,)))
     walls = results["phase_walls_s"] = {}
     for name, fns in ordered:

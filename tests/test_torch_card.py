@@ -5,8 +5,9 @@ nor trino_tpu nor tests/conftest.py. Run it there with
 
     python -m pytest --noconftest tests/test_torch_card.py
 
-(chip_smoke.py's phase serve does, and fails its run if pytest fails).
-Without a card every case skips.
+(chip_smoke.py's phase serve does, and fails its run if pytest fails;
+phase adaptive runs the checkpoint and salted-exchange cases). Without a
+card every case skips.
 
 Each kernel (grouped_sum, bounds, run_owner, take_flat, take_rows_sum,
 take_along_lanes and the searched and fixed rank) is held bit for bit
@@ -15,6 +16,12 @@ and on the all-dead batches the warmers feed: rows that are all dead, a
 probe into a build whose rows are all dead, zero counts, zero indices.
 A wrapper given an empty result launches nothing and returns what its
 plain version returns; the next non-empty call launches again.
+
+The recovery and skew tiers on the card: a join carry and a group carry
+of four shards of the card, snapshot to the host and restored, equal the
+carries before, each shard with its own storage; the salted exchange of
+a skew-annotated join on four shards of the card equals the same
+exchange over CPU shards (the plain ops).
 """
 
 import numpy as np
@@ -188,3 +195,108 @@ def test_rank(dev, searched):
     a = _t(rng.integers(-1000, 1000, 8192).astype(np.int32), dev)
     b = _t(np.sort(rng.integers(-1000, 1000, 16384)).astype(np.int32), dev)
     _equal(W.rank(a, b, searched), W.rank_reference(a, b, searched))
+
+
+# ---- the recovery and skew tiers on the card ------------------------------------
+
+
+def _carry_shards(dev, n_shards, cap, seed, group):
+    """One carry of `n_shards` shards of `cap` rows on `dev`: a join
+    carry (bigint key, varchar, double) or a group carry (bigint key,
+    sums and a count), the first rows of each shard live."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.block import Column, Dictionary, RelBatch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in range(n_shards):
+        n_live = int(rng.integers(1, cap))
+        live = _t(np.arange(cap) < n_live, dev)
+        key = Column(T.BIGINT, _t(rng.integers(0, 1 << 40, cap), dev), live.clone())
+        if group:
+            cols = [key] + [Column(T.BIGINT, _t(rng.integers(-1 << 50, 1 << 50, cap), dev),
+                                   live.clone()) for _ in range(3)]
+        else:
+            d = Dictionary([f"v{i}" for i in range(7)])
+            cols = [key,
+                    Column(T.VARCHAR, _t(rng.integers(0, 7, cap).astype(np.int32), dev),
+                           _t(rng.random(cap) < 0.9, dev), d),
+                    Column(T.DOUBLE, _t(rng.standard_normal(cap), dev), live.clone())]
+        out.append(RelBatch(cols, live))
+    return out
+
+
+@pytest.mark.parametrize("grown", [False, True])
+def test_checkpoint_restores_join_and_group_carries_onto_four_shards(dev, grown):
+    from trino_tpu_torch.parallel import mesh_chunk
+    from trino_tpu_torch.parallel.mesh import ShardMesh
+    from trino_tpu_torch.recovery import MeshCheckpoint
+
+    devices = [torch.device("cuda", 0)] * 4
+    cap = 4096
+    carries = [_carry_shards(dev, 4, cap, 1, group=False),
+               _carry_shards(dev, 4, cap, 2, group=True)]
+    ck = MeshCheckpoint(next_chunk=3, n_chunks=6, chunk_cap=1024,
+                        resolved_caps={"carry:f1": cap, "carry:f2": cap},
+                        carries_host=tuple(mesh_chunk._carry_to_host(c) for c in carries),
+                        tables=(), generations=())
+    ck = MeshCheckpoint.from_bytes(ck.to_bytes())
+    runner = mesh_chunk.ChunkedMeshRunner.__new__(mesh_chunk.ChunkedMeshRunner)
+    runner.ex = type("Ex", (), {"mesh": ShardMesh(devices), "n": 4})()
+    new_cap = 2 * cap if grown else cap
+    record = mesh_chunk.MeshProgramRecord(
+        n_chunks=6, chunk_cap=1024, resolved_caps={"carry:f1": new_cap, "carry:f2": new_cap},
+        pctx_fids=(), carry_meta=(("out", 1), ("ctx", 2)), prelude_sps=[], stream_sps=[],
+        flush_sps=[])
+    restored = runner._restore_carries(ck, record)
+    torch.cuda.synchronize()
+    assert len(restored) == 2
+    ptrs = set()
+    for before, after in zip(carries, restored):
+        assert len(after) == 4
+        for old, new in zip(before, after):
+            assert new.device.type == "cuda" and new.capacity == new_cap
+            _equal(new.live[:cap], old.live)
+            assert not bool(new.live[cap:].any())
+            for a, b in zip(old.columns, new.columns):
+                _equal(b.data[:cap], a.data)
+                _equal(b.valid[:cap], a.valid_mask())
+                assert b.dictionary == a.dictionary
+                ptrs.add(b.data.data_ptr())
+    assert len(ptrs) == sum(len(b.columns) for c in restored for b in c)
+
+
+@pytest.mark.parametrize("role", ["build", "probe"])
+def test_salted_exchange_on_the_card_equals_the_plain_ops(dev, role):
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.block import Column, RelBatch
+    from trino_tpu_torch.parallel.mesh import ShardMesh
+    from trino_tpu_torch.parallel.mesh_plan import _salted_exchange_hash
+
+    rng = np.random.default_rng(11)
+    cap, hot = 8192, (0, 3)
+    shards = []
+    for s in range(4):
+        p = 1.0 / np.arange(1, 65) ** 1.4
+        keys = rng.choice(64, size=cap, p=p / p.sum()).astype(np.int64)
+        live = rng.random(cap) < 0.8
+        vals = rng.integers(0, 100, cap)
+        shards.append((keys, live, vals))
+
+    def run(device):
+        batches = [RelBatch([Column(T.BIGINT, _t(k, device), None),
+                             Column(T.BIGINT, _t(v, device), None)], _t(lv, device))
+                   for k, lv, v in shards]
+        out = _salted_exchange_hash(ShardMesh([device] * 4), batches, [0], hot, role)
+        return [(b.columns[0].data.cpu(), b.columns[1].data.cpu(), b.live_mask().cpu())
+                for b in out]
+
+    got, want = run(torch.device("cuda", 0)), run(torch.device("cpu"))
+    assert len(got) == len(want) == 4
+    for (gk, gv, gl), (wk, wv, wl) in zip(got, want):
+        assert torch.equal(gl, wl)
+        assert torch.equal(gk[gl], wk[wl]) and torch.equal(gv[gl], wv[wl])
+    if role == "build":
+        for key in hot:
+            counts = {int((k[lv] == key).sum()) for k, _v, lv in got}
+            assert len(counts) == 1 and counts.pop() > 0

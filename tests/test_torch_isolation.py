@@ -71,6 +71,10 @@ SERVING_MODULES = ["trino_tpu_torch.compile.cache", "trino_tpu_torch.compile.war
                    "trino_tpu_torch.resident", "trino_tpu_torch.resident.manager",
                    "trino_tpu_torch.resident.table", "trino_tpu_torch.resident.fastlane",
                    "trino_tpu_torch.serving.batcher", "trino_tpu_torch.serving.harness"]
+TIER_MODULES = ["trino_tpu_torch.adaptive", "trino_tpu_torch.adaptive.spool",
+                "trino_tpu_torch.adaptive.observer", "trino_tpu_torch.adaptive.controller",
+                "trino_tpu_torch.recovery", "trino_tpu_torch.recovery.checkpoint",
+                "trino_tpu_torch.recovery.stage_spool"]
 
 # check name -> code run first and alone in a child process (see `alone`)
 ALONE = {
@@ -116,6 +120,13 @@ ALONE = {
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "cache = sys.modules.get('trino_tpu_torch.compile.cache')\n"
         "assert cache is None or cache.ACTIVE_PERSISTENT_CACHE is None\n") for m in SERVING_MODULES},
+    **{f"tiers:{m}": _imports_clean(m) + (
+        # and no thread is started, and the process-wide stores start empty
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "for name, attr in (('trino_tpu_torch.adaptive.spool', 'SPOOL'),\n"
+        "                   ('trino_tpu_torch.recovery.checkpoint', 'CHECKPOINTS')):\n"
+        "    mod = sys.modules.get(name)\n"
+        "    assert mod is None or len(getattr(mod, attr)._entries) == 0\n") for m in TIER_MODULES},
 }
 
 _ALONE_HELPER = r"""
@@ -232,6 +243,13 @@ def test_serving_tier_modules_import_alone(module, alone):
     # first and alone, pull in neither jax nor trino_tpu, start no thread
     # and prepare no kernel-library directory
     _check_alone(alone, f"serving:{module}")
+
+
+@pytest.mark.parametrize("module", TIER_MODULES)
+def test_adaptive_and_recovery_modules_import_alone(module, alone):
+    # the adaptive and recovery tiers, imported first and alone, pull in
+    # neither jax nor trino_tpu, start no thread and hold no entry
+    _check_alone(alone, f"tiers:{module}")
 
 
 def test_phase_files_statements_at_tiny():

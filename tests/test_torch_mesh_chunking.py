@@ -156,9 +156,36 @@ def _mesh_runner(**session):
     ({"mesh_replicas": 2}, "13.3"),
     ({"mesh_chunk_rows": 512, "mesh_checkpoint_interval_chunks": 1}, "13.2"),
 ])
-def test_mesh_arms_of_item_13_raise_naming_it(session, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        _mesh_runner(**session).execute(chunk_corpus.Q_GROUP)
+def test_mesh_arms_of_item_13_raise_naming_it(session, item, baseline_rows):
+    """The replica plane (item 13.3) raises naming its item. Mesh
+    checkpoints (item 13.2) came with the recovery tier: a run with
+    checkpoints on resumes from a fault mid-run at tiny with the page
+    plane's rows, every chunk executed once."""
+    from trino_tpu_torch.parallel import mesh_chunk
+
+    if item == "13.3":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            _mesh_runner(**session).execute(chunk_corpus.Q_GROUP)
+        return
+    r = _mesh_runner(**session)
+    assert r.execute(chunk_corpus.Q_GROUP).rows == baseline_rows["group"]
+    K = mesh_chunk.last_run_info()["chunks"]
+    fired = []
+
+    def fault(k, _K):
+        if not fired and k == K // 2:
+            fired.append(k)
+            raise mesh_chunk.MeshDeviceLost(f"injected at chunk {k}")
+
+    mesh_chunk.MESH_FAULT_HOOK = fault
+    try:
+        assert r.execute(chunk_corpus.Q_GROUP).rows == baseline_rows["group"]
+    finally:
+        mesh_chunk.MESH_FAULT_HOOK = None
+    info = mesh_chunk.last_run_info()
+    assert fired and r.last_mesh_fallback is None
+    assert (info["resumes"], info["resumed_from_chunk"], info["executed_chunk_steps"]) == (
+        1, K // 2, K)
 
 
 def test_an_unexpected_mesh_error_propagates(monkeypatch):

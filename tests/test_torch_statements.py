@@ -365,7 +365,7 @@ def test_the_corpora_are_covered():
         accounted = ran | set(WAITING) | set(ELSEWHERE)
         assert every == accounted & every, sorted(every - accounted)
     assert not ran & set(WAITING) and not ran & set(ELSEWHERE) and not set(WAITING) & set(ELSEWHERE)
-    assert all(re.match(r"item 13\.[234] ", v) for v in WAITING.values())
+    assert all(re.match(r"item 13\.[34] ", v) for v in WAITING.values())
     assert (len(_SEMANTICS), len(_SUBQUERY), len(_SERVING)) == (13, 20, 8)
     assert len(_cases(formatter_corpus)) == 6
 
@@ -382,15 +382,16 @@ def test_show_session_lists_the_reference_properties(tpch):
     assert pr.execute("show session").rows != rows
 
 
-# the properties that raised before the serving tier came; the seven it
-# ported are accepted now
-_UNPORTED_BEFORE = sorted(set(tconfig.UNPORTED_READERS) | {
+# the properties that raised before the serving tier (seven) and the
+# adaptive tier (three) came: each is accepted now
+_ADAPTIVE = ("adaptive_execution", "adaptive_replan_threshold", "shared_subtree_materialization")
+_UNPORTED_BEFORE = sorted(set(tconfig.UNPORTED_READERS) | set(_ADAPTIVE) | {
     "compile_churn_warn_threshold", "shape_stabilization", "capacity_ladder_base",
     "warmup_mode", "resident_tables", "micro_batch_window_ms", "micro_batch_max"})
 
 
 @pytest.mark.parametrize("name", _UNPORTED_BEFORE)
-def test_a_property_whose_reader_is_not_ported_raises(name):
+def test_a_property_whose_reader_is_not_ported_raises(name, tpch):
     """Away from its default, a property read only by an unported tier
     raises naming the item, by SET SESSION and on a session set
     directly; at its default it is accepted. A property whose reader
@@ -404,6 +405,8 @@ def test_a_property_whose_reader_is_not_ported_raises(name):
         r.execute(f"set session {name} = {literal}")
         assert getattr(r.session, name) == other
         assert r.execute("select 1").rows == [[1]]
+        if name in _ADAPTIVE:
+            _adaptive_property_equals_the_reference(tpch, name, literal)
         return
     item = tconfig.UNPORTED_READERS[name].split(" (")[0]
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
@@ -415,6 +418,30 @@ def test_a_property_whose_reader_is_not_ported_raises(name):
     default = f"'{meta.default}'" if meta.type is str else str(meta.default).lower()
     r.execute(f"set session {name} = {default}")
     assert r.execute("select 1").rows == [[1]]
+
+
+def _adaptive_property_equals_the_reference(tpch, name, literal):
+    """A join under the adaptive property away from its default (with
+    adaptive_execution on, so the threshold is read) gives the
+    reference's rows."""
+    from trino_tpu.adaptive import SPOOL as JSPOOL
+    from trino_tpu_torch.adaptive import SPOOL
+
+    pr = W.pair(tpch, "tpch", "tiny")
+    if name != "adaptive_execution":
+        pr.execute("set session adaptive_execution = true")
+    pr.execute(f"set session {name} = {literal}")
+    q = ("select n_name, count(*) from supplier join nation on s_nationkey = n_nationkey "
+         "where s_suppkey not in (select s_suppkey from supplier where s_acctbal < 0) "
+         "group by n_name order by 1")
+    try:
+        # ParityRunner holds the rows equal to the reference's
+        assert len(pr.execute(q).rows) == 24
+        assert (pr.port._last_adaptive_report.as_dict()
+                == pr.ref._last_adaptive_report.as_dict())
+    finally:
+        SPOOL.clear()
+        JSPOOL.clear()
 
 
 def test_explain_analyze_answers():

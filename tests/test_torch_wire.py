@@ -4,9 +4,10 @@ fault-tolerant execution (FTE).
 
 - The codec's bytes: for every fragment of TPC-H Q1, Q3 and Q18 at tiny,
   as the distributed runner plans them, the port's codec.dumps(TaskSpec)
-  equals the reference's once the TaskSpec field the port lacks
-  (record_output, the recovery tier's) is dropped from the reference's
-  JSON. Those scans carry pushed-down predicates,
+  equals the reference's, the recovery tier's record_output flag
+  included, and so does a fragment whose build side the adaptive
+  controller spooled (SpooledValuesNode). Those scans carry pushed-down
+  predicates,
   and the reference's registry lacks ColumnConstraint (ROADMAP §3), so
   its registry is given that class for the comparison; unpatched it
   refuses the spec. loads refuses pickle and unknown tags as the
@@ -73,10 +74,6 @@ from trino_tpu_torch.runtime.task import TaskId, TaskSpec
 from trino_tpu_torch.sql import fragmenter as tfragmenter
 from trino_tpu_torch.sql.parser import parse
 
-# the TaskSpec field of the reference's recovery tier (item 13.2)
-_UNPORTED_FIELDS = ("record_output",)
-
-
 def _threads():
     return [t for t in threading.enumerate()
             if t.name.startswith(("task-", "pipeline-producer-", "exchange-pull-",
@@ -118,7 +115,7 @@ def _spec(spec, tid, fragment):
                 remote_schemas={}, scan_slice=(1, 2) if fragment.partitioning == "source" else None,
                 input_locations={9: [("http", "http://127.0.0.1:1", "q7.9.0"),
                                      ("spool", "/s", "q7.9.1")]},
-                batch_rows=4096, deadline_epoch_s=12.5)
+                batch_rows=4096, deadline_epoch_s=12.5, record_output=fragment.id % 2 == 1)
 
 
 @pytest.mark.parametrize("qid", [1, 3, 18])
@@ -132,10 +129,8 @@ def test_codec_bytes_equal_the_reference(qid, monkeypatch):
         constrained |= b'"ColumnConstraint"' in got
         with monkeypatch.context() as mp:
             reference_codec_with_constraints(mp)
-            wire = json.loads(jcodec.dumps(_spec(JTaskSpec, JTaskId, jf)))
-        for name in _UNPORTED_FIELDS:
-            wire["f"].pop(name)
-        assert json.dumps(wire, separators=(",", ":")).encode() == got
+            want = jcodec.dumps(_spec(JTaskSpec, JTaskId, jf))
+        assert want == got
     # Q1's and Q3's scans carry pushed-down predicates; Q18's filter is a
     # HAVING
     assert constrained == (qid != 18)
@@ -167,21 +162,45 @@ def test_codec_refuses_what_the_reference_refuses(payload):
 
 
 def test_codec_refuses_tensors_and_unported_classes():
+    """Tensors, unregistered dataclasses and unknown tags are refused;
+    the adaptive tier's SpooledValuesNode (item 13.2, since ported)
+    travels, in a fragment, with the reference's bytes."""
     import dataclasses
 
     import torch
+
+    from trino_tpu.adaptive.spool import SpooledValuesNode as JSpooled
+    from trino_tpu.sql import plan as JP
+    from trino_tpu.sql.stats import PlanStats as JPlanStats
+    from trino_tpu import types as JT
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.adaptive.spool import SpooledValuesNode
+    from trino_tpu_torch.sql import plan as P
+    from trino_tpu_torch.sql.stats import PlanStats
 
     with pytest.raises(codec.CodecError, match="torch.Tensor"):
         codec.dumps({"x": torch.zeros(2)})
 
     @dataclasses.dataclass(frozen=True)
-    class SpooledValuesNode:
+    class NotOnTheWire:
         rows: tuple = ()
 
-    with pytest.raises(codec.CodecError, match="item 13"):
-        codec.dumps(SpooledValuesNode())
-    with pytest.raises(codec.CodecError, match="item 13"):
-        codec.loads(b'{"$":"SpooledValuesNode","f":{}}')
+    with pytest.raises(codec.CodecError, match="unregistered dataclass"):
+        codec.dumps(NotOnTheWire())
+    with pytest.raises(codec.CodecError, match="unknown wire class"):
+        codec.loads(b'{"$":"NotOnTheWire","f":{}}')
+
+    def fragment(P, T, spooled, stats, pf):
+        node = spooled(fields=(P.Field("k", T.BIGINT), P.Field("name", T.VARCHAR)),
+                       rows=((1, "a"), (2, None)), spool_key="0123456789abcdef01234567",
+                       source_desc="build:ScanNode", plan_stats=stats(2.0))
+        return pf(3, node, "single", "single")
+
+    got = codec.dumps(fragment(P, T, SpooledValuesNode, PlanStats, tfragmenter.PlanFragment))
+    assert got == jcodec.dumps(fragment(JP, JT, JSpooled, JPlanStats, jfragmenter.PlanFragment))
+    back = codec.loads(got)
+    assert isinstance(back.root, SpooledValuesNode) and back.root.plan_stats == PlanStats(2.0)
+    assert back == fragment(P, T, SpooledValuesNode, PlanStats, tfragmenter.PlanFragment)
 
 
 # ---- the page frames -------------------------------------------------------------
@@ -431,6 +450,6 @@ def test_the_corpora_are_covered():
     sent_here = {k for k, v in DIST_ELSEWHERE.items() if v == "tests/test_torch_wire.py"}
     assert sent_here == {k for k in ran if not k.startswith("test_deadlines.py")}
     for waiting in (WAITING, DIST_WAITING):
-        assert all(re.match(r"item 13\.[234] ", v) for v in waiting.values())
+        assert all(re.match(r"item 13\.[34] ", v) for v in waiting.values())
         assert not any("11b" in v for v in waiting.values())
     assert len(_DEADLINES) == 17 and len(_cases(deadlines_corpus)) == 19

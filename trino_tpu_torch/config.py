@@ -363,11 +363,9 @@ def load_properties_file(path: str) -> Dict[str, str]:
 # properties are read only by runtimes that LocalQueryRunner does not use
 # (query_trace included: the local runner traces every query), and are
 # stored as the reference stores them.
-UNPORTED_READERS = {
-    "adaptive_execution": "item 13.2 (adaptive/)",
-    "adaptive_replan_threshold": "item 13.2 (adaptive/)",
-    "shared_subtree_materialization": "item 13.2 (adaptive/)",
-}
+# Empty since the adaptive tier came over; the mechanism stays for the
+# tiers still to come.
+UNPORTED_READERS: Dict[str, str] = {}
 
 
 def check_ported(name: str, value: Any) -> None:

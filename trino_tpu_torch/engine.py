@@ -56,7 +56,14 @@ kernel-cache lines. Writes bump the resident tier's table generations
 and evict or re-key its pins (resident/); an INSERT into a pinned table
 tees its rows through the fast lane's DeltaTap.
 
-Not ported yet: the adaptive and recovery tiers (ROADMAP §1 item 13.2).
+The adaptive tier (the reference's engine.py:1330-1348, :1589-1592):
+between analysis and physical planning an AdaptiveController
+(adaptive/controller.py) materializes shared subtrees and completed
+build sides on the runner's device, re-plans the rest when observed rows
+diverge from the estimates, and records what it did in
+`_last_adaptive_report` (rendered by EXPLAIN ANALYZE); a plan it
+transformed embeds data and never enters the plan cache. A write also
+drops the mesh checkpoints over its table (recovery/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -295,6 +302,9 @@ class LocalQueryRunner:
         self._last_pool = None
         # the WarmupService of the last execution that started one
         self._last_warmup = None
+        # what the adaptive controller did to the last planned query
+        # (None: adaptive off, or a plan-cache hit)
+        self._last_adaptive_report = None
         from trino_tpu_torch.runtime.events import EventListenerManager
 
         self.event_listeners = EventListenerManager()
@@ -579,9 +589,10 @@ class LocalQueryRunner:
     def _plan(self, q: ast.Query, sql_key: Optional[str]):
         """(OutputNode, PhysicalPlan) of `q`: from the plan cache when
         `sql_key` is given and the key hits, else planned on the runner's
-        device (and stored, unless analysis folded a volatile value).
-        Access control re-checks the scans either way. The reference's
-        adaptive controller sits here too: ROADMAP §1 item 13.2."""
+        device (and stored, unless analysis folded a volatile value or
+        the adaptive controller transformed the plan). Access control
+        re-checks the scans either way."""
+        self._last_adaptive_report = None  # set again if adaptive runs
         cache_key = None
         if sql_key is not None:
             # the formatter's canonical text, the plan-shaping properties
@@ -603,8 +614,24 @@ class LocalQueryRunner:
         reset_volatile_plan()
         output = self._analyze(q)
         self._check_scans(output)
+        # adaptive execution: observe materialization barriers (on this
+        # runner's device) and re-plan the remainder BEFORE physical
+        # planning; transformed plans embed data snapshots, so they
+        # never enter the plan cache
+        from trino_tpu_torch.adaptive import AdaptiveController
+
+        controller = AdaptiveController(
+            self.catalogs, self.session, stabilizer=self._make_stabilizer(),
+            device=self.device,
+        )
+        adaptive_report = None
+        if controller.enabled():
+            output = controller.prepare(output)
+            adaptive_report = controller.report
+        self._last_adaptive_report = adaptive_report
         physical = self._planner().plan(output)
-        if cache_key and not plan_is_volatile():
+        if (cache_key and not plan_is_volatile()
+                and not (adaptive_report is not None and adaptive_report.transformed)):
             self._plan_cache.store(cache_key, (output, physical), generation=generation,
                                    tables=plan_tables(output))
         return output, physical
@@ -821,8 +848,8 @@ class LocalQueryRunner:
         counters = engine_counters_delta(before, METRICS.snapshot())
         # the compile-regime lines ride under the census: the programs
         # and kernel libraries this query built, warmup's hits and
-        # misses, and the caches (the reference's adaptive report is
-        # ROADMAP §1 item 13.2)
+        # misses, the caches, then what the adaptive controller observed
+        # and did
         census = census_text(classes, warn_threshold=self.session.compile_churn_warn_threshold,
                              observed=len(ledger))
         census += f"\nprograms_built_this_query={int(retire_query_compiles(qid))}"
@@ -838,6 +865,9 @@ class LocalQueryRunner:
             cs = kc.stats()
             census += (f"\npersistent_cache: entries={cs['entries']} bytes={cs['bytes']} "
                        f"scrubbed={cs['scrubbed']} evicted={cs['evicted']}")
+        report = self._last_adaptive_report
+        if report is not None:
+            census += "\n" + "\n".join(report.lines())
         # the census goes after the runtime stats: its class lines name
         # operators too, and readers grep for an operator's first line
         text = (P.explain_text(output) + "\n\n" + render_stats(groups, counters)
@@ -853,8 +883,11 @@ class LocalQueryRunner:
         a named write bumps the table's generation and evicts its pins,
         or, for an INSERT whose rows a DeltaTap captured
         (`appended`/`tap`), re-keys them onto their delta side; COMMIT
-        bumps every generation and evicts every pin. (The reference also
-        clears mesh checkpoints here: ROADMAP §1 item 13.2.)"""
+        bumps every generation and evicts every pin. Mesh checkpoints
+        over the written table (all of them on COMMIT) are dropped too:
+        the generation guard already makes them unreachable, this
+        reclaims their host memory at write time."""
+        from trino_tpu_torch.recovery import CHECKPOINTS
         from trino_tpu_torch.resident import GENERATIONS, RESIDENT
         from trino_tpu_torch.resident import fastlane
         from trino_tpu_torch.resident.manager import table_key
@@ -863,11 +896,13 @@ class LocalQueryRunner:
             self._plan_cache.invalidate()
             GENERATIONS.bump_all()
             RESIDENT.evict_all()
+            CHECKPOINTS.clear()
             return
         tkey = table_key(*table)
         self._plan_cache.invalidate_tables([tkey])
         GENERATIONS.bump(tkey)
         fastlane.table_written(*tkey, appended=appended, tap=tap)
+        CHECKPOINTS.invalidate_table(*tkey)
 
     # -- DML (BeginTableWrite/TableWriter/TableFinish path) --
     def _resolve_target(self, parts):

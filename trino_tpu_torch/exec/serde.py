@@ -591,14 +591,25 @@ def serialize_page(page: Page, compress: Optional[bool] = None) -> bytes:
     return _HEADER.pack(0, len(body)) + body
 
 
+class SerdeError(ValueError):
+    """Bytes that do not decode to a page: a corrupt or truncated frame.
+    A ValueError, as the reference's decode failures are; the port types
+    them so a caller can decline on exactly this condition."""
+
+
 def deserialize_page(data: bytes) -> Page:
-    codec, raw_len = _HEADER.unpack_from(data, 0)
-    body = data[_HEADER.size :]
-    if codec == 1:
-        body = zlib.decompress(body)
-        if len(body) != raw_len:
-            raise ValueError("corrupt page frame")
-    return _decode_body(body)
+    try:
+        codec, raw_len = _HEADER.unpack_from(data, 0)
+        body = data[_HEADER.size :]
+        if codec == 1:
+            body = zlib.decompress(body)
+            if len(body) != raw_len:
+                raise ValueError("corrupt page frame")
+        return _decode_body(body)
+    except SerdeError:
+        raise
+    except (ValueError, struct.error, zlib.error, KeyError, IndexError) as e:
+        raise SerdeError(str(e)) from e
 
 
 def serialize_batch(batch: RelBatch, compress: Optional[bool] = None) -> bytes:

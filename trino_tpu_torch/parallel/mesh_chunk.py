@@ -36,8 +36,26 @@ later run of the same record reuses them instead of running the prelude.
 Static capacities and the reference's retry protocol stay: device
 overflow flags are read at every program boundary (one device->host
 sync, where `preempt` runs) and an overflow restarts the run under
-doubled capacities, at most 12 times. Checkpoints, parking and work
-stealing (ROADMAP §1 items 13.2, 13.3) are not here.
+doubled capacities, at most 12 times.
+
+Checkpoints (recovery/checkpoint.py): with
+`mesh_checkpoint_interval_chunks` = N > 0 a chunked run copies its
+carries to host numpy arrays every N chunk boundaries (after the flag
+readback, which has synced the device) into the generation-guarded
+CHECKPOINTS store. A MeshStuck or MeshDeviceLost then resumes in-run
+from the last checkpoint, at most `mesh_resume_attempts` times: each
+shard's carry goes back onto that shard's device as a tensor of its
+own, re-padded through `_pad_shards` when its rung grew, and the loop
+continues at the checkpoint's chunk. A run with no checkpoint yet keeps
+the fault's type, and the coordinator falls back to the page plane. A
+checkpoint is resumed also on entry to a later run of the same program
+(the fallback leaves it in the store); a successful run discards it.
+`MESH_FAULT_HOOK` is the fault-injection seam at every chunk boundary.
+Unlike the reference, a snapshot that fails propagates (the reference's
+is best-effort), and a restore declines only on a typed condition
+counted in `recovery.restore_declined.<reason>` (carry count, shape,
+rung that shrank); any other error propagates. Parking and work
+stealing are ROADMAP §1 item 13.3.
 """
 
 from __future__ import annotations
@@ -47,7 +65,7 @@ import dataclasses
 import math
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,11 +136,23 @@ class MeshStuck(RuntimeError):
 
 
 class MeshDeviceLost(RuntimeError):
-    """A device backing the mesh failed mid-run. Retryable like
-    MeshStuck: without a checkpoint to resume from (ROADMAP §1 item
-    13.2), the coordinator falls back to the page plane. Nothing in the
-    port raises it yet: the replica plane and the chaos harness that do
-    in the reference are item 13.3."""
+    """A device backing the mesh failed mid-run (or a fault injected
+    through MESH_FAULT_HOOK simulated one). Retryable like MeshStuck:
+    the checkpointed remainder replays on the same mesh, or the whole
+    query falls back to the page plane. The replica plane and the chaos
+    harness that raise it in the reference are ROADMAP §1 item 13.3."""
+
+    # an in-run resume retries on the SAME mesh; a fault a sibling
+    # sub-mesh must take over for (the replica plane's drain, item
+    # 13.3) turns this off
+    in_run_resumable = True
+
+
+# Fault-injection seam: when set, called as hook(chunk_index, n_chunks)
+# at every chunk boundary BEFORE the step runs. Tests and chip_smoke
+# raise MeshStuck / MeshDeviceLost from here to inject deterministic
+# mid-run faults. Process-wide.
+MESH_FAULT_HOOK: Optional[Callable[[int, int], None]] = None
 
 
 class _Overflow(Exception):
@@ -283,7 +313,7 @@ def _skew_exchange_map(mesh_sps, root_child_ids):
     edge that should take the salted repartition.
 
     A JoinNode annotated with `skew_hot_keys` (the adaptive controller,
-    ROADMAP §1 item 13.2) qualifies only when salting changes nothing
+    adaptive/controller.py) qualifies only when salting changes nothing
     but row routing: kind inner/left/semi/anti with a single integer-like
     equi key on both sides; both inputs RemoteSourceNode leaves whose
     producers each emit a single-channel FIXED_HASH exchange feeding
@@ -526,20 +556,53 @@ def _merge_out_carry(mine: RelBatch, theirs: RelBatch, n: int) -> Optional[RelBa
     return RelBatch(cols, torch.from_numpy(new_live.reshape(-1)))
 
 
-def _place(batch: RelBatch, devices) -> Shards:
+def _place(batch: RelBatch, devices, own: bool = False) -> Shards:
     """A host-stacked (n * cap,) batch cut into its n shards, shard s on
-    devices[s]."""
+    devices[s]. With `own` every shard's tensors are copies that share
+    no storage with `batch` or with each other (a restored carry is
+    written in place by later steps)."""
     n = len(devices)
     cap = _rows(batch) // n
 
     def part(t, s):
-        return None if t is None else t.narrow(0, s * cap, cap).to(devices[s])
+        if t is None:
+            return None
+        return t.narrow(0, s * cap, cap).to(devices[s], copy=own)
 
     return [
         RelBatch([Column(c.type, part(c.data, s), part(c.valid, s), c.dictionary)
                   for c in batch.columns], part(batch.live, s))
         for s in range(n)
     ]
+
+
+def _carry_to_host(shards: Shards):
+    """A carry's shards as one host-stacked HostCarry of numpy copies
+    (np.concatenate always copies, so the snapshot never aliases a
+    live carry, on the CPU either)."""
+    from trino_tpu_torch.recovery.checkpoint import HostCarry
+
+    def lane(ts, default):
+        return np.concatenate([default(b) if t is None else t.cpu().numpy()
+                               for t, b in zip(ts, shards)])
+
+    cols = []
+    for i, c in enumerate(shards[0].columns):
+        data = lane([b.columns[i].data for b in shards], None)
+        valid = lane([b.columns[i].valid for b in shards],
+                     lambda b: np.ones(_rows(b), dtype=bool))
+        cols.append((c.type, data, valid, c.dictionary))
+    live = lane([b.live for b in shards], lambda b: np.ones(_rows(b), dtype=bool))
+    return HostCarry(tuple(cols), live)
+
+
+def _host_to_batch(hc) -> RelBatch:
+    """A HostCarry as a host-stacked CPU RelBatch over copies of its
+    arrays (the checkpoint stays intact whatever the run does next)."""
+    cols = [Column(t, torch.from_numpy(np.array(d, copy=True)),
+                   torch.from_numpy(np.array(v, copy=True)), dic)
+            for t, d, v, dic in hc.columns]
+    return RelBatch(cols, torch.from_numpy(np.array(hc.live, copy=True)))
 
 
 # ---------------------------------------------------------------------------
@@ -687,7 +750,9 @@ class ChunkedMeshRunner:
             for b in host_feeds)
         self.feed_args = [_place(b, ex.mesh.devices) for b in host_feeds]
         self.info: Dict[str, object] = {}
-        self._chunk_steps = 0  # chunk steps run by the current run
+        # the current run's ledger: chunk steps executed (over every
+        # attempt), checkpoints taken and their bytes and wall, resumes
+        self._run_stats: Dict[str, object] = {}
         self._last_record_key = None
         self._prelude_resident = False  # the run reused a pinned prelude
 
@@ -714,15 +779,25 @@ class ChunkedMeshRunner:
         fresh.class_keys = template.class_keys
         return fresh
 
+    def _ckpt_key(self) -> Optional[tuple]:
+        """Checkpoint-store key: the program identity minus the caps
+        element (the record key's last component), so a resume after an
+        overflow cap bump still finds its checkpoint, and minus the
+        device identity (record-key element 2), so the checkpoint is
+        host-portable — a sibling mesh of the same width n restores it.
+        The shard count n stays in the key: carries from a
+        different-width mesh could never be re-placed shape-exactly.
+        None when the program itself is uncacheable (repr identity leak)
+        — such plans never checkpoint."""
+        if self._last_record_key is None:
+            return None
+        key = self._last_record_key
+        return ("mesh-ckpt", key[1]) + tuple(key[3:-1])
+
     # -- execution ---------------------------------------------------
     def run(self, preempt=None, query_span=None) -> Dict[int, list]:
         from trino_tpu_torch.runtime.tracing import KIND_STAGE, KIND_TASK
 
-        if self.cplan.chunked and int(
-            getattr(self.session, "mesh_checkpoint_interval_chunks", 0) or 0
-        ) > 0:
-            raise NotImplementedError(
-                "mesh_checkpoint_interval_chunks: mesh checkpoints are ROADMAP §1 item 13.2")
         stage_span = task_span = None
         if query_span is not None:
             stage_span = query_span.child("stage mesh", KIND_STAGE, data_plane="mesh",
@@ -731,7 +806,10 @@ class ChunkedMeshRunner:
                                          chunk_rows=self.cplan.chunk_cap)
         try:
             caps: Dict[str, int] = {}
-            self._chunk_steps = 0
+            self._run_stats = {"executed_chunk_steps": 0, "checkpoints": 0,
+                               "checkpoint_bytes": 0, "checkpoint_s": 0.0,
+                               "resumes": 0, "resumed_from_chunk": None}
+            resume_budget = int(getattr(self.session, "mesh_resume_attempts", 2) or 0)
             overflows = 0
             attempt = 0
             while True:
@@ -754,9 +832,33 @@ class ChunkedMeshRunner:
                         caps[site] = max(caps.get(site, 16) * 2,
                                          bucket_capacity(max(needed, 16)))
                     attempt += 1
-                # MeshStuck / MeshDeviceLost propagate with their type: the
-                # reference's in-run resume needs a checkpoint (item 13.2),
-                # so the coordinator's fallback takes over
+                except (MeshStuck, MeshDeviceLost) as e:
+                    # in-run resume: only when a live checkpoint exists
+                    # and budget remains; otherwise the fault keeps its
+                    # type and the coordinator's fallback takes over.
+                    # Typed deadline / abandonment errors never land
+                    # here: they propagate from preempt() uncaught.
+                    key = self._ckpt_key()
+                    ckpt = None
+                    if (key is not None and resume_budget > 0
+                            and getattr(e, "in_run_resumable", True)):
+                        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+
+                        ckpt = CHECKPOINTS.get(key)
+                    if ckpt is None:
+                        # what the replica plane's failover reads (item
+                        # 13.3): the checkpoint key, and whether every
+                        # carry is an append accumulator (group carries
+                        # hold cross-chunk state that cannot merge)
+                        e.ckpt_key = key
+                        e.steal_ok = bool(record.carry_meta) and all(
+                            kind == "out" for kind, _fid in record.carry_meta)
+                        raise
+                    resume_budget -= 1
+                    if task_span is not None:
+                        task_span.event("mesh_fault", error=type(e).__name__,
+                                        resume_from=ckpt.next_chunk)
+                    attempt += 1
             if record.warmup_entries:
                 register_mesh_warmup(record.warmup_entries)
                 note_classes_warm(record.class_keys)
@@ -774,11 +876,18 @@ class ChunkedMeshRunner:
                 "flush_fragments": sorted(self.cplan.flush_fids),
                 "attempts": attempt + 1,
                 "salted_exchanges": len(self.skew_map),
-                "executed_chunk_steps": self._chunk_steps,
                 "shards": self.ex.n,
+                **self._run_stats,
             }
             if self._prelude_resident:
                 self.info["prelude_resident"] = True
+            key = self._ckpt_key()
+            if key is not None:
+                # a completed run's checkpoint is spent: a later
+                # identical query must start fresh, not resume
+                from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+
+                CHECKPOINTS.discard(key)
             publish_run_info(self.info)
             self._record_divergences(sources, query_span)
             return sources
@@ -846,21 +955,53 @@ class ChunkedMeshRunner:
             outs, pctx = self._run_prelude(record, op_span, task_span, attempt)
             outs = dict(outs)
 
+        interval = int(getattr(self.session, "mesh_checkpoint_interval_chunks", 0) or 0)
+        # the program identity for the resume-on-entry lookup; ckpt_key
+        # additionally gates the every-N-chunks snapshots
+        park_key = self._ckpt_key() if self.cplan.chunked else None
+        ckpt_key = park_key if interval > 0 else None
         carries: List[Optional[Shards]] = [None] * len(record.carry_meta)
         if record.stream_sps:
+            k0 = 0
+            if park_key is not None:
+                from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+
+                ck = CHECKPOINTS.get(park_key)
+                if ck is not None and ck.n_chunks == K and 0 < ck.next_chunk <= K:
+                    restored = self._restore_carries(ck, record)
+                    if restored is not None:
+                        carries, k0 = restored, ck.next_chunk
+                        CHECKPOINTS.note_resume()
+                        self._run_stats["resumes"] += 1
+                        self._run_stats["resumed_from_chunk"] = k0
+                        # a deadline kill during the resumed stretch
+                        # names the resume point (query_tracker embeds
+                        # it in the typed [EXCEEDED_TIME_LIMIT] message)
+                        try:
+                            preempt.resumed_from = k0
+                        except AttributeError:
+                            pass  # None, or a hook that takes no attributes
+                        if task_span is not None:
+                            task_span.event("resume", from_chunk=k0, of=K)
             carry_index = {fid: i for i, (_k, fid) in enumerate(record.carry_meta)}
             with op_span("MeshChunkStep", attempt=attempt, chunks=K):
-                for k in range(K):
+                for k in range(k0, K):
                     if preempt is not None:
                         preempt(k, K)
+                    if MESH_FAULT_HOOK is not None:
+                        MESH_FAULT_HOOK(k, K)
                     t0 = time.monotonic()
                     flags = []
                     self._step(record, k, pctx, carries, carry_index, flags)
                     # flag readback is the natural device sync point
                     self._check_flags(flags)
                     dt = time.monotonic() - t0
-                    self._chunk_steps += 1
+                    self._run_stats["executed_chunk_steps"] += 1
                     METRICS.increment("mesh.chunk_steps")
+                    # a completed boundary is a safe snapshot point: the
+                    # flag readback synced the device
+                    if ckpt_key is not None and (k + 1) % interval == 0 and (k + 1) < K:
+                        self._checkpoint(ckpt_key, record, carries, k + 1, K, task_span)
                     if task_span is not None:
                         task_span.event("chunk", index=k, of=K, wall_s=round(dt, 6))
                     # chunk 0 pays the cold start; boundary progress is
@@ -933,6 +1074,68 @@ class ChunkedMeshRunner:
                          set(self.feed_tables))
         return outs, pctx
 
+    def _checkpoint(self, key, record, carries, next_chunk: int, K: int,
+                    task_span) -> None:
+        """Snapshot the carries to the host checkpoint store as of having
+        completed chunks [0, next_chunk). Unlike the reference's
+        best-effort snapshot, a failure here propagates: on the card it
+        is a device error the run would meet next anyway."""
+        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS, MeshCheckpoint
+        from trino_tpu_torch.resident import GENERATIONS
+
+        t0 = time.perf_counter()
+        host = tuple(_carry_to_host(c) for c in carries)
+        ckpt = MeshCheckpoint(
+            next_chunk=next_chunk,
+            n_chunks=K,
+            chunk_cap=record.chunk_cap,
+            resolved_caps=dict(record.resolved_caps),
+            carries_host=host,
+            tables=self.feed_tables,
+            generations=GENERATIONS.snapshot(self.feed_tables),
+        )
+        CHECKPOINTS.put(key, ckpt)
+        stats = self._run_stats
+        stats["checkpoints"] += 1
+        stats["checkpoint_bytes"] = sum(c.nbytes() for c in host)
+        stats["checkpoint_s"] += time.perf_counter() - t0
+        if task_span is not None:
+            task_span.event("checkpoint", chunk=next_chunk, of=K)
+
+    def _restore_carries(self, ck, record) -> Optional[List[Shards]]:
+        """Re-place a checkpoint's host carries on the mesh, shard i's
+        on mesh.devices[i] as tensors of its own, re-padding each
+        accumulator whose capacity rung grew since the snapshot (live
+        rows stay densely packed at the front, so tail padding with dead
+        rows is exact). None — start fresh — on a typed disagreement,
+        counted in recovery.restore_declined.<reason>: the carry count,
+        a carry's shape, or a rung that shrank. Any other error
+        propagates (the reference starts fresh on any)."""
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        def decline(reason: str) -> None:
+            METRICS.increment(f"recovery.restore_declined.{reason}")
+            return None
+
+        n = self.ex.n
+        if len(ck.carries_host) != len(record.carry_meta):
+            return decline("carry_count")
+        out = []
+        for (_kind, fid), hc in zip(record.carry_meta, ck.carries_host):
+            site = f"carry:f{fid}"
+            old_cap = int(ck.resolved_caps.get(site, 0))
+            new_cap = int(record.resolved_caps.setdefault(site, old_cap))
+            rows = n * old_cap
+            if (not old_cap or hc.live.shape[0] != rows
+                    or any(d.shape[0] != rows or v.shape != (rows,)
+                           for _t, d, v, _dic in hc.columns)):
+                return decline("shape")
+            if new_cap < old_cap:
+                return decline("rung_shrank")  # rows may not fit
+            batch = _pad_shards(_host_to_batch(hc), n, old_cap, new_cap)
+            out.append(_place(batch, self.ex.mesh.devices, own=True))
+        return out
+
     def _step(self, record, k: int, pctx, carries, carry_index, flags) -> None:
         """Chunk k through the stream fragments, appending each carried
         fragment's contribution to its carry."""
@@ -971,49 +1174,22 @@ class ChunkedMeshRunner:
         """Observability at the mesh barrier: each mesh fragment's
         exported row count against the optimizer's estimate, as an
         instant event on the query span, counting `adaptive.divergences`
-        past adaptive_replan_threshold (the adaptive controller that
-        re-plans on it is ROADMAP §1 item 13.2). Never fails the run."""
+        past adaptive_replan_threshold. The mesh plane never re-plans
+        mid-flight; a divergent query's next execution re-plans through
+        the adaptive controller. Never fails the run."""
         try:
-            from trino_tpu_torch.runtime.metrics import METRICS
-            from trino_tpu_torch.sql.stats import PlanStats, StatsCalculator
+            from trino_tpu_torch.adaptive.observer import fragment_estimates, record_observation
 
             threshold = float(getattr(self.session, "adaptive_replan_threshold", 4.0) or 4.0)
-            frag_rows: Dict[int, float] = {}
-
-            class _FragmentStats(StatsCalculator):
-                # producer fragments' estimates feed consumer leaves
-                def _RemoteSourceNode(self, node):
-                    rows = sum(frag_rows.get(fid, 1.0) for fid in node.fragment_ids)
-                    return PlanStats(max(rows, 1.0))
-
-            calc = _FragmentStats(self.ex.catalogs)
-
-            def estimate(sp) -> float:
-                for c in sp.children:
-                    estimate(c)
+            frag_rows = fragment_estimates(self.ex.catalogs, self.mesh_sps)
+            for sp in self.mesh_sps:
                 fid = sp.fragment.id
-                if fid not in frag_rows:
-                    frag_rows[fid] = calc.stats(sp.fragment.root).row_count
-                return frag_rows[fid]
-
-            for sp in self.mesh_sps:
-                estimate(sp)
-            for sp in self.mesh_sps:
-                pages = sources.get(sp.fragment.id)
+                pages = sources.get(fid)
                 if pages is None:
                     continue
-                est = float(frag_rows.get(sp.fragment.id, 1.0))
-                observed = float(sum(int(p.row_count) for p in pages))
-                e, o = max(est, 1.0), max(observed, 1.0)
-                ratio = e / o if e >= o else o / e
-                divergent = ratio >= threshold
-                if query_span is not None:
-                    query_span.event(
-                        "adaptive_observation", site=f"mesh-fragment:{sp.fragment.id}",
-                        estimated_rows=round(est, 1), observed_rows=int(observed),
-                        divergence=round(ratio, 3), divergent=divergent)
-                if divergent:
-                    METRICS.increment("adaptive.divergences")
+                observed = sum(int(p.row_count) for p in pages)
+                record_observation(f"mesh-fragment:{fid}", frag_rows.get(fid, 1.0),
+                                   observed, threshold, span=query_span)
         except Exception:
             pass  # observability must never fail the run
 

@@ -306,7 +306,7 @@ def _exchange_hash(mesh: ShardMesh, batches: Shards, channels: Sequence[int]) ->
 # FIXED_BROADCAST uses), hot PROBE rows are dealt round-robin across
 # shards. Every probe row still appears on exactly one shard and finds
 # ALL build rows of its key there. The plan annotation that turns this on
-# comes from the adaptive controller (ROADMAP §1 item 13.2).
+# comes from the adaptive controller (adaptive/controller.py).
 
 
 def _hot_mask(batch: RelBatch, channels: Sequence[int], hot_values) -> torch.Tensor:

@@ -15,9 +15,9 @@ PlanFragment, HttpRemoteTask.java):
 Callables (in-process fetch closures) are not encodable by design;
 cross-process specs carry descriptor tuples (task._resolve_fetch). A
 torch.Tensor is not encodable either: tensors never travel in a spec,
-pages travel as serde bytes. The adaptive tier's SpooledValuesNode is
-ROADMAP §1 item 13.2 and raises, as does the TaskSpec field the port
-does not have (record_output, the recovery tier's).
+pages travel as serde bytes. The adaptive tier's SpooledValuesNode (its
+rows and exact observed stats) travels inside fragments, and a TaskSpec
+carries the recovery tier's record_output flag, as in the reference.
 The registry adds one class the reference's lacks, ColumnConstraint,
 without which no scan with a pushed-down predicate could cross the wire.
 """
@@ -51,12 +51,9 @@ class CodecError(ValueError):
     pass
 
 
-# wire classes of tiers the port does not have yet (ROADMAP §1)
-_UNPORTED = {"SpooledValuesNode": "item 13.2 (adaptive/spool.py)"}
-
-
 def _registry() -> Dict[str, type]:
     import trino_tpu_torch.runtime.task as task_mod
+    from trino_tpu_torch.adaptive.spool import SpooledValuesNode
     from trino_tpu_torch.sql.stats import ColStats, PlanStats
 
     classes = [
@@ -77,8 +74,9 @@ def _registry() -> Dict[str, type]:
         ColumnConstraint,
         # task layer
         task_mod.TaskId, task_mod.TaskSpec,
-        # exact observed stats that travel inside fragments
-        PlanStats, ColStats,
+        # adaptive tier: spooled subtrees and the exact observed stats
+        # they carry travel inside distributed fragments
+        SpooledValuesNode, PlanStats, ColStats,
     ]
     return {c.__name__: c for c in classes}
 
@@ -91,13 +89,6 @@ def registry() -> Dict[str, type]:
     if not _REGISTRY:
         _REGISTRY = _registry()
     return _REGISTRY
-
-
-def _unported(name: str) -> CodecError:
-    return CodecError(
-        f"wire class {name!r} is not in trino_tpu_torch yet (ROADMAP §1 "
-        f"{_UNPORTED[name]})"
-    )
 
 
 def encode(obj: Any) -> Any:
@@ -135,8 +126,6 @@ def encode(obj: Any) -> Any:
         return {"$": "~strdict", "v": list(obj.values)}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         name = type(obj).__name__
-        if name in _UNPORTED:
-            raise _unported(name)
         if name not in registry():
             raise CodecError(f"unregistered dataclass {name!r}")
         return {
@@ -177,8 +166,6 @@ def decode(obj: Any) -> Any:
             if cls is None:
                 raise CodecError(f"unknown enum {obj['c']!r}")
             return cls[obj["v"]]
-        if tag in _UNPORTED:
-            raise _unported(tag)
         cls = registry().get(tag)
         if cls is None:
             raise CodecError(f"unknown wire class {tag!r}")

@@ -21,11 +21,21 @@ observably (`last_mesh_fallback`, the fallbacks counter, a span event).
 Any other mesh failure propagates: the reference's catch-all rerun on
 the page plane is deliberately not carried (ROADMAP §3). Arms of later
 items raise, naming the item, and never fall back to the page plane or
-to the CPU: mesh_replicas >= 2 (item 13.3) and recovery_spool_stages
-(item 13.2). The adaptive controller's report and per-stage
-estimated-vs-observed lines (13.2) and the recovery, skew, replica,
-scheduler, membership and concurrency lines of EXPLAIN ANALYZE
-(13.2-13.4) are left out.
+to the CPU: mesh_replicas >= 2 (item 13.3). The replica, scheduler,
+membership and concurrency lines of EXPLAIN ANALYZE (13.3-13.4) are
+left out.
+
+The adaptive and recovery tiers: with adaptive_execution or
+shared_subtree_materialization on, an AdaptiveController materializes
+barriers on the coordinator's device and re-plans before fragmenting
+(`_last_adaptive_report`); every stage's output rows are recorded
+against the optimizer's estimate (`estimated_vs_observed`, adaptive off
+too). With recovery_spool_stages on, every recordable non-root task tees
+its output pages into the stage-output recorder, and a QUERY retry
+banks the failed attempt's finished fragments in the subtree spool and
+replays them instead of recomputing them (the FTE scheduler does the
+same from its committed spool files). EXPLAIN ANALYZE ends with the
+adaptive section and the recovery and skew lines.
 
 Analogue of SqlQueryExecution (planQuery/planDistribution,
 SqlQueryExecution.java:457/503) + PipelinedQueryScheduler.java:155
@@ -151,9 +161,21 @@ class QueryScheduler:
                 KIND_TASK,
                 wire_context,
             )
+        record_stages = bool(
+            getattr(self.session, "recovery_spool_stages", False)
+        )
+        if record_stages:
+            from trino_tpu_torch.recovery import RECORDER, fragment_recordable
+        root_fid = self.subplan.fragment.id
         for sp in order:
             f = sp.fragment
             tc = task_counts[f.id]
+            record_this = (
+                record_stages
+                and fragment_recordable(sp, f.id == root_fid)
+            )
+            if record_this:
+                RECORDER.expect(self.query_id, f.id, tc)
             n_out = consumer_counts.get(f.id, 1)
             if tracing:
                 self.stage_spans[f.id] = self.query_span.child(
@@ -191,6 +213,7 @@ class QueryScheduler:
                     shape_stabilization=self.session.shape_stabilization,
                     capacity_ladder_base=self.session.capacity_ladder_base,
                     deadline_epoch_s=self.deadline_epoch_s,
+                    record_output=record_this,
                 )
                 if tracing:
                     tspan = self.stage_spans[f.id].child(
@@ -359,8 +382,14 @@ class DistributedQueryRunner:
         # reference's path with mesh_scheduler off; its run queue,
         # runtime/scheduler.py, is ROADMAP §1 item 13.3)
         self._mesh_exec_lock = threading.Lock()
-        # the reference registers the recovery tier's counters here
-        # (ROADMAP §1 item 13.2)
+        # recovery tier: surface the recovery.* counters in /v1/metrics
+        # at zero from process start (a counter only materializes on
+        # first bump otherwise)
+        from trino_tpu_torch.recovery import register_recovery_metrics
+
+        register_recovery_metrics()
+        # what the adaptive controller did to the last planned query
+        self._last_adaptive_report = None
         # resiliency plane: every worker is registered with a
         # NodeManager whose per-node circuit breakers graylist
         # misbehaving workers (ping loop NOT started here — call
@@ -559,6 +588,17 @@ class DistributedQueryRunner:
         if isinstance(stmt, ast.ExplainStatement):
             output = self._analyze(stmt.query)
             self._check_access(output, identity)
+            # EXPLAIN ANALYZE runs the adaptive controller exactly like
+            # execute would, so the rendered plan/adaptive section shows
+            # what a plain run of the statement does
+            from trino_tpu_torch.adaptive import AdaptiveController
+
+            self._last_adaptive_report = None
+            controller = AdaptiveController(self.catalogs, self.session,
+                                            device=self.device)
+            if stmt.analyze and controller.enabled():
+                output = controller.prepare(output)
+                self._last_adaptive_report = controller.report
             subplan = plan_distributed(
                 output, self.catalogs,
                 broadcast_threshold=self.session.broadcast_join_threshold,
@@ -712,6 +752,7 @@ class DistributedQueryRunner:
         # reset BEFORE any plane decision: a stale reason from an earlier
         # query must not read as applying to this one
         self.last_mesh_fallback = None
+        self._last_adaptive_report = None
         cache_key = None
         try:
             from trino_tpu_torch.sql.formatter import format_statement
@@ -741,9 +782,24 @@ class DistributedQueryRunner:
             reset_volatile_plan()
             output = self._analyze(stmt, query_span=query_span)
             self._check_access(output, identity)
-            # the reference's adaptive controller re-plans here when
-            # adaptive_execution is on; config.check_session refused
-            # that property (ROADMAP §1 item 13.2) before planning began
+            # adaptive execution: materialize barriers on the
+            # coordinator's catalogs and device and re-plan the
+            # remainder before fragmenting. tracker.check at every
+            # barrier keeps a kill latched mid-re-plan typed
+            # (EXCEEDED_TIME_LIMIT, not a retryable transport error).
+            adaptive_report = None
+            from trino_tpu_torch.adaptive import AdaptiveController
+
+            controller = AdaptiveController(
+                self.catalogs, self.session, span=query_span,
+                preempt=lambda: tracker.check(base_qid),
+                device=self.device,
+            )
+            if controller.enabled():
+                with phase("adaptive"):
+                    output = controller.prepare(output)
+                adaptive_report = controller.report
+            self._last_adaptive_report = adaptive_report
             with phase("fragment"):
                 subplan = plan_distributed(
                     output,
@@ -754,7 +810,14 @@ class DistributedQueryRunner:
                         self.session, "plan_validation", "passes"
                     ),
                 )
-            if cache_key is not None and not plan_is_volatile():
+            if (
+                cache_key is not None
+                and not plan_is_volatile()
+                and not (
+                    adaptive_report is not None
+                    and adaptive_report.transformed
+                )
+            ):
                 from trino_tpu_torch.serving.plan_cache import plan_tables
 
                 self._plan_cache.store(
@@ -789,14 +852,6 @@ class DistributedQueryRunner:
             if budgets:
                 deadline_epoch_s = _time.time() + min(budgets)
         result_meta = (list(output.names), [f.type for f in output.fields])
-        # the reference's recovery tier: with recovery_spool_stages on,
-        # every stage records its output pages and a retry substitutes
-        # the failed attempt's finished fragments for recomputing them
-        # (in the FTE scheduler and the QUERY retry loop alike)
-        if getattr(self.session, "recovery_spool_stages", False):
-            raise NotImplementedError(
-                "recovery_spool_stages: stage-output recovery is ROADMAP §1 item 13.2"
-            )
         if self.session.retry_policy == "task":
             self._last_data_plane = "fte"
             rows = self._execute_fte(
@@ -833,7 +888,10 @@ class DistributedQueryRunner:
                 self._record_mesh_fallback(str(ex), query_span)
             except (MeshStuck, MeshDeviceLost) as ex:
                 # retryable by classification: a program hung (or lost
-                # its device) may succeed on the page plane
+                # its device) after exhausting in-run checkpoint resumes
+                # may succeed on the page plane, so fall back observably.
+                # The mesh checkpoint survives: the next mesh execution
+                # of this plan resumes from it.
                 self._record_mesh_fallback(str(ex), query_span)
             except QueryDeadlineError:
                 raise  # the preemption hook fired: typed, no fallback
@@ -851,6 +909,14 @@ class DistributedQueryRunner:
             1 + self.session.query_retry_count
             if self.session.retry_policy == "query"
             else 1
+        )
+        # recovery tier: with recovery_spool_stages on, every non-root
+        # task tees its wire pages into the stage-output recorder; a
+        # failed attempt's fully-finished fragments are harvested into
+        # the subtree spool and the NEXT attempt substitutes them as
+        # literal sources (only the work that failed is recomputed)
+        spool_stages = attempts > 1 and bool(
+            getattr(self.session, "recovery_spool_stages", False)
         )
         last_error: Optional[BaseException] = None
         accrued_cpu = 0.0  # CPU spent by completed attempts
@@ -883,6 +949,27 @@ class DistributedQueryRunner:
                         "query_retry", attempt=attempt,
                         error=str(last_error)[:300],
                     )
+                if spool_stages:
+                    from trino_tpu_torch.recovery import (
+                        harvest_recorded_stages,
+                        substitute_spooled_fragments,
+                    )
+
+                    prev_qid = (
+                        base_qid if attempt == 1
+                        else f"{base_qid}r{attempt - 1}"
+                    )
+                    banked = harvest_recorded_stages(prev_qid, subplan)
+                    attempt_subplan, spooled = (
+                        substitute_spooled_fragments(
+                            subplan, span=query_span
+                        )
+                    )
+                    if query_span is not None and (banked or spooled):
+                        query_span.event(
+                            "stage_recovery", banked=banked,
+                            substituted=spooled,
+                        )
             scheduler = QueryScheduler(
                 query_id,
                 attempt_subplan,
@@ -939,6 +1026,10 @@ class DistributedQueryRunner:
                     self._last_stage_infos = self._stage_infos(
                         scheduler.finalize()
                     )
+                    self._record_stage_divergences(
+                        attempt_subplan, self._last_stage_infos,
+                        query_span,
+                    )
                 except Exception:
                     pass  # observability must never mask the verdict
                 scheduler.abort()
@@ -994,6 +1085,49 @@ class DistributedQueryRunner:
             f"compactions={s['compactions']}"
         )
 
+
+    def _recovery_line(self) -> str:
+        """The EXPLAIN ANALYZE recovery-tier line: lifetime
+        checkpoint/resume counters from the process singletons, plus
+        the most recent mesh run's resume position when it resumed."""
+        from trino_tpu_torch.parallel.mesh_chunk import last_run_info
+        from trino_tpu_torch.recovery import CHECKPOINTS
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        line = (
+            f"recovery= checkpoints={CHECKPOINTS.taken} "
+            f"resumes={CHECKPOINTS.resumed} "
+            f"invalidations={CHECKPOINTS.invalidated} "
+            f"spooled_stage_hits="
+            f"{int(METRICS.counter('recovery.spooled_stage_hits'))}"
+        )
+        info = last_run_info()
+        resumed = info.get("resumed_from_chunk")
+        if resumed is not None:
+            line += (
+                f" resumed_from_chunk={resumed}/"
+                f"{info.get('chunks')}"
+            )
+        return line
+
+    def _skew_line(self) -> str:
+        """The EXPLAIN ANALYZE skew-tier line: lifetime skew-plane
+        counters — how often observed stats flagged a hot build key,
+        how many exchange edges ran salted, MXU join-project
+        selections, and build-overflow spill-mode re-plans."""
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        s = METRICS.snapshot()
+
+        def c(name):
+            return int(s.get(f"skew.{name}", 0.0))
+
+        return (
+            f"skew= heavy_hitters_detected={c('heavy_hitters_detected')} "
+            f"salted_exchanges={c('salted_exchanges')} "
+            f"mxu_join_selected={c('mxu_join_selected')} "
+            f"spill_mode_replans={c('spill_mode_replans')}"
+        )
     def _mesh_plane_line(self, subplan) -> str:
         """The EXPLAIN ANALYZE data-plane line: which plane `execute`
         would pick for this plan, decided statically (structural
@@ -1088,12 +1222,13 @@ class DistributedQueryRunner:
                     ),
                 }
                 # QueryInfo stage rollups from the FTE attempt snapshots
-                # (taken at each attempt's terminal observation); the
-                # reference's estimated-vs-observed divergence lines are
-                # the adaptive tier's (ROADMAP §1 item 13.2)
+                # (taken at each attempt's terminal observation)
                 try:
                     self._last_stage_infos = self._stage_infos(
                         scheduler.task_snapshots()
+                    )
+                    self._record_stage_divergences(
+                        subplan, self._last_stage_infos, query_span
                     )
                 except Exception:
                     pass
@@ -1140,17 +1275,22 @@ class DistributedQueryRunner:
             # OperatorStats formatter PLUS the per-task summary lines
             # distributed EXPLAIN ANALYZE used to lose
             stages = self._stage_infos(scheduler.finalize())
+            self._record_stage_divergences(subplan, stages)
             lines = [self._explain_text(subplan)]
             for stage in stages:
                 lines.append(stage_text(stage))
+            report = self._last_adaptive_report
+            if report is not None:
+                lines.append("\n" + "\n".join(report.lines()))
             # which plane a plain `execute` of this statement would take
             # (the ANALYZE instrumentation itself runs the page
             # scheduler above either way, for the operator stats)
             lines.append(self._mesh_plane_line(subplan))
             lines.append(self._resident_line())
-            # the reference goes on with the recovery, skew, replica,
-            # scheduler, membership and concurrency lines of items
-            # 13.2-13.4
+            lines.append(self._recovery_line())
+            lines.append(self._skew_line())
+            # the reference goes on with the replica, scheduler,
+            # membership and concurrency lines of items 13.3-13.4
             return MaterializedResult(
                 [["\n".join(lines)]], ["Query Plan"], [T.VARCHAR]
             )
@@ -1285,6 +1425,60 @@ class DistributedQueryRunner:
             infos.append(info)
         return infos
 
+    @staticmethod
+    def _stage_output_rows(stage: dict) -> Optional[int]:
+        """Rows leaving the stage: what entered the terminal output/sink
+        operator of the final pipeline (sinks emit no batches, so their
+        input side IS the fragment's output)."""
+        groups = stage.get("operator_summaries") or []
+        for group in reversed(groups):
+            if not group:
+                continue
+            last = group[-1]
+            name = str(last.get("operator") or "")
+            if "Output" in name or "Sink" in name:
+                return int(last.get("input_rows") or 0)
+            return int(last.get("output_rows") or 0)
+        return None
+
+    def _record_stage_divergences(
+        self, subplan, stages, query_span=None
+    ) -> None:
+        """Per-fragment estimated_vs_observed: annotate the stage
+        rollups (QueryInfo + distributed EXPLAIN ANALYZE render them),
+        drop tracer instant events, and count adaptive.divergences.
+        Recording is unconditional — divergence observability does not
+        depend on adaptive_execution being on."""
+        if not stages:
+            return
+        try:
+            from trino_tpu_torch.adaptive.observer import (
+                estimated_vs_observed_line,
+                fragment_estimates,
+                record_observation,
+            )
+
+            estimates = fragment_estimates(self.catalogs, [subplan])
+            threshold = float(
+                getattr(self.session, "adaptive_replan_threshold", 4.0)
+                or 4.0
+            )
+            for stage in stages:
+                fid = stage.get("fragment_id")
+                est = estimates.get(fid)
+                observed = self._stage_output_rows(stage)
+                if est is None or observed is None:
+                    continue
+                site = f"fragment:{fid}"
+                ratio = record_observation(
+                    site, est, observed, threshold, span=query_span
+                )
+                stage["estimated_vs_observed"] = estimated_vs_observed_line(
+                    site, est, observed, ratio
+                )
+        except Exception:
+            pass  # observability must never mask the verdict
+
     def _drain_query_peaks(self, base_qid: str) -> int:
         """Sum per-worker peak-memory watermarks for this query (every
         attempt namespace: qN, qNr1, ...) and retire them from in-process
@@ -1342,6 +1536,12 @@ class DistributedQueryRunner:
             wall = qspan.duration_s
             METRICS.observe("query_wall_s", wall)
             stages = self._last_stage_infos or []
+            # recovery tier: a finished query's stage recordings (every
+            # attempt namespace) are dead weight — drop them so the
+            # recorder stays bounded by in-flight queries
+            from trino_tpu_torch.recovery import RECORDER
+
+            RECORDER.purge(base_qid)
             compile_count = int(retire_query_compiles(base_qid))
             peak = self._drain_query_peaks(base_qid)
             counters = engine_counters_delta(

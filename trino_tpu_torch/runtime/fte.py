@@ -4,12 +4,13 @@ Counterpart of trino_tpu/runtime/fte.py: retry_policy="task". Every
 attempt of a partition is a new task on a worker (in-process or behind
 a WorkerServer), which plans and runs its fragment on that worker's
 device; a failed attempt is re-run as a task again, never as a CPU run
-in its place. The reference's recovery hooks (substituting and
-recording whole stage outputs) sit behind recovery_spool_stages, which
-the coordinator refuses before this scheduler is built (ROADMAP §1
-item 13.2). Unlike the reference, the scheduler removes every attempt it
-launched from its worker once the query is over (`release`): a worker
-that serves many queries keeps no finished task.
+in its place. With recovery_spool_stages on, a stage whose complete
+output an earlier attempt or submission banked in the subtree spool is
+replayed from it (recovery/stage_spool.py), and every settled non-root
+stage banks its committed spool files there in turn. Unlike the
+reference, the scheduler removes every attempt it launched from its
+worker once the query is over (`release`): a worker that serves many
+queries keeps no finished task.
 
 Analogue of EventDrivenFaultTolerantQueryScheduler.java:160 (SURVEY.md
 §3.5): stages execute bottom-up; every task's output is spooled through
@@ -234,6 +235,26 @@ class FaultTolerantQueryScheduler:
         the query down instead of finishing work nobody reads."""
         from trino_tpu_torch.runtime.stages import stage_task_count, topo_order
 
+        # recovery tier: a prior attempt (or prior submission) of this
+        # plan may have banked complete stage outputs in the subtree
+        # spool — replay those as literal sources and skip their whole
+        # producer subtrees. Conversely, every stage that settles below
+        # records its committed spool files back into the spool so the
+        # NEXT attempt after a failure starts further along.
+        spooled_ids: set = set()
+        record_stages = bool(
+            getattr(self.session, "recovery_spool_stages", False)
+        )
+        if record_stages:
+            from trino_tpu_torch.recovery import substitute_spooled_fragments
+
+            new_subplan, hits = substitute_spooled_fragments(
+                self.subplan, span=self.query_span
+            )
+            if hits:
+                self.subplan = new_subplan
+                spooled_ids = set(hits)
+
         order = topo_order(self.subplan)
         task_counts = {
             sp.fragment.id: stage_task_count(
@@ -253,6 +274,15 @@ class FaultTolerantQueryScheduler:
             root_handle = self._run_stage(
                 sp, task_counts[fid], n_out, cancel=cancel,
             )
+            if record_stages and fid != root_id and fid not in spooled_ids:
+                from trino_tpu_torch.recovery import record_committed_stage
+
+                record_committed_stage(
+                    self.spool_dir,
+                    [self.committed[(fid, p)]
+                     for p in range(task_counts[fid])],
+                    sp, n_out, is_root=False,
+                )
         root_key = self.committed[(root_id, 0)]
         return root_handle, root_key
 

@@ -103,6 +103,10 @@ class TaskSpec:
     # Carries the EXCEEDED_TIME_LIMIT code so the coordinator re-types
     # the travelled string as non-retryable. None = no local deadline.
     deadline_epoch_s: Optional[float] = None
+    # recovery tier (recovery/stage_spool.py): tee this task's wire pages
+    # into the stage-output recorder so QUERY retry can substitute the
+    # fragment's completed output instead of recomputing it
+    record_output: bool = False
 
 
 def _resolve_fetch(location):
@@ -461,6 +465,18 @@ class TaskExecution:
             if self._injector is not None:
                 sink_buffer = _MidFailureBuffer(
                     self.buffer, self._injector, spec.task_id
+                )
+            if spec.record_output:
+                from trino_tpu_torch.recovery import RECORDER
+
+                # the tee wraps OUTSIDE the injector proxy so an
+                # injected mid-stream kill leaves the recording
+                # incomplete, exactly like a real crash would
+                sink_buffer = RECORDER.recording_buffer(
+                    sink_buffer,
+                    spec.task_id.query_id,
+                    spec.task_id.fragment_id,
+                    str(spec.task_id),
                 )
             chain.append(
                 PartitionedOutputOperator(

@@ -276,6 +276,12 @@ class LocalPlanner:
             factory.out_caps = (batch.capacity,)
         return [factory], schema
 
+    # adaptive execution: a materialized subtree IS a values source; its
+    # rows upload to the planner's device as one batch padded to
+    # bucket_capacity like any other, so re-planned programs land on
+    # existing capacity-ladder shape classes
+    _visit_SpooledValuesNode = _visit_ValuesNode
+
     # -- filter/project folding --
     def _cached_fp(self, build, schema: Schema, fingerprint):
         """(fn, out_schema) of a fused filter/project stage: from the
@@ -603,6 +609,9 @@ class LocalPlanner:
             )
         )
         mxu_join_selected += 1
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        METRICS.increment("skew.mxu_join_selected")
         return probe_chain, list(partial_schema)
 
     def _distinct_agg(self, node: P.AggregateNode, chain, schema: Schema):
