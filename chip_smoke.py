@@ -303,17 +303,55 @@ Phases (any failure exits nonzero):
                  tests/test_torch_card.py's checkpoint and salted-exchange
                  cases run beside the phase and must pass. Launches count
                  apart (`adaptive_launches`).
- 16. explore   — both explorer entry points (trino_tpu_torch.explore),
+ 16. replicas  — the replica plane, the run queue and the checkpoint
+                 fabric on the card (replica_identities), at sf1 over
+                 [cuda:0] * 4 with mesh_replicas = 2 (2 replicas of 2
+                 shards): phase mesh's GROUP BY o_custkey, chunked join
+                 and mark join from 4 threads land on both replicas, each
+                 row-equal to its twin on one replica, and EXPLAIN ANALYZE
+                 prints the replicas=, scheduler= and membership= lines;
+                 RECOVERY_Q_GROUP over lineitem in RECOVERY_CHUNK_ROWS
+                 chunks on replica 0 (replica 1 drained for the step) is
+                 parked once by a point lookup on orders submitted at
+                 chunk K // 2 and resumes once, every chunk executed once,
+                 no program built, rows equal to the unparked run (the
+                 lookup's latency beside the analytic's wall, and
+                 memory_allocated before the park and while parked beside
+                 the parked carries' bytes printed); the chunked join with
+                 the holding replica drained at chunk K // 2 fails over
+                 once and resumes on the sibling from the host checkpoint;
+                 REPLICA_STEAL_JOIN (append carries) on 3 replicas over
+                 [cuda:0] * 6 drained the same way splits its unstarted
+                 chunks between two siblings (scheduler.steals >= 1), rows
+                 equal to the unfaulted run either way. bounds, run_owner
+                 and take_flat at the largest arguments they got over the
+                 resumed and stolen legs are held against their plain
+                 versions. After those timed steps, in two processes side
+                 by side: runtime/chaos.py's replica, preempt and fabric
+                 scenarios at tiny on the card in REPLICA_CHAOS_CHUNK_ROWS
+                 chunks, each held to the reference's gates (a replica
+                 killed and a replica drained under the reference's
+                 population of 6 clients polling every 5 ms for 3 s, park
+                 and resume under a device loss, a drain while parked,
+                 host loss with a fabric pull over two FabricServers on
+                 127.0.0.1 with the internal secret, a membership flap,
+                 transport corruption), GET /v1/fabric answering 200 and
+                 /v1/metrics showing the replica., scheduler. and fabric.
+                 counters; and tests/test_torch_card.py's park and
+                 steal-merge cases, which must pass. Launches count apart
+                 (`replicas_launches`).
+ 17. explore   — both explorer entry points (trino_tpu_torch.explore),
                  each output held against its plain version.
- 17. parity    — the queries, and the window and set-operation queries
+ 18. parity    — the queries, and the window and set-operation queries
                  of tests/test_window.py, at tpch.tiny, and the joins and
                  Q16, Q22, Q-WIN, Q-MXJ and the holistic and sketch
-                 queries at sf0.1, on the card and on the CPU must be
-                 row-equal; so must the nine TPC-DS templates other than
-                 q72 at tiny and sf0.1, a listagg over nation and
+                 queries at sf0.05 (PARITY_SCHEMA), on the card and on
+                 the CPU must be row-equal; so must the nine TPC-DS
+                 templates other than q72 at tiny and sf0.05, a listagg
+                 over nation and
                  the wide-string GROUP BY at 2^16 rows (also equal to
                  numpy's). So must every case of tests/test_functions.py's
-                 five lists at tiny and the functions queries at sf0.1
+                 five lists at tiny and the functions queries at sf0.05
                  (doubles within 1e-12 relative, `rows_close`); so must
                  every case of tests/test_timestamptz.py (TSTZ_SQL; now()
                  by its zone) and tests/test_match_recognize.py (MR_SQL,
@@ -328,15 +366,16 @@ Phases (any failure exits nonzero):
                  their pools (MEMORY_QS). (Phase write's and phase files'
                  sf0.1 runs are left out to keep the run inside half its
                  time limit; their sf1 phases stay.)
- 18. summary   — each kind of join-path call (the probe's bounds, the
+ 19. summary   — each kind of join-path call (the probe's bounds, the
                  expansion's run owners, the flat gather) timed on the
                  largest arguments the main path gave it, and on the
                  TPC-H's, the TPC-DS templates', q72's and phase nested's
                  own largest; grouped_sum on each main-path shape (Q-MXU,
                  Q-MXJ, the wide-string batch); a `kernels` JSON line (each
                  entry with its launches in phases nested, zones, write,
-                 statements, files, spill, distributed, wire, mesh and
-                 adaptive beside the main path's, and phase serve's three
+                 statements, files, spill, distributed, wire, mesh,
+                 adaptive and replicas beside the main path's, and phase
+                 serve's three
                  counts; take_flat's
                  entry with its summed
                  main-path time per family, and each of its
@@ -5739,23 +5778,25 @@ def adaptive_identities(device, mesh_devices, schema: str, log, fact_rows=ADAPTI
     return out
 
 
-def adaptive_kernel_checks(caps, log) -> dict:
+def adaptive_kernel_checks(caps, log, phase: str = "adaptive") -> dict:
     """bounds, run_owner and take_flat at the largest arguments each
-    launched with over a re-uploaded build and over restored carries,
-    each against its plain version (check_*: bit-exact)."""
+    launched with over each capture's legs (phase adaptive: a
+    re-uploaded build and restored carries; phase replicas: the resumed
+    and stolen legs), each against its plain version (check_*:
+    bit-exact)."""
     held_recs = {}
     for where, (bd, ro, tf) in caps.items():
         for name, cap in (("bounds", bd), ("run_owner", ro), ("take_flat", tf)):
             if not cap.calls:
-                raise AssertionError(f"phase adaptive: {name} never launched on {where}")
+                raise AssertionError(f"phase {phase}: {name} never launched on {where}")
         held_recs[where] = {
-            "bounds": {**check_bounds(f"adaptive {where}", *bd.largest()), "calls": bd.calls},
-            "run_owner": {**check_run_owner(f"adaptive {where}", *ro.largest()),
+            "bounds": {**check_bounds(f"{phase} {where}", *bd.largest()), "calls": bd.calls},
+            "run_owner": {**check_run_owner(f"{phase} {where}", *ro.largest()),
                           "calls": ro.calls},
-            "take_flat": {**check_take_flat(f"adaptive {where}", *tf.largest()),
+            "take_flat": {**check_take_flat(f"{phase} {where}", *tf.largest()),
                           "calls": tf.calls},
         }
-        log(f"[adaptive] kernels on {where}, at their largest arguments, against their plain "
+        log(f"[{phase}] kernels on {where}, at their largest arguments, against their plain "
             f"versions: " + ", ".join(f"{k} ({v['calls']} launches, max_abs_err "
                                       f"{v['max_abs_err']})" for k, v in held_recs[where].items()))
     return held_recs
@@ -5825,6 +5866,440 @@ def phase_adaptive(results: dict) -> None:
             raise AssertionError(f"phase adaptive never launched {k}")
     log(f"[adaptive] launches of the phase: {results['adaptive_launches']}")
     log(f"[adaptive] phase took {time.perf_counter() - t_phase} s")
+    torch.cuda.empty_cache()
+
+
+# phase replicas: the replica plane, the run queue and the fabric
+
+REPLICA_SHARDS = 2  # shards a replica: [cuda:0] * 4 is 2 replicas, [cuda:0] * 6 is 3
+REPLICA_STATEMENTS = ("custkey_group", "segment_join", "mark", "custkey_group")
+REPLICA_POINT = SERVE_POINT.format(7)  # a point lookup on orders: the fast lane
+# a join whose output goes straight to the root: its carries are append
+# accumulators, which a work-stealing split can merge (phase mesh's
+# chunked join aggregates, and group carries cannot be merged)
+REPLICA_STEAL_JOIN = ("select o_orderkey, c_custkey, c_mktsegment from customer "
+                      "join orders on c_custkey = o_custkey where o_orderkey % 997 = 3")
+# the chaos harness's replica, preempt and fabric scenarios at tiny, at
+# the reference's population (6 clients polling every 5 ms for 3 s) and
+# on its statements; on the card in REPLICA_CHAOS_CHUNK_ROWS-row chunks,
+# a depth cut: the harness's own 256 took 44-67 s of chunk boundaries
+# (tests/test_torch_chaos.py keeps 256 on the CPU)
+REPLICA_CHAOS_CHUNK_ROWS = 1024
+REPLICA_CHAOS_SQL = ("select o_orderpriority, count(*) c from orders join customer "
+                     "on o_custkey = c_custkey group by o_orderpriority order by o_orderpriority")
+REPLICA_SEED = 20
+
+
+def replica_runner(schema: str, device, devices, conn, n_replicas: int = 2, **session):
+    """A DistributedQueryRunner over `devices` with mesh_replicas =
+    `n_replicas` (DIST_WORKERS workers), on `conn`; the broadcast
+    threshold as dist_runners'."""
+    from trino_tpu_torch.connectors.tpch import base_row_count
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.runtime import DistributedQueryRunner
+
+    sf = {"tiny": 0.01}.get(schema) or float(schema[2:])
+    r = DistributedQueryRunner(
+        Session(catalog="tpch", schema=schema, mesh_replicas=n_replicas,
+                broadcast_join_threshold=base_row_count("customer", sf) // 2, **session),
+        n_workers=DIST_WORKERS, hash_partitions=DIST_WORKERS, device=device,
+        mesh_devices=devices)
+    r.register_catalog("tpch", conn)
+    return r
+
+
+def replica_placement(schema, device, devices, conn, log) -> dict:
+    """REPLICA_STATEMENTS from 4 threads at once on 2 replicas: both
+    replicas take placements, every answer equals its twin on one
+    replica-wide mesh (mesh_replicas = 1), and EXPLAIN ANALYZE prints
+    the replicas=, scheduler= and membership= lines."""
+    import threading
+
+    r = replica_runner(schema, device, devices, conn)
+    twin = replica_runner(schema, device, devices[:REPLICA_SHARDS], conn, n_replicas=1)
+    sqls = [dict((n, s) for n, s, _e, _j in MESH_STATEMENTS)[n] for n in REPLICA_STATEMENTS]
+    twins = {sql: twin.execute(sql).rows for sql in set(sqls)}
+    want = [twins[sql] for sql in sqls]
+    got, errors = [None] * len(sqls), []
+
+    def run(i):
+        try:
+            got[i] = _timed(r, sqls[i], device)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(sqls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    served = [rep.served for rep in r._replicas.replicas]
+    if min(served) < 1 or [g[0].rows for g in got] != want:
+        raise AssertionError(f"replicas placement: served {served}, rows equal to the twins "
+                             f"{[g[0].rows == w for g, w in zip(got, want)]}")
+    text = r.execute("explain analyze select count(*) from region").rows[0][0]
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("replicas=", "scheduler=", "membership="))]
+    if len(lines) != 3:
+        raise AssertionError(f"replicas EXPLAIN ANALYZE lines: {lines}")
+    log(f"[replicas] {schema} placement: {len(sqls)} statements from {len(sqls)} threads in "
+        f"{wall} s, served per replica {served}, walls {[g[1] for g in got]}; rows equal to "
+        f"the one-replica twins; " + " | ".join(lines))
+    return {"served": served, "wall_s": wall, "walls": [g[1] for g in got],
+            "explain_lines": lines}
+
+
+def replica_park(schema, device, devices, conn, log, chunk_rows) -> dict:
+    """RECOVERY_Q_GROUP in `chunk_rows` chunks on replica 0 (replica 1
+    drained for the step, so the point lookup queues on the same run
+    queue): the lookup, submitted at chunk K // 2, parks the analytic
+    once and it resumes once, every chunk executed once, no program
+    built, rows equal to the unparked run. memory_allocated before the
+    park and while parked, the parked carries' bytes, the lookup's
+    latency and the analytic's wall are returned."""
+    import threading
+
+    import torch
+    from trino_tpu_torch.parallel import mesh_chunk
+    from trino_tpu_torch.recovery import CHECKPOINTS
+    from trino_tpu_torch.runtime.metrics import METRICS
+    from trino_tpu_torch.runtime.scheduler import MeshJob
+
+    cuda = torch.device(device).type == "cuda"
+    r = replica_runner(schema, device, devices, conn, mesh_chunk_rows=chunk_rows)
+    rm = r._replica_manager()
+    rm.request_drain(1)
+    mem = {}
+    park_wait = MeshJob.park_wait
+
+    def spy(job, done, total):
+        if cuda:
+            torch.cuda.synchronize()
+            mem["parked_allocated"] = torch.cuda.memory_allocated()
+        mem["parked_bytes"] = CHECKPOINTS.parked_bytes()
+        return park_wait(job, done, total)
+
+    try:
+        clean, clean_s = _timed(r, RECOVERY_Q_GROUP, device)
+        K = mesh_chunk.last_run_info()["chunks"]
+        point_want = r.execute(REPLICA_POINT).rows
+        sched = rm.replicas[0].scheduler
+        state = {}
+
+        def lookup():
+            t0 = time.perf_counter()
+            state["rows"] = r.execute(REPLICA_POINT).rows
+            state["latency_s"] = time.perf_counter() - t0
+
+        def hook(k, _K):
+            if k == K // 2 and "thread" not in state and mesh_chunk.active_replica() == 0:
+                if cuda:
+                    torch.cuda.synchronize()
+                    mem["before_allocated"] = torch.cuda.memory_allocated()
+                state["thread"] = threading.Thread(target=lookup)
+                state["thread"].start()
+                deadline = time.monotonic() + 30
+                while not sched.waiting_count(fast=True) and time.monotonic() < deadline:
+                    time.sleep(0.002)
+
+        parks0, resumes0, built0 = sched.parks, sched.resumes, METRICS.counter("programs_built")
+        MeshJob.park_wait = spy
+        mesh_chunk.MESH_FAULT_HOOK = hook
+        try:
+            res, wall = _timed(r, RECOVERY_Q_GROUP, device)
+        finally:
+            mesh_chunk.MESH_FAULT_HOOK = None
+            MeshJob.park_wait = park_wait
+        state["thread"].join(60)
+        info = mesh_chunk.last_run_info()
+        built = METRICS.counter("programs_built") - built0
+    finally:
+        rm.undrain(1)
+    got = {"parks": sched.parks - parks0, "resumes": sched.resumes - resumes0,
+           "info_parks": info.get("parks"), "unparks": info.get("unparks"),
+           "executed_chunk_steps": info.get("executed_chunk_steps"), "chunks": K,
+           "programs_built": built}
+    if (got["parks"], got["resumes"], got["info_parks"], got["unparks"]) != (1, 1, 1, 1) \
+            or got["executed_chunk_steps"] != K or built or res.rows != clean.rows \
+            or state.get("rows") != point_want:
+        raise AssertionError(f"replicas park: {got}, rows equal to the unparked run "
+                             f"{res.rows == clean.rows}, lookup {state.get('rows')} "
+                             f"against {point_want}")
+    rec = {**got, "wall_s": wall, "clean_s": clean_s, "lookup_latency_s": state["latency_s"],
+           **mem}
+    freed = mem.get("before_allocated", 0) - mem.get("parked_allocated", 0)
+    log(f"[replicas] {schema} park: K={K} (chunk_rows {chunk_rows}), the lookup at chunk "
+        f"{K // 2} parked the analytic once and it resumed once, {K} chunk steps, "
+        f"{built} programs built; lookup latency {state['latency_s']} s beside the "
+        f"analytic's wall {wall} s (unparked {clean_s} s); memory_allocated before the park "
+        f"{mem.get('before_allocated')} and while parked {mem.get('parked_allocated')} "
+        f"(freed {freed}), parked carries {mem.get('parked_bytes')} bytes")
+    return rec
+
+
+class DrainAt:
+    """MESH_FAULT_HOOK draining the replica that runs the query's first
+    boundary once it reaches chunk `target` (the corpus's drain hook);
+    `gate` turns the kernel captures on for the legs that follow."""
+
+    def __init__(self, rm, target, gate=None):
+        self.rm, self.target, self.gate = rm, target, gate
+        self.victim, self.fired = None, False
+
+    def __call__(self, k, K):
+        from trino_tpu_torch.parallel import mesh_chunk
+
+        rep = mesh_chunk.active_replica()
+        if rep is None:
+            return
+        if self.victim is None:
+            self.victim = rep
+        if not self.fired and rep == self.victim and k >= self.target:
+            self.fired = True
+            if self.gate is not None:
+                self.gate["on"] = True
+            self.rm.request_drain(rep)
+
+
+def replica_drain(name, r, sql, device, log, gate=None, warm=1) -> dict:
+    """`sql` on replica runner `r` after `warm` unfaulted runs, then with
+    the holding replica drained at chunk K // 2: one failover, rows equal
+    to the unfaulted run's (sorted: the steal join has no ORDER BY), every
+    chunk executed once over the replicas; the scheduler's steals and
+    the checkpoint resumes of the faulted run are returned."""
+    from trino_tpu_torch.parallel import mesh_chunk
+    from trino_tpu_torch.recovery import CHECKPOINTS
+    from trino_tpu_torch.runtime.metrics import METRICS
+
+    for _ in range(warm):
+        clean, clean_s = _timed(r, sql, device)
+    K = mesh_chunk.last_run_info()["chunks"]
+    rm = r._replicas
+    hook = DrainAt(rm, K // 2, gate)
+    f0, resumed0, before = rm.failovers, CHECKPOINTS.resumed, METRICS.snapshot()
+    steals0, steps0 = METRICS.counter("scheduler.steals"), METRICS.counter("mesh.chunk_steps")
+    mesh_chunk.MESH_FAULT_HOOK = hook
+    try:
+        res, wall = _timed(r, sql, device)
+    finally:
+        mesh_chunk.MESH_FAULT_HOOK = None
+        if gate is not None:
+            gate["on"] = False
+        if hook.victim is not None:
+            rm.undrain(hook.victim)
+    rec = {"chunks": K, "failovers": rm.failovers - f0,
+           "resumes": CHECKPOINTS.resumed - resumed0,
+           "steals": METRICS.counter("scheduler.steals") - steals0,
+           "chunk_steps": METRICS.counter("mesh.chunk_steps") - steps0,
+           "steal_declined": {k: v - before.get(k, 0.0) for k, v in METRICS.snapshot().items()
+                              if k.startswith("scheduler.steal_declined.")
+                              and v != before.get(k, 0.0)},
+           "wall_s": wall, "clean_s": clean_s}
+    if (not hook.fired or rec["failovers"] != 1 or rec["chunk_steps"] != K
+            or sorted(map(repr, res.rows)) != sorted(map(repr, clean.rows))
+            or res.data_plane != "mesh"):
+        raise AssertionError(f"replicas drain {name}: {rec}, fired {hook.fired}, rows equal "
+                             f"{sorted(map(repr, res.rows)) == sorted(map(repr, clean.rows))}")
+    log(f"[replicas] drain {name}: K={K}, replica {hook.victim} drained at chunk {K // 2}: "
+        f"{rec['failovers']} failover, {rec['resumes']} resume(s) from the host checkpoint, "
+        f"{rec['steals']} steal(s) (declined {rec['steal_declined']}), {rec['chunk_steps']} "
+        f"chunk steps; {wall} s against "
+        f"{clean_s} s unfaulted; rows equal")
+    return rec
+
+
+def replica_chaos(device, devices, log, chunk_rows=REPLICA_CHAOS_CHUNK_ROWS) -> dict:
+    """runtime/chaos.py's replica, preempt and fabric scenarios
+    (chaos.MESH_SCENARIOS) at tiny in `chunk_rows`-row chunks over
+    `devices` (2 replicas), each held to its gates
+    (chaos.mesh_case_failures, the reference's chaos_smoke gates): a
+    replica killed mid-serve and one drained under the reference's
+    client population, park and resume under a later device loss, a
+    drain while parked, host loss with a fabric pull, a membership flap
+    and transport corruption. Then GET /v1/fabric answers 200 and
+    /v1/metrics shows the replica., scheduler. and fabric. counters.
+    tests/test_torch_chaos.py runs the scenarios at tiny on 4 CPU
+    shards."""
+    import json
+    import os
+    import urllib.request
+
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.runtime import chaos
+    from trino_tpu_torch.runtime.server import CoordinatorServer
+
+    os.environ.setdefault("TRINO_TPU_INTERNAL_SECRET", "chip-smoke-fabric")
+    out, bad, t0 = {}, [], time.perf_counter()
+    for scenario in chaos.MESH_SCENARIOS:
+        t1 = time.perf_counter()
+        rows, rep = chaos.run_mesh_case(scenario, REPLICA_SEED, chaos.CHAOS_QUERIES,
+                                        REPLICA_CHAOS_SQL, device=device, mesh_devices=devices,
+                                        mesh_chunk_rows=chunk_rows)
+        bad += chaos.mesh_case_failures(scenario, rows, rep)
+        out[scenario] = {**{k: v for k, v in rep.items() if k != "expected"},
+                         "wall_s": time.perf_counter() - t1}
+    srv = CoordinatorServer(replica_runner("tiny", device, devices, create_tpch_connector()))
+    try:
+        with urllib.request.urlopen(srv.uri + "/v1/fabric", timeout=30) as resp:
+            fabric = (resp.status, json.loads(resp.read()))
+        with urllib.request.urlopen(srv.uri + "/v1/metrics", timeout=30) as resp:
+            metrics = json.loads(resp.read())
+    finally:
+        srv.stop()
+    counters = sorted(k for k in metrics if k.startswith(("replica.", "scheduler.", "fabric.")))
+    if bad or fabric[0] != 200 or not all(
+            any(c.startswith(p) for c in counters) for p in ("replica.", "scheduler.", "fabric.")):
+        raise AssertionError(f"replicas chaos cases failed: {bad}; /v1/fabric {fabric}")
+    wall = time.perf_counter() - t0
+    log(f"[replicas] chaos cases at tiny on {len(devices)} shards ({wall} s): "
+        + "; ".join(f"{n}: " + ", ".join(f"{k}={v}" for k, v in rep.items()
+                                          if k != "untyped_errors")
+                    for n, rep in out.items()))
+    log(f"[replicas] GET /v1/fabric: {fabric[0]} {fabric[1]}; /v1/metrics counters: {counters}")
+    return {"wall_s": wall, "fabric": fabric[1], "counters": counters, **out}
+
+
+def replica_identities(schema: str, device, devices, log, chunk_rows=MESH_CHUNK_ROWS,
+                       park_chunk_rows=RECOVERY_CHUNK_ROWS, steal_chunk_rows=RECOVERY_CHUNK_ROWS,
+                       gate=None) -> dict:
+    """Phase replicas' steps at `schema` on `device`; `devices` lists 6
+    shard devices (2 replicas take the first 4, 3 replicas all 6):
+    placement, park and resume, drain failover (phase mesh's chunked
+    join, 2 replicas) and stealing (REPLICA_STEAL_JOIN in
+    `steal_chunk_rows` chunks, 3 replicas). `gate` turns the kernel
+    captures on for the legs after each drain. tests/test_torch_replicas.py
+    runs this at tiny on 6 CPU shards."""
+    from trino_tpu_torch.connectors.tpch import create_tpch_connector
+    from trino_tpu_torch.recovery import CHECKPOINTS
+
+    CHECKPOINTS.clear()
+    conn = create_tpch_connector()
+    four = list(devices[:2 * REPLICA_SHARDS])
+    out = {}
+    t0 = time.perf_counter()
+    session = {"mesh_chunk_rows": chunk_rows, "mesh_checkpoint_interval_chunks": 1}
+    steps = (
+        ("placement", lambda: replica_placement(schema, device, four, conn, log)),
+        ("park", lambda: replica_park(schema, device, four, conn, log, park_chunk_rows)),
+        ("failover", lambda: replica_drain("segment_join", replica_runner(
+            schema, device, four, conn, **session), DIST_JOIN, device, log, gate)),
+        # a drain requested at chunk k surfaces at boundary k + 1, and a
+        # split needs two unstarted chunks after it: smaller chunks here
+        # than phase mesh's (K = 4 at sf1 on 2 shards)
+        ("steal", lambda: replica_drain("steal_join", replica_runner(
+            schema, device, list(devices[:3 * REPLICA_SHARDS]), conn, n_replicas=3,
+            mesh_chunk_rows=steal_chunk_rows, mesh_checkpoint_interval_chunks=1),
+            REPLICA_STEAL_JOIN, device, log, gate)),
+    )
+    for name, step in steps:
+        t1 = time.perf_counter()
+        out[name] = step()
+        out[name]["step_s"] = time.perf_counter() - t1
+    if out["failover"]["resumes"] != 1:
+        raise AssertionError(f"replicas failover resumed {out['failover']['resumes']} times")
+    if out["steal"]["steals"] < 1:
+        raise AssertionError(f"replicas steal: {out['steal']}")
+    out["steps_s"] = time.perf_counter() - t0
+    log("[replicas] step walls (s): " + ", ".join(
+        f"{name} {out[name]['step_s']}" for name, _ in steps))
+    CHECKPOINTS.clear()
+    return out
+
+
+def replicas_chaos_start():
+    """replica_chaos on 4 shards of the card in a process of its own,
+    beside the card tests' (an interpreter of its own: the cases' client
+    populations and the tests do not share one lock). Its last stdout
+    line is its record as JSON."""
+    code = ("import json, torch\n"
+            "import chip_smoke as CS\n"
+            "out = CS.replica_chaos('cuda', [torch.device('cuda', 0)] * 2 * CS.REPLICA_SHARDS,"
+            " CS.log)\n"
+            "print(json.dumps(out, default=str))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def replicas_card_tests_start():
+    """tests/test_torch_card.py's park and steal-merge cases, in a
+    process of their own beside the chaos cases'."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+         "-k", "park or steal", os.path.join("tests", "test_torch_card.py")],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_replicas(results: dict) -> None:
+    """The replica plane, the run queue and the fabric on the card (see
+    the module docstring), every launch counted in `replicas_launches`."""
+    import contextlib
+
+    import torch
+    from trino_tpu_torch.ops import gather_kernels as GK
+    from trino_tpu_torch.ops import window_rank as W
+
+    t_phase = time.perf_counter()
+    log(f"[replicas] card: {card_line()}")
+    gate = {"on": False}
+
+    def gated(key):
+        return lambda *a: key(*a) if gate["on"] else None
+
+    # the timed sf1 steps alone on the card and the host; the chaos
+    # cases and the card tests after them, in two processes side by side
+    reset_kernel_counts()
+    with contextlib.ExitStack() as stack:
+        caps = tuple(stack.enter_context(c) for c in (
+            Capture(W, "_launch_bounds", gated(lambda q, b: (
+                q.numel(), int(b.shape[0]), q.element_size()))),
+            Capture(W, "_launch_run_owner", gated(lambda off, n_out: (
+                n_out, int(off.shape[0])))),
+            Capture(GK, "_launch_flat", gated(lambda table, idx: (
+                idx.numel(), int(table.shape[0]), table.element_size())))))
+        steps = replica_identities("sf1", "cuda",
+                                   [torch.device("cuda", 0)] * (3 * REPLICA_SHARDS), log,
+                                   gate=gate)
+    results["replicas_launches"] = join_kernel_counts()
+    results["replicas"] = steps
+    results["replicas"]["kernel_checks"] = adaptive_kernel_checks(
+        {"resumed or stolen legs": caps}, log, phase="replicas")
+    torch.cuda.empty_cache()
+    proc = replicas_card_tests_start()
+    chaos = replicas_chaos_start()
+    outs = {}
+    try:
+        for name, p in (("card tests", proc), ("chaos cases", chaos)):
+            outs[name] = p.communicate(timeout=600)
+    finally:
+        for p in (proc, chaos):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    c_out, c_err = outs["chaos cases"]
+    for line in c_out.strip().splitlines():
+        if not line.startswith("{"):
+            log(line)
+    if chaos.returncode != 0:
+        raise AssertionError(f"phase replicas' chaos cases failed:\n{c_out[-3000:]}\n"
+                             f"{c_err[-3000:]}")
+    results["replicas"]["chaos"] = json.loads(c_out.strip().splitlines()[-1])
+    out, err = outs["card tests"]
+    tail = out.strip().splitlines()[-1:] or [""]
+    results["replicas"]["card_tests"] = {"rc": proc.returncode, "summary": tail[0]}
+    log(f"[replicas] tests/test_torch_card.py -k 'park or steal': rc {proc.returncode}, "
+        f"{tail[0]}")
+    if proc.returncode != 0 or "skipped" in tail[0]:
+        raise AssertionError(f"tests/test_torch_card.py's replica cases failed or skipped:\n"
+                             f"{out[-4000:]}\n{err[-2000:]}")
+    for k in ("bounds", "run_owner", "take_flat"):
+        if results["replicas_launches"][k] <= 0:
+            raise AssertionError(f"phase replicas never launched {k}")
+    log(f"[replicas] launches of the phase: {results['replicas_launches']}")
+    log(f"[replicas] phase took {time.perf_counter() - t_phase} s")
     torch.cuda.empty_cache()
 
 
@@ -6345,6 +6820,12 @@ def phase_explore(results: dict) -> None:
     log(f"[explore] launches: {counts}")
 
 
+# phase parity's middle scale for the TPC-H, functions and TPC-DS steps
+# (sf0.1 until phase replicas came: those three steps took 28.3 s of a
+# full run of 846.3 s, past the 800 s the run is kept under)
+PARITY_SCHEMA = "sf0.05"
+
+
 def phase_parity(results: dict) -> None:
     # Q-MXJ twice: with the join-project route on, and off
     breadth = (("q16", Q16, False), ("q22", Q22, False), ("q_win", Q_WIN, False),
@@ -6358,7 +6839,7 @@ def phase_parity(results: dict) -> None:
         ("tiny", (("q1", Q1, False), ("q6", Q6, False), ("q_mxu", Q_MXU, False),
                   ("q3", Q3, False), ("q18", Q18, False), ("listagg", Q_LISTAGG, False))
          + breadth + tests),
-        ("sf0.1", (("q3", Q3, False), ("q18", Q18, False)) + breadth),
+        (PARITY_SCHEMA, (("q3", Q3, False), ("q18", Q18, False)) + breadth),
     ):
         t0 = time.perf_counter()
         gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
@@ -6370,9 +6851,10 @@ def phase_parity(results: dict) -> None:
             log(f"[parity] {name} {schema}: {len(a)} rows, card == CPU")
         log(f"[timing] parity TPC-H {schema} took {time.perf_counter() - t0:.1f} s")
     # the scalar function corpus of tests/test_functions.py at tiny, and
-    # the functions queries at sf0.1; doubles within rows_close's 1e-12
+    # the functions queries at PARITY_SCHEMA; doubles within rows_close's
+    # 1e-12
     for schema, queries in (("tiny", list(enumerate(function_corpus()))),
-                            ("sf0.1", FN_QUERIES)):
+                            (PARITY_SCHEMA, FN_QUERIES)):
         t0 = time.perf_counter()
         gpu, cpu = runner(schema, "cuda"), runner(schema, "cpu")
         for name, sql in queries:
@@ -6382,11 +6864,11 @@ def phase_parity(results: dict) -> None:
                                      f"differ at {schema}")
         log(f"[parity] functions {schema}: {len(queries)} queries, card == CPU "
             f"({time.perf_counter() - t0:.1f} s)")
-    # TPC-DS: the nine templates other than q72 at tiny and sf0.1 (q72's
-    # CPU run at tiny took most of this step's 42.5 s; phase main holds
-    # q72 to its identities on the card at Q72_SCHEMA)
+    # TPC-DS: the nine templates other than q72 at tiny and PARITY_SCHEMA
+    # (q72's CPU run at tiny took most of this step's 42.5 s; phase main
+    # holds q72 to its identities on the card at Q72_SCHEMA)
     nine = [n for n in sorted(TPCDS_QUERIES) if n != "q72"]
-    for schema, names in (("tiny", nine), ("sf0.1", nine)):
+    for schema, names in (("tiny", nine), (PARITY_SCHEMA, nine)):
         t0 = time.perf_counter()
         gpu, cpu = runner(schema, "cuda", "tpcds"), runner(schema, "cpu", "tpcds")
         for name in names:
@@ -6487,7 +6969,8 @@ def family_modes(results: dict, on_path: dict, kernels) -> dict:
 
 # the phases whose launches count apart from the main path's
 PHASE_LAUNCHES = ("nested", "zones", "write", "statements", "files", "spill", "distributed",
-                  "wire", "mesh", "serve", "serve_dead", "serve_warm_live", "adaptive")
+                  "wire", "mesh", "serve", "serve_dead", "serve_warm_live", "adaptive",
+                  "replicas")
 
 
 def kernels_line(results: dict) -> dict:
@@ -6600,7 +7083,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="identity,build,kernel,main,nested,zones,write,statements,"
-                            "files,spill,distributed,wire,mesh,serve,adaptive,explore,parity",
+                            "files,spill,distributed,wire,mesh,serve,adaptive,replicas,"
+                            "explore,parity",
                     help="comma-separated subset of the phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -6641,7 +7125,8 @@ def main() -> int:
                ("files", (phase_files,)), ("spill", (phase_spill,)),
                ("distributed", (phase_distributed,)), ("wire", (phase_wire,)),
                ("mesh", (phase_mesh,)), ("serve", (phase_serve,)),
-               ("adaptive", (phase_adaptive,)), ("explore", (phase_explore,)),
+               ("adaptive", (phase_adaptive,)), ("replicas", (phase_replicas,)),
+               ("explore", (phase_explore,)),
                ("parity", (phase_parity,)))
     walls = results["phase_walls_s"] = {}
     for name, fns in ordered:

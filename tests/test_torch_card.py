@@ -22,6 +22,13 @@ of four shards of the card, snapshot to the host and restored, equal the
 carries before, each shard with its own storage; the salted exchange of
 a skew-annotated join on four shards of the card equals the same
 exchange over CPU shards (the plain ops).
+
+The replica plane on the card: a parked GROUP BY carry on two shards of
+the card frees at least half its bytes while parked (memory_allocated,
+not the caching allocator's reserve) and comes back equal, each shard
+with its own storage; a work-stealing merge on two shards of the card
+equals the same merge over CPU shards (chip_smoke.py's phase replicas
+runs these two).
 """
 
 import numpy as np
@@ -300,3 +307,123 @@ def test_salted_exchange_on_the_card_equals_the_plain_ops(dev, role):
         for key in hot:
             counts = {int((k[lv] == key).sum()) for k, _v, lv in got}
             assert len(counts) == 1 and counts.pop() > 0
+
+
+# ---- the replica plane on the card ----------------------------------------------
+
+
+class _Seat:
+    """A scheduler seat that grants at once: park_wait reads what the
+    card holds while the run is parked."""
+
+    def __init__(self):
+        self.parked_allocated = None
+
+    def park_wait(self, done, total):
+        torch.cuda.synchronize()
+        self.parked_allocated = torch.cuda.memory_allocated()
+
+    def park_refused(self):
+        raise AssertionError("the park budget refused the snapshot")
+
+
+def _runner_on(devices):
+    from trino_tpu_torch.engine import Session
+    from trino_tpu_torch.parallel import mesh_chunk
+    from trino_tpu_torch.parallel.mesh import ShardMesh
+
+    runner = mesh_chunk.ChunkedMeshRunner.__new__(mesh_chunk.ChunkedMeshRunner)
+    runner.ex = type("Ex", (), {"mesh": ShardMesh(devices), "n": len(devices)})()
+    runner.session = Session()
+    runner.feed_tables = ()
+    runner._run_stats = {"parks": 0, "unparks": 0}
+    return runner
+
+
+def _record(cap, kind, n_chunks=8):
+    from trino_tpu_torch.parallel import mesh_chunk
+
+    return mesh_chunk.MeshProgramRecord(
+        n_chunks=n_chunks, chunk_cap=1024, resolved_caps={"carry:f1": cap},
+        pctx_fids=(), carry_meta=((kind, 1),), prelude_sps=[], stream_sps=[], flush_sps=[])
+
+
+def test_park_frees_the_carries_and_restores_them_each_shard_its_own(dev):
+    """A chunked GROUP BY's carries on [cuda:0] * 2 parked: while the
+    run waits, memory_allocated is down by at least half the carries'
+    bytes; after the grant every shard's tensors are back, equal to
+    before, each with storage of its own."""
+    from trino_tpu_torch.parallel import mesh_chunk
+    from trino_tpu_torch.recovery import CHECKPOINTS
+    from trino_tpu_torch.runtime.memory import batch_bytes
+
+    cap = 1 << 20
+    runner = _runner_on([torch.device("cuda", 0)] * 2)
+    carries = [_carry_shards(dev, 2, cap, 5, group=True)]
+    carry_bytes = sum(batch_bytes(b) for b in carries[0])
+    want = mesh_chunk._carry_to_host(carries[0])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    seat = _Seat()
+    key = ("card-park", 1)
+    try:
+        runner._park(key, _record(cap, "ctx"), carries, 3, 8, None, seat)
+        torch.cuda.synchronize()
+        assert before - seat.parked_allocated >= carry_bytes // 2, (
+            before, seat.parked_allocated, carry_bytes)
+        got = mesh_chunk._carry_to_host(carries[0])
+        assert np.array_equal(got.live, want.live)
+        for (_t1, d1, v1, _x), (_t2, d2, v2, _y) in zip(got.columns, want.columns):
+            assert np.array_equal(d1, d2) and np.array_equal(v1, v2)
+        ptrs = [t.data_ptr() for b in carries[0] for c in b.columns for t in (c.data, c.valid)]
+        assert all(b.columns[0].data.device.type == "cuda" for b in carries[0])
+        assert len(set(ptrs)) == len(ptrs)
+        assert runner._run_stats == {"parks": 1, "unparks": 1}
+    finally:
+        CHECKPOINTS.discard(key)
+
+
+def _append_carry(device, n_shards, cap, seed):
+    """An append accumulator of `n_shards` shards: under half of each
+    shard's rows live, packed at its front."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.block import Column, RelBatch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _s in range(n_shards):
+        live = np.arange(cap) < int(rng.integers(0, cap // 2))
+        out.append(RelBatch([Column(T.BIGINT, _t(rng.integers(0, 1 << 40, cap), device),
+                                    _t(live, device)),
+                             Column(T.DOUBLE, _t(rng.standard_normal(cap), device),
+                                    _t(rng.random(cap) < 0.9, device))], _t(live, device)))
+    return out
+
+
+def test_a_steal_merge_on_the_card_equals_the_merge_on_cpu_shards(dev):
+    """The primary's carries on 2 shards of the card merged with a
+    helper's published carries equal the same merge over CPU shards."""
+    import threading
+
+    from trino_tpu_torch.parallel import mesh_chunk
+    from trino_tpu_torch.recovery import CHECKPOINTS, MeshCheckpoint
+
+    cap = 1 << 16
+    theirs = mesh_chunk._carry_to_host(_append_carry(torch.device("cpu"), 2, cap, 8))
+    results = []
+    for device in (torch.device("cuda", 0), torch.device("cpu")):
+        runner = _runner_on([device] * 2)
+        record = _record(cap, "out")
+        steal = mesh_chunk.StealContext("merge", 4, ("steal", "card"), {"carry:f1": cap},
+                                        done=threading.Event())
+        CHECKPOINTS.put(steal.key, MeshCheckpoint(
+            next_chunk=8, n_chunks=8, chunk_cap=1024, resolved_caps={"carry:f1": cap},
+            carries_host=(theirs,), tables=(), generations=()))
+        steal.done.set()
+        merged = runner._steal_merge(record, [_append_carry(device, 2, cap, 7)], steal)
+        assert merged is not None and merged[0][0].live.device.type == device.type
+        results.append(mesh_chunk._carry_to_host(merged[0]))
+    got, want = results
+    assert np.array_equal(got.live, want.live)
+    for (_a, d1, v1, _b), (_c, d2, v2, _d) in zip(got.columns, want.columns):
+        assert np.array_equal(d1, d2) and np.array_equal(v1, v2)

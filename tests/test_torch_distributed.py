@@ -20,8 +20,9 @@ teardown.
   listener and runner cases, and test_pushdown.py's tpch and memory
   cases. test_the_corpora_are_covered lists every other case: where it
   runs instead (the HTTP wire, FTE and the spool in
-  tests/test_torch_wire.py, the servers in tests/test_torch_front_door.py),
-  or the item it waits for (the chaos harness: 13.3). test_tracing.py's
+  tests/test_torch_wire.py, the servers in tests/test_torch_front_door.py);
+  none waits for a later item (the chaos harness's watchdog case runs on
+  the port's ChaosHarness, runtime/chaos.py). test_tracing.py's
   two per-query compile-counter cases run as port-side copies on the
   port's counter name (programs_built_by_query).
 - The arms of later items raise, naming the item; without a card the
@@ -64,6 +65,7 @@ from trino_tpu_torch.connectors import tpch as ttpch
 from trino_tpu_torch.connectors.spi import CatalogManager
 from trino_tpu_torch.engine import LocalQueryRunner, Session
 from trino_tpu_torch.runtime import DistributedQueryRunner, Worker
+from trino_tpu_torch.runtime.chaos import ChaosHarness
 from trino_tpu_torch.runtime.failure import FailureInjector
 from trino_tpu_torch.runtime.task import TaskExecution, TaskId, TaskSpec
 from trino_tpu_torch.sql import fragmenter as tfragmenter
@@ -84,9 +86,12 @@ _MODULES = [
     "runtime.http", "runtime.fte", "runtime.resource_groups", "runtime.server",
     "serving.admission", "client", "dbapi", "cli", "service.proxy", "service.verifier",
     "transaction", "sql.ast", "sql.cost", "parallel.mesh_plan", "parallel.mesh_chunk",
+    "runtime.scheduler", "runtime.replicas", "runtime.fabric", "runtime.chaos",
+    "runtime.error_tracker",
 ]
 # constructors that take the port's device: built on the CPU
-_ON_CPU = {"LocalQueryRunner", "DistributedQueryRunner", "Worker", "TaskExecution"}
+_ON_CPU = {"LocalQueryRunner", "DistributedQueryRunner", "Worker", "TaskExecution",
+           "ChaosHarness"}
 # the mesh plane's shards: 8 on the CPU, as tests/conftest.py gives the
 # reference 8 CPU devices
 MESH_DEVICES = [torch.device("cpu")] * 8
@@ -95,7 +100,7 @@ MESH_DEVICES = [torch.device("cpu")] * 8
 def _cpu(cls):
     def make(*args, **kw):
         kw.setdefault("device", "cpu")
-        if cls is DistributedQueryRunner:
+        if cls in (DistributedQueryRunner, ChaosHarness):
             kw.setdefault("mesh_devices", MESH_DEVICES)
         return cls(*args, **kw)
 
@@ -289,7 +294,6 @@ _TRACING_TRACED = ["test_traced_query_exports_complete_span_tree",
 _TRACING = [n for _, n in _cases(tracing_corpus)
             if "traced" not in inspect.signature(getattr(tracing_corpus, n)).parameters
             and n not in ("test_fte_retry_and_chaos_annotations_land_on_spans",
-                          "test_watchdog_fires_fast_on_warm_hung_operator",
                           "test_query_endpoints_over_http",
                           "test_jsonl_event_listener_writes_one_line_per_query")]
 
@@ -443,10 +447,8 @@ _ELSEWHERE.update({
     "test_state_machine.py::test_metrics_endpoint": "tests/test_torch_front_door.py",
     "test_tracing.py::test_query_endpoints_over_http": "tests/test_torch_front_door.py",
 })
-WAITING = {
-    "test_tracing.py::test_watchdog_fires_fast_on_warm_hung_operator":
-        "item 13.3 (the chaos harness)",
-}
+# cases that wait for a later item (13.4, analysis/): none of these corpora
+WAITING: dict = {}
 
 
 def test_the_corpora_are_covered():
@@ -465,7 +467,7 @@ def test_the_corpora_are_covered():
         accounted = ran | set(WAITING) | set(_ELSEWHERE)
         assert every == accounted & every, sorted(every - accounted)
     assert not ran & set(WAITING) and not ran & set(_ELSEWHERE)
-    assert all(re.match(r"item 13\.[34] ", v) for v in WAITING.values())
+    assert all(re.match(r"item 13\.4 ", v) for v in WAITING.values())
 
 
 # ---- the arms of later items raise ------------------------------------------

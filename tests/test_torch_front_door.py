@@ -18,7 +18,9 @@ proxy and verifier.
   `python -m trino_tpu_torch.cli --server` prints them.
 - The server's serving arms: a batcher given to it, or built from the
   micro-batch properties, coalesces point lookups into the reference's
-  rows; GET /v1/fabric answers 501 naming item 13.3.
+  rows; GET /v1/fabric answers 200 with the fabric's status (the
+  reference's fields), and /v1/metrics shows the replica, scheduler and
+  fabric counters from the server's start.
 - Every server is stopped, and no server thread outlives a test.
 """
 
@@ -221,7 +223,12 @@ def test_the_item_13_arms_raise_or_answer_naming_it():
     """The batcher arm (since ported): a MicroBatcher given to
     the server, and one it builds from micro_batch_window_ms, coalesce
     concurrent point lookups and answer the reference's rows; GET
-    /v1/fabric answers 501 naming item 13.3."""
+    /v1/fabric (item 13.3, since ported) answers 200 with the reference's
+    status fields, and /v1/metrics shows the replica, scheduler and
+    fabric counters."""
+    import json
+
+    from trino_tpu.runtime.fabric import fabric_status as jfabric_status
     from trino_tpu.connectors import tpch as jtpch
     from trino_tpu.engine import LocalQueryRunner as JRunner
     from trino_tpu.engine import Session as JSession
@@ -258,10 +265,73 @@ def test_the_item_13_arms_raise_or_answer_naming_it():
             srv.stop()
     srv = CoordinatorServer(r)
     try:
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(srv.uri + "/v1/fabric", timeout=10)
-        assert e.value.code == 501 and "item 13.3" in e.value.read().decode()
+        with urllib.request.urlopen(srv.uri + "/v1/fabric", timeout=10) as resp:
+            assert resp.status == 200
+            status = json.loads(resp.read())
+        assert set(status) == set(jfabric_status()) and status["attached"] is False
+        with urllib.request.urlopen(srv.uri + "/v1/metrics", timeout=10) as resp:
+            metrics = json.loads(resp.read())
+        for name in ("replica.placements", "replica.failovers", "scheduler.parks",
+                     "scheduler.steals", "fabric.pulls", "fabric.digest_rejects"):
+            assert name in metrics, name
     finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("ttl", [None, 0.4])
+def test_a_running_querys_poll_is_held_until_it_settles(ttl):
+    """A poll of a query still running is held, at most
+    POLL_MAX_WAIT_S and a quarter of the client TTL, and answered as
+    soon as the query settles; a client held this way is not reaped as
+    abandoned, and a client polling every 5 ms sends one request a
+    hold, not hundreds a second (the reference answers at once)."""
+    import json
+
+    release = threading.Event()
+
+    class Blocking:
+        session = None
+
+        def execute(self, sql, **kw):
+            assert release.wait(30)
+            return LocalQueryRunner(Session(catalog="tpch", schema="tiny"), device="cpu") \
+                .execute("select 1")
+
+    srv = CoordinatorServer(Blocking(), client_timeout_s=ttl)
+    hold = min(srv.POLL_MAX_WAIT_S, srv.CLIENT_TTL_S / 4.0)
+    try:
+        req = urllib.request.Request(srv.uri + "/v1/statement", data=b"select 1",
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            out = json.loads(resp.read())
+        t0 = time.monotonic()
+        with urllib.request.urlopen(out["nextUri"], timeout=10) as resp:
+            out = json.loads(resp.read())
+        held = time.monotonic() - t0
+        assert out["stats"]["state"] in ("QUEUED", "RUNNING") and "nextUri" in out
+        assert hold * 0.9 <= held < hold + 0.5, (held, hold)
+        threading.Timer(hold / 2, release.set).start()
+        t0 = time.monotonic()
+        with urllib.request.urlopen(out["nextUri"], timeout=10) as resp:
+            out = json.loads(resp.read())
+        assert out["stats"]["state"] == "FINISHED" and out["data"] == [[1]]
+        assert time.monotonic() - t0 < hold
+        # a 5 ms client over a query held for two holds polls a few times
+        release.clear()
+        polls = []
+        real = Client._request
+
+        def counted(self, method, url, body=None):
+            polls.append(method)
+            return real(self, method, url, body)
+
+        threading.Timer(2 * hold, release.set).start()
+        c = Client(srv.uri, timeout=30, poll_interval=0.005)
+        c._request = counted.__get__(c)
+        assert c.execute("select 1").rows == [[1]]
+        assert polls.count("GET") <= 4, polls
+    finally:
+        release.set()
         srv.stop()
 
 

@@ -75,6 +75,8 @@ TIER_MODULES = ["trino_tpu_torch.adaptive", "trino_tpu_torch.adaptive.spool",
                 "trino_tpu_torch.adaptive.observer", "trino_tpu_torch.adaptive.controller",
                 "trino_tpu_torch.recovery", "trino_tpu_torch.recovery.checkpoint",
                 "trino_tpu_torch.recovery.stage_spool"]
+REPLICA_MODULES = ["trino_tpu_torch.runtime.scheduler", "trino_tpu_torch.runtime.replicas",
+                   "trino_tpu_torch.runtime.fabric", "trino_tpu_torch.runtime.chaos"]
 
 # check name -> code run first and alone in a child process (see `alone`)
 ALONE = {
@@ -127,6 +129,13 @@ ALONE = {
         "                   ('trino_tpu_torch.recovery.checkpoint', 'CHECKPOINTS')):\n"
         "    mod = sys.modules.get(name)\n"
         "    assert mod is None or len(getattr(mod, attr)._entries) == 0\n") for m in TIER_MODULES},
+    **{f"replicas:{m}": _imports_clean(m) + (
+        # and no thread is started, no fabric attached, no push hook set
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "fabric = sys.modules.get('trino_tpu_torch.runtime.fabric')\n"
+        "assert fabric is None or fabric.ACTIVE_FABRIC is None\n"
+        "chunk = sys.modules.get('trino_tpu_torch.parallel.mesh_chunk')\n"
+        "assert chunk is None or chunk.CHECKPOINT_PUSH_HOOK is None\n") for m in REPLICA_MODULES},
 }
 
 _ALONE_HELPER = r"""
@@ -250,6 +259,14 @@ def test_adaptive_and_recovery_modules_import_alone(module, alone):
     # the adaptive and recovery tiers, imported first and alone, pull in
     # neither jax nor trino_tpu, start no thread and hold no entry
     _check_alone(alone, f"tiers:{module}")
+
+
+@pytest.mark.parametrize("module", REPLICA_MODULES)
+def test_replica_plane_modules_import_alone(module, alone):
+    # the run queue, the replica plane, the fabric and the chaos harness,
+    # imported first and alone, pull in neither jax nor trino_tpu, start
+    # no thread, attach no fabric and set no push hook
+    _check_alone(alone, f"replicas:{module}")
 
 
 def test_phase_files_statements_at_tiny():

@@ -157,17 +157,19 @@ def _mesh_runner(**session):
     ({"mesh_chunk_rows": 512, "mesh_checkpoint_interval_chunks": 1}, "13.2"),
 ])
 def test_mesh_arms_of_item_13_raise_naming_it(session, item, baseline_rows):
-    """The replica plane (item 13.3) raises naming its item. Mesh
-    checkpoints (item 13.2) came with the recovery tier: a run with
-    checkpoints on resumes from a fault mid-run at tiny with the page
-    plane's rows, every chunk executed once."""
+    """Both arms of item 13 run. The replica plane (item 13.3): over 2
+    replicas of the 8 CPU shards Q_GROUP answers the page plane's rows
+    on the mesh, placed on a replica. Mesh checkpoints (item 13.2): a
+    run with checkpoints on resumes from a fault mid-run at tiny with
+    the page plane's rows, every chunk executed once."""
     from trino_tpu_torch.parallel import mesh_chunk
 
-    if item == "13.3":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            _mesh_runner(**session).execute(chunk_corpus.Q_GROUP)
-        return
     r = _mesh_runner(**session)
+    if item == "13.3":
+        assert r.execute(chunk_corpus.Q_GROUP).rows == baseline_rows["group"]
+        assert r._last_data_plane == "mesh" and r.last_mesh_fallback is None
+        assert r._replicas.n_replicas == 2 and r._replicas.placements == 1
+        return
     assert r.execute(chunk_corpus.Q_GROUP).rows == baseline_rows["group"]
     K = mesh_chunk.last_run_info()["chunks"]
     fired = []

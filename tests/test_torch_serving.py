@@ -12,6 +12,8 @@ front of the coordinator server and the open-loop harness.
   its oracle, nothing shed, a plan-cache hit rate of at least 90 %, zero
   programs built after warm-up, and a burst that coalesced. (The p99 to
   p50 gate is a chip measurement: chip_smoke.py's phase serve holds it.)
+  Against a DistributedQueryRunner over 2 CPU shards every coalesced
+  lookup rides the mesh scheduler's fast lane (`mesh_fast_lane`).
 """
 
 import inspect
@@ -102,6 +104,50 @@ def test_a_burst_coalesces_and_demultiplexes_to_the_references_rows(oracle):
         srv.stop()
 
 
+def test_lookups_that_arrive_while_their_keys_batch_executes_coalesce(oracle):
+    """A leader whose window ends while a batch of its key still executes
+    keeps its group open: a lookup that arrives well after that window,
+    but before the batch in flight is done, joins it, and the two run as
+    one combined statement after the first."""
+    import time
+
+    from trino_tpu_torch.serving.batcher import MicroBatcher
+
+    r = _runner()
+    sqls, started, release = [], threading.Event(), threading.Event()
+
+    class Gated:  # the first execution holds until released
+        def execute(self, sql, **kw):
+            sqls.append(sql)
+            if len(sqls) == 1:
+                started.set()
+                release.wait(30)
+            return r.execute(sql, **kw)
+
+    b = MicroBatcher(Gated(), window_s=0.05, max_batch=16)
+    got = {}
+
+    def ask(k):
+        got[k] = b.submit(POINT.format(k)).rows
+
+    ts = [threading.Thread(target=ask, args=(1,))]
+    ts[0].start()
+    try:
+        assert started.wait(30)
+        for k in (2, 3):
+            ts.append(threading.Thread(target=ask, args=(k,)))
+            ts[-1].start()
+            time.sleep(0.3)  # six windows: key 2's leader has long stopped waiting
+        assert [[m.value for m in g.members] for g in b._groups.values()] == [[2, 3]]
+    finally:
+        release.set()
+        for t in ts:
+            t.join(60)
+    assert got == {k: oracle[k] for k in (1, 2, 3)}
+    assert b.stats() == {"batches": 2, "batched_queries": 3, "open_groups": 0}
+    assert len(sqls) == 2 and "IN (2, 3)" in sqls[1]
+
+
 def test_the_fast_lane_serves_pinned_lookups_before_the_batcher(oracle):
     """With resident_tables and micro-batching both on, the first lookup
     pins orders and every later one probes the pin: the batcher sees
@@ -142,8 +188,13 @@ def test_the_harness_gates_hold_at_tiny():
     open-loop phase at a fixed rate and a burst: the reference's gates
     but the timing one hold (every arrival completes oracle-equal,
     nothing shed, the plan cache hit, nothing built after warm-up, the
-    burst coalesced)."""
+    burst coalesced). The batch phase counts the mesh scheduler's fast
+    lane: none on a LocalQueryRunner (it has no mesh), and every combined
+    lookup of a DistributedQueryRunner over 2 CPU shards."""
+    import torch
+
     from tests.tpch_queries import QUERIES
+    from trino_tpu_torch.runtime import DistributedQueryRunner
 
     report = harness.run_serve_load(queries={"q6": QUERIES[6]}, n_clients=8, duration_s=2.0,
                                     rate_qps=10.0, seed=7, device="cpu")
@@ -154,7 +205,17 @@ def test_the_harness_gates_hold_at_tiny():
     bp = report["batch_phase"]
     assert bp["mismatches"] == 0 and bp["error_count"] == 0
     assert bp["batched_queries"] > bp["batches"] > 0
-    assert bp["mesh_fast_lane"] == 0  # no mesh scheduler yet (item 13.3)
+    assert bp["mesh_fast_lane"] == 0  # a LocalQueryRunner has no mesh scheduler
+    mesh = DistributedQueryRunner(Session(catalog="tpch", schema="tiny"), n_workers=2,
+                                  hash_partitions=2, device="cpu",
+                                  mesh_devices=[torch.device("cpu")] * 2)
+    mesh.register_catalog("tpch", ttpch.create_tpch_connector())
+    report = harness.run_serve_load(queries={"q6": QUERIES[6]}, n_clients=4, duration_s=1.0,
+                                    rate_qps=5.0, batch_phase_s=1.0, seed=7, runner=mesh)
+    assert report["completed"] == report["offered"] and report["mismatches"] == 0
+    bp = report["batch_phase"]
+    assert bp["mismatches"] == 0 and bp["error_count"] == 0
+    assert bp["mesh_fast_lane"] == bp["batches"] > 0
 
 
 def test_exact_percentile_and_rows_equal():

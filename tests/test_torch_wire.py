@@ -22,9 +22,10 @@ fault-tolerant execution (FTE).
 - The corpora run as written with their names bound to the port's
   (tests/test_torch_distributed.portify): tests/test_distributed.py's
   HTTP, FTE, spool and codec cases, test_node_scheduler.py's speculation
-  case, test_tracing.py's FTE span case and tests/test_deadlines.py.
-  test_the_corpora_are_covered accounts for every case; the chaos
-  harness's wait for ROADMAP §1 item 13.3.
+  case, test_tracing.py's FTE span case and tests/test_deadlines.py (its
+  two ChaosHarness cases on the port's runtime/chaos.py; the soak, slow
+  in the corpus, as a slow case here).
+  test_the_corpora_are_covered accounts for every case.
 - Every server is stopped, and no task or server thread outlives a test.
 """
 
@@ -379,9 +380,9 @@ def test_fte_retry_and_chaos_annotations_land_on_spans(monkeypatch):
 
 # ---- tests/test_deadlines.py ------------------------------------------------------
 
-_DEADLINES_WAIT = {"test_abandoned_client_is_reaped_slot_and_memory_drained",
-                   "test_timebound_soak"}
-_DEADLINES = [n for _, n in _cases(deadlines_corpus) if n not in _DEADLINES_WAIT]
+# the soak is marked slow in the corpus: it runs under -m slow only
+_DEADLINES_SLOW = {"test_timebound_soak"}
+_DEADLINES = [n for _, n in _cases(deadlines_corpus) if n not in _DEADLINES_SLOW]
 
 
 @pytest.fixture(scope="module")
@@ -389,13 +390,26 @@ def deadlines_oracle():
     yield from deadlines_corpus.oracle.__wrapped__()
 
 
-@pytest.mark.parametrize("name", _DEADLINES)
-def test_deadlines_corpus(name, monkeypatch, tmp_path, deadlines_oracle):
+def _deadlines_case(name, monkeypatch, tmp_path, oracle, **kw):
     portify(monkeypatch, deadlines_corpus)
     fn = getattr(deadlines_corpus, name)
-    args = {"oracle": lambda: deadlines_oracle, "tmp_path": lambda: tmp_path,
-            "monkeypatch": lambda: monkeypatch}
+    args = {"oracle": lambda: oracle, "tmp_path": lambda: tmp_path,
+            "monkeypatch": lambda: monkeypatch, **{k: (lambda v=v: v) for k, v in kw.items()}}
     fn(**{p: args[p]() for p in inspect.signature(fn).parameters})
+
+
+@pytest.mark.parametrize("name", _DEADLINES)
+def test_deadlines_corpus(name, monkeypatch, tmp_path, deadlines_oracle):
+    _deadlines_case(name, monkeypatch, tmp_path, deadlines_oracle)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("scenario", ["hung_operator", "abandoned_client"])
+def test_deadlines_timebound_soak(scenario, seed, monkeypatch, tmp_path, deadlines_oracle):
+    """The corpus's soak (slow there too) on the port's ChaosHarness."""
+    _deadlines_case("test_timebound_soak", monkeypatch, tmp_path, deadlines_oracle,
+                    scenario=scenario, seed=seed)
 
 
 # ---- chip_smoke.py's phase wire ----------------------------------------------------
@@ -428,9 +442,8 @@ def test_phase_wire_fte_shapes_are_the_corpus():
 
 # ---- the corpora's coverage ------------------------------------------------------
 
-WAITING = {
-    **{f"test_deadlines.py::{n}": "item 13.3 (the chaos harness)" for n in _DEADLINES_WAIT},
-}
+# cases that wait for a later item (13.4, analysis/): none of this corpus
+WAITING: dict = {}
 
 
 def test_the_corpora_are_covered():
@@ -444,12 +457,12 @@ def test_the_corpora_are_covered():
     ran |= {"test_distributed.py::test_fte_injection_matrix",
             "test_node_scheduler.py::test_fte_speculation_beats_straggler",
             "test_tracing.py::test_fte_retry_and_chaos_annotations_land_on_spans"}
-    ran |= {f"test_deadlines.py::{n}" for n in _DEADLINES}
+    ran |= {f"test_deadlines.py::{n}" for n in set(_DEADLINES) | _DEADLINES_SLOW}
     every = {f"test_deadlines.py::{n}" for _, n in _cases(deadlines_corpus)}
     assert every == (ran | set(WAITING)) & every and not ran & set(WAITING)
     sent_here = {k for k, v in DIST_ELSEWHERE.items() if v == "tests/test_torch_wire.py"}
     assert sent_here == {k for k in ran if not k.startswith("test_deadlines.py")}
     for waiting in (WAITING, DIST_WAITING):
-        assert all(re.match(r"item 13\.[34] ", v) for v in waiting.values())
+        assert all(re.match(r"item 13\.4 ", v) for v in waiting.values())
         assert not any("11b" in v for v in waiting.values())
-    assert len(_DEADLINES) == 17 and len(_cases(deadlines_corpus)) == 19
+    assert len(_DEADLINES) == 18 and len(_cases(deadlines_corpus)) == 19

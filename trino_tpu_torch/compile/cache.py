@@ -110,6 +110,12 @@ class ProgramCache:
                 "evictions": self.evictions,
             }
 
+    def fingerprints(self) -> list:
+        """repr of every cached key, in LRU order: the program half of a
+        joining replica's warm manifest (runtime/fabric.py)."""
+        with self._lock:
+            return [repr(k) for k in self._entries]
+
 
 # the process singleton the planner and the mesh runner use
 PROGRAM_CACHE = ProgramCache()

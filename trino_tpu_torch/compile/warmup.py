@@ -65,6 +65,30 @@ def reset_warm_classes() -> None:
         WARM_CLASSES.clear()
 
 
+
+def warm_manifest() -> list:
+    """The warm-class registry as JSON-ready lists, sorted: what a
+    serving host hands a joining replica (runtime/fabric.py warm join)."""
+    with _warm_lock:
+        keys = sorted(WARM_CLASSES)
+    return [[op, int(cap), list(dts)] for op, cap, dts in keys]
+
+
+def apply_manifest(manifest) -> int:
+    """Register the classes of a `warm_manifest` from another host.
+    An item that is not (operator, capacity, dtypes) is skipped (its
+    unpacking or conversion raises TypeError or ValueError); returns the
+    number of classes applied."""
+    keys = []
+    for item in manifest or []:
+        try:
+            op, cap, dts = item
+            keys.append((str(op), int(cap), tuple(str(d) for d in dts)))
+        except (TypeError, ValueError):
+            continue
+    note_classes_warm(keys)
+    return len(keys)
+
 @dataclasses.dataclass
 class WarmupEntry:
     """One stage to warm across its predicted capacities."""

@@ -1381,8 +1381,10 @@ class HashAggregationOperator(Operator):
     def _track_memory(self) -> None:
         """Accounts the accumulation state (merged and pending group
         states). The finish-phase merge produces output, not state, and
-        goes unaccounted, as in the reference."""
-        if self._memory is None or self._in_finish:
+        goes unaccounted, as in the reference; so does a global
+        aggregation's single state row (it registers no revoker, as in
+        the reference, whose final step accounts nothing)."""
+        if self._memory is None or self._in_finish or self._global:
             return
         from trino_tpu_torch.runtime.memory import ExceededMemoryLimitError
 

@@ -54,8 +54,28 @@ checkpoint is resumed also on entry to a later run of the same program
 Unlike the reference, a snapshot that fails propagates (the reference's
 is best-effort), and a restore declines only on a typed condition
 counted in `recovery.restore_declined.<reason>` (carry count, shape,
-rung that shrank); any other error propagates. Parking and work
-stealing are ROADMAP §1 item 13.3.
+rung that shrank); any other error propagates.
+
+The scheduler and the replica plane (runtime/scheduler.py,
+runtime/replicas.py): an executor's `sched_job` is a MeshJob whose seat
+the run acquires at device-phase entry (after host planning and the feed
+builds). At every completed boundary the job decides: keep the mesh,
+yield it in place, or park. `_park` copies the carries to the host store
+(`CHECKPOINTS.park`, against park_max_bytes), drops every device carry,
+waits for the grant, and restores the same snapshot onto the same
+rungs, each shard's tensors its own. A replica's `drain_check` raises
+MeshReplicaDraining at a boundary (or out of a parked wait), which a
+sibling replica resumes from the host snapshot. On such a drain the
+coordinator may split the unstarted chunks between two siblings:
+`run_steal_helper` runs [mid, K) from empty carries and publishes them
+under the steal key, and the primary's `_steal_merge` appends them at
+its `mid` boundary (`_merge_out_carry`). A merge declines on a typed
+disagreement, counted in `scheduler.steal_declined.<reason>` (timeout,
+a helper's mesh fault or overflow, no published carries, caps, a carry
+that is not an append accumulator, a merge `_merge_out_carry` refuses);
+any other error of the helper is kept and raised by the primary at the
+merge. `CHECKPOINT_PUSH_HOOK` (runtime/fabric.py) is called with the key
+of every snapshot and park; it only enqueues.
 """
 
 from __future__ import annotations
@@ -138,14 +158,22 @@ class MeshStuck(RuntimeError):
 class MeshDeviceLost(RuntimeError):
     """A device backing the mesh failed mid-run (or a fault injected
     through MESH_FAULT_HOOK simulated one). Retryable like MeshStuck:
-    the checkpointed remainder replays on the same mesh, or the whole
-    query falls back to the page plane. The replica plane and the chaos
-    harness that raise it in the reference are ROADMAP §1 item 13.3."""
+    the checkpointed remainder replays on the same mesh, on a sibling
+    replica, or the whole query falls back to the page plane."""
 
     # an in-run resume retries on the SAME mesh; a fault a sibling
-    # sub-mesh must take over for (the replica plane's drain, item
-    # 13.3) turns this off
+    # replica must take over for (a drain) turns this off
     in_run_resumable = True
+
+
+class MeshReplicaDraining(MeshDeviceLost):
+    """The replica serving this run started draining (or left the
+    membership) mid-query: the chunk loop stops at the next boundary so
+    the coordinator fails the query over to a sibling, which resumes
+    from the host checkpoint. Resuming in-run would land back on the
+    draining replica, so that is off for this fault."""
+
+    in_run_resumable = False
 
 
 # Fault-injection seam: when set, called as hook(chunk_index, n_chunks)
@@ -154,6 +182,54 @@ class MeshDeviceLost(RuntimeError):
 # mid-run faults. Process-wide.
 MESH_FAULT_HOOK: Optional[Callable[[int, int], None]] = None
 
+# The checkpoint fabric's seam (runtime/fabric.py): when set, called as
+# hook(key) right after a checkpoint or a park snapshot lands in the
+# host store; it only offers the key to a bounded push queue.
+CHECKPOINT_PUSH_HOOK: Optional[Callable[[tuple], None]] = None
+
+# The replica whose sub-mesh the calling thread's chunk loop runs on
+# (None outside a run, or on the single full-width mesh). Thread-local:
+# chunk loops of several replicas interleave under serving load, and a
+# replica-targeted fault hook must see the replica of the loop that
+# called it.
+_ACTIVE_REPLICA = threading.local()
+
+
+def active_replica() -> Optional[int]:
+    """Replica id of the sub-mesh the current thread's chunk loop runs
+    on, or None."""
+    return getattr(_ACTIVE_REPLICA, "replica", None)
+
+
+class StealCancelled(Exception):
+    """The split's dispatcher called a steal helper off (the primary
+    finished or faulted without its rows): it stops at its next chunk
+    boundary, or in its wait for the seat, and publishes nothing."""
+
+
+@dataclasses.dataclass
+class StealContext:
+    """One side of a drain-failover split. The helper (mode "emit")
+    runs chunks [mid, K) from empty carries and puts them under `key`;
+    the primary (mode "merge") appends them at its `mid` boundary. Both
+    sides share `done`, `cancel` and `errors` (dataclasses.replace keeps
+    them)."""
+
+    mode: str
+    mid: int
+    key: tuple
+    caps: Dict[str, int]
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    timeout_s: float = 120.0
+    # errors the helper met; a DECLINABLE one is a decline, any other is
+    # raised by the primary at the merge or by the dispatcher
+    errors: list = dataclasses.field(default_factory=list)
+    cancel: threading.Event = dataclasses.field(default_factory=threading.Event)
+
+    def check_cancel(self) -> None:
+        if self.cancel.is_set():
+            raise StealCancelled(f"steal helper for chunks [{self.mid}, K) called off")
+
 
 class _Overflow(Exception):
     """Device overflow flags fired; restart the run with bumped caps."""
@@ -161,6 +237,11 @@ class _Overflow(Exception):
     def __init__(self, sites: List[Tuple[str, int]]):
         super().__init__(f"capacity overflow at {sites}")
         self.sites = sites
+
+
+# a steal helper's errors that decline the split (the primary runs
+# [mid, K) itself); any other propagates
+STEAL_DECLINABLE = (MeshStuck, MeshDeviceLost, _Overflow, StealCancelled)
 
 
 # ---------------------------------------------------------------------------
@@ -518,8 +599,8 @@ def _pad_shards(batch: RelBatch, n: int, old_cap: int, new_cap: int) -> RelBatch
 def _merge_out_carry(mine: RelBatch, theirs: RelBatch, n: int) -> Optional[RelBatch]:
     """Append `theirs`'s packed live rows after `mine`'s per-shard live
     count, both host-stacked (n * cap,) carries (the drain-failover
-    merge of work stealing, ROADMAP §1 item 13.3, whose caller is not
-    ported). `_accumulate` packs live rows densely at the shard front
+    merge of work stealing: `mine` holds chunks [k0, mid), `theirs`
+    [mid, K) run from empty carries on a sibling). `_accumulate` packs live rows densely at the shard front
     in chunk order, so this concatenation equals the sequential layout.
     Returns None when the combined rows overflow a shard or the packing
     precondition fails."""
@@ -804,11 +885,20 @@ class ChunkedMeshRunner:
                                           fragments=len(self.mesh_sps))
             task_span = stage_span.child("task mesh.0", KIND_TASK, chunks=self.cplan.n_chunks,
                                          chunk_rows=self.cplan.chunk_cap)
+        prev_replica = active_replica()
+        _ACTIVE_REPLICA.replica = getattr(self.ex, "replica_id", None)
         try:
+            sched_job = getattr(self.ex, "sched_job", None)
+            if sched_job is not None:
+                # the seat guards the device phases only: planning and
+                # the feed builds ran before this point, so a fast
+                # arrival never queues behind another query's host prep
+                sched_job.scheduler.acquire(sched_job)
             caps: Dict[str, int] = {}
             self._run_stats = {"executed_chunk_steps": 0, "checkpoints": 0,
                                "checkpoint_bytes": 0, "checkpoint_s": 0.0,
-                               "resumes": 0, "resumed_from_chunk": None}
+                               "resumes": 0, "resumed_from_chunk": None,
+                               "parks": 0, "unparks": 0, "steals": 0}
             resume_budget = int(getattr(self.session, "mesh_resume_attempts", 2) or 0)
             overflows = 0
             attempt = 0
@@ -846,10 +936,10 @@ class ChunkedMeshRunner:
 
                         ckpt = CHECKPOINTS.get(key)
                     if ckpt is None:
-                        # what the replica plane's failover reads (item
-                        # 13.3): the checkpoint key, and whether every
-                        # carry is an append accumulator (group carries
-                        # hold cross-chunk state that cannot merge)
+                        # what the replica plane's failover reads: the
+                        # checkpoint key, and whether every carry is an
+                        # append accumulator (work stealing; group
+                        # carries hold cross-chunk state that cannot merge)
                         e.ckpt_key = key
                         e.steal_ok = bool(record.carry_meta) and all(
                             kind == "out" for kind, _fid in record.carry_meta)
@@ -892,6 +982,7 @@ class ChunkedMeshRunner:
             self._record_divergences(sources, query_span)
             return sources
         finally:
+            _ACTIVE_REPLICA.replica = prev_replica
             if task_span is not None:
                 task_span.end()
                 stage_span.end()
@@ -968,6 +1059,13 @@ class ChunkedMeshRunner:
 
                 ck = CHECKPOINTS.get(park_key)
                 if ck is not None and ck.n_chunks == K and 0 < ck.next_chunk <= K:
+                    # resume on the checkpoint's rungs (or larger ones):
+                    # the chunks before it may have raised a capacity
+                    # this run would not meet again, and a work-stealing
+                    # helper starts from exactly these
+                    for site, cap in ck.resolved_caps.items():
+                        record.resolved_caps[site] = max(
+                            int(cap), int(record.resolved_caps.get(site, 0)))
                     restored = self._restore_carries(ck, record)
                     if restored is not None:
                         carries, k0 = restored, ck.next_chunk
@@ -979,22 +1077,29 @@ class ChunkedMeshRunner:
                         # it in the typed [EXCEEDED_TIME_LIMIT] message)
                         try:
                             preempt.resumed_from = k0
+                            preempt.resumed_on = active_replica()
                         except AttributeError:
                             pass  # None, or a hook that takes no attributes
                         if task_span is not None:
                             task_span.event("resume", from_chunk=k0, of=K)
             carry_index = {fid: i for i, (_k, fid) in enumerate(record.carry_meta)}
+            # the replica's lifecycle hook, the scheduler seat, and the
+            # primary side of a work-stealing split
+            drain_check = getattr(self.ex, "drain_check", None)
+            sched_job = getattr(self.ex, "sched_job", None)
+            steal = getattr(self.ex, "steal_ctx", None)
+            if steal is not None and steal.mode != "merge":
+                steal = None
             with op_span("MeshChunkStep", attempt=attempt, chunks=K):
                 for k in range(k0, K):
                     if preempt is not None:
                         preempt(k, K)
+                    if drain_check is not None:
+                        drain_check()
                     if MESH_FAULT_HOOK is not None:
                         MESH_FAULT_HOOK(k, K)
                     t0 = time.monotonic()
-                    flags = []
-                    self._step(record, k, pctx, carries, carry_index, flags)
-                    # flag readback is the natural device sync point
-                    self._check_flags(flags)
+                    self._checked_step(record, k, pctx, carries, carry_index)
                     dt = time.monotonic() - t0
                     self._run_stats["executed_chunk_steps"] += 1
                     METRICS.increment("mesh.chunk_steps")
@@ -1011,6 +1116,22 @@ class ChunkedMeshRunner:
                             f"mesh chunk {k} made no boundary progress for {dt:.3f}s "
                             f"(stuck_task_interrupt_s={watchdog_s}); retryable on the "
                             "page plane")
+                    if steal is not None and (k + 1) == steal.mid and (k + 1) < K:
+                        merged = self._steal_merge(record, carries, steal)
+                        steal = None
+                        if merged is not None:
+                            carries[:] = merged
+                            self._run_stats["steals"] += 1
+                            METRICS.increment("scheduler.steals")
+                            if task_span is not None:
+                                task_span.event("steal_merge", at_chunk=k + 1, of=K)
+                            break  # the helper ran [mid, K)
+                    if sched_job is not None and (k + 1) < K:
+                        decision = sched_job.boundary(k + 1, K, dt,
+                                                      parkable=park_key is not None)
+                        if decision == "park":
+                            self._park(park_key, record, carries, k + 1, K, task_span,
+                                       sched_job)
 
         if preempt is not None:
             preempt(K, K)
@@ -1080,27 +1201,19 @@ class ChunkedMeshRunner:
         completed chunks [0, next_chunk). Unlike the reference's
         best-effort snapshot, a failure here propagates: on the card it
         is a device error the run would meet next anyway."""
-        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS, MeshCheckpoint
-        from trino_tpu_torch.resident import GENERATIONS
+        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
 
         t0 = time.perf_counter()
-        host = tuple(_carry_to_host(c) for c in carries)
-        ckpt = MeshCheckpoint(
-            next_chunk=next_chunk,
-            n_chunks=K,
-            chunk_cap=record.chunk_cap,
-            resolved_caps=dict(record.resolved_caps),
-            carries_host=host,
-            tables=self.feed_tables,
-            generations=GENERATIONS.snapshot(self.feed_tables),
-        )
+        ckpt = self._snapshot(record, carries, next_chunk, K)
         CHECKPOINTS.put(key, ckpt)
         stats = self._run_stats
         stats["checkpoints"] += 1
-        stats["checkpoint_bytes"] = sum(c.nbytes() for c in host)
+        stats["checkpoint_bytes"] = sum(c.nbytes() for c in ckpt.carries_host)
         stats["checkpoint_s"] += time.perf_counter() - t0
         if task_span is not None:
             task_span.event("checkpoint", chunk=next_chunk, of=K)
+        if CHECKPOINT_PUSH_HOOK is not None:
+            CHECKPOINT_PUSH_HOOK(key)
 
     def _restore_carries(self, ck, record) -> Optional[List[Shards]]:
         """Re-place a checkpoint's host carries on the mesh, shard i's
@@ -1135,6 +1248,164 @@ class ChunkedMeshRunner:
             batch = _pad_shards(_host_to_batch(hc), n, old_cap, new_cap)
             out.append(_place(batch, self.ex.mesh.devices, own=True))
         return out
+
+    def _snapshot(self, record, carries, next_chunk: int, K: int):
+        """A MeshCheckpoint of `carries` as of chunks [0, next_chunk)."""
+        from trino_tpu_torch.recovery.checkpoint import MeshCheckpoint
+        from trino_tpu_torch.resident import GENERATIONS
+
+        return MeshCheckpoint(
+            next_chunk=next_chunk,
+            n_chunks=K,
+            chunk_cap=record.chunk_cap,
+            resolved_caps=dict(record.resolved_caps),
+            carries_host=tuple(_carry_to_host(c) for c in carries),
+            tables=self.feed_tables,
+            generations=GENERATIONS.snapshot(self.feed_tables),
+        )
+
+    def _park(self, key, record, carries: list, next_chunk: int, K: int, task_span,
+              job) -> None:
+        """Park this run: copy the carries to the host store (accounted
+        against park_max_bytes, or the group's share of
+        mesh_park_max_bytes), drop every device carry from `carries`,
+        wait in the scheduler for the grant, then put the same snapshot
+        back into `carries` (each shard's tensors its own) and go on at
+        `next_chunk`.
+
+        A budget refusal leaves the carries in place (the query keeps
+        the mesh and runs to completion). A typed kill while parked
+        (deadline, abandonment) drops the snapshot: a dead query never
+        resumes. A mesh fault while parked (a drain) keeps it, so a
+        sibling replica restores it."""
+        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+
+        ckpt = self._snapshot(record, carries, next_chunk, K)
+        budget = int(getattr(self.session, "park_max_bytes", 256 << 20))
+        group = None
+        pool = int(getattr(self.session, "mesh_park_max_bytes", 0) or 0)
+        if pool > 0:
+            budget = job.scheduler.park_budget_for(job, pool)
+            group = job.group
+        if not CHECKPOINTS.park(key, ckpt, budget, group=group):
+            job.park_refused()
+            if task_span is not None:
+                task_span.event("park_refused", chunk=next_chunk, of=K)
+            return
+        # the snapshot is now the only copy: the parked run holds no
+        # carry tensor, so the caching allocator gets the blocks back
+        for i in range(len(carries)):
+            carries[i] = None
+        self._run_stats["parks"] += 1
+        if task_span is not None:
+            task_span.event("park", chunk=next_chunk, of=K)
+        if CHECKPOINT_PUSH_HOOK is not None:
+            CHECKPOINT_PUSH_HOOK(key)
+        try:
+            job.park_wait(next_chunk, K)
+        except (MeshStuck, MeshDeviceLost):
+            CHECKPOINTS.unpark(key, keep=True)
+            raise
+        except BaseException:
+            CHECKPOINTS.unpark(key, keep=False)
+            raise
+        # regranted: restore the local snapshot object (this run's feeds
+        # are an immutable copy, so its carries stay exact even if a
+        # write invalidated the store entry meanwhile)
+        restored = self._restore_carries(ckpt, record)
+        CHECKPOINTS.unpark(key, keep=True)
+        if restored is None:
+            raise MeshDeviceLost(f"parked carries failed to restore at chunk {next_chunk}")
+        carries[:] = restored
+        self._run_stats["unparks"] += 1
+        if task_span is not None:
+            task_span.event("unpark", chunk=next_chunk, of=K)
+
+    # -- drain-failover work stealing --------------------------------
+    def run_steal_helper(self, steal: StealContext) -> None:
+        """Helper side of a split: chunks [steal.mid, K) from empty
+        carries, published under steal.key for the primary to merge. No
+        resume on entry, no periodic checkpoints, no flush and no
+        output; it stops at the boundary after steal.cancel is set.
+        Whatever it raises is kept in steal.errors (a STEAL_DECLINABLE
+        one declines, anything else is raised); `done` is set either
+        way."""
+        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        prev_replica = active_replica()
+        _ACTIVE_REPLICA.replica = getattr(self.ex, "replica_id", None)
+        try:
+            record = self._record(dict(steal.caps))
+            K = record.n_chunks
+            if not (0 < steal.mid < K) or not record.stream_sps:
+                return
+            pctx: Dict[int, Shards] = {}
+            if record.prelude_sps:
+                _outs, pctx = self._run_prelude(
+                    record, lambda name, **attrs: contextlib.nullcontext(), None, 0)
+            carries: List[Optional[Shards]] = [None] * len(record.carry_meta)
+            carry_index = {fid: i for i, (_k, fid) in enumerate(record.carry_meta)}
+            drain_check = getattr(self.ex, "drain_check", None)
+            for k in range(steal.mid, K):
+                steal.check_cancel()
+                if drain_check is not None:
+                    drain_check()
+                self._checked_step(record, k, pctx, carries, carry_index)
+                METRICS.increment("mesh.chunk_steps")
+            CHECKPOINTS.put(steal.key, self._snapshot(record, carries, K, K))
+        except BaseException as e:  # kept for the primary (see above)
+            steal.errors.append(e)
+        finally:
+            _ACTIVE_REPLICA.replica = prev_replica
+            steal.done.set()
+
+    def _steal_merge(self, record, carries, steal: StealContext) -> Optional[List[Shards]]:
+        """Primary side: the helper's [mid, K) carries appended to ours
+        (`_merge_out_carry`: live rows are packed at each shard's front
+        in chunk order, so the concatenation is the sequential layout).
+        None, counted in scheduler.steal_declined.<reason>, on a typed
+        disagreement; the primary then runs [mid, K) itself. A helper
+        error that is not STEAL_DECLINABLE is raised here."""
+        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+        from trino_tpu_torch.runtime.metrics import METRICS
+
+        def decline(reason: str) -> None:
+            METRICS.increment(f"scheduler.steal_declined.{reason}")
+            return None
+
+        if not steal.done.wait(steal.timeout_s):
+            return decline("timeout")
+        for e in steal.errors:
+            if not isinstance(e, STEAL_DECLINABLE):
+                raise e
+        ck = CHECKPOINTS.get(steal.key)
+        CHECKPOINTS.discard(steal.key)
+        if steal.errors:
+            return decline("helper_fault")
+        if ck is None:
+            return decline("no_carries")
+        if (ck.n_chunks != record.n_chunks or ck.resolved_caps != dict(record.resolved_caps)
+                or len(ck.carries_host) != len(record.carry_meta)):
+            return decline("caps")
+        n = self.ex.n
+        merged = []
+        for (kind, _fid), mine, theirs in zip(record.carry_meta, carries, ck.carries_host):
+            if kind != "out":
+                return decline("not_append")
+            m = _merge_out_carry(_host_to_batch(_carry_to_host(mine)), _host_to_batch(theirs), n)
+            if m is None:
+                return decline("disagreement")
+            merged.append(_place(m, self.ex.mesh.devices, own=True))
+        return merged
+
+    def _checked_step(self, record, k: int, pctx, carries, carry_index) -> None:
+        """Chunk k's step, then its overflow flags read back (one
+        device->host sync). The flags stay local, so between steps the
+        loop holds no tensor but the carries."""
+        flags: list = []
+        self._step(record, k, pctx, carries, carry_index, flags)
+        self._check_flags(flags)
 
     def _step(self, record, k: int, pctx, carries, carry_index, flags) -> None:
         """Chunk k through the stream fragments, appending each carried

@@ -992,9 +992,17 @@ class MeshExecutor:
     pipeline on the runner's `device`, so sort-merge gathers, final
     TopN/limit and output decoration share code with the page plane.
     `devices` lists the shard devices (ShardMesh.resolve: None is every
-    visible card of the runner's device type, one shard on the CPU)."""
+    visible card of the runner's device type, one shard on the CPU).
+    On a replica (runtime/replicas.py) `devices` is the replica's row,
+    `replica_id` labels it (the chunk loop exports it as
+    mesh_chunk.active_replica()), and `drain_check` raises
+    MeshReplicaDraining at a chunk boundary once the replica leaves
+    rotation. The coordinator sets `sched_job` (the scheduler seat the
+    chunk loop consults at every boundary) and `steal_ctx` (a
+    mesh_chunk.StealContext) per execution."""
 
-    def __init__(self, catalogs, session, devices=None, device=None):
+    def __init__(self, catalogs, session, devices=None, device=None, replica_id=None,
+                 drain_check=None):
         from trino_tpu_torch.engine import resolve_device
 
         self.catalogs = catalogs
@@ -1002,7 +1010,11 @@ class MeshExecutor:
         self.device = resolve_device(device)
         self.mesh = ShardMesh.resolve(devices, self.device)
         self.n = self.mesh.n
+        self.replica_id = replica_id
+        self.drain_check = drain_check
         self.last_run: Dict[str, object] = {}
+        self.sched_job = None
+        self.steal_ctx = None
 
     # -- public --
     def execute(self, subplan: SubPlan, preempt=None, query_span=None) -> List[list]:
@@ -1022,6 +1034,11 @@ class MeshExecutor:
         feeds, host_feeds = self._load_scans(mesh_sps)
         runner = ChunkedMeshRunner(self, mesh_sps, root_child_ids, repl, feeds, host_feeds,
                                    feed_tables=tuple(self._feed_tables))
+        if self.steal_ctx is not None and self.steal_ctx.mode == "emit":
+            # a work-stealing helper: chunks [mid, K) for the primary to
+            # merge; no root fragment, no result
+            runner.run_steal_helper(self.steal_ctx)
+            return []
         sources = runner.run(preempt=preempt, query_span=query_span)
         # count only after the programs have produced results: a
         # fallback from above must not register as a mesh-run query

@@ -24,8 +24,9 @@ The store is host-memory LRU, process-wide, and deliberately small:
 checkpoints exist to survive a fault *within or immediately after* a
 run, not to archive history. A successful run discards its own entry.
 The park and host-transfer methods (`park`, `unpark`, `export_bytes`,
-`import_bytes`) are the store's whole surface; their callers, the mesh
-scheduler and the checkpoint fabric, are ROADMAP §1 item 13.3. Unlike
+`import_bytes`) serve the mesh scheduler's parks
+(parallel/mesh_chunk.py `_park`) and the checkpoint fabric
+(runtime/fabric.py). Unlike
 the reference, an import refuses only undecodable bytes
 (CheckpointDecodeError, counted in `recovery.import_refused`); any
 other error propagates.

@@ -19,11 +19,21 @@ data plane (parallel/mesh_plan.py: its exchanges as collectives over
 run, or a stuck or lost mesh device, falls back to the page plane
 observably (`last_mesh_fallback`, the fallbacks counter, a span event).
 Any other mesh failure propagates: the reference's catch-all rerun on
-the page plane is deliberately not carried (ROADMAP §3). Arms of later
-items raise, naming the item, and never fall back to the page plane or
-to the CPU: mesh_replicas >= 2 (item 13.3). The replica, scheduler,
-membership and concurrency lines of EXPLAIN ANALYZE (13.3-13.4) are
-left out.
+the page plane is deliberately not carried (ROADMAP §3).
+
+The replica and scheduler arms: a mesh wider than one shard runs behind
+a weighted-fair run queue (runtime/scheduler.py; `mesh_scheduler` off
+takes a bare lock instead), where a point lookup
+(serving/admission.is_fast_lane) parks a running analytic at its next
+chunk boundary. With `mesh_replicas` = N >= 2 the shard device list is
+carved into N replicas (runtime/replicas.py): a query is placed on the
+least-loaded healthy one under an exactly-one-owner claim; a replica
+that loses a device or drains mid-run hands the query to a sibling,
+which resumes from the host checkpoint (pulled from a fabric peer,
+runtime/fabric.py, when the local store lost it), and a drain may split
+the unstarted chunks between two siblings (`_try_steal_dispatch`).
+EXPLAIN ANALYZE prints the replicas=, scheduler= and membership= lines;
+the concurrency line is ROADMAP §1 item 13.4.
 
 The adaptive and recovery tiers: with adaptive_execution or
 shared_subtree_materialization on, an AdaptiveController materializes
@@ -48,6 +58,7 @@ N workers in one process, real exchange data plane between tasks.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
 import time
@@ -378,10 +389,20 @@ class DistributedQueryRunner:
         self.mesh_devices = None if mesh_devices is None else list(mesh_devices)
         # why the last query left the mesh plane (None = it didn't)
         self.last_mesh_fallback: Optional[str] = None
-        # meshes wider than one shard run one query at a time (the
-        # reference's path with mesh_scheduler off; its run queue,
-        # runtime/scheduler.py, is ROADMAP §1 item 13.3)
+        # the replica plane (runtime/replicas.py), carved on the first
+        # mesh dispatch with mesh_replicas >= 2
+        self._replicas = None
+        # a full-width mesh wider than one shard runs one query at a
+        # time: behind the run queue (runtime/scheduler.py, built on
+        # first use) with mesh_scheduler on, behind this lock with it
+        # off. _sched_steals counts completed work-stealing dispatches
+        # (the EXPLAIN scheduler= line)
         self._mesh_exec_lock = threading.Lock()
+        self._mesh_scheduler = None
+        self._sched_steals = 0
+        # concurrent first dispatches carve one replica plane and build
+        # one run queue (the reference races here and may build two)
+        self._carve_lock = threading.Lock()
         # recovery tier: surface the recovery.* counters in /v1/metrics
         # at zero from process start (a counter only materializes on
         # first bump otherwise)
@@ -877,9 +898,16 @@ class DistributedQueryRunner:
             )
             from trino_tpu_torch.runtime.metrics import set_compile_attribution
 
+            # a point lookup (possibly joined to one dimension) rides
+            # the mesh scheduler's fast lane: it parks a running
+            # analytic at its next chunk boundary
+            from trino_tpu_torch.serving.admission import is_fast_lane
+
+            fast_lane = is_fast_lane(stmt)
             prev_attr = set_compile_attribution(base_qid)
             try:
-                rows = self._execute_mesh(subplan, preempt, query_span)
+                rows = self._execute_mesh(subplan, preempt, query_span, fast=fast_lane,
+                                          query_id=base_qid)
                 self._last_data_plane = "mesh"
                 return MaterializedResult(rows, *result_meta, data_plane="mesh")
             except MeshUnsupported as ex:
@@ -1035,23 +1063,288 @@ class DistributedQueryRunner:
                 scheduler.abort()
         raise last_error
 
-    def _execute_mesh(self, subplan, preempt, query_span) -> List[list]:
-        """The single-mesh branch of the reference's mesh dispatch: one
-        MeshExecutor over `mesh_devices`. A width-1 mesh runs no
-        collectives and keeps the historic concurrency; a wider one
-        runs one query at a time under `_mesh_exec_lock`."""
-        import contextlib
+    def _replica_manager(self):
+        """The replica plane, carved on the first mesh dispatch: with
+        session.mesh_replicas >= 2 the shard device list splits into
+        that many identical sub-meshes. None (the one full-width mesh)
+        with replication off or fewer devices than replicas."""
+        n = int(getattr(self.session, "mesh_replicas", 1) or 1)
+        if n < 2:
+            return None
+        from trino_tpu_torch.parallel.mesh import ShardMesh
+        from trino_tpu_torch.runtime.replicas import ReplicaManager
 
+        with self._carve_lock:
+            rm = self._replicas
+            if rm is not None and rm.n_replicas == n:
+                return rm
+            devices = ShardMesh.resolve(self.mesh_devices, self.device).devices
+            if len(devices) < n:
+                rm = None  # fewer devices than replicas: keep one mesh
+            else:
+                rm = ReplicaManager(
+                    n, devices=devices,
+                    breaker_threshold=int(getattr(self.session, "replica_breaker_threshold", 3)),
+                    breaker_cooldown_s=float(getattr(self.session, "replica_breaker_cooldown_s",
+                                                     1.0)),
+                    scheduler_kw=self._scheduler_kw())
+            self._replicas = rm
+            return rm
+
+    def _scheduler_kw(self) -> dict:
+        from trino_tpu_torch.runtime.scheduler import parse_group_weights
+
+        return {
+            "min_slice_chunks": int(getattr(self.session, "mesh_scheduler_min_slice_chunks", 1)
+                                    or 1),
+            "preemption_enabled": bool(getattr(self.session, "preemption_enabled", True)),
+            "weights": parse_group_weights(str(getattr(self.session, "mesh_scheduler_weights",
+                                                       "") or "")),
+        }
+
+    def _tune_scheduler(self, sched) -> None:
+        """A live scheduler's knobs from the current session: SET SESSION
+        between queries takes effect without rebuilding the queue."""
+        kw = self._scheduler_kw()
+        sched.min_slice_chunks = max(1, int(kw["min_slice_chunks"]))
+        sched.preemption_enabled = bool(kw["preemption_enabled"])
+        sched.weights = dict(kw["weights"])
+
+    def _mesh_scheduler_for(self):
+        with self._carve_lock:
+            if self._mesh_scheduler is None:
+                from trino_tpu_torch.runtime.scheduler import MeshScheduler
+
+                self._mesh_scheduler = MeshScheduler(name="mesh", **self._scheduler_kw())
+            return self._mesh_scheduler
+
+    def _sched_group(self) -> str:
+        return str(getattr(self.session, "mesh_scheduler_group", "") or "") or "default"
+
+    def _mesh_executor(self, rm=None, rep=None):
+        """A MeshExecutor over `mesh_devices`, or over replica `rep`'s
+        row with its drain check."""
         from trino_tpu_torch.parallel.mesh_plan import MeshExecutor
 
-        if int(getattr(self.session, "mesh_replicas", 1) or 1) >= 2:
-            raise NotImplementedError(
-                "mesh_replicas >= 2: replicated serving meshes are ROADMAP §1 item 13.3")
-        ex = MeshExecutor(self.catalogs, self.session, devices=self.mesh_devices,
-                          device=self.device)
-        guard = self._mesh_exec_lock if ex.n > 1 else contextlib.nullcontext()
-        with guard:
+        if rep is None:
+            return MeshExecutor(self.catalogs, self.session, devices=self.mesh_devices,
+                                device=self.device)
+        return MeshExecutor(self.catalogs, self.session, devices=rep.devices,
+                            device=self.device, replica_id=rep.replica_id,
+                            drain_check=rm.drain_check(rep))
+
+    def _scheduled(self, sched, ex, subplan, preempt, query_span, query_id, group, fast,
+                   aux_check=None):
+        """`subplan` on `ex` under a seat of `sched`: the chunk runner
+        acquires it at device-phase entry (host planning and the feed
+        builds run before the grant) and consults it at every boundary."""
+        self._tune_scheduler(sched)
+        job = sched.submit(query_id or "q?", group=group, fast=fast, poll=preempt)
+        # a drain surfacing while queued or parked raises
+        # MeshReplicaDraining out of the wait: failover, not a grant
+        job.aux_check = aux_check
+        ex.sched_job = job
+        try:
             return ex.execute(subplan, preempt=preempt, query_span=query_span)
+        finally:
+            sched.finish(job)
+
+    def _execute_mesh(self, subplan, preempt, query_span, fast=False,
+                      query_id="") -> List[list]:
+        """Mesh dispatch with replica placement and chunk-granular
+        failover. Without a replica plane: one MeshExecutor over
+        `mesh_devices`; a width-1 mesh runs no collective and keeps its
+        concurrency, a wider one runs behind the run queue (or the bare
+        lock with mesh_scheduler off). With one: place the least-loaded
+        healthy replica; when it dies (MeshStuck, MeshDeviceLost) or
+        drains mid-run, place again on a sibling, whose runner finds the
+        host checkpoint under the device-free key. Only when no sibling
+        is left (or failover is off) does the fault reach the caller's
+        page-plane fallback."""
+        import contextlib
+
+        from trino_tpu_torch.parallel.mesh_chunk import (
+            MeshDeviceLost,
+            MeshReplicaDraining,
+            MeshStuck,
+        )
+        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+        from trino_tpu_torch.runtime.fabric import (
+            MembershipEpochError,
+            active_fabric,
+            maybe_start_fabric,
+        )
+
+        use_sched = bool(getattr(self.session, "mesh_scheduler", True))
+        group = self._sched_group()
+        # the checkpoint fabric (no-op unless fabric_peers is set):
+        # checkpoints stream to peer coordinators, and failover below
+        # can pull the last pushed snapshot
+        maybe_start_fabric(self.session)
+        rm = self._replica_manager()
+        if rm is None:
+            ex = self._mesh_executor()
+            if ex.n > 1 and use_sched:
+                return self._scheduled(self._mesh_scheduler_for(), ex, subplan, preempt,
+                                       query_span, query_id, group, fast)
+            guard = self._mesh_exec_lock if ex.n > 1 else contextlib.nullcontext()
+            with guard:
+                return ex.execute(subplan, preempt=preempt, query_span=query_span)
+        failover_on = bool(getattr(self.session, "replica_failover_enabled", True))
+        steal_on = use_sched and bool(getattr(self.session, "mesh_steal_enabled", True))
+        tried: set = set()
+        # a failover remembers the epoch it faulted under; a target that
+        # left and rejoined since is fenced and the query restarts fresh
+        fault_key = None
+        fault_epoch = rm.membership_epoch
+        while True:
+            rep = rm.place(exclude=tried)
+            if rep is None:
+                raise MeshDeviceLost(
+                    f"no schedulable replica (tried {sorted(tried)} of {rm.n_replicas})")
+            # exactly one owner: a query never runs on two replicas at
+            # once, across a membership flap too
+            if not rm.claim(query_id, rep):
+                rm.release(rep)
+                raise MeshDeviceLost(f"query {query_id!r} already owned by another replica; "
+                                     "refusing double placement")
+            if fault_key is not None:
+                try:
+                    rm.require_epoch(rep, fault_epoch)
+                except MembershipEpochError:
+                    # drop the stale checkpoint: this attempt restarts
+                    CHECKPOINTS.discard(fault_key)
+                    fault_key = None
+            try:
+                ex = self._mesh_executor(rm, rep)
+                if use_sched:
+                    rows = self._scheduled(rep.scheduler, ex, subplan, preempt, query_span,
+                                           query_id, group, fast, aux_check=rm.drain_check(rep))
+                else:
+                    with rep.exec_lock:
+                        rows = ex.execute(subplan, preempt=preempt, query_span=query_span)
+                rm.report_success(rep)
+                return rows
+            except (MeshStuck, MeshDeviceLost) as e:
+                # a drain is a lifecycle maneuver, not a health signal
+                if not isinstance(e, MeshReplicaDraining):
+                    rm.report_failure(rep)
+                tried.add(rep.replica_id)
+                fault_key = getattr(e, "ckpt_key", None)
+                fault_epoch = rm.membership_epoch
+                # host loss: when the local store lost the checkpoint,
+                # pull the last pushed snapshot from a fabric peer
+                fab = active_fabric()
+                if fault_key is not None and fab is not None and CHECKPOINTS.get(fault_key) is None:
+                    fab.try_pull(fault_key)
+                have_sibling = any(r.state == "active" and r.replica_id not in tried
+                                   for r in rm.replicas)
+                if not failover_on or not have_sibling:
+                    raise
+                rm.note_failover(rep)
+                if query_span is not None:
+                    query_span.event("replica_failover", from_replica=rep.replica_id,
+                                     error=type(e).__name__, reason=str(e)[:300])
+                if (steal_on and isinstance(e, MeshReplicaDraining)
+                        and getattr(e, "steal_ok", False) and fault_key is not None):
+                    rows = self._try_steal_dispatch(subplan, preempt, query_span, fault_key, rm,
+                                                    tried, fast, query_id, group)
+                    if rows is not None:
+                        return rows
+            finally:
+                rm.unclaim(query_id, rep)
+                rm.release(rep)
+
+    def _try_steal_dispatch(self, subplan, preempt, query_span, key, rm, tried, fast,
+                            query_id, group):
+        """Drain-failover work stealing: split the drained query's
+        unstarted chunks [k0, K) at mid; the primary sibling resumes
+        [k0, mid) from the host checkpoint while a helper sibling runs
+        [mid, K) from empty carries, and the primary appends the
+        helper's rows at its mid boundary. None (the caller resumes the
+        query whole on one sibling) when two siblings are not free, the
+        range is under two chunks, or the primary meets a mesh fault;
+        a faulted primary is then reported and tried as the caller's
+        own placements are. The helper is called off and joined before
+        its replica is released; an error of it that is not
+        mesh_chunk.STEAL_DECLINABLE propagates (from the primary's
+        merge, or from here when the primary never merged)."""
+        from trino_tpu_torch.parallel.mesh_chunk import (
+            STEAL_DECLINABLE,
+            MeshDeviceLost,
+            MeshReplicaDraining,
+            MeshStuck,
+            StealContext,
+        )
+        from trino_tpu_torch.recovery.checkpoint import CHECKPOINTS
+
+        ck = CHECKPOINTS.get(key)
+        if ck is None or ck.n_chunks - ck.next_chunk < 2:
+            return None
+        prim = rm.place(exclude=tried)
+        if prim is None:
+            return None
+        helper = rm.place(exclude=set(tried) | {prim.replica_id})
+        if helper is None:
+            rm.release(prim)
+            return None
+        k0, K = ck.next_chunk, ck.n_chunks
+        mid = k0 + (K - k0 + 1) // 2
+        emit = StealContext("emit", mid, ("steal",) + tuple(key), dict(ck.resolved_caps))
+        merge = dataclasses.replace(emit, mode="merge")
+        thread, rows = None, None
+        try:
+            ex_h = self._mesh_executor(rm, helper)
+            ex_h.steal_ctx = emit
+
+            def run_helper():
+                hjob = helper.scheduler.submit(f"{query_id or 'q?'}-steal", group=group)
+                try:
+                    helper.scheduler.acquire(hjob, aux_check=emit.check_cancel)
+                    ex_h.execute(subplan)
+                except BaseException as e:  # kept for the merge or the dispatcher
+                    emit.errors.append(e)
+                finally:
+                    helper.scheduler.finish(hjob)
+                    emit.done.set()
+
+            thread = threading.Thread(target=run_helper, name="trino-tpu-steal-helper",
+                                      daemon=True)
+            thread.start()
+            ex_p = self._mesh_executor(rm, prim)
+            ex_p.steal_ctx = merge
+            rows = self._scheduled(prim.scheduler, ex_p, subplan, preempt, query_span, query_id,
+                                   group, fast, aux_check=rm.drain_check(prim))
+            rm.report_success(prim)
+            stolen = int(ex_p.last_run.get("steals", 0) or 0)
+            self._sched_steals += stolen
+            if query_span is not None and stolen:
+                query_span.event("work_steal", primary=prim.replica_id,
+                                 helper=helper.replica_id, split_at=mid, of=K)
+        except (MeshStuck, MeshDeviceLost) as e:
+            # the split itself faulted: the primary is a failed
+            # placement like any other (a drain is no health signal),
+            # and the caller's loop resumes the query whole on a
+            # sibling from the checkpoint, which is still live
+            if not isinstance(e, MeshReplicaDraining):
+                rm.report_failure(prim)
+            tried.add(prim.replica_id)
+            if any(r.state == "active" and r.replica_id not in tried for r in rm.replicas):
+                rm.note_failover(prim)
+            if query_span is not None:
+                query_span.event("replica_failover", from_replica=prim.replica_id,
+                                 error=type(e).__name__, reason=str(e)[:300])
+        finally:
+            if thread is not None:
+                emit.cancel.set()
+                thread.join()
+            CHECKPOINTS.discard(emit.key)
+            rm.release(helper)
+            rm.release(prim)
+        for e in emit.errors:
+            if not isinstance(e, STEAL_DECLINABLE):
+                raise e
+        return rows
 
     def _record_mesh_fallback(self, reason: str, query_span=None) -> None:
         """One mesh->page fallback: bump the aggregate counter, latch
@@ -1128,6 +1421,35 @@ class DistributedQueryRunner:
             f"mxu_join_selected={c('mxu_join_selected')} "
             f"spill_mode_replans={c('spill_mode_replans')}"
         )
+    def _replica_line(self) -> str:
+        """The EXPLAIN ANALYZE replica-plane line: grid shape, each
+        replica's state (first letter) and this runner's placement and
+        failover counters."""
+        rm = self._replicas
+        if rm is None:
+            n = int(getattr(self.session, "mesh_replicas", 1) or 1)
+            return f"replicas= n={n} (single mesh)"
+        return rm.stats_line()
+
+    def _scheduler_line(self) -> str:
+        """The EXPLAIN ANALYZE scheduler line: parks, resumes,
+        preemptions and park refusals summed over this runner's run
+        queues, and its completed work-stealing dispatches."""
+        scheds = [] if self._mesh_scheduler is None else [self._mesh_scheduler]
+        if self._replicas is not None:
+            scheds.extend(r.scheduler for r in self._replicas.replicas)
+        return (f"scheduler= parks={sum(s.parks for s in scheds)} "
+                f"resumes={sum(s.resumes for s in scheds)} "
+                f"preemptions={sum(s.preemptions for s in scheds)} "
+                f"park_refusals={sum(s.park_refusals for s in scheds)} "
+                f"steals={self._sched_steals}")
+
+    def _membership_line(self) -> str:
+        """The EXPLAIN ANALYZE membership line (runtime/fabric.py)."""
+        if self._replicas is None:
+            return "membership= epoch=0 (single mesh)"
+        return self._replicas.membership_line()
+
     def _mesh_plane_line(self, subplan) -> str:
         """The EXPLAIN ANALYZE data-plane line: which plane `execute`
         would pick for this plan, decided statically (structural
@@ -1289,8 +1611,10 @@ class DistributedQueryRunner:
             lines.append(self._resident_line())
             lines.append(self._recovery_line())
             lines.append(self._skew_line())
-            # the reference goes on with the replica, scheduler,
-            # membership and concurrency lines of items 13.3-13.4
+            lines.append(self._replica_line())
+            lines.append(self._scheduler_line())
+            lines.append(self._membership_line())
+            # the reference's concurrency line is ROADMAP §1 item 13.4
             return MaterializedResult(
                 [["\n".join(lines)]], ["Query Plan"], [T.VARCHAR]
             )

@@ -11,8 +11,11 @@ retried by the RequestErrorTracker loop against the same worker and
 then fails the task; it is never re-run on another, in-process worker.
 Every pulled frame adds its bytes to the METRICS counter
 `exchange.http_bytes`.
-The checkpoint-fabric routes (FabricServer, FabricClient) are ROADMAP
-§1 item 13.3 (runtime/fabric.py).
+The checkpoint fabric's routes (FabricServer over a runtime/fabric.py
+HostFabric, FabricClient on the peer side) carry mesh checkpoint bytes
+between coordinators, each call inside the same RequestErrorTracker
+loop; their bodies are framed as the reference frames them
+(`frame_fabric_body`), so the same key and payload give its bytes.
 
 Analogue of the reference's internal communication (SURVEY.md §5.8):
 control plane = task create/status/delete (main/server/TaskResource.java:92,
@@ -442,6 +445,191 @@ class HttpWorkerClient:
         self._req(
             "PUT", "/v1/info/state", json.dumps(state).encode()
         ).close()
+
+
+def frame_fabric_body(ekey: str, payload: bytes) -> bytes:
+    """Length-prefix framing of a fabric POST body: an 8-byte big-endian
+    key length, the ascii key, then the checkpoint payload. The encoded
+    key (a pickled program identity) can pass http.server's 64 KiB
+    request-line limit, so it rides in the body."""
+    kb = ekey.encode("ascii")
+    return struct.pack(">Q", len(kb)) + kb + payload
+
+
+def unframe_fabric_body(body: bytes) -> Tuple[str, bytes]:
+    if len(body) < 8:
+        raise ValueError("fabric body too short for key frame")
+    (klen,) = struct.unpack(">Q", body[:8])
+    if klen > len(body) - 8:
+        raise ValueError("fabric body key frame overruns body")
+    return body[8:8 + klen].decode("ascii"), body[8 + klen:]
+
+
+class _FabricHandler(_Handler):
+    """The coordinator-to-coordinator checkpoint routes (a HostFabric
+    behind them):
+
+      POST /v1/fabric/checkpoint        pushed bytes: framed body (key +
+                                        payload), X-Fabric-Digest covers
+                                        the payload
+      POST /v1/fabric/checkpoint/pull   body is the encoded key: bytes +
+                                        digest, 404 when absent or stale
+      GET  /v1/fabric/status            endpoint state JSON
+
+    _Handler's responders and its internal-auth gate; an error inside a
+    route answers 500 with its text (the caller's tracker sees it as a
+    protocol error)."""
+
+    fabric = None  # set by FabricServer
+
+    def do_GET(self):
+        if not self._authorized():
+            return
+        parts = [p for p in self.path.split("?")[0].split("/") if p]
+        try:
+            if parts == ["v1", "fabric", "status"]:
+                self._json(200, self.fabric.status())
+                return
+            self._json(404, {"error": f"no route {self.path}"})
+        except Exception as e:  # noqa: BLE001 - answered as a 500
+            self._json(500, {"error": repr(e)})
+
+    def do_POST(self):
+        if not self._authorized():
+            return
+        parts = [p for p in self.path.split("/") if p]
+        try:
+            ln = int(self.headers.get("Content-Length", "0") or 0)
+            body = self.rfile.read(ln)
+            if parts == ["v1", "fabric", "checkpoint"]:
+                ekey, data = unframe_fabric_body(body)
+                digest = self.headers.get(FabricClient.HEADER_DIGEST, "")
+                self._json(200, self.fabric.receive_checkpoint(ekey, data, digest))
+                return
+            if parts == ["v1", "fabric", "checkpoint", "pull"]:
+                out = self.fabric.serve_checkpoint(body.decode("ascii"))
+                if out is None:
+                    self._json(404, {"error": "no checkpoint"})
+                    return
+                data, digest = out
+                self._bytes(200, data, [(FabricClient.HEADER_DIGEST, digest)])
+                return
+            self._json(404, {"error": f"no route {self.path}"})
+        except Exception as e:  # noqa: BLE001 - answered as a 500
+            self._json(500, {"error": repr(e)})
+
+
+class FabricServer:
+    """HTTP front of one HostFabric on 127.0.0.1. Like WorkerServer, it
+    refuses to start without an internal secret (a fabric port without
+    one takes and serves checkpoint bytes from anyone who reaches it)
+    unless `require_secret=False` (single-process tests)."""
+
+    def __init__(self, fabric, port: int = 0, internal_secret: Optional[str] = "__env__",
+                 require_secret: bool = True):
+        self.fabric = fabric
+        self.internal_auth = None
+        if internal_secret == "__env__":
+            internal_secret = default_internal_secret()
+        if internal_secret is None and require_secret:
+            raise RuntimeError(
+                "refusing to start a networked fabric endpoint without an "
+                "internal secret: set TRINO_TPU_INTERNAL_SECRET (or pass "
+                "internal_secret=...), or pass require_secret=False for "
+                "single-process embedding"
+            )
+        if internal_secret is not None:
+            from trino_tpu_torch.security import InternalAuthenticator
+
+            self.internal_auth = InternalAuthenticator(internal_secret)
+        handler = type("BoundFabricHandler", (_FabricHandler,),
+                       {"fabric": fabric, "server_ref": self})
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
+        self.port = self._httpd.server_port
+        self.uri = f"http://127.0.0.1:{self.port}"
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name=f"fabric-http-{self.port}", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join()
+
+
+class FabricClient:
+    """Peer side of the checkpoint fabric: push and pull checkpoint
+    bytes with their digests, every call inside the RequestErrorTracker
+    loop (a spent budget raises RequestFailedError)."""
+
+    HEADER_DIGEST = "X-Fabric-Digest"
+
+    def __init__(self, uri: str, timeout: float = 10.0,
+                 internal_secret: Optional[str] = "__env__", retry_policy=None,
+                 failure_listener=None):
+        self.uri = uri.rstrip("/")
+        self.timeout = timeout
+        self.retry_policy = retry_policy
+        self.failure_listener = failure_listener
+        self._auth = None
+        if internal_secret == "__env__":
+            internal_secret = default_internal_secret()
+        if internal_secret is not None:
+            from trino_tpu_torch.security import InternalAuthenticator
+
+            self._auth = InternalAuthenticator(internal_secret)
+
+    def _req(self, method: str, path: str, body: Optional[bytes] = None,
+             headers: Optional[dict] = None):
+        hdrs = dict(headers or {})
+        if self._auth is not None:
+            hdrs[self._auth.HEADER] = self._auth.token()
+        req = urllib.request.Request(self.uri + path, data=body, method=method, headers=hdrs)
+        return urllib.request.urlopen(req, timeout=self.timeout)
+
+    def _retrying(self, fn):
+        from trino_tpu_torch.runtime.error_tracker import RetryPolicy, run_with_retry
+
+        return run_with_retry(self.uri, fn, policy=self.retry_policy or RetryPolicy(),
+                              listener=self.failure_listener)
+
+    def push_checkpoint(self, key: tuple, data: bytes, digest: Optional[str] = None) -> dict:
+        from trino_tpu_torch.runtime.fabric import checkpoint_digest, encode_key
+
+        digest = digest or checkpoint_digest(data)
+        body = frame_fabric_body(encode_key(key), data)
+
+        def go():
+            with self._req("POST", "/v1/fabric/checkpoint", body=body,
+                           headers={self.HEADER_DIGEST: digest}) as r:
+                return json.loads(r.read())
+
+        return self._retrying(go)
+
+    def pull_checkpoint(self, key: tuple) -> Tuple[Optional[bytes], Optional[str]]:
+        """(bytes, digest) of the peer's live entry, or (None, None)
+        when the peer holds none under the key."""
+        from trino_tpu_torch.runtime.fabric import encode_key
+
+        body = encode_key(key).encode("ascii")
+
+        def go():
+            try:
+                with self._req("POST", "/v1/fabric/checkpoint/pull", body=body) as r:
+                    return r.read(), r.headers.get(self.HEADER_DIGEST)
+            except urllib.error.HTTPError as e:
+                if e.code == 404:
+                    return None, None  # absent is an answer, not an error
+                raise
+
+        return self._retrying(go)
+
+    def status(self) -> dict:
+        def go():
+            with self._req("GET", "/v1/fabric/status") as r:
+                return json.loads(r.read())
+
+        return self._retrying(go)
 
 
 def http_fetch(uri: str, task_id: str, retry_policy=None):

@@ -7,8 +7,9 @@ groups. A statement tries the resident fast lane first
 (resident/fastlane.py: a point lookup on a table named in
 resident_tables probes its pin on the device), then the MicroBatcher
 (serving/batcher.py, built when micro_batch_window_ms > 0), then the
-runner. GET /v1/fabric answers 501: the checkpoint fabric is ROADMAP §1
-item 13.3.
+runner. GET /v1/fabric answers the checkpoint fabric's status
+(runtime/fabric.fabric_status); the replica, scheduler and fabric
+counters show on /v1/metrics at zero from the server's start.
 
 Analogue of the reference's client protocol (client/trino-client
 StatementClientV1.java:65 — POST /v1/statement, poll nextUri, token-
@@ -96,6 +97,15 @@ class _QueryJob:
         self.started_at: Optional[float] = None  # monotonic, out of the queue
         self.last_heartbeat = time.monotonic()  # any client poll refreshes
         self.lock = threading.Lock()  # _QueryJob.lock
+        # set once the job is terminal (or the server stops): wakes a
+        # poll that the server holds while the query runs
+        self.settled = threading.Event()
+
+    def settle(self) -> None:
+        """Stamp the job terminal; the caller holds `lock` and has set
+        its state."""
+        self.finished_at = time.monotonic()
+        self.settled.set()
 
     def snapshot(self, token: int):
         with self.lock:
@@ -149,6 +159,18 @@ class CoordinatorServer:
                 ),
             )
         self.admission = admission
+        # the replica plane's balance in the admission stats (the runner
+        # carves it lazily: a supplier, not a value)
+        self.admission.attach_replicas(lambda: getattr(runner, "_replicas", None))
+        # the replica, scheduler and fabric counters on /v1/metrics at
+        # zero before their first event
+        from trino_tpu_torch.runtime.fabric import register_fabric_metrics
+        from trino_tpu_torch.runtime.replicas import register_replica_metrics
+        from trino_tpu_torch.runtime.scheduler import register_scheduler_metrics
+
+        register_replica_metrics()
+        register_scheduler_metrics()
+        register_fabric_metrics()
         # point-lookup coalescing
         _window_ms = float(getattr(_sess, "micro_batch_window_ms", 0.0) or 0.0)
         if batcher is None and _window_ms > 0:
@@ -268,6 +290,7 @@ class CoordinatorServer:
                     if job is None:
                         self._json(404, {"error": "unknown query"})
                         return
+                    outer._hold_poll(job)
                     self._json(200, outer._response(job, int(parts[4])))
                     return
                 # observability REST surface (QueryResource /
@@ -281,10 +304,9 @@ class CoordinatorServer:
                     self._json(200, METRICS.snapshot())
                     return
                 if parts == ["v1", "fabric"]:
-                    self._json(501, {"error": (
-                        "the checkpoint fabric (runtime/fabric.py) is "
-                        "ROADMAP §1 item 13.3"
-                    )})
+                    from trino_tpu_torch.runtime.fabric import fabric_status
+
+                    self._json(200, fabric_status())
                     return
                 if parts == ["v1", "query"]:
                     self._json(200, outer.query_list(identity))
@@ -449,7 +471,7 @@ class CoordinatorServer:
                         f"{self.CLIENT_TTL_S:g}s"
                     )
                     j.rows = []
-                    j.finished_at = now
+                    j.settle()
                     j.drained = True
         drained = sorted(
             (j.finished_at, qid)
@@ -476,7 +498,7 @@ class CoordinatorServer:
             job.abandoned = True
             job.state = "failed"
             job.error = "Query killed by user (DELETE)"
-            job.finished_at = time.monotonic()
+            job.settle()
             job.drained = True
 
     def _submit(self, sql: str, identity=None, transaction_id="NONE",
@@ -591,7 +613,7 @@ class CoordinatorServer:
                         result, "cleared_transaction", False
                     )
                     job.state = "finished"
-                    job.finished_at = time.monotonic()
+                    job.settle()
                 METRICS.increment("queries.finished")
             except Exception as e:
                 METRICS.increment("queries.failed")
@@ -600,7 +622,7 @@ class CoordinatorServer:
                         return
                     job.error = str(e)
                     job.state = "failed"
-                    job.finished_at = time.monotonic()
+                    job.settle()
                     # TransactionManager prunes the transaction even when
                     # COMMIT/ROLLBACK fail — tell the client its id is
                     # dead or every later statement wedges on it
@@ -612,6 +634,23 @@ class CoordinatorServer:
 
         self._pool.submit(run)
         return job
+
+    # a poll of a query still running is held until the query settles,
+    # for at most this long (Trino's ExecutingStatementResource waits up
+    # to its MAX_WAIT_TIME of 1 s): a client polling every few ms then
+    # costs the executing threads one request a query, not hundreds a
+    # second (the reference answers at once: its jitted steps run
+    # outside the interpreter lock, the port's Python between kernels
+    # does not)
+    POLL_MAX_WAIT_S = 1.0
+
+    def _hold_poll(self, job: _QueryJob) -> None:
+        """Wait for `job` to settle, at most POLL_MAX_WAIT_S and a
+        quarter of the client TTL (the wait refreshes the heartbeat
+        only at its ends, and a held client is not an abandoned one)."""
+        with job.lock:
+            job.last_heartbeat = time.monotonic()
+        job.settled.wait(min(self.POLL_MAX_WAIT_S, self.CLIENT_TTL_S / 4.0))
 
     def _response(self, job: _QueryJob, token: int) -> dict:
         state, columns, data, total, error = job.snapshot(token)
@@ -652,6 +691,8 @@ class CoordinatorServer:
 
     def stop(self) -> None:
         self._reaper_stop.set()
+        for job in list(self._jobs.values()):
+            job.settled.set()  # release the held polls
         self._reaper.join(2)
         self._httpd.shutdown()
         self._httpd.server_close()

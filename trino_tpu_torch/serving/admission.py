@@ -1,10 +1,10 @@
 """Admission pipeline: lane-based overload control in front of the
 resource groups.
 
-Counterpart of trino_tpu/serving/admission.py (host code only). The
-reference's replica-plane stats (`attach_replicas`) and the mesh
-scheduler's fast-lane shape test (`is_fast_lane`) belong to the replica
-and scheduler tiers, ROADMAP §1 items 12 and 13.3, and are left out.
+Counterpart of trino_tpu/serving/admission.py (host code only), with
+the replica plane's stats (`attach_replicas`) and the mesh scheduler's
+fast-lane shape test (`is_fast_lane`). Unlike the reference's,
+`is_fast_lane` has no catch-all: it only reads the statement's tree.
 
 Every submission is classified into one of two lanes before it touches
 the executor:
@@ -82,11 +82,21 @@ class AdmissionPipeline:
         self.sheds = {lane: 0 for lane in LANES}
         self.admitted = {lane: 0 for lane in LANES}
         self._lock = threading.Lock()  # AdmissionPipeline._lock
+        # the replica plane's supplier (a callable returning the live
+        # ReplicaManager or None): stats() shows the placement balance
+        # beside the lane depths
+        self._replica_supplier = None
         for lane in LANES:
             METRICS.register_gauge(
                 f"admission.{lane}.queue_depth",
                 lambda lane=lane: float(self._depth[lane]),
             )
+
+    def attach_replicas(self, supplier) -> None:
+        """`supplier()` returns the live ReplicaManager (or None) at stats
+        time: a callable, since the coordinator carves the replica plane
+        after this pipeline is built."""
+        self._replica_supplier = supplier
 
     def reserve(self, fast: bool = False) -> AdmissionReservation:
         from trino_tpu_torch.runtime.metrics import METRICS
@@ -133,7 +143,7 @@ class AdmissionPipeline:
 
     def stats(self) -> dict:
         with self._lock:
-            return {
+            out = {
                 lane: {
                     "depth": self._depth[lane],
                     "max_depth": self._max[lane],
@@ -142,6 +152,10 @@ class AdmissionPipeline:
                 }
                 for lane in LANES
             }
+        rm = None if self._replica_supplier is None else self._replica_supplier()
+        if rm is not None:
+            out["replicas"] = rm.stats()
+        return out
 
 
 # -- fast-path classification -------------------------------------------------
@@ -176,6 +190,31 @@ def is_point_lookup(stmt) -> bool:
         return False
 
     return has_key_predicate(spec.where)
+
+
+def is_fast_lane(stmt) -> bool:
+    """The mesh scheduler's fast-lane shape: a point lookup, possibly
+    joined to one dimension (a key-predicated base table joined to a
+    plain table). A fast arrival preempts the running analytic, so the
+    shape must stay a few chunk steps of work, which one decorated
+    lookup is and a join tree is not."""
+    from trino_tpu_torch.sql import ast
+
+    if is_point_lookup(stmt):
+        return True
+    if not isinstance(stmt, ast.Query) or not isinstance(stmt.body, ast.QuerySpec):
+        return False
+    spec = stmt.body
+    j = spec.from_
+    if not isinstance(j, ast.Join):
+        return False
+    if not (isinstance(j.left, ast.TableRef) and isinstance(j.right, ast.TableRef)):
+        return False
+    if spec.where is None:
+        return False
+    # the point-lookup key test over the decorated shape
+    probe = ast.Query(body=ast.QuerySpec(select=spec.select, from_=j.left, where=spec.where))
+    return is_point_lookup(probe)
 
 
 def fast_path_probe(runner, sql: str, prepared=None) -> bool:

@@ -4,7 +4,14 @@ Counterpart of trino_tpu/serving/batcher.py (host code). The
 classifier stays strict; where the reference turns any exception of
 classification into "not batchable", the port does so only for the
 statement's own faults (a parse error, a bad parameter binding: the
-cold path then reports them), and lets anything else propagate.
+cold path then reports them), and lets anything else propagate. And
+one batch of a group key executes at a time: a leader whose window
+ends while a batch of its key still executes keeps its group open
+until that batch is done. The reference's executions run outside the
+interpreter lock and keep their clients in step; the port's Python
+between kernels does not, so concurrent leaders of one key would each
+take the lock in turn, spread their clients' next arrivals apart and
+coalesce nothing.
 
 Concurrent point lookups against the same table and key column are
 individually tiny — each one pays a full scheduling round and its own
@@ -172,7 +179,9 @@ class MicroBatcher:
         self.window_s = window_s
         self.max_batch = max(1, int(max_batch))
         self._lock = threading.Lock()  # MicroBatcher._lock
+        self._idle = threading.Condition(self._lock)  # a key's batch ended
         self._groups: Dict[Tuple, _Group] = {}
+        self._executing: set = set()  # group keys with a batch executing
         self.batches = 0
         self.batched_queries = 0
 
@@ -200,11 +209,21 @@ class MicroBatcher:
         if leader:
             group.full.wait(self.window_s)
             with self._lock:
+                # the group takes arrivals until its key's batch in
+                # flight is done (or it fills)
+                while gkey in self._executing:
+                    self._idle.wait()
+                self._executing.add(gkey)
                 group.closed = True
-                if self._groups.get(look.group_key) is group:
-                    del self._groups[look.group_key]
+                if self._groups.get(gkey) is group:
+                    del self._groups[gkey]
                 members = list(group.members)
-            self._run_group(group.ctx, members, identity)
+            try:
+                self._run_group(group.ctx, members, identity)
+            finally:
+                with self._lock:
+                    self._executing.discard(gkey)
+                    self._idle.notify_all()
         else:
             if not member.event.wait(_MEMBER_WAIT_S):
                 raise RuntimeError(

@@ -5,8 +5,10 @@ Counterpart of trino_tpu/serving/harness.py (`bench.py --serve` there;
 card). The reference's gate "zero new XLA lowerings after warm-up"
 reads the port's compile counter here: METRICS `programs_built`, the
 programs the ProgramCache built plus the kernel libraries nvcc built
-(compile/cache.py). `rows_equal` is the reference's
-runtime/chaos.rows_equal (the chaos harness is ROADMAP §1 item 13.3).
+(compile/cache.py). `rows_equal` is runtime/chaos.rows_equal, as in
+the reference. The batched phase's `mesh_fast_lane` counts the fast-lane
+submissions of the runner's mesh schedulers (0 for a LocalQueryRunner,
+which has none).
 
 Open-loop means arrivals follow a PRECOMPUTED schedule that does not
 slow down when the server does — the honest model of a client
@@ -41,6 +43,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from trino_tpu_torch.runtime.chaos import rows_equal
+
 DEFAULT_POINT_TEMPLATE = (
     "select o_custkey, o_totalprice from orders where o_orderkey = {key}"
 )
@@ -54,19 +58,6 @@ def exact_percentile(samples: List[float], q: float) -> float:
     s = sorted(samples)
     idx = max(0, min(len(s) - 1, int(round(q * (len(s) - 1)))))
     return s[idx]
-
-
-def _norm_rows(rows: List[list]) -> List[tuple]:
-    """Comparable row form: floats rounded to 6 places, so a
-    re-reduction in another order does not read as corruption."""
-    return [tuple(round(v, 6) if isinstance(v, float) else v for v in r) for r in rows]
-
-
-def rows_equal(a: List[list], b: List[list], ordered: bool = False) -> bool:
-    na, nb = _norm_rows(a), _norm_rows(b)
-    if ordered:
-        return na == nb
-    return sorted(na, key=repr) == sorted(nb, key=repr)
 
 
 def build_tiny_runner(device, **session_kw):
@@ -84,9 +75,8 @@ def build_tiny_runner(device, **session_kw):
 def _mesh_fast_submitted(runner) -> int:
     """Sum of fast-lane submissions across the runner's mesh
     schedulers: how the batched phase proves its combined point lookups
-    rode the MeshScheduler's fast lane. The port has no mesh scheduler
-    yet (runtime/scheduler.py, ROADMAP §1 item 13.3), so this counts 0
-    until it comes."""
+    rode the MeshScheduler's fast lane (the single-mesh run queue plus
+    any replica run queues)."""
     total = 0
     sched = getattr(runner, "_mesh_scheduler", None)
     if sched is not None:
@@ -327,7 +317,6 @@ def run_serve_load(
             "mismatches": b_mismatch[0],
             "errors": b_errors[:5],
             "error_count": len(b_errors),
-            # 0 until the mesh scheduler comes (item 13.3)
             "mesh_fast_lane": _mesh_fast_submitted(runner) - fast0,
             **batcher.stats(),
         }
