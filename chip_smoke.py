@@ -8,7 +8,10 @@ Phases (any failure exits nonzero):
   1. identity  — the card's name and power limit (nvidia-smi) and the
                  torch device name.
   2. build     — nvcc builds every kernel from csrc/, one process per
-                 source, all started together.
+                 source, all started together. Then the static gate:
+                 trino_tpu_torch.analysis.analyze_package() over the
+                 port (lock graph, shared state, thread spawns) prints
+                 its summary on a line of its own and must find nothing.
   3. kernel    — each kernel against its plain PyTorch version on the
                  card, bit-exact, at the explorers' shapes and at edge
                  shapes (take_flat at its layout's edges: ragged chunks,
@@ -189,8 +192,8 @@ Phases (any failure exits nonzero):
                  broadcast), ORDER BY o_totalprice DESC LIMIT 10 and a full
                  ORDER BY o_orderkey (the merging gather), count(*), and
                  EXPLAIN and EXPLAIN ANALYZE of the join (every order read
-                 by 4 tasks), each row-equal to its twin with no task left
-                 behind. Then six TPC-H queries at tiny
+                 by 4 tasks, and its concurrency= line with violations=0),
+                 each row-equal to its twin with no task left behind. Then six TPC-H queries at tiny
                  (DIST_TINY_QUERIES, none of phase mesh's) through the
                  distributed runner on the card and on the CPU, equal
                  within tests/oracle.py's tolerances. Its launches count
@@ -335,7 +338,10 @@ Phases (any failure exits nonzero):
                  and resume under a device loss, a drain while parked,
                  host loss with a fabric pull over two FabricServers on
                  127.0.0.1 with the internal secret, a membership flap,
-                 transport corruption), GET /v1/fabric answering 200 and
+                 transport corruption; park and resume runs with the
+                 port's lock-order witness on, its join kernels launched
+                 on the card, and must record 0 violations), GET
+                 /v1/fabric answering 200 and
                  /v1/metrics showing the replica., scheduler. and fabric.
                  counters; and tests/test_torch_card.py's park and
                  steal-merge cases, which must pass. Launches count apart
@@ -4229,6 +4235,10 @@ def distributed_identities(schema: str, device: str, log) -> dict:
             if n_orders not in scans or f"[{DIST_WORKERS} tasks]" not in text:
                 raise AssertionError(f"EXPLAIN ANALYZE's stages do not read every order "
                                      f"({n_orders}) in {DIST_WORKERS} tasks: {scans}")
+            conc = [ln for ln in text.splitlines() if ln.startswith("concurrency=")]
+            if len(conc) != 1 or "violations=0" not in conc[0].split():
+                raise AssertionError(f"EXPLAIN ANALYZE's concurrency line: {conc}")
+            rec["concurrency"] = conc[0]
             log(f"[distributed] {schema} EXPLAIN ANALYZE of the join:\n{text}")
         elif res.rows != twin_res.rows:
             raise AssertionError(f"distributed {name}: rows differ from the local twin")
@@ -6136,12 +6146,23 @@ def replica_chaos(device, devices, log, chunk_rows=REPLICA_CHAOS_CHUNK_ROWS) -> 
     out, bad, t0 = {}, [], time.perf_counter()
     for scenario in chaos.MESH_SCENARIOS:
         t1 = time.perf_counter()
+        reset_kernel_counts()
         rows, rep = chaos.run_mesh_case(scenario, REPLICA_SEED, chaos.CHAOS_QUERIES,
                                         REPLICA_CHAOS_SQL, device=device, mesh_devices=devices,
                                         mesh_chunk_rows=chunk_rows)
         bad += chaos.mesh_case_failures(scenario, rows, rep)
         out[scenario] = {**{k: v for k, v in rep.items() if k != "expected"},
-                         "wall_s": time.perf_counter() - t1}
+                         "wall_s": time.perf_counter() - t1, "launches": join_kernel_counts()}
+    # the witness gate: park and resume ran with the order witness on,
+    # while the join kernels launched on the card
+    gate = out["preempt_park_resume"]
+    log(f"[replicas] chaos witness gate: preempt_park_resume "
+        f"witness_violations={gate['witness_violations']} launches={gate['launches']}")
+    if gate["witness_violations"] != 0:
+        bad.append(f"witness gate: {gate['witness_violations']} violations")
+    if device == "cuda":
+        bad += [f"witness gate: preempt_park_resume never launched {k}"
+                for k in ("bounds", "run_owner", "take_flat") if gate["launches"][k] <= 0]
     srv = CoordinatorServer(replica_runner("tiny", device, devices, create_tpch_connector()))
     try:
         with urllib.request.urlopen(srv.uri + "/v1/fabric", timeout=30) as resp:
@@ -7079,6 +7100,21 @@ def kernels_line(results: dict) -> dict:
     return {"kernels": line}
 
 
+def static_gate(results: dict) -> None:
+    """The port's static concurrency analysis (analysis/): its summary on
+    a line of its own; any finding fails the run."""
+    from trino_tpu_torch.analysis import analyze_package
+
+    t0 = time.perf_counter()
+    report = analyze_package()
+    summary = report.summary()
+    results["analysis"] = {**summary, "wall_s": time.perf_counter() - t0}
+    log(f"[build] analysis: {json.dumps(summary)}")
+    if not report.ok:
+        raise AssertionError("the port's concurrency analysis found:\n" + "\n".join(
+            str(f) for f in report.findings))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
@@ -7113,6 +7149,7 @@ def main() -> int:
     for name, text in cuda_build.PTXAS_LOG.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
+    static_gate(results)
     from trino_tpu_torch.explore import atomic_opcodes
 
     results["sass_atomics"] = {n: atomic_opcodes(cuda_build.library_path(n))

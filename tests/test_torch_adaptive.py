@@ -29,6 +29,7 @@ import pytest
 import tests.test_adaptive as adaptive_corpus
 from tests.test_torch_compile import isolated_registries, port_names  # noqa: F401
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu_torch.adaptive import SPOOL, AdaptiveController
 from trino_tpu_torch.runtime.metrics import METRICS
 

@@ -15,7 +15,9 @@ against its plain version on the same CUDA tensors, at ordinary shapes
 and on the all-dead batches the warmers feed: rows that are all dead, a
 probe into a build whose rows are all dead, zero counts, zero indices.
 A wrapper given an empty result launches nothing and returns what its
-plain version returns; the next non-empty call launches again.
+plain version returns; the next non-empty call launches again. In a
+fresh process whose first use of the kernels is a mesh program's warm,
+the launches after it still match their plain versions.
 
 The recovery and skew tiers on the card: a join carry and a group carry
 of four shards of the card, snapshot to the host and restored, equal the
@@ -35,6 +37,9 @@ import numpy as np
 import pytest
 import torch
 
+# imported by its own name, from this directory (pytest puts it on sys.path):
+# a machine may install another package named `tests`
+from torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu_torch.ops import gather_kernels as GK
 from trino_tpu_torch.ops import mxu_groupby as MG
 from trino_tpu_torch.ops import window_rank as W
@@ -156,6 +161,36 @@ def test_run_owner_over_zero_counts(dev):
     assert W.run_owner.launches == before + 1  # an empty result launches nothing
     _equal(W.run_owner(off, 16), W.run_owner_reference(off, 16))
     assert W.run_owner.launches == before + 2  # and the next call launches again
+
+
+def test_a_mesh_program_warm_before_the_first_launch_leaves_the_kernels_bound(dev):
+    """A fresh process whose first use of the kernels is a mesh program's
+    warm (a server's or a joining replica's warm-up) still hands each
+    kernel its pointers whole: run_owner and take_flat then equal their
+    plain versions."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from trino_tpu_torch.ops import gather_kernels as GK\n"
+        "from trino_tpu_torch.ops import window_rank as W\n"
+        "from trino_tpu_torch.parallel.mesh_chunk import _ProgramWarmer\n"
+        "_ProgramWarmer(['cuda:0', 'cuda:0'])()\n"
+        "off = torch.cumsum(torch.arange(4096, dtype=torch.int32) % 3, 0).to(torch.int32).cuda()\n"
+        "got = W.run_owner(off, 4096).cpu()\n"
+        "assert torch.equal(got, W.run_owner_reference(off.cpu(), 4096)), 'run_owner'\n"
+        "table = torch.arange(1 << 20, dtype=torch.int64).cuda()\n"
+        "idx = torch.arange(0, 1 << 20, 7, dtype=torch.int32).cuda()\n"
+        "got = GK.take_flat(table, idx).cpu()\n"
+        "assert torch.equal(got, GK.take_flat_reference(table.cpu(), idx.cpu())), 'take_flat'\n"
+        "assert W.run_owner.launches == 1 and GK.take_flat.launches == 1\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
 
 
 @pytest.mark.parametrize("n_table,n,elem", [(65536, 4096, torch.int64), (1 << 22, 1 << 20, torch.int32),

@@ -24,6 +24,7 @@ import tests.test_chaos as chaos_corpus
 from tests.test_torch_adaptive import adaptive_names, clean_tiers  # noqa: F401
 from tests.test_torch_compile import isolated_registries  # noqa: F401
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.runtime import chaos as jchaos
 from trino_tpu_torch.connectors.tpch import create_tpch_connector
 from trino_tpu_torch.runtime import chaos as tchaos

@@ -34,6 +34,7 @@ import tests.test_mesh_chunking as chunk_corpus
 import tests.test_plan_validate as validate_corpus
 from tests.test_torch_distributed import portify
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.engine import LocalQueryRunner as JRunner
@@ -481,6 +482,24 @@ def test_mesh_warmup_registration(monkeypatch):
     portify(monkeypatch, chunk_corpus)
     port_names(monkeypatch, chunk_corpus)
     chunk_corpus.test_warmup_registration()
+
+
+def test_a_mesh_program_warm_builds_the_kernels_and_loads_no_library(monkeypatch):
+    """On a CUDA shard list the mesh program's warmer builds the kernel
+    sources and leaves their loading to the wrappers' first launches,
+    which bind each function's argument types."""
+    from trino_tpu_torch.ops import cuda_build
+    from trino_tpu_torch.parallel.mesh_chunk import _ProgramWarmer
+
+    built = []
+    monkeypatch.setattr(cuda_build, "build_all", lambda names=cuda_build.SOURCES:
+                        built.append(tuple(names)) or {})
+    monkeypatch.setattr(cuda_build, "build", lambda name: built.append(name) or "")
+    libs = dict(cuda_build._libs)
+    _ProgramWarmer(["cuda:0", "cuda:0"])()
+    assert built == [cuda_build.SOURCES] and cuda_build._libs == libs
+    _ProgramWarmer(["cpu", "cpu"])()
+    assert built == [cuda_build.SOURCES]
 
 
 def test_second_mesh_execution_builds_nothing(monkeypatch):

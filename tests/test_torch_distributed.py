@@ -37,8 +37,6 @@ teardown.
 
 import importlib
 import inspect
-import re
-import threading
 import time
 
 import pytest
@@ -53,6 +51,7 @@ import tests.test_stats as stats_corpus
 import tests.test_tracing as tracing_corpus
 from tests.oracle import assert_rows_match
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.connectors.spi import CatalogManager as JCatalogManager
@@ -61,6 +60,7 @@ from trino_tpu.runtime.coordinator import DistributedQueryRunner as JDistributed
 from trino_tpu.sql import fragmenter as jfragmenter
 from trino_tpu.sql.analyzer import Analyzer as JAnalyzer
 from trino_tpu.sql.parser import parse as jparse
+from trino_tpu_torch.analysis import threadreg
 from trino_tpu_torch.connectors import tpch as ttpch
 from trino_tpu_torch.connectors.spi import CatalogManager
 from trino_tpu_torch.engine import LocalQueryRunner, Session
@@ -447,10 +447,6 @@ _ELSEWHERE.update({
     "test_state_machine.py::test_metrics_endpoint": "tests/test_torch_front_door.py",
     "test_tracing.py::test_query_endpoints_over_http": "tests/test_torch_front_door.py",
 })
-# cases that wait for a later item (13.4, analysis/): none of these corpora
-WAITING: dict = {}
-
-
 def test_the_corpora_are_covered():
     ran = {f"test_distributed.py::{n}" for n in _DIST_UNITS + _DIST_PLANS + _DIST_RUNS}
     ran |= {f"test_node_scheduler.py::{n}" for n in _NS}
@@ -464,10 +460,9 @@ def test_the_corpora_are_covered():
                       ("test_observability.py", obs_corpus), ("test_tracing.py", tracing_corpus),
                       ("test_pushdown.py", pushdown_corpus)):
         every = {f"{f}::{n}" for _, n in _cases(module)}
-        accounted = ran | set(WAITING) | set(_ELSEWHERE)
-        assert every == accounted & every, sorted(every - accounted)
-    assert not ran & set(WAITING) and not ran & set(_ELSEWHERE)
-    assert all(re.match(r"item 13\.4 ", v) for v in WAITING.values())
+        accounted = ran | set(_ELSEWHERE)
+        assert every <= accounted, sorted(every - accounted)
+    assert not ran & set(_ELSEWHERE)
 
 
 # ---- the arms of later items raise ------------------------------------------
@@ -656,15 +651,17 @@ def test_without_a_card_the_runner_and_a_worker_raise():
 
 
 def _task_threads():
-    return [t for t in threading.enumerate()
-            if t.name.startswith(("task-", "pipeline-producer-", "exchange-pull-"))]
+    """Names of the live task, pipeline-producer and exchange-pull
+    threads: the registry's spawns of those owners."""
+    return [name for name, owner, _daemon in threadreg.THREADS.live()
+            if owner in ("TaskExecution", "DirectExchangeClient")]
 
 
 def _no_task_threads_left():
     deadline = time.monotonic() + 10
     while _task_threads() and time.monotonic() < deadline:
         time.sleep(0.02)
-    assert not _task_threads(), [t.name for t in _task_threads()]
+    assert not _task_threads(), _task_threads()
 
 
 def test_no_task_thread_outlives_a_failed_or_cancelled_query():

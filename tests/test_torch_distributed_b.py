@@ -8,6 +8,7 @@ Every task thread of a query has ended when its rows are back."""
 import pytest
 
 from tests.test_torch_distributed import _port_cluster, _task_threads
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu_torch.engine import LocalQueryRunner, Session
 
@@ -29,7 +30,7 @@ def check(qid, runners):
     assert (got.column_names, got.column_types) == (want.column_names, want.column_types)
     assert got.rows == want.rows
     assert got.data_plane == "http"
-    assert not _task_threads(), [t.name for t in _task_threads()]
+    assert not _task_threads(), _task_threads()
 
 
 @pytest.mark.parametrize("qid", QIDS)

@@ -12,6 +12,7 @@ import pytest
 from tests.oracle import assert_rows_match, sqlite_rows
 from tests.test_torch_tpch_a import indexed_oracle
 from tests.test_tpch import to_sqlite
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu import types as JT
 from trino_tpu.block import RelBatch as JRelBatch

@@ -17,6 +17,7 @@ import pytest
 
 import tests.test_exec as exec_corpus
 from tests.test_torch_tpch_a import indexed_oracle
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu_torch import exec as texec
 from trino_tpu_torch import types as T
 from trino_tpu_torch.connectors.tpch import create_tpch_connector

@@ -23,6 +23,7 @@ import torch
 import tests.test_memory as memory_corpus
 import tests.test_observability as obs_corpus
 import tests.test_stats as stats_corpus
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 import trino_tpu.connectors.tpch as jtpch_module
 import trino_tpu.engine as jengine
 from trino_tpu.connectors import tpch as jtpch

@@ -15,6 +15,7 @@ import types
 import pytest
 
 import tests.test_expr as expr_corpus
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu_torch import types as T
 from trino_tpu_torch.block import Column, Dictionary, RelBatch
 from trino_tpu_torch.expr import ir

@@ -23,6 +23,7 @@ import tests.test_fabric as fabric_corpus
 from tests.test_torch_adaptive import adaptive_names, clean_tiers  # noqa: F401
 from tests.test_torch_compile import isolated_registries  # noqa: F401
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.runtime import fabric as jfabric
 from trino_tpu.runtime import http as jhttp
 from trino_tpu.recovery.checkpoint import MeshCheckpointStore as JStore

@@ -41,6 +41,7 @@ import tests.test_parquet_interop as interop_corpus
 import tests.test_pushdown as pushdown_corpus
 import tests.test_torch_write as W
 from tests.test_torch_statements import _cases, _ids
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 import trino_tpu.connectors as jconnectors
 from trino_tpu.connectors import file as jfile
 from trino_tpu.connectors import tpch as jtpch

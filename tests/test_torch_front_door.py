@@ -47,6 +47,7 @@ from tests.test_torch_distributed import _ELSEWHERE as DIST_ELSEWHERE
 from tests.test_torch_distributed import call_case, portify
 from tests.test_torch_statements import ELSEWHERE as STATEMENTS_ELSEWHERE
 from tests.test_torch_statements import _cases, _ids
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu_torch import dbapi
 from trino_tpu_torch.client import Client

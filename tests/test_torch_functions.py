@@ -31,6 +31,7 @@ import pytest
 import chip_smoke
 import tests.test_functions as corpus
 from tests.oracle import assert_rows_match
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import types as JT
 from trino_tpu.connectors import memory as jmemory
 from trino_tpu.connectors import tpch as jtpch

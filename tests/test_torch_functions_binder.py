@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import types as JT
 from trino_tpu.expr import functions as JF
 from trino_tpu.expr import ir as jir

@@ -16,6 +16,7 @@ import pytest
 
 import tests.test_memory as memory_corpus
 from tests.test_torch_spill import _pair
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import types as JT
 from trino_tpu.block import RelBatch as JBatch
 from trino_tpu.connectors import tpch as jtpch

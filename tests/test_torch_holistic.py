@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from tests.oracle import assert_rows_match
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import types as JT
 from trino_tpu.block import Dictionary as JDictionary
 from trino_tpu.connectors import memory as jmemory

@@ -11,6 +11,7 @@ import pytest
 
 from tests.oracle import assert_rows_match
 from tests.test_torch_holistic import MEMORY_CASES, memory_runners  # noqa: F401  (fixture)
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 
 
 @pytest.mark.parametrize("sql,float_sums", MEMORY_CASES)

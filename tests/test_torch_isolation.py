@@ -10,12 +10,14 @@ import sys
 import pytest
 import torch
 
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "trino_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
+    out = [os.path.join(REPO, name) for name in ("chip_smoke.py", "kernel_ab.py", "lock_ab.py")]
     for root, dirs, files in os.walk(PKG):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
         out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
@@ -402,6 +404,31 @@ def test_kernel_ab_exits_nonzero_without_a_card():
     assert proc.returncode == 2
     assert "no CUDA device" in proc.stderr
     assert proc.stdout == ""
+
+
+def test_lock_ab_exits_nonzero_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the comparison would run")
+    proc = subprocess.run(
+        [sys.executable, "lock_ab.py", REPO, REPO], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 2
+    assert "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_lock_ab_times_every_round_trip_and_leaves_the_witness_as_it_was(monkeypatch):
+    import lock_ab
+    from trino_tpu_torch.analysis import witness
+
+    monkeypatch.setattr(lock_ab, "CALLS", 10)
+    was = witness.witness_enabled()
+    out = lock_ab.lock_costs()
+    assert witness.witness_enabled() == was
+    assert sorted(out) == ["bare_lock_us", "count_launch_us", "named_lock_witness_off_us",
+                           "named_lock_witness_on_us"]
+    assert all(len(v) == lock_ab.REPEATS and min(v) > 0 for v in out.values())
 
 
 def test_device_timing_refuses_an_unknown_mode():

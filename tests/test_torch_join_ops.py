@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.ops import join as JJ
 from trino_tpu_torch.ops import gather_kernels as GK
 from trino_tpu_torch.ops import join as TJ

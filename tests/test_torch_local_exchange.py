@@ -17,6 +17,7 @@ import threading
 import pytest
 
 import tests.test_local_exchange as lx_corpus
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu_torch import types as T
 from trino_tpu_torch.block import RelBatch
 from trino_tpu_torch.exec import local_exchange as lx

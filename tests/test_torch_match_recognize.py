@@ -22,6 +22,7 @@ import pytest
 
 import chip_smoke as CS
 from tests import test_match_recognize as corpus
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import types as JT
 from trino_tpu.connectors.memory import create_memory_connector as jmemory
 from trino_tpu.connectors.spi import ColumnMetadata as JColumnMetadata

@@ -18,6 +18,7 @@ import pytest
 
 import chip_smoke
 
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import types as JT
 from trino_tpu.block import Dictionary as JDictionary
 from trino_tpu.connectors import memory as jmemory

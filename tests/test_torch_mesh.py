@@ -38,6 +38,7 @@ from tests.oracle import assert_rows_match
 from tests.test_torch_distributed import MESH_DEVICES, _run, portify
 from tests.test_torch_statements import _cases
 from tests.test_torch_tpch_a import indexed_oracle
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu import types as JT
 from trino_tpu.connectors import memory as jmemory

@@ -20,6 +20,7 @@ import tests.test_mesh_chunking as chunk_corpus
 import tests.test_mesh_decimal as decimal_corpus
 from tests.test_torch_distributed import _run, portify
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 
 # the compile regime's two cases run in tests/test_torch_compile.py
 _COMPILE_CASES = ("test_second_execution_zero_relowerings", "test_warmup_registration")

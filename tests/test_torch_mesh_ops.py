@@ -32,6 +32,7 @@ import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as PSpec
 
 from tests.oracle import assert_rows_match
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import types as JT
 from trino_tpu.block import Column as JColumn, Dictionary as JDictionary, RelBatch as JRelBatch
 from trino_tpu.jaxcfg import get_shard_map

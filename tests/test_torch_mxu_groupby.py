@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.ops import groupby as JG
 from trino_tpu.ops.mxu_groupby import grouped_sum_mxu, grouped_sum_reference
 from trino_tpu_torch.ops import groupby as TG

@@ -33,6 +33,7 @@ import torch
 
 import chip_smoke as CS
 from tests.oracle import assert_rows_match
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import block as JB
 from trino_tpu import types as JT
 from trino_tpu.connectors import memory as jmemory

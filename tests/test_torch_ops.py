@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.ops import groupby as JG
 from trino_tpu.ops import hashing as JH
 from trino_tpu.ops import int128 as JI

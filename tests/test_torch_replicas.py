@@ -25,6 +25,7 @@ import tests.test_replicas as replicas_corpus
 from tests.test_torch_adaptive import adaptive_names, clean_tiers  # noqa: F401
 from tests.test_torch_compile import isolated_registries  # noqa: F401
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu_torch.connectors.tpch import create_tpch_connector
 from trino_tpu_torch.engine import Session
 from trino_tpu_torch.parallel import mesh_chunk

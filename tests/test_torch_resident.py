@@ -24,6 +24,7 @@ import torch
 import tests.test_resident as resident_corpus
 from tests.test_torch_compile import isolated_registries, port_names  # noqa: F401
 from tests.test_torch_statements import _cases, _ids
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.resident import table as jtable
 from trino_tpu_torch import types as T
 from trino_tpu_torch.connectors.memory import create_memory_connector

@@ -22,6 +22,7 @@ import tests.test_scheduler as scheduler_corpus
 from tests.test_torch_adaptive import adaptive_names, clean_tiers  # noqa: F401
 from tests.test_torch_compile import isolated_registries  # noqa: F401
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.runtime.scheduler import MeshScheduler as JMeshScheduler
 from trino_tpu_torch.parallel import mesh_chunk
 from trino_tpu_torch.recovery import CHECKPOINTS

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 import trino_tpu.runtime  # noqa: F401 - before exchange_ops, as the reference's own import order has it
 import tests.test_native as native_corpus
 from trino_tpu import types as JT

@@ -24,6 +24,7 @@ import pytest
 import tests.test_serving as serving_corpus
 from tests.test_torch_compile import isolated_registries, port_names  # noqa: F401
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.engine import LocalQueryRunner as JRunner
 from trino_tpu.engine import Session as JSession

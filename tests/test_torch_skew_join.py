@@ -23,6 +23,7 @@ import tests.test_skew_join as skew_corpus
 from tests.test_torch_adaptive import clean_tiers, corpus_params, adaptive_names  # noqa: F401
 from tests.test_torch_compile import isolated_registries  # noqa: F401
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu_torch.runtime.metrics import METRICS
 
 

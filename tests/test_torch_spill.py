@@ -21,6 +21,7 @@ import pytest
 
 import tests.test_memory as memory_corpus
 from tests.test_torch_write import ParityRunner, patch_corpus
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.engine import LocalQueryRunner as JRunner
 from trino_tpu.engine import Session as JSession

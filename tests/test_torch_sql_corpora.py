@@ -25,6 +25,7 @@ import tests.test_optimizer as optimizer_corpus
 import tests.test_parser as parser_corpus
 from tests.test_torch_distributed import call_case, portify
 from tests.test_torch_statements import _cases, _ids
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu.ops.floatbits import f64_lanes as jf64_lanes
 from trino_tpu_torch.ops.floatbits import f64_lanes

@@ -43,6 +43,7 @@ import tests.test_semantics as semantics_corpus
 import tests.test_serving as serving_corpus
 import tests.test_subquery_r5 as subquery_corpus
 import tests.test_torch_write as W
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 import trino_tpu.sql.optimizer as joptimizer
 from tests.tpch_queries import QUERIES
 from trino_tpu.sql import formatter as jformatter

@@ -30,6 +30,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import chip_smoke as CS
 from tests.test_timestamptz import NY
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.connectors.memory import create_memory_connector as jmemory
 from trino_tpu.connectors.tpch import create_tpch_connector as jtpch
 from trino_tpu.engine import LocalQueryRunner as JRunner

@@ -21,6 +21,7 @@ import pytest
 from tests.oracle import assert_rows_match, load_tpcds_sqlite, sqlite_rows
 from tests.test_tpcds import _NONEMPTY, QUERIES, _sql_for
 from tests.test_tpch import to_sqlite
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.connectors import tpcds as jtpcds
 from trino_tpu.engine import LocalQueryRunner as JRunner
 from trino_tpu.engine import Session as JSession

@@ -9,6 +9,7 @@ import pytest
 
 import tests.test_torch_tpcds as tpcds_parity
 from tests.test_torch_tpcds import oracle, results  # noqa: F401  (fixtures)
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["q72"])

@@ -11,6 +11,7 @@ import pytest
 
 from tests.oracle import assert_rows_match, load_tpch_sqlite, sqlite_rows
 from tests.test_tpch import to_sqlite
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.engine import LocalQueryRunner as JRunner

@@ -11,6 +11,7 @@ from tests.oracle import assert_rows_match, sqlite_rows
 from tests.test_torch_tpch_a import indexed_oracle
 from tests.test_tpch import to_sqlite
 from tests.test_window import SET_QUERIES, WINDOW_QUERIES
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.engine import LocalQueryRunner as JRunner
 from trino_tpu.engine import Session as JSession

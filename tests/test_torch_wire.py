@@ -32,10 +32,9 @@ fault-tolerant execution (FTE).
 import importlib
 import inspect
 import json
-import re
 import pickle
-import threading
 import time
+from collections import Counter
 
 import pytest
 
@@ -50,8 +49,8 @@ from tests.test_torch_distributed import (
     portify,
     reference_codec_with_constraints,
 )
-from tests.test_torch_distributed import WAITING as DIST_WAITING
 from tests.test_torch_statements import _cases
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from tests.tpch_queries import QUERIES
 from trino_tpu.connectors import tpch as jtpch
 from trino_tpu.connectors.spi import CatalogManager as JCatalogManager
@@ -64,6 +63,7 @@ from trino_tpu.runtime.task import TaskId as JTaskId
 from trino_tpu.runtime.task import TaskSpec as JTaskSpec
 from trino_tpu.sql import fragmenter as jfragmenter
 from trino_tpu.sql.parser import parse as jparse
+from trino_tpu_torch.analysis import threadreg
 from trino_tpu_torch.connectors import tpch as ttpch
 from trino_tpu_torch.connectors.spi import CatalogManager
 from trino_tpu_torch.engine import LocalQueryRunner, Session
@@ -76,9 +76,10 @@ from trino_tpu_torch.sql import fragmenter as tfragmenter
 from trino_tpu_torch.sql.parser import parse
 
 def _threads():
-    return [t for t in threading.enumerate()
-            if t.name.startswith(("task-", "pipeline-producer-", "exchange-pull-",
-                                  "worker-http-"))]
+    """The live task, pipeline-producer, exchange-pull and worker HTTP
+    threads (the registry's spawns of those owners), counted by name."""
+    return Counter(name for name, owner, _daemon in threadreg.THREADS.live()
+                   if owner in ("TaskExecution", "DirectExchangeClient", "WorkerServer"))
 
 
 @pytest.fixture(autouse=True)
@@ -86,12 +87,12 @@ def no_thread_outlives_the_test(monkeypatch):
     """Internal auth off unless a case sets it; afterwards every task,
     exchange and server thread is gone."""
     monkeypatch.delenv("TRINO_TPU_INTERNAL_SECRET", raising=False)
-    before = {t.ident for t in _threads()}
+    before = _threads()
     yield
     deadline = time.monotonic() + 15
-    while [t for t in _threads() if t.ident not in before] and time.monotonic() < deadline:
+    while _threads() - before and time.monotonic() < deadline:
         time.sleep(0.05)
-    assert not [t.name for t in _threads() if t.ident not in before]
+    assert not _threads() - before
 
 
 # ---- the codec's bytes --------------------------------------------------------
@@ -442,15 +443,10 @@ def test_phase_wire_fte_shapes_are_the_corpus():
 
 # ---- the corpora's coverage ------------------------------------------------------
 
-# cases that wait for a later item (13.4, analysis/): none of this corpus
-WAITING: dict = {}
-
-
 def test_the_corpora_are_covered():
-    """Every case of tests/test_deadlines.py runs above or waits for its
-    item, and this file runs every test_distributed.py, test_node_scheduler.py
-    and test_tracing.py case that tests/test_torch_distributed.py sends here.
-    No WAITING map names item 11b."""
+    """Every case of tests/test_deadlines.py runs above, and this file runs
+    every test_distributed.py, test_node_scheduler.py and test_tracing.py
+    case that tests/test_torch_distributed.py sends here."""
     from tests.test_torch_distributed import _ELSEWHERE as DIST_ELSEWHERE
 
     ran = {f"test_distributed.py::{n}" for n in _DIST_HTTP + _DIST_FTE}
@@ -459,10 +455,7 @@ def test_the_corpora_are_covered():
             "test_tracing.py::test_fte_retry_and_chaos_annotations_land_on_spans"}
     ran |= {f"test_deadlines.py::{n}" for n in set(_DEADLINES) | _DEADLINES_SLOW}
     every = {f"test_deadlines.py::{n}" for _, n in _cases(deadlines_corpus)}
-    assert every == (ran | set(WAITING)) & every and not ran & set(WAITING)
+    assert every <= ran, sorted(every - ran)
     sent_here = {k for k, v in DIST_ELSEWHERE.items() if v == "tests/test_torch_wire.py"}
     assert sent_here == {k for k in ran if not k.startswith("test_deadlines.py")}
-    for waiting in (WAITING, DIST_WAITING):
-        assert all(re.match(r"item 13\.4 ", v) for v in waiting.values())
-        assert not any("11b" in v for v in waiting.values())
     assert len(_DEADLINES) == 18 and len(_cases(deadlines_corpus)) == 19

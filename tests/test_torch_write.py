@@ -35,6 +35,7 @@ import tests.test_dml as dml_corpus
 import tests.test_merge as merge_corpus
 import tests.test_table_functions as tf_corpus
 from tests.oracle import assert_rows_match
+from tests.torch_sanitizer import port_concurrency_sanitizer  # noqa: F401
 from trino_tpu import security as jsecurity
 from trino_tpu.connectors import memory as jmemory
 from trino_tpu.connectors import tpch as jtpch

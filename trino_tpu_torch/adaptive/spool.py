@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.sql import plan as P
+from trino_tpu_torch.analysis.witness import named_lock
 
 # materialization guard rails: a barrier bigger than this stays in the
 # plan (materializing it would trade one misestimated join for an
@@ -148,7 +148,7 @@ class SubtreeSpool:
     the same query until a table it read is written."""
 
     def __init__(self, max_entries: int = 64):
-        self._lock = threading.Lock()  # SubtreeSpool._lock
+        self._lock = named_lock("SubtreeSpool._lock")
         self._entries: "OrderedDict[str, SpoolEntry]" = OrderedDict()
         self._max = max_entries
         self.stores = 0

@@ -38,9 +38,10 @@ share as `programs_built_this_query=`.
 from __future__ import annotations
 
 import os
-import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 # Bump when the engine's batch layout or a kernel's C interface changes
 # in a way that invalidates built libraries (the salt below keys the
@@ -59,9 +60,9 @@ class ProgramCache:
 
     def __init__(self, max_entries: int = 1024):
         self._max_entries = max_entries
-        self._lock = threading.Lock()  # ProgramCache._lock
-        self._entries: "OrderedDict[Any, Any]" = OrderedDict()
-        self._keys_by_id: Dict[int, Any] = {}
+        self._lock = named_lock("ProgramCache._lock")
+        self._entries: "OrderedDict[Any, Any]" = OrderedDict()  # guarded_by: _lock
+        self._keys_by_id: Dict[int, Any] = {}  # guarded_by: _lock
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -181,7 +182,7 @@ class PersistentCompileCache:
         self.scrubbed = 0
         self.evicted = 0
         self._prepared = False
-        self._lock = threading.Lock()
+        self._lock = named_lock("PersistentCompileCache._lock")
 
     def _entries(self):
         """[(path, size, mtime)] of the regular files in the salt dir."""
@@ -270,7 +271,7 @@ class PersistentCompileCache:
 # the kernel-library cache of this process, made by ops/cuda_build.py at
 # its first build (None until then)
 ACTIVE_PERSISTENT_CACHE: Optional[PersistentCompileCache] = None
-_active_lock = threading.Lock()
+_active_lock = named_lock("cache._active_lock")
 
 
 def kernel_cache() -> PersistentCompileCache:

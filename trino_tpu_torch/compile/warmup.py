@@ -36,11 +36,14 @@ from typing import Iterable, Optional, Sequence, Set, Tuple
 
 import torch
 
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
+
 # (operator, capacity, dtype-sig) classes proven warm in this process:
 # the vocabulary of the shape ledger (exec/stats.py) and the census
 # (sql/validate.py Lowering)
 WARM_CLASSES: Set[Tuple] = set()
-_warm_lock = threading.Lock()  # warmup._warm_lock
+_warm_lock = named_lock("warmup._warm_lock")
 
 
 def note_classes_warm(keys: Iterable[Tuple]) -> None:
@@ -138,9 +141,9 @@ class WarmupService:
         if self.mode == "off" or not self.entries:
             self._done.set()
             return self
-        self._thread = threading.Thread(target=self._run, name="trino-tpu-warmup",
-                                        daemon=True)
-        self._thread.start()
+        self._thread = threadreg.spawn(
+            "trino-tpu-warmup", self._run, owner="WarmupService"
+        )
         return self
 
     def wait(self, timeout: Optional[float] = None) -> bool:

@@ -37,7 +37,6 @@ import dataclasses
 import datetime
 import json
 import os
-import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,6 +69,7 @@ from trino_tpu_torch.connectors.spi import (
     TableMetadata,
     TableStatistics,
 )
+from trino_tpu_torch.analysis.witness import named_lock
 
 _EPOCH = datetime.date(1970, 1, 1)
 _SAMPLE_ROWS = 100  # rows examined for type inference
@@ -288,7 +288,7 @@ class _FileStore:
 
     def __init__(self, root: str):
         self.root = root
-        self.lock = threading.Lock()
+        self.lock = named_lock("_FileStore.lock")
         self._cache: Dict[Tuple[str, str], _ParsedTable] = {}
         # (schema, table, constraints) -> filtered _ParsedTable
         self._filtered_cache: Dict[tuple, _ParsedTable] = {}

@@ -23,7 +23,6 @@ ids kept for older versions.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +52,7 @@ from trino_tpu_torch.connectors.spi import (
     TableStatistics,
 )
 from trino_tpu_torch.transaction import ConnectorTransactionHandle
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 @dataclasses.dataclass
@@ -178,7 +178,7 @@ class _Store:
 
     def __init__(self):
         self.tables: Dict[Tuple[str, str], _StoredTable] = {}
-        self.lock = threading.Lock()
+        self.lock = named_lock("_Store.lock")
 
 
 class MemoryMetadata(ConnectorMetadata):

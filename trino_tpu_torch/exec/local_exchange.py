@@ -18,6 +18,7 @@ from collections import deque
 from typing import List, Optional
 
 from trino_tpu_torch.exec.operators import Operator
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 class LocalExchange:
@@ -35,7 +36,7 @@ class LocalExchange:
             raise ValueError(f"unknown local exchange mode {mode!r}")
         self.mode = mode
         self._queues: List[deque] = [deque() for _ in range(n_consumers)]
-        self._lock = threading.Lock()  # LocalExchange._lock
+        self._lock = named_lock("LocalExchange._lock")
         self._not_full = threading.Condition(self._lock)
         self._not_empty = threading.Condition(self._lock)
         self._max = max_buffered_batches

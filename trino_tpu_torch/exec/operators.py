@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,6 +61,7 @@ from trino_tpu_torch.ops import int128 as I128
 from trino_tpu_torch.ops import join as J
 from trino_tpu_torch.ops.gather import take_clip
 from trino_tpu_torch.ops.sort import SortKey, sort_order
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 class Operator:
@@ -379,7 +379,7 @@ class SortOperator(Operator):
         self._memory = memory_context
         self._spiller = None
         self._in_finish = False
-        self._state_lock = threading.Lock()  # SortOperator._state_lock
+        self._state_lock = named_lock("SortOperator._state_lock")
         if self._memory is not None:
             self._memory.set_revoker(self._revoke_memory)
 
@@ -1294,7 +1294,7 @@ class HashAggregationOperator(Operator):
         # revocation runs on the reserving thread (MemoryPool.reserve
         # calls the victim's callback), so state changes and the revoke
         # serialize on this lock; accounting calls stay outside it
-        self._state_lock = threading.Lock()  # HashAggregationOperator._state_lock
+        self._state_lock = named_lock("HashAggregationOperator._state_lock")
         if self._memory is not None and not self._global and not self._holistic:
             self._memory.set_revoker(self._revoke_memory)
 
@@ -2017,7 +2017,7 @@ class HashBuildSink(Operator):
         self._inputs: List[RelBatch] = []
         self._memory = memory_context
         self._grace = None
-        self._state_lock = threading.Lock()  # HashBuildSink._state_lock
+        self._state_lock = named_lock("HashBuildSink._state_lock")
         if force_spill:
             # the grace partitions open before the first batch arrives
             self._grace = self._new_grace()

@@ -28,7 +28,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import struct
-import threading
 import zlib
 from typing import List, Optional, Sequence, Tuple
 
@@ -46,6 +45,7 @@ from trino_tpu_torch.block import (
     bucket_capacity,
     decode_values,
 )
+from trino_tpu_torch.analysis.witness import named_lock
 
 _HEADER = struct.Struct("<BI")
 
@@ -267,7 +267,7 @@ COMPRESS_MIN_BYTES = 1 << 13  # below this, compression costs more than it saves
 # otherwise sort and index the same values again. Each entry holds its
 # tuple, so an id in the cache is never reused while the entry lives.
 _DICT_CACHE: "collections.OrderedDict" = collections.OrderedDict()
-_DICT_CACHE_LOCK = threading.Lock()
+_DICT_CACHE_LOCK = named_lock("serde._DICT_CACHE_LOCK")
 _DICT_CACHE_MAX = 64
 
 

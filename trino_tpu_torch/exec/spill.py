@@ -13,16 +13,16 @@ from __future__ import annotations
 
 import os
 import tempfile
-import threading
 from typing import Dict, Iterator, List, Optional
 
 import torch
 
 from trino_tpu_torch.block import RelBatch
 from trino_tpu_torch.exec.serde import Page, deserialize_page, serialize_batch, serialize_page
+from trino_tpu_torch.analysis.witness import named_lock
 
 
-_stats_lock = threading.Lock()  # spill._stats_lock
+_stats_lock = named_lock("spill._stats_lock")
 # process-wide spill counters: bytes written, files that received data,
 # grace partitions joined (exec/operators.LookupJoinOperator)
 _STATS: Dict[str, int] = {"spilled_bytes": 0, "spill_files": 0, "grace_partitions": 0}

@@ -28,11 +28,12 @@ port's `programs_built` (compile/cache.py).
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import List, Optional, Set, Tuple
 
 import torch
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 @dataclasses.dataclass
@@ -95,7 +96,7 @@ class InstrumentedOperator:
         # deferred row counts: a masked batch enqueues a device-side sum
         # instead of a host sync per batch; flush_counts() resolves them
         self._pending_counts: list = []
-        self._pending_lock = threading.Lock()  # InstrumentedOperator._pending_lock
+        self._pending_lock = named_lock("InstrumentedOperator._pending_lock")
 
     def _barrier(self) -> None:
         if self._device_sync:

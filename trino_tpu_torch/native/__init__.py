@@ -17,17 +17,18 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import threading
 from typing import List, Optional
 
 import numpy as np
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "pagesplit.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libpagesplit.so")
 
-_lock = threading.Lock()  # native._lock
+_lock = named_lock("native._lock")
 _lib: Optional[ctypes.CDLL] = None
 
 

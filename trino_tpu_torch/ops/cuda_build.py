@@ -21,21 +21,25 @@ import ctypes
 import functools
 import os
 import subprocess
-import threading
 from typing import Dict, Iterable, Sequence
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("grouped_sum", "window_rank", "gather")
 
 # what `nvcc -Xptxas -v` said about each source built in this process
-PTXAS_LOG: Dict[str, str] = {}
+PTXAS_LOG: Dict[str, str] = {}  # guarded_by: _build_lock
 
-_libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}  # guarded_by: _lock
+_lock = named_lock("cuda_build._lock")
+# serializes builds (two threads would share one tmp path) and guards
+# PTXAS_LOG; ordered after _lock, which load holds when it builds
+_build_lock = named_lock("cuda_build._build_lock")
 # guards every wrapper's `launches` and `shapes`: a distributed query's
 # tasks launch kernels from several threads at once
-_count_lock = threading.Lock()
+_count_lock = named_lock("cuda_build._count_lock")
 
 
 def count_launch(wrapper, shape) -> None:
@@ -83,27 +87,29 @@ def _start(name: str):
                                  stderr=subprocess.PIPE, text=True)
 
 
-def _finish(name: str, tmp: str, proc) -> None:
+def _finish(name: str, tmp: str, proc) -> str:
+    """Wait for one nvcc; returns what ptxas said."""
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n{out}\n{err}")
     os.replace(tmp, library_path(name))
-    PTXAS_LOG[name] = err
     from trino_tpu_torch.runtime.metrics import note_program_built
 
     note_program_built()
+    return err
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every stale source, all nvcc processes started together.
     Returns {name: library path}."""
-    started = {n: _start(n) for n in names if not _fresh(n)}
     failures = []
-    for n, (tmp, proc) in started.items():
-        try:
-            _finish(n, tmp, proc)
-        except RuntimeError as e:
-            failures.append(str(e))
+    with _build_lock:
+        started = {n: _start(n) for n in names if not _fresh(n)}
+        for n, (tmp, proc) in started.items():
+            try:
+                PTXAS_LOG[n] = _finish(n, tmp, proc)
+            except RuntimeError as e:
+                failures.append(str(e))
     if failures:
         raise RuntimeError("\n".join(failures))
     return {n: library_path(n) for n in names}
@@ -117,6 +123,11 @@ def build(name: str) -> str:
 def load(name: str, functions: Dict[str, Sequence]) -> ctypes.CDLL:
     """The built library with `functions` ({symbol: argtypes}) bound;
     each returns a cudaError_t as int."""
+    # every launch asks for its library: once loaded, it is read without
+    # the lock (the entry is stored once, whole, under it)
+    lib = _libs.get(name)  # unguarded-ok: atomic read of an entry stored once
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

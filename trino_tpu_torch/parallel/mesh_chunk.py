@@ -107,13 +107,14 @@ from trino_tpu_torch.parallel.mesh_plan import (
     _salted_local_partition,
 )
 from trino_tpu_torch.sql import plan as P
+from trino_tpu_torch.analysis.witness import named_lock
 
 # Most recent chunked run, for tests and EXPLAIN surfaces: chunk shape,
 # fragment classification and attempt count. Written by chunk loops of
 # concurrent queries: the clear()+update() must not expose an empty
 # dict mid-publish.
-_run_info_lock = threading.Lock()
-LAST_RUN_INFO: Dict[str, object] = {}
+_run_info_lock = named_lock("mesh_chunk._run_info_lock")
+LAST_RUN_INFO: Dict[str, object] = {}  # guarded_by: _run_info_lock
 
 
 def last_run_info() -> Dict[str, object]:
@@ -132,8 +133,8 @@ def publish_run_info(info: Dict[str, object]) -> None:
 # WarmupEntry registry of the mesh programs (the local planner's entries'
 # counterpart): bounded, oldest dropped; written by concurrent query
 # threads
-_warmup_entries_lock = threading.Lock()
-MESH_WARMUP_ENTRIES: List[WarmupEntry] = []
+_warmup_entries_lock = named_lock("mesh_chunk._warmup_entries_lock")
+MESH_WARMUP_ENTRIES: List[WarmupEntry] = []  # guarded_by: _warmup_entries_lock
 _MAX_WARMUP_ENTRIES = 128
 
 
@@ -710,8 +711,12 @@ class MeshProgramRecord:
 class _ProgramWarmer:
     """WarmupEntry.fn of a mesh program. The port's programs are the
     local operators' kernels launched shard by shard, so warming one
-    means building and loading those kernels for the shard devices
-    (ops/cuda_build.py); on the CPU there is nothing to load."""
+    means building those kernels for the shard devices
+    (ops/cuda_build.py); on the CPU there is nothing to build. It loads
+    no library: each wrapper's first launch loads its own with its
+    functions' argument types bound, and `load` hands back a loaded
+    library as it is (unbound, ctypes would pass a 64-bit pointer as a
+    32-bit int)."""
 
     def __init__(self, devices):
         self.devices = tuple(str(d) for d in devices)
@@ -720,8 +725,7 @@ class _ProgramWarmer:
         if any(torch.device(d).type == "cuda" for d in self.devices):
             from trino_tpu_torch.ops import cuda_build
 
-            for name in cuda_build.SOURCES:
-                cuda_build.load(name, {})
+            cuda_build.build_all()
 
 
 def _record_key(ex, mesh_sps, root_child_ids, repl, feed_sigs, cplan, caps):

@@ -33,7 +33,7 @@ shard on a CUDA shard device.
 
 from __future__ import annotations
 
-import threading
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +82,7 @@ from trino_tpu_torch.ops.sort import sort_order
 from trino_tpu_torch.parallel.mesh import ShardMesh, all_gather, all_to_all, psum
 from trino_tpu_torch.sql import plan as P
 from trino_tpu_torch.sql.fragmenter import SubPlan
+from trino_tpu_torch.analysis.witness import named_lock
 
 Shards = List[RelBatch]
 
@@ -91,8 +92,8 @@ Shards = List[RelBatch]
 # chunked run bumps a stream fragment's exchange once a chunk). Tests
 # assert on before/after deltas. Bumps come from concurrent query
 # threads, so all go through bump_mesh_counter.
-_counters_lock = threading.Lock()
-MESH_COUNTERS = {"queries": 0, "all_to_all": 0, "all_gather": 0, "fallbacks": 0}
+_counters_lock = named_lock("mesh_plan._counters_lock")
+MESH_COUNTERS = {"queries": 0, "all_to_all": 0, "all_gather": 0, "fallbacks": 0}  # guarded_by: _counters_lock
 
 _METRICS_REGISTERED = False
 
@@ -1058,6 +1059,7 @@ class MeshExecutor:
         feed to a chunk-aligned capacity."""
         from concurrent.futures import ThreadPoolExecutor
 
+        from trino_tpu_torch.analysis import threadreg
         from trino_tpu_torch.exec.operators import TableScanOperator
 
         host = torch.device("cpu")
@@ -1089,7 +1091,10 @@ class MeshExecutor:
                         parts.append(b)
                     return concat_batches(parts) if parts else _empty_batch(schema)
 
-                with ThreadPoolExecutor(max_workers=self.n) as pool:
+                with ThreadPoolExecutor(
+                        max_workers=self.n, thread_name_prefix="mesh-scan",
+                        initializer=functools.partial(
+                            threadreg.THREADS.adopt_current, owner="MeshExecutor")) as pool:
                     shard_batches = list(pool.map(scan, range(self.n)))
                 feeds[id(node)] = len(host_feeds)
                 host_feeds.append(_stack_shards(shard_batches, self.n))

@@ -35,9 +35,10 @@ other error propagates.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 # counter names exported through /v1/metrics (registered as zero-valued
 # keys by register_recovery_metrics so the surface is visible before the
@@ -136,7 +137,7 @@ class MeshCheckpointStore:
     overflow cap bumps still finds its checkpoint)."""
 
     def __init__(self, max_entries: int = 16):
-        self._lock = threading.Lock()  # MeshCheckpointStore._lock
+        self._lock = named_lock("MeshCheckpointStore._lock")
         self._entries: "OrderedDict[tuple, MeshCheckpoint]" = OrderedDict()  # guarded_by: _lock
         self._max = max_entries
         self.taken = 0

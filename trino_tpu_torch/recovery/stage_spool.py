@@ -37,7 +37,6 @@ does not decode to rows, a spool file that cannot be read) propagates.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Tuple
 
 from trino_tpu_torch.adaptive.spool import (
@@ -48,6 +47,7 @@ from trino_tpu_torch.adaptive.spool import (
     spooled_node,
     subtree_tables,
 )
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 def _pages_to_rows(pages) -> List[list]:
@@ -162,7 +162,7 @@ class StageOutputRecorder:
     spool on retry and purges the query's recordings at finalize."""
 
     def __init__(self):
-        self._lock = threading.Lock()  # StageOutputRecorder._lock
+        self._lock = named_lock("StageOutputRecorder._lock")
         self._recs: Dict[Tuple[str, int], _FragmentRecording] = {}
 
     def expect(self, query_id: str, fragment_id: int, n_tasks: int) -> None:

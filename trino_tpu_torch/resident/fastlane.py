@@ -40,16 +40,17 @@ base at a ladder rung.
 
 from __future__ import annotations
 
-import threading
 from typing import List, Optional, Tuple
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.resident.manager import GENERATIONS, RESIDENT, table_key
 from trino_tpu_torch.resident.table import ResidentTable
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
 
-_lock = threading.Lock()  # fastlane._lock
+_lock = named_lock("fastlane._lock")
 # compactions run one at a time
-_compaction_lock = threading.Lock()  # fastlane._compaction_lock
+_compaction_lock = named_lock("fastlane._compaction_lock")
 _pending_compactions: List = []
 
 
@@ -326,7 +327,7 @@ def _schedule_compaction(key: Tuple, table: ResidentTable) -> None:
     with _lock:
         _pending_compactions[:] = [f for f in _pending_compactions if not f.done()]
         _pending_compactions.append(fut)
-    threading.Thread(target=run, name="trino-tpu-resident-compact", daemon=True).start()
+    threadreg.spawn("trino-tpu-resident-compact", run, owner="ResidentManager")
 
 
 def _compact_one(key: Tuple, table: ResidentTable) -> None:

@@ -28,9 +28,10 @@ resident_pinned_bytes gauge.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Dict, FrozenSet, List, Optional, Tuple
+
+from trino_tpu_torch.analysis.witness import named_lock, named_rlock
 
 
 def table_key(catalog: str, schema: str, table: str) -> Tuple[str, str, str]:
@@ -44,7 +45,7 @@ class TableGenerations:
     events (COMMIT, catalog registration) that cannot name a table."""
 
     def __init__(self):
-        self._lock = threading.Lock()  # TableGenerations._lock
+        self._lock = named_lock("TableGenerations._lock")
         self._gens: Dict[Tuple[str, str, str], int] = {}
         self._epoch = 0
 
@@ -87,7 +88,7 @@ class ResidentStateManager:
     recomputing build-time key components (dtype sig, capacity rung)."""
 
     def __init__(self, budget_bytes: int = 64 << 20):
-        self._lock = threading.RLock()  # ResidentStateManager._lock
+        self._lock = named_rlock("ResidentStateManager._lock")
         self.budget_bytes = int(budget_bytes)
         self._entries: "OrderedDict[Tuple, _Entry]" = OrderedDict()
         self._index: Dict[Tuple, Tuple] = {}

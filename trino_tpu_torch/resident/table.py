@@ -26,7 +26,6 @@ across tables, and register WarmupEntrys.
 
 from __future__ import annotations
 
-import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +35,7 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.block import bucket_capacity
 from trino_tpu_torch.compile.cache import PROGRAM_CACHE
 from trino_tpu_torch.compile.warmup import WarmupEntry, note_classes_warm
+from trino_tpu_torch.analysis.witness import named_lock, named_rlock
 
 # matches a probe returns before the fast lane declines (a key with more
 # than 16 rows is not a point lookup worth pinning)
@@ -44,7 +44,7 @@ PROBE_OUT_CAP = 16
 # WarmupEntry registry of the resident programs: bounded, observable
 RESIDENT_WARMUP_ENTRIES: List[WarmupEntry] = []
 _MAX_WARMUP_ENTRIES = 64
-_warm_lock = threading.Lock()  # table._warm_lock
+_warm_lock = named_lock("table._warm_lock")
 
 
 def register_resident_warmup(entries: Sequence[WarmupEntry]) -> None:
@@ -185,7 +185,7 @@ class ResidentTable:
         self.delta_rows: List[list] = []
         self._delta_keys: Optional[torch.Tensor] = None
         self._delta_valid: Optional[torch.Tensor] = None
-        self._lock = threading.RLock()  # ResidentTable._lock
+        self._lock = named_rlock("ResidentTable._lock")
         register_resident_warmup(
             [_probe_entry(self.base_cap, self.device), _probe_entry(self.delta_cap, self.device)])
         # the build already paid a full scan: two dead probes here keep

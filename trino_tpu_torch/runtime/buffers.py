@@ -13,10 +13,10 @@ once buffered bytes exceed the limit until consumers drain
 
 from __future__ import annotations
 
-import threading
 from typing import List, Tuple
 
 from trino_tpu_torch.exec.serde import Page
+from trino_tpu_torch.analysis.witness import named_condition
 
 
 class OutputBuffer:
@@ -25,7 +25,7 @@ class OutputBuffer:
     def __init__(self, n_partitions: int, max_bytes: int = 128 << 20):
         self._n = n_partitions
         self._max_bytes = max_bytes
-        self._lock = threading.Condition()  # OutputBuffer._lock
+        self._lock = named_condition("OutputBuffer._lock")
         # per partition: pages kept from first_token onward
         self._pages: List[List[Page]] = [[] for _ in range(n_partitions)]
         self._first_token: List[int] = [0] * n_partitions

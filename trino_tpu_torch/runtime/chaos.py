@@ -6,8 +6,9 @@ one) and the mesh plane's `mesh_devices`; the replica, preempt and
 fabric cases build their replicas from that shard device list
 (`["cpu"] * 4` in the tests, `[cuda:0] * 4` on the card), so they
 always run, where the reference skips them below two devices.
-chaos_smoke's lock-witness gate (trino_tpu/analysis) is ROADMAP §1 item
-13.4 and is left out.
+preempt_park_resume doubles as chaos_smoke's lock-witness gate: run_mesh_case
+runs it with the port's order witness (analysis/witness.py) on and
+mesh_case_failures fails it on any violation recorded during the run.
 
 Analogue of the reference's BaseFailureRecoveryTest matrix run as a
 harness instead of hand-written cases: a fixed seed generates a fault
@@ -46,12 +47,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-
-def _spawn(name: str, fn, args=(), start: bool = True) -> threading.Thread:
-    t = threading.Thread(target=fn, name=name, args=args, daemon=True)
-    if start:
-        t.start()
-    return t
+from trino_tpu_torch.analysis import threadreg, witness
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 FAULT_CLASSES = (
@@ -347,7 +344,7 @@ def run_preempt_park_resume_case(
             def run_point():
                 state["point_rows"] = runner.execute(point).rows
 
-            _spawn("chaos-point-query", run_point)
+            threadreg.spawn("chaos-point-query", run_point, owner="chaos")
             # hold this boundary until the fast seat is queued, so the
             # NEXT boundary deterministically parks
             deadline = time.monotonic() + 10.0
@@ -467,8 +464,9 @@ def run_preempt_under_drain_case(
             state["target"] = rng.randrange(max(K - 2, 1))
         if k == state["target"] and state["victim"] is None:
             state["victim"] = rep
-            _spawn(
+            threadreg.spawn(
                 "chaos-drain-when-parked", drain_when_parked, args=(rep,),
+                owner="chaos",
             )
             # hold this boundary until the fast seat is queued: the
             # next boundary parks, and the side thread drains the
@@ -1070,7 +1068,7 @@ class ChaosHarness:
             except Exception as e:
                 result["error"] = e
 
-        t = _spawn("chaos-query", run)
+        t = threadreg.spawn("chaos-query-driver", run, owner="chaos")
         # drain a node that ACTUALLY hosts work: wait for launches
         deadline = time.monotonic() + 10.0
         busy: List[DownableWorker] = []
@@ -1298,7 +1296,7 @@ class ChaosHarness:
             n: "order by" in sql.lower() for n, sql in queries.items()
         }
         server = CoordinatorServer(self.runner, max_concurrent=n_clients)
-        lock = threading.Lock()
+        lock = named_lock("ChaosHarness.stats_lock")
         stats = {
             "completed": 0, "ok": 0, "mismatches": 0, "sheds": 0,
             "typed_failures": 0, "untyped_errors": [], "hung_threads": 0,
@@ -1347,7 +1345,8 @@ class ChaosHarness:
                         )
 
         threads = [
-            _spawn(f"chaos-client-{i}", client_loop, args=(i,), start=False)
+            threadreg.spawn(f"chaos-client-{i}", client_loop, args=(i,),
+                            owner="chaos", start=False)
             for i in range(n_clients)
         ]
         try:
@@ -1425,7 +1424,7 @@ class ChaosHarness:
                 "run_recovery_drain_case needs in_process=True (the "
                 "mesh plane only engages on colocated workers)"
             )
-        lock = threading.Lock()
+        lock = named_lock("ChaosHarness.stats_lock")
         state = {"fired": 0}
 
         def hook(k: int, K: int) -> None:
@@ -1475,7 +1474,7 @@ class ChaosHarness:
                 "run_replica_down_case needs in_process=True (the mesh "
                 "plane only engages on colocated workers)"
             )
-        lock = threading.Lock()
+        lock = named_lock("ChaosHarness.stats_lock")
         state = {"fired": 0}
         case_thread = threading.current_thread()
 
@@ -1526,7 +1525,7 @@ class ChaosHarness:
                 "run_replica_drain_case needs in_process=True (the mesh "
                 "plane only engages on colocated workers)"
             )
-        lock = threading.Lock()
+        lock = named_lock("ChaosHarness.stats_lock")
         state = {"drain_requested": 0}
         case_thread = threading.current_thread()
 
@@ -2055,8 +2054,23 @@ def run_mesh_case(
         "membership_flap": run_membership_flap_case,
         "transport_corruption": run_transport_corruption_case,
     }[scenario]
-    return case(sql, seed, mesh_chunk_rows=mesh_chunk_rows, device=device,
-                mesh_devices=mesh_devices)
+    if scenario != "preempt_park_resume":
+        return case(sql, seed, mesh_chunk_rows=mesh_chunk_rows, device=device,
+                    mesh_devices=mesh_devices)
+    # park_resume doubles as the lock-witness gate: the scheduler's
+    # condition wait, the checkpoint store and the fast-lane seat all
+    # interleave here, so it runs with order checking live and reports
+    # the violations recorded meanwhile (mesh_case_failures wants 0)
+    was_enabled = witness.witness_enabled()
+    before = witness.violation_count()
+    witness.enable_witness(True)
+    try:
+        rows, rep = case(sql, seed, mesh_chunk_rows=mesh_chunk_rows, device=device,
+                         mesh_devices=mesh_devices)
+    finally:
+        witness.enable_witness(was_enabled)
+    rep["witness_violations"] = witness.violation_count() - before
+    return rows, rep
 
 
 def mesh_case_failures(scenario: str, rows: Optional[List[list]], rep: dict) -> List[str]:
@@ -2113,6 +2127,9 @@ def _preempt_failures(tag: str, scenario: str, rep: dict) -> List[str]:
     if not rep["parked"]:
         out.append(f"{tag}: the fast-lane seat never parked the analytic ({rep})")
     if scenario == "preempt_park_resume":
+        if rep["witness_violations"]:
+            out.append(f"{tag}: {rep['witness_violations']} lock-witness violation(s) "
+                       f"recorded during the park/resume run")
         if not rep["faulted"]:
             out.append(f"{tag}: the post-resume device loss never fired ({rep})")
         elif rep["mesh_fault_plane"] != "mesh":

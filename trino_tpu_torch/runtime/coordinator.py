@@ -32,8 +32,9 @@ that loses a device or drains mid-run hands the query to a sibling,
 which resumes from the host checkpoint (pulled from a fabric peer,
 runtime/fabric.py, when the local store lost it), and a drain may split
 the unstarted chunks between two siblings (`_try_steal_dispatch`).
-EXPLAIN ANALYZE prints the replicas=, scheduler= and membership= lines;
-the concurrency line is ROADMAP §1 item 13.4.
+EXPLAIN ANALYZE prints the replicas=, scheduler=, membership= and
+concurrency= lines (the last from the port's analysis/: named locks,
+order edges, registered threads and witness violations).
 
 The adaptive and recovery tiers: with adaptive_execution or
 shared_subtree_materialization on, an AdaptiveController materializes
@@ -60,7 +61,6 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import threading
 import time
 from typing import Dict, List, Optional
 
@@ -75,6 +75,8 @@ from trino_tpu_torch.sql.analyzer import Analyzer
 from trino_tpu_torch.sql.fragmenter import SubPlan, explain_distributed, plan_distributed
 from trino_tpu_torch.sql.parser import parse
 from trino_tpu_torch.exec.serde import Page
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
 
 _query_counter = itertools.count(1)
 
@@ -397,12 +399,12 @@ class DistributedQueryRunner:
         # first use) with mesh_scheduler on, behind this lock with it
         # off. _sched_steals counts completed work-stealing dispatches
         # (the EXPLAIN scheduler= line)
-        self._mesh_exec_lock = threading.Lock()
+        self._mesh_exec_lock = named_lock("DistributedQueryRunner._mesh_exec_lock")
         self._mesh_scheduler = None
         self._sched_steals = 0
         # concurrent first dispatches carve one replica plane and build
         # one run queue (the reference races here and may build two)
-        self._carve_lock = threading.Lock()
+        self._carve_lock = named_lock("DistributedQueryRunner._carve_lock")
         # recovery tier: surface the recovery.* counters in /v1/metrics
         # at zero from process start (a counter only materializes on
         # first bump otherwise)
@@ -478,9 +480,13 @@ class DistributedQueryRunner:
         from trino_tpu_torch.parallel.mesh_plan import register_mesh_metrics
 
         register_mesh_metrics()
-        # the reference also installs its XLA compile listener (the
-        # port counts builds without one) and registers the analysis
-        # tier's (item 13.4) gauges here
+        # concurrency soundness plane gauges (analysis.locks /
+        # analysis.threads_live / analysis.witness_violations); the
+        # reference also installs its XLA compile listener here, and
+        # the port counts builds without one
+        from trino_tpu_torch.analysis import register_analysis_metrics
+
+        register_analysis_metrics()
         # serving tier: canonical-text plan cache over the distributed
         # planning pipeline (analyze -> optimize -> fragment). DDL/DML
         # through the embedded runner and catalog registration
@@ -497,7 +503,7 @@ class DistributedQueryRunner:
         self._completed_queries_cap = 200
         self.last_query_id: Optional[str] = None
         self._active_traces: Dict[str, tuple] = {}
-        self._lock = threading.Lock()  # DistributedQueryRunner._lock
+        self._lock = named_lock("DistributedQueryRunner._lock")
 
     def _fail_query_on_workers(self, query_id: str, message: str) -> None:
         for w in self.workers:
@@ -1308,9 +1314,8 @@ class DistributedQueryRunner:
                     helper.scheduler.finish(hjob)
                     emit.done.set()
 
-            thread = threading.Thread(target=run_helper, name="trino-tpu-steal-helper",
-                                      daemon=True)
-            thread.start()
+            thread = threadreg.spawn("trino-tpu-steal-helper", run_helper,
+                                     owner="DistributedQueryRunner")
             ex_p = self._mesh_executor(rm, prim)
             ex_p.steal_ctx = merge
             rows = self._scheduled(prim.scheduler, ex_p, subplan, preempt, query_span, query_id,
@@ -1449,6 +1454,22 @@ class DistributedQueryRunner:
         if self._replicas is None:
             return "membership= epoch=0 (single mesh)"
         return self._replicas.membership_line()
+
+    def _concurrency_line(self) -> str:
+        """The EXPLAIN ANALYZE concurrency line (analysis/): registered
+        witness locks, observed order edges, registered background
+        threads, and lifetime witness violations (0 on a sound engine)."""
+        from trino_tpu_torch.analysis import concurrency_summary
+
+        s = concurrency_summary()
+        return (
+            f"concurrency= locks={s['locks']} "
+            f"order_edges={s['order_edges']} "
+            f"threads_live={s['threads_live']} "
+            f"threads_spawned={s['threads_spawned']} "
+            f"witness={'on' if s['witness'] else 'off'} "
+            f"violations={s['witness_violations']}"
+        )
 
     def _mesh_plane_line(self, subplan) -> str:
         """The EXPLAIN ANALYZE data-plane line: which plane `execute`
@@ -1614,7 +1635,7 @@ class DistributedQueryRunner:
             lines.append(self._replica_line())
             lines.append(self._scheduler_line())
             lines.append(self._membership_line())
-            # the reference's concurrency line is ROADMAP §1 item 13.4
+            lines.append(self._concurrency_line())
             return MaterializedResult(
                 [["\n".join(lines)]], ["Query Plan"], [T.VARCHAR]
             )

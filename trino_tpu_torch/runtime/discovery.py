@@ -33,6 +33,9 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
+
 
 class CircuitBreaker:
     """Per-node breaker: `trip_threshold` consecutive failures open it;
@@ -118,7 +121,7 @@ class NodeManager:
                  breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 1.0):
         self._nodes: Dict[str, NodeState] = {}
-        self._lock = threading.Lock()  # NodeManager._lock
+        self._lock = named_lock("NodeManager._lock")
         self._interval = ping_interval
         self._breaker_threshold = breaker_threshold
         self._breaker_cooldown_s = breaker_cooldown_s
@@ -222,10 +225,9 @@ class NodeManager:
     # -- heartbeat loop (HeartbeatFailureDetector.ping:350) --
     def start(self) -> None:
         if self._thread is None:
-            self._thread = threading.Thread(
-                target=self._loop, name="heartbeat-detector", daemon=True
+            self._thread = threadreg.spawn(
+                "heartbeat-detector", self._loop, owner="HeartbeatFailureDetector"
             )
-            self._thread.start()
 
     def stop(self) -> None:
         self._stop.set()

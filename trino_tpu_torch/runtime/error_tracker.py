@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import dataclasses
 import random
-import threading
 import time
 import urllib.error
 from typing import Callable, List, Optional
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +161,7 @@ class DestinationErrorStats:
     bounded attempt counts)."""
 
     def __init__(self):
-        self._lock = threading.Lock()  # DestinationErrorStats._lock
+        self._lock = named_lock("DestinationErrorStats._lock")
         self._errors: dict = {}
         self._requests: dict = {}
 

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import threading
 import time
 from typing import Any, Dict, List, Optional
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 @dataclasses.dataclass
@@ -76,7 +77,7 @@ class JsonlEventListener(EventListener):
 
     def __init__(self, path: str):
         self.path = path
-        self._lock = threading.Lock()  # JsonlEventListener._lock
+        self._lock = named_lock("JsonlEventListener._lock")
 
     def query_completed(self, event: QueryCompletedEvent) -> None:
         record: Dict[str, Any] = {"event": "query_completed",

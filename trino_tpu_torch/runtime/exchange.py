@@ -21,6 +21,8 @@ from trino_tpu_torch.runtime.error_tracker import (
     RequestErrorTracker,
     RetryPolicy,
 )
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_condition
 
 # fetch(partition, token, max_pages, wait) -> (pages, next_token, complete)
 Fetch = Callable[[int, int, int, float], tuple]
@@ -56,7 +58,7 @@ class DirectExchangeClient:
         self._retry_seed = retry_seed
         self._failure_listener = failure_listener
         self._queue: List[Page] = []
-        self._lock = threading.Condition()  # DirectExchangeClient._lock
+        self._lock = named_condition("DirectExchangeClient._lock")
         self._open = 0
         self._max_buffered = max_buffered_pages
         self._long_poll_s = long_poll_s
@@ -64,9 +66,9 @@ class DirectExchangeClient:
         self._closed = False
         self._threads: List[threading.Thread] = []
         for loc in self._locations:
-            t = threading.Thread(
-                target=self._pull_loop, args=(loc,),
-                name=f"exchange-pull-{loc.destination}", daemon=True,
+            t = threadreg.spawn(
+                f"exchange-pull-{loc.destination}", self._pull_loop, args=(loc,),
+                owner="DirectExchangeClient", start=False,
             )
             self._open += 1
             self._threads.append(t)

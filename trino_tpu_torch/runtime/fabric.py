@@ -45,10 +45,12 @@ import base64
 import hashlib
 import pickle
 import queue
-import threading
 import time
 import urllib.error
 from typing import Callable, List, Optional, Tuple
+
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
 
 # /v1/metrics counter names (registered at zero by register_fabric_metrics)
 PUSHES = "fabric.pushes"
@@ -214,14 +216,14 @@ class CheckpointPusher:
         self.clients = list(clients)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
         self._busy = 0  # guarded_by: _lock
-        self._lock = threading.Lock()  # CheckpointPusher._lock
+        self._lock = named_lock("CheckpointPusher._lock")
         self.pushes = 0
         self.sheds = 0
         self.push_failures = 0
         self.error: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._run, name="trino-tpu-fabric-push",
-                                        daemon=True)
-        self._thread.start()
+        self._thread = threadreg.spawn(
+            "trino-tpu-fabric-push", self._run, owner="CheckpointPusher"
+        )
 
     def offer(self, key: tuple) -> bool:
         try:
@@ -363,12 +365,12 @@ class Fabric:
 
 # the process's active attachment (one coordinator, one fabric; set by
 # maybe_start_fabric, like recovery.CHECKPOINTS)
-_fabric_lock = threading.Lock()
+_fabric_lock = named_lock("fabric._fabric_lock")
 ACTIVE_FABRIC: Optional[Fabric] = None  # guarded_by: _fabric_lock
 
 
 def active_fabric() -> Optional[Fabric]:
-    return ACTIVE_FABRIC
+    return ACTIVE_FABRIC  # unguarded-ok: atomic reference read
 
 
 def maybe_start_fabric(session, store=None) -> Optional[Fabric]:
@@ -380,7 +382,7 @@ def maybe_start_fabric(session, store=None) -> Optional[Fabric]:
     peers = [p.strip() for p in str(getattr(session, "fabric_peers", "") or "").split(",")
              if p.strip()]
     if not peers:
-        return ACTIVE_FABRIC
+        return ACTIVE_FABRIC  # unguarded-ok: atomic reference read
     with _fabric_lock:
         if ACTIVE_FABRIC is not None and ACTIVE_FABRIC.peer_uris == peers:
             return ACTIVE_FABRIC
@@ -418,7 +420,7 @@ def fabric_status() -> dict:
 
     s = METRICS.snapshot()
     out = {name.split(".", 1)[1]: int(s.get(name, 0.0)) for name in _COUNTERS}
-    fab = ACTIVE_FABRIC
+    fab = ACTIVE_FABRIC  # unguarded-ok: atomic reference read
     out["attached"] = fab is not None
     if fab is not None:
         out["peers"] = list(fab.peer_uris)

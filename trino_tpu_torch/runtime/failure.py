@@ -16,8 +16,9 @@ classed failure that grows the partition memory estimate on retry.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Dict, List, Optional, Tuple
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 class InjectedFailure(RuntimeError):
@@ -61,7 +62,7 @@ class FailureInjector:
     def __init__(self):
         self._rules: List[FailureRule] = []
         self._hits: Dict[int, int] = {}
-        self._lock = threading.Lock()  # FailureInjector._lock
+        self._lock = named_lock("FailureInjector._lock")
 
     def inject(self, **kw) -> FailureRule:
         rule = FailureRule(**kw)

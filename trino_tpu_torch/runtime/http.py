@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import json
 import struct
-import threading
 import urllib.error
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -65,6 +64,7 @@ from trino_tpu_torch.exec.serde import Page, deserialize_page, serialize_page
 from trino_tpu_torch.runtime import codec
 from trino_tpu_torch.runtime.metrics import METRICS
 from trino_tpu_torch.runtime.worker import Worker, WorkerShuttingDownError
+from trino_tpu_torch.analysis import threadreg
 
 _U32 = struct.Struct("<I")
 
@@ -289,11 +289,10 @@ class WorkerServer:
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
         self.port = self._httpd.server_port
         self.uri = f"http://127.0.0.1:{self.port}"
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name=f"worker-http-{self.port}",
-            daemon=True,
+        self._thread = threadreg.spawn(
+            f"worker-http-{self.port}", self._httpd.serve_forever,
+            owner="WorkerServer",
         )
-        self._thread.start()
 
     @property
     def state(self) -> str:
@@ -547,9 +546,10 @@ class FabricServer:
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
         self.port = self._httpd.server_port
         self.uri = f"http://127.0.0.1:{self.port}"
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        name=f"fabric-http-{self.port}", daemon=True)
-        self._thread.start()
+        self._thread = threadreg.spawn(
+            f"fabric-http-{self.port}", self._httpd.serve_forever,
+            owner="FabricServer",
+        )
 
     def stop(self) -> None:
         self._httpd.shutdown()

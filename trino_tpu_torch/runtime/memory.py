@@ -18,15 +18,15 @@ column's views and children. The port carries unsigned hashes in int64
 with a mask where the reference keeps uint32, and its nested columns
 carry `starts`, so the count may differ from the reference's for the
 same batch: tests compare answers and that a spill happened, never byte
-counts. Locks are plain `threading` locks; the reference's lock names
-stand beside each.
+counts. Its locks carry the reference's witness names (analysis/).
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict, List, Optional
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 class ExceededMemoryLimitError(RuntimeError):
@@ -41,7 +41,7 @@ class MemoryPool:
     def __init__(self, max_bytes: int):
         self.max_bytes = max_bytes
         self._reserved = 0
-        self._lock = threading.Lock()  # MemoryPool._lock
+        self._lock = named_lock("MemoryPool._lock")
         # context id -> (revocable bytes, revoke callback)
         self._revocable: Dict[int, tuple] = {}
         self._next_id = 0
@@ -273,7 +273,7 @@ class ClusterMemoryManager:
         self.killer = killer or LowMemoryKiller()
         self.wait_s = wait_s
         self.poll_s = poll_s
-        self._lock = threading.Lock()  # ClusterMemoryManager._lock
+        self._lock = named_lock("ClusterMemoryManager._lock")
         self.kills: List[str] = []  # observability / chaos assertions
 
     def install(self) -> None:

@@ -17,6 +17,8 @@ import math
 import threading
 from typing import Callable, Dict, List, Optional
 
+from trino_tpu_torch.analysis.witness import named_lock
+
 
 class Distribution:
     """Fixed-bucket histogram (DistributionStat/TimeStat analogue).
@@ -87,7 +89,7 @@ class MetricsRegistry:
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, Callable[[], float]] = {}
         self._distributions: Dict[str, Distribution] = {}
-        self._lock = threading.Lock()  # MetricsRegistry._lock
+        self._lock = named_lock("MetricsRegistry._lock")
 
     def increment(self, name: str, delta: float = 1.0) -> None:
         with self._lock:

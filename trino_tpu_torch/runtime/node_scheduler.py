@@ -20,8 +20,9 @@ Analogues of the reference's scheduling policies (SURVEY.md §2.3):
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Optional, Sequence
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 def _drop_graylisted(active: Sequence, node_manager) -> List:
@@ -54,7 +55,7 @@ class UniformNodeSelector:
         # every launch behind an HTTP round trip
         self._assigned: Dict[int, int] = {}
         self._baseline: Dict[int, int] = {}
-        self._lock = threading.Lock()  # UniformNodeSelector._lock
+        self._lock = named_lock("UniformNodeSelector._lock")
 
     def _load(self, handle) -> int:
         key = id(handle)
@@ -187,7 +188,7 @@ class BinPackingNodeAllocator:
         self._capacity_fn = capacity_fn or self._default_capacity
         self.node_manager = node_manager
         self._used: Dict[int, float] = {}
-        self._lock = threading.Lock()  # BinPackingNodeAllocator._lock
+        self._lock = named_lock("BinPackingNodeAllocator._lock")
 
     @staticmethod
     def _default_capacity(handle) -> int:

@@ -31,6 +31,9 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
+
 # error codes carried INSIDE kill messages so they survive the trip
 # through task failure strings and HTTP 500 bodies: any layer can
 # re-classify a stringly failure back into the typed error
@@ -229,7 +232,7 @@ class QueryTracker:
         self._clock = clock
         self.tick_interval_s = tick_interval_s
         self._queries: Dict[str, TrackedQuery] = {}
-        self._lock = threading.Lock()  # QueryTracker._lock
+        self._lock = named_lock("QueryTracker._lock")
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         # observability: (query_id, code, message) per enforcement kill
@@ -381,10 +384,9 @@ class QueryTracker:
             while not self._stop.wait(self.tick_interval_s):
                 self.tick()
 
-        self._thread = threading.Thread(
-            target=loop, name="query-tracker", daemon=True
+        self._thread = threadreg.spawn(
+            "query-tracker", loop, owner="QueryTracker"
         )
-        self._thread.start()
 
     def stop(self) -> None:
         self._stop.set()

@@ -42,13 +42,13 @@ other error from it propagates and leaves the replica out of the pool
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from trino_tpu_torch.runtime.discovery import CircuitBreaker
+from trino_tpu_torch.analysis.witness import named_lock
 
 # /v1/metrics counter names (registered at zero by
 # register_replica_metrics, so the surface shows before the first event)
@@ -77,7 +77,7 @@ class Replica:
         self.devices = list(devices)
         self.breaker = breaker
         # one mesh run at a time per replica when mesh_scheduler is off
-        self.exec_lock = threading.Lock()
+        self.exec_lock = named_lock("Replica.exec_lock")
         # the replica's run queue (runtime/scheduler.py): the same one
         # holder, chunk-granular, so a fast arrival parks the running
         # analytic instead of queueing behind its whole run
@@ -126,7 +126,7 @@ class ReplicaManager:
         self.grid = grid
         self.n_replicas = n_replicas
         self.partition_width = per
-        self._lock = threading.Lock()  # ReplicaManager._lock
+        self._lock = named_lock("ReplicaManager._lock")
         self._rr = 0  # guarded_by: _lock (round-robin tiebreak cursor)
         self.placements = 0
         self.failovers = 0

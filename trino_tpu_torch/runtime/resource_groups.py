@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import dataclasses
 import re
-import threading
 from typing import Dict, List, Optional, Tuple
+
+from trino_tpu_torch.analysis.witness import named_condition
 
 
 class QueryQueueFullError(RuntimeError):
@@ -97,7 +98,7 @@ class ResourceGroupManager:
     def __init__(self, root: ResourceGroupSpec, selectors: List[Selector] = ()):
         self._root = _Group(root, None)
         self._selectors = list(selectors)
-        self._lock = threading.Condition()  # ResourceGroupManager._lock
+        self._lock = named_condition("ResourceGroupManager._lock")
         self._next_seq = 0
         self._gpass = 0.0
 

@@ -46,6 +46,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from trino_tpu_torch.analysis.witness import named_lock
+
 # /v1/metrics counter names (registered at zero by
 # register_scheduler_metrics — same surface protocol as the recovery
 # and replica counters)
@@ -144,7 +146,7 @@ class MeshScheduler:
         self.min_slice_chunks = max(1, int(min_slice_chunks))
         self.preemption_enabled = bool(preemption_enabled)
         self.weights = dict(weights or {})
-        self._lock = threading.Lock()  # MeshScheduler._lock
+        self._lock = named_lock("MeshScheduler._lock")
         self._cond = threading.Condition(self._lock)
         self._holder: Optional[MeshJob] = None  # guarded_by: _lock
         self._waiting: List[MeshJob] = []  # guarded_by: _lock

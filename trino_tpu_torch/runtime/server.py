@@ -27,6 +27,7 @@ Data pages out in row chunks per poll (the JSON protocol's data field).
 
 from __future__ import annotations
 
+import functools
 import json
 import threading
 import time
@@ -34,6 +35,9 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
+
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
 
 ROWS_PER_PAGE = 4096
 
@@ -96,7 +100,7 @@ class _QueryJob:
         self.created_at = time.monotonic()  # admission-queue wait base
         self.started_at: Optional[float] = None  # monotonic, out of the queue
         self.last_heartbeat = time.monotonic()  # any client poll refreshes
-        self.lock = threading.Lock()  # _QueryJob.lock
+        self.lock = named_lock("_QueryJob.lock")
         # set once the job is terminal (or the server stops): wakes a
         # poll that the server holds while the query runs
         self.settled = threading.Event()
@@ -182,7 +186,10 @@ class CoordinatorServer:
             )
         self.batcher = batcher
         self._jobs: Dict[str, _QueryJob] = {}
-        self._pool = ThreadPoolExecutor(max_workers=max_concurrent)
+        self._pool = ThreadPoolExecutor(
+            max_workers=max_concurrent, thread_name_prefix="coordinator-query",
+            initializer=functools.partial(
+                threadreg.THREADS.adopt_current, owner="CoordinatorServer"))
         # client-abandonment TTL: explicit arg wins, else the runner
         # session's client_timeout_s, else the class default
         if client_timeout_s is None:
@@ -364,11 +371,9 @@ class CoordinatorServer:
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
         self.port = self._httpd.server_port
         self.uri = f"http://127.0.0.1:{self.port}"
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="statement-server",
-            daemon=True,
+        self._thread = threadreg.spawn(
+            "statement-server", self._httpd.serve_forever, owner="StatementServer"
         )
-        self._thread.start()
         # abandonment reaper: _evict_completed used to run only on
         # submit, so an idle server never noticed a vanished client —
         # the RUNNING query it left behind kept its resource-group slot
@@ -389,10 +394,9 @@ class CoordinatorServer:
                 except Exception:
                     pass  # a reaper crash must not take the server down
 
-        self._reaper = threading.Thread(
-            target=_reap_loop, name="client-reaper", daemon=True
+        self._reaper = threadreg.spawn(
+            "client-reaper", _reap_loop, owner="StatementServer"
         )
-        self._reaper.start()
 
     def cluster_stats(self) -> dict:
         """ClusterStatsResource analogue."""

@@ -21,12 +21,12 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 from trino_tpu_torch.exec.serde import Page, deserialize_page, serialize_page
 from trino_tpu_torch.runtime.metrics import METRICS
+from trino_tpu_torch.analysis.witness import named_condition
 
 
 class SpoolingExchangeSink:
@@ -44,7 +44,7 @@ class SpoolingExchangeSink:
         self._seq = [0] * n_partitions
         self._committed = False
         self._aborted = False
-        self._lock = threading.Condition()  # SpoolingExchangeSink._lock
+        self._lock = named_condition("SpoolingExchangeSink._lock")
 
     @property
     def n_partitions(self) -> int:

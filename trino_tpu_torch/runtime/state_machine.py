@@ -18,6 +18,8 @@ import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
+from trino_tpu_torch.analysis.witness import named_lock, named_rlock
+
 
 class StateMachine:
     def __init__(
@@ -30,12 +32,12 @@ class StateMachine:
         self._state = initial
         self._terminal = frozenset(terminal_states)
         self._listeners: List[Callable[[str], None]] = []
-        self._lock = threading.Lock()  # StateMachine._lock
+        self._lock = named_lock("StateMachine._lock")
         self._changed = threading.Condition(self._lock)
         # serializes listener delivery so states arrive in transition
         # order; reentrant because a listener may transition the machine
         # from inside its callback
-        self._dispatch = threading.RLock()  # StateMachine._dispatch
+        self._dispatch = named_rlock("StateMachine._dispatch")
 
     def get(self) -> str:
         with self._lock:

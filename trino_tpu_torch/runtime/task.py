@@ -47,6 +47,7 @@ from trino_tpu_torch.runtime.buffers import OutputBuffer
 from trino_tpu_torch.runtime.exchange import DirectExchangeClient, ExchangeLocation
 from trino_tpu_torch.sql.fragmenter import PlanFragment
 from trino_tpu_torch.sql.local_planner import LocalPlanner, Schema
+from trino_tpu_torch.analysis import threadreg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,10 +260,9 @@ class TaskExecution:
     # -- lifecycle --
     def start(self) -> None:
         self.state = "running"
-        self._thread = threading.Thread(
-            target=self._run, name=f"task-{self.spec.task_id}", daemon=True
+        self._thread = threadreg.spawn(
+            str(self.spec.task_id), self._run, owner="TaskExecution"
         )
-        self._thread.start()
 
     def join(self, timeout: Optional[float] = None) -> None:
         """Wait for the task's thread and its pipeline threads."""
@@ -647,10 +647,8 @@ class TaskExecution:
                     # flight (the killed-query-returns-empty race)
                     ex.producer_failed(e)
 
-            t = threading.Thread(
-                target=run_producer, name=f"pipeline-producer-{self.spec.task_id}",
-                daemon=True,
-            )
+            t = threadreg.spawn("pipeline-producer", run_producer,
+                                owner="TaskExecution", start=False)
             self._producers.append(t)
             t.start()
             try:

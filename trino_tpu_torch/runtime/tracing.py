@@ -29,10 +29,11 @@ off stages (one per attempt); ``operator`` spans hang off tasks.
 
 from __future__ import annotations
 
-import threading
 import time
 import uuid
 from typing import Any, Dict, List, Optional, Union
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 # span kinds, in tree order (parent kind of each child kind)
 KIND_QUERY = "query"
@@ -141,7 +142,7 @@ class QueryTrace:
     def __init__(self, query_id: str, trace_id: Optional[str] = None):
         self.query_id = query_id
         self.trace_id = trace_id or _new_id()
-        self._lock = threading.Lock()  # QueryTrace._lock
+        self._lock = named_lock("QueryTrace._lock")
         self._spans: List[Span] = []
         self._grafted: List[dict] = []
 

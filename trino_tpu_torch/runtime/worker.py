@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Tuple
 
 from trino_tpu_torch.connectors.spi import CatalogManager
 from trino_tpu_torch.runtime.task import TaskExecution, TaskSpec
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 class WorkerShuttingDownError(RuntimeError):
@@ -66,7 +68,7 @@ class Worker:
 
             self.memory_pool = MemoryPool(memory_pool_bytes)
         self._tasks: Dict[str, TaskExecution] = {}
-        self._lock = threading.Lock()  # Worker._lock
+        self._lock = named_lock("Worker._lock")
         # stuck-task watchdog (StuckSplitTasksInterrupter analogue):
         # interrupt any RUNNING task whose per-batch heartbeat is older
         # than this; the failure is RETRYABLE (unlike deadline kills)
@@ -144,10 +146,9 @@ class Worker:
             while not self._watchdog_stop.wait(poll_s):
                 self.watchdog_once()
 
-        self._watchdog_thread = threading.Thread(
-            target=loop, name=f"watchdog-{self.worker_id}", daemon=True
+        self._watchdog_thread = threadreg.spawn(
+            f"watchdog-{self.worker_id}", loop, owner="Worker"
         )
-        self._watchdog_thread.start()
 
     def stop_watchdog(self) -> None:
         if self._watchdog_thread is None:

@@ -11,11 +11,13 @@ that owns the query (sticky by query id)."""
 from __future__ import annotations
 
 import json
-import threading
 import urllib.error
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List
+
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 class ProxyServer:
@@ -24,7 +26,7 @@ class ProxyServer:
         assert self.backends, "proxy needs at least one backend"
         self._rr = 0
         self._owner: Dict[str, str] = {}  # query id -> backend uri
-        self._lock = threading.Lock()  # ProxyServer._lock
+        self._lock = named_lock("ProxyServer._lock")
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -113,10 +115,9 @@ class ProxyServer:
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
         self.port = self._httpd.server_port
         self.uri = f"http://127.0.0.1:{self.port}"
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="proxy-server", daemon=True
+        self._thread = threadreg.spawn(
+            "proxy-server", self._httpd.serve_forever, owner="ProxyServer"
         )
-        self._thread.start()
 
     _MAX_TRACKED = 10_000
 

@@ -34,8 +34,9 @@ root group and the lane depth is the only new bound.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any, Optional
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 LANES = ("fast", "general")
 
@@ -81,7 +82,7 @@ class AdmissionPipeline:
         self._depth = {lane: 0 for lane in LANES}
         self.sheds = {lane: 0 for lane in LANES}
         self.admitted = {lane: 0 for lane in LANES}
-        self._lock = threading.Lock()  # AdmissionPipeline._lock
+        self._lock = named_lock("AdmissionPipeline._lock")
         # the replica plane's supplier (a callable returning the live
         # ReplicaManager or None): stats() shows the placement balance
         # beside the lane depths

@@ -45,6 +45,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from trino_tpu_torch.analysis.witness import named_lock
+
 # follower safety net: if the leader thread dies without settling the
 # group (executor torn down mid-batch), members unblock and re-raise
 # rather than hang the server thread forever
@@ -178,7 +180,7 @@ class MicroBatcher:
         self.runner = runner
         self.window_s = window_s
         self.max_batch = max(1, int(max_batch))
-        self._lock = threading.Lock()  # MicroBatcher._lock
+        self._lock = named_lock("MicroBatcher._lock")
         self._idle = threading.Condition(self._lock)  # a key's batch ended
         self._groups: Dict[Tuple, _Group] = {}
         self._executing: set = set()  # group keys with a batch executing

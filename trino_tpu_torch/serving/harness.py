@@ -39,11 +39,12 @@ The run has three phases:
 from __future__ import annotations
 
 import random
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 from trino_tpu_torch.runtime.chaos import rows_equal
+from trino_tpu_torch.analysis import threadreg
+from trino_tpu_torch.analysis.witness import named_lock
 
 DEFAULT_POINT_TEMPLATE = (
     "select o_custkey, o_totalprice from orders where o_orderkey = {key}"
@@ -186,7 +187,7 @@ def run_serve_load(
     mismatches: List[str] = []
     sheds = [0]
     errors: List[str] = []
-    lock = threading.Lock()
+    lock = named_lock("harness.load_stats_lock")
     idx = [0]
     t_start = time.perf_counter()
 
@@ -222,7 +223,8 @@ def run_serve_load(
                     errors.append(f"{name}: {e!r}")
 
     threads = [
-        threading.Thread(target=client_loop, name=f"serving-client-{i}", daemon=True)
+        threadreg.spawn(f"serving-client-{i}", client_loop,
+                        owner="serving-harness", start=False)
         for i in range(n_clients)
     ]
     for t in threads:
@@ -303,8 +305,8 @@ def run_serve_load(
                         b_errors.append(f"{name}: {e!r}")
 
         bts = [
-            threading.Thread(target=burst_loop, args=(i,), name=f"serving-burst-{i}",
-                             daemon=True)
+            threadreg.spawn(f"serving-burst-{i}", burst_loop, args=(i,),
+                            owner="serving-harness", start=False)
             for i in range(n_clients)
         ]
         for t in bts:

@@ -36,11 +36,11 @@ plan_cache.{hits,misses,evictions,invalidations} (`metrics_prefix`).
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Any, Optional, Tuple
 
 from trino_tpu_torch.runtime.metrics import METRICS
+from trino_tpu_torch.analysis.witness import named_lock
 
 # Session properties that shape the plan (resolution, optimizer
 # decisions, physical layout). Anything listed here that
@@ -106,7 +106,7 @@ class PlanCache:
     def __init__(self, max_entries: int = 256, metrics_prefix: str = "plan_cache"):
         self.max_entries = max(1, int(max_entries))
         self._prefix = metrics_prefix
-        self._lock = threading.Lock()
+        self._lock = named_lock("PlanCache._lock")
         self._entries: "OrderedDict[Tuple, Any]" = OrderedDict()
         self._tables: dict = {}  # key -> frozenset of source tables
         self.hits = 0

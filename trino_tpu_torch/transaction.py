@@ -17,9 +17,10 @@ NOT rolled back — a ROLLBACK after CTAS leaves an empty table behind.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import uuid
 from typing import Dict
+
+from trino_tpu_torch.analysis.witness import named_lock
 
 
 class TransactionError(Exception):
@@ -54,7 +55,7 @@ class TransactionManager:
     def __init__(self, catalogs):
         self.catalogs = catalogs
         self._transactions: Dict[str, TransactionInfo] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("TransactionManager._lock")
 
     def begin(self, read_only: bool = False) -> str:
         tx = TransactionInfo(uuid.uuid4().hex[:16], read_only)
