@@ -1,0 +1,19 @@
+"""TPC-DS query52: manager 1's brand sales in one month."""
+
+from portbench.reference.common import Answer, group_sums, order_limit
+from portbench.reference.tpcds._star import brand_of, sales
+
+
+def run(ctx, p) -> Answer:
+    year = int(p["YEAR"])
+    item_ok = ctx.col("item", "i_manager_id") == 1
+    date_ok = (ctx.col("date_dim", "d_moy") == int(p["MONTH"])) & (
+        ctx.col("date_dim", "d_year") == year)
+    item, _, price = sales(ctx, item_ok, date_ok)
+    brand_id, brand = brand_of(ctx, item)
+    uniq, (total,), _ = group_sums(brand_id, [price])
+    order = order_limit([(total, True), (uniq, False)], 100)
+    code = {int(b): int(c) for b, c in zip(brand_id.tolist(), brand.tolist())}
+    rows = [[year, int(uniq[i]), ctx.string("item", "i_brand", code[int(uniq[i])]),
+             ctx.out(total[i].item(), 2)] for i in order]
+    return Answer(rows, (0, 3, 1), 100, int(uniq.numel()))
